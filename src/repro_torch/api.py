@@ -1,0 +1,235 @@
+"""repro_torch.api — the runtime front door, serial path.
+
+Applications declare *what* to run (a registered
+:class:`~repro_torch.sim.scenarios.Scenario` + per-run parameters) and a
+:class:`RuntimeConfig` declares *where/how* (resolution, device, kernel
+backend, static solver overrides); the :class:`Runtime` resolves the
+solver, its schedule and the step:
+
+    rt = repro_torch.api.runtime(n=256, nz=256)     # device="cuda" default
+    res = rt.run("cavity", steps=20, re=100.0)      # one run, blocking
+
+Ensemble traffic (``submit``/``poll``/``result``/``drain``) arrives with the
+port's farm slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
+from repro_torch.core.schedule import Schedule
+from repro_torch.device import resolve_device
+from repro_torch.sim.scenarios import (
+    ParamSpec, Scenario, UnknownScenarioError, get_scenario,
+    register_scenario, scenario_names, unregister_scenario,
+)
+
+__all__ = [
+    "BACKENDS", "ParamSpec", "PreparedRun", "RunResult", "Runtime",
+    "RuntimeConfig", "Scenario", "UnknownScenarioError", "get_scenario",
+    "register_scenario", "runtime", "scenario_names", "unregister_scenario",
+]
+
+# backend name -> (CFDConfig.template, overlap override)
+# "torch" is the eager template on any device (the reference's "jnp");
+# "cuda" runs the hand-written kernels and, like the reference's "pallas",
+# turns the interior/boundary split off: the monolithic kernel covers the
+# whole interior in one launch, and the split would add six thin-shell
+# launches per step for no overlap gain on one device.
+# "auto" resolves AT CONFIGURE TIME to "cuda" on the card and "torch" on
+# the CPU — the resolved config always carries an explicit template.
+BACKENDS = {
+    "torch": ("TORCH", None),
+    "cuda": ("CUDA", False),
+    "auto": None,
+}
+
+
+def _resolve_backend(name: str, device: torch.device) -> tuple:
+    if name == "auto":
+        name = "cuda" if device.type == "cuda" else "torch"
+    if name == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' runs the hand-written CUDA kernels and needs a "
+            f"CUDA device, got {device}; use backend='torch' on the CPU")
+    return BACKENDS[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Everything the runtime needs to resolve an execution stack.
+
+    ``device`` is where fields live (``None`` -> ``cuda``; resolved when the
+    :class:`Runtime` is built, which raises without a card).  ``solver``
+    carries static solver overrides (``jacobi_iters``, ``fused_sweeps``,
+    ``overlap``, ...) applied to every scenario config this runtime builds.
+    """
+
+    n: int = 32                          # grid resolution (n, n, nz)
+    nz: int | None = None                # None -> scenario default
+    backend: str = "auto"                # see BACKENDS
+    device: str | None = None            # None -> "cuda"
+    check_every: int = 16                # convergence-check interval
+    solver: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r} "
+                             f"(have {sorted(BACKENDS)})")
+
+
+@dataclasses.dataclass
+class RunResult:
+    """A finished single run: host state (CPU tensors) + diagnostics."""
+
+    scenario: str
+    state: dict
+    steps_done: int
+    terminated: str              # "steps" | "residual" | "steady"
+    config: CFDConfig
+    diagnostics: dict
+
+
+@dataclasses.dataclass
+class PreparedRun:
+    """A resolved-but-not-run single simulation: the solver, its schedule,
+    the initial state (INITIAL bin output) and the EVOLVE step.  The
+    escape hatch for benchmarks and custom drive loops that need the raw
+    step function while still resolving everything through the runtime."""
+
+    scenario: Scenario
+    solver: NavierStokes3D
+    schedule: Schedule
+    state: dict
+    step: Callable[[dict], dict]
+    config: CFDConfig
+
+    def analyze(self, state: dict, steps_done: int = 0) -> dict:
+        ctx = {"t": steps_done * self.config.dt, "steps": steps_done}
+        return self.scenario.analyze(self.solver, state, ctx)
+
+
+def _residual_norm(new: dict, old: dict, dt: float) -> torch.Tensor:
+    """``||u_new - u_old||_inf / dt`` over the velocity fields, on the
+    device."""
+    m = torch.stack([(new[f] - old[f]).abs().max()
+                     for f in ("vx", "vy", "vz")]).max()
+    return m / max(dt, 1e-30)
+
+
+class Runtime:
+    """The front door: resolves scenarios against one RuntimeConfig."""
+
+    def __init__(self, config: RuntimeConfig | None = None):
+        self.config = config if config is not None else RuntimeConfig()
+        self.device = resolve_device(self.config.device)
+
+    # -- resolution -----------------------------------------------------------
+    def configure(self, scenario, n: int | None = None, **kw) -> CFDConfig:
+        """The fully-resolved CFDConfig for ``scenario`` under this
+        runtime: scenario builder -> static solver overrides -> backend
+        template."""
+        sc = get_scenario(scenario)
+        template, overlap = _resolve_backend(self.config.backend, self.device)
+        builder_kw = dict(self.config.solver)
+        if self.config.nz is not None:
+            builder_kw["nz"] = self.config.nz
+        builder_kw.update(kw)
+        cfg = sc.config(self.config.n if n is None else n, **builder_kw)
+        return dataclasses.replace(
+            cfg, template=template,
+            overlap=cfg.overlap if overlap is None else overlap)
+
+    def prepare(self, scenario, n: int | None = None,
+                **params) -> PreparedRun:
+        """Resolve one serial run: solver, schedule, INITIAL state, EVOLVE
+        step."""
+        sc = get_scenario(scenario)
+        builder_kw, ic_kw = sc.split_kwargs(params)
+        cfg = self.configure(sc, n=n, **builder_kw)
+        solver = NavierStokes3D(cfg, self.device)
+        sched = sc.schedule(solver, ic=ic_kw)
+        state = sched.compile_bin("INITIAL")({})
+        step = sched.compile_bin("EVOLVE")
+        return PreparedRun(scenario=sc, solver=solver, schedule=sched,
+                           state=state, step=step, config=cfg)
+
+    # -- single-run drive -----------------------------------------------------
+    def run(self, scenario, *, n: int | None = None,
+            steps: int | None = None,
+            t_end: float | None = None, residual_tol: float | None = None,
+            steady_tol: float | None = None, progress: int | None = None,
+            **params) -> RunResult:
+        """Run one simulation to completion, blocking.
+
+        Termination: ``steps``/``t_end`` bound the run; ``residual_tol``
+        additionally stops at steady state once
+        ``||u^{n+1} - u^n||_inf / dt`` falls below it (checked every
+        ``RuntimeConfig.check_every`` steps, one host sync per check);
+        ``steady_tol`` is the legacy kinetic-energy-drift heuristic.
+        Convergence checks read snapshots; they never perturb the state.
+        """
+        pr = self.prepare(scenario, n=n, **params)
+        cfg = pr.config
+        if steps is None:
+            if t_end is None:
+                raise ValueError("give either steps= or t_end=")
+            steps = int(round(t_end / cfg.dt))
+        check = max(int(self.config.check_every), 1)
+        state, terminated, done = pr.state, "steps", 0
+        ke_prev: float | None = None
+        for i in range(steps):
+            # keep the previous state only when this step lands on a
+            # residual check boundary
+            prev = state if (residual_tol is not None
+                             and (i + 1) % check == 0) else None
+            state = pr.step(state)
+            done = i + 1
+            if progress and (done % progress == 0):
+                print(f"  step {done:6d}/{steps} "
+                      f"t={done * cfg.dt:8.3f} "
+                      f"KE={pr.solver.kinetic_energy(state):.6f}")
+            if residual_tol is not None and done % check == 0:
+                resid = float(_residual_norm(state, prev, cfg.dt))
+                if resid <= residual_tol:
+                    terminated = "residual"
+                    break
+            if steady_tol is not None and done % check == 0:
+                ke = pr.solver.kinetic_energy(state)
+                if ke_prev is not None and abs(ke - ke_prev) <= \
+                        steady_tol * max(abs(ke), 1e-12):
+                    terminated = "steady"
+                    break
+                ke_prev = ke
+        diagnostics = pr.analyze(state, done)
+        return RunResult(scenario=pr.scenario.name,
+                         state={k: v.cpu() for k, v in state.items()},
+                         steps_done=done, terminated=terminated, config=cfg,
+                         diagnostics=diagnostics)
+
+    def analyze(self, result: RunResult) -> dict:
+        """Scenario ANALYSIS diagnostics for a finished run (equal to
+        ``result.diagnostics``), recomputed on this runtime's device."""
+        sc = get_scenario(result.scenario)
+        solver = NavierStokes3D(result.config, self.device)
+        state = {k: v.to(self.device) for k, v in result.state.items()}
+        ctx = {"t": result.steps_done * result.config.dt,
+               "steps": result.steps_done}
+        return sc.analyze(solver, state, ctx)
+
+
+def runtime(n: int = 32, *, backend: str = "auto", device: str | None = None,
+            check_every: int = 16, nz: int | None = None,
+            **solver) -> Runtime:
+    """Build a :class:`Runtime` — the one-call front door.
+
+    >>> rt = repro_torch.api.runtime(n=48)
+    >>> res = rt.run("cavity", t_end=12.0, re=100.0)
+    >>> res.diagnostics["ghia"]
+    """
+    cfg = RuntimeConfig(n=n, nz=nz, backend=backend, device=device,
+                        check_every=check_every, solver=dict(solver))
+    return Runtime(cfg)

@@ -1,0 +1,323 @@
+"""3D incompressible Navier-Stokes on a staggered MAC grid — the paper's §4.
+
+Chorin/Hirt-Nichols explicit projection scheme, built entirely from the
+framework's descriptor-generated kernels + driver-managed halo padding:
+
+  1. UPDATE_VELOCITY   u* = u + dt (-adv + nu lap + f)         [stencil kernel]
+  2. wall masks        enforce zero wall-normal faces
+  3. DIVERGENCE        rhs = div(u*)/dt                        [stencil kernel]
+  4. JACOBI_PRESSURE   iterate lap p = rhs                     [stencil kernel]
+                       (optionally the fused communication-avoiding smoother)
+  5. PROJECT_VELOCITY  u = u* - dt grad p                      [stencil kernel]
+
+Grid convention (see kernels/stencil3d.py): vx[i] at the right x-face of
+cell i; the hi wall face is vx[N-1].  Cases: ``cavity`` (lid-driven, lid at
+y-hi moving in +x; z periodic so the Ghia 2D profile is recovered),
+``taylor_green`` and ``kelvin_helmholtz`` (fully periodic).
+
+The step runs on one device, undecomposed.  Nothing in it synchronises with
+the host: the per-simulation scalars are 0-d float32 tensors on the device,
+and on the CUDA template every parameter table is built there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.driver import Domain, GridDriver
+from repro_torch.core.halo import (
+    AxisSpec, bc_dirichlet, bc_neumann, exchange_pad, stencil_step_overlap,
+)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.jacobi import jacobi_fused_ref
+
+
+def bc_moving_wall(u_wall):
+    """Tangential-velocity ghost across a wall moving at ``u_wall``:
+    ghost = 2 u_wall - mirrored interior (wall value is the face average).
+    ``u_wall`` may be a float or a 0-d tensor on the fields' device."""
+
+    def rule(strip, side, axis):
+        return 2.0 * u_wall - torch.flip(strip, dims=(axis,))
+
+    return rule
+
+
+@dataclasses.dataclass(frozen=True)
+class CFDConfig:
+    shape: tuple[int, int, int] = (64, 64, 4)
+    extent: float = 1.0                      # cubic cells: h = extent/shape[0]
+    nu: float = 0.01
+    dt: float = 2.5e-3
+    case: str = "cavity"                     # "cavity" | "taylor_green" | ...
+    lid_velocity: float = 1.0
+    forcing: tuple[float, float, float] = (0.0, 0.0, 0.0)
+    jacobi_iters: int = 40
+    jacobi_omega: float = 1.0
+    fused_sweeps: int = 1                    # >1: communication-avoiding smoother
+    template: str | None = None              # None -> TORCH; or CUDA
+    overlap: bool = True                     # interior/boundary split
+
+    @property
+    def h(self) -> float:
+        return self.extent / self.shape[0]
+
+    def cfl(self, umax: float = 1.0) -> float:
+        """Stable dt bound: advective + viscous."""
+        h = self.h
+        return min(0.5 * h / max(umax, 1e-12), h * h / (6.0 * self.nu) * 0.9)
+
+
+# The per-simulation runtime parameters: everything that may vary between
+# simulations sharing one step.  Grid geometry (shape, h) and solver
+# structure (iterations, overlap, template) stay static.
+PARAM_KEYS = ("nu", "dt", "lid_velocity", "fx", "fy", "fz")
+
+
+def params_from_config(c: CFDConfig, device=None) -> dict:
+    """The per-simulation scalar struct for ``c``: 0-d float32 tensors on
+    ``device`` (``None`` -> ``cuda``), made by device fills."""
+    dev = resolve_device(device)
+    fx, fy, fz = c.forcing
+    vals = dict(nu=c.nu, dt=c.dt, lid_velocity=c.lid_velocity,
+                fx=fx, fy=fy, fz=fz)
+    return {k: torch.full((), float(vals[k]), dtype=torch.float32, device=dev)
+            for k in PARAM_KEYS}
+
+
+# Cases whose domain is fully periodic (no wall BCs, no wall masks).
+# "kelvin_helmholtz" shares the solver structure of "taylor_green" — its
+# shear-layer initial condition is owned by the scenario registry
+# (repro_torch.sim.scenarios), not by the solver.
+PERIODIC_CASES = ("taylor_green", "kelvin_helmholtz")
+
+# Physics columns of one in-situ health frame, in the order
+# ``health_diagnostics`` stacks them.
+HEALTH_DIAGS = ("div_linf", "ke", "umax", "cfl", "finite")
+
+
+class NavierStokes3D:
+    """The CFD application object: owns the driver, BCs, and the step."""
+
+    FIELDS = ("vx", "vy", "vz", "p")
+
+    def __init__(self, config: CFDConfig, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        periodic = config.case in PERIODIC_CASES
+        self.domain = Domain(
+            shape=config.shape,
+            spacing=(config.h,) * 3,
+            periodic=(periodic, periodic, True),
+        )
+        self.driver = GridDriver(self.domain, self.device)
+        self._build_bcs()
+
+    # ------------------------------------------------------------------ BCs
+    def _bcs_for(self, lid_velocity) -> dict:
+        """BC rule table; ``lid_velocity`` may be a 0-d device tensor."""
+        c = self.config
+        if c.case in PERIODIC_CASES:
+            # fully periodic: no BC rules needed anywhere
+            return {f: ((None,) * 3, (None,) * 3) for f in self.FIELDS}
+        noslip = bc_moving_wall(0.0)
+        lid = bc_moving_wall(lid_velocity)
+        zero = bc_dirichlet(0.0)
+        neum = bc_neumann()
+        # (bc_lo per axis, bc_hi per axis); z is periodic via Domain.periodic
+        return {
+            # vx: normal to x walls (ghost faces 0), tangential in y (lid at hi)
+            "vx": ((zero, noslip, None), (zero, lid, None)),
+            # vy: tangential in x, normal to y walls
+            "vy": ((noslip, zero, None), (noslip, zero, None)),
+            # vz: tangential to x and y walls
+            "vz": ((noslip, noslip, None), (noslip, noslip, None)),
+            # p: homogeneous Neumann at all walls
+            "p": ((neum, neum, None), (neum, neum, None)),
+        }
+
+    def _build_bcs(self):
+        self.bc = self._bcs_for(self.config.lid_velocity)
+
+    def _specs(self, field: str, bc: dict | None = None
+               ) -> tuple[AxisSpec, AxisSpec, AxisSpec]:
+        bc_lo, bc_hi = (bc or self.bc)[field]
+        return self.driver.axis_specs(bc_lo=bc_lo, bc_hi=bc_hi)
+
+    # --------------------------------------------------------------- fields
+    def init_state(self) -> dict:
+        c = self.config
+        state = self.driver.allocate(self.FIELDS, 0.0)
+        state["mask_vx"], state["mask_vy"], state["mask_vz"] = self._masks()
+        if c.case == "taylor_green":
+            x, y, z = self.driver.coords()
+            h = c.h
+            # face-centered sample positions (vx at x+(h/2), vy at y+(h/2))
+            state["vx"] = torch.sin(x + 0.5 * h) * torch.cos(y)
+            state["vy"] = -torch.cos(x) * torch.sin(y + 0.5 * h)
+        return state
+
+    def _masks(self):
+        """Zero the wall-normal boundary faces (vx[N-1] on x, etc.)."""
+        c = self.config
+        ones = np.ones(c.shape, np.float32)
+        mx, my, mz = ones.copy(), ones.copy(), ones.copy()
+        if c.case not in PERIODIC_CASES:
+            mx[-1, :, :] = 0.0
+            my[:, -1, :] = 0.0
+            # z periodic: no vz mask
+        return [torch.from_numpy(m).to(self.device) for m in (mx, my, mz)]
+
+    # ----------------------------------------------------------------- step
+    def _global_mean(self, x):
+        # sequential per-axis sums, innermost first, as the reference does
+        # (its reduction order is then the same with and without a leading
+        # slot axis)
+        m = x
+        for _ in range(3):
+            m = m.sum(dim=-1)
+        return m / float(np.prod(np.asarray(x.shape[-3:], np.float32)))
+
+    def _step_local(self, state: dict, params: dict | None = None) -> dict:
+        """One dt on the whole grid.
+
+        ``params`` is the per-simulation scalar struct (see ``PARAM_KEYS``),
+        0-d float32 tensors on the fields' device.  No host sync: every
+        launch is enqueued and the loop never reads a device value.
+        """
+        c = self.config
+        if params is None:
+            params = params_from_config(c, self.device)
+        kw = dict(template=c.template or "TORCH")
+        h = c.h
+        dt, nu = params["dt"], params["nu"]
+        bc = self._bcs_for(params["lid_velocity"])
+        specs = functools.partial(self._specs, bc=bc)
+        vx, vy, vz, p = state["vx"], state["vy"], state["vz"], state["p"]
+        mvx, mvy, mvz = state["mask_vx"], state["mask_vy"], state["mask_vz"]
+
+        # -- 1. advection-diffusion (interior/shell split if enabled)
+        vel_params = dict(dt=dt, h=h, nu=nu, fx=params["fx"],
+                          fy=params["fy"], fz=params["fz"])
+
+        def upd_packed(padded):
+            out = ops.update_velocity(padded[0], padded[1], padded[2],
+                                      **vel_params, **kw)
+            return torch.stack(out)
+
+        if c.overlap:
+            # pack the components on a leading axis; the deep interior runs
+            # without any ghost dependency, shells are computed from the
+            # padded pack
+            def pad_packed(pack):
+                return torch.stack([
+                    exchange_pad(pack[i], (1, 1, 1), specs(f))
+                    for i, f in enumerate(("vx", "vy", "vz"))
+                ])
+
+            packed = torch.stack([vx, vy, vz])
+            out = stencil_step_overlap(
+                packed, (0, 1, 1, 1), specs=None, kernel=upd_packed,
+                pad_fn=pad_packed)
+            vx_s, vy_s, vz_s = out[0], out[1], out[2]
+        else:
+            pads = [exchange_pad(v, (1, 1, 1), specs(f))
+                    for f, v in (("vx", vx), ("vy", vy), ("vz", vz))]
+            vx_s, vy_s, vz_s = ops.update_velocity(*pads, **vel_params, **kw)
+
+        vx_s, vy_s, vz_s = vx_s * mvx, vy_s * mvy, vz_s * mvz
+
+        # -- 2. divergence rhs
+        pads = [exchange_pad(v, ((1, 0),) * 3, specs(f))
+                for f, v in (("vx", vx_s), ("vy", vy_s), ("vz", vz_s))]
+        rhs = ops.divergence(*pads, h=h, **kw) / dt
+
+        # -- 3. pressure Poisson (warm start from previous p)
+        p_specs = specs("p")
+        k = c.fused_sweeps
+
+        def jacobi_body(pcur):
+            if k <= 1:
+                pp = exchange_pad(pcur, (1, 1, 1), p_specs)
+                return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega, **kw)
+            pp = exchange_pad(pcur, (k, k, k), p_specs)
+            rr = exchange_pad(rhs, (k, k, k), p_specs)
+            return jacobi_fused_ref(pp, rr, h=h, omega=c.jacobi_omega, sweeps=k)
+
+        iters = max(c.jacobi_iters // max(k, 1), 1)
+        p_new = p
+        for _ in range(iters):
+            p_new = jacobi_body(p_new)
+        p_new = p_new - self._global_mean(p_new)  # pin the Neumann null space
+
+        # -- 4. projection
+        pp = exchange_pad(p_new, ((0, 1),) * 3, p_specs)
+        vx_n, vy_n, vz_n = ops.project_velocity(vx_s, vy_s, vz_s, pp,
+                                                dt=dt, h=h, **kw)
+        vx_n, vy_n, vz_n = vx_n * mvx, vy_n * mvy, vz_n * mvz
+
+        return dict(state, vx=vx_n, vy=vy_n, vz=vz_n, p=p_new)
+
+    def make_step(self) -> Callable[[dict], dict]:
+        """The step with this config's scalars as device tensors, threaded
+        through the same parameterized step a slot batch will run."""
+        params = params_from_config(self.config, self.device)
+        step = self.driver.sharded_step_tree(self._step_local)
+        return lambda s: step(s, params)
+
+    # ------------------------------------------------------------ analysis
+    def divergence_of(self, state: dict) -> torch.Tensor:
+        pads = [exchange_pad(state[f], ((1, 0),) * 3, self._specs(f))
+                for f in ("vx", "vy", "vz")]
+        return ops.divergence(*pads, h=self.config.h, template="TORCH")
+
+    def kinetic_energy(self, state: dict) -> float:
+        return float(0.5 * sum(torch.mean(state[f] ** 2)
+                               for f in ("vx", "vy", "vz")))
+
+    def health_diagnostics(self, state: dict,
+                           params: dict | None = None) -> torch.Tensor:
+        """One ``(len(HEALTH_DIAGS),)`` float32 vector of in-situ health
+        diagnostics: divergence L∞, kinetic energy, max|u|, CFL number,
+        and a finite-fields sentinel (1.0 = no NaN/Inf in any dynamic
+        field — the velocities and the pressure).  Computed on the device;
+        read-only."""
+        c = self.config
+        if params is None:
+            params = params_from_config(c, self.device)
+
+        def seqmax(x):
+            for _ in range(3):
+                x = x.amax(dim=-1)
+            return x
+
+        # interior one-sided divergence: identical to the ghost-padded
+        # stencil on every cell that has real (non-BC) neighbours
+        vx, vy, vz = state["vx"], state["vy"], state["vz"]
+        div = ((vx[1:, 1:, 1:] - vx[:-1, 1:, 1:])
+               + (vy[1:, 1:, 1:] - vy[1:, :-1, 1:])
+               + (vz[1:, 1:, 1:] - vz[1:, 1:, :-1])) / c.h
+        div_linf = seqmax(div.abs())
+        umax = seqmax(torch.maximum(torch.maximum(vx.abs(), vy.abs()),
+                                    vz.abs()))
+        ke2 = vx * vx + vy * vy + vz * vz
+        for _ in range(3):      # sequential per-axis sums like _global_mean
+            ke2 = ke2.sum(dim=-1)
+        ke = 0.5 * ke2 / float(np.prod(np.asarray(vx.shape[-3:], np.float32)))
+        cfl = umax * params["dt"] / c.h
+        psum = state["p"]
+        for _ in range(3):
+            psum = psum.sum(dim=-1)
+        finite = torch.isfinite(div_linf + ke + umax + psum).to(torch.float32)
+        return torch.stack([div_linf, ke, umax, cfl, finite]).to(torch.float32)
+
+    def health_report(self, state: dict) -> dict:
+        """Named health diagnostics of ``state`` as plain floats — one host
+        fetch, however many numbers come back."""
+        vec = self.health_diagnostics(state).cpu().numpy()
+        return {k: float(v) for k, v in zip(HEALTH_DIAGS, vec)}

@@ -1,0 +1,21 @@
+"""repro_torch.core — the stencil framework's core, on PyTorch.
+
+Public surface:
+  descriptor.StencilDescriptor / descriptor()  — CaCUDA kernel descriptors
+  generator.generate                           — descriptor -> CUDA/TORCH kernel
+  halo.exchange_pad / stencil_step_overlap     — ghost-zone padding + overlap
+  driver.GridDriver / Domain                   — storage and halo specs
+  schedule.Schedule                            — schedule tree
+"""
+from repro_torch.core.descriptor import Intent, StencilDescriptor, VariableGroup, descriptor
+from repro_torch.core.generator import FieldView, GeneratedKernel, KernelContext, generate, generate_pair
+from repro_torch.core.halo import (
+    AxisSpec,
+    bc_dirichlet,
+    bc_mirror,
+    bc_neumann,
+    exchange_pad,
+    stencil_step_overlap,
+)
+from repro_torch.core.driver import Domain, GridDriver
+from repro_torch.core.schedule import Schedule

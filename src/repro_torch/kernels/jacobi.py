@@ -1,0 +1,28 @@
+"""Communication-avoiding fused Jacobi smoother — plain version only.
+
+``k`` weighted-Jacobi sweeps on a halo-``k`` block: each sweep consumes one
+ghost ring, so one padding (width ``k``) feeds ``k`` sweeps.  The solver's
+``fused_sweeps > 1`` branch calls :func:`jacobi_fused_ref` on every
+template, as the reference does.  The hand-written fused kernel (the
+reference's Pallas ``jacobi_fused``) is ROADMAP queue 2, item 2.
+"""
+from __future__ import annotations
+
+
+def _sweep(p, rhs, h2, omega):
+    """One weighted-Jacobi sweep; p padded by 1 relative to output, rhs
+    padded to match p (its outer ring is unused)."""
+    nbr = (p[2:, 1:-1, 1:-1] + p[:-2, 1:-1, 1:-1]
+           + p[1:-1, 2:, 1:-1] + p[1:-1, :-2, 1:-1]
+           + p[1:-1, 1:-1, 2:] + p[1:-1, 1:-1, :-2])
+    jac = (nbr - h2 * rhs[1:-1, 1:-1, 1:-1]) / 6.0
+    return (1.0 - omega) * p[1:-1, 1:-1, 1:-1] + omega * jac
+
+
+def jacobi_fused_ref(p, rhs, *, h, omega=1.0, sweeps=1):
+    """k fused sweeps; p and rhs padded by ``sweeps`` cells."""
+    h2 = h * h
+    for _ in range(sweeps):
+        p = _sweep(p, rhs, h2, omega)
+        rhs = rhs[1:-1, 1:-1, 1:-1]
+    return p

@@ -1,0 +1,206 @@
+"""Launch wrappers for the hand-written CUDA stencil kernels.
+
+One wrapper per kernel of ``csrc/stencil3d.cu``, each replacing one
+instance of the reference's 3DBLOCK Pallas template
+(``repro.core.generator.GeneratedKernel._apply_pallas``):
+
+  update_velocity(vx, vy, vz, table)      UPDATE_VELOCITY
+  divergence(vx, vy, vz, table)           DIVERGENCE
+  jacobi_pressure(p, rhs, table)          JACOBI_PRESSURE
+  project_velocity(vx, vy, vz, p, table)  PROJECT_VELOCITY
+
+Inputs are float32, C-contiguous, padded as the descriptor declares
+(cached inputs by the stencil radii, uncached ones interior-shaped), with
+an optional leading slot axis S; ``table`` is the ``(S, n_params)`` float32
+parameter table (``(n_params,)`` unbatched) in descriptor order, on the
+same device.  A wrapper checks all of that and raises on anything else.
+
+On a CUDA tensor the wrapper allocates its outputs with ``torch.empty``,
+launches the kernel on the current stream without synchronising, and adds
+one to ``LAUNCHES[name]``.  On a CPU tensor it runs the kernel's plain
+version (``<kernel>_plain``: the descriptor body expanded eagerly with the
+same table), which is also what the card's kernels are checked against.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.generator import generate
+from repro_torch.kernels import stencil3d
+
+_C_NAMES = {
+    "UPDATE_VELOCITY": "stencil3d_update_velocity",
+    "DIVERGENCE": "stencil3d_divergence",
+    "JACOBI_PRESSURE": "stencil3d_jacobi_pressure",
+    "PROJECT_VELOCITY": "stencil3d_project_velocity",
+}
+
+# launches per kernel since the last reset (CUDA launches only)
+LAUNCHES = dict.fromkeys(_C_NAMES, 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
+    for name, cname in _C_NAMES.items():
+        desc = stencil3d.DESCRIPTORS[name]
+        n_ptr = len(desc.inputs) + len(desc.outputs) + 1      # + the table
+        fn = getattr(lib, cname)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.stencil3d_error_string.argtypes = [ctypes.c_int]
+    lib.stencil3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _interior(desc, inputs) -> tuple[int, int, int]:
+    """The interior shape every input agrees on, or raise."""
+    interior = None
+    for name, t in zip(desc.inputs, inputs):
+        cached = name in desc.cached_inputs
+        lo = desc.halo_lo if cached else (0, 0, 0)
+        hi = desc.halo_hi if cached else (0, 0, 0)
+        got = tuple(s - l - h for s, l, h in zip(t.shape[-3:], lo, hi))
+        if interior is None:
+            interior = got
+        elif got != interior:
+            raise ValueError(
+                f"{desc.name}: input {name!r} of shape {tuple(t.shape)} "
+                f"implies interior {got}, others {interior}")
+    if min(interior) < 1:
+        raise ValueError(f"{desc.name}: empty interior {interior}")
+    return interior
+
+
+def _check(desc, inputs, table) -> tuple[int, tuple[int, int, int]]:
+    """Validate a batched call; return (S, interior)."""
+    dev = inputs[0].device
+    for name, t in zip(desc.inputs, inputs):
+        if t.dim() != 4:
+            raise ValueError(f"{desc.name}: input {name!r} must be (S, X, Y, Z), "
+                             f"got shape {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{desc.name}: input {name!r} is {t.dtype}, not float32")
+        if t.device != dev:
+            raise ValueError(f"{desc.name}: inputs on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{desc.name}: input {name!r} is not contiguous")
+    S = inputs[0].shape[0]
+    if any(t.shape[0] != S for t in inputs):
+        raise ValueError(f"{desc.name}: slot counts differ: "
+                         f"{[t.shape[0] for t in inputs]}")
+    want = (S, len(desc.parameters))
+    if tuple(table.shape) != want:
+        raise ValueError(f"{desc.name}: parameter table must be {want} "
+                         f"({desc.parameters}), got {tuple(table.shape)}")
+    if (table.dtype != torch.float32 or table.device != dev
+            or not table.is_contiguous()):
+        raise ValueError(f"{desc.name}: parameter table must be contiguous "
+                         f"float32 on {dev}")
+    return S, _interior(desc, inputs)
+
+
+@functools.lru_cache(maxsize=None)
+def _torch_kernel(name: str):
+    return generate(stencil3d.DESCRIPTORS[name], stencil3d.BODIES[name],
+                    template="TORCH")
+
+
+def _plain(name: str, inputs, table) -> tuple[torch.Tensor, ...]:
+    """The plain version: the body expanded eagerly, one table row per slot."""
+    desc = stencil3d.DESCRIPTORS[name]
+    params = {p: table[:, i] for i, p in enumerate(desc.parameters)}
+    out = _torch_kernel(name).apply_batched(
+        dict(zip(desc.inputs, inputs)), batched_params=desc.parameters,
+        **params)
+    return tuple(out[n] for n in desc.outputs)
+
+
+def _run(name: str, inputs, table, plain: bool = False):
+    desc = stencil3d.DESCRIPTORS[name]
+    batched = inputs[0].dim() == 4
+    if not batched:
+        inputs = [t.unsqueeze(0) for t in inputs]
+        table = table.unsqueeze(0)
+    S, (nx, ny, nz) = _check(desc, inputs, table)
+    dev = inputs[0].device
+    if plain or dev.type == "cpu":
+        outs = _plain(name, inputs, table)
+    elif dev.type == "cuda":
+        lib = _lib()
+        outs = tuple(torch.empty((S, nx, ny, nz), dtype=torch.float32,
+                                 device=dev) for _ in desc.outputs)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, _C_NAMES[name])(
+                *(t.data_ptr() for t in (*inputs, *outs, table)),
+                S, nx, ny, nz, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{name} kernel launch failed: CUDA error {err} "
+                f"({lib.stencil3d_error_string(err).decode()})")
+        LAUNCHES[name] += 1
+    else:
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not batched:
+        outs = tuple(o[0] for o in outs)
+    return outs if len(outs) > 1 else outs[0]
+
+
+# -- the wrappers (CUDA kernel on the card, plain version on the CPU) -------
+def update_velocity(vx, vy, vz, table):
+    return _run("UPDATE_VELOCITY", [vx, vy, vz], table)
+
+
+def divergence(vx, vy, vz, table):
+    return _run("DIVERGENCE", [vx, vy, vz], table)
+
+
+def jacobi_pressure(p, rhs, table):
+    return _run("JACOBI_PRESSURE", [p, rhs], table)
+
+
+def project_velocity(vx, vy, vz, p, table):
+    return _run("PROJECT_VELOCITY", [vx, vy, vz, p], table)
+
+
+# -- the plain versions, on any device ---------------------------------------
+def update_velocity_plain(vx, vy, vz, table):
+    return _run("UPDATE_VELOCITY", [vx, vy, vz], table, plain=True)
+
+
+def divergence_plain(vx, vy, vz, table):
+    return _run("DIVERGENCE", [vx, vy, vz], table, plain=True)
+
+
+def jacobi_pressure_plain(p, rhs, table):
+    return _run("JACOBI_PRESSURE", [p, rhs], table, plain=True)
+
+
+def project_velocity_plain(vx, vy, vz, p, table):
+    return _run("PROJECT_VELOCITY", [vx, vy, vz, p], table, plain=True)
+
+
+KERNELS = {
+    "UPDATE_VELOCITY": update_velocity,
+    "DIVERGENCE": divergence,
+    "JACOBI_PRESSURE": jacobi_pressure,
+    "PROJECT_VELOCITY": project_velocity,
+}
+PLAIN = {
+    "UPDATE_VELOCITY": update_velocity_plain,
+    "DIVERGENCE": divergence_plain,
+    "JACOBI_PRESSURE": jacobi_pressure_plain,
+    "PROJECT_VELOCITY": project_velocity_plain,
+}

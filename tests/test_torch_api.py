@@ -1,0 +1,195 @@
+"""The port's front door against the reference's, on the CPU.
+
+``repro_torch.api.runtime(n=16, device="cpu").run(...)`` and
+``repro.api.runtime(n=16).run(...)`` must report the same diagnostics
+within float32 tolerance (max|Δ| ≤ 1e-4·max|field| after the run's steps,
+diagnostics to rtol 1e-4), and the port must never fall back to the CPU
+when the card is asked for.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import tests.test_torch_harness  # noqa: F401  (installs the shim)
+
+from repro import api as ref_api
+from repro.core import schedule as ref_schedule
+from repro.sim import scenarios as ref_scenarios
+
+from repro_torch import api, convert
+from repro_torch.core import schedule
+from repro_torch.device import resolve_device
+from repro_torch.sim import scenarios
+
+RTOL = 1e-4
+RUNS = {
+    "cavity": dict(steps=6, re=100.0),
+    "taylor_green": dict(steps=6, nu=0.1, jacobi_iters=40),
+    "kelvin_helmholtz": dict(steps=6, jacobi_iters=40),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _runs(name):
+    kw = RUNS[name]
+    want = ref_api.runtime(n=16).run(name, **kw)
+    got = api.runtime(n=16, device="cpu").run(name, **kw)
+    return got, want
+
+
+def _flat(x):
+    if isinstance(x, dict):
+        return {k: _flat(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [np.asarray(v, np.float64) for v in x]
+    return float(x)
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_run_diagnostics_match_reference(name):
+    got, want = _runs(name)
+    assert got.steps_done == want.steps_done and got.terminated == want.terminated
+    assert got.config.template == "TORCH"
+    g, w = _flat(got.diagnostics), _flat(want.diagnostics)
+    assert set(g) == set(w)
+    for k in w:
+        if isinstance(w[k], dict):
+            for kk in w[k]:
+                np.testing.assert_allclose(g[k][kk], w[k][kk], rtol=RTOL,
+                                           atol=1e-7, err_msg=f"{k}.{kk}")
+        elif isinstance(w[k], list):
+            for a, b in zip(g[k], w[k]):
+                np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-6)
+        else:
+            np.testing.assert_allclose(g[k], w[k], rtol=RTOL, err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_run_state_matches_reference(name):
+    got, want = _runs(name)
+    host = convert.state_to_numpy(got.state)
+    vel = max(float(np.abs(np.asarray(want.state[f])).max())
+              for f in ("vx", "vy", "vz"))
+    for f in ("vx", "vy", "vz", "p"):
+        w = np.asarray(want.state[f])
+        scale = float(np.abs(w).max()) if f == "p" else vel
+        assert float(np.abs(host[f] - w).max()) <= RTOL * scale, f
+    assert all(t.device.type == "cpu" for t in got.state.values())
+
+
+def test_residual_termination_matches_reference():
+    kw = dict(steps=400, residual_tol=5.0, jacobi_iters=20)
+    want = ref_api.runtime(n=8, check_every=4).run("cavity", **kw)
+    got = api.runtime(n=8, device="cpu", check_every=4).run("cavity", **kw)
+    assert want.terminated == "residual"
+    assert (got.terminated, got.steps_done) == (want.terminated, want.steps_done)
+
+
+def test_analyze_recomputes_the_diagnostics():
+    rt = api.runtime(n=16, device="cpu")
+    got, _ = _runs("cavity")
+    again = rt.analyze(got)
+    np.testing.assert_allclose(again["kinetic_energy"],
+                               got.diagnostics["kinetic_energy"], rtol=1e-6)
+    assert again["ghia"] == got.diagnostics["ghia"]
+
+
+# -- no fallback ------------------------------------------------------------
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the default resolves to it")
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.runtime(n=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    from repro_torch.cfd import cavity
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        cavity.run(n=8, t_end=0.1)
+
+
+def test_cuda_backend_on_the_cpu_raises():
+    rt = api.runtime(n=8, backend="cuda", device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        rt.run("cavity", steps=1)
+    with pytest.raises(ValueError, match="unknown backend"):
+        api.runtime(n=8, backend="pallas", device="cpu")
+
+
+def test_backend_resolution_mirrors_the_reference():
+    assert set(api.BACKENDS) == {"torch", "cuda", "auto"}
+    assert api._resolve_backend("auto", torch.device("cpu")) == ("TORCH", None)
+    assert api._resolve_backend("auto", torch.device("cuda")) == ("CUDA", False)
+    assert api._resolve_backend("cuda", torch.device("cuda", 0)) == \
+        (api.BACKENDS["cuda"][0], ref_api.BACKENDS["pallas"][2])
+    cfg = api.runtime(n=8, device="cpu", nz=6, jacobi_iters=7).configure(
+        "cavity", re=50.0)
+    ref_cfg = ref_api.runtime(n=8, nz=6, jacobi_iters=7).configure(
+        "cavity", re=50.0)
+    for f in ("shape", "extent", "nu", "dt", "case", "lid_velocity",
+              "forcing", "jacobi_iters", "jacobi_omega", "fused_sweeps",
+              "overlap"):
+        assert getattr(cfg, f) == getattr(ref_cfg, f), f
+    assert cfg.template == "TORCH"
+
+
+# -- schedule and registry ----------------------------------------------------
+def test_schedule_order_matches_reference():
+    def build(mod):
+        s = mod.Schedule()
+        for name, before, after in [("c", (), ("a",)), ("a", (), ()),
+                                    ("b", ("c",), ("a",)), ("d", (), ())]:
+            s.register("EVOLVE", name, before=before, after=after)(
+                lambda st, n=name: st + [n])
+        return s
+
+    ours, ref = build(schedule), build(ref_schedule)
+    assert ours.names("EVOL") == ref.names("EVOL")
+    assert ours.compile_bin("EVOLVE")([]) == ref.compile_bin("EVOLVE")([])
+    assert schedule.BIN_ALIASES == ref_schedule.BIN_ALIASES
+    with pytest.raises(schedule.ScheduleError):
+        schedule.canonical_bin("NOPE")
+
+
+def test_enabled_telemetry_is_not_ported_yet():
+    class Enabled:
+        enabled = True
+
+    class Disabled:
+        enabled = False
+
+    s = schedule.Schedule()
+    s.register("EVOLVE", "x")(lambda st: st)
+    assert s.compile_bin("EVOLVE", telemetry=Disabled())(1) == 1
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        s.compile_bin("EVOLVE", telemetry=Enabled())
+
+
+def test_scenario_registry_matches_reference():
+    assert scenarios.scenario_names() == ref_scenarios.scenario_names()
+    for name in scenarios.scenario_names():
+        a, b = scenarios.get_scenario(name), ref_scenarios.get_scenario(name)
+        assert dict(a.params) == {k: scenarios.ParamSpec(v.default, v.doc)
+                                  for k, v in b.params.items()}
+        assert list(a.analyses) == list(b.analyses)
+        assert a.split_kwargs({"delta": 0.3, "nu": 0.1}) == \
+            b.split_kwargs({"delta": 0.3, "nu": 0.1})
+    with pytest.raises(scenarios.UnknownScenarioError):
+        scenarios.get_scenario("nope")
+
+
+def test_convert_round_trip_is_bitwise():
+    rng = np.random.RandomState(0)
+    arrays = {f: rng.randn(4, 5, 3).astype(np.float32) for f in ("vx", "p")}
+    state = convert.state_from_numpy(arrays, "cpu")
+    back = convert.state_to_numpy(state)
+    for f in arrays:
+        assert state[f].dtype == torch.float32 and state[f].is_contiguous()
+        np.testing.assert_array_equal(back[f], arrays[f])
+    params = convert.params_from_numpy({"nu": np.float32(0.1), "dt": 2.5e-3}, "cpu")
+    assert params["nu"].dim() == 0 and params["nu"].item() == float(np.float32(0.1))
+    assert params["dt"].item() == float(np.float32(2.5e-3))

@@ -1,0 +1,109 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the reference package ``repro``, and import nothing
+heavy (no kernel build, no CUDA) when they are imported."""
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def _module_name(path):
+    rel = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3]
+    parts = rel.split(os.sep)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+def _forbidden(name: str) -> bool:
+    return name == "jax" or name.startswith(("jax.", "jaxlib")) or \
+        name == "repro" or name.startswith("repro.")
+
+
+def test_no_jax_or_reference_import_in_the_source():
+    offenders = []
+    for path in [*_port_files(), SMOKE]:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, ROOT)}: {n}"
+                          for n in names if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def _marks(func) -> set:
+    out = set()
+    for dec in func.decorator_list:
+        node = dec.func if isinstance(dec, ast.Call) else dec
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Attribute) \
+                and node.value.attr == "mark":
+            out.add(node.attr)
+    return out
+
+
+def test_card_tests_carry_the_cuda_marker_and_skip_in_the_fixture():
+    """A test that takes the ``card`` fixture (which skips without a CUDA
+    device) carries ``@pytest.mark.cuda``, and every ``cuda``-marked test
+    takes the fixture — so the CPU lane skips them at run time and every
+    xdist worker collects the same tests."""
+    offenders = []
+    tests_dir = os.path.join(ROOT, "tests")
+    for fname in sorted(os.listdir(tests_dir)):
+        if not (fname.startswith("test_torch_") and fname.endswith(".py")):
+            continue
+        with open(os.path.join(tests_dir, fname)) as f:
+            tree = ast.parse(f.read(), filename=fname)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
+                takes_card = "card" in {a.arg for a in node.args.args}
+                if takes_card != ("cuda" in _marks(node)):
+                    offenders.append(f"{fname}::{node.name}")
+    assert not offenders, offenders
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    modules = [_module_name(p) for p in _port_files()]
+    code = f"""
+import importlib, importlib.util, json, sys
+for name in {modules!r}:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)          # defines main(); does not run it
+from repro_torch.kernels import _build, stencil3d_cuda
+print(json.dumps({{
+    "bad": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                  or m == "repro" or m.startswith("repro.")),
+    "built": bool(_build.build_info),
+    "lib_loaded": stencil3d_cuda._lib.cache_info().currsize,
+    "has_main": callable(smoke.main),
+}}))
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "built": False, "lib_loaded": 0,
+                   "has_main": True}, got
