@@ -6,19 +6,33 @@
 Phases, each printed as JSON lines; any failure exits non-zero:
 
 1. card      the card's name and power limit (nvidia-smi) and torch's name;
-2. build     the CUDA kernels built from ``src/repro_torch/kernels/csrc``;
+2. build     the CUDA kernels built from ``src/repro_torch/kernels/csrc``,
+             one nvcc per source, all started together;
 3. kernels   each hand-written kernel against its plain PyTorch version on
-             the card, at the 256^3 main-path shape, an odd shape and a
-             slot-batched call with distinct parameter rows; CUDA-event
-             times of kernel and plain version beside the least time the
-             card could take (bytes over 3.35 TB/s or float32 operations
-             over 67 TFLOP/s, H100 SXM data-sheet peaks);
+             the card, at its main-path shape (256^3; k = 2 sweeps for
+             JACOBI_FUSED), an odd shape and a slot-batched call with
+             distinct parameter rows (JACOBI_FUSED also for k = 1..4);
+             CUDA-event times of kernel and plain version beside the least
+             time the card could take (bytes over 3.35 TB/s or float32
+             operations over 67 TFLOP/s, H100 SXM data-sheet peaks);
 4. main      ``api.runtime(n=256, nz=256).run("cavity", steps=20)`` on the
              ``cuda`` backend with the launch counters reset just before,
              then on the ``torch`` backend; the two must agree, and the
              counts must be 20 x (1, 1, 40, 1); step wall time, the
              profiler's device-time split of one step, and peak memory;
-5. physics   Taylor-Green, cavity divergence and Ghia bounds with the
+5. farm      the ensemble farm at 256^3 through the front door:
+             ``api.runtime(n=256, nz=256, n_slots=4)`` takes five cavity
+             requests (Re 50..800, 6..14 steps; the fifth enters a
+             reclaimed slot), evicts one mid-run, readmits it and drains;
+             counts reset just before and read just after must be
+             device_steps x (1, 1, 40, 1), every result must equal a
+             serial ``cuda`` run bitwise, and the ``torch`` farm must
+             agree; batched step time, sims x steps/s and peak memory;
+6. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
+             launches a step and no JACOBI_PRESSURE;
+7. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
+             sims x steps/s against eight serial runs;
+8. physics   Taylor-Green, cavity divergence and Ghia bounds with the
              kernels, as the reference's tests hold its solver to them.
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last
@@ -50,20 +64,45 @@ KERNEL_RTOL = 1e-5
 # bounded because the Jacobi iteration is contractive
 PATH_RTOL = 1e-4
 
-# float32 operations per interior cell, counted from the kernel source
-# (csrc/stencil3d.cu), an FMA as two; none depends on the data
-OPS_PER_CELL = {"UPDATE_VELOCITY": 148, "DIVERGENCE": 7,
-                "JACOBI_PRESSURE": 13, "PROJECT_VELOCITY": 10}
+# float32 operations per interior cell, counted from the kernel sources
+# (csrc/stencil3d.cu, csrc/jacobi.cu: per cell and sweep), an FMA as two;
+# none depends on the data
+OPS_PER_CELL = {"UPDATE_VELOCITY": 144, "DIVERGENCE": 6,
+                "JACOBI_PRESSURE": 11, "PROJECT_VELOCITY": 10,
+                "JACOBI_FUSED": 11}
+STENCILS = ("UPDATE_VELOCITY", "DIVERGENCE", "JACOBI_PRESSURE",
+            "PROJECT_VELOCITY")
+KERNELS = STENCILS + ("JACOBI_FUSED",)
+# launches a step: jacobi_iters = 40 sweeps, one by one or k = 2 at a time
 PER_STEP = {"UPDATE_VELOCITY": 1, "DIVERGENCE": 1, "JACOBI_PRESSURE": 40,
-            "PROJECT_VELOCITY": 1}
+            "PROJECT_VELOCITY": 1, "JACOBI_FUSED": 0}
+PER_STEP_FUSED = dict(PER_STEP, JACOBI_PRESSURE=0, JACOBI_FUSED=20)
+FUSED_K = 2
 REPLACES = {
+    "UPDATE_VELOCITY": "src/repro/core/generator.py:213",
+    "DIVERGENCE": "src/repro/core/generator.py:213",
+    "JACOBI_PRESSURE": "src/repro/core/generator.py:213",
+    "PROJECT_VELOCITY": "src/repro/core/generator.py:213",
+    "JACOBI_FUSED": "src/repro/kernels/jacobi.py:79",
+}
+INSTANCE = {   # the 3DBLOCK template's instances, by body
     "UPDATE_VELOCITY": "src/repro/kernels/stencil3d.py:74",
     "DIVERGENCE": "src/repro/kernels/stencil3d.py:148",
     "JACOBI_PRESSURE": "src/repro/kernels/stencil3d.py:159",
     "PROJECT_VELOCITY": "src/repro/kernels/stencil3d.py:171",
+    "JACOBI_FUSED": "src/repro/kernels/jacobi.py:56 (jacobi_fused)",
 }
-TEMPLATE = "src/repro/core/generator.py:213"
-SOURCE = "src/repro_torch/kernels/csrc/stencil3d.cu"
+SOURCE = {name: "src/repro_torch/kernels/csrc/stencil3d.cu" for name in STENCILS}
+SOURCE["JACOBI_FUSED"] = "src/repro_torch/kernels/csrc/jacobi.cu"
+
+# the farm phases: five requests through four slots, one evicted after
+# EVICT_AT steps and readmitted
+FARM_SLOTS = 4
+FARM_RES = (50.0, 100.0, 200.0, 400.0, 800.0)
+FARM_STEPS = (8, 12, 6, 10, 14)
+EVICT, EVICT_AT = 1, 4
+# the host-bound end: Ghia's n=48 grid, eight slots, twenty steps
+TP_N, TP_SLOTS, TP_STEPS = 48, 8, 20
 
 
 def emit(obj) -> None:
@@ -77,6 +116,19 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import jacobi_cuda, stencil3d_cuda
+
+    stencil3d_cuda.reset_launches()
+    jacobi_cuda.reset_launches()
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import jacobi_cuda, stencil3d_cuda
+
+    return {**stencil3d_cuda.LAUNCHES, **jacobi_cuda.LAUNCHES}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -117,17 +169,22 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels import _build, stencil3d_cuda
+    from repro_torch.kernels import _build, jacobi_cuda, stencil3d_cuda
 
     t0 = time.perf_counter()
+    _build.build_all()          # one nvcc per source, all at once
     stencil3d_cuda._lib()
-    ptxas = [ln.strip() for ln in _build.build_info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    jacobi_cuda._lib()
+    libs = {}
+    for name, info in _build.build_info.items():
+        libs[name] = {
+            "nvcc_seconds": info["seconds"], "cached": info["cached"],
+            "library": os.path.relpath(info["path"], ROOT),
+            "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln or "smem" in ln]}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_info["seconds"],
-          "cached": _build.build_info["cached"],
-          "library": os.path.relpath(_build.build_info["path"], ROOT),
-          "ptxas": ptxas})
+          "libraries": libs})
 
 
 # ---------------------------------------------------------------------------
@@ -148,9 +205,11 @@ def kernel_inputs(name, S, interior, gen, dev):
 
 
 def param_rows(name, cfgs, dev):
-    """(S, n_params) table from a list of CFDConfigs (one row each), with
-    forcing set so that every parameter column is exercised."""
+    """(S, n_params) table from a list of CFDConfigs (one row each), built
+    as the CUDA template builds it, with forcing set so that every
+    parameter column is exercised."""
     import torch
+    from repro_torch.core.generator import param_table
     from repro_torch.kernels import stencil3d
 
     desc = stencil3d.DESCRIPTORS[name]
@@ -158,8 +217,9 @@ def param_rows(name, cfgs, dev):
     for s, c in enumerate(cfgs):
         vals = dict(dt=c.dt, h=c.h, nu=c.nu, omega=c.jacobi_omega,
                     fx=0.1 * (s + 1), fy=-0.05 * (s + 1), fz=0.02 * (s + 1))
-        rows.append([vals[p] for p in desc.parameters])
-    return torch.tensor(rows, dtype=torch.float32, device=dev)
+        rows.append(param_table(desc, vals, None, dev,
+                                columns=stencil3d.TABLES[name])[0])
+    return torch.stack(rows)
 
 
 def compare(name, inputs, table):
@@ -227,8 +287,64 @@ def phase_kernels(dev):
             res["max_abs_err"] = max(res["max_abs_err"], err)
             del inputs, outs
         results[name] = res
+    results["JACOBI_FUSED"] = jacobi_fused_cases(gen, dev)
     torch.cuda.empty_cache()
     return results
+
+
+def jacobi_fused_cases(gen, dev):
+    """JACOBI_FUSED against ``jacobi_fused_ref`` on the card: the 256^3
+    main-path call (k = 2, timed), an odd shape, k = 1..4 and a slot batch
+    of three."""
+    import torch
+    from repro_torch.kernels import jacobi_cuda as jc
+
+    h, omega = 1.0 / N, 1.0                   # the solver's h and omega
+    cases = [("main", None, (N, N, N), FUSED_K),
+             ("odd", None, (5, 7, 3), FUSED_K),
+             *((f"k{k}", None, (37, 20, 45), k) for k in (1, 2, 3, 4)),
+             ("batched", 3, (24, 20, 18), FUSED_K)]
+    res = {"max_abs_err": 0.0}
+    for case, S, interior, k in cases:
+        batch = () if S is None else (S,)
+        shape = batch + tuple(n + 2 * k for n in interior)
+        p = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+        rhs = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+        got = jc.jacobi_fused(p, rhs, h=h, omega=omega, sweeps=k)
+        want = jc.jacobi_fused_plain(p, rhs, h=h, omega=omega, sweeps=k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = KERNEL_RTOL * max(1.0, float(want.abs().max()))
+        finite = bool(torch.isfinite(got).all())
+        line = {"phase": "kernel", "kernel": "JACOBI_FUSED", "case": case,
+                "slots": S or 1, "interior": list(interior), "sweeps": k,
+                "max_abs_diff": err, "tolerance": tol, "finite": finite}
+        if case == "main":
+            nbytes = (p.numel() + rhs.numel() + got.numel()) * 4
+            # sweep s updates the interior grown by k - s rings
+            ops = OPS_PER_CELL["JACOBI_FUSED"] * sum(
+                (N + 2 * (k - s)) ** 3 for s in range(1, k + 1))
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            line.update(
+                kernel_ms=cuda_ms(lambda: jc.jacobi_fused(
+                    p, rhs, h=h, omega=omega, sweeps=k), reps=50),
+                plain_ms=cuda_ms(lambda: jc.jacobi_fused_plain(
+                    p, rhs, h=h, omega=omega, sweeps=k), reps=5, warmup=1),
+                bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, blocks_per_sm=jc.blocks_per_sm(k))
+            res.update({key: line[key] for key in
+                        ("kernel_ms", "plain_ms", "bound_ms", "bound_by")})
+        emit(line)
+        require(finite, f"JACOBI_FUSED ({case}): non-finite output")
+        require(tuple(got.shape) == batch + interior,
+                f"JACOBI_FUSED ({case}): shape {tuple(got.shape)}")
+        require(err <= tol, f"JACOBI_FUSED ({case}): max|kernel - plain| "
+                            f"{err} > {tol}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        del p, rhs, got, want
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -240,36 +356,24 @@ def phase_main(kernel_results, dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res_cuda = api.runtime(n=N, nz=N, backend="cuda", device=dev).run(
         "cavity", steps=STEPS, re=100.0)
     torch.cuda.synchronize()
     cuda_s = time.perf_counter() - t0
-    launches = dict(sc.LAUNCHES)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    sc.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res_torch = api.runtime(n=N, nz=N, backend="torch", device=dev).run(
         "cavity", steps=STEPS, re=100.0)
     torch.cuda.synchronize()
     torch_s = time.perf_counter() - t0
-    torch_launches = dict(sc.LAUNCHES)
+    torch_launches = read_counts()
 
-    agree = {}
-    # velocity components are held to the flow's speed (vz stays ~0 in the
-    # z-periodic cavity), the pressure to its own magnitude
-    speed = max(float(res_torch.state[f].abs().max()) for f in ("vx", "vy", "vz"))
-    for f in ("vx", "vy", "vz", "p"):
-        a, b = res_cuda.state[f], res_torch.state[f]
-        require(bool(torch.isfinite(a).all()), f"cuda backend: {f} not finite")
-        require(bool(torch.isfinite(b).all()), f"torch backend: {f} not finite")
-        require(tuple(a.shape) == (N, N, N), f"{f} shape {tuple(a.shape)}")
-        diff = float((a - b).abs().max())
-        tol = PATH_RTOL * (float(b.abs().max()) if f == "p" else speed)
-        agree[f] = {"max_abs_diff": diff, "tolerance": tol}
-        require(diff <= tol, f"cuda vs torch backend: {f} differs by {diff} > {tol}")
+    agree = agreement(res_cuda.state, res_torch.state, "cuda vs torch backend")
     del res_torch
 
     # step wall time and its device-time split, through the front door
@@ -307,6 +411,26 @@ def phase_main(kernel_results, dev):
     return launches
 
 
+def agreement(got: dict, want: dict, what: str) -> dict:
+    """Hold ``got`` to ``want`` within PATH_RTOL: velocity components to
+    the flow's speed (vz stays ~0 in the z-periodic cavity), the pressure
+    to its own magnitude.  Both must be finite and 256^3."""
+    import torch
+
+    agree = {}
+    speed = max(float(want[f].abs().max()) for f in ("vx", "vy", "vz"))
+    for f in ("vx", "vy", "vz", "p"):
+        a, b = got[f], want[f]
+        require(bool(torch.isfinite(a).all()), f"{what}: {f} not finite")
+        require(bool(torch.isfinite(b).all()), f"{what}: {f} not finite")
+        require(tuple(a.shape) == (N, N, N), f"{f} shape {tuple(a.shape)}")
+        diff = float((a - b).abs().max())
+        tol = PATH_RTOL * (float(b.abs().max()) if f == "p" else speed)
+        agree[f] = {"max_abs_diff": diff, "tolerance": tol}
+        require(diff <= tol, f"{what}: {f} differs by {diff} > {tol}")
+    return agree
+
+
 def profile_step(pr, state):
     """Device time of one step by kernel, summed in groups, from the
     profiler ("not measured" where it recorded no device time)."""
@@ -326,10 +450,166 @@ def profile_step(pr, state):
                                     "divergence_kernel",
                                     "jacobi_pressure_kernel",
                                     "project_velocity_kernel",
+                                    "jacobi_fused_kernel",
                                     "cat", "flip", "fill")
                     if tag in low), "other")
         groups[key] = groups.get(key, 0.0) + ev.self_device_time_total / 1e3
     return groups or "not measured"
+
+
+# ---------------------------------------------------------------------------
+def drive_farm(dev, backend: str, **solver):
+    """The farm's verbs at 256^3 through the front door: submit five
+    requests into four slots, run, evict one mid-run, readmit it, drain."""
+    from repro_torch import api
+
+    rt = api.runtime(n=N, nz=N, n_slots=FARM_SLOTS, backend=backend,
+                     device=dev, **solver)
+    sids = [rt.submit("cavity", steps=steps, re=re)
+            for re, steps in zip(FARM_RES, FARM_STEPS)]
+    require(rt.poll(sids[-1])["status"] == "queued", "fifth request not queued")
+    rt.services()[0].run(EVICT_AT)
+    poll = rt.poll(sids[EVICT])
+    require(poll == {"status": "running", "steps_done": EVICT_AT},
+            f"before eviction: {poll}")
+    require(rt.evict(sids[EVICT]), "evict refused")
+    require(rt.poll(sids[EVICT])["status"] == "evicted", "not evicted")
+    require(rt.readmit(sids[EVICT]), "readmit refused")
+    out = rt.drain()
+    for sid, steps in zip(sids, FARM_STEPS):
+        res = out[sid]
+        require((res.terminated, res.steps_done) == ("steps", steps),
+                f"{backend} farm sid {sid}: {res.terminated} after "
+                f"{res.steps_done} steps ({res.error})")
+    return rt, sids, out
+
+
+def batched_step_ms(dev, **solver) -> float:
+    """Host-clock time of one batched step with every slot resident."""
+    import torch
+    from repro_torch import api
+
+    rt = api.runtime(n=N, nz=N, n_slots=FARM_SLOTS, backend="cuda",
+                     device=dev, **solver)
+    for re in FARM_RES[:FARM_SLOTS]:
+        rt.submit("cavity", steps=1000, re=re)
+    svc = rt.services()[0]
+    svc.run(2)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    svc.run(reps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_farm(dev, label: str, per_step: dict, **solver):
+    """The 256^3 farm on the cuda backend, its counts, bitwise equality
+    with serial cuda runs, and agreement with the torch backend's farm."""
+    import torch
+    from repro_torch import api
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rt, sids, out = drive_farm(dev, "cuda", **solver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    device_steps = rt.device_steps()
+    expected = {k: device_steps * v for k, v in per_step.items()}
+    require(launches == expected,
+            f"{label}: launch counts {launches} != {expected}")
+    del rt
+
+    serial_rt = api.runtime(n=N, nz=N, backend="cuda", device=dev, **solver)
+    for sid, re, steps in zip(sids, FARM_RES, FARM_STEPS):
+        serial = serial_rt.run("cavity", steps=steps, re=re).state
+        for f in ("vx", "vy", "vz", "p"):
+            require(torch.equal(out[sid].state[f], serial[f]),
+                    f"{label}: sid {sid} (Re {re}) field {f} differs from "
+                    f"the serial cuda run by "
+                    f"{float((out[sid].state[f] - serial[f]).abs().max())}")
+        del serial
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, torch_out = drive_farm(dev, "torch", **solver)
+    torch.cuda.synchronize()
+    torch_wall = time.perf_counter() - t0
+    torch_launches = read_counts()
+    require(all(v == 0 for v in torch_launches.values()),
+            f"{label}: torch farm launched CUDA kernels: {torch_launches}")
+    agree = {sid: agreement(out[sid].state, torch_out[sid].state,
+                            f"{label}: cuda vs torch farm, sid {sid}")
+             for sid in sids}
+    del out, torch_out
+    step_ms = batched_step_ms(dev, **solver)
+    sim_steps = sum(FARM_STEPS)
+    emit({"phase": label, "grid": [N, N, N], "slots": FARM_SLOTS,
+          "requests": len(sids), "sim_steps": sim_steps,
+          "device_steps": device_steps, "launches": launches,
+          "expected": expected, "bitwise_vs_serial": True,
+          "wall_s": wall, "sims_steps_per_s": sim_steps / wall,
+          "torch_farm_wall_s": torch_wall,
+          "batched_step_ms": step_ms,
+          "batched_step_ms_per_slot": step_ms / FARM_SLOTS,
+          "max_memory_allocated": peak,
+          "agree_max_abs_diff": {
+              f: max(a[f]["max_abs_diff"] for a in agree.values())
+              for f in ("vx", "vy", "vz", "p")}})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_throughput(dev):
+    """The host-bound end: eight requests of 20 steps at n=48 through an
+    eight-slot farm, against eight serial runs of the same requests."""
+    import torch
+    from repro_torch import api
+
+    res = [40.0 + 20.0 * i for i in range(TP_SLOTS)]
+
+    def farm(steps):
+        rt = api.runtime(n=TP_N, n_slots=TP_SLOTS, backend="cuda", device=dev)
+        sids = [rt.submit("cavity", steps=steps, re=re) for re in res]
+        out = rt.drain()
+        torch.cuda.synchronize()
+        return rt, [out[sid] for sid in sids]
+
+    def serial(steps):
+        rt = api.runtime(n=TP_N, backend="cuda", device=dev)
+        outs = [rt.run("cavity", steps=steps, re=re) for re in res]
+        torch.cuda.synchronize()
+        return outs
+
+    farm(2)                              # warm both paths
+    serial(2)
+    reset_counts()
+    t0 = time.perf_counter()
+    rt, farm_out = farm(TP_STEPS)
+    farm_s = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    serial_out = serial(TP_STEPS)
+    serial_s = time.perf_counter() - t0
+    expected = {k: rt.device_steps() * v for k, v in PER_STEP.items()}
+    require(launches == expected,
+            f"throughput: launch counts {launches} != {expected}")
+    for a, b in zip(farm_out, serial_out):
+        for f in ("vx", "vy", "vz", "p"):
+            require(torch.equal(a.state[f], b.state[f]),
+                    f"throughput: {a.tag} field {f} differs from serial")
+    sim_steps = TP_SLOTS * TP_STEPS
+    emit({"phase": "throughput", "grid": [TP_N, TP_N, 4], "slots": TP_SLOTS,
+          "steps": TP_STEPS, "device_steps": rt.device_steps(),
+          "launches": launches, "bitwise_vs_serial": True,
+          "farm_s": farm_s, "serial_s": serial_s,
+          "farm_sims_steps_per_s": sim_steps / farm_s,
+          "serial_sims_steps_per_s": sim_steps / serial_s,
+          "farm_over_serial": serial_s / farm_s})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -390,12 +670,24 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda")
     kernel_results = phase_kernels(dev)
-    launches = phase_main(kernel_results, dev)
+    paths = {"serial": phase_main(kernel_results, dev),
+             "farm": phase_farm(dev, "farm", PER_STEP),
+             "farm_fused": phase_farm(dev, "farm_fused", PER_STEP_FUSED,
+                                      fused_sweeps=FUSED_K),
+             "throughput": phase_throughput(dev)}
     phase_physics(dev)
+    # each kernel's launches on this slice's path that carries it: the
+    # farm for the four stencils, the fused-smoother farm for JACOBI_FUSED
+    carrier = {name: "farm" for name in STENCILS}
+    carrier["JACOBI_FUSED"] = "farm_fused"
+    for name in KERNELS:
+        require(paths[carrier[name]][name] > 0,
+                f"{name} never launched on the {carrier[name]} path")
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": TEMPLATE, "instance": f"{name} ({REPLACES[name]})",
-        "launches": launches[name],
+        "name": name, "route": "cuda", "source": SOURCE[name],
+        "replaces": REPLACES[name], "instance": INSTANCE[name],
+        "launches": paths[carrier[name]][name],
+        "launches_by_path": {k: v[name] for k, v in paths.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,

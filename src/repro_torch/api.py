@@ -1,16 +1,20 @@
-"""repro_torch.api — the runtime front door, serial path.
+"""repro_torch.api — the runtime front door: serial runs and the farm.
 
 Applications declare *what* to run (a registered
 :class:`~repro_torch.sim.scenarios.Scenario` + per-run parameters) and a
 :class:`RuntimeConfig` declares *where/how* (resolution, device, kernel
-backend, static solver overrides); the :class:`Runtime` resolves the
-solver, its schedule and the step:
+backend, slots, static solver overrides); the :class:`Runtime` resolves a
+serial solver step, or a ``SimulationService`` farm per static signature:
 
     rt = repro_torch.api.runtime(n=256, nz=256)     # device="cuda" default
     res = rt.run("cavity", steps=20, re=100.0)      # one run, blocking
+    sid = rt.submit("cavity", steps=400, re=250.0)  # farm intake
+    rt.result(sid)                                  # ... poll/evict/drain
 
-Ensemble traffic (``submit``/``poll``/``result``/``drain``) arrives with the
-port's farm slice.
+Not ported in this slice, each raising ``NotImplementedError`` that names
+its ROADMAP item: telemetry, health, ``ckpt_dir``, the job store and
+``enqueue``/``claim``/``recover`` (queue 1, item 8); meshes and
+decomposition (item 9).
 """
 from __future__ import annotations
 
@@ -22,15 +26,18 @@ import torch
 from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.core.schedule import Schedule
 from repro_torch.device import resolve_device
+from repro_torch.sim.farm import SimResult, not_ported, static_key
 from repro_torch.sim.scenarios import (
     ParamSpec, Scenario, UnknownScenarioError, get_scenario,
     register_scenario, scenario_names, unregister_scenario,
 )
+from repro_torch.sim.service import SimulationService
 
 __all__ = [
     "BACKENDS", "ParamSpec", "PreparedRun", "RunResult", "Runtime",
-    "RuntimeConfig", "Scenario", "UnknownScenarioError", "get_scenario",
-    "register_scenario", "runtime", "scenario_names", "unregister_scenario",
+    "RuntimeConfig", "Scenario", "SimResult", "UnknownScenarioError",
+    "get_scenario", "register_scenario", "runtime", "scenario_names",
+    "unregister_scenario",
 ]
 
 # backend name -> (CFDConfig.template, overlap override)
@@ -63,22 +70,38 @@ class RuntimeConfig:
     """Everything the runtime needs to resolve an execution stack.
 
     ``device`` is where fields live (``None`` -> ``cuda``; resolved when the
-    :class:`Runtime` is built, which raises without a card).  ``solver``
-    carries static solver overrides (``jacobi_iters``, ``fused_sweeps``,
-    ``overlap``, ...) applied to every scenario config this runtime builds.
+    :class:`Runtime` is built, which raises without a card).  ``n_slots``
+    is the slot count of each farm.  ``solver`` carries static solver
+    overrides (``jacobi_iters``, ``fused_sweeps``, ``overlap``, ...)
+    applied to every scenario config this runtime builds.  The postures
+    after ``solver`` are the reference's; the port takes only their
+    defaults (off) so far and raises on any other value.
     """
 
     n: int = 32                          # grid resolution (n, n, nz)
     nz: int | None = None                # None -> scenario default
     backend: str = "auto"                # see BACKENDS
     device: str | None = None            # None -> "cuda"
+    n_slots: int = 4                     # farm slots per service
     check_every: int = 16                # convergence-check interval
     solver: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    ckpt_dir: str | None = None          # queue 1, item 8
+    telemetry: Any = False               # queue 1, item 8
+    health: Any = False                  # queue 1, item 8
+    store: Any = None                    # queue 1, item 8
+    mesh_shape: tuple = ()               # queue 1, item 9
+    decomposition: tuple = ()            # queue 1, item 9
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(have {sorted(BACKENDS)})")
+        for what in ("ckpt_dir", "telemetry", "health", "store",
+                     "decomposition"):
+            if getattr(self, what):
+                raise not_ported(what)
+        if self.mesh_shape:
+            raise not_ported("mesh")
 
 
 @dataclasses.dataclass
@@ -117,7 +140,10 @@ def _residual_norm(new: dict, old: dict, dt: float) -> torch.Tensor:
     device."""
     m = torch.stack([(new[f] - old[f]).abs().max()
                      for f in ("vx", "vy", "vz")]).max()
-    return m / max(dt, 1e-30)
+    # divide by a float32 tensor on the device, as the farm does with its
+    # per-slot dt (a Python divisor becomes a reciprocal multiply on the card)
+    return m / torch.full((), max(dt, 1e-30), dtype=torch.float32,
+                          device=m.device)
 
 
 class Runtime:
@@ -126,6 +152,11 @@ class Runtime:
     def __init__(self, config: RuntimeConfig | None = None):
         self.config = config if config is not None else RuntimeConfig()
         self.device = resolve_device(self.config.device)
+        self._services: dict[tuple, SimulationService] = {}
+        self._routes: dict[int, tuple[SimulationService, int]] = {}
+        self._failed: dict[int, SimResult] = {}
+        self._scenario_of: dict[int, str] = {}
+        self._next_sid = 0
 
     # -- resolution -----------------------------------------------------------
     def configure(self, scenario, n: int | None = None, **kw) -> CFDConfig:
@@ -210,10 +241,126 @@ class Runtime:
                          steps_done=done, terminated=terminated, config=cfg,
                          diagnostics=diagnostics)
 
-    def analyze(self, result: RunResult) -> dict:
+    # -- ensemble / service routing -------------------------------------------
+    def _service_for(self, cfg: CFDConfig
+                     ) -> tuple[SimulationService | None, str | None]:
+        key = static_key(cfg, self.config.n_slots)
+        if key in self._services:
+            return self._services[key], None
+        try:
+            svc = SimulationService(
+                cfg, n_slots=self.config.n_slots,
+                check_steady_every=self.config.check_every,
+                device=self.device)
+        except Exception as e:
+            return None, f"{type(e).__name__}: {e}"
+        self._services[key] = svc
+        return svc, None
+
+    def submit(self, scenario, *, n: int | None = None,
+               steps: int | None = None,
+               t_end: float | None = None, tag: str = "",
+               steady_tol: float | None = None,
+               residual_tol: float | None = None, priority: int = 0,
+               **params) -> int:
+        """Queue one simulation on the farm; returns its sid.
+
+        Requests of an unseen static signature lazily build their
+        ``SimulationService``; a signature whose stack cannot build
+        resolves this sid to a ``terminated="failed"`` result (surfaced by
+        ``poll``/``result``/``drain``) rather than raising into the submit
+        path or blocking a later drain.
+        """
+        sc = get_scenario(scenario)
+        builder_kw, ic_kw = sc.split_kwargs(params)
+        cfg = self.configure(sc, n=n, **builder_kw)
+        req = sc.request(
+            self.config.n if n is None else n, config=cfg,
+            steps=steps, t_end=t_end, tag=tag,
+            steady_tol=steady_tol, residual_tol=residual_tol,
+            priority=priority, device=self.device, **ic_kw)
+        sid = self._next_sid
+        self._next_sid += 1
+        self._scenario_of[sid] = sc.name
+        svc, err = self._service_for(cfg)
+        if svc is None:
+            self._failed[sid] = SimResult(
+                sid=sid, tag=req.tag, steps_done=0, terminated="failed",
+                state={}, config=cfg, error=err)
+            return sid
+        self._routes[sid] = (svc, svc.submit(req))
+        return sid
+
+    def poll(self, sid: int) -> dict:
+        if sid in self._failed:
+            res = self._failed[sid]
+            return {"status": "failed", "steps_done": 0, "error": res.error}
+        if sid not in self._routes:
+            raise KeyError(f"unknown simulation id {sid}")
+        svc, inner = self._routes[sid]
+        return svc.poll(inner)
+
+    def result(self, sid: int, block: bool = True) -> SimResult:
+        if sid in self._failed:
+            res = self._failed[sid]
+            raise RuntimeError(
+                f"simulation {sid} ({res.tag or 'untagged'}) failed: "
+                f"{res.error}")
+        if sid not in self._routes:
+            raise KeyError(f"unknown simulation id {sid}")
+        svc, inner = self._routes[sid]
+        return dataclasses.replace(svc.result(inner, block=block), sid=sid)
+
+    def evict(self, sid: int) -> bool:
+        if sid not in self._routes:
+            return False
+        svc, inner = self._routes[sid]
+        return svc.evict(inner)
+
+    def readmit(self, sid: int) -> bool:
+        if sid not in self._routes:
+            return False
+        svc, inner = self._routes[sid]
+        return svc.readmit(inner)
+
+    def drain(self, max_device_steps: int = 100_000) -> dict[int, SimResult]:
+        """Run every farm dry; always returns one result per submitted sid,
+        failed sims included (``terminated="failed"`` + error)."""
+        for svc in self._services.values():
+            svc.drain(max_device_steps)
+        out: dict[int, SimResult] = {}
+        for sid, (svc, inner) in self._routes.items():
+            res = svc.farm.results.get(inner)
+            if res is not None:
+                out[sid] = dataclasses.replace(res, sid=sid)
+        out.update(self._failed)
+        return out
+
+    def enqueue(self, *args, **kw):
+        raise not_ported("enqueue")
+
+    def claim(self, *args, **kw):
+        raise not_ported("claim")
+
+    def recover(self, *args, **kw):
+        raise not_ported("recover")
+
+    # -- introspection --------------------------------------------------------
+    def device_steps(self) -> int:
+        """Total batched steps across every resolved farm."""
+        return sum(svc.farm.device_steps for svc in self._services.values())
+
+    def services(self) -> tuple[SimulationService, ...]:
+        return tuple(self._services.values())
+
+    def analyze(self, result: RunResult | SimResult) -> dict:
         """Scenario ANALYSIS diagnostics for a finished run (equal to
-        ``result.diagnostics``), recomputed on this runtime's device."""
-        sc = get_scenario(result.scenario)
+        ``result.diagnostics``) or farm result, recomputed on this
+        runtime's device."""
+        if isinstance(result, RunResult):
+            sc = get_scenario(result.scenario)
+        else:
+            sc = get_scenario(self._scenario_of[result.sid])
         solver = NavierStokes3D(result.config, self.device)
         state = {k: v.to(self.device) for k, v in result.state.items()}
         ctx = {"t": result.steps_done * result.config.dt,
@@ -222,14 +369,24 @@ class Runtime:
 
 
 def runtime(n: int = 32, *, backend: str = "auto", device: str | None = None,
-            check_every: int = 16, nz: int | None = None,
-            **solver) -> Runtime:
+            n_slots: int = 4, check_every: int = 16, nz: int | None = None,
+            ckpt_dir: str | None = None, telemetry: Any = False,
+            health: Any = False, store: Any = None, mesh_shape: tuple = (),
+            decomposition: tuple = (), mesh=None, **solver) -> Runtime:
     """Build a :class:`Runtime` — the one-call front door.
 
     >>> rt = repro_torch.api.runtime(n=48)
     >>> res = rt.run("cavity", t_end=12.0, re=100.0)
     >>> res.diagnostics["ghia"]
+    >>> sids = [rt.submit("cavity", steps=100, re=re) for re in (50, 100)]
+    >>> rt.drain()
     """
+    if mesh is not None:
+        raise not_ported("mesh")
     cfg = RuntimeConfig(n=n, nz=nz, backend=backend, device=device,
-                        check_every=check_every, solver=dict(solver))
+                        n_slots=n_slots, check_every=check_every,
+                        solver=dict(solver), ckpt_dir=ckpt_dir,
+                        telemetry=telemetry, health=health, store=store,
+                        mesh_shape=tuple(mesh_shape),
+                        decomposition=tuple(decomposition))
     return Runtime(cfg)

@@ -64,6 +64,31 @@ def config(n: int = 64, nz: int = 4, re: float = 100.0,
                      case="cavity", lid_velocity=lid_velocity, **kw)
 
 
+def sim_request(n: int = 32, re: float = 100.0, *, steps: int | None = None,
+                t_end: float | None = None, tag: str = "",
+                steady_tol: float | None = None,
+                residual_tol: float | None = None, priority: int = 0, **kw):
+    """A farm request for one cavity run (slot-parameterized setup).
+
+    ``re``/``lid_velocity``/``forcing`` land in the per-slot scalar struct;
+    grid and solver structure come from ``config(n, **kw)`` and must match
+    the farm's static signature.  Give either ``steps`` or ``t_end``.
+    ``residual_tol`` terminates at steady state on the residual norm
+    ``||u^{n+1}-u^n||_inf / dt``; ``steady_tol`` is the legacy KE-drift
+    heuristic.  ``priority`` orders farm admission (higher first).
+    """
+    from repro_torch.sim.farm import SimRequest  # lazy: cfd must not require sim
+
+    cfg = config(n, re=re, **kw)
+    if steps is None:
+        if t_end is None:
+            raise ValueError("give either steps= or t_end=")
+        steps = int(round(t_end / cfg.dt))
+    return SimRequest(config=cfg, steps=steps,
+                      tag=tag or f"cavity-re{re:g}", steady_tol=steady_tol,
+                      residual_tol=residual_tol, priority=priority)
+
+
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
 

@@ -15,9 +15,13 @@ cell i; the hi wall face is vx[N-1].  Cases: ``cavity`` (lid-driven, lid at
 y-hi moving in +x; z periodic so the Ghia 2D profile is recovered),
 ``taylor_green`` and ``kelvin_helmholtz`` (fully periodic).
 
-The step runs on one device, undecomposed.  Nothing in it synchronises with
-the host: the per-simulation scalars are 0-d float32 tensors on the device,
-and on the CUDA template every parameter table is built there.
+The step runs on one device, undecomposed, on one grid ``(X, Y, Z)`` with
+0-d per-simulation scalars, or on a slot batch ``(S, X, Y, Z)`` with
+``(S,)`` scalars (the farm's ensemble step, which the reference gets from
+``vmap``): per slot the two compute the same arithmetic, so a farm slot
+equals a serial run bitwise.  Nothing in it synchronises with the host: the
+per-simulation scalars are float32 tensors on the device, and on the CUDA
+template every parameter table is built there.
 """
 from __future__ import annotations
 
@@ -34,13 +38,13 @@ from repro_torch.core.halo import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.jacobi import jacobi_fused_ref
 
 
 def bc_moving_wall(u_wall):
     """Tangential-velocity ghost across a wall moving at ``u_wall``:
     ghost = 2 u_wall - mirrored interior (wall value is the face average).
-    ``u_wall`` may be a float or a 0-d tensor on the fields' device."""
+    ``u_wall`` may be a float, a 0-d tensor on the fields' device, or a
+    per-slot ``(S, 1, 1, 1)`` tensor for a slot batch."""
 
     def rule(strip, side, axis):
         return 2.0 * u_wall - torch.flip(strip, dims=(axis,))
@@ -175,28 +179,44 @@ class NavierStokes3D:
 
     # ----------------------------------------------------------------- step
     def _global_mean(self, x):
-        # sequential per-axis sums, innermost first, as the reference does
-        # (its reduction order is then the same with and without a leading
-        # slot axis)
+        """Mean over the grid: 0-d for one grid, ``(S,)`` for a slot batch.
+
+        Sequential per-axis sums, innermost first, as the reference does.
+        A slot batch reduces each slot's grid with exactly the calls of the
+        unbatched path: a batched reduction may be split differently on the
+        card (its launch shape depends on the number of outputs), and the
+        farm's contract is slot == serial bitwise."""
+        if x.dim() == 4:
+            return torch.stack([self._global_mean(x[s])
+                                for s in range(x.shape[0])])
         m = x
         for _ in range(3):
             m = m.sum(dim=-1)
         return m / float(np.prod(np.asarray(x.shape[-3:], np.float32)))
 
     def _step_local(self, state: dict, params: dict | None = None) -> dict:
-        """One dt on the whole grid.
+        """One dt on the whole grid, or on every grid of a slot batch.
 
         ``params`` is the per-simulation scalar struct (see ``PARAM_KEYS``),
-        0-d float32 tensors on the fields' device.  No host sync: every
-        launch is enqueued and the loop never reads a device value.
+        float32 tensors on the fields' device: 0-d for fields ``(X, Y, Z)``,
+        ``(S,)`` for a slot batch ``(S, X, Y, Z)``, where the kernels take
+        them per slot and elementwise terms see them as ``(S, 1, 1, 1)``.
+        No host sync: every launch is enqueued and the loop never reads a
+        device value.
         """
         c = self.config
         if params is None:
             params = params_from_config(c, self.device)
         kw = dict(template=c.template or "TORCH")
         h = c.h
+        batched = state["vx"].dim() == 4
+
+        def grid(v):
+            """A per-slot scalar shaped to broadcast over (S, X, Y, Z)."""
+            return v.reshape(-1, 1, 1, 1) if batched else v
+
         dt, nu = params["dt"], params["nu"]
-        bc = self._bcs_for(params["lid_velocity"])
+        bc = self._bcs_for(grid(params["lid_velocity"]))
         specs = functools.partial(self._specs, bc=bc)
         vx, vy, vz, p = state["vx"], state["vy"], state["vz"], state["p"]
         mvx, mvy, mvz = state["mask_vx"], state["mask_vy"], state["mask_vz"]
@@ -221,8 +241,10 @@ class NavierStokes3D:
                 ])
 
             packed = torch.stack([vx, vy, vz])
+            # width 0 on the pack axis and on the slot axis, if any
+            widths = (0,) * (packed.dim() - 3) + (1, 1, 1)
             out = stencil_step_overlap(
-                packed, (0, 1, 1, 1), specs=None, kernel=upd_packed,
+                packed, widths, specs=None, kernel=upd_packed,
                 pad_fn=pad_packed)
             vx_s, vy_s, vz_s = out[0], out[1], out[2]
         else:
@@ -235,7 +257,7 @@ class NavierStokes3D:
         # -- 2. divergence rhs
         pads = [exchange_pad(v, ((1, 0),) * 3, specs(f))
                 for f, v in (("vx", vx_s), ("vy", vy_s), ("vz", vz_s))]
-        rhs = ops.divergence(*pads, h=h, **kw) / dt
+        rhs = ops.divergence(*pads, h=h, **kw) / grid(dt)
 
         # -- 3. pressure Poisson (warm start from previous p)
         p_specs = specs("p")
@@ -247,13 +269,15 @@ class NavierStokes3D:
                 return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega, **kw)
             pp = exchange_pad(pcur, (k, k, k), p_specs)
             rr = exchange_pad(rhs, (k, k, k), p_specs)
-            return jacobi_fused_ref(pp, rr, h=h, omega=c.jacobi_omega, sweeps=k)
+            return ops.jacobi_smooth(pp, rr, h=h, omega=c.jacobi_omega,
+                                     sweeps=k, **kw)
 
         iters = max(c.jacobi_iters // max(k, 1), 1)
         p_new = p
         for _ in range(iters):
             p_new = jacobi_body(p_new)
-        p_new = p_new - self._global_mean(p_new)  # pin the Neumann null space
+        # pin the Neumann null space
+        p_new = p_new - grid(self._global_mean(p_new))
 
         # -- 4. projection
         pp = exchange_pad(p_new, ((0, 1),) * 3, p_specs)
@@ -277,8 +301,13 @@ class NavierStokes3D:
         return ops.divergence(*pads, h=self.config.h, template="TORCH")
 
     def kinetic_energy(self, state: dict) -> float:
-        return float(0.5 * sum(torch.mean(state[f] ** 2)
-                               for f in ("vx", "vy", "vz")))
+        return float(self.kinetic_energy_device(state))
+
+    @staticmethod
+    def kinetic_energy_device(state: dict) -> torch.Tensor:
+        """0.5 * sum of the velocity components' mean squares, on the
+        device, without a host sync (0-d; per slot, use one slot's view)."""
+        return 0.5 * sum(torch.mean(state[f] ** 2) for f in ("vx", "vy", "vz"))
 
     def health_diagnostics(self, state: dict,
                            params: dict | None = None) -> torch.Tensor:

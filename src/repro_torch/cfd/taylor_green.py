@@ -26,6 +26,24 @@ def config(n: int = 32, nz: int = 4, nu: float = 0.1, dt: float | None = None,
         case="taylor_green", **kw)
 
 
+def sim_request(n: int = 32, nu: float = 0.1, *, steps: int = 50,
+                tag: str = "", steady_tol: float | None = None,
+                residual_tol: float | None = None, priority: int = 0, **kw):
+    """A farm request for one Taylor-Green run (slot-parameterized setup).
+
+    Heterogeneous ``nu`` across slots decays each vortex at its own rate
+    under one batched step; ``forcing`` may be set through ``kw`` to drive
+    a sustained variant.  ``residual_tol``/``steady_tol``/``priority`` as
+    in :func:`repro_torch.cfd.cavity.sim_request`.
+    """
+    from repro_torch.sim.farm import SimRequest  # lazy: cfd must not require sim
+
+    cfg = config(n, nu=nu, **kw)
+    return SimRequest(config=cfg, steps=steps,
+                      tag=tag or f"tg-nu{nu:g}", steady_tol=steady_tol,
+                      residual_tol=residual_tol, priority=priority)
+
+
 def analytic(solver: NavierStokes3D, t: float):
     """vx, vy sampled at their staggered face positions."""
     x, y, _ = solver.driver.coords()

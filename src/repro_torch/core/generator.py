@@ -5,11 +5,12 @@ templates so that application authors write only the per-cell update.  In
 the port the same descriptor drives two templates:
 
 * ``CUDA`` — dispatches to the hand-written Hopper kernel registered for
-  ``desc.name`` (:mod:`repro_torch.kernels.stencil3d_cuda`), with every
-  runtime parameter packed into an ``(S, n_params)`` float32 table on the
-  device, one row per slot, in descriptor parameter order — the twin of the
-  reference 3DBLOCK template's scalar table.  A descriptor with no kernel
-  raises; the body is never run in its place.
+  ``desc.name`` (:mod:`repro_torch.kernels.stencil3d_cuda`), with the
+  runtime parameters packed into an ``(S, n_params)`` float32 table on the
+  device, one row per slot, in the kernel's column order
+  (``stencil3d.TABLES``: declared parameters and the terms ``DERIVED``
+  from them) — the twin of the reference 3DBLOCK template's scalar table.
+  A descriptor with no kernel raises; the body is never run in its place.
 * ``TORCH`` — the eager expansion of the body (shifted slices of the padded
   tensors), the twin of the reference JNP template: the oracle for kernel
   tests, the shape-polymorphic kernel, and the path on the CPU.
@@ -25,6 +26,7 @@ of TYPE ``JNP`` to ``TORCH``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Mapping
 
 import torch
@@ -65,6 +67,20 @@ class FieldView:
         return self.at(0, 0, 0)
 
 
+# Parameters a body may read that derive from a declared one, computed by
+# the expression the reference's body applies to it: in Python double when
+# the declared parameter is a Python scalar (the reference bakes such terms
+# as literals, so float32 sees them rounded once), in float32 when it is a
+# tensor.  The CUDA template's table carries these values, so a kernel and
+# the eager body use the same rounded constants.
+DERIVED = {
+    "ih": lambda param: 1.0 / param("h"),
+    "ih2": lambda param: param("ih") * param("ih"),
+    "h2": lambda param: param("h") * param("h"),
+    "omc": lambda param: 1.0 - param("omega"),
+}
+
+
 class KernelContext(Mapping):
     """What the kernel body sees: field views + runtime parameters."""
 
@@ -82,23 +98,35 @@ class KernelContext(Mapping):
         return len(self._views)
 
     def param(self, name: str):
-        return self._params[name]
+        """A runtime parameter, or one derived from it (``DERIVED``)."""
+        if name in self._params or name not in DERIVED:
+            return self._params[name]
+        return DERIVED[name](self.param)
 
 
 def param_table(desc: StencilDescriptor, params: Mapping[str, Any],
-                nslots: int | None, device) -> torch.Tensor:
-    """Pack ``desc.parameters`` into an ``(S, n)`` float32 table on ``device``.
+                nslots: int | None, device,
+                columns: tuple[str, ...] | None = None) -> torch.Tensor:
+    """Pack parameters into an ``(S, n)`` float32 table on ``device``.
 
-    Column order is the descriptor's declaration order (``param_index``).
-    Tensor values (0-d, or ``(S,)`` per slot) are stacked on the device;
-    Python scalars become device fills — no host-to-device copy and no
-    host sync either way.  ``nslots=None`` gives the single row of an
-    unbatched call.
+    ``columns`` names the table's columns, declared or derived parameters
+    (``DERIVED``); the default is ``desc.parameters`` in declaration order
+    (``param_index``).  Tensor values (0-d, or ``(S,)`` per slot) are
+    stacked on the device beside device fills of the Python scalars — no
+    host-to-device copy and no host sync.  A table of Python scalars only
+    is a constant, copied to the device once and cached.  ``nslots=None``
+    gives the single row of an unbatched call.
     """
     rows = 1 if nslots is None else nslots
+    ctx = KernelContext({}, params)
+    values = [ctx.param(name) for name in columns or desc.parameters]
+    if not any(torch.is_tensor(v) for v in values):
+        # all Python scalars (the solver's h and omega): a constant table,
+        # built once per device instead of at every launch
+        return _constant_table(tuple(float(v) for v in values), rows,
+                               torch.device(device))
     cols = []
-    for name in desc.parameters:
-        v = params[name]
+    for v in values:
         if torch.is_tensor(v):
             v = v.to(device=device, dtype=torch.float32).reshape(-1)
             cols.append(v.expand(rows))
@@ -106,6 +134,14 @@ def param_table(desc: StencilDescriptor, params: Mapping[str, Any],
             cols.append(torch.full((rows,), float(v), dtype=torch.float32,
                                    device=device))
     return torch.stack(cols, dim=-1)
+
+
+@functools.lru_cache(maxsize=256)
+def _constant_table(values: tuple[float, ...], rows: int,
+                    device: torch.device) -> torch.Tensor:
+    """An ``(rows, len(values))`` float32 table of constants (read-only:
+    the kernels and the plain versions only read their tables)."""
+    return torch.tensor([values] * rows, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
@@ -159,10 +195,13 @@ class GeneratedKernel:
 
     def _apply_cuda(self, arrays: dict[str, torch.Tensor],
                     params: dict[str, Any], *, batched: bool):
+        from repro_torch.kernels import stencil3d
+
         launch = self._cuda_kernel()
         first = arrays[self.desc.inputs[0]]
         table = param_table(self.desc, params,
-                            first.shape[0] if batched else None, first.device)
+                            first.shape[0] if batched else None, first.device,
+                            columns=stencil3d.TABLES[self.desc.name])
         if not batched:
             table = table[0]
         outs = launch(*(arrays[n] for n in self.desc.inputs), table)

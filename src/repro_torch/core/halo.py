@@ -11,8 +11,15 @@ kernel application (``exchange_pad``).  :func:`stencil_step_overlap` keeps
 the reference's interior/shell split, so a stencil that needs no ghosts for
 its deep interior runs independently of the padding.
 
+Fields are ``(*lead, X, Y, Z)``: any leading axes (the farm's slot axis)
+pass through untouched.  ``AxisSpec.array_axis`` names a grid axis (0, 1 or
+2) and the padding acts on tensor axis ``array_axis - 3``, counted from the
+end (:func:`tensor_axis`, the one place that maps the two), so the same
+specs pad one grid and a slot batch of grids.
+
 A BC rule is ``rule(strip, side, axis) -> ghost strip``: the axis is passed
-explicitly (the reference injects it through a function attribute).
+explicitly, as that negative tensor axis (the reference injects it through
+a function attribute).
 """
 from __future__ import annotations
 
@@ -26,6 +33,15 @@ import torch
 # (ordered as stored, i.e. strip[0] is closest to the domain for side "lo"
 # ... strip[-1] closest for side "hi").
 BCRule = Callable[[torch.Tensor, str, int], torch.Tensor]
+
+GRID_DIMS = 3
+
+
+def tensor_axis(array_axis: int) -> int:
+    """The tensor axis of grid axis ``array_axis``, counted from the end."""
+    if not 0 <= array_axis < GRID_DIMS:
+        raise ValueError(f"grid axis {array_axis} not in 0..{GRID_DIMS - 1}")
+    return array_axis - GRID_DIMS
 
 
 def bc_dirichlet(value: float) -> BCRule:
@@ -55,7 +71,7 @@ def bc_mirror(sign: float = -1.0) -> BCRule:
 
 @dataclasses.dataclass(frozen=True)
 class AxisSpec:
-    """How one array axis is bounded.
+    """How one grid axis (``array_axis`` in 0..2) is bounded.
 
     ``mesh_axis`` names a decomposition axis; this slice runs undecomposed
     and rejects any spec that sets it.
@@ -86,11 +102,12 @@ def _pad_axis(u: torch.Tensor, width, spec: AxisSpec) -> torch.Tensor:
     wlo, whi = _norm_width(width)
     if wlo == 0 and whi == 0:
         return u
-    ax = spec.array_axis
+    ax = tensor_axis(spec.array_axis)
     size = u.shape[ax]
     if size < max(wlo, whi):
         raise ValueError(
-            f"local extent {size} on axis {ax} smaller than halo width {(wlo, whi)}"
+            f"local extent {size} on axis {spec.array_axis} smaller than "
+            f"halo width {(wlo, whi)}"
         )
 
     def apply_bc(rule: BCRule | None, strip: torch.Tensor, side: str):

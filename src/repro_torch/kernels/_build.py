@@ -1,12 +1,13 @@
-"""Build the CUDA sources into a shared library and load it with ctypes.
+"""Build the CUDA sources into shared libraries and load them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface (``extern "C"``
-launchers returning ``cudaError_t``), so ``nvcc`` compiles them in seconds,
-with no PyTorch headers.  The build runs at first use, into
-``build/kernels/`` at the root of the checkout, keyed on a hash of the
-sources and flags: an unchanged source is never rebuilt, and an edited one
-never loads a stale library.  A missing ``nvcc`` or a failed build raises;
-nothing falls back.
+launchers returning ``cudaError_t``), so ``nvcc`` compiles each in seconds,
+with no PyTorch headers.  Each source becomes its own library, and the
+first load builds every missing one at once: one ``nvcc`` per source, all
+started together.  The libraries go into ``build/kernels/`` at the root of
+the checkout, named by a hash of their source and the flags: an unchanged
+source is never rebuilt, and an edited one never loads a stale library.  A
+missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -21,12 +22,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "stencil3d.cu",)
+SOURCES = {"stencil3d": CSRC / "stencil3d.cu", "jacobi": CSRC / "jacobi.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# what the last build printed (ptxas register / spill report) and took
+# per library: where it is, what its build printed (ptxas register / spill
+# report) and how long it took
 build_info: dict = {}
 
 
@@ -45,39 +47,49 @@ def nvcc_path() -> str:
         "CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources (if this exact build is absent); return the .so."""
-    lib = BUILD_DIR / f"libstencil3d-{_digest()}.so"
-    if lib.is_file():
-        build_info.update(path=str(lib), seconds=0.0, cached=True, log="")
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    build_info.update(path=str(lib), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
-    return lib
+def build_all() -> dict[str, Path]:
+    """Compile every source whose library is absent, one ``nvcc`` each, all
+    running at once; return the libraries by name."""
+    libs = {name: library_path(name) for name in SOURCES}
+    todo = {}
+    for name, lib in libs.items():
+        if lib.is_file():
+            build_info.setdefault(name, dict(path=str(lib), seconds=0.0,
+                                             cached=True, log=""))
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        todo[name] = (proc, cmd, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, tmp, t0) in todo.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, libs[name])  # atomic: a loader sees all or nothing
+        build_info[name] = dict(path=str(libs[name]), seconds=seconds,
+                                cached=False, log=log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The built library, loaded once per process."""
-    return ctypes.CDLL(str(build()))
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``SOURCES[name]``, loaded once per process."""
+    return ctypes.CDLL(str(build_all()[name]))

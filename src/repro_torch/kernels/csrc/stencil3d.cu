@@ -13,8 +13,11 @@
 //   * blockIdx.z strides over the (slot, x) rows, so any interior shape and
 //     any slot count launch, with bounds checks and no tile divisibility;
 //   * per-slot parameters come from an (S, n_params) float32 table on the
-//     device, one row per slot in descriptor parameter order (the twin of
-//     the generator's scalar table): admitting another parameter set never
+//     device, one row per slot (the twin of the generator's scalar table),
+//     in the column order of repro_torch.kernels.stencil3d.TABLES: the
+//     terms the reference bakes as literals from h and omega (1/h, 1/h^2,
+//     h^2, 1 - omega) arrive computed in double and rounded once, never
+//     recomputed here in float32.  Admitting another parameter set never
 //     rebuilds anything, and no scalar crosses from the host.
 //
 // All four are memory-bound on an H100 (3.35 TB/s against 67 TFLOP/s of
@@ -66,7 +69,7 @@ bool bad_extent(int64_t S, int64_t nx, int64_t ny, int64_t nz) {
 // UPDATE_VELOCITY, src/repro/kernels/stencil3d.py, body update_velocity_body)
 // u* = u + dt (-(MAC central flux-form advection) + nu lap(u) + f)
 // in: vx, vy, vz padded by 1 on every side, (S, nx+2, ny+2, nz+2)
-// out: three (S, nx, ny, nz); params dt, h, nu, fx, fy, fz
+// out: three (S, nx, ny, nz); table dt, 1/h, 1/h^2, nu, fx, fy, fz
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -80,10 +83,9 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
   const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
     const int64_t s = r / nx, i = r - s * nx;
-    const float* prm = table + s * 6;
-    const float dt = prm[0], h = prm[1], nu = prm[2];
-    const float fx = prm[3], fy = prm[4], fz = prm[5];
-    const float ih = 1.0f / h;
+    const float* prm = table + s * 7;
+    const float dt = prm[0], ih = prm[1], ih2 = prm[2], nu = prm[3];
+    const float fx = prm[4], fy = prm[5], fz = prm[6];
     const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
 #define U(a, b, d) vx[c + (a) * sx + (b) * sy + (d)]
 #define V(a, b, d) vy[c + (a) * sx + (b) * sy + (d)]
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
 #define LAP(F)                                                           \
   ((F(1, 0, 0) + F(-1, 0, 0) + F(0, 1, 0) + F(0, -1, 0) + F(0, 0, 1) + \
     F(0, 0, -1) - 6.0f * F(0, 0, 0)) *                                  \
-   (ih * ih))
+   ih2)
 #define AVG(F, a1, b1, d1, a2, b2, d2) (0.5f * (F(a1, b1, d1) + F(a2, b2, d2)))
 
     // x-momentum at the x-face
@@ -161,7 +163,7 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
 // DIVERGENCE  (replaces the 3DBLOCK instance of descriptor DIVERGENCE,
 // body divergence_body): backward-difference cell divergence / h
 // in: vx, vy, vz padded by 1 on the lo side, (S, nx+1, ny+1, nz+1)
-// out: (S, nx, ny, nz); param h
+// out: (S, nx, ny, nz); table 1/h
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads) divergence_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -174,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
   const int64_t sy = nz + 1, sx = (ny + 1) * sy, ss = (nx + 1) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
     const int64_t s = r / nx, i = r - s * nx;
-    const float ih = 1.0f / table[s];
+    const float ih = table[s];
     const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
     out[(r * ny + j) * nz + k] =
         ((vx[c] - vx[c - sx]) + (vy[c] - vy[c - sy]) + (vz[c] - vz[c - 1])) *
@@ -187,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
 // JACOBI_PRESSURE, body jacobi_pressure_body), launched jacobi_iters times
 // per step: p' = (1 - omega) p + omega (sum of 6 neighbours - h^2 rhs) / 6
 // in: p padded by 1 on every side (S, nx+2, ny+2, nz+2), rhs (S, nx, ny, nz)
-// out: (S, nx, ny, nz); params h, omega
+// out: (S, nx, ny, nz); table h^2, omega, 1 - omega
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
     const float* __restrict__ p, const float* __restrict__ rhs,
@@ -199,13 +201,14 @@ __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
   const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
     const int64_t s = r / nx, i = r - s * nx;
-    const float h = table[s * 2], omega = table[s * 2 + 1];
+    const float h2 = table[s * 3], omega = table[s * 3 + 1],
+                omc = table[s * 3 + 2];
     const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
     const int64_t o = (r * ny + j) * nz + k;
     const float nbr = p[c + sx] + p[c - sx] + p[c + sy] + p[c - sy] +
                       p[c + 1] + p[c - 1];
-    const float jac = (nbr - h * h * rhs[o]) / 6.0f;
-    out[o] = (1.0f - omega) * p[c] + omega * jac;
+    const float jac = (nbr - h2 * rhs[o]) / 6.0f;
+    out[o] = omc * p[c] + omega * jac;
   }
 }
 
@@ -214,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
 // PROJECT_VELOCITY, body project_velocity_body):
 // u <- u - (dt / h) forward-difference grad p
 // in: vx, vy, vz (S, nx, ny, nz), p padded by 1 on the hi side
-// (S, nx+1, ny+1, nz+1); out: three (S, nx, ny, nz); params dt, h
+// (S, nx+1, ny+1, nz+1); out: three (S, nx, ny, nz); table dt, h
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads) project_velocity_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,

@@ -2,7 +2,10 @@
 
 Each op dispatches between the CUDA template (the hand-written Hopper
 kernels) and the TORCH template (the eager expansion of the body).  The CFD
-solver calls these, never the launch wrappers directly.
+solver calls these, never the launch wrappers directly.  Fields with a
+leading slot axis ``(S, X, Y, Z)`` go to ``GeneratedKernel.apply_batched``,
+with every ``(S,)`` tensor parameter as a per-slot one: one launch advances
+every slot.
 """
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ import functools
 import torch
 
 from repro_torch.core.generator import generate
-from repro_torch.kernels import stencil3d
+from repro_torch.kernels import jacobi_cuda, stencil3d
+from repro_torch.kernels.jacobi import jacobi_fused_ref
 
 
 def default_template(device) -> str:
@@ -31,8 +35,12 @@ def apply_kernel(name: str, arrays: dict, *, template: str | None = None,
     the reference's JNP template: neither template here has tiles (the
     tile autotuner is ROADMAP queue 1, item 10)."""
     first = arrays[stencil3d.DESCRIPTORS[name].inputs[0]]
-    tmpl = template or default_template(first.device)
-    return _kernel(name, tmpl)(arrays, **params)
+    kern = _kernel(name, template or default_template(first.device))
+    if first.dim() == 3:
+        return kern(arrays, **params)
+    per_slot = tuple(k for k, v in params.items()
+                     if torch.is_tensor(v) and v.dim() == 1)
+    return kern.apply_batched(arrays, batched_params=per_slot, **params)
 
 
 # -- convenience wrappers (the public op surface) ---------------------------
@@ -57,3 +65,17 @@ def project_velocity(vx, vy, vz, p, *, dt, h, **kw):
         "PROJECT_VELOCITY", {"vx": vx, "vy": vy, "vz": vz, "p": p},
         dt=dt, h=h, **kw)
     return out["vx"], out["vy"], out["vz"]
+
+
+def jacobi_smooth(p, rhs, *, h, omega=1.0, sweeps=1, template=None):
+    """Communication-avoiding fused smoother; inputs padded by ``sweeps``.
+
+    ``TORCH`` runs the plain ``jacobi_fused_ref``, ``CUDA`` the hand-written
+    JACOBI_FUSED kernel (``jacobi_cuda.jacobi_fused``), which takes any
+    interior shape and a leading slot axis."""
+    tmpl = template or default_template(p.device)
+    if tmpl == "TORCH":
+        return jacobi_fused_ref(p, rhs, h=h, omega=omega, sweeps=sweeps)
+    if tmpl != "CUDA":
+        raise ValueError(f"unknown template {tmpl!r} (CUDA or TORCH)")
+    return jacobi_cuda.jacobi_fused(p, rhs, h=h, omega=omega, sweeps=sweeps)

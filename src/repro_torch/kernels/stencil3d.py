@@ -18,8 +18,12 @@ Grid convention (staggered MAC):
 
 All kernels read halo-padded arrays (ghosts filled by the driver's padding,
 exactly as in Cactus) and write interior arrays.  Parameters may be Python
-scalars or float32 tensors (0-d, or per slot); the CUDA template packs
-them all into its per-slot parameter table in descriptor-declared order.
+scalars or float32 tensors (0-d, or per slot).  The bodies read the terms
+the reference computes from ``h`` and ``omega`` (``1/h``, ``1/h^2``,
+``h^2``, ``1 - omega``) through ``ctx.param``, which derives them as the
+reference does (:data:`repro_torch.core.generator.DERIVED`: in double for a
+Python scalar); the CUDA template's per-slot table carries exactly those
+values, in the column order of :data:`TABLES`.
 """
 from __future__ import annotations
 
@@ -76,15 +80,15 @@ def update_velocity_body(ctx: KernelContext) -> dict:
     flux-form advection on the MAC grid + 7-point viscous Laplacian.
     """
     vx, vy, vz = ctx["vx"], ctx["vy"], ctx["vz"]
-    dt, h, nu = ctx.param("dt"), ctx.param("h"), ctx.param("nu")
+    dt, nu = ctx.param("dt"), ctx.param("nu")
     fx, fy, fz = ctx.param("fx"), ctx.param("fy"), ctx.param("fz")
-    ih = 1.0 / h
+    ih, ih2 = ctx.param("ih"), ctx.param("ih2")    # 1/h and (1/h)^2
 
     def lap(f):
         return (
             f.at(1, 0, 0) + f.at(-1, 0, 0) + f.at(0, 1, 0) + f.at(0, -1, 0)
             + f.at(0, 0, 1) + f.at(0, 0, -1) - 6.0 * f.c
-        ) * (ih * ih)
+        ) * ih2
 
     def avg(f, o1, o2):
         return 0.5 * (f.at(*o1) + f.at(*o2))
@@ -145,7 +149,7 @@ def update_velocity_body(ctx: KernelContext) -> dict:
 
 def divergence_body(ctx: KernelContext) -> dict:
     vx, vy, vz = ctx["vx"], ctx["vy"], ctx["vz"]
-    ih = 1.0 / ctx.param("h")
+    ih = ctx.param("ih")
     div = (
         (vx.c - vx.at(-1, 0, 0))
         + (vy.c - vy.at(0, -1, 0))
@@ -157,13 +161,13 @@ def divergence_body(ctx: KernelContext) -> dict:
 def jacobi_pressure_body(ctx: KernelContext) -> dict:
     """Weighted Jacobi sweep: p' = (1-w) p + w (Σ nbr - h² rhs) / 6."""
     p, rhs = ctx["p"], ctx["rhs"]
-    h, omega = ctx.param("h"), ctx.param("omega")
+    h2, omega, omc = ctx.param("h2"), ctx.param("omega"), ctx.param("omc")
     nbr = (
         p.at(1, 0, 0) + p.at(-1, 0, 0) + p.at(0, 1, 0) + p.at(0, -1, 0)
         + p.at(0, 0, 1) + p.at(0, 0, -1)
     )
-    jac = (nbr - h * h * rhs.c) / 6.0
-    return {"p": (1.0 - omega) * p.c + omega * jac}
+    jac = (nbr - h2 * rhs.c) / 6.0
+    return {"p": omc * p.c + omega * jac}
 
 
 def project_velocity_body(ctx: KernelContext) -> dict:
@@ -182,6 +186,14 @@ BODIES = {
     "DIVERGENCE": divergence_body,
     "JACOBI_PRESSURE": jacobi_pressure_body,
     "PROJECT_VELOCITY": project_velocity_body,
+}
+# The parameter-table columns each CUDA kernel reads (csrc/stencil3d.cu),
+# one row per slot: declared parameters and the terms derived from them.
+TABLES = {
+    "UPDATE_VELOCITY": ("dt", "ih", "ih2", "nu", "fx", "fy", "fz"),
+    "DIVERGENCE": ("ih",),
+    "JACOBI_PRESSURE": ("h2", "omega", "omc"),
+    "PROJECT_VELOCITY": ("dt", "h"),
 }
 DESCRIPTORS = {
     "UPDATE_VELOCITY": UPDATE_VELOCITY,

@@ -12,14 +12,16 @@ instance of the reference's 3DBLOCK Pallas template
 Inputs are float32, C-contiguous, padded as the descriptor declares
 (cached inputs by the stencil radii, uncached ones interior-shaped), with
 an optional leading slot axis S; ``table`` is the ``(S, n_params)`` float32
-parameter table (``(n_params,)`` unbatched) in descriptor order, on the
+parameter table (``(n_params,)`` unbatched) with the columns of
+``stencil3d.TABLES[name]`` (``generator.param_table`` builds it), on the
 same device.  A wrapper checks all of that and raises on anything else.
 
 On a CUDA tensor the wrapper allocates its outputs with ``torch.empty``,
 launches the kernel on the current stream without synchronising, and adds
 one to ``LAUNCHES[name]``.  On a CPU tensor it runs the kernel's plain
-version (``<kernel>_plain``: the descriptor body expanded eagerly with the
-same table), which is also what the card's kernels are checked against.
+version (``<kernel>_plain``: the descriptor body expanded eagerly, reading
+its parameters from the same table), which is also what the card's kernels
+are checked against.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
-    lib = _build.load()
+    lib = _build.load("stencil3d")
     for name, cname in _C_NAMES.items():
         desc = stencil3d.DESCRIPTORS[name]
         n_ptr = len(desc.inputs) + len(desc.outputs) + 1      # + the table
@@ -100,10 +102,11 @@ def _check(desc, inputs, table) -> tuple[int, tuple[int, int, int]]:
     if any(t.shape[0] != S for t in inputs):
         raise ValueError(f"{desc.name}: slot counts differ: "
                          f"{[t.shape[0] for t in inputs]}")
-    want = (S, len(desc.parameters))
+    columns = stencil3d.TABLES[desc.name]
+    want = (S, len(columns))
     if tuple(table.shape) != want:
         raise ValueError(f"{desc.name}: parameter table must be {want} "
-                         f"({desc.parameters}), got {tuple(table.shape)}")
+                         f"({columns}), got {tuple(table.shape)}")
     if (table.dtype != torch.float32 or table.device != dev
             or not table.is_contiguous()):
         raise ValueError(f"{desc.name}: parameter table must be contiguous "
@@ -118,12 +121,13 @@ def _torch_kernel(name: str):
 
 
 def _plain(name: str, inputs, table) -> tuple[torch.Tensor, ...]:
-    """The plain version: the body expanded eagerly, one table row per slot."""
+    """The plain version: the body expanded eagerly, one table row per slot
+    (the body reads each table column as the parameter of its name)."""
     desc = stencil3d.DESCRIPTORS[name]
-    params = {p: table[:, i] for i, p in enumerate(desc.parameters)}
-    out = _torch_kernel(name).apply_batched(
-        dict(zip(desc.inputs, inputs)), batched_params=desc.parameters,
-        **params)
+    params = {c: table[:, i].reshape(-1, 1, 1, 1)
+              for i, c in enumerate(stencil3d.TABLES[name])}
+    out = _torch_kernel(name)._apply_torch(dict(zip(desc.inputs, inputs)),
+                                           params)
     return tuple(out[n] for n in desc.outputs)
 
 

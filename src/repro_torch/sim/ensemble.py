@@ -1,0 +1,145 @@
+"""Ensemble executor: one batched step advances every resident simulation.
+
+The device half of the simulation farm, the port of ``repro.sim.ensemble``.
+Every resident simulation lives on a leading *slot* axis of the field state
+``(S, X, Y, Z)`` and of the per-simulation scalar struct (``(S,)`` tensors
+of ``ns3d.PARAM_KEYS``: viscosity, dt, lid velocity, forcing), and the
+solver's step runs on the whole batch: each kernel launches once for all
+slots, with each slot's parameters in its own table row (CUDA template) or
+broadcast as ``(S, 1, 1, 1)`` (TORCH template).  The reference ``vmap``s the
+serial step; the port writes the slot axis out and keeps the reference's
+contract: a farm slot equals a serial run of the same request bitwise, and
+so does *chunked* stepping — a plain loop of ``k`` batched steps, the port
+of the reference's ``fori_loop`` chunk — against single steps.
+
+Per-slot scalars are host numpy values, mirrored to the device only when an
+admission or a release changes them: steps between admissions copy nothing
+from the host.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.cfd.ns3d import PARAM_KEYS, CFDConfig, NavierStokes3D
+
+VELOCITY = ("vx", "vy", "vz")
+
+
+def stack_trees(trees: list[dict]) -> dict:
+    """Stack identically-keyed dicts of tensors on a new slot axis 0."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def host_params(config: CFDConfig) -> dict:
+    """A request's per-simulation scalars as host floats (``PARAM_KEYS``);
+    float32 rounds them exactly as ``ns3d.params_from_config`` does."""
+    fx, fy, fz = config.forcing
+    return dict(nu=config.nu, dt=config.dt, lid_velocity=config.lid_velocity,
+                fx=fx, fy=fy, fz=fz)
+
+
+def make_ensemble_step(solver: NavierStokes3D):
+    """``run_k(state, params, k)``: ``k`` batched steps of ``solver``'s step
+    over the whole slot batch, launched without a host sync."""
+
+    def run_k(state: dict, params: dict, k: int) -> dict:
+        for _ in range(int(k)):
+            state = solver._step_local(state, params)
+        return state
+
+    return run_k
+
+
+class EnsembleExecutor:
+    """Slot-stacked state + the batched step that advances it.
+
+    Owns no scheduling policy: slots are written/read by index, every step
+    advances all of them (idle slots compute finite garbage that the farm
+    ignores — the padding-batch trade of LM serving).
+    """
+
+    def __init__(self, config: CFDConfig, n_slots: int,
+                 solver: NavierStokes3D | None = None, run_k=None,
+                 device=None):
+        self.config = config
+        self.n_slots = n_slots
+        self.solver = solver if solver is not None else NavierStokes3D(
+            config, device)
+        self.device = self.solver.device
+        self._run_k = run_k if run_k is not None else make_ensemble_step(
+            self.solver)
+        self._fresh = self.solver.init_state()   # one slot's initial state
+        self.state = stack_trees([self._fresh] * n_slots)
+        # per-slot scalars: host-authoritative, mirrored to the device only
+        # when admission dirties them
+        self.params = {k: np.zeros((n_slots,), np.float32) for k in PARAM_KEYS}
+        self.params["dt"][:] = np.float32(config.dt)   # idle slots stay finite
+        self._params_dev: dict | None = None
+
+    # -- slot I/O -------------------------------------------------------------
+    def write_slot(self, slot: int, params: dict, state: dict | None = None):
+        """Admit a simulation: install its parameters and (re)set its fields.
+
+        ``state=None`` writes the case's fresh initial state (a new run); a
+        dict of tensors (on any device) readmits an evicted simulation or
+        brings a scenario's initial fields.  The batch is updated in place,
+        one slot's rows; a state that does not fit raises before anything
+        is written.
+        """
+        src = self._fresh if state is None else state
+        if set(src) != set(self.state):
+            raise ValueError(f"slot state has fields {sorted(src)}, the farm "
+                             f"{sorted(self.state)}")
+        for k, full in self.state.items():
+            if tuple(src[k].shape) != tuple(full.shape[1:]):
+                raise ValueError(f"slot field {k!r} has shape "
+                                 f"{tuple(src[k].shape)}, the farm "
+                                 f"{tuple(full.shape[1:])}")
+        for k, full in self.state.items():
+            full[slot].copy_(src[k])
+        for k in PARAM_KEYS:
+            self.params[k][slot] = np.float32(params[k])
+        self._params_dev = None
+
+    def read_slot(self, slot: int) -> dict:
+        """Host copy of one simulation's fields (CPU tensors that share no
+        memory with the batch)."""
+        return {k: v[slot].to("cpu", copy=True) for k, v in self.state.items()}
+
+    def clear_slot(self, slot: int):
+        """Park a freed slot on benign parameters (finite garbage compute)."""
+        for k in PARAM_KEYS:
+            self.params[k][slot] = np.float32(
+                self.config.dt if k == "dt" else 0.0)
+        self._params_dev = None
+
+    # -- stepping -------------------------------------------------------------
+    def _device_params(self) -> dict:
+        if self._params_dev is None:
+            self._params_dev = {k: torch.from_numpy(v.copy()).to(self.device)
+                                for k, v in self.params.items()}
+        return self._params_dev
+
+    def step_many(self, k: int):
+        """Advance the whole slot batch ``k`` steps."""
+        self.state = self._run_k(self.state, self._device_params(), k)
+
+    def kinetic_energy(self) -> np.ndarray:
+        """(n_slots,) per-slot kinetic energy (steady-state detection), each
+        reduced by the serial path's calls on the slot's own grid."""
+        ke = torch.stack([
+            NavierStokes3D.kinetic_energy_device(
+                {f: self.state[f][s] for f in VELOCITY})
+            for s in range(self.n_slots)])
+        return ke.cpu().numpy()
+
+    def residuals(self, prev_state: dict) -> np.ndarray:
+        """(n_slots,) per-slot ``||u_now - u_prev||_inf / dt`` over the
+        velocity fields — the steady-state residual of the resident batch
+        relative to ``prev_state`` (normally the state one step ago).  A max
+        is exact in any order, so one batched reduction serves all slots."""
+        m = torch.stack([(self.state[f] - prev_state[f]).abs().amax(dim=(1, 2, 3))
+                         for f in VELOCITY]).amax(dim=0)
+        dt = self._device_params()["dt"]
+        return (m / torch.clamp(dt, min=1e-30)).cpu().numpy()

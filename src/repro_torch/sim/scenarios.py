@@ -13,8 +13,8 @@ routine and analysis routines, and wires them into the
     ANALYSIS   diagnostics computed on demand over a finished state
 
 ``@register_scenario`` puts a scenario into the process-wide registry so
-:mod:`repro_torch.api` can resolve it by name.  Farm intake
-(``Scenario.request``) arrives with the port's farm slice.
+:mod:`repro_torch.api` can resolve it by name; ``Scenario.request`` turns a
+run of it into farm intake.
 """
 from __future__ import annotations
 
@@ -130,6 +130,41 @@ class Scenario:
         """Run the ANALYSIS bin over ``state``; returns the diagnostics."""
         st = dict(state, _ctx=dict(ctx or {}), diagnostics={})
         return self.schedule(solver).compile_bin("ANALYSIS")(st)["diagnostics"]
+
+    # -- farm intake ----------------------------------------------------------
+    def request(self, n: int = 32, *, steps: int | None = None,
+                t_end: float | None = None, tag: str = "",
+                steady_tol: float | None = None,
+                residual_tol: float | None = None, priority: int = 0,
+                config: CFDConfig | None = None, device="cpu", **kw):
+        """A :class:`~repro_torch.sim.farm.SimRequest` for one run of this
+        scenario.  When the scenario owns an IC, the initial fields are
+        built on ``device`` (the farm's, so that they equal a serial run's
+        bitwise) and ride in ``init_state`` as CPU tensors: per-request
+        ICs under one batched step.
+
+        ``config`` short-circuits the builder with an already-resolved
+        CFDConfig (the Runtime passes its fully-configured one, so step
+        counts and the executed config can never drift apart); only
+        IC-schema kwargs are honoured alongside it.
+        """
+        from repro_torch.sim.farm import SimRequest   # lazy: avoid a cycle
+
+        builder_kw, ic_kw = self.split_kwargs(kw)
+        cfg = config if config is not None else self.builder(n, **builder_kw)
+        if steps is None:
+            if t_end is None:
+                raise ValueError("give either steps= or t_end=")
+            steps = int(round(t_end / cfg.dt))
+        init_state = None
+        if self.init_fields is not None:
+            solver = NavierStokes3D(cfg, device)
+            state = self.init_fields(solver, solver.init_state(), **ic_kw)
+            init_state = {k: v.cpu() for k, v in state.items()}
+        return SimRequest(config=cfg, steps=steps,
+                          tag=tag or f"{self.name}-{n}",
+                          steady_tol=steady_tol, residual_tol=residual_tol,
+                          priority=priority, init_state=init_state)
 
 
 # ---------------------------------------------------------------------------

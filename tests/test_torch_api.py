@@ -193,3 +193,129 @@ def test_convert_round_trip_is_bitwise():
     params = convert.params_from_numpy({"nu": np.float32(0.1), "dt": 2.5e-3}, "cpu")
     assert params["nu"].dim() == 0 and params["nu"].item() == float(np.float32(0.1))
     assert params["dt"].item() == float(np.float32(2.5e-3))
+
+
+# -- the farm verbs ---------------------------------------------------------------
+FARM = dict(n=8, nz=4, n_slots=2, check_every=4, jacobi_iters=10)
+SUBMITS = (dict(steps=9, re=100.0), dict(steps=400, re=150.0, residual_tol=5.0),
+           dict(steps=5, re=400.0, priority=1), dict(steps=7, re=250.0))
+
+
+def _drive(rt):
+    """submit / poll / evict / readmit / drain, the same calls on either
+    package's runtime; returns the sids, the polls and the drained results."""
+    sids = [rt.submit("cavity", **kw) for kw in SUBMITS]
+    polls = [rt.poll(sids[0])["status"]]
+    rt.services()[0].run(3)
+    polls.append(rt.poll(sids[0]))
+    assert rt.evict(sids[0]) and not rt.evict(10_000)
+    polls.append(rt.poll(sids[0]))
+    assert rt.readmit(sids[0]) and not rt.readmit(sids[0])
+    return sids, polls, rt.drain()
+
+
+@functools.lru_cache(maxsize=None)
+def _farm_runs():
+    want = _drive(ref_api.runtime(**FARM))
+    got = _drive(api.runtime(device="cpu", **FARM))
+    return got, want
+
+
+def test_farm_verbs_match_the_reference_runtime():
+    (sids, polls, out), (rsids, rpolls, rout) = _farm_runs()
+    assert sids == rsids and polls == rpolls
+    assert polls[1:] == [{"status": "running", "steps_done": 3},
+                         {"status": "evicted", "steps_done": 3}]
+    assert set(out) == set(rout) == set(sids)
+    for sid in sids:
+        a, b = convert.result_to_numpy(out[sid]), rout[sid]
+        assert (a.steps_done, a.terminated, a.tag) == \
+            (b.steps_done, b.terminated, b.tag)
+        vel = max(float(np.abs(np.asarray(b.state[f])).max())
+                  for f in ("vx", "vy", "vz"))
+        for f in ("vx", "vy", "vz", "p"):
+            w = np.asarray(b.state[f])
+            scale = float(np.abs(w).max()) if f == "p" else vel
+            assert float(np.abs(a.state[f] - w).max()) <= RTOL * scale, (sid, f)
+    assert out[sids[1]].terminated == "residual"
+
+
+def test_farm_results_equal_serial_runs_bitwise():
+    (sids, _, out), _ = _farm_runs()
+    rt = api.runtime(device="cpu", **FARM)
+    for sid, kw in zip(sids, SUBMITS):
+        if "residual_tol" in kw:
+            continue
+        serial = rt.run("cavity", **{k: v for k, v in kw.items()
+                                     if k != "priority"})
+        for f in ("vx", "vy", "vz", "p"):
+            assert torch.equal(out[sid].state[f], serial.state[f]), (sid, f)
+    again = rt.analyze(rt.result(rt.submit("cavity", steps=3, re=100.0)))
+    assert set(again) == {"ghia", "centerline_u", "kinetic_energy"}
+
+
+def test_scenario_initial_fields_ride_the_request():
+    rt = api.runtime(n=8, nz=2, device="cpu", jacobi_iters=10)
+    sid = rt.submit("kelvin_helmholtz", steps=3, eps=0.1)
+    serial = rt.run("kelvin_helmholtz", steps=3, eps=0.1)
+    res = rt.result(sid)
+    assert res.tag == "kelvin_helmholtz-8"
+    for f in ("vx", "vy", "vz", "p"):
+        assert torch.equal(res.state[f], serial.state[f]), f
+    ref = ref_scenarios.get_scenario("kelvin_helmholtz").request(8, steps=3, nz=2)
+    got = scenarios.get_scenario("kelvin_helmholtz").request(8, steps=3, nz=2)
+    assert set(got.init_state) == set(ref.init_state)
+    np.testing.assert_allclose(got.init_state["vx"].numpy(),
+                               ref.init_state["vx"], rtol=1e-6, atol=1e-6)
+
+
+def test_a_failed_signature_resolves_to_failed(monkeypatch):
+    real = api.SimulationService
+
+    def picky(cfg, **kw):
+        if cfg.shape[2] == 6:
+            raise ValueError("this farm cannot be built")
+        return real(cfg, **kw)
+
+    monkeypatch.setattr(api, "SimulationService", picky)
+    rt = api.runtime(n=8, nz=4, device="cpu", jacobi_iters=10)
+    ok = rt.submit("cavity", steps=2)
+    bad = rt.submit("cavity", steps=2, nz=6)
+    # the reference resolves an unbuildable signature the same way
+    ref_rt = ref_api.runtime(n=8, decomposition=((0, "shard"),))
+    ref_bad = ref_rt.submit("cavity", steps=2)
+    for runtime, sid in ((rt, bad), (ref_rt, ref_bad)):
+        poll = runtime.poll(sid)
+        assert poll["status"] == "failed" and poll["steps_done"] == 0
+        with pytest.raises(RuntimeError, match="failed"):
+            runtime.result(sid)
+        assert runtime.drain()[sid].terminated == "failed"
+    assert "cannot be built" in rt.poll(bad)["error"]
+    assert rt.drain()[ok].terminated == "steps"
+
+
+@pytest.mark.parametrize("posture, item", [
+    (dict(telemetry=True), 8), (dict(health=True), 8),
+    (dict(ckpt_dir="spill"), 8), (dict(store=True), 8),
+    (dict(mesh_shape=(2,)), 9), (dict(decomposition=((0, "shard"),)), 9),
+    (dict(mesh=object()), 9)])
+def test_postures_not_ported_raise_naming_their_roadmap_item(posture, item):
+    with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
+        api.runtime(n=8, device="cpu", **posture)
+
+
+def test_durable_verbs_and_service_postures_not_ported_raise():
+    from repro_torch.cfd import cavity
+    from repro_torch.sim import SimulationFarm, SimulationService
+
+    rt = api.runtime(n=8, device="cpu")
+    for verb in (rt.enqueue, rt.claim, rt.recover):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+            verb("cavity", steps=1)
+    cfg = cavity.config(8)
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        SimulationService(cfg, ckpt_dir="spill", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        SimulationFarm(cfg, telemetry=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        SimulationFarm(cfg, mesh=object(), device="cpu")

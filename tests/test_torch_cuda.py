@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import stencil3d, stencil3d_cuda
+from repro_torch.kernels import jacobi_cuda, stencil3d, stencil3d_cuda
 
 # max|kernel - plain| <= 1e-5 * max(1, max|plain|): the same float32
 # expression, with FMA contraction in the kernel only
@@ -40,8 +40,8 @@ def _inputs(name, slots, interior, dev, seed=0):
         shape = tuple(n + ((lo + hi) if cached else 0) for n, lo, hi in
                       zip(interior, desc.halo_lo, desc.halo_hi))
         xs.append(torch.from_numpy(rng.randn(*lead, *shape).astype(np.float32)).to(dev))
-    rows = [[0.01 * (s + 1), 0.1, 0.05, 0.1 * s, -0.2, 0.3, 0.9][:len(desc.parameters)]
-            for s in range(slots or 1)]
+    rows = [[0.01 * (s + 1), 0.1, 0.05, 0.1 * s, -0.2, 0.3, 0.9]
+            [:len(stencil3d.TABLES[name])] for s in range(slots or 1)]
     table = torch.tensor(rows, dtype=torch.float32, device=dev)
     return xs, table if slots else table[0]
 
@@ -89,3 +89,39 @@ def test_cuda_template_with_overlap_runs_the_thin_shells(card):
     # deep interior + two shells per decomposed axis, each step
     assert stencil3d_cuda.LAUNCHES["UPDATE_VELOCITY"] == 2 * 7
     assert res["err_vx"] < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_jacobi_fused_matches_plain_version(card, shape, sweeps):
+    slots, interior = SHAPES[shape]
+    lead = () if slots is None else (slots,)
+    rng = np.random.RandomState(sweeps)
+    p, rhs = (torch.from_numpy(rng.randn(*lead, *(n + 2 * sweeps for n in interior))
+                               .astype(np.float32)).to(card) for _ in range(2))
+    before = jacobi_cuda.LAUNCHES["JACOBI_FUSED"]
+    got = jacobi_cuda.jacobi_fused(p, rhs, h=1.0 / 48, omega=0.8, sweeps=sweeps)
+    want = jacobi_cuda.jacobi_fused_plain(p, rhs, h=1.0 / 48, omega=0.8,
+                                          sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert jacobi_cuda.LAUNCHES["JACOBI_FUSED"] == before + 1
+    assert got.shape == want.shape == (*lead, *interior)
+    tol = RTOL * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_sweeps", [1, 2])
+def test_cuda_farm_slots_equal_serial_runs_bitwise(card, fused_sweeps):
+    rt = api.runtime(n=16, nz=4, n_slots=4, device=card, backend="cuda",
+                     jacobi_iters=8, fused_sweeps=fused_sweeps)
+    runs = [dict(steps=3, re=50.0), dict(steps=5, re=200.0),
+            dict(steps=2, re=400.0), dict(steps=4, re=100.0),
+            dict(steps=6, re=800.0)]
+    sids = [rt.submit("cavity", **kw) for kw in runs]
+    out = rt.drain()
+    for sid, kw in zip(sids, runs):
+        serial = rt.run("cavity", **kw)
+        for f in ("vx", "vy", "vz", "p"):
+            assert torch.equal(out[sid].state[f], serial.state[f]), (sid, f)

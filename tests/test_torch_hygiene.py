@@ -29,6 +29,17 @@ def _module_name(path):
     return ".".join(parts)
 
 
+# the modules of the farm slice, which every check below must reach
+FARM_SLICE = ("repro_torch.serve", "repro_torch.serve.slots",
+              "repro_torch.sim.ensemble", "repro_torch.sim.farm",
+              "repro_torch.sim.service", "repro_torch.kernels.jacobi_cuda")
+
+
+def test_the_checks_cover_the_farm_slice():
+    modules = {_module_name(p) for p in _port_files()}
+    assert set(FARM_SLICE) <= modules, set(FARM_SLICE) - modules
+
+
 def _forbidden(name: str) -> bool:
     return name == "jax" or name.startswith(("jax.", "jaxlib")) or \
         name == "repro" or name.startswith("repro.")
@@ -90,14 +101,17 @@ for name in {modules!r}:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)          # defines main(); does not run it
-from repro_torch.kernels import _build, stencil3d_cuda
+from repro_torch.kernels import _build, jacobi_cuda, stencil3d_cuda
 print(json.dumps({{
     "bad": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))
                   or m == "repro" or m.startswith("repro.")),
     "built": bool(_build.build_info),
-    "lib_loaded": stencil3d_cuda._lib.cache_info().currsize,
+    "lib_loaded": stencil3d_cuda._lib.cache_info().currsize
+                  + jacobi_cuda._lib.cache_info().currsize
+                  + _build.load.cache_info().currsize,
     "has_main": callable(smoke.main),
+    "farm_slice": all(m in sys.modules for m in {FARM_SLICE!r}),
 }}))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -106,4 +120,4 @@ print(json.dumps({{
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"bad": [], "built": False, "lib_loaded": 0,
-                   "has_main": True}, got
+                   "has_main": True, "farm_slice": True}, got
