@@ -33,7 +33,23 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 7. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
              sims x steps/s against eight serial runs;
 8. physics   Taylor-Green, cavity divergence and Ghia bounds with the
-             kernels, as the reference's tests hold its solver to them.
+             kernels, as the reference's tests hold its solver to them;
+9. lm        zamba2-1.2b at its published widths (bf16 weights from
+             ``init_params`` at seed 0, float32 caches) through
+             ``ServingEngine(slots=4, max_seq=4096, backend="cuda")``: eight
+             requests of 256..2000 prompt tokens and 32 new tokens each,
+             drained, with the launch counters reset just before: 19
+             FLASH_ATTENTION and 38 SSD_INTRA a prefill, 19 FLASH_ATTENTION a
+             decode step; prefill ms per bucket, decode-step ms, tokens/s,
+             the device's busy share of a decode step and peak memory; then
+             one prompt prefilled and decoded 4 steps teacher-forced on the
+             ``cuda`` and the ``torch`` backends, whose logits must agree.
+
+The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
+shapes, llama3-8b's GQA widths and an odd shape with ``prefix_len`` and
+``q_offset``) and SSD_INTRA (the zamba2 prefill shape and an odd one)
+against their plain versions, beside ``scaled_dot_product_attention``'s
+time on the same inputs (a yardstick only; the port never calls it).
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -56,6 +72,7 @@ STEPS = 20
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 # max|kernel - plain| <= KERNEL_RTOL * max(1, max|plain|): both compute the
 # same float32 expression; the kernel may contract a*b+c into one FMA and
 # the plain version rounds every operation, a few ulp of the largest term
@@ -72,10 +89,12 @@ OPS_PER_CELL = {"UPDATE_VELOCITY": 144, "DIVERGENCE": 6,
                 "JACOBI_FUSED": 11}
 STENCILS = ("UPDATE_VELOCITY", "DIVERGENCE", "JACOBI_PRESSURE",
             "PROJECT_VELOCITY")
-KERNELS = STENCILS + ("JACOBI_FUSED",)
+LM_KERNELS = ("FLASH_ATTENTION", "SSD_INTRA")
+KERNELS = STENCILS + ("JACOBI_FUSED",) + LM_KERNELS
 # launches a step: jacobi_iters = 40 sweeps, one by one or k = 2 at a time
 PER_STEP = {"UPDATE_VELOCITY": 1, "DIVERGENCE": 1, "JACOBI_PRESSURE": 40,
-            "PROJECT_VELOCITY": 1, "JACOBI_FUSED": 0}
+            "PROJECT_VELOCITY": 1, "JACOBI_FUSED": 0, "FLASH_ATTENTION": 0,
+            "SSD_INTRA": 0}
 PER_STEP_FUSED = dict(PER_STEP, JACOBI_PRESSURE=0, JACOBI_FUSED=20)
 FUSED_K = 2
 REPLACES = {
@@ -84,6 +103,8 @@ REPLACES = {
     "JACOBI_PRESSURE": "src/repro/core/generator.py:213",
     "PROJECT_VELOCITY": "src/repro/core/generator.py:213",
     "JACOBI_FUSED": "src/repro/kernels/jacobi.py:79",
+    "FLASH_ATTENTION": "src/repro/kernels/attention.py:61",
+    "SSD_INTRA": "src/repro/kernels/ssd.py:70",
 }
 INSTANCE = {   # the 3DBLOCK template's instances, by body
     "UPDATE_VELOCITY": "src/repro/kernels/stencil3d.py:74",
@@ -91,9 +112,14 @@ INSTANCE = {   # the 3DBLOCK template's instances, by body
     "JACOBI_PRESSURE": "src/repro/kernels/stencil3d.py:159",
     "PROJECT_VELOCITY": "src/repro/kernels/stencil3d.py:171",
     "JACOBI_FUSED": "src/repro/kernels/jacobi.py:56 (jacobi_fused)",
+    "FLASH_ATTENTION": "src/repro/models/attention.py:52 and :100 "
+                       "(__kernel__attention regions)",
+    "SSD_INTRA": "src/repro/models/mamba2.py:150 (__kernel__ssd region)",
 }
 SOURCE = {name: "src/repro_torch/kernels/csrc/stencil3d.cu" for name in STENCILS}
 SOURCE["JACOBI_FUSED"] = "src/repro_torch/kernels/csrc/jacobi.cu"
+SOURCE["FLASH_ATTENTION"] = "src/repro_torch/kernels/csrc/attention.cu"
+SOURCE["SSD_INTRA"] = "src/repro_torch/kernels/csrc/ssd.cu"
 
 # the farm phases: five requests through four slots, one evicted after
 # EVICT_AT steps and readmitted
@@ -103,6 +129,29 @@ FARM_STEPS = (8, 12, 6, 10, 14)
 EVICT, EVICT_AT = 1, 4
 # the host-bound end: Ghia's n=48 grid, eight slots, twenty steps
 TP_N, TP_SLOTS, TP_STEPS = 48, 8, 20
+
+# the LM serving path: zamba2-1.2b at published widths
+LM_ARCH = "zamba2-1.2b"
+LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_NEW = 4, 4096, 8, 32
+LM_PROMPT = (256, 2000)          # prompt lengths drawn in [lo, hi]
+LM_PARITY_STEPS = 4
+# cuda vs torch backend logits, relative to max|logits|: both compute in
+# bf16 (8 significant bits); they differ only in the float32 summation
+# order inside the two kernels, which can flip the bf16 rounding of an
+# activation by one ulp (2^-8 relative).  Such flips enter the residual
+# stream at each of the 38 Mamba layers and 19 attention applications and
+# grow through the layers, so the logits may differ by a few percent of
+# their scale; an error in a kernel (a wrong mask, a lost head, a wrong
+# decay) moves them by their full scale.
+LM_PARITY_RTOL = 5e-2
+# FLASH_ATTENTION kernel vs plain, bf16 output: both round a float32 result
+# to bf16, and a sum taken in another order may round to the neighbouring
+# bf16 value: one bf16 ulp of the largest output (2^-7 relative).  float32
+# outputs: 2e-5 relative (sums over Sk terms in another order).
+ATTN_RTOL = {"bfloat16": 2.0 ** -7, "float32": 2e-5}
+# SSD_INTRA kernel vs plain, float32: the decay exponents are differences
+# of cumulative sums of up to 128 terms taken in another order
+SSD_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -118,17 +167,21 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def reset_counts() -> None:
-    from repro_torch.kernels import jacobi_cuda, stencil3d_cuda
+def _wrappers():
+    from repro_torch.kernels import (
+        attention_cuda, jacobi_cuda, ssd_cuda, stencil3d_cuda,
+    )
 
-    stencil3d_cuda.reset_launches()
-    jacobi_cuda.reset_launches()
+    return stencil3d_cuda, jacobi_cuda, attention_cuda, ssd_cuda
+
+
+def reset_counts() -> None:
+    for w in _wrappers():
+        w.reset_launches()
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import jacobi_cuda, stencil3d_cuda
-
-    return {**stencil3d_cuda.LAUNCHES, **jacobi_cuda.LAUNCHES}
+    return {k: v for w in _wrappers() for k, v in w.LAUNCHES.items()}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -169,12 +222,12 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels import _build, jacobi_cuda, stencil3d_cuda
+    from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.build_all()          # one nvcc per source, all at once
-    stencil3d_cuda._lib()
-    jacobi_cuda._lib()
+    for w in _wrappers():
+        w._lib()
     libs = {}
     for name, info in _build.build_info.items():
         libs[name] = {
@@ -288,6 +341,8 @@ def phase_kernels(dev):
             del inputs, outs
         results[name] = res
     results["JACOBI_FUSED"] = jacobi_fused_cases(gen, dev)
+    results["FLASH_ATTENTION"] = attention_cases(gen, dev)
+    results["SSD_INTRA"] = ssd_cases(gen, dev)
     torch.cuda.empty_cache()
     return results
 
@@ -344,6 +399,165 @@ def jacobi_fused_cases(gen, dev):
                             f"{err} > {tol}")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del p, rhs, got, want
+    return res
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak rate for their type, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+# FLASH_ATTENTION cases: (B, Sq, Sk, H, KH, D, q dtype, kv dtype,
+# (causal, q_offset, prefix_len), valid lengths or None)
+ATTN_CASES = [
+    ("prefill", 1, 1024, 1024, 32, 32, 64, "bfloat16", "bfloat16",
+     (True, 0, 0), None),
+    ("decode", 4, 1, LM_MAX_SEQ, 32, 32, 64, "bfloat16", "float32",
+     (False, 0, 0), (37, 1024, 2047, 4000)),
+    ("gqa_llama3", 1, 512, 512, 32, 8, 128, "bfloat16", "bfloat16",
+     (True, 0, 0), None),
+    ("odd", 2, 77, 133, 8, 4, 64, "bfloat16", "bfloat16", (True, 56, 9),
+     (133, 100)),
+]
+
+
+def attention_mask(b, sq, sk, causal, q_offset, prefix_len, valid, dev):
+    """(B, Sq, Sk) boolean: which keys each query row sees."""
+    import torch
+
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(sk, device=dev)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        m = (kpos <= qpos + q_offset) | (kpos < prefix_len)
+    v = torch.full((b,), sk, device=dev) if valid is None else valid
+    return m[None] & (kpos[None] < v[:, None, None])
+
+
+def attention_cases(gen, dev):
+    """FLASH_ATTENTION against its plain version (``full_mha`` on the
+    TORCH template) at the lm path's prefill and decode shapes, llama3-8b's
+    GQA widths and an odd shape; each timed beside
+    ``scaled_dot_product_attention`` on the same inputs and mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.models.attention import MaskSpec
+
+    res = {"max_abs_err": 0.0}
+    for (case, b, sq, sk, h, kh, d, qdt, kvdt, (causal, off, pre),
+         valid) in ATTN_CASES:
+        qdt_, kvdt_ = getattr(torch, qdt), getattr(torch, kvdt)
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(qdt_)
+        k, v = (torch.randn(b, sk, kh, d, generator=gen, device=dev)
+                .to(kvdt_) for _ in range(2))
+        vt = None if valid is None else torch.tensor(valid, device=dev)
+        spec = MaskSpec(causal=causal, q_offset=off, prefix_len=pre)
+        got = ac.flash_attention(q, k, v, spec, vt)
+        want = ac.flash_attention_plain(q, k, v, spec, vt)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_RTOL[qdt] * max(1.0, float(want.float().abs().max()))
+        finite = bool(torch.isfinite(got).all())
+        mask = attention_mask(b, sq, sk, causal, off, pre, vt, dev)
+        seen = int(mask.sum())                  # (row, key) pairs computed
+        # bytes: q and the output once, and the k/v rows some row sees
+        kv_rows = int(mask.any(dim=1).sum())
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 2 * kv_rows * kh * d * k.element_size())
+        if vt is not None:
+            nbytes += vt.numel() * 8
+        ops = 4 * h * d * seen
+        # the library yardstick: SDPA (B, H, S, D) on k/v in q's dtype
+        qs = q.transpose(1, 2)
+        ks, vs = (t.to(qdt_).transpose(1, 2) for t in (k, v))
+        amask = mask[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=amask, enable_gqa=h != kh)
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        line = {"phase": "kernel", "kernel": "FLASH_ATTENTION", "case": case,
+                "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "KH": kh,
+                          "D": d}, "q_dtype": qdt, "kv_dtype": kvdt,
+                "causal": causal, "q_offset": off, "prefix_len": pre,
+                "valid": valid, "max_abs_diff": err, "tolerance": tol,
+                "finite": finite, "sdpa_max_abs_diff": lib_err,
+                "kernel_ms": cuda_ms(lambda: ac.flash_attention(
+                    q, k, v, spec, vt), reps=20),
+                "plain_ms": cuda_ms(lambda: ac.flash_attention_plain(
+                    q, k, v, spec, vt), reps=3, warmup=1),
+                "library_ms": cuda_ms(sdpa, reps=20),
+                **bound(nbytes, ops, BF16_OPS_PER_S if qdt == "bfloat16"
+                        else F32_OPS_PER_S)}
+        emit(line)
+        require(finite, f"FLASH_ATTENTION ({case}): non-finite output")
+        require(err <= tol, f"FLASH_ATTENTION ({case}): max|kernel - plain| "
+                            f"{err} > {tol}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res[case] = {key: line[key] for key in
+                     ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                      "bound_by")}
+        if case == "prefill":                  # the headline numbers
+            res.update(res[case])
+        del q, k, v, got, want, mask
+    return res
+
+
+SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),   # B nc L G R P N
+             ("odd", (2, 3, 48, 1, 3, 16, 8))]
+
+
+def ssd_cases(gen, dev):
+    """SSD_INTRA against ``ssd_intra_reference`` at the zamba2-1.2b prefill
+    shape of a 1024-token prompt (timed) and an odd shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_cuda as sc
+
+    res = {"max_abs_err": 0.0}
+    for case, (bsz, nc, l, g, r, p, n) in SSD_CASES:
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+        x = rnd(bsz, nc, l, g, r, p)
+        ld = -F.softplus(rnd(bsz, nc, l, g, r))
+        dt = F.softplus(rnd(bsz, nc, l, g, r))
+        b_, c_ = rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n)
+        s_in = rnd(bsz, nc, g, r, n, p) * 0.3
+        args = (x, ld, dt, b_, c_, s_in)
+        got = sc.ssd_intra(*args)
+        want = sc.ssd_intra_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = SSD_RTOL * max(1.0, float(want.abs().max()))
+        finite = bool(torch.isfinite(got).all())
+        # operations the function needs per (batch, chunk, group): the
+        # causal half of C.B^T, and per head the weights (exp, two
+        # products), W.x over m <= l, C.s_in and its scaling by exp(cum)
+        tri = l * (l + 1) // 2
+        ops = bsz * nc * g * (tri * 2 * n + r * (tri * (2 * p + 3)
+                                                  + l * (2 * n * p + 2 * p)))
+        nbytes = (sum(t.numel() for t in args) + got.numel()) * 4
+        line = {"phase": "kernel", "kernel": "SSD_INTRA", "case": case,
+                "shape": dict(zip("B nc L G R P N".split(),
+                                  (bsz, nc, l, g, r, p, n))),
+                "max_abs_diff": err, "tolerance": tol, "finite": finite,
+                "kernel_ms": cuda_ms(lambda: sc.ssd_intra(*args), reps=20),
+                "plain_ms": cuda_ms(lambda: sc.ssd_intra_plain(*args),
+                                    reps=3, warmup=1),
+                "library_ms": None, **bound(nbytes, ops, F32_OPS_PER_S)}
+        emit(line)
+        require(finite, f"SSD_INTRA ({case}): non-finite output")
+        require(err <= tol, f"SSD_INTRA ({case}): max|kernel - plain| "
+                            f"{err} > {tol}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if case == "prefill":
+            res.update({key: line[key] for key in
+                        ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_by")})
+        del args, got, want
     return res
 
 
@@ -656,6 +870,170 @@ def phase_physics(dev):
 
 
 # ---------------------------------------------------------------------------
+def lm_requests(cfg):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
+    return [Request(i, rng.integers(0, cfg.vocab_size, size=int(n)),
+                    max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
+
+
+def device_busy(fn) -> dict:
+    """Wall time of ``fn`` (ending in a synchronise) and the profiler's
+    device kernel time inside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall, "device_ms": busy,
+            "busy_share": busy / wall if busy else "not measured"}
+
+
+def phase_lm(dev):
+    """zamba2-1.2b at published widths through the ported ServingEngine on
+    the cuda backend, then cuda-vs-torch logit parity on one prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.models.transformer import n_attn_layers
+    from repro_torch.serve.engine import ServingEngine, _bucket
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    lm = model.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    n_attn, n_mamba = n_attn_layers(cfg), cfg.num_layers
+
+    eng = ServingEngine(cfg, lm, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                        device=dev, backend="cuda")
+    reqs = lm_requests(cfg)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps, t_start = [], time.perf_counter()
+    while True:
+        queued = eng.table.n_queued
+        t0 = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        steps.append((queued - eng.table.n_queued,
+                      (time.perf_counter() - t0) * 1e3))
+    wall = time.perf_counter() - t_start
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prefills, decode_steps = sum(a for a, _ in steps), eng.steps
+    expected = dict.fromkeys(launches, 0)
+    expected.update(FLASH_ATTENTION=n_attn * (prefills + decode_steps),
+                    SSD_INTRA=n_mamba * prefills)
+    done = {r.rid: r for r in eng.finished}
+    tokens = sum(len(r.output) for r in done.values())
+    require(len(done) == LM_REQUESTS and prefills == LM_REQUESTS,
+            f"lm: {len(done)} of {LM_REQUESTS} requests finished")
+    require(all(len(r.output) == LM_NEW and
+                all(0 <= t < cfg.vocab_size for t in r.output)
+                for r in done.values()), "lm: outputs of the wrong length")
+    require(launches == expected, f"lm: launch counts {launches} != {expected}")
+    decode_ms = sorted(ms for a, ms in steps if a == 0)
+
+    # prefill time per bucket (one slot's cache rows), and the device's
+    # busy share of a decode step with every slot resident
+    buckets = sorted({_bucket(len(r.prompt)) for r in reqs})
+    one = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prefill_ms = {}
+    for b in buckets:
+        toks = torch.randint(0, cfg.vocab_size, (1, b), device=dev,
+                             generator=gen)
+        prefill_ms[b] = cuda_ms(lambda: model.prefill(
+            lm, cfg, {"tokens": toks}, one, template="CUDA"), reps=3,
+            warmup=1)
+    del one
+    for r in lm_requests(cfg)[:LM_SLOTS]:
+        r.max_new_tokens = 1000
+        eng.submit(r)
+    eng.step()                                  # admit all four
+    eng.step()
+    busy = device_busy(eng.step)
+
+    parity = lm_parity(cfg, lm, dev)
+    emit({"phase": "lm", "arch": LM_ARCH, "params": n_params,
+          "init_s": init_s, "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+          "requests": LM_REQUESTS,
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "new_tokens": LM_NEW, "engine_steps": decode_steps,
+          "prefills": prefills, "launches": launches, "expected": expected,
+          "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+          "prefill_ms_by_bucket": prefill_ms,
+          "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+          "decode_step_ms_min": decode_ms[0],
+          "decode_steps_timed": len(decode_ms),
+          "decode_step_busy": busy, "max_memory_allocated": peak,
+          "parity": parity,
+          "first_tokens": {rid: done[rid].output[:8] for rid in sorted(done)}})
+    require(all(p["max_abs_diff"] <= p["tolerance"] for p in parity),
+            f"lm: cuda and torch backends disagree: {parity}")
+    del eng, lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_parity(cfg, lm, dev):
+    """One prompt prefilled, then LM_PARITY_STEPS decode steps, on the
+    torch backend (choosing the tokens) and on the cuda backend fed the
+    same tokens (teacher forcing, so a near-tie in argmax cannot fork the
+    two runs); logits compared relative to max|logits|."""
+    import torch
+    from repro_torch.models import model
+
+    prompt = torch.from_numpy(lm_requests(cfg)[0].prompt).to(dev)[None]
+    plen = prompt.shape[1]
+
+    def run(template, forced):
+        caches = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+        logits, caches = model.prefill(lm, cfg, {"tokens": prompt}, caches,
+                                       template=template)
+        out, chosen = [logits[0, -1].float()], []
+        for step in range(LM_PARITY_STEPS):
+            tok = forced[step] if forced else int(out[-1].argmax())
+            chosen.append(tok)
+            logits, caches = model.decode_step(
+                lm, cfg, torch.tensor([[tok]], device=dev), caches,
+                plen + step, template=template)
+            out.append(logits[0, -1].float())
+        torch.cuda.synchronize()
+        return out, chosen
+
+    want, tokens = run("TORCH", None)
+    got, _ = run("CUDA", tokens)
+    rows = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(bool(torch.isfinite(a).all()), f"lm parity {i}: not finite")
+        scale = float(b.abs().max())
+        rows.append({"position": plen - 1 + i,
+                     "max_abs_diff": float((a - b).abs().max()),
+                     "tolerance": LM_PARITY_RTOL * scale,
+                     "max_abs_logit": scale,
+                     "argmax_equal": int(a.argmax()) == int(b.argmax())})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -676,10 +1054,13 @@ def main() -> int:
                                       fused_sweeps=FUSED_K),
              "throughput": phase_throughput(dev)}
     phase_physics(dev)
-    # each kernel's launches on this slice's path that carries it: the
-    # farm for the four stencils, the fused-smoother farm for JACOBI_FUSED
+    paths["lm"] = phase_lm(dev)
+    # each kernel's launches on the path that carries it: the farm for the
+    # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
+    # serving path for FLASH_ATTENTION and SSD_INTRA
     carrier = {name: "farm" for name in STENCILS}
     carrier["JACOBI_FUSED"] = "farm_fused"
+    carrier.update(dict.fromkeys(LM_KERNELS, "lm"))
     for name in KERNELS:
         require(paths[carrier[name]][name] > 0,
                 f"{name} never launched on the {carrier[name]} path")
@@ -690,7 +1071,7 @@ def main() -> int:
         "launches_by_path": {k: v[name] for k, v in paths.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
+        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
     } for name, r in kernel_results.items()]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.core.schedule import Schedule
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.sim.farm import SimResult, not_ported, static_key
 from repro_torch.sim.scenarios import (
     ParamSpec, Scenario, UnknownScenarioError, get_scenario,
@@ -56,13 +56,7 @@ BACKENDS = {
 
 
 def _resolve_backend(name: str, device: torch.device) -> tuple:
-    if name == "auto":
-        name = "cuda" if device.type == "cuda" else "torch"
-    if name == "cuda" and device.type != "cuda":
-        raise ValueError(
-            f"backend 'cuda' runs the hand-written CUDA kernels and needs a "
-            f"CUDA device, got {device}; use backend='torch' on the CPU")
-    return BACKENDS[name]
+    return BACKENDS[resolve_backend(name, device).lower()]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,18 @@
+"""llama3-8b [dense] — GQA, 128k vocab [arXiv:2407.21783; unverified].
+32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=128256.
+"""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b",
+        family="dense",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        d_ff=14_336,
+        vocab_size=128_256,
+        rope_theta=500_000.0,
+    )

@@ -1,4 +1,5 @@
-"""Carry a simulation's state across from the reference package.
+"""Carry a simulation's state, or a language model, across from the
+reference package.
 
 For a CFD run the "weights" are the fields (``vx, vy, vz, p`` and the wall
 masks) and the per-simulation scalars (``PARAM_KEYS``).  The reference's
@@ -6,11 +7,17 @@ arrays arrive as numpy arrays (``np.asarray`` of its ``jax.Array``s), so
 this module needs neither package's internals: both packages can step the
 same initial state, one farm request can feed both farms, and a result can
 go back to numpy for comparison.
+
+For a language model, :func:`lm_params_from_numpy` takes the reference's
+parameter tree (nested dicts of numpy arrays, stacked ``(L, ...)`` leaves
+under ``stack/layers``) and returns the port's ``LM`` with the same values
+bitwise; :func:`caches_from_numpy` and :func:`caches_to_numpy` carry the
+decode caches (``KVCache`` pairs, ``Mamba2State``) both ways.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Iterator, Mapping
 
 import numpy as np
 import torch
@@ -67,3 +74,63 @@ def request_from_numpy(req, template: str | None = None, device="cpu"):
 def result_to_numpy(res):
     """A farm ``SimResult`` with its state as numpy arrays."""
     return dataclasses.replace(res, state=state_to_numpy(res.state))
+
+
+# -- language models -----------------------------------------------------------
+def _tensor(arr) -> torch.Tensor:
+    """A tensor with the array's dtype and values, bitwise (bfloat16, which
+    numpy holds as ml_dtypes' type, through its bits)."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _flatten(tree, prefix=()) -> Iterator[tuple[tuple, np.ndarray]]:
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device=None):
+    """The port's ``LM`` holding the reference's parameters ``tree`` (its
+    ``init_params`` pytree as numpy arrays) on ``device``: a stacked leaf
+    ``stack/layers/<path>`` of shape (L, ...) becomes ``stack.layers.<i>.
+    <path>`` for each layer i; every other path keeps its name."""
+    from repro_torch.models import model
+
+    dev = resolve_device(device)
+    state = {}
+    for path, arr in _flatten(tree):
+        if path[:2] == ("stack", "layers"):
+            for i in range(arr.shape[0]):
+                key = ("stack", "layers", str(i)) + path[2:]
+                state[".".join(key)] = _tensor(arr[i]).to(dev)
+        else:
+            state[".".join(path)] = _tensor(arr).to(dev)
+    lm = model.init_params(cfg, device="meta")
+    lm.load_state_dict(state, strict=True, assign=True)
+    return lm
+
+
+def caches_from_numpy(tree, device=None):
+    """The reference's decode caches (numpy leaves, ``KVCache`` /
+    ``Mamba2State`` named tuples, dicts of them) as the port's, on
+    ``device``."""
+    from repro_torch.models.blocks import KVCache
+    from repro_torch.models.mamba2 import Mamba2State
+
+    if isinstance(tree, Mapping):
+        return {k: caches_from_numpy(v, device) for k, v in tree.items()}
+    cls = {("k", "v"): KVCache, ("conv", "ssm"): Mamba2State}[tree._fields]
+    dev = resolve_device(device)
+    return cls(*(_tensor(a).to(dev) for a in tree))
+
+
+def caches_to_numpy(caches):
+    """The port's caches with numpy leaves, in the same structure."""
+    if isinstance(caches, Mapping):
+        return {k: caches_to_numpy(v) for k, v in caches.items()}
+    return type(caches)(*(t.detach().cpu().numpy() for t in caches))

@@ -22,7 +22,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"stencil3d": CSRC / "stencil3d.cu", "jacobi": CSRC / "jacobi.cu"}
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("stencil3d", "jacobi", "attention", "ssd")}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,8 +1,9 @@
-"""Public wrappers around the stencil kernels of this package.
+"""Public wrappers around the kernels of this package.
 
 Each op dispatches between the CUDA template (the hand-written Hopper
-kernels) and the TORCH template (the eager expansion of the body).  The CFD
-solver calls these, never the launch wrappers directly.  Fields with a
+kernels) and the TORCH template (the eager expansion of the body, or the
+kernel's plain version).  The CFD solver and the LM stack call these or the
+model functions, never the launch wrappers directly.  Fields with a
 leading slot axis ``(S, X, Y, Z)`` go to ``GeneratedKernel.apply_batched``,
 with every ``(S,)`` tensor parameter as a per-slot one: one launch advances
 every slot.
@@ -14,13 +15,14 @@ import functools
 import torch
 
 from repro_torch.core.generator import generate
-from repro_torch.kernels import jacobi_cuda, stencil3d
+from repro_torch.device import default_template, resolve_template
+from repro_torch.kernels import (
+    attention as attention_plain, attention_cuda, jacobi_cuda, ssd_cuda,
+    stencil3d,
+)
 from repro_torch.kernels.jacobi import jacobi_fused_ref
-
-
-def default_template(device) -> str:
-    """CUDA for tensors on the card, TORCH elsewhere."""
-    return "CUDA" if torch.device(device).type == "cuda" else "TORCH"
+from repro_torch.kernels.ssd import ssd_intra_reference
+from repro_torch.models.attention import MaskSpec
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,9 +75,33 @@ def jacobi_smooth(p, rhs, *, h, omega=1.0, sweeps=1, template=None):
     ``TORCH`` runs the plain ``jacobi_fused_ref``, ``CUDA`` the hand-written
     JACOBI_FUSED kernel (``jacobi_cuda.jacobi_fused``), which takes any
     interior shape and a leading slot axis."""
-    tmpl = template or default_template(p.device)
-    if tmpl == "TORCH":
+    if resolve_template(template, p.device) == "TORCH":
         return jacobi_fused_ref(p, rhs, h=h, omega=omega, sweeps=sweeps)
-    if tmpl != "CUDA":
-        raise ValueError(f"unknown template {tmpl!r} (CUDA or TORCH)")
     return jacobi_cuda.jacobi_fused(p, rhs, h=h, omega=omega, sweeps=sweeps)
+
+
+def mha(q, k, v, *, causal=True, q_offset=0, template=None, block_q=128,
+        block_k=128):
+    """Attention hot-spot: the FLASH_ATTENTION kernel on the card, else the
+    plain chunked online softmax.
+
+    q: (H, Sq, D); k/v: (Hkv, Sk, D).  The mask is a ``MaskSpec`` built from
+    ``causal`` and ``q_offset`` on both routes (the reference's non-TPU
+    branch passes them to ``chunked_mha`` as keywords it does not take).
+    """
+    if resolve_template(template, q.device) == "TORCH":
+        return attention_plain.flash_attention(
+            q, k, v, causal=causal, q_offset=q_offset, block_q=block_q,
+            block_k=block_k)
+    to, back = attention_plain.to_bshd, attention_plain.from_bshd
+    return back(attention_cuda.flash_attention(
+        to(q), to(k), to(v), MaskSpec(causal=causal, q_offset=q_offset)))
+
+
+def ssd_intra(x, log_decay, in_scale, b_, c_, s_in, *, template=None):
+    """Intra-chunk SSD (shapes as ``kernels.ssd.ssd_intra_reference``): the
+    SSD_INTRA kernel on the card, else its plain version."""
+    if resolve_template(template, x.device) == "TORCH":
+        return ssd_intra_reference(x, log_decay, in_scale, b_, c_, s_in)
+    return ssd_cuda.ssd_intra(*(t.contiguous() for t in
+                                (x, log_decay, in_scale, b_, c_, s_in)))

@@ -1,4 +1,4 @@
-"""Plain-torch oracles for the four stencil kernels.
+"""Plain-torch oracles for the four stencil kernels and for attention.
 
 These are written independently of the descriptor/generator machinery
 (plain shifted slices of padded tensors), so kernel tests compare separate
@@ -8,6 +8,8 @@ Conventions match stencil3d.py: inputs are halo-padded by the declared
 stencil radii; outputs are interior-shaped.
 """
 from __future__ import annotations
+
+import torch
 
 
 def _i(p, lo=(1, 1, 1), hi=(1, 1, 1), off=(0, 0, 0)):
@@ -89,3 +91,28 @@ def project_velocity(vx, vy, vz, p, *, dt, h):
     return (vx - s * (pc(1, 0, 0) - pc()),
             vy - s * (pc(0, 1, 0) - pc()),
             vz - s * (pc(0, 0, 1) - pc()))
+
+
+# ---------------------------------------------------------------------------
+# attention oracle (for the FLASH_ATTENTION kernel)
+# ---------------------------------------------------------------------------
+def mha_reference(q, k, v, *, causal=True, scale=None, q_offset=0):
+    """O(S^2)-memory reference attention.
+
+    q: (Sq, H, D), k/v: (Sk, Hkv, D) with H a multiple of Hkv (GQA).
+    ``q_offset``: absolute position of q[0] (for decode/causal masking).
+    """
+    sq, h, d = q.shape
+    sk, hkv, _ = k.shape
+    rep = h // hkv
+    kf = k.repeat_interleave(rep, dim=1)
+    vf = v.repeat_interleave(rep, dim=1)
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(d))).to(q.dtype)
+    logits = torch.einsum("qhd,khd->hqk", q.float(), kf.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = torch.where(kpos <= qpos, logits, -torch.inf)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,khd->qhd", w, vf.float()).to(q.dtype)

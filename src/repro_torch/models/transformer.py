@@ -1,0 +1,214 @@
+"""The decoder layer stack for the ``dense`` and ``hybrid`` families.
+
+The port's copy of ``repro.models.transformer``:
+
+  dense   — GQA attention + SwiGLU MLP (pre-norm residual), per layer
+  hybrid  — Mamba2 blocks with ONE weight-tied shared attention+MLP block
+            applied before each group of ``attn_every`` layers (zamba2):
+            G = L / attn_every applications, each with its own KV cache;
+            the Mamba states are stacked over all L layers
+
+Layers run as a Python loop (the reference's ``lax.scan``).  Caches are
+stacked along a leading layer axis, as in the reference, and are updated in
+place: each function returns the caches it was given.  The ``moe``,
+``ssm``, ``audio`` and ``vlm`` families are ROADMAP queue 1, item 11.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers, mamba2
+from repro_torch.models.attention import MaskSpec
+from repro_torch.models.blocks import Attention, KVCache, attention
+from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
+
+FAMILIES = ("dense", "hybrid")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise not_ported(f"the {cfg.family!r} family", 11)
+
+
+def n_attn_layers(cfg: ModelConfig) -> int:
+    """hybrid: number of applications of the shared attention block."""
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return 0
+    assert cfg.num_layers % cfg.attn_every == 0, (
+        "hybrid stacks require attn_every | num_layers", cfg.num_layers,
+        cfg.attn_every)
+    return cfg.num_layers // cfg.attn_every
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+class AttnBlock(nn.Module):
+    """Pre-norm attention + SwiGLU MLP."""
+
+    def __init__(self, gen, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln1 = layers.RMSNorm(cfg.d_model, device)
+        self.attn = Attention(gen, cfg.d_model, cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, cfg.param_dtype,
+                              device, cfg.qkv_bias)
+        self.ln2 = layers.RMSNorm(cfg.d_model, device)
+        self.ffn = layers.MLP(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype,
+                              device)
+
+
+class MambaLayer(nn.Module):
+    """Pre-norm Mamba2 block of the hybrid stack."""
+
+    def __init__(self, gen, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = layers.RMSNorm(cfg.d_model, device)
+        self.mamba = mamba2.Mamba2(gen, cfg, device)
+
+
+class LayerStack(nn.Module):
+    """``layers`` (one module per layer) and, for hybrid, ``shared_attn``."""
+
+    def __init__(self, gen, cfg: ModelConfig, device=None):
+        super().__init__()
+        _check_family(cfg)
+        block = AttnBlock if cfg.family == "dense" else MambaLayer
+        self.layers = nn.ModuleList(block(gen, cfg, device)
+                                    for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared_attn = AttnBlock(gen, cfg, device)
+
+
+def init_layer_stack(gen, cfg: ModelConfig, device=None) -> LayerStack:
+    return LayerStack(gen, cfg, device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                cache_dtype=torch.bfloat16, device=None) -> Any:
+    """Decode-time state for the whole stack: a stacked ``KVCache`` (dense),
+    or {"mamba": stacked ``Mamba2State``, "attn": stacked ``KVCache``}."""
+    _check_family(cfg)
+
+    def kv(n):
+        shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(k=torch.zeros(shape, dtype=cache_dtype, device=device),
+                       v=torch.zeros(shape, dtype=cache_dtype, device=device))
+
+    if cfg.family == "dense":
+        return kv(cfg.num_layers)
+    st = mamba2.mamba2_init_state(cfg, batch, device)
+    stacked = mamba2.Mamba2State(*(
+        torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=device)
+        for t in st))
+    return {"mamba": stacked, "attn": kv(n_attn_layers(cfg))}
+
+
+def _layer_kv(caches: KVCache | None, i: int) -> KVCache | None:
+    return None if caches is None else KVCache(caches.k[i], caches.v[i])
+
+
+# ---------------------------------------------------------------------------
+# one attention block (dense family + the hybrid shared block)
+# ---------------------------------------------------------------------------
+def _attn_block(p: AttnBlock, cfg: ModelConfig, x, shard: ShardCfg, *,
+                positions, mask: MaskSpec, cache=None, cache_len=None,
+                template=None):
+    h, new_cache = attention(
+        p.attn, layers.rmsnorm(p.ln1, x, cfg.norm_eps),
+        rope_theta=cfg.rope_theta, positions=positions, mask=mask,
+        cache=cache, cache_len=cache_len,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, template=template)
+    x = shard.constrain_act(x + h, None, None)
+    y = layers.mlp(p.ffn, layers.rmsnorm(p.ln2, x, cfg.norm_eps))
+    x = shard.constrain_act(x + y.to(x.dtype), None, None)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# sequence mode (train / prefill)
+# ---------------------------------------------------------------------------
+def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
+              positions, mask: MaskSpec, caches=None, mode: str = "train",
+              template=None):
+    """x (B,S,d) -> (x, caches).  mode: train | prefill (caches filled in
+    place)."""
+    _check_family(cfg)
+    if cfg.family == "dense":
+        return _seq_attn_stack(stack, cfg, x, shard, positions=positions,
+                               mask=mask, caches=caches, template=template)
+    return _seq_hybrid_stack(stack, cfg, x, shard, positions=positions,
+                             mask=mask, caches=caches, template=template)
+
+
+def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches,
+                    template):
+    for i, lp in enumerate(stack.layers):
+        x, _ = _attn_block(lp, cfg, x, shard, positions=positions, mask=mask,
+                           cache=_layer_kv(caches, i), template=template)
+    return x, caches
+
+
+def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
+                      template):
+    """Each group: the shared attention block (its own KV cache), then
+    ``attn_every`` Mamba2 layers (their states at layers g·E .. g·E+E-1)."""
+    with_caches = caches is not None
+    for g in range(n_attn_layers(cfg)):
+        acache = _layer_kv(caches["attn"], g) if with_caches else None
+        x, _ = _attn_block(stack.shared_attn, cfg, x, shard,
+                           positions=positions, mask=mask, cache=acache,
+                           template=template)
+        for e in range(cfg.attn_every):
+            i = g * cfg.attn_every + e
+            lp = stack.layers[i]
+            ms = (mamba2.Mamba2State(*(t[i] for t in caches["mamba"]))
+                  if with_caches else None)
+            h, nm = mamba2.mamba2_seq(
+                lp.mamba, cfg, layers.rmsnorm(lp.ln, x, cfg.norm_eps), shard,
+                state=ms, return_state=with_caches, template=template)
+            x = shard.constrain_act(x + h.to(x.dtype), None, None)
+            if with_caches:
+                for dst, src in zip(ms, nm):
+                    dst.copy_(src)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# step mode (single-token decode)
+# ---------------------------------------------------------------------------
+def stack_step(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
+               caches, cache_len, template=None):
+    """x (B,1,d), caches filled to cache_len -> (x, caches).
+
+    ``cache_len`` is an int (uniform batch) or a (B,) tensor (continuous
+    batching: per-slot fill levels and rope positions)."""
+    _check_family(cfg)
+    if torch.is_tensor(cache_len) and cache_len.dim() >= 1:
+        positions = cache_len.reshape(-1, 1)     # (B, 1) per-slot rope
+    else:
+        positions = torch.as_tensor(cache_len, device=x.device).reshape(1)
+    mask = MaskSpec(causal=True, q_offset=0)
+    block = lambda p, x, cache: _attn_block(
+        p, cfg, x, shard, positions=positions, mask=mask, cache=cache,
+        cache_len=cache_len, template=template)[0]
+    if cfg.family == "dense":
+        for i, lp in enumerate(stack.layers):
+            x = block(lp, x, _layer_kv(caches, i))
+        return x, caches
+
+    for g in range(n_attn_layers(cfg)):
+        x = block(stack.shared_attn, x, _layer_kv(caches["attn"], g))
+        for e in range(cfg.attn_every):
+            i = g * cfg.attn_every + e
+            lp = stack.layers[i]
+            ms = mamba2.Mamba2State(*(t[i] for t in caches["mamba"]))
+            h, nm = mamba2.mamba2_step(
+                lp.mamba, cfg, layers.rmsnorm(lp.ln, x[:, 0], cfg.norm_eps),
+                ms)
+            x = x + h[:, None].to(x.dtype)
+            for dst, src in zip(ms, nm):
+                dst.copy_(src)
+    return x, caches

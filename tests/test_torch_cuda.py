@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import jacobi_cuda, stencil3d, stencil3d_cuda
+from repro_torch.kernels import (
+    attention_cuda, jacobi_cuda, ssd_cuda, stencil3d, stencil3d_cuda,
+)
+from repro_torch.models.attention import MaskSpec
 
 # max|kernel - plain| <= 1e-5 * max(1, max|plain|): the same float32
 # expression, with FMA contraction in the kernel only
@@ -125,3 +128,111 @@ def test_cuda_farm_slots_equal_serial_runs_bitwise(card, fused_sweeps):
         serial = rt.run("cavity", **kw)
         for f in ("vx", "vy", "vz", "p"):
             assert torch.equal(out[sid].state[f], serial.state[f]), (sid, f)
+
+
+# FLASH_ATTENTION cases: (B, Sq, Sk, H, KH, D, dtype, kv dtype, spec, valid)
+ATTN_CASES = {
+    "prefill_causal": (1, 200, 200, 4, 4, 64, torch.bfloat16, None,
+                       MaskSpec(), None),
+    "gqa_rep2_d128": (2, 77, 77, 8, 4, 128, torch.bfloat16, None,
+                      MaskSpec(), None),
+    "gqa_rep4_d32_f32": (1, 65, 65, 8, 2, 32, torch.float32, None,
+                         MaskSpec(), None),
+    "prefix_offset": (2, 77, 133, 4, 2, 64, torch.bfloat16, None,
+                      MaskSpec(causal=True, q_offset=40, prefix_len=9), 120),
+    "decode_f32_cache": (4, 1, 300, 4, 4, 64, torch.bfloat16, torch.float32,
+                         MaskSpec(causal=False), (37, 300, 1, 150)),
+    "blind_rows": (1, 70, 50, 2, 1, 64, torch.float32, None,
+                   MaskSpec(causal=True, q_offset=-20), None),
+    "no_valid_key": (2, 3, 40, 2, 2, 32, torch.float32, None,
+                     MaskSpec(causal=False), (0, 5)),
+}
+
+
+def _tol(want, dtype):
+    """bf16 outputs: one bf16 ulp of the largest value (2^-7 relative), as
+    kernel and plain version may round a float32 result differently;
+    float32: 2e-5 relative (sums over Sk terms in another order)."""
+    scale = max(1.0, float(want.abs().max()))
+    return (2.0 ** -7 if dtype == torch.bfloat16 else 2e-5) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_flash_attention_matches_plain_version(card, case):
+    b, sq, sk, h, kh, d, dt, kvdt, spec, valid = ATTN_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(b, sq, h, d, generator=gen, device=card).to(dt)
+    k, v = (torch.randn(b, sk, kh, d, generator=gen, device=card)
+            .to(kvdt or dt) for _ in range(2))
+    if isinstance(valid, tuple):
+        valid = torch.tensor(valid, device=card)
+    before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
+    got = attention_cuda.flash_attention(q, k, v, spec, valid)
+    want = attention_cuda.flash_attention_plain(q, k, v, spec, valid)
+    torch.cuda.synchronize()
+    assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before + 1
+    assert got.shape == want.shape and got.dtype == dt
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(want.float(), dt), err
+
+
+# SSD_INTRA cases: (B, nc, L, G, R, P, N)
+SSD_CASES = {"zamba2_chunk": (1, 2, 128, 1, 8, 64, 64),
+             "odd": (2, 3, 48, 1, 3, 16, 8),
+             "groups_long": (1, 2, 200, 2, 2, 24, 20),
+             "wide": (1, 1, 256, 1, 2, 128, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_intra_matches_plain_version(card, case):
+    bsz, nc, l, g, r, p, n = SSD_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=card)
+    x = rnd(bsz, nc, l, g, r, p)
+    ld = -torch.nn.functional.softplus(rnd(bsz, nc, l, g, r))
+    dt = torch.nn.functional.softplus(rnd(bsz, nc, l, g, r))
+    b_, c_ = rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n)
+    s_in = rnd(bsz, nc, g, r, n, p) * 0.3
+    before = ssd_cuda.LAUNCHES["SSD_INTRA"]
+    got = ssd_cuda.ssd_intra(x, ld, dt, b_, c_, s_in)
+    want = ssd_cuda.ssd_intra_plain(x, ld, dt, b_, c_, s_in)
+    torch.cuda.synchronize()
+    assert ssd_cuda.LAUNCHES["SSD_INTRA"] == before + 1
+    # float32 throughout; the decay exponents come from a cumulative sum
+    # taken in another order, so allow 1e-4 of the largest output
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b"])
+def test_smoke_model_kernels_agree_with_plain_path(card, arch):
+    from repro_torch.configs.registry import get_config, smoke
+    from repro_torch.models import model
+
+    cfg = smoke(get_config(arch))
+    lm = model.init_params(cfg, 0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=card,
+                         generator=torch.Generator(device=card).manual_seed(2))
+    n_attn = cfg.num_layers // (cfg.attn_every or 1)
+    n_ssd = cfg.num_layers if cfg.family == "hybrid" else 0
+    outs = {}
+    for tmpl in ("CUDA", "TORCH"):
+        attention_cuda.reset_launches()
+        ssd_cuda.reset_launches()
+        caches = model.init_caches(cfg, 2, 64, torch.float32, card)
+        lp, caches = model.prefill(lm, cfg, {"tokens": toks}, caches,
+                                   template=tmpl)
+        ld, caches = model.decode_step(
+            lm, cfg, toks[:, :1], caches, torch.tensor([40, 23], device=card),
+            template=tmpl)
+        torch.cuda.synchronize()
+        outs[tmpl] = (lp, ld)
+        launched = (attention_cuda.LAUNCHES["FLASH_ATTENTION"],
+                    ssd_cuda.LAUNCHES["SSD_INTRA"])
+        assert launched == ((2 * n_attn, n_ssd) if tmpl == "CUDA" else (0, 0))
+    for a, b in zip(outs["CUDA"], outs["TORCH"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

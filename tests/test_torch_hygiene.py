@@ -29,15 +29,44 @@ def _module_name(path):
     return ".".join(parts)
 
 
-# the modules of the farm slice, which every check below must reach
+# the modules of the farm slice and of the LM serving slice, which every
+# check below must reach
 FARM_SLICE = ("repro_torch.serve", "repro_torch.serve.slots",
               "repro_torch.sim.ensemble", "repro_torch.sim.farm",
               "repro_torch.sim.service", "repro_torch.kernels.jacobi_cuda")
+LM_SLICE = ("repro_torch.models.config", "repro_torch.configs.registry",
+            "repro_torch.configs.zamba2_1p2b", "repro_torch.configs.llama3_8b",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.kernels.attention", "repro_torch.kernels.attention_cuda",
+            "repro_torch.kernels.ssd", "repro_torch.kernels.ssd_cuda",
+            "repro_torch.models.blocks", "repro_torch.models.mamba2",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.serve.engine", "repro_torch.launch.serve")
+CUDA_SOURCES = ("stencil3d.cu", "jacobi.cu", "attention.cu", "ssd.cu")
 
 
 def test_the_checks_cover_the_farm_slice():
     modules = {_module_name(p) for p in _port_files()}
     assert set(FARM_SLICE) <= modules, set(FARM_SLICE) - modules
+
+
+def test_the_checks_cover_the_lm_slice():
+    modules = {_module_name(p) for p in _port_files()}
+    assert set(LM_SLICE) <= modules, set(LM_SLICE) - modules
+
+
+def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
+    from repro_torch.kernels import _build
+
+    assert sorted(p.name for p in _build.SOURCES.values()) == \
+        sorted(CUDA_SOURCES)
+    csrc = os.path.join(PKG, "kernels", "csrc")
+    assert sorted(os.listdir(csrc)) == sorted(CUDA_SOURCES)
+    for name in CUDA_SOURCES:
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        assert "src/repro/" in text and "on an H100" in text, name
+        assert "#include <torch" not in text, name   # plain C interface
 
 
 def _forbidden(name: str) -> bool:
@@ -101,17 +130,18 @@ for name in {modules!r}:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)          # defines main(); does not run it
-from repro_torch.kernels import _build, jacobi_cuda, stencil3d_cuda
+from repro_torch.kernels import (
+    _build, attention_cuda, jacobi_cuda, ssd_cuda, stencil3d_cuda)
 print(json.dumps({{
     "bad": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))
                   or m == "repro" or m.startswith("repro.")),
     "built": bool(_build.build_info),
-    "lib_loaded": stencil3d_cuda._lib.cache_info().currsize
-                  + jacobi_cuda._lib.cache_info().currsize
+    "lib_loaded": sum(w._lib.cache_info().currsize for w in
+                      (stencil3d_cuda, jacobi_cuda, attention_cuda, ssd_cuda))
                   + _build.load.cache_info().currsize,
     "has_main": callable(smoke.main),
-    "farm_slice": all(m in sys.modules for m in {FARM_SLICE!r}),
+    "slices": all(m in sys.modules for m in {FARM_SLICE + LM_SLICE!r}),
 }}))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -120,4 +150,4 @@ print(json.dumps({{
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"bad": [], "built": False, "lib_loaded": 0,
-                   "has_main": True, "farm_slice": True}, got
+                   "has_main": True, "slices": True}, got
