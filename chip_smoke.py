@@ -43,13 +43,17 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              decode step; prefill ms per bucket, decode-step ms, tokens/s,
              the device's busy share of a decode step and peak memory; then
              one prompt prefilled and decoded 4 steps teacher-forced on the
-             ``cuda`` and the ``torch`` backends, whose logits must agree.
+             ``cuda`` and the ``torch`` backends, whose logits must agree,
+             and once more with a planted attention fault (every launch
+             given 64 keys too few), which the check must reject.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes, llama3-8b's GQA widths and an odd shape with ``prefix_len`` and
-``q_offset``) and SSD_INTRA (the zamba2 prefill shape and an odd one)
-against their plain versions, beside ``scaled_dot_product_attention``'s
-time on the same inputs (a yardstick only; the port never calls it).
+``q_offset``; per query row, and a planted fault of 64 missing keys must
+fail the same check) and SSD_INTRA (the zamba2 prefill shape and an odd
+one) against their plain versions, beside ``scaled_dot_product_attention``'s
+time on the same inputs (``is_causal`` for a plain causal mask, else the
+boolean mask; a yardstick only, the port never calls it).
 
 The line before the last is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -144,11 +148,20 @@ LM_PARITY_STEPS = 4
 # their scale; an error in a kernel (a wrong mask, a lost head, a wrong
 # decay) moves them by their full scale.
 LM_PARITY_RTOL = 5e-2
-# FLASH_ATTENTION kernel vs plain, bf16 output: both round a float32 result
-# to bf16, and a sum taken in another order may round to the neighbouring
-# bf16 value: one bf16 ulp of the largest output (2^-7 relative).  float32
-# outputs: 2e-5 relative (sums over Sk terms in another order).
+# FLASH_ATTENTION kernel vs plain, held per query row (one head's D
+# values): |kernel - plain| <= ATTN_RTOL * max|plain row| + ATTN_ATOL.  bf16
+# output: both round a float32 result to bf16, and a sum taken in another
+# order may round to the neighbouring bf16 value, at most one bf16 ulp of
+# the row's largest value (2^-7 relative).  float32 output: 2e-5 relative.
+# The floor covers the float32 summation error itself, about 1e-7 of
+# sum_j p_j |v_j| (~1) over up to 4096 terms.  A per-row limit matters
+# because row scales differ tenfold: early causal rows average a few v rows
+# (|out| ~ 3), long rows thousands (|out| ~ 0.03-0.1).
 ATTN_RTOL = {"bfloat16": 2.0 ** -7, "float32": 2e-5}
+ATTN_ATOL = 1e-5
+# the planted fault each check must reject: the kernel alone given a valid
+# key length 64 short (one 64-key tile dropped)
+ATTN_FAULT_KEYS = 64
 # SSD_INTRA kernel vs plain, float32: the decay exponents are differences
 # of cumulative sums of up to 128 terms taken in another order
 SSD_RTOL = 1e-4
@@ -438,6 +451,15 @@ def attention_mask(b, sq, sk, causal, q_offset, prefix_len, valid, dev):
     return m[None] & (kpos[None] < v[:, None, None])
 
 
+def attention_diff(got, want, dtype: str):
+    """max|got - want| and its largest share of the per-row tolerance
+    ATTN_RTOL * max|want row| + ATTN_ATOL (a row: one query, one head)."""
+    diff = (got.float() - want.float()).abs()
+    tol = (ATTN_RTOL[dtype] * want.float().abs().amax(dim=-1, keepdim=True)
+           + ATTN_ATOL)
+    return float(diff.max()), float((diff / tol).max())
+
+
 def attention_cases(gen, dev):
     """FLASH_ATTENTION against its plain version (``full_mha`` on the
     TORCH template) at the lm path's prefill and decode shapes, llama3-8b's
@@ -460,9 +482,13 @@ def attention_cases(gen, dev):
         got = ac.flash_attention(q, k, v, spec, vt)
         want = ac.flash_attention_plain(q, k, v, spec, vt)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = ATTN_RTOL[qdt] * max(1.0, float(want.float().abs().max()))
+        err, share = attention_diff(got, want, qdt)
         finite = bool(torch.isfinite(got).all())
+        # the planted fault: one 64-key tile short, in the kernel call only
+        short = (sk - ATTN_FAULT_KEYS if vt is None
+                 else (vt - ATTN_FAULT_KEYS).clamp(min=1))
+        _, fault_share = attention_diff(
+            ac.flash_attention(q, k, v, spec, short), want, qdt)
         mask = attention_mask(b, sq, sk, causal, off, pre, vt, dev)
         seen = int(mask.sum())                  # (row, key) pairs computed
         # bytes: q and the output once, and the k/v rows some row sees
@@ -472,20 +498,27 @@ def attention_cases(gen, dev):
         if vt is not None:
             nbytes += vt.numel() * 8
         ops = 4 * h * d * seen
-        # the library yardstick: SDPA (B, H, S, D) on k/v in q's dtype
+        # the library yardstick: SDPA (B, H, S, D) on k/v in q's dtype, with
+        # is_causal for a plain causal mask (its fastest route) and the
+        # explicit boolean mask for the rest
         qs = q.transpose(1, 2)
         ks, vs = (t.to(qdt_).transpose(1, 2) for t in (k, v))
-        amask = mask[:, None]
+        plain_causal = causal and off == 0 and pre == 0 and vt is None
+        sdpa_kw = (dict(is_causal=True) if plain_causal
+                   else dict(attn_mask=mask[:, None]))
         sdpa = lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=amask, enable_gqa=h != kh)
+            qs, ks, vs, enable_gqa=h != kh, **sdpa_kw)
         lib_err = float((sdpa().transpose(1, 2).float()
                          - want.float()).abs().max())
         line = {"phase": "kernel", "kernel": "FLASH_ATTENTION", "case": case,
                 "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "KH": kh,
                           "D": d}, "q_dtype": qdt, "kv_dtype": kvdt,
                 "causal": causal, "q_offset": off, "prefix_len": pre,
-                "valid": valid, "max_abs_diff": err, "tolerance": tol,
+                "valid": valid, "max_abs_diff": err,
+                "share_of_row_tolerance": share,
+                "planted_fault_share_of_row_tolerance": fault_share,
                 "finite": finite, "sdpa_max_abs_diff": lib_err,
+                "sdpa_mask": "is_causal" if plain_causal else "boolean",
                 "kernel_ms": cuda_ms(lambda: ac.flash_attention(
                     q, k, v, spec, vt), reps=20),
                 "plain_ms": cuda_ms(lambda: ac.flash_attention_plain(
@@ -495,8 +528,12 @@ def attention_cases(gen, dev):
                         else F32_OPS_PER_S)}
         emit(line)
         require(finite, f"FLASH_ATTENTION ({case}): non-finite output")
-        require(err <= tol, f"FLASH_ATTENTION ({case}): max|kernel - plain| "
-                            f"{err} > {tol}")
+        require(share <= 1.0, f"FLASH_ATTENTION ({case}): |kernel - plain| "
+                              f"is {share} of its per-row tolerance")
+        require(fault_share > 1.0,
+                f"FLASH_ATTENTION ({case}): the check passed a kernel given "
+                f"{ATTN_FAULT_KEYS} keys too few ({fault_share} of the "
+                f"tolerance)")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res[case] = {key: line[key] for key in
                      ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -988,6 +1025,9 @@ def phase_lm(dev):
           "first_tokens": {rid: done[rid].output[:8] for rid in sorted(done)}})
     require(all(p["max_abs_diff"] <= p["tolerance"] for p in parity),
             f"lm: cuda and torch backends disagree: {parity}")
+    require(any(p["planted_fault_max_abs_diff"] > p["tolerance"]
+                for p in parity),
+            f"lm: the parity check passed a planted attention fault: {parity}")
     del eng, lm
     torch.cuda.empty_cache()
     return launches
@@ -997,8 +1037,12 @@ def lm_parity(cfg, lm, dev):
     """One prompt prefilled, then LM_PARITY_STEPS decode steps, on the
     torch backend (choosing the tokens) and on the cuda backend fed the
     same tokens (teacher forcing, so a near-tie in argmax cannot fork the
-    two runs); logits compared relative to max|logits|."""
+    two runs); logits compared relative to max|logits|.  A third run, on
+    the cuda backend with every FLASH_ATTENTION launch given
+    ATTN_FAULT_KEYS keys too few, shows that the check rejects a fault of
+    that size."""
     import torch
+    from repro_torch.kernels import attention_cuda as ac
     from repro_torch.models import model
 
     prompt = torch.from_numpy(lm_requests(cfg)[0].prompt).to(dev)[None]
@@ -1021,15 +1065,34 @@ def lm_parity(cfg, lm, dev):
 
     want, tokens = run("TORCH", None)
     got, _ = run("CUDA", tokens)
+    # the planted fault the parity check must reject: every FLASH_ATTENTION
+    # launch given a valid key length ATTN_FAULT_KEYS short
+    launch = ac._launch
+
+    def short(q, k, v, spec, valid, scale):
+        sk = k.shape[1]
+        valid = (sk - ATTN_FAULT_KEYS if valid is None
+                 else (valid - ATTN_FAULT_KEYS).clamp(min=1)
+                 if torch.is_tensor(valid) else max(1, valid - ATTN_FAULT_KEYS))
+        return launch(q, k, v, spec, valid, scale)
+
+    ac._launch = short
+    try:
+        faulty, _ = run("CUDA", tokens)
+    finally:
+        ac._launch = launch
     rows = []
-    for i, (a, b) in enumerate(zip(got, want)):
+    for i, (a, b, c) in enumerate(zip(got, want, faulty)):
         require(bool(torch.isfinite(a).all()), f"lm parity {i}: not finite")
         scale = float(b.abs().max())
         rows.append({"position": plen - 1 + i,
                      "max_abs_diff": float((a - b).abs().max()),
                      "tolerance": LM_PARITY_RTOL * scale,
                      "max_abs_logit": scale,
-                     "argmax_equal": int(a.argmax()) == int(b.argmax())})
+                     "rel_l2": float((a - b).norm() / b.norm()),
+                     "argmax_equal": int(a.argmax()) == int(b.argmax()),
+                     "planted_fault_max_abs_diff": float((c - b).abs().max()),
+                     "planted_fault_rel_l2": float((c - b).norm() / b.norm())})
     return rows
 
 

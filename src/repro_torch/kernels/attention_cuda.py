@@ -17,9 +17,9 @@ checks all of that and raises on anything else.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream
 without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]``.  On
-a CPU tensor it runs the plain version, ``models.attention.full_mha`` on the
-``TORCH`` template, which is also what the kernel is checked against on the
-card (:func:`flash_attention_plain`).
+a CPU tensor it runs the plain version, ``kernels.ref.full_mha_reference``,
+which is also what the kernel is checked against on the card
+(:func:`flash_attention_plain`).
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ import functools
 import numbers
 
 import torch
+
+from repro_torch.kernels.ref import full_mha_reference
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,9 +131,7 @@ def _launch(q, k, v, spec, kv_valid_len, scale):
 def _run(q, k, v, spec, kv_valid_len, scale, plain: bool):
     _check(q, k, v, kv_valid_len)
     if plain or q.device.type == "cpu":
-        from repro_torch.models.attention import full_mha
-
-        return full_mha(q, k, v, spec, kv_valid_len, scale, template="TORCH")
+        return full_mha_reference(q, k, v, spec, kv_valid_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"FLASH_ATTENTION: unsupported device {q.device}")
     if k.dtype != v.dtype:

@@ -236,13 +236,11 @@ template <typename Tq, typename Tkv, int D, int BQ, int TPR>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   auto kernel = flash_kernel<Tq, Tkv, D, BQ, TPR>;
   const size_t bytes = smem_floats<D, BQ>() * sizeof(float);
-  static bool opted_in = false;       // above 48 KB, once per instance
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  // above 48 KB the size is opted in to; the attribute belongs to the
+  // current device, so it is set at every launch (a host-side call)
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.Sq + BQ - 1) / BQ), (unsigned)(p.B * p.H));
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();

@@ -132,16 +132,14 @@ __global__ void __launch_bounds__(kThreads) jacobi_fused_kernel(
   }
 }
 
-// Above 48 KB a block's shared memory must be opted in to, once per size.
+// Above 48 KB a block's shared memory must be opted in to.  The attribute
+// belongs to the current device, so it is set at every call.
 cudaError_t configure(int k) {
-  static size_t opted_in = 48 * 1024;
   const size_t bytes = smem_bytes(k);
-  if (bytes <= opted_in) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
       jacobi_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
-  if (err == cudaSuccess) opted_in = bytes;
-  return err;
 }
 
 }  // namespace

@@ -237,13 +237,13 @@ cudaError_t ssd_intra(const float* x, const float* ld, const float* dt,
       N > kMaxN || P <= 0 || P > kMaxP || R > 65535 || BC * G > 65535)
     return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes(L, N, P);
-  static size_t opted_in = 48 * 1024;   // above 48 KB a size is opted in to
-  if (bytes > opted_in) {
+  // above 48 KB the size is opted in to; the attribute belongs to the
+  // current device, so it is set at every launch (a host-side call)
+  if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ssd_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return err;
-    opted_in = bytes;
   }
   const Params p{x, ld, dt, b, c, s_in, y, BC, L, G, R, N, P};
   const dim3 grid((unsigned)((L + kT - 1) / kT), (unsigned)R,

@@ -21,8 +21,8 @@ from repro_torch.kernels import (
     stencil3d,
 )
 from repro_torch.kernels.jacobi import jacobi_fused_ref
+from repro_torch.kernels.ref import MaskSpec
 from repro_torch.kernels.ssd import ssd_intra_reference
-from repro_torch.models.attention import MaskSpec
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,12 +2,16 @@
 
 These are written independently of the descriptor/generator machinery
 (plain shifted slices of padded tensors), so kernel tests compare separate
-implementations.  They mirror ``repro.kernels.ref`` line for line.
+implementations.  They mirror ``repro.kernels.ref`` line for line; the
+attention mask (``MaskSpec``, ``_mask``) and ``full_mha_reference`` mirror
+``repro.models.attention``, whose port imports them from here.
 
 Conventions match stencil3d.py: inputs are halo-padded by the declared
 stencil radii; outputs are interior-shaped.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -94,8 +98,60 @@ def project_velocity(vx, vy, vz, p, *, dt, h):
 
 
 # ---------------------------------------------------------------------------
-# attention oracle (for the FLASH_ATTENTION kernel)
+# attention: the mask semantics and the plain FLASH_ATTENTION
 # ---------------------------------------------------------------------------
+_NEG_INF = -1e30     # masked logits: a row with every key masked gives mean(v)
+
+
+class MaskSpec(NamedTuple):
+    causal: bool = True
+    q_offset: int = 0          # absolute position of q[0]
+    prefix_len: int = 0        # positions < prefix_len attend bidirectionally
+
+
+def _per_batch(kv_valid_len) -> bool:
+    return torch.is_tensor(kv_valid_len) and kv_valid_len.dim() >= 1
+
+
+def _mask(qpos, kpos, spec: MaskSpec, kv_valid_len=None):
+    """(Sq, Sk) boolean mask (True = attend); ``kv_valid_len`` a scalar."""
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                   device=qpos.device)
+    if spec.causal:
+        causal = kpos[None, :] <= (qpos[:, None] + spec.q_offset)
+        if spec.prefix_len:
+            causal = causal | (kpos[None, :] < spec.prefix_len)
+        m = m & causal
+    if kv_valid_len is not None:
+        m = m & (kpos[None, :] < kv_valid_len)
+    return m
+
+
+def full_mha_reference(q, k, v, spec: MaskSpec = MaskSpec(),
+                       kv_valid_len=None, scale=None):
+    """O(S^2)-memory masked attention in BSHD: the eager body of
+    ``models.attention.full_mha`` and the FLASH_ATTENTION kernel's plain
+    version.  q (B, Sq, H, D), k/v (B, Sk, KH, D) read in q's dtype;
+    ``kv_valid_len`` None, a scalar or one per batch row."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    rep = h // kh
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf = q.reshape(b, sq, kh, rep, d).float()
+    kf = k.to(q.dtype).float()
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf) * scale
+    per_batch = _per_batch(kv_valid_len)
+    pos = lambda n: torch.arange(n, device=q.device)
+    mask = _mask(pos(sq), pos(sk), spec, None if per_batch else kv_valid_len)
+    logits = torch.where(mask[None, None, None], logits, _NEG_INF)
+    if per_batch:  # continuous batching: per-slot valid length
+        kmask = pos(sk)[None, :] < kv_valid_len.reshape(b, 1)     # (B, Sk)
+        logits = torch.where(kmask[:, None, None, None, :], logits, _NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w, v.to(q.dtype).float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
 def mha_reference(q, k, v, *, causal=True, scale=None, q_offset=0):
     """O(S^2)-memory reference attention.
 

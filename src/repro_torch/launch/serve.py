@@ -4,9 +4,9 @@ engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --smoke --device cpu --requests 8 --slots 4 --max-new 16
 
-Without ``--smoke`` the model runs at its published widths; ``--device``
-defaults to ``cuda`` (the kernels), and ``--backend`` chooses the kernels
-(``cuda``) or their plain versions (``torch``).
+Without ``--smoke`` the model runs at its published widths.  ``--device``
+defaults to ``cuda``, where the engine runs the hand-written kernels; on
+``cpu`` it runs their plain versions.
 """
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--backend", default="auto", choices=("auto", "cuda", "torch"))
     args = ap.parse_args(argv)
 
     import torch
@@ -42,7 +41,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     params = model.init_params(cfg, args.seed, device=dev)
     eng = ServingEngine(cfg, params, slots=args.slots, max_seq=args.max_seq,
-                        device=dev, backend=args.backend)
+                        device=dev)
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     for rid in range(args.requests):

@@ -7,49 +7,24 @@ passes its float32 cache and lets the kernel round it on load).
 
 Masking supports causal, causal-with-offset (decode), prefix-LM
 (bidirectional prefix + causal suffix) and a valid key length that is a
-scalar or, in ``full_mha``, one per batch row.
+scalar or, in ``full_mha``, one per batch row.  The mask semantics
+(``MaskSpec``, ``_mask``) live in ``kernels.ref`` beside the kernel's plain
+versions; ``MaskSpec`` is re-exported here.
 
 The reference marks two regions ``__kernel__attention`` as shipping as one
 fused Pallas kernel on the TPU (``full_mha`` and each q chunk of
 ``chunked_mha``).  Here those regions are the FLASH_ATTENTION kernel: on the
 ``CUDA`` template (the default for tensors on the card) both functions call
-``kernels.attention_cuda.flash_attention``; on ``TORCH`` they run their
-eager bodies, which are the kernel's plain version.
+``kernels.attention_cuda.flash_attention``; on ``TORCH`` they run the
+kernel's plain versions, ``kernels.ref.full_mha_reference`` and
+``kernels.attention.chunked_attention``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
-import torch
-
 from repro_torch.device import resolve_template
 from repro_torch.kernels import attention_cuda
-
-_NEG_INF = -1e30
-
-
-class MaskSpec(NamedTuple):
-    causal: bool = True
-    q_offset: int = 0          # absolute position of q[0]
-    prefix_len: int = 0        # positions < prefix_len attend bidirectionally
-
-
-def _per_batch(kv_valid_len) -> bool:
-    return torch.is_tensor(kv_valid_len) and kv_valid_len.dim() >= 1
-
-
-def _mask(qpos, kpos, spec: MaskSpec, kv_valid_len=None):
-    """(Sq, Sk) boolean mask (True = attend); ``kv_valid_len`` a scalar."""
-    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
-                   device=qpos.device)
-    if spec.causal:
-        causal = kpos[None, :] <= (qpos[:, None] + spec.q_offset)
-        if spec.prefix_len:
-            causal = causal | (kpos[None, :] < spec.prefix_len)
-        m = m & causal
-    if kv_valid_len is not None:
-        m = m & (kpos[None, :] < kv_valid_len)
-    return m
+from repro_torch.kernels.attention import chunked_attention
+from repro_torch.kernels.ref import MaskSpec, _per_batch, full_mha_reference
 
 
 def full_mha(q, k, v, spec: MaskSpec = MaskSpec(), kv_valid_len=None,
@@ -58,23 +33,7 @@ def full_mha(q, k, v, spec: MaskSpec = MaskSpec(), kv_valid_len=None,
     if resolve_template(template, q.device) == "CUDA":
         return attention_cuda.flash_attention(q, k, v, spec, kv_valid_len,
                                               scale)
-    b, sq, h, d = q.shape
-    _, sk, kh, _ = k.shape
-    rep = h // kh
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    qf = q.reshape(b, sq, kh, rep, d).float()
-    kf = k.to(q.dtype).float()
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf) * scale
-    per_batch = _per_batch(kv_valid_len)
-    pos = lambda n: torch.arange(n, device=q.device)
-    mask = _mask(pos(sq), pos(sk), spec, None if per_batch else kv_valid_len)
-    logits = torch.where(mask[None, None, None], logits, _NEG_INF)
-    if per_batch:  # continuous batching: per-slot valid length
-        kmask = pos(sk)[None, :] < kv_valid_len.reshape(b, 1)     # (B, Sk)
-        logits = torch.where(kmask[:, None, None, None, :], logits, _NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", w, v.to(q.dtype).float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return full_mha_reference(q, k, v, spec, kv_valid_len, scale)
 
 
 def chunked_mha(q, k, v, spec: MaskSpec = MaskSpec(), *, q_chunk: int = 1024,
@@ -82,57 +41,16 @@ def chunked_mha(q, k, v, spec: MaskSpec = MaskSpec(), *, q_chunk: int = 1024,
                 template=None):
     """Online-softmax attention: O(chunk^2) transient memory.
 
-    Outer loop over q chunks, inner loop over kv chunks (the reference's
-    ``lax.map`` and ``lax.scan``).  ``kv_valid_len`` is None or a scalar."""
+    ``kv_valid_len`` is None or a scalar."""
     if _per_batch(kv_valid_len):
         raise ValueError("chunked_mha takes one valid length for the batch; "
                          "per-row lengths go through full_mha")
     if resolve_template(template, q.device) == "CUDA":
         return attention_cuda.flash_attention(q, k, v, spec, kv_valid_len,
                                               scale)
-    b, sq, h, d = q.shape
-    _, sk, kh, _ = k.shape
-    rep = h // kh
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    q_chunk = min(q_chunk, sq)
-    kv_chunk = min(kv_chunk, sk)
-    nq, nk = -(-sq // q_chunk), -(-sk // kv_chunk)
-    # pad to chunk multiples
-    pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n))
-    qp = pad(q, nq * q_chunk - sq)
-    kp = pad(k.to(q.dtype), nk * kv_chunk - sk)
-    vp = pad(v.to(q.dtype), nk * kv_chunk - sk)
-    valid = (sk if kv_valid_len is None
-             else torch.clamp(torch.as_tensor(kv_valid_len, device=q.device),
-                              max=sk))
-    pos = lambda n: torch.arange(n, device=q.device)
-
-    outs = []
-    for qi in range(nq):
-        qs = qp[:, qi * q_chunk:(qi + 1) * q_chunk]
-        qs = qs.reshape(b, q_chunk, kh, rep, d).float()
-        qpos = qi * q_chunk + pos(q_chunk)
-        m_prev = torch.full((b, q_chunk, kh, rep), _NEG_INF,
-                            dtype=torch.float32, device=q.device)
-        l_prev = torch.zeros_like(m_prev)
-        acc = torch.zeros((b, q_chunk, kh, rep, d), dtype=torch.float32,
-                          device=q.device)
-        for kj in range(nk):
-            kc = kp[:, kj * kv_chunk:(kj + 1) * kv_chunk].float()
-            vc = vp[:, kj * kv_chunk:(kj + 1) * kv_chunk].float()
-            logits = torch.einsum("bqhrd,bkhd->bqhrk", qs, kc) * scale
-            msk = _mask(qpos, kj * kv_chunk + pos(kv_chunk), spec, valid)
-            logits = torch.where(msk[None, :, None, None, :], logits, _NEG_INF)
-            m_cur = torch.maximum(m_prev, logits.amax(dim=-1))
-            p = torch.exp(logits - m_cur[..., None])
-            alpha = torch.exp(m_prev - m_cur)
-            l_prev = l_prev * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bqhrk,bkhd->bqhrd", p, vc)
-            m_prev = m_cur
-        out = acc / torch.clamp(l_prev, min=1e-30)[..., None]
-        outs.append(out.reshape(b, q_chunk, h, d).to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :sq]
+    return chunked_attention(q, k, v, spec, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk, kv_valid_len=kv_valid_len,
+                             scale=scale)
 
 
 def decode_mha(q, k_cache, v_cache, cache_len, scale=None, template=None):

@@ -17,7 +17,7 @@ from repro_torch import api
 from repro_torch.kernels import (
     attention_cuda, jacobi_cuda, ssd_cuda, stencil3d, stencil3d_cuda,
 )
-from repro_torch.models.attention import MaskSpec
+from repro_torch.kernels.ref import MaskSpec
 
 # max|kernel - plain| <= 1e-5 * max(1, max|plain|): the same float32
 # expression, with FMA contraction in the kernel only
@@ -149,33 +149,58 @@ ATTN_CASES = {
 }
 
 
-def _tol(want, dtype):
-    """bf16 outputs: one bf16 ulp of the largest value (2^-7 relative), as
+def _share_of_tolerance(got, want, dtype) -> float:
+    """The largest share of the per-row tolerance |kernel - plain|
+    <= rtol * max|plain row| + 1e-5 (a row: one query, one head).  bf16
+    outputs: one bf16 ulp of the row's largest value (2^-7 relative), as
     kernel and plain version may round a float32 result differently;
-    float32: 2e-5 relative (sums over Sk terms in another order)."""
-    scale = max(1.0, float(want.abs().max()))
-    return (2.0 ** -7 if dtype == torch.bfloat16 else 2e-5) * scale
+    float32: 2e-5 relative.  The floor covers the float32 summation error.
+    Held per row, since long causal rows are ten times smaller than short
+    ones."""
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-5
+    diff = (got.float() - want.float()).abs()
+    tol = rtol * want.float().abs().amax(dim=-1, keepdim=True) + 1e-5
+    return float((diff / tol).max())
+
+
+def _attn_inputs(case, dev):
+    b, sq, sk, h, kh, d, dt, kvdt, spec, valid = ATTN_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dt)
+    k, v = (torch.randn(b, sk, kh, d, generator=gen, device=dev)
+            .to(kvdt or dt) for _ in range(2))
+    if isinstance(valid, tuple):
+        valid = torch.tensor(valid, device=dev)
+    return q, k, v, spec, valid
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(ATTN_CASES))
 def test_flash_attention_matches_plain_version(card, case):
-    b, sq, sk, h, kh, d, dt, kvdt, spec, valid = ATTN_CASES[case]
-    gen = torch.Generator(device=card).manual_seed(0)
-    q = torch.randn(b, sq, h, d, generator=gen, device=card).to(dt)
-    k, v = (torch.randn(b, sk, kh, d, generator=gen, device=card)
-            .to(kvdt or dt) for _ in range(2))
-    if isinstance(valid, tuple):
-        valid = torch.tensor(valid, device=card)
+    q, k, v, spec, valid = _attn_inputs(case, card)
     before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
     got = attention_cuda.flash_attention(q, k, v, spec, valid)
     want = attention_cuda.flash_attention_plain(q, k, v, spec, valid)
     torch.cuda.synchronize()
     assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before + 1
-    assert got.shape == want.shape and got.dtype == dt
+    assert got.shape == want.shape and got.dtype == q.dtype
     assert bool(torch.isfinite(got).all())
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= _tol(want.float(), dt), err
+    assert _share_of_tolerance(got, want, q.dtype) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_flash_attention_check_rejects_a_dropped_key_tile(card, case):
+    """A planted fault: the kernel alone is given a valid key length 64
+    short (one 64-key tile dropped); the per-row check must reject it."""
+    q, k, v, spec, valid = _attn_inputs(case, card)
+    if torch.is_tensor(valid):
+        short = (valid - 64).clamp(min=1)
+    else:
+        short = max(1, (k.shape[1] if valid is None else valid) - 64)
+    got = attention_cuda.flash_attention(q, k, v, spec, short)
+    want = attention_cuda.flash_attention_plain(q, k, v, spec, valid)
+    assert _share_of_tolerance(got, want, q.dtype) > 1.0
 
 
 # SSD_INTRA cases: (B, nc, L, G, R, P, N)

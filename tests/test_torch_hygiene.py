@@ -91,6 +91,29 @@ def test_no_jax_or_reference_import_in_the_source():
     assert not offenders, offenders
 
 
+def test_kernels_do_not_import_the_model_layer():
+    """The kernel layer (``repro_torch.kernels``) holds the kernels, their
+    wrappers and plain versions; the model layer calls it, never the other
+    way round, at module level or inside a function."""
+    offenders = []
+    for path in _port_files():
+        if not _module_name(path).startswith("repro_torch.kernels"):
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, ROOT)}: {n}" for n in names
+                          if n.startswith(("repro_torch.models",
+                                           "repro_torch.serve"))]
+    assert not offenders, offenders
+
+
 def _marks(func) -> set:
     out = set()
     for dec in func.decorator_list:
