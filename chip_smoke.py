@@ -12,7 +12,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              the card, at its main-path shape (256^3; k = 2 sweeps for
              JACOBI_FUSED), an odd shape and a slot-batched call with
              distinct parameter rows (JACOBI_FUSED also for k = 1..4);
-             CUDA-event times of kernel and plain version beside the least
+             CUDA-event times of kernel and plain version (the kernel's
+             with the stream given a head start, so that its own device
+             time is read, not its wrapper's host time) beside the least
              time the card could take (bytes over 3.35 TB/s or float32
              operations over 67 TFLOP/s, H100 SXM data-sheet peaks);
 4. main      ``api.runtime(n=256, nz=256).run("cavity", steps=20)`` on the
@@ -39,23 +41,30 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              ``ServingEngine(slots=4, max_seq=4096, backend="cuda")``: eight
              requests of 256..2000 prompt tokens and 32 new tokens each,
              drained, with the launch counters reset just before: 19
-             FLASH_ATTENTION and 38 SSD_INTRA a prefill, 19 FLASH_ATTENTION a
-             decode step; prefill ms per bucket, decode-step ms, tokens/s,
-             the device's busy share of a decode step and peak memory; then
+             FLASH_ATTENTION (tensor-core route) and 38 SSD_INTRA a prefill,
+             19 FLASH_ATTENTION (split-K route) a decode step; prefill ms
+             per bucket, decode-step ms, tokens/s, the device's busy share
+             of a decode step (and FLASH_ATTENTION's part) and peak memory;
+             then
              one prompt prefilled and decoded 4 steps teacher-forced on the
              ``cuda`` and the ``torch`` backends, whose logits must agree,
              and once more with a planted attention fault (every launch
              given 64 keys too few), which the check must reject.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
-shapes, llama3-8b's GQA widths and an odd shape with ``prefix_len`` and
-``q_offset``; per query row, and a planted fault of 64 missing keys must
-fail the same check) and SSD_INTRA (the zamba2 prefill shape and an odd
+shapes, llama3-8b's GQA widths at prefill and decode, an odd shape with
+``prefix_len`` and ``q_offset``, blind rows and valid lengths about a
+split on the bf16 routes, and a bf16-q float32-k/v prefill on the CUDA-core
+route: every route of ``attention_cuda.route`` is launched and checked per
+query row, and a planted fault of 64 missing keys must fail the same
+check) and SSD_INTRA (the zamba2 prefill shape and an odd
 one) against their plain versions, beside ``scaled_dot_product_attention``'s
 time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
 
-The line before the last is the ``{"kernels": [...]}`` summary; the last
+The line before the last is the ``{"kernels": [...]}`` summary
+(FLASH_ATTENTION's entry carries its prefill, decode and llama3 GQA cases
+side by side under ``cases``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -77,6 +86,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+SLEEP_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: a lower clock sleeps longer
 # max|kernel - plain| <= KERNEL_RTOL * max(1, max|plain|): both compute the
 # same float32 expression; the kernel may contract a*b+c into one FMA and
 # the plain version rounds every operation, a few ulp of the largest term
@@ -197,15 +207,30 @@ def read_counts() -> dict:
     return {k: v for w in _wrappers() for k, v in w.LAUNCHES.items()}
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+def cuda_ms(fn, reps: int, warmup: int = 2, head_start: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, CUDA events.
+
+    Without ``head_start`` a call whose host side (checks, allocations, the
+    launch) takes longer than its kernels is timed at the host's pace.  With
+    it, the stream first sleeps for twice the host's time to enqueue the
+    calls (measured on one more call), so the host is ahead and the events
+    bracket only device work: a kernel's own time."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    cycles = 0
+    if head_start:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cycles = int((2 * reps * host_s + 1e-3) * SLEEP_CYCLES_PER_S)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    if cycles:
+        torch.cuda._sleep(cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -337,7 +362,8 @@ def phase_kernels(dev):
                 kern = sc.KERNELS[name]
                 plain = sc.PLAIN[name]
                 line.update(
-                    kernel_ms=cuda_ms(lambda: kern(*inputs, table), reps=50),
+                    kernel_ms=cuda_ms(lambda: kern(*inputs, table), reps=50,
+                                      head_start=True),
                     plain_ms=cuda_ms(lambda: plain(*inputs, table), reps=5,
                                      warmup=1),
                     bytes=nbytes, ops=ops,
@@ -396,7 +422,8 @@ def jacobi_fused_cases(gen, dev):
             ops_ms = ops / F32_OPS_PER_S * 1e3
             line.update(
                 kernel_ms=cuda_ms(lambda: jc.jacobi_fused(
-                    p, rhs, h=h, omega=omega, sweeps=k), reps=50),
+                    p, rhs, h=h, omega=omega, sweeps=k), reps=50,
+                    head_start=True),
                 plain_ms=cuda_ms(lambda: jc.jacobi_fused_plain(
                     p, rhs, h=h, omega=omega, sweeps=k), reps=5, warmup=1),
                 bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
@@ -425,7 +452,8 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
 
 
 # FLASH_ATTENTION cases: (B, Sq, Sk, H, KH, D, q dtype, kv dtype,
-# (causal, q_offset, prefix_len), valid lengths or None)
+# (causal, q_offset, prefix_len), valid lengths or None); the route each
+# takes follows from (q dtype, kv dtype, Sq): attention_cuda.route
 ATTN_CASES = [
     ("prefill", 1, 1024, 1024, 32, 32, 64, "bfloat16", "bfloat16",
      (True, 0, 0), None),
@@ -435,7 +463,23 @@ ATTN_CASES = [
      (True, 0, 0), None),
     ("odd", 2, 77, 133, 8, 4, 64, "bfloat16", "bfloat16", (True, 56, 9),
      (133, 100)),
+    # rows that see no key (q_offset < 0; valid 0) on the two bf16 routes
+    ("blind_rows_bf16", 1, 70, 50, 2, 1, 64, "bfloat16", "bfloat16",
+     (True, -20, 0), None),
+    ("no_valid_key_bf16", 2, 3, 40, 2, 2, 32, "bfloat16", "bfloat16",
+     (False, 0, 0), (0, 5)),
+    # llama3-8b's widths at decode: 32 query heads over 8 kv heads, D 128
+    ("decode_gqa_llama3", 4, 1, LM_MAX_SEQ, 32, 8, 128, "bfloat16",
+     "float32", (False, 0, 0), (300, 1500, 2900, 4096)),
+    # valid lengths about one 256-key split, and a single key
+    ("decode_valid_edges", 4, 1, LM_MAX_SEQ, 32, 32, 64, "bfloat16",
+     "float32", (False, 0, 0), (255, 256, 257, 1)),
+    # the CUDA-core route kept for bf16 q with a float32 k/v at Sq > 8
+    ("prefill_f32_kv", 1, 1024, 1024, 32, 32, 64, "bfloat16", "float32",
+     (True, 0, 0), None),
 ]
+# the cases whose times the kernels line gives side by side
+ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3")
 
 
 def attention_mask(b, sq, sk, causal, q_offset, prefix_len, valid, dev):
@@ -463,23 +507,26 @@ def attention_diff(got, want, dtype: str):
 def attention_cases(gen, dev):
     """FLASH_ATTENTION against its plain version (``full_mha`` on the
     TORCH template) at the lm path's prefill and decode shapes, llama3-8b's
-    GQA widths and an odd shape; each timed beside
+    GQA widths, an odd shape and the edges of each route; each timed beside
     ``scaled_dot_product_attention`` on the same inputs and mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_cuda as ac
     from repro_torch.models.attention import MaskSpec
 
-    res = {"max_abs_err": 0.0}
+    res = {"max_abs_err": 0.0, "cases": {}}
     for (case, b, sq, sk, h, kh, d, qdt, kvdt, (causal, off, pre),
          valid) in ATTN_CASES:
         qdt_, kvdt_ = getattr(torch, qdt), getattr(torch, kvdt)
+        path = ac.route(qdt_, kvdt_, sq)
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(qdt_)
         k, v = (torch.randn(b, sk, kh, d, generator=gen, device=dev)
                 .to(kvdt_) for _ in range(2))
         vt = None if valid is None else torch.tensor(valid, device=dev)
         spec = MaskSpec(causal=causal, q_offset=off, prefix_len=pre)
+        by_route = dict(ac.ROUTE_LAUNCHES)
         got = ac.flash_attention(q, k, v, spec, vt)
+        took = {r: n - by_route[r] for r, n in ac.ROUTE_LAUNCHES.items()}
         want = ac.flash_attention_plain(q, k, v, spec, vt)
         torch.cuda.synchronize()
         err, share = attention_diff(got, want, qdt)
@@ -511,6 +558,7 @@ def attention_cases(gen, dev):
         lib_err = float((sdpa().transpose(1, 2).float()
                          - want.float()).abs().max())
         line = {"phase": "kernel", "kernel": "FLASH_ATTENTION", "case": case,
+                "route": path,
                 "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "KH": kh,
                           "D": d}, "q_dtype": qdt, "kv_dtype": kvdt,
                 "causal": causal, "q_offset": off, "prefix_len": pre,
@@ -520,13 +568,18 @@ def attention_cases(gen, dev):
                 "finite": finite, "sdpa_max_abs_diff": lib_err,
                 "sdpa_mask": "is_causal" if plain_causal else "boolean",
                 "kernel_ms": cuda_ms(lambda: ac.flash_attention(
+                    q, k, v, spec, vt), reps=20, head_start=True),
+                # back to back, at the host's pace where it is the slower
+                "call_ms": cuda_ms(lambda: ac.flash_attention(
                     q, k, v, spec, vt), reps=20),
                 "plain_ms": cuda_ms(lambda: ac.flash_attention_plain(
                     q, k, v, spec, vt), reps=3, warmup=1),
-                "library_ms": cuda_ms(sdpa, reps=20),
+                "library_ms": cuda_ms(sdpa, reps=20, head_start=True),
                 **bound(nbytes, ops, BF16_OPS_PER_S if qdt == "bfloat16"
                         else F32_OPS_PER_S)}
         emit(line)
+        require(took == {r: int(r == path) for r in ac.ROUTES},
+                f"FLASH_ATTENTION ({case}): launched {took}, not one {path}")
         require(finite, f"FLASH_ATTENTION ({case}): non-finite output")
         require(share <= 1.0, f"FLASH_ATTENTION ({case}): |kernel - plain| "
                               f"is {share} of its per-row tolerance")
@@ -535,12 +588,17 @@ def attention_cases(gen, dev):
                 f"{ATTN_FAULT_KEYS} keys too few ({fault_share} of the "
                 f"tolerance)")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        res[case] = {key: line[key] for key in
-                     ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                      "bound_by")}
+        if case in ATTN_HEADLINE:
+            res["cases"][case] = {key: line[key] for key in
+                                  ("route", "kernel_ms", "call_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "max_abs_diff")}
         if case == "prefill":                  # the headline numbers
-            res.update(res[case])
+            res.update(res["cases"][case])
         del q, k, v, got, want, mask
+    require({ac.route(getattr(torch, c[7]), getattr(torch, c[8]), c[2])
+             for c in ATTN_CASES} == set(ac.ROUTES),
+            "FLASH_ATTENTION: a route has no case")
     return res
 
 
@@ -581,7 +639,8 @@ def ssd_cases(gen, dev):
                 "shape": dict(zip("B nc L G R P N".split(),
                                   (bsz, nc, l, g, r, p, n))),
                 "max_abs_diff": err, "tolerance": tol, "finite": finite,
-                "kernel_ms": cuda_ms(lambda: sc.ssd_intra(*args), reps=20),
+                "kernel_ms": cuda_ms(lambda: sc.ssd_intra(*args), reps=20,
+                                     head_start=True),
                 "plain_ms": cuda_ms(lambda: sc.ssd_intra_plain(*args),
                                     reps=3, warmup=1),
                 "library_ms": None, **bound(nbytes, ops, F32_OPS_PER_S)}
@@ -930,9 +989,15 @@ def device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in events) / 1e3
+    # FLASH_ATTENTION's three kernels (csrc/attention.cu)
+    names = ("prefill_kernel", "decode_kernel", "flash_kernel")
+    attn = sum(ev.self_device_time_total for ev in events
+               if any(name in ev.key for name in names)) / 1e3
     return {"wall_ms": wall, "device_ms": busy,
+            "flash_attention_ms": attn if busy else "not measured",
             "busy_share": busy / wall if busy else "not measured"}
 
 
@@ -942,6 +1007,7 @@ def phase_lm(dev):
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import attention_cuda as ac
     from repro_torch.models import model
     from repro_torch.models.transformer import n_attn_layers
     from repro_torch.serve.engine import ServingEngine, _bucket
@@ -973,6 +1039,7 @@ def phase_lm(dev):
                       (time.perf_counter() - t0) * 1e3))
     wall = time.perf_counter() - t_start
     launches = read_counts()
+    routes = dict(ac.ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     prefills, decode_steps = sum(a for a, _ in steps), eng.steps
     expected = dict.fromkeys(launches, 0)
@@ -986,6 +1053,12 @@ def phase_lm(dev):
                 all(0 <= t < cfg.vocab_size for t in r.output)
                 for r in done.values()), "lm: outputs of the wrong length")
     require(launches == expected, f"lm: launch counts {launches} != {expected}")
+    # bf16 prefills on the tensor cores, decode steps split over keys
+    expected_routes = {"tensor_core_prefill": n_attn * prefills,
+                       "split_k_decode": n_attn * decode_steps,
+                       "cuda_core": 0}
+    require(routes == expected_routes,
+            f"lm: FLASH_ATTENTION routes {routes} != {expected_routes}")
     decode_ms = sorted(ms for a, ms in steps if a == 0)
 
     # prefill time per bucket (one slot's cache rows), and the device's
@@ -1015,6 +1088,7 @@ def phase_lm(dev):
           "prompt_lens": [len(r.prompt) for r in reqs],
           "new_tokens": LM_NEW, "engine_steps": decode_steps,
           "prefills": prefills, "launches": launches, "expected": expected,
+          "flash_attention_routes": routes,
           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
           "prefill_ms_by_bucket": prefill_ms,
           "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
@@ -1135,6 +1209,7 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+        **({"cases": r["cases"]} if "cases" in r else {}),
     } for name, r in kernel_results.items()]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})

@@ -15,11 +15,27 @@ is None, an int, a 0-d tensor or a (B,) integer tensor on q's device.  The
 output is a new contiguous (B, Sq, H, D) tensor in q's dtype.  The wrapper
 checks all of that and raises on anything else.
 
+The kernel has three routes, chosen by :func:`route` from q's dtype, k/v's
+dtype and Sq (``csrc/attention.cu`` explains each design):
+
+    q dtype   k/v dtype        Sq     route
+    bfloat16  bfloat16         > 8    tensor_core_prefill  (mma.sync bf16)
+    bfloat16  bf16 or float32  <= 8   split_k_decode       (flash-decoding)
+    bfloat16  float32          > 8    cuda_core            (float32 FMAs)
+    float32   any              any    cuda_core
+
+The two new routes load 16 bytes at a time, so they need k and v (and, for
+the prefill, q) with 16-byte aligned rows; the wrapper raises otherwise.
+The split-K decode writes per-split partials into a ``torch.empty``
+workspace and merges them in the same launch through ticket counters that
+the wrapper zeroes once per device and the kernel leaves at 0; launches on
+one stream are ordered, so the counters are shared by every call on it.
+
 On a CUDA tensor the wrapper launches the kernel on the current stream
-without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]``.  On
-a CPU tensor it runs the plain version, ``kernels.ref.full_mha_reference``,
-which is also what the kernel is checked against on the card
-(:func:`flash_attention_plain`).
+without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]`` and to
+``ROUTE_LAUNCHES[route]``.  On a CPU tensor it runs the plain version,
+``kernels.ref.full_mha_reference``, which is also what the kernel is
+checked against on the card (:func:`flash_attention_plain`).
 """
 from __future__ import annotations
 
@@ -33,13 +49,46 @@ from repro_torch.kernels.ref import full_mha_reference
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("tensor_core_prefill", "split_k_decode", "cuda_core")
+DECODE_MAX_SQ = 8        # the split-K decode takes Sq <= 8 query rows
 
-# launches since the last reset (CUDA launches only)
+# launches since the last reset (CUDA launches only), in all and by route
 LAUNCHES = {"FLASH_ATTENTION": 0}
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+# the split-K decode's ticket counters, per device: zeroed once, left at 0
+# by every launch
+_TICKETS: dict = {}
 
 
 def reset_launches() -> None:
     LAUNCHES["FLASH_ATTENTION"] = 0
+    for name in ROUTES:
+        ROUTE_LAUNCHES[name] = 0
+
+
+def route(q_dtype, kv_dtype, sq: int) -> str:
+    """The kernel route for q's dtype, k/v's dtype and Sq (the table in
+    the module docstring)."""
+    if q_dtype == torch.bfloat16 and sq <= DECODE_MAX_SQ:
+        return "split_k_decode"
+    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
+        return "tensor_core_prefill"
+    return "cuda_core"
+
+
+def decode_rows(sq: int, rep: int) -> tuple[int, int]:
+    """(rows a block, row groups) of the split-K decode: a block serves the
+    Sq x rep query rows of one kv head, at most 8 of them."""
+    rows = sq * rep
+    per_block = next(n for n in (1, 2, 4, 8) if n >= min(rows, 8))
+    return per_block, -(-rows // per_block)
+
+
+def decode_split(per_block: int) -> int:
+    """Keys a split-K decode block takes (``csrc/attention.cu``
+    ``dec::split_keys``): 256, or 128 where a block serves 4 or more rows."""
+    return 128 if per_block >= 4 else 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,13 +97,35 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("attention")
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
-    lib.flash_attention.argtypes = (
-        [ptr] * 4 + [ctypes.c_int] * 2 + [i64] * 5 + [ctypes.c_int]
-        + [i64] * 9 + [ctypes.c_float, ctypes.c_int, i64, i64, ptr, i64, ptr])
-    lib.flash_attention.restype = ctypes.c_int
+    common = ([ptr] * 4 + [ctypes.c_int] * 2 + [i64] * 5 + [ctypes.c_int]
+              + [i64] * 9 + [ctypes.c_float, ctypes.c_int, i64, i64, ptr, i64])
+    for fn in (lib.flash_attention, lib.flash_attention_prefill):
+        fn.argtypes = common + [ptr]
+        fn.restype = ctypes.c_int
+    lib.flash_attention_decode.argtypes = (
+        common + [ctypes.c_int] * 2 + [ptr] * 4)
+    lib.flash_attention_decode.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_rows_aligned(t, name: str, why: str) -> None:
+    """Raise unless every (b, s, h) row of ``t`` starts on 16 bytes."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(n > 1 and st * size % 16 for n, st in
+                                zip(t.shape[:3], t.stride()[:3])):
+        raise ValueError(f"FLASH_ATTENTION: {name}'s rows are not 16-byte "
+                         f"aligned (strides {tuple(t.stride())}); the {why} "
+                         "route loads 16 bytes at a time")
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    have = _TICKETS.get(device)
+    if have is None or have.numel() < n:
+        have = _TICKETS[device] = torch.zeros(n, dtype=torch.int32,
+                                              device=device)
+    return have
 
 
 def _check(q, k, v, kv_valid_len) -> None:
@@ -109,22 +180,43 @@ def _launch(q, k, v, spec, kv_valid_len, scale):
     elif kv_valid_len is not None:
         valid_all = int(kv_valid_len)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    path = route(q.dtype, k.dtype, sq)
+    if path == "tensor_core_prefill":
+        check_rows_aligned(q, "q", path)
+    if path != "cuda_core":
+        check_rows_aligned(k, "k", path)
+        check_rows_aligned(v, "v", path)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], _DTYPES[k.dtype], b, sq, sk, h, kh, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(bool(spec.causal)), int(spec.q_offset),
-            int(spec.prefix_len), valid_ptr, valid_all, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], _DTYPES[k.dtype], b, sq, sk, h, kh, d,
+                q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                float(scale), int(bool(spec.causal)), int(spec.q_offset),
+                int(spec.prefix_len), valid_ptr, valid_all)
+        if path == "split_k_decode":
+            per_block, groups = decode_rows(sq, h // kh)
+            n_split = -(-sk // decode_split(per_block))
+            parts = b * kh * groups * n_split * per_block
+            acc = torch.empty(parts * d, dtype=torch.float32, device=q.device)
+            ml = torch.empty(parts * 2, dtype=torch.float32, device=q.device)
+            tickets = _tickets(q.device, b * kh * groups)
+            err = lib.flash_attention_decode(
+                *args, per_block, groups, acc.data_ptr(), ml.data_ptr(),
+                tickets.data_ptr(), stream)
+        elif path == "tensor_core_prefill":
+            err = lib.flash_attention_prefill(*args, stream)
+        else:
+            err = lib.flash_attention(*args, stream)
     if err != 0:
-        raise RuntimeError(f"FLASH_ATTENTION kernel launch failed: CUDA error "
-                           f"{err} ({lib.attention_error_string(err).decode()})")
+        raise RuntimeError(f"FLASH_ATTENTION kernel launch failed ({path}): "
+                           f"CUDA error {err} "
+                           f"({lib.attention_error_string(err).decode()})")
     LAUNCHES["FLASH_ATTENTION"] += 1
+    ROUTE_LAUNCHES[path] += 1
     return out
 
 

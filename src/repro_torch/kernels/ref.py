@@ -152,6 +152,58 @@ def full_mha_reference(q, k, v, spec: MaskSpec = MaskSpec(),
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def split_k_decode_reference(q, k, v, spec: MaskSpec = MaskSpec(),
+                             kv_valid_len=None, scale=None, split=256):
+    """The split-K decode route of FLASH_ATTENTION (``csrc/attention.cu``,
+    route B) in plain torch, for the tests: the keys in splits of ``split``,
+    each split's partial (m, l, acc) of every query row, then their merge.
+
+    A batch row's splits that start at or past the last key any of its rows
+    sees are empty (m = -inf, l = 0) and add nothing; inside a split, the
+    keys past that end are masked and their v is not read (taken as 0).  A
+    split whose keys are all masked for a row has m = -1e30 and weight
+    exp(-1e30 - M) = 0 beside a real split; a row that sees no key walks
+    every split at -1e30 and merges to the mean of v over all Sk keys.
+    Same arguments and result as :func:`full_mha_reference`."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    rep = h // kh
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf = q.reshape(b, sq, kh, rep, d).float()
+    kf, vf = k.to(q.dtype).float(), v.to(q.dtype).float()
+    pos = lambda n: torch.arange(n, device=q.device)
+    valid = torch.as_tensor(sk if kv_valid_len is None else kv_valid_len,
+                            device=q.device).reshape(-1).expand(b)
+    mask = (_mask(pos(sq), pos(sk), spec)[None]
+            & (pos(sk)[None, None, :] < valid[:, None, None]))   # (B, Sq, Sk)
+    seen = mask.any(dim=1)                                      # (B, Sk)
+    blind = ~mask.any(dim=2).all(dim=1)          # a row of b sees no key
+    last = torch.where(seen, pos(sk)[None], -1).amax(dim=1)
+    end = torch.where(blind, sk, last + 1)                      # (B,)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf) * scale
+    logits = torch.where(mask[:, None, None], logits, _NEG_INF)
+    ms, ls, accs = [], [], []
+    for lo in range(0, sk, split):
+        hi = min(sk, lo + split)
+        kpos = pos(hi)[lo:]
+        walked = kpos[None, :] < end[:, None]                   # (B, keys)
+        z = logits[..., lo:hi]
+        m = z.amax(dim=-1)
+        p = torch.exp(z - m[..., None])
+        vs = torch.where(walked[:, :, None, None], vf[:, lo:hi], 0.0)
+        acc = torch.einsum("bhrqk,bkhd->bhrqd", p, vs)
+        empty = (lo >= end)[:, None, None, None]
+        ms.append(torch.where(empty, -torch.inf, m))
+        ls.append(torch.where(empty, 0.0, p.sum(dim=-1)))
+        accs.append(torch.where(empty[..., None], 0.0, acc))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    big = m.amax(dim=0)
+    w = torch.where(m == -torch.inf, 0.0, torch.exp(m - big))
+    out = ((acc * w[..., None]).sum(dim=0)
+           / torch.clamp((l * w).sum(dim=0), min=1e-30)[..., None])
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
 def mha_reference(q, k, v, *, causal=True, scale=None, q_offset=0):
     """O(S^2)-memory reference attention.
 

@@ -249,3 +249,122 @@ def test_attention_block_prefill_and_decode_match_reference(per_slot):
     _close(py, ry, torch.float32, "decode")
     for r, p in zip(rcache, pcache):
         _close(p, r, torch.float32, "decode cache")
+
+
+# -- the split-K decode route's plain twin ------------------------------------
+# (B, Sq, Sk, H, KH, (causal, q_offset, prefix_len), valid, q dtype, kv dtype)
+SPLIT_K_CASES = {
+    # 256-key splits that do not divide the valid lengths or Sk
+    "valid_255_256_257": (3, 1, 600, 4, 4, (False, 0, 0), (255, 256, 257),
+                          torch.float32, torch.float32),
+    # a row with no valid key averages v over all Sk keys
+    "blind_valid_0": (2, 1, 520, 4, 2, (False, 0, 0), (0, 520),
+                      torch.float32, torch.float32),
+    # rows 0-1 see no key (blind), rows 2-3 see one and two
+    "q_offset_negative": (2, 4, 300, 4, 2, (True, -2, 0), None,
+                          torch.float32, torch.float32),
+    "gqa_rep4": (2, 1, 600, 8, 2, (False, 0, 0), (300, 599),
+                 torch.float32, torch.float32),
+    "f32_cache_bf16_q": (3, 1, 600, 8, 2, (False, 0, 0), (37, 256, 600),
+                         torch.bfloat16, torch.float32),
+    "prefix_offset_bf16": (2, 3, 520, 8, 2, (True, 258, 5), (500, 3),
+                           torch.bfloat16, torch.float32),
+}
+
+
+def _split_k_inputs(case, seed=11):
+    b, sq, sk, h, kh, (causal, off, pre), valid, qdt, kvdt = \
+        SPLIT_K_CASES[case]
+    q = _rand((b, sq, h, 32), seed)
+    k, v = _rand((b, sk, kh, 32), seed + 1), _rand((b, sk, kh, 32), seed + 2)
+    tq = torch.from_numpy(q).to(qdt)
+    tk, tv = (torch.from_numpy(a).to(kvdt) for a in (k, v))
+    pspec = pattn.MaskSpec(causal=causal, q_offset=off, prefix_len=pre)
+    tvalid = None if valid is None else torch.tensor(valid)
+    return (q, k, v), (tq, tk, tv), pspec, tvalid
+
+
+def _to_jax(a, dtype):
+    """The values as jax arrays in ``dtype`` (the reference casts a float32
+    cache to the compute dtype before attending)."""
+    jd = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    return jnp.asarray(a, jd)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_K_CASES))
+def test_split_k_twin_matches_full_mha_reference(case):
+    _, (tq, tk, tv), spec, valid = _split_k_inputs(case)
+    got = ref.split_k_decode_reference(tq, tk, tv, spec, valid)
+    want = ref.full_mha_reference(tq, tk, tv, spec, valid)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want.float().numpy(), tq.dtype)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_K_CASES))
+def test_split_k_twin_matches_reference_full_mha(case):
+    (q, k, v), (tq, tk, tv), spec, valid = _split_k_inputs(case)
+    rspec = rattn.MaskSpec(causal=spec.causal, q_offset=spec.q_offset,
+                           prefix_len=spec.prefix_len)
+    jvalid = None if valid is None else jnp.asarray(valid.numpy(), jnp.int32)
+    want = rattn.full_mha(_to_jax(q, tq.dtype), _to_jax(k, tq.dtype),
+                          _to_jax(v, tq.dtype), rspec, kv_valid_len=jvalid)
+    got = ref.split_k_decode_reference(tq, tk, tv, spec, valid)
+    _close(got, want, tq.dtype)
+
+
+@pytest.mark.parametrize("case", [c for c, a in SPLIT_K_CASES.items()
+                                  if a[1] == 1 and not a[5][0]])
+def test_split_k_twin_matches_reference_decode_mha(case):
+    (q, k, v), (tq, tk, tv), spec, valid = _split_k_inputs(case)
+    want = rattn.decode_mha(_to_jax(q, tq.dtype), _to_jax(k, tq.dtype),
+                            _to_jax(v, tq.dtype),
+                            jnp.asarray(valid.numpy(), jnp.int32))
+    got = ref.split_k_decode_reference(tq, tk, tv, spec, valid)
+    _close(got, want, tq.dtype)
+
+
+@pytest.mark.parametrize("split", [1, 64, 100, 128, 256, 600, 1000])
+def test_split_k_twin_any_split_size(split):
+    """One split per key up to one split for all of them: the merge gives
+    the same rows (blind, GQA, ragged valid lengths in one batch)."""
+    _, (tq, tk, tv), spec, _ = _split_k_inputs("gqa_rep4")
+    valid = torch.tensor([0, 257])
+    got = ref.split_k_decode_reference(tq, tk, tv, spec, valid, split=split)
+    want = ref.full_mha_reference(tq, tk, tv, spec, valid)
+    _close(got, want.numpy(), torch.float32)
+
+
+def test_route_table():
+    bf, f32 = torch.bfloat16, torch.float32
+    route = attention_cuda.route
+    assert route(bf, bf, 9) == route(bf, bf, 1024) == "tensor_core_prefill"
+    assert route(bf, f32, 1) == route(bf, bf, 8) == "split_k_decode"
+    assert route(bf, f32, 9) == "cuda_core"
+    assert {route(f32, kv, sq) for kv in (bf, f32) for sq in (1, 8, 9, 512)} \
+        == {"cuda_core"}
+    assert set(attention_cuda.ROUTE_LAUNCHES) == set(attention_cuda.ROUTES)
+
+
+@pytest.mark.parametrize("sq,rep,want", [
+    (1, 1, (1, 1)), (1, 4, (4, 1)), (3, 1, (4, 1)), (1, 8, (8, 1)),
+    (2, 4, (8, 1)), (8, 8, (8, 8)), (3, 3, (8, 2)), (5, 2, (8, 2)),
+])
+def test_decode_rows_cover_every_query_row(sq, rep, want):
+    per_block, groups = attention_cuda.decode_rows(sq, rep)
+    assert (per_block, groups) == want
+    assert per_block * groups >= sq * rep > per_block * (groups - 1)
+    # blocks of 4 or more rows (GQA) take 128-key splits, the others 256
+    assert attention_cuda.decode_split(per_block) == (
+        128 if per_block >= 4 else 256)
+
+
+def test_new_routes_need_16_byte_rows():
+    q = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
+    attention_cuda.check_rows_aligned(q, "q", "tensor_core_prefill")
+    attention_cuda.check_rows_aligned(q[:, :1], "q", "split_k_decode")
+    with pytest.raises(ValueError, match="16-byte"):
+        shifted = torch.zeros(4 + q.numel(), dtype=torch.bfloat16)[4:]
+        attention_cuda.check_rows_aligned(shifted.view(q.shape), "k", "x")
+    wide = torch.zeros(1, 4, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_cuda.check_rows_aligned(wide, "v", "x")

@@ -146,6 +146,30 @@ ATTN_CASES = {
                    MaskSpec(causal=True, q_offset=-20), None),
     "no_valid_key": (2, 3, 40, 2, 2, 32, torch.float32, None,
                      MaskSpec(causal=False), (0, 5)),
+    # bf16 twins of the two above: the tensor-core prefill and the split-K
+    # decode routes
+    "blind_rows_bf16": (1, 70, 50, 2, 1, 64, torch.bfloat16, None,
+                        MaskSpec(causal=True, q_offset=-20), None),
+    "no_valid_key_bf16": (2, 3, 40, 2, 2, 32, torch.bfloat16, None,
+                          MaskSpec(causal=False), (0, 5)),
+    # llama3-8b's widths at decode: 32 query heads over 8 kv heads, D 128
+    "decode_gqa_llama3": (4, 1, 4096, 32, 8, 128, torch.bfloat16,
+                          torch.float32, MaskSpec(causal=False),
+                          (300, 1500, 2900, 4096)),
+    # valid lengths about one 256-key split, and a single key
+    "decode_valid_edges": (4, 1, 1024, 8, 8, 64, torch.bfloat16,
+                           torch.float32, MaskSpec(causal=False),
+                           (255, 256, 257, 1)),
+    # split-K blocks of two rows (rep 2, D 128, a batch row with no valid
+    # key) and of eight rows in two groups (Sq 3 x rep 4, causal, prefix)
+    "decode_two_rows": (3, 1, 520, 4, 2, 128, torch.bfloat16, torch.float32,
+                        MaskSpec(causal=False), (0, 257, 520)),
+    "decode_row_groups": (2, 3, 700, 8, 2, 64, torch.bfloat16, None,
+                          MaskSpec(causal=True, q_offset=500, prefix_len=3),
+                          (600, 2)),
+    # the CUDA-core route kept for bf16 q with a float32 k/v at Sq > 8
+    "prefill_f32_kv": (2, 40, 90, 4, 2, 64, torch.bfloat16, torch.float32,
+                       MaskSpec(), None),
 }
 
 
@@ -178,14 +202,37 @@ def _attn_inputs(case, dev):
 @pytest.mark.parametrize("case", list(ATTN_CASES))
 def test_flash_attention_matches_plain_version(card, case):
     q, k, v, spec, valid = _attn_inputs(case, card)
+    path = attention_cuda.route(q.dtype, k.dtype, q.shape[1])
     before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
+    by_route = attention_cuda.ROUTE_LAUNCHES[path]
     got = attention_cuda.flash_attention(q, k, v, spec, valid)
     want = attention_cuda.flash_attention_plain(q, k, v, spec, valid)
     torch.cuda.synchronize()
     assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before + 1
+    assert attention_cuda.ROUTE_LAUNCHES[path] == by_route + 1
     assert got.shape == want.shape and got.dtype == q.dtype
     assert bool(torch.isfinite(got).all())
     assert _share_of_tolerance(got, want, q.dtype) <= 1.0
+
+
+@pytest.mark.cuda
+def test_every_route_is_taken(card):
+    routes = {attention_cuda.route(a[6], a[7] or a[6], a[1])
+              for a in ATTN_CASES.values()}
+    assert routes == set(attention_cuda.ROUTES)
+
+
+@pytest.mark.cuda
+def test_split_k_decode_leaves_its_tickets_at_zero(card):
+    """Back-to-back decode launches share the ticket counters: each launch
+    must re-arm them, or the next one would merge too early."""
+    q, k, v, spec, valid = _attn_inputs("decode_gqa_llama3", card)
+    first = attention_cuda.flash_attention(q, k, v, spec, valid)
+    for _ in range(3):
+        again = attention_cuda.flash_attention(q, k, v, spec, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert int(attention_cuda._TICKETS[q.device].abs().sum()) == 0
 
 
 @pytest.mark.cuda
