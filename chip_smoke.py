@@ -11,12 +11,16 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 3. kernels   each hand-written kernel against its plain PyTorch version on
              the card, at its main-path shape (256^3; k = 2 sweeps for
              JACOBI_FUSED), an odd shape and a slot-batched call with
-             distinct parameter rows (JACOBI_FUSED also for k = 1..4);
+             distinct parameter rows, and the farm's 4-slot 256^3 call
+             (timed: the shape of the farm's launches; JACOBI_FUSED also
+             for k = 1..4 and for x extents about its segment length, each
+             with a planted fault, a zeroed ghost face, that the check must
+             reject);
              CUDA-event times of kernel and plain version (the kernel's
              with the stream given a head start, so that its own device
              time is read, not its wrapper's host time) beside the least
-             time the card could take (bytes over 3.35 TB/s or float32
-             operations over 67 TFLOP/s, H100 SXM data-sheet peaks);
+             time the card could take (bytes over 3.35 TB/s or operations
+             over the peak rate of their type, H100 SXM data-sheet peaks);
 4. main      ``api.runtime(n=256, nz=256).run("cavity", steps=20)`` on the
              ``cuda`` backend with the launch counters reset just before,
              then on the ``torch`` backend; the two must agree, and the
@@ -57,14 +61,16 @@ shapes, llama3-8b's GQA widths at prefill and decode, an odd shape with
 split on the bf16 routes, and a bf16-q float32-k/v prefill on the CUDA-core
 route: every route of ``attention_cuda.route`` is launched and checked per
 query row, and a planted fault of 64 missing keys must fail the same
-check) and SSD_INTRA (the zamba2 prefill shape and an odd
-one) against their plain versions, beside ``scaled_dot_product_attention``'s
+check) and SSD_INTRA (the zamba2 prefills of 512, 1024 and 2048 tokens
+and an odd shape, each with a planted fault, one head's s_in zeroed)
+against their plain versions, beside ``scaled_dot_product_attention``'s
 time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
 
 The line before the last is the ``{"kernels": [...]}`` summary
 (FLASH_ATTENTION's entry carries its prefill, decode and llama3 GQA cases
-side by side under ``cases``); the last
+side by side under ``cases``, the stencils and JACOBI_FUSED their serial
+and farm calls, SSD_INTRA its three prefill lengths); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -86,6 +92,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 SLEEP_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: a lower clock sleeps longer
 # max|kernel - plain| <= KERNEL_RTOL * max(1, max|plain|): both compute the
 # same float32 expression; the kernel may contract a*b+c into one FMA and
@@ -338,14 +345,21 @@ def phase_kernels(dev):
     main_cfg = cavity.config(N, nz=N)
     odd_cfgs = [cavity.config(5, nz=3)]
     batch_cfgs = [cavity.config(24, nz=18, re=re) for re in (50.0, 100.0, 400.0)]
+    farm_cfgs = [cavity.config(N, nz=N, re=re) for re in FARM_RES[:FARM_SLOTS]]
     cases = [("main", None, (N, N, N), [main_cfg]),
              ("odd", None, (5, 7, 3), odd_cfgs),
-             ("batched", 3, (24, 20, 18), batch_cfgs)]
+             ("batched", 3, (24, 20, 18), batch_cfgs),
+             # the farm's launch: four 256^3 slots (inputs from a generator
+             # of their own, so that the other cases' inputs stay as they
+             # were)
+             ("farm", FARM_SLOTS, (N, N, N), farm_cfgs)]
+    farm_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     results = {}
     for name in stencil3d.DESCRIPTORS:
-        res = {"max_abs_err": 0.0}
+        res = {"max_abs_err": 0.0, "cases": {}}
         for case, S, interior, cfgs in cases:
-            inputs = kernel_inputs(name, S, interior, gen, dev)
+            inputs = kernel_inputs(name, S, interior,
+                                   farm_gen if case == "farm" else gen, dev)
             table = param_rows(name, cfgs, dev)
             if S is None:
                 table = table[0]
@@ -353,12 +367,10 @@ def phase_kernels(dev):
             line = {"phase": "kernel", "kernel": name, "case": case,
                     "slots": S or 1, "interior": list(interior),
                     "max_abs_diff": err, "tolerance": tol, "finite": finite}
-            if case == "main":
+            if case in ("main", "farm"):
                 nbytes = (sum(t.numel() for t in inputs)
                           + sum(o.numel() for o in outs) + table.numel()) * 4
-                ops = OPS_PER_CELL[name] * N ** 3
-                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                ops_ms = ops / F32_OPS_PER_S * 1e3
+                ops = (S or 1) * OPS_PER_CELL[name] * N ** 3
                 kern = sc.KERNELS[name]
                 plain = sc.PLAIN[name]
                 line.update(
@@ -366,12 +378,12 @@ def phase_kernels(dev):
                                       head_start=True),
                     plain_ms=cuda_ms(lambda: plain(*inputs, table), reps=5,
                                      warmup=1),
-                    bytes=nbytes, ops=ops,
-                    bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    library_ms=None)
-                res.update({k: line[k] for k in
-                            ("kernel_ms", "plain_ms", "bound_ms", "bound_by")})
+                    **bound(nbytes, ops, F32_OPS_PER_S), library_ms=None)
+                res["cases"][case] = {k: line[k] for k in
+                                      ("kernel_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+                if case == "main":
+                    res.update(res["cases"][case])
             emit(line)
             require(finite, f"{name} ({case}): non-finite output")
             require(err <= tol, f"{name} ({case}): max|kernel - plain| "
@@ -388,17 +400,23 @@ def phase_kernels(dev):
 
 def jacobi_fused_cases(gen, dev):
     """JACOBI_FUSED against ``jacobi_fused_ref`` on the card: the 256^3
-    main-path call (k = 2, timed), an odd shape, k = 1..4 and a slot batch
-    of three."""
+    serial call (k = 2, timed), the fused farm's 4-slot call (timed), an odd
+    shape, k = 1..4, x extents about the kernel's segment and a slot batch
+    of three; and for each, a planted fault the check must reject (the
+    kernel alone given p with its x-low ghost face of k planes zeroed)."""
     import torch
     from repro_torch.kernels import jacobi_cuda as jc
 
     h, omega = 1.0 / N, 1.0                   # the solver's h and omega
+    seg = jc.SEGMENT
     cases = [("main", None, (N, N, N), FUSED_K),
+             ("farm", FARM_SLOTS, (N, N, N), FUSED_K),
              ("odd", None, (5, 7, 3), FUSED_K),
              *((f"k{k}", None, (37, 20, 45), k) for k in (1, 2, 3, 4)),
+             *((f"x{nx}", None, (nx, 17, 33), FUSED_K)
+               for nx in (1, seg - 1, seg, seg + 1)),
              ("batched", 3, (24, 20, 18), FUSED_K)]
-    res = {"max_abs_err": 0.0}
+    res = {"max_abs_err": 0.0, "cases": {}}
     for case, S, interior, k in cases:
         batch = () if S is None else (S,)
         shape = batch + tuple(n + 2 * k for n in interior)
@@ -410,33 +428,43 @@ def jacobi_fused_cases(gen, dev):
         err = float((got - want).abs().max())
         tol = KERNEL_RTOL * max(1.0, float(want.abs().max()))
         finite = bool(torch.isfinite(got).all())
+        bad = p.clone()
+        bad[..., :k, :, :] = 0.0
+        fault = float((jc.jacobi_fused(bad, rhs, h=h, omega=omega, sweeps=k)
+                       - want).abs().max())
+        del bad
         line = {"phase": "kernel", "kernel": "JACOBI_FUSED", "case": case,
                 "slots": S or 1, "interior": list(interior), "sweeps": k,
-                "max_abs_diff": err, "tolerance": tol, "finite": finite}
-        if case == "main":
+                "max_abs_diff": err, "tolerance": tol, "finite": finite,
+                "planted_fault_max_abs_diff": fault}
+        if case in ("main", "farm"):
             nbytes = (p.numel() + rhs.numel() + got.numel()) * 4
             # sweep s updates the interior grown by k - s rings
-            ops = OPS_PER_CELL["JACOBI_FUSED"] * sum(
+            ops = (S or 1) * OPS_PER_CELL["JACOBI_FUSED"] * sum(
                 (N + 2 * (k - s)) ** 3 for s in range(1, k + 1))
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / F32_OPS_PER_S * 1e3
             line.update(
                 kernel_ms=cuda_ms(lambda: jc.jacobi_fused(
                     p, rhs, h=h, omega=omega, sweeps=k), reps=50,
                     head_start=True),
                 plain_ms=cuda_ms(lambda: jc.jacobi_fused_plain(
                     p, rhs, h=h, omega=omega, sweeps=k), reps=5, warmup=1),
-                bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None, blocks_per_sm=jc.blocks_per_sm(k))
-            res.update({key: line[key] for key in
-                        ("kernel_ms", "plain_ms", "bound_ms", "bound_by")})
+                **bound(nbytes, ops, F32_OPS_PER_S), library_ms=None,
+                blocks_per_sm=jc.blocks_per_sm(k), segment=seg)
+            res["cases"][case] = {key: line[key] for key in
+                                  ("slots", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+            if case == "main":
+                res.update({key: line[key] for key in
+                            ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")})
         emit(line)
         require(finite, f"JACOBI_FUSED ({case}): non-finite output")
         require(tuple(got.shape) == batch + interior,
                 f"JACOBI_FUSED ({case}): shape {tuple(got.shape)}")
         require(err <= tol, f"JACOBI_FUSED ({case}): max|kernel - plain| "
                             f"{err} > {tol}")
+        require(fault > tol, f"JACOBI_FUSED ({case}): the check passed a "
+                             f"zeroed ghost face ({fault} <= {tol})")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del p, rhs, got, want
     return res
@@ -602,18 +630,25 @@ def attention_cases(gen, dev):
     return res
 
 
-SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),   # B nc L G R P N
+# B nc L G R P N: the zamba2-1.2b prefills of 1024 (the headline), 512 and
+# 2048 tokens (chunks of 128, one group, 64 heads of 64, state 64), and an
+# odd shape
+SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),
+             ("prefill_512", (1, 4, 128, 1, 64, 64, 64)),
+             ("prefill_2048", (1, 16, 128, 1, 64, 64, 64)),
              ("odd", (2, 3, 48, 1, 3, 16, 8))]
 
 
 def ssd_cases(gen, dev):
     """SSD_INTRA against ``ssd_intra_reference`` at the zamba2-1.2b prefill
-    shape of a 1024-token prompt (timed) and an odd shape."""
+    shapes (timed) and an odd shape; and for each, a planted fault the
+    check must reject (the kernel alone given s_in with its last head
+    zeroed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_cuda as sc
 
-    res = {"max_abs_err": 0.0}
+    res = {"max_abs_err": 0.0, "cases": {}}
     for case, (bsz, nc, l, g, r, p, n) in SSD_CASES:
         rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
         x = rnd(bsz, nc, l, g, r, p)
@@ -628,6 +663,10 @@ def ssd_cases(gen, dev):
         err = float((got - want).abs().max())
         tol = SSD_RTOL * max(1.0, float(want.abs().max()))
         finite = bool(torch.isfinite(got).all())
+        s_bad = s_in.clone()
+        s_bad[:, :, :, -1] = 0.0
+        fault = float((sc.ssd_intra(*args[:5], s_bad) - want).abs().max())
+        del s_bad
         # operations the function needs per (batch, chunk, group): the
         # causal half of C.B^T, and per head the weights (exp, two
         # products), W.x over m <= l, C.s_in and its scaling by exp(cum)
@@ -638,21 +677,38 @@ def ssd_cases(gen, dev):
         line = {"phase": "kernel", "kernel": "SSD_INTRA", "case": case,
                 "shape": dict(zip("B nc L G R P N".split(),
                                   (bsz, nc, l, g, r, p, n))),
-                "max_abs_diff": err, "tolerance": tol, "finite": finite,
-                "kernel_ms": cuda_ms(lambda: sc.ssd_intra(*args), reps=20,
-                                     head_start=True),
-                "plain_ms": cuda_ms(lambda: sc.ssd_intra_plain(*args),
-                                    reps=3, warmup=1),
-                "library_ms": None, **bound(nbytes, ops, F32_OPS_PER_S)}
+                "max_abs_diff": err, "tolerance": tol,
+                "share_of_tolerance": err / tol, "finite": finite,
+                "planted_fault_max_abs_diff": fault}
+        if case.startswith("prefill"):
+            line.update(
+                kernel_ms=cuda_ms(lambda: sc.ssd_intra(*args), reps=20,
+                                  head_start=True),
+                plain_ms=cuda_ms(lambda: sc.ssd_intra_plain(*args), reps=3,
+                                 warmup=1),
+                library_ms=None,
+                # the products run on the tensor cores (TF32); the float32
+                # CUDA-core bound of PRs 13-14 beside it
+                **bound(nbytes, ops, TF32_OPS_PER_S),
+                bound_ms_f32_cuda_cores=bound(nbytes, ops,
+                                              F32_OPS_PER_S)["bound_ms"],
+                heads_per_block=sc.heads_per_block(x))
+            res["cases"][case] = {key: line[key] for key in
+                                  ("kernel_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by",
+                                   "bound_ms_f32_cuda_cores",
+                                   "heads_per_block")}
+            if case == "prefill":
+                res.update({key: line[key] for key in
+                            ("kernel_ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by")})
         emit(line)
         require(finite, f"SSD_INTRA ({case}): non-finite output")
         require(err <= tol, f"SSD_INTRA ({case}): max|kernel - plain| "
                             f"{err} > {tol}")
+        require(fault > tol, f"SSD_INTRA ({case}): the check passed a "
+                             f"zeroed head state ({fault} <= {tol})")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if case == "prefill":
-            res.update({key: line[key] for key in
-                        ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                         "bound_by")})
         del args, got, want
     return res
 

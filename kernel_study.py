@@ -1,0 +1,234 @@
+#!/usr/bin/env python3
+"""Design study of JACOBI_FUSED (``csrc/jacobi.cu``) and SSD_INTRA
+(``csrc/ssd.cu``) on one NVIDIA card.
+
+    python3 kernel_study.py [--parent DIR]
+
+1. jacobi: the committed source and variants of it made by replacing one
+   design constant, each built with nvcc beside the committed library:
+
+   seg32, seg128        x segments of 32 or 128 output planes (design: 64);
+   tile16x32, tile32x64 (y, z) output tiles of 16 x 32 or 32 x 64 cells
+                        (design: 16 x 64);
+   ahead2               2 planes of p and rhs in flight (design: 1);
+   threads512           blocks of 512 threads (design: 256);
+   mul_sixth            the division by 6 replaced by a product with
+                        RN(1/6): not the plain version's arithmetic (its
+                        output is not bitwise the design's), it prices the
+                        true division.
+
+   Each runs chip_smoke's two JACOBI_FUSED shapes at k = 2, the serial
+   256^3 call (S = 1) and the fused farm's (S = 4); its output must equal
+   the design's bit for bit (the arithmetic of a cell does not depend on
+   the tiling).  Device times (CUDA events, the stream given a head start),
+   the variants taken in turn forward and then backward.
+2. ssd: heads per block fixed at 2, 4 and 8 (design: chosen per launch,
+   ``ssd_cuda.heads_per_block``), and tf32_once, one TF32 product in place
+   of the 3xTF32 split.  Each runs the zamba2-1.2b
+   prefill shapes of ``chip_smoke.SSD_CASES`` (512, 1024 and 2048 tokens):
+   device time and the largest share of the SSD_RTOL check.
+3. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
+   4-slot farm's batched step, unfused and with ``fused_sweeps=2``, on
+   DIR's tree and on this one in turns (parent, this, this, parent), each
+   in its own process (``chip_smoke.batched_step_ms`` of that tree).
+
+Prints JSON lines; the card's name and power limit first.  Needs a CUDA
+card and the repository around it.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+# (source, variant, [(text in the source, its replacement), ...])
+VARIANTS = [
+    ("jacobi", "seg32", [("constexpr int kSeg = 64;", "constexpr int kSeg = 32;")]),
+    ("jacobi", "seg128", [("constexpr int kSeg = 64;", "constexpr int kSeg = 128;")]),
+    ("jacobi", "tile16x32", [("kTZ = 64;", "kTZ = 32;")]),
+    ("jacobi", "tile32x64", [("constexpr int kTY = 16,", "constexpr int kTY = 32,")]),
+    ("jacobi", "ahead2", [("constexpr int kAhead = 1;", "constexpr int kAhead = 2;")]),
+    ("jacobi", "threads512", [("constexpr int kThreads = 256;",
+                               "constexpr int kThreads = 512;")]),
+    ("jacobi", "mul_sixth", [("__fdiv_rn(num, 6.0f)",
+                              "__fmul_rn(num, 1.0f / 6.0f)")]),
+    ("ssd", "heads2", [("constexpr int kHeads = 0;", "constexpr int kHeads = 2;")]),
+    ("ssd", "heads4", [("constexpr int kHeads = 0;", "constexpr int kHeads = 4;")]),
+    ("ssd", "heads8", [("constexpr int kHeads = 0;", "constexpr int kHeads = 8;")]),
+    ("ssd", "tf32_once", [("constexpr bool kSplit = true;",
+                           "constexpr bool kSplit = false;")]),
+]
+REPS = 30
+
+# one tree's batched farm step, unfused and fused, twice each
+FARM = r'''
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+dev = torch.device("cuda")
+out = {name: [cs.batched_step_ms(dev, **kw) for _ in range(2)]
+       for name, kw in (("farm", {}), ("farm_fused", {"fused_sweeps": cs.FUSED_K}))}
+print(json.dumps(out))
+'''
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def build_variants():
+    """The committed libraries and one library a variant, built at once;
+    returns {source: {variant: the wrapper's ctypes library}}."""
+    from repro_torch.kernels import _build, jacobi_cuda as jc, ssd_cuda as sc
+
+    out_dir = _build.BUILD_DIR / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for source, name, edits in VARIANTS:
+        text = _build.SOURCES[source].read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {old!r} is not in the source once")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+        cu.write_text(text)
+        procs.append((source, name, so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    wrappers = {"jacobi": jc, "ssd": sc}
+    libs = {source: {"design": w._lib()} for source, w in wrappers.items()}
+    load, segment = _build.load, jc.SEGMENT
+    try:
+        for source, name, so, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise SystemExit(f"{name}: nvcc failed\n{log}")
+            emit({"phase": "build", "variant": name,
+                  "ptxas": [ln.strip() for ln in log.splitlines()
+                            if "registers" in ln or "spill" in ln]})
+            _build.load = lambda _name, so=so: ctypes.CDLL(str(so))
+            if name.startswith("seg"):     # the wrapper checks the segment
+                jc.SEGMENT = int(name[3:])
+            libs[source][name] = wrappers[source]._lib.__wrapped__()
+            jc.SEGMENT = segment
+    finally:
+        _build.load, jc.SEGMENT = load, segment
+    return libs
+
+
+def turns(names):
+    return list(names) + list(names)[::-1]
+
+
+def study_jacobi(libs):
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import jacobi_cuda as jc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    k, h = cs.FUSED_K, 1.0 / cs.N
+    cases = {}
+    for case, lead in (("main", ()), ("farm", (cs.FARM_SLOTS,))):
+        shape = lead + (cs.N + 2 * k,) * 3
+        cases[case] = tuple(torch.rand(shape, generator=gen, device=dev) * 2 - 1
+                            for _ in range(2))
+    lib = jc._lib
+    try:
+        want = {}
+        for name in turns(libs):
+            jc._lib = lambda name=name: libs[name]
+            line = {"phase": "jacobi", "variant": name,
+                    "blocks_per_sm": jc.blocks_per_sm(k)}
+            for case, (p, rhs) in cases.items():
+                fn = lambda: jc.jacobi_fused(p, rhs, h=h, omega=1.0, sweeps=k)
+                got = fn()
+                torch.cuda.synchronize()
+                want.setdefault(case, got)
+                line[case] = {"kernel_ms": cs.cuda_ms(fn, REPS, head_start=True),
+                              "bitwise_vs_design": bool(torch.equal(got, want[case]))}
+                del got
+            emit(line)
+    finally:
+        jc._lib = lib
+
+
+def study_ssd(libs):
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import ssd_cuda as sc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    cases = {}
+    for case, (bsz, nc, l, g, r, p, n) in cs.SSD_CASES:
+        if not case.startswith("prefill"):
+            continue
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+        args = (rnd(bsz, nc, l, g, r, p), -F.softplus(rnd(bsz, nc, l, g, r)),
+                F.softplus(rnd(bsz, nc, l, g, r)), rnd(bsz, nc, l, g, n),
+                rnd(bsz, nc, l, g, n), rnd(bsz, nc, g, r, n, p) * 0.3)
+        cases[case] = (args, sc.ssd_intra_plain(*args))
+    lib = sc._lib
+    try:
+        for name in turns(libs):
+            sc._lib = lambda name=name: libs[name]
+            line = {"phase": "ssd", "variant": name}
+            for case, (args, want) in cases.items():
+                fn = lambda: sc.ssd_intra(*args)
+                got = fn()
+                torch.cuda.synchronize()
+                tol = cs.SSD_RTOL * max(1.0, float(want.abs().max()))
+                line[case] = {"kernel_ms": cs.cuda_ms(fn, REPS, head_start=True),
+                              "heads_per_block": sc.heads_per_block(args[0]),
+                              "share_of_tolerance":
+                                  float((got - want).abs().max()) / tol}
+            emit(line)
+    finally:
+        sc._lib = lib
+
+
+def study_farm(parent: str):
+    for name in ("parent", "this", "this", "parent"):
+        tree = parent if name == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", FARM, tree],
+                             capture_output=True, text=True, timeout=900,
+                             cwd=tree)
+        if out.returncode:
+            raise SystemExit(f"farm step on {tree} failed:\n{out.stderr}")
+        emit({"phase": "farm", "tree": name, "root": tree,
+              "batched_step_ms": json.loads(out.stdout.strip().splitlines()[-1])})
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="a checkout of another commit, for the "
+                                     "farm-step comparison")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_study: needs a CUDA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
+                          "power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip(), flush=True)
+    libs = build_variants()
+    study_jacobi(libs["jacobi"])
+    study_ssd(libs["ssd"])
+    if args.parent:
+        study_farm(os.path.abspath(args.parent))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

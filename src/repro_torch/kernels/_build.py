@@ -6,8 +6,10 @@ with no PyTorch headers.  Each source becomes its own library, and the
 first load builds every missing one at once: one ``nvcc`` per source, all
 started together.  The libraries go into ``build/kernels/`` at the root of
 the checkout, named by a hash of their source and the flags: an unchanged
-source is never rebuilt, and an edited one never loads a stale library.  A
-missing ``nvcc`` or a failed build raises; nothing falls back.
+source is never rebuilt, and an edited one never loads a stale library.
+Beside each library its build's output (the ptxas register and spill
+report) is kept, so a cached build still reports it.  A missing ``nvcc``
+or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -63,8 +65,10 @@ def build_all() -> dict[str, Path]:
     todo = {}
     for name, lib in libs.items():
         if lib.is_file():
-            build_info.setdefault(name, dict(path=str(lib), seconds=0.0,
-                                             cached=True, log=""))
+            log = lib.with_suffix(".log")
+            build_info.setdefault(name, dict(
+                path=str(lib), seconds=0.0, cached=True,
+                log=log.read_text() if log.is_file() else ""))
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -82,6 +86,7 @@ def build_all() -> dict[str, Path]:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                           f"\n{log}")
             continue
+        libs[name].with_suffix(".log").write_text(log)   # the ptxas report
         os.replace(tmp, libs[name])  # atomic: a loader sees all or nothing
         build_info[name] = dict(path=str(libs[name]), seconds=seconds,
                                 cached=False, log=log)

@@ -12,31 +12,40 @@
 //            + exp(cum[l]) sum_n C[l, n] s_in[n, p]
 //
 // The TPU kernel ran one grid step per (batch·chunk, group) and looped over
-// the R heads inside, keeping the (L, L) temporaries in VMEM.  On the H100
-// that is only B·nc·G blocks (8 for a 1024-token prompt) for 132 SMs, so
-// this kernel parallelises over heads and over 64-row tiles of the chunk as
-// well: one block of 256 threads per (64-row l tile, head, batch·chunk and
-// group).  Each block
+// the R heads inside, keeping the (L, L) temporaries in VMEM.  Here one
+// block of eight warps takes a 64-row l tile of one (batch·chunk, group)
+// and H of its heads; each warp owns 16 rows of the tile and half of
+// the output columns.
 //
-//   * loads its head's log-decay and dt for rows [0, l0 + 64) and scans the
-//     decay with warp shuffles (cum stays in shared memory);
-//   * stages its C rows and the head's (N, P) incoming state s_in, computes
-//     the inter-chunk term first;
-//   * walks the 64-row m tiles up to its own: stages B and the head's x
-//     tile, recomputes the 64 x 64 tile of C.B^T (cheap: 2·64·64·N flops),
-//     forms the masked decay-weighted tile W in shared memory and adds W.x;
-//   * never writes an (L, L) matrix to device memory.
+//   * The block computes the group's scores S = C.B^T for its rows against
+//     every m up to its last row once, keeps them in shared memory and
+//     reuses them for all its heads (S does not depend on the head).
+//   * Per head it forms the decay-weighted W = S * exp(cum_l - cum_m) *
+//     dt_m directly as the MMA's A fragments, with the causal mask applied
+//     before the exponential (no m > l reaches it), and accumulates
+//     y = exp(cum_l) (C.s_in) + W.X in registers.
+//   * All three products run on the tensor cores: mma.sync m16n8k8 TF32 in
+//     the 3xTF32 split.  Each operand a becomes hi = tf32(a) (rounded to
+//     nearest as cvt.rna rounds) and lo = tf32(a - hi); a product adds
+//     a_lo.b_hi and a_hi.b_lo, then a_hi.b_hi, into float32.  One TF32
+//     product keeps ~11 bits (5e-4 relative), more than SSD_RTOL = 1e-4
+//     allows; the split restores float32 accuracy for three MMAs a
+//     product.
+//   * The operand tiles (B for the scores, then per head s_in and X) stream
+//     through two shared-memory buffers with cp.async: the next tile loads
+//     while the current one is multiplied.  Rows and columns past L, N and
+//     P are zero-filled up to the MMA's multiples of 8.
+//   * The grid is (head groups, batch·chunk·group, l tiles), the l tiles
+//     heaviest (last) first.
 //
-// Threads hold 4 x 4 (scores) and 4 x ceil(P/16) (output) micro-tiles; all
-// arithmetic is float32 FMAs on the CUDA cores.  Shared-memory strides of
-// C, B and W are padded by one float, so the rows a warp reads fall in
-// distinct banks.  Any L <= 256, N <= 128, P <= 128 and any R, G launch.
+// Any L <= 256, N <= 128, P <= 128 and any R, G launch.  Shared-memory
+// strides are padded so that the fragment loads of a warp fall in 32
+// distinct banks.
 //
 // What bounds it on an H100: at the zamba2-1.2b prefill shape (B 1, nc 8,
-// L 128, G 1, R 64, P 64, N 64) the function moves ~42 MB and does ~1.6
-// GFLOP (float32), so bytes bound it (~0.012 ms at 3.35 TB/s) and the
-// float32 peak nearly does (~0.024 ms at 67 TFLOP/s); the per-head
-// recompute of C.B^T adds ~0.5 GFLOP on top.
+// L 128, G 1, R 64, P 64, N 64) the function moves 43 MB (0.0128 ms at
+// 3.35 TB/s) and does 1.1 GFLOP, 0.0022 ms at the 495 TFLOP/s of dense
+// TF32 (x3 for the split: 0.0067 ms), so bytes bound it.
 //
 // The extern "C" launcher enqueues the kernel on the given stream, does not
 // synchronise, and returns cudaGetLastError() so the caller can raise.
@@ -47,10 +56,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 64;              // rows of an l tile and of an m tile
+constexpr int kWarps = 8;          // 4 row groups x 2 column halves
+constexpr int kThreads = 32 * kWarps;
+constexpr int kT = 64;              // rows of an l, m or s_in tile
+constexpr int kHeads = 0;           // heads a block takes; 0: heads_for()
+constexpr bool kSplit = true;       // 3xTF32 products (false: one TF32)
 constexpr int kMaxL = 256, kMaxN = 128, kMaxP = 128;
-constexpr int kPJ = kMaxP / 16;     // output columns per thread, at most
 
 struct Params {
   const float* x;     // (BC, L, G, R, P)
@@ -60,168 +71,375 @@ struct Params {
   const float* c;     // (BC, L, G, N)
   const float* s_in;  // (BC, G, R, N, P)
   float* y;           // (BC, L, G, R, P)
-  int64_t BC;
   int L, G, R, N, P;
+  int np8, pp8;       // N and P rounded up to 8 (the MMA's k and n)
+  int nj;             // n-tiles of 8 output columns a warp computes (of 2 nj)
+  int cs, ss, xs;     // strides of C and B tiles, of S, of X and s_in tiles
+  int buf;            // floats in one operand buffer
+  int heads;          // heads a block takes
+  bool vec;           // 16-byte copies: N, P and the pointers allow them
 };
 
-inline size_t smem_bytes(int L, int N, int P) {
-  return sizeof(float) * ((size_t)2 * L + (size_t)2 * kT * (N + 1) +
-                          (size_t)kT * P + (size_t)kT * (kT + 1) +
-                          (size_t)N * P);
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+inline Params make_params(const float* x, const float* ld, const float* dt,
+                          const float* b, const float* c, const float* s_in,
+                          float* y, int L, int G, int R, int N, int P) {
+  Params p{x, ld, dt, b, c, s_in, y, L, G, R, N, P};
+  p.np8 = round_up(N, 8);
+  p.pp8 = round_up(P, 8);
+  p.cs = round_up(N, 32) + 4;       // A-fragment rows: 4 banks apart
+  p.ss = round_up(L, kT) + 4;        // a score tile stores 64 columns
+  p.nj = p.pp8 <= 16 ? 1 : p.pp8 <= 32 ? 2 : p.pp8 <= 64 ? 4 : 8;
+  p.xs = 16 * p.nj + 8;             // B-fragment rows: 8 banks apart
+  p.buf = kT * (p.xs > p.cs ? p.xs : p.cs);
+  const bool aligned = ((uintptr_t)x | (uintptr_t)b | (uintptr_t)c |
+                        (uintptr_t)s_in) % 16 == 0;
+  p.vec = aligned && N % 4 == 0 && P % 4 == 0;
+  return p;
 }
 
+// Heads a block takes: the most of 8, 4, 2 that still gives the grid
+// 1.5 blocks an SM (each block shares its C.B^T among more heads, but
+// fewer blocks leave SMs idle): at the zamba2 prefills of 512, 1024 and
+// 2048 tokens that is 2, 4 and 8 (kernel_study.py measures each).
+inline int heads_for(int64_t BC, int L, int G, int R) {
+  int sms = 132;
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t tiles = BC * G * ((L + kT - 1) / kT);
+  for (int h = 8; h > 2; h /= 2)
+    if (2 * tiles * ((R + h - 1) / h) >= 3 * (int64_t)sms) return h;
+  return 2;
+}
+
+inline size_t smem_floats(const Params& p) {
+  return (size_t)kT * p.cs + (size_t)kT * p.ss + 2 * (size_t)p.buf +
+         2 * (size_t)p.heads * round_up(p.L, 4);
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage rows x cols floats (row stride rstride in device memory) into
+// shared memory at dstride; rows >= vrows and columns >= vcols read 0.
+__device__ __forceinline__ void stage(float* dst, int dstride,
+                                      const float* src, int64_t rstride,
+                                      int rows, int vrows, int cols, int vcols,
+                                      bool vec) {
+  const int v = vec ? 4 : 1;
+  const int chunks = cols / v;
+  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+    const int a = i / chunks, cc = (i - a * chunks) * v;
+    const bool ok = a < vrows && cc < vcols;
+    cp_async(dst + a * dstride + cc, ok ? src + a * rstride + cc : src, ok,
+             4 * v);
+  }
+}
+
+// tf32(v) rounded to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds a finite value: add half of the 13 dropped bits, clear them (two
+// integer instructions; sm_90 has no native cvt.rna.tf32, and nvcc's
+// emulation of it also tests for infinities)
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = kSplit ? tf32(v - __uint_as_float(hi)) : 0u;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[j] += a.b[j] for the first J n-tiles in the 3xTF32 split: the two
+// small cross terms first, then the product of the high parts.  Each pass
+// runs over all J tiles, so consecutive MMAs into one accumulator are J
+// apart.
+template <int J, int JA>
+__device__ __forceinline__ void mma3_row(float (&acc)[JA][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const float (&b)[J][2]) {
+  uint32_t bh[J][2], bl[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    split(b[j][0], bh[j][0], bl[j][0]);
+    split(b[j][1], bh[j][1], bl[j][1]);
+  }
+  if (kSplit) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) mma(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int j = 0; j < J; ++j) mma(acc[j], ah, bl[j][0], bl[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) mma(acc[j], ah, bh[j][0], bh[j][1]);
+}
+
+// the A fragment of rows (ra, ra + 8) and columns (k + tig, k + tig + 4)
+// of a row-major shared-memory tile, split
+__device__ __forceinline__ void a_frag(const float* t, int stride, int ra,
+                                       int k, int tig, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  split(t[ra * stride + k + tig], ah[0], al[0]);
+  split(t[(ra + 8) * stride + k + tig], ah[1], al[1]);
+  split(t[ra * stride + k + tig + 4], ah[2], al[2]);
+  split(t[(ra + 8) * stride + k + tig + 4], ah[3], al[3]);
+}
+
+// NJ: n-tiles of 8 columns a warp's accumulator holds; the two column
+// halves of the block's warps cover P <= 16 NJ.  Every tile computes all
+// of them; the columns past P are never written.
+template <int NJ>
 __global__ void __launch_bounds__(kThreads) ssd_intra_kernel(Params p) {
   extern __shared__ float smem[];
   const int L = p.L, G = p.G, R = p.R, N = p.N, P = p.P;
-  const int NS = N + 1, WS = kT + 1;
-  const int lt = blockIdx.x, r = blockIdx.y;
-  const int64_t bc = blockIdx.z / G, g = blockIdx.z % G;
-  const int l0 = lt * kT;
-  const int lend = (l0 + kT < L) ? l0 + kT : L;   // rows [0, lend) are needed
+  const int nlt = (L + kT - 1) / kT;
+  const int lt = nlt - 1 - (int)blockIdx.z;       // heaviest tiles first
+  const int l0 = lt * kT, lend = min(l0 + kT, L);
+  const int r0 = blockIdx.x * p.heads, hv = min(p.heads, R - r0);
+  const int64_t bc = blockIdx.y / G;
+  const int g = blockIdx.y - (int)bc * G;
 
-  float* const cum = smem;                    // L
-  float* const dtv = cum + L;                 // L
-  float* const sC = dtv + L;                  // kT x (N+1)
-  float* const sB = sC + kT * NS;             // kT x (N+1)
-  float* const sX = sB + kT * NS;             // kT x P
-  float* const sW = sX + kT * P;              // kT x (kT+1)
-  float* const sS = sW + kT * WS;             // N x P
+  float* const sC = smem;                         // kT x cs
+  float* const sS = sC + kT * p.cs;               // kT x ss
+  float* const bufs = sS + kT * p.ss;             // 2 x buf
+  float* const cum = bufs + 2 * p.buf;            // heads x L4
+  const int L4 = (L + 3) / 4 * 4;
+  float* const dtv = cum + p.heads * L4;          // heads x L4
 
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;     // 16 x 16 thread grid
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int rw = warp % 4, cw = warp / 4;         // row group, column half
+  const int ra = 16 * rw + gid;                   // the warp's local rows
+  const int la = l0 + ra, lb = la + 8;
+  const int lastrow = l0 + 16 * rw + 15;
+  const int c0 = cw * 8 * NJ;                     // its first output column
 
-  // the head's log-decay and dt columns, then cum = cumsum(log-decay)
-  const int64_t gate0 = (bc * L * G + g) * R + r;   // row 0 of (l, g, r)
-  for (int i = tid; i < lend; i += kThreads) {
-    cum[i] = p.ld[gate0 + (int64_t)i * G * R];
-    dtv[i] = p.dt[gate0 + (int64_t)i * G * R];
+  // the heads' log-decay and dt columns, then cum = cumsum(log-decay)
+  const int64_t gate0 = (bc * L * G + g) * R + r0;
+  for (int i = threadIdx.x; i < hv * lend; i += kThreads) {
+    const int h = i / lend, l = i - h * lend;
+    cum[h * L4 + l] = p.ld[gate0 + (int64_t)l * G * R + h];
+    dtv[h * L4 + l] = p.dt[gate0 + (int64_t)l * G * R + h];
   }
   __syncthreads();
-  if (tid < 32) {
+  for (int h = warp; h < hv; h += kWarps) {
     float carry = 0.0f;
     for (int base = 0; base < lend; base += 32) {
-      const int i = base + tid;
-      float v = i < lend ? cum[i] : 0.0f;
+      const int i = base + lane;
+      float v = i < lend ? cum[h * L4 + i] : 0.0f;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
         const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if (tid >= off) v += u;
+        if (lane >= off) v += u;
       }
       v += carry;
-      if (i < lend) cum[i] = v;
+      if (i < lend) cum[h * L4 + i] = v;
       carry = __shfl_sync(0xffffffffu, v, 31);
     }
   }
-  // C rows of this l tile, and the head's incoming state
-  for (int i = tid; i < kT * N; i += kThreads) {
-    const int a = i / N, n = i % N;
-    const int l = l0 + a;
-    sC[a * NS + n] = l < L ? p.c[((bc * L + l) * G + g) * N + n] : 0.0f;
-  }
-  const float* s_head = p.s_in + ((bc * G + g) * R + r) * (int64_t)N * P;
-  for (int i = tid; i < N * P; i += kThreads) sS[i] = s_head[i];
-  __syncthreads();
 
-  // inter-chunk term: exp(cum[l]) (C[l] . s_in)
-  const int pj_n = (P + 15) / 16;
-  float acc[4][kPJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kPJ; ++j) acc[i][j] = 0.0f;
-  for (int n = 0; n < N; ++n) {
-    float cv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) cv[i] = sC[(tr + 16 * i) * NS + n];
-#pragma unroll
-    for (int j = 0; j < kPJ; ++j) {
-      const int pp = tc + 16 * j;
-      if (j < pj_n && pp < P) {
-        const float sv = sS[n * P + pp];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(cv[i], sv, acc[i][j]);
-      }
+  // the tile sequence: lt+1 score tiles (B rows), then per head ns s_in
+  // tiles and lt+1 X tiles
+  const int n_score = lt + 1, ns = (p.np8 + kT - 1) / kT;
+  const int per_head = ns + lt + 1;
+  const int tiles = n_score + hv * per_head;
+  auto fetch = [&](int t) {
+    float* const dst = bufs + (t & 1) * p.buf;
+    if (t < n_score) {
+      const int m0 = t * kT;
+      stage(dst, p.cs, p.b + ((bc * L + m0) * G + g) * (int64_t)N,
+            (int64_t)G * N, kT, L - m0, p.np8, N, p.vec);
+      return;
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = l0 + tr + 16 * i;
-    const float e = l < L ? expf(cum[l]) : 0.0f;
-#pragma unroll
-    for (int j = 0; j < kPJ; ++j) acc[i][j] *= e;
-  }
+    const int h = (t - n_score) / per_head, k = (t - n_score) % per_head;
+    const int64_t r = r0 + h;
+    if (k < ns) {
+      const int n0 = k * kT;
+      stage(dst, p.xs, p.s_in + (((bc * G + g) * R + r) * N + n0) * P,
+            P, min(kT, p.np8 - n0), N - n0, p.pp8, P, p.vec);
+    } else {
+      const int m0 = (k - ns) * kT;
+      stage(dst, p.xs, p.x + (((bc * L + m0) * G + g) * R + r) * P,
+            (int64_t)G * R * P, kT, L - m0, p.pp8, P, p.vec);
+    }
+  };
 
-  // intra-chunk term, one 64-row m tile at a time up to the diagonal
-  for (int m0 = 0; m0 <= l0; m0 += kT) {
-    __syncthreads();                // the previous tile's readers are done
-    for (int i = tid; i < kT * N; i += kThreads) {
-      const int a = i / N, n = i % N;
-      const int m = m0 + a;
-      sB[a * NS + n] = m < L ? p.b[((bc * L + m) * G + g) * N + n] : 0.0f;
-    }
-    for (int i = tid; i < kT * P; i += kThreads) {
-      const int a = i / P, pp = i % P;
-      const int m = m0 + a;
-      sX[i] = m < L ? p.x[(((bc * L + m) * G + g) * R + r) * (int64_t)P + pp]
-                    : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4];
+  // C rows of this l tile travel with the first tile
+  stage(sC, p.cs, p.c + ((bc * L + l0) * G + g) * (int64_t)N, (int64_t)G * N,
+        kT, L - l0, p.np8, N, p.vec);
+  fetch(0);
+  cp_async_commit();
+
+  float acc[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NJ; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait_all();    // tile t has landed ...
+    __syncthreads();        // ... for all, and tile t-1's buffer is free
+    if (t + 1 < tiles) fetch(t + 1);
+    cp_async_commit();
+    const float* const bt = bufs + (t & 1) * p.buf;
+
+    if (t < n_score) {
+      // scores S[l, m] for the warp's 16 rows and its half of the tile's
+      // 64 m columns, SG n-tiles at a time in the first SG accumulators
+      constexpr int SG = NJ < kT / 16 ? NJ : kT / 16;
+      const int m0 = t * kT;
+      for (int jg = cw * kT / 16; jg < (cw + 1) * kT / 16; jg += SG) {
+        for (int kk = 0; kk < p.np8; kk += 8) {
+          uint32_t ah[4], al[4];
+          a_frag(sC, p.cs, ra, kk, tig, ah, al);
+          float bv[SG][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int n = 0; n < N; ++n) {
-      float cv[4], bv[4];
+          for (int j = 0; j < SG; ++j) {
+            const float* const bj = bt + (8 * (jg + j) + gid) * p.cs + kk + tig;
+            bv[j][0] = bj[0];
+            bv[j][1] = bj[4];
+          }
+          mma3_row(acc, ah, al, bv);
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        cv[i] = sC[(tr + 16 * i) * NS + n];
-        bv[i] = sB[(tc + 16 * i) * NS + n];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int a = tr + 16 * i, l = l0 + a;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = tc + 16 * j, m = m0 + e;
-        float w = 0.0f;
-        if (m <= l && l < L) w = (s[i][j] * expf(cum[l] - cum[m])) * dtv[m];
-        sW[a * WS + e] = w;
-      }
-    }
-    __syncthreads();
-    for (int e = 0; e < kT; ++e) {
-      float wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = sW[(tr + 16 * i) * WS + e];
-#pragma unroll
-      for (int j = 0; j < kPJ; ++j) {
-        const int pp = tc + 16 * j;
-        if (j < pj_n && pp < P) {
-          const float xv = sX[e * P + pp];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(wv[i], xv, acc[i][j]);
+        for (int j = 0; j < SG; ++j) {
+          const int m = m0 + 8 * (jg + j) + 2 * tig;
+          sS[ra * p.ss + m] = acc[j][0];
+          sS[ra * p.ss + m + 1] = acc[j][1];
+          sS[(ra + 8) * p.ss + m] = acc[j][2];
+          sS[(ra + 8) * p.ss + m + 1] = acc[j][3];
+          acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
         }
       }
+      continue;
     }
-  }
 
+    const int h = (t - n_score) / per_head, k = (t - n_score) % per_head;
+    const float* const ch = cum + h * L4;
+    const float* const dh = dtv + h * L4;
+    if (k < ns) {
+      // acc += C[l, n0 + .] . s_in[n0 + ., :]
+      const int n0 = k * kT, kr = min(kT, p.np8 - n0);
+      for (int kk = 0; kk < kr; kk += 8) {
+        uint32_t ah[4], al[4];
+        a_frag(sC, p.cs, ra, n0 + kk, tig, ah, al);
+        float bv[NJ][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = l0 + tr + 16 * i;
-    if (l >= L) continue;
-    float* yrow = p.y + (((bc * L + l) * G + g) * R + r) * (int64_t)P;
+        for (int j = 0; j < NJ; ++j) {
+          const float* const bj = bt + (kk + tig) * p.xs + c0 + 8 * j + gid;
+          bv[j][0] = bj[0];
+          bv[j][1] = bj[4 * p.xs];
+        }
+        mma3_row(acc, ah, al, bv);
+      }
+      if (k == ns - 1) {    // the inter-chunk term is scaled by exp(cum[l])
+        const float ea = la < L ? expf(ch[min(la, lend - 1)]) : 0.0f;
+        const float eb = lb < L ? expf(ch[min(lb, lend - 1)]) : 0.0f;
 #pragma unroll
-    for (int j = 0; j < kPJ; ++j) {
-      const int pp = tc + 16 * j;
-      if (j < pj_n && pp < P) yrow[pp] = acc[i][j];
+        for (int j = 0; j < NJ; ++j) {
+          acc[j][0] *= ea;
+          acc[j][1] *= ea;
+          acc[j][2] *= eb;
+          acc[j][3] *= eb;
+        }
+      }
+      continue;
+    }
+
+    // acc += W[l, m0 + .] . X[m0 + ., :], W masked before the exponential
+    const int mt = k - ns, m0 = mt * kT;
+    const float ca = ch[min(la, lend - 1)], cb = ch[min(lb, lend - 1)];
+    // W[l, m] = S[l, m] exp(cum[l] - cum[m]) dt[m] for m <= l < L, else 0;
+    // indices clamped into the staged rows, the masked difference never
+    // reaches the exponential.  __expf (ex2.approx of x log2 e) errs by
+    // ~6e-8 |x| relative, under 1e-5 for the |cum| of a 256-step chunk
+    auto weight = [&](int row, int l, float cl, int m) {
+      const bool ok = m <= l && l < L;
+      const int mc = min(m, lend - 1);   // every load in range: no branch
+      const float e = __expf(ok ? cl - ch[mc] : 0.0f);
+      const float w = sS[row * p.ss + mc] * e * dh[mc];
+      return ok ? w : 0.0f;
+    };
+    for (int kk = 0; kk < kT; kk += 8) {
+      const int mk = m0 + kk;
+      if (mk > lastrow) break;
+      const int m1 = mk + tig, m2 = m1 + 4;
+      const float w[4] = {weight(ra, la, ca, m1), weight(ra + 8, lb, cb, m1),
+                          weight(ra, la, ca, m2), weight(ra + 8, lb, cb, m2)};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(w[i], ah[i], al[i]);
+      float bv[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* const bj = bt + (kk + tig) * p.xs + c0 + 8 * j + gid;
+        bv[j][0] = bj[0];
+        bv[j][1] = bj[4 * p.xs];
+      }
+      mma3_row(acc, ah, al, bv);
+    }
+    if (mt == lt) {         // the head is done: write its rows
+      const int64_t r = r0 + h;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int pc = c0 + 8 * j + 2 * tig;
+        if (la < L) {
+          float* const ya = p.y + (((bc * L + la) * G + g) * R + r) * P;
+          if (pc < P) ya[pc] = acc[j][0];
+          if (pc + 1 < P) ya[pc + 1] = acc[j][1];
+        }
+        if (lb < L) {
+          float* const yb = p.y + (((bc * L + lb) * G + g) * R + r) * P;
+          if (pc < P) yb[pc] = acc[j][2];
+          if (pc + 1 < P) yb[pc + 1] = acc[j][3];
+        }
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      }
     }
   }
+  cp_async_wait_all();
+}
+
+template <int NJ>
+cudaError_t launch(const Params& p, int64_t BC, cudaStream_t stream) {
+  const size_t bytes = smem_floats(p) * sizeof(float);
+  // above 48 KB the size is opted in to; the attribute belongs to the
+  // current device, so it is set at every launch (a host-side call)
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_intra_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((p.R + p.heads - 1) / p.heads),
+                  (unsigned)(BC * p.G), (unsigned)((p.L + kT - 1) / kT));
+  ssd_intra_kernel<NJ><<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -236,24 +454,24 @@ cudaError_t ssd_intra(const float* x, const float* ld, const float* dt,
   if (BC <= 0 || L <= 0 || L > kMaxL || G <= 0 || R <= 0 || N <= 0 ||
       N > kMaxN || P <= 0 || P > kMaxP || R > 65535 || BC * G > 65535)
     return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(L, N, P);
-  // above 48 KB the size is opted in to; the attribute belongs to the
-  // current device, so it is set at every launch (a host-side call)
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return err;
+  Params p = make_params(x, ld, dt, b, c, s_in, y, L, G, R, N, P);
+  p.heads = kHeads ? kHeads : heads_for(BC, L, G, R);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (p.nj) {
+    case 1: return launch<1>(p, BC, st);
+    case 2: return launch<2>(p, BC, st);
+    case 4: return launch<4>(p, BC, st);
+    default: return launch<8>(p, BC, st);
   }
-  const Params p{x, ld, dt, b, c, s_in, y, BC, L, G, R, N, P};
-  const dim3 grid((unsigned)((L + kT - 1) / kT), (unsigned)R,
-                  (unsigned)(BC * G));
-  ssd_intra_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(p);
-  return cudaGetLastError();
 }
 
 int ssd_max_dims(int which) {   // 0: L, 1: N, 2: P
   return which == 0 ? kMaxL : which == 1 ? kMaxN : kMaxP;
+}
+
+// Heads a block takes at this shape (chip_smoke.py and the study print it).
+int ssd_heads_per_block(int64_t BC, int L, int G, int R) {
+  return kHeads ? kHeads : heads_for(BC, L, G, R);
 }
 
 const char* ssd_error_string(int err) {

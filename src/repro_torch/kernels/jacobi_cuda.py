@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.kernels.jacobi import jacobi_fused_ref
 
-MAX_SWEEPS = 4          # the kernel's shared-memory tile takes k <= 4
+MAX_SWEEPS = 4          # the kernel's shared-memory rings take k <= 4
+SEGMENT = 64            # output planes in x one block marches over
 
 # launches since the last reset (CUDA launches only)
 LAUNCHES = {"JACOBI_FUSED": 0}
@@ -46,12 +47,14 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
     lib.jacobi_fused.restype = ctypes.c_int
     lib.jacobi_max_sweeps.restype = ctypes.c_int
+    lib.jacobi_segment.restype = ctypes.c_int
     lib.jacobi_blocks_per_sm.argtypes = [ctypes.c_int]
     lib.jacobi_blocks_per_sm.restype = ctypes.c_int
     lib.jacobi_error_string.argtypes = [ctypes.c_int]
     lib.jacobi_error_string.restype = ctypes.c_char_p
-    if lib.jacobi_max_sweeps() != MAX_SWEEPS:
-        raise RuntimeError("csrc/jacobi.cu and jacobi_cuda.MAX_SWEEPS disagree")
+    if (lib.jacobi_max_sweeps(), lib.jacobi_segment()) != (MAX_SWEEPS, SEGMENT):
+        raise RuntimeError("csrc/jacobi.cu and jacobi_cuda.MAX_SWEEPS/SEGMENT "
+                           "disagree")
     return lib
 
 

@@ -224,3 +224,48 @@ def mha_reference(q, k, v, *, causal=True, scale=None, q_offset=0):
         logits = torch.where(kpos <= qpos, logits, -torch.inf)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("hqk,khd->qhd", w, vf.float()).to(q.dtype)
+
+
+def tf32_round(t):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero (the low 13
+    bits of the float32 cleared after adding half of their range)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, equation, split):
+    """einsum of a and b with TF32 operands.  ``split``: the 3xTF32 sum
+    (a_lo.b_hi + a_hi.b_lo) + a_hi.b_hi, where hi = tf32(x) and
+    lo = tf32(x - hi); else the single product tf32(a).tf32(b)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    big = torch.einsum(equation, ah, bh)
+    if not split:
+        return big
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (torch.einsum(equation, al, bh)
+            + torch.einsum(equation, ah, bl)) + big
+
+
+def ssd_intra_3xtf32_reference(x, log_decay, in_scale, b_, c_, s_in, *,
+                               split=True):
+    """The CPU twin of SSD_INTRA's tensor-core arithmetic (``csrc/ssd.cu``):
+    the function of ``kernels.ssd.ssd_intra_reference`` with every product
+    (C.B^T, W.X, C.s_in) taken on TF32 operands, in the 3xTF32 split by
+    default or as one TF32 product (``split=False``), float32 sums.  As in
+    the kernel, the causal mask comes before the exponential, and the
+    inter-chunk term exp(cum) (C.s_in) is formed first and W.X added to it.
+    It shows what the split buys; it does not repeat the tensor cores'
+    summation order bit for bit."""
+    cum = torch.cumsum(log_decay, dim=2)
+    l = x.shape[2]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    mask = mask[None, None, :, :, None, None]
+    diff = cum[:, :, :, None, :, :] - cum[:, :, None, :, :, :]
+    scores = _tf32_product(c_, b_, "bclgn,bcmgn->bclmg", split)
+    decay = torch.exp(torch.where(mask, diff, 0.0))
+    w = torch.where(mask, scores[..., None] * decay
+                    * in_scale[:, :, None, :, :, :], 0.0)
+    y = (_tf32_product(c_, s_in, "bclgn,bcgrnp->bclgrp", split)
+         * torch.exp(cum)[..., None])
+    return y + _tf32_product(w, x, "bclmgr,bcmgrp->bclgrp", split)

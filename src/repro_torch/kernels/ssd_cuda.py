@@ -46,11 +46,20 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_intra.restype = ctypes.c_int
     lib.ssd_max_dims.argtypes = [ctypes.c_int]
     lib.ssd_max_dims.restype = ctypes.c_int
+    lib.ssd_heads_per_block.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 3
+    lib.ssd_heads_per_block.restype = ctypes.c_int
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
     if tuple(lib.ssd_max_dims(i) for i in range(3)) != (MAX_L, MAX_N, MAX_P):
         raise RuntimeError("csrc/ssd.cu and ssd_cuda.MAX_* disagree")
     return lib
+
+
+def heads_per_block(x) -> int:
+    """Heads one block of the kernel takes for an x of shape
+    (B, nc, L, G, R, P) on the current card."""
+    bsz, nc, l, g, r, _ = x.shape
+    return _lib().ssd_heads_per_block(bsz * nc, l, g, r)
 
 
 def _check(x, log_decay, in_scale, b_, c_, s_in) -> tuple:

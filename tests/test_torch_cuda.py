@@ -114,6 +114,73 @@ def test_jacobi_fused_matches_plain_version(card, shape, sweeps):
     assert float((got - want).abs().max()) <= tol
 
 
+def _jacobi_inputs(lead, interior, sweeps, dev, seed):
+    rng = np.random.RandomState(seed)
+    shape = (*lead, *(n + 2 * sweeps for n in interior))
+    return tuple(torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+# x extents about the kernel's segment length; y and z not multiples of its
+# 16 x 32 output tile
+SEG = jacobi_cuda.SEGMENT
+
+
+# (y, z) interiors: z + 2k not a multiple of 4 (4-byte copies) and a
+# multiple of 4 at k = 2 and 4 (16-byte copies)
+YZ = {"copies4": (17, 33), "copies16": (18, 60)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("yz", list(YZ))
+@pytest.mark.parametrize("sweeps", [2, 4])
+@pytest.mark.parametrize("nx", [1, SEG - 1, SEG, SEG + 1, 2 * SEG + 1])
+def test_jacobi_fused_x_extents_about_a_segment(card, nx, sweeps, yz):
+    p, rhs = _jacobi_inputs((), (nx, *YZ[yz]), sweeps, card, seed=nx)
+    got = jacobi_cuda.jacobi_fused(p, rhs, h=1.0 / 48, omega=0.8, sweeps=sweeps)
+    want = jacobi_cuda.jacobi_fused_plain(p, rhs, h=1.0 / 48, omega=0.8,
+                                          sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (nx, *YZ[yz])
+    tol = RTOL * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("yz", list(YZ))
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+def test_jacobi_fused_slot_batch_equals_single_slot_calls_bitwise(card, sweeps,
+                                                                  yz):
+    """The farm's rule: a slot of a batched launch equals the same slot
+    launched alone, bit for bit (a slot's halo and segment-start cells are
+    recomputed by the one expression every cell uses)."""
+    p, rhs = _jacobi_inputs((4,), (SEG + 6, *YZ[yz]), sweeps, card,
+                            seed=10 + sweeps)
+    batched = jacobi_cuda.jacobi_fused(p, rhs, h=1.0 / 48, omega=0.8,
+                                       sweeps=sweeps)
+    for s in range(4):
+        one = jacobi_cuda.jacobi_fused(p[s].contiguous(), rhs[s].contiguous(),
+                                       h=1.0 / 48, omega=0.8, sweeps=sweeps)
+        assert torch.equal(batched[s], one), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+def test_jacobi_fused_check_rejects_a_zeroed_ghost_face(card, sweeps):
+    """A planted fault: the kernel alone is given p with its x-low ghost
+    face (k planes) zeroed; the check against the plain version must
+    reject it."""
+    p, rhs = _jacobi_inputs((), (SEG + 1, 17, 33), sweeps, card, seed=3)
+    want = jacobi_cuda.jacobi_fused_plain(p, rhs, h=1.0 / 48, omega=0.8,
+                                          sweeps=sweeps)
+    bad = p.clone()
+    bad[:sweeps] = 0.0
+    got = jacobi_cuda.jacobi_fused(bad, rhs, h=1.0 / 48, omega=0.8,
+                                   sweeps=sweeps)
+    tol = RTOL * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) > tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused_sweeps", [1, 2])
 def test_cuda_farm_slots_equal_serial_runs_bitwise(card, fused_sweeps):
@@ -254,29 +321,66 @@ def test_flash_attention_check_rejects_a_dropped_key_tile(card, case):
 SSD_CASES = {"zamba2_chunk": (1, 2, 128, 1, 8, 64, 64),
              "odd": (2, 3, 48, 1, 3, 16, 8),
              "groups_long": (1, 2, 200, 2, 2, 24, 20),
-             "wide": (1, 1, 256, 1, 2, 128, 128)}
+             "wide": (1, 1, 256, 1, 2, 128, 128),
+             # heads not a multiple of the kernel's heads per block, L 200
+             # and 48, and N, P that rule out 16-byte copies
+             "heads_not_multiple": (1, 2, 128, 1, 6, 64, 64),
+             "l200_heads5": (1, 1, 200, 2, 5, 32, 16),
+             "l48_unaligned": (2, 1, 48, 1, 7, 5, 3)}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(SSD_CASES))
-def test_ssd_intra_matches_plain_version(card, case):
+def _ssd_inputs(case, dev):
     bsz, nc, l, g, r, p, n = SSD_CASES[case]
-    gen = torch.Generator(device=card).manual_seed(1)
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=card)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     x = rnd(bsz, nc, l, g, r, p)
     ld = -torch.nn.functional.softplus(rnd(bsz, nc, l, g, r))
     dt = torch.nn.functional.softplus(rnd(bsz, nc, l, g, r))
     b_, c_ = rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n)
     s_in = rnd(bsz, nc, g, r, n, p) * 0.3
+    return x, ld, dt, b_, c_, s_in
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_intra_matches_plain_version(card, case):
+    args = _ssd_inputs(case, card)
     before = ssd_cuda.LAUNCHES["SSD_INTRA"]
-    got = ssd_cuda.ssd_intra(x, ld, dt, b_, c_, s_in)
-    want = ssd_cuda.ssd_intra_plain(x, ld, dt, b_, c_, s_in)
+    got = ssd_cuda.ssd_intra(*args)
+    want = ssd_cuda.ssd_intra_plain(*args)
     torch.cuda.synchronize()
     assert ssd_cuda.LAUNCHES["SSD_INTRA"] == before + 1
     # float32 throughout; the decay exponents come from a cumulative sum
     # taken in another order, so allow 1e-4 of the largest output
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_intra_check_rejects_a_zeroed_head_state(card, case):
+    """A planted fault: the kernel alone is given s_in with its last head's
+    incoming state zeroed; the 1e-4 check must reject it."""
+    args = _ssd_inputs(case, card)
+    want = ssd_cuda.ssd_intra_plain(*args)
+    s_bad = args[5].clone()
+    s_bad[:, :, :, -1] = 0.0
+    got = ssd_cuda.ssd_intra(*args[:5], s_bad)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 4, 8, 16, 64])
+def test_ssd_heads_per_block_keeps_one_and_a_half_blocks_an_sm(card, nc):
+    """SSD_INTRA shares each block's C.B^T among H heads: the most of 8, 4,
+    2 whose grid still gives 1.5 blocks an SM (zamba2's 512-, 1024- and
+    2048-token prefills: 2, 4, 8 on an H100's 132 SMs)."""
+    x = torch.empty(1, nc, 128, 1, 64, 64, device=card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    blocks = lambda h: nc * 2 * -(-64 // h)          # (l tiles, head groups)
+    want = next((h for h in (8, 4) if 2 * blocks(h) >= 3 * sms), 2)
+    assert ssd_cuda.heads_per_block(x) == want
 
 
 @pytest.mark.cuda

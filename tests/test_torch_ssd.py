@@ -25,7 +25,7 @@ from repro.models import mamba2 as rmamba  # noqa: E402
 from repro.models.config import LOCAL as R_LOCAL  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke  # noqa: E402
-from repro_torch.kernels import ops, ssd, ssd_cuda  # noqa: E402
+from repro_torch.kernels import ops, ref, ssd, ssd_cuda  # noqa: E402
 from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models.config import LOCAL  # noqa: E402
 
@@ -73,6 +73,46 @@ def test_plain_ssd_intra_matches_pallas_interpret_and_oracle(shape):
                 ssd_cuda.ssd_intra(*map(torch.from_numpy, args))):
         assert torch.equal(out, got)
     assert ssd_cuda.LAUNCHES == before
+
+
+# SSD_INTRA's kernel against its plain version on the card
+# (chip_smoke.SSD_RTOL, tests/test_torch_cuda.py): 1e-4 of max|y|
+SSD_RTOL = 1e-4
+# the zamba2-1.2b chunk: L 128, one group, N 64, P 64 (4 of its 64 heads)
+ZAMBA2_CHUNK = (1, 2, 128, 1, 4, 64, 64)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    t = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                      1 + 3 * 2.0 ** -11, 3.0, 0.0])
+    want = [1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 1 + 2.0 ** -9, 3.0, 0.0]
+    assert ref.tf32_round(t).tolist() == want
+
+
+@pytest.mark.parametrize("shape", SHAPES + [ZAMBA2_CHUNK])
+def test_3xtf32_twin_matches_pallas_interpret(shape):
+    """The CPU twin of the kernel's tensor-core arithmetic (3xTF32) stays
+    within the card's SSD_RTOL of the reference's Pallas kernel."""
+    args = _inputs(1, *shape)
+    got = ref.ssd_intra_3xtf32_reference(*map(torch.from_numpy, args))
+    want = rssd.ssd_intra_pallas(*map(jnp.asarray, args), interpret=True)
+    _close(got, want, "3xtf32", tol=SSD_RTOL)
+
+
+def test_single_tf32_exceeds_ssd_rtol_at_the_zamba2_chunk():
+    """Why the kernel splits its operands: one TF32 product a term (~11
+    bits) misses SSD_RTOL at the zamba2 chunk shape, the split meets it."""
+    args = _inputs(1, *ZAMBA2_CHUNK)
+    want = np.asarray(rssd.ssd_intra_pallas(*map(jnp.asarray, args),
+                                            interpret=True))
+    scale = max(1.0, float(np.abs(want).max()))
+    errs = {}
+    for split in (False, True):
+        got = ref.ssd_intra_3xtf32_reference(*map(torch.from_numpy, args),
+                                             split=split).numpy()
+        errs[split] = float(np.abs(got - want).max()) / scale
+    assert errs[False] > SSD_RTOL, errs
+    assert errs[True] <= SSD_RTOL, errs
 
 
 def test_wrapper_checks_its_inputs():
