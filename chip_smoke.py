@@ -15,7 +15,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              (timed: the shape of the farm's launches; JACOBI_FUSED also
              for k = 1..4 and for x extents about its segment length, each
              with a planted fault, a zeroed ghost face, that the check must
-             reject);
+             reject); the four stencils must equal their plain versions
+             bit for bit at 256^3, serial and at the 4-slot launch (every
+             operation of theirs is rounded as written), and each plain
+             stencil body on the card must equal the same body on the CPU
+             bit for bit on a seeded 64^3 input;
              CUDA-event times of kernel and plain version (the kernel's
              with the stream given a head start, so that its own device
              time is read, not its wrapper's host time) beside the least
@@ -34,13 +38,25 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              device_steps x (1, 1, 40, 1), every result must equal a
              serial ``cuda`` run bitwise, and the ``torch`` farm must
              agree; batched step time, sims x steps/s and peak memory;
-6. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
+6. durable   the same farm with telemetry (a JSON-lines trace), health,
+             ``ckpt_dir`` and the job store on: the eviction spills to
+             disk and is read back; results bitwise those of ``farm``,
+             the same launch counts, a valid Chrome trace, health drains
+             only at harvest boundaries.  Then a sixth request poisoned
+             with dt = 50 must end ``diverged`` with a readable flight
+             record while the others stay bitwise; then a store-backed
+             process (256^3, 2 slots) is SIGKILLed after its first
+             snapshot and this process recovers and drains its jobs,
+             bitwise an uninterrupted run.  Overheads: the batched step
+             with telemetry and health on against off, a health drain, the
+             spill (ms, MB/s) and the restore, trace events, peak memory;
+7. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
              launches a step and no JACOBI_PRESSURE;
-7. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
+8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
              sims x steps/s against eight serial runs;
-8. physics   Taylor-Green, cavity divergence and Ghia bounds with the
+9. physics   Taylor-Green, cavity divergence and Ghia bounds with the
              kernels, as the reference's tests hold its solver to them;
-9. lm        zamba2-1.2b at its published widths (bf16 weights from
+10. lm       zamba2-1.2b at its published widths (bf16 weights from
              ``init_params`` at seed 0, float32 caches) through
              ``ServingEngine(slots=4, max_seq=4096, backend="cuda")``: eight
              requests of 256..2000 prompt tokens and 32 new tokens each,
@@ -79,6 +95,8 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -95,8 +113,9 @@ BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 TF32_OPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 SLEEP_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: a lower clock sleeps longer
 # max|kernel - plain| <= KERNEL_RTOL * max(1, max|plain|): both compute the
-# same float32 expression; the kernel may contract a*b+c into one FMA and
-# the plain version rounds every operation, a few ulp of the largest term
+# same float32 expression, a few ulp of the largest term where the order of
+# operations differs (the stencils round every operation in the plain
+# body's order and are held bitwise besides)
 KERNEL_RTOL = 1e-5
 # cuda vs torch backend after STEPS steps: per-step ulp differences stay
 # bounded because the Jacobi iteration is contractive
@@ -148,6 +167,12 @@ FARM_SLOTS = 4
 FARM_RES = (50.0, 100.0, 200.0, 400.0, 800.0)
 FARM_STEPS = (8, 12, 6, 10, 14)
 EVICT, EVICT_AT = 1, 4
+# the durable phase: the farm's requests plus one poisoned with a time step
+# far past the CFL limit; the crash run's store-backed process (2 slots,
+# CRASH_STEPS a request), killed after its first snapshot
+POISON_DT = 50.0
+CRASH_RES, CRASH_STEPS = (80.0, 160.0, 240.0), 6
+DURABLE_DIR = os.path.join(ROOT, "build", "durable")
 # the host-bound end: Ghia's n=48 grid, eight slots, twenty steps
 TP_N, TP_SLOTS, TP_STEPS = 48, 8, 20
 
@@ -333,7 +358,32 @@ def compare(name, inputs, table):
     scale = max(float(w.abs().max()) for w in want)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     tol = KERNEL_RTOL * max(1.0, scale)
-    return err, tol, finite, got
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    return err, tol, finite, bitwise, got
+
+
+def plain_card_vs_cpu(name, dev):
+    """The plain body on the card and on the CPU, one seeded 64^3 input of
+    two slots: bit for bit the same (no division by a Python number
+    becomes a reciprocal multiply on the card)."""
+    import torch
+    from repro_torch.cfd import cavity
+    from repro_torch.kernels import stencil3d_cuda as sc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    inputs = kernel_inputs(name, 2, (64, 64, 64), gen, dev)
+    table = param_rows(name, [cavity.config(64, nz=64, re=re)
+                              for re in (100.0, 400.0)], dev)
+    card = sc.PLAIN[name](*inputs, table)
+    cpu = sc.PLAIN[name](*(t.cpu() for t in inputs), table.cpu())
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    emit({"phase": "kernel", "kernel": name, "case": "plain_card_vs_cpu",
+          "interior": [64, 64, 64], "slots": 2, "bitwise": same,
+          "max_abs_diff": max(float((a.cpu() - b).abs().max())
+                              for a, b in zip(card, cpu))})
+    require(same, f"{name}: the plain body on the card differs from the CPU")
 
 
 def phase_kernels(dev):
@@ -363,10 +413,11 @@ def phase_kernels(dev):
             table = param_rows(name, cfgs, dev)
             if S is None:
                 table = table[0]
-            err, tol, finite, outs = compare(name, inputs, table)
+            err, tol, finite, bitwise, outs = compare(name, inputs, table)
             line = {"phase": "kernel", "kernel": name, "case": case,
                     "slots": S or 1, "interior": list(interior),
-                    "max_abs_diff": err, "tolerance": tol, "finite": finite}
+                    "max_abs_diff": err, "tolerance": tol, "finite": finite,
+                    "bitwise": bitwise}
             if case in ("main", "farm"):
                 nbytes = (sum(t.numel() for t in inputs)
                           + sum(o.numel() for o in outs) + table.numel()) * 4
@@ -388,9 +439,13 @@ def phase_kernels(dev):
             require(finite, f"{name} ({case}): non-finite output")
             require(err <= tol, f"{name} ({case}): max|kernel - plain| "
                                 f"{err} > {tol}")
+            if case in ("main", "farm"):
+                require(bitwise, f"{name} ({case}): kernel and plain version "
+                                 f"differ (max {err}), not bitwise")
             res["max_abs_err"] = max(res["max_abs_err"], err)
             del inputs, outs
         results[name] = res
+        plain_card_vs_cpu(name, dev)
     results["JACOBI_FUSED"] = jacobi_fused_cases(gen, dev)
     results["FLASH_ATTENTION"] = attention_cases(gen, dev)
     results["SSD_INTRA"] = ssd_cases(gen, dev)
@@ -836,7 +891,7 @@ def drive_farm(dev, backend: str, **solver):
     require(rt.poll(sids[-1])["status"] == "queued", "fifth request not queued")
     rt.services()[0].run(EVICT_AT)
     poll = rt.poll(sids[EVICT])
-    require(poll == {"status": "running", "steps_done": EVICT_AT},
+    require((poll["status"], poll["steps_done"]) == ("running", EVICT_AT),
             f"before eviction: {poll}")
     require(rt.evict(sids[EVICT]), "evict refused")
     require(rt.poll(sids[EVICT])["status"] == "evicted", "not evicted")
@@ -910,7 +965,7 @@ def phase_farm(dev, label: str, per_step: dict, **solver):
     agree = {sid: agreement(out[sid].state, torch_out[sid].state,
                             f"{label}: cuda vs torch farm, sid {sid}")
              for sid in sids}
-    del out, torch_out
+    del torch_out
     step_ms = batched_step_ms(dev, **solver)
     sim_steps = sum(FARM_STEPS)
     emit({"phase": label, "grid": [N, N, N], "slots": FARM_SLOTS,
@@ -925,6 +980,198 @@ def phase_farm(dev, label: str, per_step: dict, **solver):
           "agree_max_abs_diff": {
               f: max(a[f]["max_abs_diff"] for a in agree.values())
               for f in ("vx", "vy", "vz", "p")}})
+    torch.cuda.empty_cache()
+    return launches, [out[sid] for sid in sids]
+
+
+# the crash run's store-backed process: the port only, on the card; it
+# prints the non-port modules it loaded, then kills itself after its first
+# snapshot (the eviction's)
+CRASH_SCRIPT = r"""
+import json, os, signal, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch import api
+
+rt = api.runtime(n=int(sys.argv[3]), nz=int(sys.argv[3]), n_slots=2,
+                 device=sys.argv[6], store={"path": sys.argv[2],
+                                            "ttl_s": 1.0})
+res = json.loads(sys.argv[4])
+sids = [rt.submit("cavity", re=re, steps=int(sys.argv[5]), tag=f"crash{i}")
+        for i, re in enumerate(res)]
+svc = rt.services()[0]
+svc.run(2)                      # two resident at step 2, one queued
+assert rt.evict(sids[0])        # the first snapshot: the eviction's
+svc.run(2)                      # the queued one takes the freed slot
+bad = sorted(m for m in sys.modules if m in ("jax", "repro")
+             or m.startswith(("jax.", "jaxlib", "repro.")))
+print("SNAPSHOT", json.dumps(bad), flush=True)
+os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+def bitwise_results(got: dict, want: dict, what: str):
+    import torch
+
+    for f in ("vx", "vy", "vz", "p"):
+        a, b = got[f], want[f]
+        require(torch.equal(a, b), f"{what}: field {f} differs by "
+                f"{float((a - b).abs().max())}")
+
+
+def phase_durable(dev, farm_launches: dict, farm_results: list, smi: str):
+    """The farm phase again with telemetry, health, ckpt_dir and the job
+    store on; a poisoned request quarantined; a crash and its recovery."""
+    import torch
+    from repro_torch import api, obs
+
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    os.makedirs(DURABLE_DIR)
+    check_every = api.RuntimeConfig().check_every
+
+    # 1. bitwise invisibility: the farm phase's requests and eviction
+    part = os.path.join(DURABLE_DIR, "farm")
+    trace_path = os.path.join(part, "trace.jsonl")
+    os.makedirs(part)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rt, sids, out = drive_farm(dev, "cuda", telemetry={"trace_path": trace_path},
+                               health=True, ckpt_dir=part, store=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches == farm_launches,
+            f"durable: launch counts {launches} != the farm's {farm_launches}")
+    for sid, want in zip(sids, farm_results):
+        bitwise_results(out[sid].state, want.state,
+                        f"durable: sid {sid} against the farm phase")
+    doc = rt.telemetry.trace.to_chrome()
+    obs.validate_chrome_trace(doc)
+    rt.telemetry.trace.close()
+    with open(trace_path) as f:
+        jsonl = sum(1 for _ in f)
+    n_events = len(rt.telemetry.trace.events)
+    require(jsonl == n_events, f"durable: {jsonl} trace lines, "
+                               f"{n_events} events")
+    farm = rt.services()[0].farm
+    drains = rt.telemetry.metrics.get("health.drains") or 0
+    boundaries = farm.device_steps // check_every
+    require(drains <= boundaries,
+            f"durable: {drains} health drains > {boundaries} boundaries")
+    store = rt.store
+    require(store.counts()["done"] == len(sids), f"durable: {store.counts()}")
+    bitwise_results(rt.load_result(rt.job_id(sids[-1])), out[sids[-1]].state,
+                    "durable: the stored result")
+    timers = rt.telemetry.timers.snapshot()
+
+    def section(name):
+        node = timers.get(name, {})
+        return node.get("total_s", 0.0), node.get("count", 0)
+
+    spill_s, spills = section("service.evict_spill")
+    restore_s, restores = section("service.readmit_restore")
+    drain_s, drain_n = section("farm.health_drain")
+    require(spills == 1 and restores == 1,
+            f"durable: {spills} spills, {restores} restores")
+    spilled = sum(t.numel() * t.element_size()
+                  for t in out[sids[EVICT]].state.values())
+    del rt, out, farm, store
+
+    # 2. quarantine: a sixth request with dt far past the CFL limit
+    part = os.path.join(DURABLE_DIR, "quarantine")
+    qrt = api.runtime(n=N, nz=N, n_slots=FARM_SLOTS, backend="cuda",
+                      device=dev, health=True, ckpt_dir=part, store=True)
+    # more steps than one check interval: health drains at its boundaries
+    bad = qrt.submit("cavity", steps=2 * check_every, re=100.0,
+                     dt=POISON_DT, tag="poison")
+    qsids = [qrt.submit("cavity", steps=steps, re=re)
+             for re, steps in zip(FARM_RES, FARM_STEPS)]
+    qout = qrt.drain()
+    require(qout[bad].terminated == "diverged",
+            f"durable: the poisoned run ended {qout[bad].terminated}")
+    record = qrt.flight_record(qrt.job_id(bad))
+    require(record["meta"]["tag"] == "poison"
+            and record["frames"].shape[1] == len(obs.DIAG_COLUMNS)
+            and {"vx", "vy", "vz", "p"} <= set(record["state"]),
+            "durable: the flight record does not read back")
+    for sid, want in zip(qsids, farm_results):
+        require(qout[sid].terminated == "steps",
+                f"durable: survivor {sid} ended {qout[sid].terminated}")
+        bitwise_results(qout[sid].state, want.state,
+                        f"durable: survivor {sid} against the farm phase")
+    quarantine = {"terminated": qout[bad].terminated,
+                  "steps_done": qout[bad].steps_done,
+                  "cause": record["meta"]["cause"],
+                  "flight_frames": int(record["frames"].shape[0])}
+    del qrt, qout, record
+    shutil.rmtree(part, ignore_errors=True)
+
+    # 3. crash and resume: a store-backed process killed after its first
+    # snapshot; this process recovers its jobs and drains them
+    part = os.path.join(DURABLE_DIR, "crash")
+    os.makedirs(part)
+    store_path = os.path.join(part, "jobs.sqlite")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", CRASH_SCRIPT, os.path.join(ROOT, "src"),
+         store_path, str(N), json.dumps(CRASH_RES), str(CRASH_STEPS),
+         dev.type],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    child_s = time.perf_counter() - t0
+    snap_line = [ln for ln in child.stdout.splitlines()
+                 if ln.startswith("SNAPSHOT")]
+    require(child.returncode == -signal.SIGKILL and snap_line,
+            f"durable: the crash run ended {child.returncode}:\n"
+            f"{child.stdout[-2000:]}\n{child.stderr[-2000:]}")
+    require(json.loads(snap_line[0].split(" ", 1)[1]) == [],
+            f"durable: the crash run loaded {snap_line[0]}")
+    time.sleep(1.5)                # its leases (1 s) expire
+    t0 = time.perf_counter()
+    crt = api.runtime(n=N, nz=N, n_slots=2, backend="cuda", device=dev,
+                      store={"path": store_path, "ttl_s": 30.0})
+    resumed = {j.tag: j.job_id for j in crt.jobs()}
+    statuses = {j.tag: j.status for j in crt.jobs()}
+    crt.drain()
+    resume_s = time.perf_counter() - t0
+    require(crt.store.counts()["done"] == len(CRASH_RES),
+            f"durable: after recovery {crt.store.counts()}")
+    ref = api.runtime(n=N, nz=N, n_slots=2, backend="cuda", device=dev)
+    ref_sids = [ref.submit("cavity", re=re, steps=CRASH_STEPS)
+                for re in CRASH_RES]
+    ref_out = ref.drain()
+    for i, sid in enumerate(ref_sids):
+        bitwise_results(crt.load_result(resumed[f"crash{i}"]),
+                        ref_out[sid].state,
+                        f"durable: resumed crash{i} against an "
+                        "uninterrupted run")
+    del crt, ref, ref_out
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+
+    # 4. what it costs: the batched step with telemetry and health on
+    # against off (on first, then off, then on), one health drain's copy
+    on_kw = dict(telemetry=True, health=True)
+    step_ms = {"on": [batched_step_ms(dev, **on_kw)],
+               "off": [batched_step_ms(dev)]}
+    step_ms["on"].append(batched_step_ms(dev, **on_kw))
+    drain_ms = drain_s / max(drain_n, 1) * 1e3
+    emit({"phase": "durable", "grid": [N, N, N], "slots": FARM_SLOTS,
+          "card": smi, "launches": launches, "expected": farm_launches,
+          "bitwise_vs_farm": True, "wall_s": wall,
+          "trace_events": n_events, "trace_valid": True,
+          "health_drains": drains, "harvest_boundaries": boundaries,
+          "health_drain_ms": drain_ms,
+          "evict_spill_ms": spill_s * 1e3, "evict_spill_mb": spilled / 1e6,
+          "evict_spill_mb_per_s": spilled / 1e6 / max(spill_s, 1e-9),
+          "readmit_restore_ms": restore_s * 1e3,
+          "max_memory_allocated": peak,
+          "batched_step_ms_on": step_ms["on"],
+          "batched_step_ms_off": step_ms["off"],
+          "quarantine": quarantine, "quarantine_survivors_bitwise": True,
+          "crash": {"child_s": child_s, "statuses_at_restart": statuses,
+                    "recover_and_drain_s": resume_s,
+                    "resumed_bitwise": True}})
     torch.cuda.empty_cache()
     return launches
 
@@ -1241,11 +1488,13 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda")
     kernel_results = phase_kernels(dev)
-    paths = {"serial": phase_main(kernel_results, dev),
-             "farm": phase_farm(dev, "farm", PER_STEP),
-             "farm_fused": phase_farm(dev, "farm_fused", PER_STEP_FUSED,
-                                      fused_sweeps=FUSED_K),
-             "throughput": phase_throughput(dev)}
+    paths = {"serial": phase_main(kernel_results, dev)}
+    paths["farm"], farm_results = phase_farm(dev, "farm", PER_STEP)
+    paths["durable"] = phase_durable(dev, paths["farm"], farm_results, smi)
+    del farm_results
+    paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
+                                        fused_sweeps=FUSED_K)
+    paths["throughput"] = phase_throughput(dev)
     phase_physics(dev)
     paths["lm"] = phase_lm(dev)
     # each kernel's launches on the path that carries it: the farm for the

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Design study of JACOBI_FUSED (``csrc/jacobi.cu``) and SSD_INTRA
-(``csrc/ssd.cu``) on one NVIDIA card.
+"""Design study of JACOBI_FUSED (``csrc/jacobi.cu``), SSD_INTRA
+(``csrc/ssd.cu``) and the four stencils (``csrc/stencil3d.cu``) on one
+NVIDIA card.
 
-    python3 kernel_study.py [--parent DIR]
+    python3 kernel_study.py [--parent DIR] [--only jacobi,ssd,stencil,farm]
 
 1. jacobi: the committed source and variants of it made by replacing one
    design constant, each built with nvcc beside the committed library:
@@ -27,7 +28,15 @@
    of the 3xTF32 split.  Each runs the zamba2-1.2b
    prefill shapes of ``chip_smoke.SSD_CASES`` (512, 1024 and 2048 tokens):
    device time and the largest share of the SSD_RTOL check.
-3. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
+3. stencil: the four stencil kernels as committed (every operation
+   rounded as written, the (slot, x) row split by a 32-bit division) and
+   ``contract``, the source as it was before both (plain operators that
+   nvcc may contract into FMAs, a 64-bit row split), at chip_smoke's
+   serial 256^3 call and the farm's 4-slot call: device time and whether
+   the output equals the plain version bit for bit.  Also ``div_op``
+   (``/`` in place of ``__fdiv_rn`` in JACOBI_PRESSURE: the same IEEE
+   division) and ``div64`` (only the row split back to 64 bits).
+4. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
    4-slot farm's batched step, unfused and with ``fused_sweeps=2``, on
    DIR's tree and on this one in turns (parent, this, this, parent), each
    in its own process (``chip_smoke.batched_step_ms`` of that tree).
@@ -64,7 +73,28 @@ VARIANTS = [
     ("ssd", "heads8", [("constexpr int kHeads = 0;", "constexpr int kHeads = 8;")]),
     ("ssd", "tf32_once", [("constexpr bool kSplit = true;",
                            "constexpr bool kSplit = false;")]),
+    ("stencil3d", "contract", [
+        ("""  const unsigned q = (unsigned)r / (unsigned)nx;
+  s = q;
+  i = r - (int64_t)q * nx;""", """  s = r / nx;
+  i = r - s * nx;"""),
+        ("{ return __fadd_rn(a, b); }", "{ return a + b; }"),
+        ("{ return __fsub_rn(a, b); }", "{ return a - b; }"),
+        ("{ return __fmul_rn(a, b); }", "{ return a * b; }"),
+        ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
+         "sub(nbr, mul(h2, rhs[o])) / 6.0f"),
+        ("__fdiv_rn(table[s * 2], table[s * 2 + 1])",
+         "table[s * 2] / table[s * 2 + 1]")]),
+    ("stencil3d", "div_op", [
+        ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
+         "sub(nbr, mul(h2, rhs[o])) / 6.0f")]),
+    ("stencil3d", "div64", [
+        ("""  const unsigned q = (unsigned)r / (unsigned)nx;
+  s = q;
+  i = r - (int64_t)q * nx;""", """  s = r / nx;
+  i = r - s * nx;""")]),
 ]
+SECTIONS = ("jacobi", "ssd", "stencil", "farm")
 REPS = 30
 
 # one tree's batched farm step, unfused and fused, twice each
@@ -83,15 +113,19 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def build_variants():
-    """The committed libraries and one library a variant, built at once;
-    returns {source: {variant: the wrapper's ctypes library}}."""
+def build_variants(sources):
+    """The committed libraries and one library a variant of ``sources``,
+    built at once; returns {source: {variant: the wrapper's ctypes
+    library}}."""
     from repro_torch.kernels import _build, jacobi_cuda as jc, ssd_cuda as sc
+    from repro_torch.kernels import stencil3d_cuda
 
     out_dir = _build.BUILD_DIR / "study"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for source, name, edits in VARIANTS:
+        if source not in sources:
+            continue
         text = _build.SOURCES[source].read_text()
         for old, new in edits:
             if text.count(old) != 1:
@@ -102,8 +136,9 @@ def build_variants():
         procs.append((source, name, so, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    wrappers = {"jacobi": jc, "ssd": sc}
-    libs = {source: {"design": w._lib()} for source, w in wrappers.items()}
+    wrappers = {"jacobi": jc, "ssd": sc, "stencil3d": stencil3d_cuda}
+    libs = {source: {"design": w._lib()} for source, w in wrappers.items()
+            if source in sources}
     load, segment = _build.load, jc.SEGMENT
     try:
         for source, name, so, proc in procs:
@@ -196,6 +231,47 @@ def study_ssd(libs):
         sc._lib = lib
 
 
+def study_stencil(libs):
+    import torch
+    import chip_smoke as cs
+    from repro_torch.cfd import cavity
+    from repro_torch.kernels import stencil3d_cuda as st
+
+    dev = torch.device("cuda")
+    lib = st._lib
+    try:
+        for kname in cs.STENCILS:
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+            cases = {}
+            for case, slots in (("main", None), ("farm", cs.FARM_SLOTS)):
+                cfgs = [cavity.config(cs.N, nz=cs.N, re=re)
+                        for re in cs.FARM_RES[:slots or 1]]
+                inputs = cs.kernel_inputs(kname, slots, (cs.N,) * 3, gen, dev)
+                table = cs.param_rows(kname, cfgs, dev)
+                table = table if slots else table[0]
+                want = st.PLAIN[kname](*inputs, table)
+                cases[case] = (inputs, table,
+                               want if isinstance(want, tuple) else (want,))
+            for name in turns(libs):
+                st._lib = lambda name=name: libs[name]
+                line = {"phase": "stencil", "kernel": kname, "variant": name}
+                for case, (inputs, table, want) in cases.items():
+                    fn = lambda: st.KERNELS[kname](*inputs, table)
+                    got = fn()
+                    torch.cuda.synchronize()
+                    got = got if isinstance(got, tuple) else (got,)
+                    line[case] = {
+                        "kernel_ms": cs.cuda_ms(fn, REPS, head_start=True),
+                        "bitwise_vs_plain": all(torch.equal(g, w)
+                                                for g, w in zip(got, want))}
+                    del got
+                emit(line)
+            del cases
+            torch.cuda.empty_cache()
+    finally:
+        st._lib = lib
+
+
 def study_farm(parent: str):
     for name in ("parent", "this", "this", "parent"):
         tree = parent if name == "parent" else ROOT
@@ -214,7 +290,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="a checkout of another commit, for the "
                                      "farm-step comparison")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections to run "
+                         f"(default: {','.join(SECTIONS)})")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if only - set(SECTIONS):
+        ap.error(f"unknown sections {sorted(only - set(SECTIONS))}")
     if not torch.cuda.is_available():
         print("kernel_study: needs a CUDA card", file=sys.stderr)
         return 2
@@ -222,10 +304,15 @@ def main() -> int:
                           "power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip(), flush=True)
-    libs = build_variants()
-    study_jacobi(libs["jacobi"])
-    study_ssd(libs["ssd"])
-    if args.parent:
+    sources = {"jacobi": "jacobi", "ssd": "ssd", "stencil": "stencil3d"}
+    libs = build_variants({sources[s] for s in only if s in sources})
+    if "jacobi" in only:
+        study_jacobi(libs["jacobi"])
+    if "ssd" in only:
+        study_ssd(libs["ssd"])
+    if "stencil" in only:
+        study_stencil(libs["stencil3d"])
+    if args.parent and "farm" in only:
         study_farm(os.path.abspath(args.parent))
     return 0
 

@@ -11,18 +11,24 @@ serial solver step, or a ``SimulationService`` farm per static signature:
     sid = rt.submit("cavity", steps=400, re=250.0)  # farm intake
     rt.result(sid)                                  # ... poll/evict/drain
 
-Not ported in this slice, each raising ``NotImplementedError`` that names
-its ROADMAP item: telemetry, health, ``ckpt_dir``, the job store and
-``enqueue``/``claim``/``recover`` (queue 1, item 8); meshes and
-decomposition (item 9).
+The reference's observability and durability postures come with it:
+``telemetry`` (timers, metrics, lifecycle traces; :meth:`Runtime.report`),
+``health`` (in-situ diagnostics, NaN quarantine, flight records;
+:meth:`Runtime.watch`), ``ckpt_dir`` (evictions spilled to disk) and
+``store`` (the durable job store: ``enqueue``/``claim``/``recover``, a
+restart resumes incomplete work first).  Not ported, raising
+``NotImplementedError`` that names ROADMAP queue 1, item 9: meshes and
+decomposition.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Mapping
 
 import torch
 
+from repro_torch import obs
 from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.core.schedule import Schedule
 from repro_torch.device import resolve_backend, resolve_device
@@ -68,8 +74,9 @@ class RuntimeConfig:
     is the slot count of each farm.  ``solver`` carries static solver
     overrides (``jacobi_iters``, ``fused_sweeps``, ``overlap``, ...)
     applied to every scenario config this runtime builds.  The postures
-    after ``solver`` are the reference's; the port takes only their
-    defaults (off) so far and raises on any other value.
+    after ``solver`` are the reference's: ``ckpt_dir``, ``telemetry``,
+    ``health`` and ``store`` as it takes them; ``mesh_shape`` and
+    ``decomposition`` raise on anything but their defaults.
     """
 
     n: int = 32                          # grid resolution (n, n, nz)
@@ -79,10 +86,19 @@ class RuntimeConfig:
     n_slots: int = 4                     # farm slots per service
     check_every: int = 16                # convergence-check interval
     solver: Mapping[str, Any] = dataclasses.field(default_factory=dict)
-    ckpt_dir: str | None = None          # queue 1, item 8
-    telemetry: Any = False               # queue 1, item 8
-    health: Any = False                  # queue 1, item 8
-    store: Any = None                    # queue 1, item 8
+    ckpt_dir: str | None = None          # eviction spill directory
+    # observability: False (default, invisible), True, a
+    # repro_torch.obs.TelemetryConfig / Telemetry, or a TelemetryConfig
+    # kwargs dict ({"trace_path": ...}); see repro_torch.obs.resolve
+    telemetry: Any = False
+    # in-situ health + NaN quarantine on the farm: False (default), True, a
+    # HealthConfig or its kwargs; flight records default to
+    # <ckpt_dir>/flight.  Independent of telemetry.
+    health: Any = False
+    # the durable job store: None (default), a JobStore, True
+    # (<ckpt_dir>/jobs.sqlite), a sqlite path, or JobStore kwargs; see
+    # repro_torch.jobs.resolve_store
+    store: Any = None
     mesh_shape: tuple = ()               # queue 1, item 9
     decomposition: tuple = ()            # queue 1, item 9
 
@@ -90,10 +106,8 @@ class RuntimeConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(have {sorted(BACKENDS)})")
-        for what in ("ckpt_dir", "telemetry", "health", "store",
-                     "decomposition"):
-            if getattr(self, what):
-                raise not_ported(what)
+        if self.decomposition:
+            raise not_ported("decomposition")
         if self.mesh_shape:
             raise not_ported("mesh")
 
@@ -141,16 +155,38 @@ def _residual_norm(new: dict, old: dict, dt: float) -> torch.Tensor:
 
 
 class Runtime:
-    """The front door: resolves scenarios against one RuntimeConfig."""
+    """The front door: resolves scenarios against one RuntimeConfig.
+
+    With a job store, building the Runtime first runs :meth:`recover`:
+    in-flight jobs whose process died resume before any queued work is
+    claimed."""
 
     def __init__(self, config: RuntimeConfig | None = None):
+        from repro_torch.jobs import resolve_store
+
         self.config = config if config is not None else RuntimeConfig()
         self.device = resolve_device(self.config.device)
+        # one telemetry handle per runtime, shared by its farms; NULL when
+        # disabled, which makes every hook a no-op
+        self.telemetry = obs.resolve(self.config.telemetry)
+        health = obs.resolve_health(self.config.health)
+        if (health is not None and health.flight_dir is None
+                and self.config.ckpt_dir is not None):
+            health = dataclasses.replace(
+                health,
+                flight_dir=os.path.join(self.config.ckpt_dir, "flight"))
+        self.health = health
         self._services: dict[tuple, SimulationService] = {}
         self._routes: dict[int, tuple[SimulationService, int]] = {}
         self._failed: dict[int, SimResult] = {}
         self._scenario_of: dict[int, str] = {}
         self._next_sid = 0
+        self.store = resolve_store(self.config.store, self.config.ckpt_dir)
+        # job_ids this process admitted itself: a claim never returns one
+        # of them, even if its lease lapsed between two heartbeats
+        self._jobs_local: set[int] = set()
+        if self.store is not None:
+            self.recover()
 
     # -- resolution -----------------------------------------------------------
     def configure(self, scenario, n: int | None = None, **kw) -> CFDConfig:
@@ -177,8 +213,9 @@ class Runtime:
         cfg = self.configure(sc, n=n, **builder_kw)
         solver = NavierStokes3D(cfg, self.device)
         sched = sc.schedule(solver, ic=ic_kw)
-        state = sched.compile_bin("INITIAL")({})
-        step = sched.compile_bin("EVOLVE")
+        tel = self.telemetry if self.telemetry.enabled else None
+        state = sched.compile_bin("INITIAL", telemetry=tel)({})
+        step = sched.compile_bin("EVOLVE", telemetry=tel)
         return PreparedRun(scenario=sc, solver=solver, schedule=sched,
                            state=state, step=step, config=cfg)
 
@@ -206,29 +243,32 @@ class Runtime:
         check = max(int(self.config.check_every), 1)
         state, terminated, done = pr.state, "steps", 0
         ke_prev: float | None = None
-        for i in range(steps):
-            # keep the previous state only when this step lands on a
-            # residual check boundary
-            prev = state if (residual_tol is not None
-                             and (i + 1) % check == 0) else None
-            state = pr.step(state)
-            done = i + 1
-            if progress and (done % progress == 0):
-                print(f"  step {done:6d}/{steps} "
-                      f"t={done * cfg.dt:8.3f} "
-                      f"KE={pr.solver.kinetic_energy(state):.6f}")
-            if residual_tol is not None and done % check == 0:
-                resid = float(_residual_norm(state, prev, cfg.dt))
-                if resid <= residual_tol:
-                    terminated = "residual"
-                    break
-            if steady_tol is not None and done % check == 0:
-                ke = pr.solver.kinetic_energy(state)
-                if ke_prev is not None and abs(ke - ke_prev) <= \
-                        steady_tol * max(abs(ke), 1e-12):
-                    terminated = "steady"
-                    break
-                ke_prev = ke
+        with self.telemetry.section(f"run.{pr.scenario.name}"):
+            for i in range(steps):
+                # keep the previous state only when this step lands on a
+                # residual check boundary
+                prev = state if (residual_tol is not None
+                                 and (i + 1) % check == 0) else None
+                state = pr.step(state)
+                done = i + 1
+                if progress and (done % progress == 0):
+                    print(f"  step {done:6d}/{steps} "
+                          f"t={done * cfg.dt:8.3f} "
+                          f"KE={pr.solver.kinetic_energy(state):.6f}")
+                if residual_tol is not None and done % check == 0:
+                    resid = float(_residual_norm(state, prev, cfg.dt))
+                    if resid <= residual_tol:
+                        terminated = "residual"
+                        break
+                if steady_tol is not None and done % check == 0:
+                    ke = pr.solver.kinetic_energy(state)
+                    if ke_prev is not None and abs(ke - ke_prev) <= \
+                            steady_tol * max(abs(ke), 1e-12):
+                        terminated = "steady"
+                        break
+                    ke_prev = ke
+        if self.telemetry.enabled:
+            self.telemetry.metrics.inc("sim.steps_total", done)
         diagnostics = pr.analyze(state, done)
         return RunResult(scenario=pr.scenario.name,
                          state={k: v.cpu() for k, v in state.items()},
@@ -241,11 +281,20 @@ class Runtime:
         key = static_key(cfg, self.config.n_slots)
         if key in self._services:
             return self._services[key], None
+        ckpt = None
+        if self.config.ckpt_dir is not None:
+            # one spill directory per signature: service-local sids double
+            # as checkpoint step keys and must not collide across farms
+            ckpt = os.path.join(self.config.ckpt_dir,
+                                f"sig{len(self._services):03d}")
         try:
             svc = SimulationService(
                 cfg, n_slots=self.config.n_slots,
                 check_steady_every=self.config.check_every,
-                device=self.device)
+                device=self.device, ckpt_dir=ckpt,
+                telemetry=self.telemetry, health=self.health,
+                farm_id=f"{cfg.case}/sig{len(self._services):03d}",
+                store=self.store)
         except Exception as e:
             return None, f"{type(e).__name__}: {e}"
         self._services[key] = svc
@@ -278,11 +327,26 @@ class Runtime:
         self._scenario_of[sid] = sc.name
         svc, err = self._service_for(cfg)
         if svc is None:
+            if self.store is not None:
+                # even a sim whose stack cannot build leaves a durable row:
+                # submitted, failed, never silently dropped
+                from repro_torch import jobs
+
+                jid = self.store.submit(
+                    req, signature=str(static_key(cfg, self.config.n_slots)),
+                    lease=True)
+                self.store.transition(jid, jobs.FAILED, error=err,
+                                      event="result")
+                self._jobs_local.add(jid)
             self._failed[sid] = SimResult(
                 sid=sid, tag=req.tag, steps_done=0, terminated="failed",
                 state={}, config=cfg, error=err)
             return sid
-        self._routes[sid] = (svc, svc.submit(req))
+        inner = svc.submit(req)
+        self._routes[sid] = (svc, inner)
+        jid = svc.job_of(inner)
+        if jid is not None:
+            self._jobs_local.add(jid)
         return sid
 
     def poll(self, sid: int) -> dict:
@@ -317,9 +381,156 @@ class Runtime:
         svc, inner = self._routes[sid]
         return svc.readmit(inner)
 
+    # -- durable jobs (repro_torch.jobs) --------------------------------------
+    def _job_gauges(self):
+        if self.store is None or not self.telemetry.enabled:
+            return
+        self.telemetry.metrics.set("jobs.lease_takeovers",
+                                   self.store.takeovers)
+        self.telemetry.metrics.set("jobs.store_queue_depth",
+                                   self.store.queue_depth())
+
+    def _admit_job(self, job, resumed: bool = False) -> int:
+        """Admit one claimed store row into this process's farms, resuming
+        from its latest eviction snapshot when asked."""
+        from repro_torch import jobs
+
+        req = job.request()
+        if resumed:
+            snap = self.store.latest_snapshot(job.job_id, "evict")
+            if snap is not None and snap["fields"]:
+                steps_done, state = self.store.load_snapshot(job.job_id,
+                                                             "evict")
+                req = dataclasses.replace(req, init_state=state,
+                                          step0=steps_done)
+            # no snapshot: the job never reached a spill point, so it
+            # restarts from its payload (step0 intact)
+        sid = self._next_sid
+        self._next_sid += 1
+        self._jobs_local.add(job.job_id)
+        svc, err = self._service_for(req.config)
+        if svc is None:
+            self.store.transition(job.job_id, jobs.FAILED, error=err,
+                                  event="result")
+            self._failed[sid] = SimResult(
+                sid=sid, tag=req.tag, steps_done=0, terminated="failed",
+                state={}, config=req.config, error=err)
+            return sid
+        try:
+            inner = svc.submit(req, job_id=job.job_id)
+        except Exception as e:
+            # service.submit already moved the row to failed
+            self._failed[sid] = SimResult(
+                sid=sid, tag=req.tag, steps_done=0, terminated="failed",
+                state={}, config=req.config,
+                error=f"{type(e).__name__}: {e}")
+            return sid
+        self._routes[sid] = (svc, inner)
+        return sid
+
+    def enqueue(self, scenario, *, n: int | None = None,
+                steps: int | None = None, t_end: float | None = None,
+                tag: str = "", steady_tol: float | None = None,
+                residual_tol: float | None = None, priority: int = 0,
+                **params) -> int:
+        """Queue one simulation durably WITHOUT admitting it here; returns
+        its store job_id.  Any process sharing the store — this one
+        included — picks it up through ``claim()``/``drain()``."""
+        if self.store is None:
+            raise RuntimeError(
+                "enqueue() needs a job store — RuntimeConfig(store=...)")
+        sc = get_scenario(scenario)
+        builder_kw, ic_kw = sc.split_kwargs(params)
+        cfg = self.configure(sc, n=n, **builder_kw)
+        req = sc.request(
+            self.config.n if n is None else n, config=cfg,
+            steps=steps, t_end=t_end, tag=tag,
+            steady_tol=steady_tol, residual_tol=residual_tol,
+            priority=priority, device=self.device, **ic_kw)
+        job_id = self.store.submit(
+            req, signature=str(static_key(cfg, self.config.n_slots)),
+            lease=False)
+        if self.telemetry.enabled:
+            self.telemetry.trace.emit("job_enqueue", job_id=job_id, tag=tag)
+        self._job_gauges()
+        return job_id
+
+    def claim(self, max_jobs: int | None = None) -> list[int]:
+        """Lease up to ``max_jobs`` queued store jobs (default: one farm's
+        worth) and admit them here; returns their sids.  Jobs this process
+        admitted itself are never claimed again."""
+        if self.store is None:
+            return []
+        limit = max_jobs if max_jobs is not None else self.config.n_slots
+        claimed = [j for j in self.store.claim(limit=limit)
+                   if j.job_id not in self._jobs_local]
+        sids = [self._admit_job(j) for j in claimed]
+        if self.telemetry.enabled:
+            for j in claimed:
+                self.telemetry.trace.emit("job_claim", job_id=j.job_id,
+                                          tag=j.tag)
+        self._job_gauges()
+        return sids
+
+    def recover(self, limit: int = 64) -> list[int]:
+        """Claim orphaned in-flight jobs (``running``/``evicted`` rows whose
+        lease expired: their process died) and readmit each from its
+        latest snapshot.  Runs when a store-configured Runtime is built,
+        before any queued work is claimed."""
+        if self.store is None:
+            return []
+        claimed = [j for j in self.store.claim_incomplete(limit=limit)
+                   if j.job_id not in self._jobs_local]
+        sids = [self._admit_job(j, resumed=True) for j in claimed]
+        if self.telemetry.enabled:
+            if claimed:
+                self.telemetry.metrics.inc("jobs.resumed", len(claimed))
+            for j in claimed:
+                self.telemetry.trace.emit("job_resume", job_id=j.job_id,
+                                          tag=j.tag, status=j.status)
+        self._job_gauges()
+        return sids
+
+    def job_id(self, sid: int) -> int | None:
+        """The durable job_id behind a sid (None without a store)."""
+        if sid not in self._routes:
+            return None
+        svc, inner = self._routes[sid]
+        return svc.job_of(inner)
+
+    def jobs(self, status=None):
+        """Store job rows (optionally filtered by status)."""
+        if self.store is None:
+            return []
+        return self.store.jobs(status)
+
+    def load_result(self, job_id: int) -> dict:
+        """A done job's persisted final fields (CPU tensors), from any
+        process."""
+        if self.store is None:
+            raise RuntimeError("load_result() needs a job store")
+        return self.store.load_result(job_id)
+
+    def flight_record(self, job_id: int) -> dict:
+        """The flight record of a diverged job, resolved through its store
+        registration — also after a restart, when the farm that recorded
+        it is gone."""
+        from repro_torch.obs.health import load_flight_record
+
+        snap = (self.store.latest_snapshot(job_id, "flight")
+                if self.store is not None else None)
+        if snap is None:
+            raise KeyError(f"job {job_id} has no registered flight record")
+        return load_flight_record(snap["dir"], snap["step_key"])
+
     def drain(self, max_device_steps: int = 100_000) -> dict[int, SimResult]:
         """Run every farm dry; always returns one result per submitted sid,
-        failed sims included (``terminated="failed"`` + error)."""
+        failed sims included (``terminated="failed"``).  With a job store
+        it also keeps claiming queued store jobs until the shared queue is
+        empty (or every remaining job is leased by a live peer)."""
+        while self.store is not None and self.claim():
+            for svc in self._services.values():
+                svc.drain(max_device_steps)
         for svc in self._services.values():
             svc.drain(max_device_steps)
         out: dict[int, SimResult] = {}
@@ -330,14 +541,37 @@ class Runtime:
         out.update(self._failed)
         return out
 
-    def enqueue(self, *args, **kw):
-        raise not_ported("enqueue")
+    def watch(self, refresh_s: float | None = None,
+              iterations: int | None = None) -> str:
+        """Live per-slot health dashboard over every farm (text).  Bare, it
+        renders and returns one frame; with ``refresh_s`` it prints a frame
+        every ``refresh_s`` seconds until the farms go idle (or
+        ``iterations`` frames), returning the last."""
+        import time
 
-    def claim(self, *args, **kw):
-        raise not_ported("claim")
+        from repro_torch.obs.health import render_dashboard
 
-    def recover(self, *args, **kw):
-        raise not_ported("recover")
+        def frame() -> str:
+            return render_dashboard([svc.farm.health_snapshot()
+                                     for svc in self._services.values()])
+
+        if refresh_s is None:
+            return frame()
+        n, text = 0, frame()
+        while True:
+            text = frame()
+            print(text, flush=True)
+            n += 1
+            if iterations is not None and n >= iterations:
+                break
+            if all(svc.farm.table.idle for svc in self._services.values()):
+                break
+            time.sleep(refresh_s)
+        return text
+
+    def report(self) -> str:
+        """This runtime's telemetry report: timers and metrics."""
+        return obs.report(self.telemetry)
 
     # -- introspection --------------------------------------------------------
     def device_steps(self) -> int:
@@ -374,6 +608,10 @@ def runtime(n: int = 32, *, backend: str = "auto", device: str | None = None,
     >>> res.diagnostics["ghia"]
     >>> sids = [rt.submit("cavity", steps=100, re=re) for re in (50, 100)]
     >>> rt.drain()
+    >>> rt = repro_torch.api.runtime(n=16, device="cpu", ckpt_dir="ck",
+    ...                              store=True, health=True, telemetry=True)
+    >>> print(rt.report())        # Cactus-style timers + farm metrics
+    >>> print(rt.watch())         # per-slot health dashboard
     """
     if mesh is not None:
         raise not_ported("mesh")

@@ -36,7 +36,7 @@ from repro_torch.core.driver import Domain, GridDriver
 from repro_torch.core.halo import (
     AxisSpec, bc_dirichlet, bc_neumann, exchange_pad, stencil_step_overlap,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, true_divide
 from repro_torch.kernels import ops
 
 
@@ -192,7 +192,8 @@ class NavierStokes3D:
         m = x
         for _ in range(3):
             m = m.sum(dim=-1)
-        return m / float(np.prod(np.asarray(x.shape[-3:], np.float32)))
+        return true_divide(m, float(np.prod(np.asarray(x.shape[-3:],
+                                                      np.float32))))
 
     def _step_local(self, state: dict, params: dict | None = None) -> dict:
         """One dt on the whole grid, or on every grid of a slot batch.
@@ -315,7 +316,8 @@ class NavierStokes3D:
         diagnostics: divergence L∞, kinetic energy, max|u|, CFL number,
         and a finite-fields sentinel (1.0 = no NaN/Inf in any dynamic
         field — the velocities and the pressure).  Computed on the device;
-        read-only."""
+        read-only.  On a slot batch ``(S, X, Y, Z)`` with ``(S,)``
+        parameters each diagnostic is per slot: an ``(S, 5)`` tensor."""
         c = self.config
         if params is None:
             params = params_from_config(c, self.device)
@@ -328,22 +330,24 @@ class NavierStokes3D:
         # interior one-sided divergence: identical to the ghost-padded
         # stencil on every cell that has real (non-BC) neighbours
         vx, vy, vz = state["vx"], state["vy"], state["vz"]
-        div = ((vx[1:, 1:, 1:] - vx[:-1, 1:, 1:])
-               + (vy[1:, 1:, 1:] - vy[1:, :-1, 1:])
-               + (vz[1:, 1:, 1:] - vz[1:, 1:, :-1])) / c.h
+        div = true_divide((vx[..., 1:, 1:, 1:] - vx[..., :-1, 1:, 1:])
+                          + (vy[..., 1:, 1:, 1:] - vy[..., 1:, :-1, 1:])
+                          + (vz[..., 1:, 1:, 1:] - vz[..., 1:, 1:, :-1]), c.h)
         div_linf = seqmax(div.abs())
         umax = seqmax(torch.maximum(torch.maximum(vx.abs(), vy.abs()),
                                     vz.abs()))
         ke2 = vx * vx + vy * vy + vz * vz
         for _ in range(3):      # sequential per-axis sums like _global_mean
             ke2 = ke2.sum(dim=-1)
-        ke = 0.5 * ke2 / float(np.prod(np.asarray(vx.shape[-3:], np.float32)))
-        cfl = umax * params["dt"] / c.h
+        ke = true_divide(0.5 * ke2, float(np.prod(np.asarray(vx.shape[-3:],
+                                                             np.float32))))
+        cfl = true_divide(umax * params["dt"], c.h)
         psum = state["p"]
         for _ in range(3):
             psum = psum.sum(dim=-1)
         finite = torch.isfinite(div_linf + ke + umax + psum).to(torch.float32)
-        return torch.stack([div_linf, ke, umax, cfl, finite]).to(torch.float32)
+        return torch.stack([div_linf, ke, umax, cfl, finite],
+                           dim=-1).to(torch.float32)
 
     def health_report(self, state: dict) -> dict:
         """Named health diagnostics of ``state`` as plain floats — one host

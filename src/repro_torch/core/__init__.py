@@ -6,6 +6,8 @@ Public surface:
   halo.exchange_pad / stencil_step_overlap     — ghost-zone padding + overlap
   driver.GridDriver / Domain                   — storage and halo specs
   schedule.Schedule                            — schedule tree
+  ccl.parse_ccl / parse_ccl_file               — the paper's cacuda.ccl syntax
+  mol.INTEGRATORS                              — MoL Runge-Kutta integrators
 """
 from repro_torch.core.descriptor import Intent, StencilDescriptor, VariableGroup, descriptor
 from repro_torch.core.generator import FieldView, GeneratedKernel, KernelContext, generate, generate_pair
@@ -19,3 +21,5 @@ from repro_torch.core.halo import (
 )
 from repro_torch.core.driver import Domain, GridDriver
 from repro_torch.core.schedule import Schedule
+from repro_torch.core.ccl import CCLSyntaxError, parse_ccl, parse_ccl_file
+from repro_torch.core.mol import INTEGRATORS

@@ -100,22 +100,45 @@ class Schedule:
                     telemetry=None) -> Callable[[State], State]:
         """Compose the bin's routines (topologically sorted) into one fn.
 
-        ``telemetry`` must be ``None`` or a disabled telemetry object: the
-        instrumented runner arrives with the port's observability slice
-        (ROADMAP queue 1, item 8).
+        With an *enabled* :class:`repro_torch.obs.Telemetry`, the composed
+        runner is the Cactus-instrumented one: the bin and each routine get
+        hierarchical wall-clock timer sections (fenced with
+        ``torch.cuda.synchronize`` so asynchronous launches are charged to
+        the routine that issued them) plus profiler ranges.  Telemetry
+        ``None``/disabled returns exactly the uninstrumented composition —
+        no fences, no clocks, the same launches.
         """
-        if telemetry is not None and getattr(telemetry, "enabled", True):
-            raise NotImplementedError(
-                "instrumented schedules are not ported yet "
-                "(ROADMAP queue 1, item 8: observability)")
         entries = self._sorted(bin)
+        bname = canonical_bin(bin)
+
+        if telemetry is None or not telemetry.enabled:
+            def run(state: State) -> State:
+                for e in entries:
+                    state = e.fn(state)
+                return state
+
+            run.__name__ = f"schedule_{bname}"
+            return run
+
+        tel = telemetry
+        # ANALYSIS routines may return device scalars still being computed
+        # (build on the device, fetch once at the end): a fence after every
+        # entry would serialise them, so that bin fences once
+        per_entry_fence = bname != "ANALYSIS"
 
         def run(state: State) -> State:
-            for e in entries:
-                state = e.fn(state)
+            with tel.section(f"schedule.{bname}"):
+                for e in entries:
+                    with tel.section(e.name), \
+                            tel.named_scope(f"{bname}.{e.name}"):
+                        state = e.fn(state)
+                        if per_entry_fence:
+                            tel.fence(state)
+                if not per_entry_fence:
+                    tel.fence(state)
             return state
 
-        run.__name__ = f"schedule_{canonical_bin(bin)}"
+        run.__name__ = f"schedule_{bname}"
         return run
 
     def names(self, bin: str) -> list[str]:

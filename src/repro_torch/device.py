@@ -6,6 +6,8 @@ can never quietly measure the CPU instead.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -56,3 +58,32 @@ def resolve_backend(backend: str, device: torch.device) -> str:
             f"backend 'cuda' runs the hand-written CUDA kernels and needs a "
             f"CUDA device, got {device}; use backend='torch' on the CPU")
     return backend.upper()
+
+
+def true_divide(x, c):
+    """``x / c`` as a true division, whatever the device.
+
+    On the card PyTorch computes a division by a CPU scalar (a Python
+    number or a 0-dim CPU tensor) as a product with the divisor's rounded
+    reciprocal, which can miss the true quotient by an ulp; the CPU
+    divides.  Dividing by a 0-dim tensor of ``x``'s dtype on ``x``'s
+    device gives the true quotient on both, and on the CPU the same bits
+    as ``x / c``.  With no tensor among ``x`` and ``c`` it is Python's
+    division; a Python ``x`` over a tensor ``c`` becomes a 0-dim tensor
+    first (``x / c`` would multiply by ``c``'s reciprocal on any device)."""
+    if not torch.is_tensor(x):
+        if not torch.is_tensor(c):
+            return x / c
+        x = _scalar(float(x), c.dtype, c.device)
+    if torch.is_tensor(c):
+        if c.dim() == 0 and c.device != x.device:
+            c = c.to(x.device)
+        return x / c
+    return x / _scalar(float(c), x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _scalar(value: float, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """A read-only 0-dim constant on ``device``, made once."""
+    return torch.full((), value, dtype=dtype, device=device)

@@ -28,8 +28,10 @@ The two new routes load 16 bytes at a time, so they need k and v (and, for
 the prefill, q) with 16-byte aligned rows; the wrapper raises otherwise.
 The split-K decode writes per-split partials into a ``torch.empty``
 workspace and merges them in the same launch through ticket counters that
-the wrapper zeroes once per device and the kernel leaves at 0; launches on
-one stream are ordered, so the counters are shared by every call on it.
+the wrapper zeroes once per (device, stream) and the kernel leaves at 0.
+Launches on one stream are ordered, so the calls on a stream share its
+counters; launches on two streams of one card may run at once, so each
+stream has counters of its own.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream
 without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]`` and to
@@ -56,8 +58,8 @@ DECODE_MAX_SQ = 8        # the split-K decode takes Sq <= 8 query rows
 LAUNCHES = {"FLASH_ATTENTION": 0}
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
-# the split-K decode's ticket counters, per device: zeroed once, left at 0
-# by every launch
+# the split-K decode's ticket counters, per (device, CUDA stream handle):
+# zeroed once, left at 0 by every launch
 _TICKETS: dict = {}
 
 
@@ -120,11 +122,14 @@ def check_rows_aligned(t, name: str, why: str) -> None:
                          "route loads 16 bytes at a time")
 
 
-def _tickets(device, n: int) -> torch.Tensor:
-    have = _TICKETS.get(device)
+def _tickets(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters of ``stream`` (its ``cuda_stream``
+    handle) on ``device``, made on that stream when first asked for."""
+    key = (device, stream)
+    have = _TICKETS.get(key)
     if have is None or have.numel() < n:
-        have = _TICKETS[device] = torch.zeros(n, dtype=torch.int32,
-                                              device=device)
+        have = _TICKETS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
     return have
 
 
@@ -203,7 +208,7 @@ def _launch(q, k, v, spec, kv_valid_len, scale):
             parts = b * kh * groups * n_split * per_block
             acc = torch.empty(parts * d, dtype=torch.float32, device=q.device)
             ml = torch.empty(parts * 2, dtype=torch.float32, device=q.device)
-            tickets = _tickets(q.device, b * kh * groups)
+            tickets = _tickets(q.device, stream, b * kh * groups)
             err = lib.flash_attention_decode(
                 *args, per_block, groups, acc.data_ptr(), ml.data_ptr(),
                 tickets.data_ptr(), stream)

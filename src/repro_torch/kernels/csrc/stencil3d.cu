@@ -30,6 +30,14 @@
 // between adjacent threads; shared-memory tiles and TMA staging of the
 // halo-expanded block are later work.
 //
+// Every float operation is rounded as written, in the order of the plain
+// body (repro_torch/kernels/stencil3d.py, whose order the reference's
+// template fixes): add/sub/mul below are __fadd_rn/__fsub_rn/__fmul_rn,
+// which nvcc may not contract into FMAs, and the two divisions are
+// __fdiv_rn.  Eager PyTorch rounds every operation too, so each kernel
+// equals its plain version bitwise (left to itself nvcc would fuse
+// a * b + c, and the results would part by an ulp or so).
+//
 // Each extern "C" launcher enqueues its kernel on the given stream, does
 // not synchronise, and returns cudaGetLastError() so the caller can raise.
 
@@ -59,10 +67,25 @@ dim3 grid_for(dim3 block, int64_t S, int64_t nx, int64_t ny, int64_t nz) {
 }
 
 // A grid.y above its limit of 65535 is refused by the launch itself, and
-// cudaGetLastError() reports it.
+// cudaGetLastError() reports it.  The (slot, x) rows are numbered in 32 bits
+// (row_of).
 bool bad_extent(int64_t S, int64_t nx, int64_t ny, int64_t nz) {
-  return S <= 0 || nx <= 0 || ny <= 0 || nz <= 0;
+  return S <= 0 || nx <= 0 || ny <= 0 || nz <= 0 || S * nx > INT32_MAX;
 }
+
+// Slot s and x index i of row r = s * nx + i, by a 32-bit division: a 64-bit
+// one is a call of several dozen instructions, more than the stencil's own
+// arithmetic in the three small kernels.
+__device__ __forceinline__ void row_of(int64_t r, int64_t nx, int64_t& s,
+                                       int64_t& i) {
+  const unsigned q = (unsigned)r / (unsigned)nx;
+  s = q;
+  i = r - (int64_t)q * nx;
+}
+
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
 // ---------------------------------------------------------------------------
 // UPDATE_VELOCITY  (replaces the 3DBLOCK instance of descriptor
@@ -82,7 +105,8 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
-    const int64_t s = r / nx, i = r - s * nx;
+    int64_t s, i;
+    row_of(r, nx, s, i);
     const float* prm = table + s * 7;
     const float dt = prm[0], ih = prm[1], ih2 = prm[2], nu = prm[3];
     const float fx = prm[4], fy = prm[5], fz = prm[6];
@@ -90,62 +114,72 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
 #define U(a, b, d) vx[c + (a) * sx + (b) * sy + (d)]
 #define V(a, b, d) vy[c + (a) * sx + (b) * sy + (d)]
 #define W(a, b, d) vz[c + (a) * sx + (b) * sy + (d)]
-#define LAP(F)                                                           \
-  ((F(1, 0, 0) + F(-1, 0, 0) + F(0, 1, 0) + F(0, -1, 0) + F(0, 0, 1) + \
-    F(0, 0, -1) - 6.0f * F(0, 0, 0)) *                                  \
-   ih2)
-#define AVG(F, a1, b1, d1, a2, b2, d2) (0.5f * (F(a1, b1, d1) + F(a2, b2, d2)))
+// the body's lap(f): ((((((f+x + f-x) + f+y) + f-y) + f+z) + f-z) - 6 f) / h^2
+#define LAP(F)                                                          \
+  mul(sub(add(add(add(add(add(F(1, 0, 0), F(-1, 0, 0)), F(0, 1, 0)),    \
+                          F(0, -1, 0)),                                 \
+                      F(0, 0, 1)),                                      \
+                  F(0, 0, -1)),                                         \
+          mul(6.0f, F(0, 0, 0))),                                       \
+      ih2)
+#define AVG(F, a1, b1, d1, a2, b2, d2) \
+  mul(0.5f, add(F(a1, b1, d1), F(a2, b2, d2)))
+// (a * b - c * d) / h, a flux difference
+#define FLUX(a, b, c, d) mul(sub(mul(a, b), mul(c, d)), ih)
+// u + dt (-(d1 + d2 + d3) + nu lap(u) + f)
+#define ADVANCE(F, d1, d2, d3, f) \
+  add(F(0, 0, 0),                 \
+      mul(dt, add(add(-add(add(d1, d2), d3), mul(nu, LAP(F))), f)))
 
     // x-momentum at the x-face
     const float uc_r = AVG(U, 0, 0, 0, 1, 0, 0);
     const float uc_l = AVG(U, -1, 0, 0, 0, 0, 0);
-    const float duu = (uc_r * uc_r - uc_l * uc_l) * ih;
+    const float duu = FLUX(uc_r, uc_r, uc_l, uc_l);
     const float u_yh = AVG(U, 0, 0, 0, 0, 1, 0);
     const float u_yl = AVG(U, 0, -1, 0, 0, 0, 0);
     const float v_yh = AVG(V, 0, 0, 0, 1, 0, 0);
     const float v_yl = AVG(V, 0, -1, 0, 1, -1, 0);
-    const float duv = (u_yh * v_yh - u_yl * v_yl) * ih;
+    const float duv = FLUX(u_yh, v_yh, u_yl, v_yl);
     const float u_zh = AVG(U, 0, 0, 0, 0, 0, 1);
     const float u_zl = AVG(U, 0, 0, -1, 0, 0, 0);
     const float w_zh = AVG(W, 0, 0, 0, 1, 0, 0);
     const float w_zl = AVG(W, 0, 0, -1, 1, 0, -1);
-    const float duw = (u_zh * w_zh - u_zl * w_zl) * ih;
-    const float new_vx =
-        U(0, 0, 0) + dt * (-(duu + duv + duw) + nu * LAP(U) + fx);
+    const float duw = FLUX(u_zh, w_zh, u_zl, w_zl);
+    const float new_vx = ADVANCE(U, duu, duv, duw, fx);
 
     // y-momentum at the y-face
     const float vc_r = AVG(V, 0, 0, 0, 0, 1, 0);
     const float vc_l = AVG(V, 0, -1, 0, 0, 0, 0);
-    const float dvv = (vc_r * vc_r - vc_l * vc_l) * ih;
+    const float dvv = FLUX(vc_r, vc_r, vc_l, vc_l);
     const float v_xh = AVG(V, 0, 0, 0, 1, 0, 0);
     const float v_xl = AVG(V, -1, 0, 0, 0, 0, 0);
     const float u_xh = AVG(U, 0, 0, 0, 0, 1, 0);
     const float u_xl = AVG(U, -1, 0, 0, -1, 1, 0);
-    const float dvu = (v_xh * u_xh - v_xl * u_xl) * ih;
+    const float dvu = FLUX(v_xh, u_xh, v_xl, u_xl);
     const float v_zh = AVG(V, 0, 0, 0, 0, 0, 1);
     const float v_zl = AVG(V, 0, 0, -1, 0, 0, 0);
     const float w_zh_y = AVG(W, 0, 0, 0, 0, 1, 0);
     const float w_zl_y = AVG(W, 0, 0, -1, 0, 1, -1);
-    const float dvw = (v_zh * w_zh_y - v_zl * w_zl_y) * ih;
-    const float new_vy =
-        V(0, 0, 0) + dt * (-(dvu + dvv + dvw) + nu * LAP(V) + fy);
+    const float dvw = FLUX(v_zh, w_zh_y, v_zl, w_zl_y);
+    const float new_vy = ADVANCE(V, dvu, dvv, dvw, fy);
 
     // z-momentum at the z-face
     const float wc_r = AVG(W, 0, 0, 0, 0, 0, 1);
     const float wc_l = AVG(W, 0, 0, -1, 0, 0, 0);
-    const float dww = (wc_r * wc_r - wc_l * wc_l) * ih;
+    const float dww = FLUX(wc_r, wc_r, wc_l, wc_l);
     const float w_xh = AVG(W, 0, 0, 0, 1, 0, 0);
     const float w_xl = AVG(W, -1, 0, 0, 0, 0, 0);
     const float u_xh_z = AVG(U, 0, 0, 0, 0, 0, 1);
     const float u_xl_z = AVG(U, -1, 0, 0, -1, 0, 1);
-    const float dwu = (w_xh * u_xh_z - w_xl * u_xl_z) * ih;
+    const float dwu = FLUX(w_xh, u_xh_z, w_xl, u_xl_z);
     const float w_yh = AVG(W, 0, 0, 0, 0, 1, 0);
     const float w_yl = AVG(W, 0, -1, 0, 0, 0, 0);
     const float v_yh_z = AVG(V, 0, 0, 0, 0, 0, 1);
     const float v_yl_z = AVG(V, 0, -1, 0, 0, -1, 1);
-    const float dwv = (w_yh * v_yh_z - w_yl * v_yl_z) * ih;
-    const float new_vz =
-        W(0, 0, 0) + dt * (-(dwu + dwv + dww) + nu * LAP(W) + fz);
+    const float dwv = FLUX(w_yh, v_yh_z, w_yl, v_yl_z);
+    const float new_vz = ADVANCE(W, dwu, dwv, dww, fz);
+#undef ADVANCE
+#undef FLUX
 #undef AVG
 #undef LAP
 #undef W
@@ -175,12 +209,14 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 1, sx = (ny + 1) * sy, ss = (nx + 1) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
-    const int64_t s = r / nx, i = r - s * nx;
+    int64_t s, i;
+    row_of(r, nx, s, i);
     const float ih = table[s];
     const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
     out[(r * ny + j) * nz + k] =
-        ((vx[c] - vx[c - sx]) + (vy[c] - vy[c - sy]) + (vz[c] - vz[c - 1])) *
-        ih;
+        mul(add(add(sub(vx[c], vx[c - sx]), sub(vy[c], vy[c - sy])),
+                sub(vz[c], vz[c - 1])),
+            ih);
   }
 }
 
@@ -200,15 +236,18 @@ __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
-    const int64_t s = r / nx, i = r - s * nx;
+    int64_t s, i;
+    row_of(r, nx, s, i);
     const float h2 = table[s * 3], omega = table[s * 3 + 1],
                 omc = table[s * 3 + 2];
     const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
     const int64_t o = (r * ny + j) * nz + k;
-    const float nbr = p[c + sx] + p[c - sx] + p[c + sy] + p[c - sy] +
-                      p[c + 1] + p[c - 1];
-    const float jac = (nbr - h2 * rhs[o]) / 6.0f;
-    out[o] = omc * p[c] + omega * jac;
+    const float nbr = add(add(add(add(add(p[c + sx], p[c - sx]), p[c + sy]),
+                                      p[c - sy]),
+                                  p[c + 1]),
+                              p[c - 1]);
+    const float jac = __fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f);
+    out[o] = add(mul(omc, p[c]), mul(omega, jac));
   }
 }
 
@@ -230,14 +269,15 @@ __global__ void __launch_bounds__(kThreads) project_velocity_kernel(
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 1, sx = (ny + 1) * sy, ss = (nx + 1) * sx;
   for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
-    const int64_t s = r / nx, i = r - s * nx;
-    const float sc = table[s * 2] / table[s * 2 + 1];
+    int64_t s, i;
+    row_of(r, nx, s, i);
+    const float sc = __fdiv_rn(table[s * 2], table[s * 2 + 1]);
     const int64_t c = s * ss + i * sx + j * sy + k;
     const int64_t o = (r * ny + j) * nz + k;
     const float pc = p[c];
-    ox[o] = vx[o] - sc * (p[c + sx] - pc);
-    oy[o] = vy[o] - sc * (p[c + sy] - pc);
-    oz[o] = vz[o] - sc * (p[c + 1] - pc);
+    ox[o] = sub(vx[o], mul(sc, sub(p[c + sx], pc)));
+    oy[o] = sub(vy[o], mul(sc, sub(p[c + sy], pc)));
+    oz[o] = sub(vz[o], mul(sc, sub(p[c + 1], pc)));
   }
 }
 

@@ -10,6 +10,8 @@ leading slot axis passes through.
 """
 from __future__ import annotations
 
+from repro_torch.device import true_divide
+
 
 def _sweep(p, rhs, h2, omega):
     """One weighted-Jacobi sweep; p padded by 1 relative to output, rhs
@@ -17,7 +19,7 @@ def _sweep(p, rhs, h2, omega):
     nbr = (p[..., 2:, 1:-1, 1:-1] + p[..., :-2, 1:-1, 1:-1]
            + p[..., 1:-1, 2:, 1:-1] + p[..., 1:-1, :-2, 1:-1]
            + p[..., 1:-1, 1:-1, 2:] + p[..., 1:-1, 1:-1, :-2])
-    jac = (nbr - h2 * rhs[..., 1:-1, 1:-1, 1:-1]) / 6.0
+    jac = true_divide(nbr - h2 * rhs[..., 1:-1, 1:-1, 1:-1], 6.0)
     return (1.0 - omega) * p[..., 1:-1, 1:-1, 1:-1] + omega * jac
 
 

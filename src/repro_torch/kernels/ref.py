@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import true_divide
+
 
 def _i(p, lo=(1, 1, 1), hi=(1, 1, 1), off=(0, 0, 0)):
     """Interior view of padded tensor ``p`` shifted by ``off``."""
@@ -27,8 +29,8 @@ def _i(p, lo=(1, 1, 1), hi=(1, 1, 1), off=(0, 0, 0)):
 def laplacian(u, h):
     """7-point Laplacian of a symmetric-padded (1,1,1) tensor."""
     c = lambda *o: _i(u, off=o)
-    return (c(1, 0, 0) + c(-1, 0, 0) + c(0, 1, 0) + c(0, -1, 0)
-            + c(0, 0, 1) + c(0, 0, -1) - 6.0 * c(0, 0, 0)) / (h * h)
+    return true_divide(c(1, 0, 0) + c(-1, 0, 0) + c(0, 1, 0) + c(0, -1, 0)
+                       + c(0, 0, 1) + c(0, 0, -1) - 6.0 * c(0, 0, 0), h * h)
 
 
 def update_velocity(vx, vy, vz, *, dt, h, nu, fx=0.0, fy=0.0, fz=0.0):
@@ -74,8 +76,8 @@ def divergence(vx, vy, vz, *, h):
     """Cell divergence; velocity inputs padded (1,0) per axis (lo side)."""
     lo, hi = (1, 1, 1), (0, 0, 0)
     c = lambda f, *o: _i(f, lo, hi, o or (0, 0, 0))
-    return ((c(vx) - c(vx, -1, 0, 0)) + (c(vy) - c(vy, 0, -1, 0))
-            + (c(vz) - c(vz, 0, 0, -1))) / h
+    return true_divide((c(vx) - c(vx, -1, 0, 0)) + (c(vy) - c(vy, 0, -1, 0))
+                       + (c(vz) - c(vz, 0, 0, -1)), h)
 
 
 def jacobi_pressure(p, rhs, *, h, omega=1.0):
@@ -83,7 +85,7 @@ def jacobi_pressure(p, rhs, *, h, omega=1.0):
     c = lambda *o: _i(p, off=o)
     nbr = (c(1, 0, 0) + c(-1, 0, 0) + c(0, 1, 0) + c(0, -1, 0)
            + c(0, 0, 1) + c(0, 0, -1))
-    jac = (nbr - h * h * rhs) / 6.0
+    jac = true_divide(nbr - h * h * rhs, 6.0)
     return (1.0 - omega) * _i(p) + omega * jac
 
 
@@ -91,7 +93,7 @@ def project_velocity(vx, vy, vz, p, *, dt, h):
     """Projection correction; velocities interior, p padded (0,1) per axis."""
     lo, hi = (0, 0, 0), (1, 1, 1)
     pc = lambda *o: _i(p, lo, hi, o or (0, 0, 0))
-    s = dt / h
+    s = true_divide(dt, h)
     return (vx - s * (pc(1, 0, 0) - pc()),
             vy - s * (pc(0, 1, 0) - pc()),
             vz - s * (pc(0, 0, 1) - pc()))

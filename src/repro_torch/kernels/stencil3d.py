@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from repro_torch.core.descriptor import descriptor
 from repro_torch.core.generator import KernelContext
+from repro_torch.device import true_divide
 
 
 # --------------------------------------------------------------------------
@@ -166,14 +167,14 @@ def jacobi_pressure_body(ctx: KernelContext) -> dict:
         p.at(1, 0, 0) + p.at(-1, 0, 0) + p.at(0, 1, 0) + p.at(0, -1, 0)
         + p.at(0, 0, 1) + p.at(0, 0, -1)
     )
-    jac = (nbr - h2 * rhs.c) / 6.0
+    jac = true_divide(nbr - h2 * rhs.c, 6.0)
     return {"p": omc * p.c + omega * jac}
 
 
 def project_velocity_body(ctx: KernelContext) -> dict:
     """u <- u - dt grad(p) at the faces (the Chorin projection correction)."""
     vx, vy, vz, p = ctx["vx"], ctx["vy"], ctx["vz"], ctx["p"]
-    s = ctx.param("dt") / ctx.param("h")
+    s = true_divide(ctx.param("dt"), ctx.param("h"))
     return {
         "vx": vx.c - s * (p.at(1, 0, 0) - p.c),
         "vy": vy.c - s * (p.at(0, 1, 0) - p.c),

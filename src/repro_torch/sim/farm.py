@@ -12,18 +12,24 @@ configuration (case, grid shape, template, solver structure, slot count).
 
 Those steps live in a process-wide cache keyed by that static signature, so
 a second farm of an already-seen shape reuses the solver and its step
-(hit/miss counters via :func:`compile_cache_stats`).  On the port nothing is
+(hit/miss counters via :func:`compile_cache_stats`, and per telemetry
+registry as ``farm.compile_cache{result}``).  On the port nothing is
 compiled at admission at all: the CUDA kernels are built once per process,
 and per-simulation physics rides in their parameter tables.
 
-Not ported in this slice: telemetry and in-situ health monitoring (ROADMAP
-queue 1, item 8) and the farm mesh (item 9); asking for either raises.
+Telemetry (timers, metrics, lifecycle traces) and in-situ health
+(a device ring drained at harvest boundaries, NaN/divergence quarantine
+with a flight record) are the reference's; off, the farm launches exactly
+what it launched without them.  Not ported: the farm mesh (ROADMAP queue
+1, item 9); asking for it raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
+from repro_torch import obs
 from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.device import resolve_device
 from repro_torch.serve.slots import SlotTable
@@ -31,24 +37,21 @@ from repro_torch.sim.ensemble import (
     EnsembleExecutor, host_params, make_ensemble_step,
 )
 
-_ITEM_OF = {"telemetry": 8, "health": 8, "ckpt_dir": 8, "store": 8,
-            "enqueue": 8, "claim": 8, "recover": 8,
-            "mesh": 9, "decomposition": 9}
+_ITEM_OF = {"mesh": 9, "decomposition": 9}
 
 
 def not_ported(what: str) -> NotImplementedError:
     """The error for a posture the port does not take yet, naming its
     ROADMAP item."""
-    item = _ITEM_OF[what]
-    topic = ("observability and durability" if item == 8
-             else "slots x shards over torch.distributed")
     return NotImplementedError(
-        f"{what!r} is not ported yet (ROADMAP queue 1, item {item}: {topic})")
+        f"{what!r} is not ported yet (ROADMAP queue 1, item {_ITEM_OF[what]}:"
+        " slots x shards over torch.distributed)")
 
 
 # -- step cache --------------------------------------------------------------
 _STEP_CACHE: dict[tuple, tuple[NavierStokes3D, Any]] = {}
 _CACHE_STATS = {"hits": 0, "misses": 0}
+CACHE_METRIC = "farm.compile_cache"
 
 
 def static_key(config: CFDConfig, n_slots: int) -> tuple:
@@ -65,17 +68,25 @@ def static_key(config: CFDConfig, n_slots: int) -> tuple:
     )
 
 
-def compiled_ensemble_step(config: CFDConfig, n_slots: int, device=None):
-    """(solver, batched chunk step) for the static signature on ``device``."""
+def compiled_ensemble_step(config: CFDConfig, n_slots: int, device=None,
+                           metrics=None, health_window: int = 0):
+    """(solver, batched chunk step) for the static signature on ``device``.
+
+    ``health_window`` extends the cache key (the step then also writes the
+    health ring) but not ``static_key``: requests match a farm on physics
+    alone, so the same requests run on farms with health on and off.
+    ``metrics`` (a telemetry registry) also counts the hit or miss."""
     dev = resolve_device(device)
-    key = static_key(config, n_slots) + (str(dev),)
+    key = static_key(config, n_slots) + (str(dev), health_window)
     hit = _STEP_CACHE.get(key)
+    result = "hit" if hit is not None else "miss"
+    _CACHE_STATS["hits" if hit is not None else "misses"] += 1
+    if metrics is not None:
+        metrics.inc(CACHE_METRIC, result=result)
     if hit is not None:
-        _CACHE_STATS["hits"] += 1
         return hit
-    _CACHE_STATS["misses"] += 1
     solver = NavierStokes3D(config, dev)
-    _STEP_CACHE[key] = (solver, make_ensemble_step(solver))
+    _STEP_CACHE[key] = (solver, make_ensemble_step(solver, health_window))
     return _STEP_CACHE[key]
 
 
@@ -125,44 +136,91 @@ class SimResult:
     sid: int
     tag: str
     steps_done: int
-    terminated: str    # "steps" | "steady" | "residual" | "failed"
+    terminated: str    # "steps" | "steady" | "residual" | "failed" | "diverged"
     state: dict        # CPU tensors: vx, vy, vz, p (+ masks)
     config: CFDConfig
-    error: str | None = None   # set iff terminated is "failed"
+    error: str | None = None   # set iff terminated is "failed"/"diverged"
 
 
 class _SlotEntry:
     """Host bookkeeping for one resident simulation."""
 
-    __slots__ = ("req", "steps_done", "ke_prev")
+    __slots__ = ("req", "steps_done", "ke_prev", "started")
 
     def __init__(self, req: SimRequest):
         self.req = req
         self.steps_done = req.step0
         self.ke_prev: float | None = None
+        self.started = False           # first step-chunk already traced?
 
 
 class SimulationFarm:
-    """Queue + slots + termination around one batched ensemble step."""
+    """Queue + slots + termination around one batched ensemble step.
+
+    ``telemetry`` (any :func:`repro_torch.obs.resolve` spec) instruments the
+    farm: timers around the admit / step-chunk / harvest phases, ``farm.*``
+    and ``sim.*`` metrics, and per-sim lifecycle trace events.  Disabled
+    (the default) every hook is a no-op: the farm launches what an
+    uninstrumented farm launches, with no synchronisation added.
+    ``farm_id`` tags this farm's events when farms share one handle.
+
+    ``health`` (any :func:`repro_torch.obs.health.resolve_health` spec)
+    turns on in-situ health monitoring: each chunk appends the slots'
+    diagnostics to a device ring, drained at the ``check_steady_every``
+    boundary the steady checks use (one device-to-host copy there, none
+    between), and a NaN/diverged sim is quarantined — released with
+    ``terminated="diverged"`` and flight-recorded — while the other slots
+    keep stepping bitwise as if it had never been admitted.  Health works
+    with telemetry off: events and metrics then no-op.
+    """
 
     def __init__(self, base_config: CFDConfig, n_slots: int = 8,
                  check_steady_every: int = 16, device=None, mesh=None,
-                 telemetry=None, health=None):
-        for what, value in (("mesh", mesh), ("telemetry", telemetry),
-                            ("health", health)):
-            if value:
-                raise not_ported(what)
+                 telemetry=None, farm_id: str | None = None, health=None):
+        from repro_torch.obs.health import (
+            FlightRecorder, HealthMonitor, resolve_health,
+        )
+
+        if mesh:
+            raise not_ported("mesh")
         self.base_config = base_config
         self.n_slots = n_slots
         self.check_steady_every = check_steady_every
-        solver, run_k = compiled_ensemble_step(base_config, n_slots, device)
+        self.tel = obs.resolve(telemetry)
+        self.farm_id = farm_id if farm_id is not None else base_config.case
+        self.health = resolve_health(health)
+        hw = self.health.window if self.health is not None else 0
+        solver, run_k = compiled_ensemble_step(
+            base_config, n_slots, device, metrics=self.tel.metrics,
+            health_window=hw)
         self.exec = EnsembleExecutor(base_config, n_slots, solver=solver,
-                                     run_k=run_k)
+                                     run_k=run_k, telemetry=self.tel,
+                                     health_window=hw)
+        self.monitor = (HealthMonitor(self.health, telemetry=self.tel,
+                                      farm_id=self.farm_id)
+                        if self.health is not None else None)
+        self.flight = (FlightRecorder(self.health.flight_dir)
+                       if self.health is not None
+                       and self.health.flight_dir else None)
         self.table = SlotTable(n_slots)
         self.results: dict[int, SimResult] = {}
         self.device_steps = 0
         self._next_sid = 0
         self._live: set[int] = set()   # queued or resident sids
+        self._submit_ts: dict[int, float] = {}   # sid -> submit wall time
+        self.heartbeat = None          # service-installed: fn(chunk_wall_s)
+        # service-installed job-store hook: fn(kind, req, result, **info),
+        # fired at admission ("running") and at every terminal resolution
+        # ("done"/"failed"/"diverged"); None keeps the in-memory path
+        self.on_transition = None
+
+    def _gauge_load(self):
+        """Refresh the occupancy/queue-depth gauges (telemetry only)."""
+        if not self.tel.enabled:
+            return
+        self.tel.metrics.set("farm.slot_occupancy", self.table.n_active)
+        for prio, depth in self.table.queue_depths().items():
+            self.tel.metrics.set("farm.queue_depth", depth, priority=prio)
 
     # -- intake ---------------------------------------------------------------
     def submit(self, req: SimRequest) -> int:
@@ -189,39 +247,61 @@ class SimulationFarm:
             self._next_sid = max(self._next_sid, req.sid + 1)
         self._live.add(req.sid)
         self.table.submit(req, priority=req.priority)
+        if self.tel.enabled:
+            self._submit_ts.setdefault(req.sid, time.perf_counter())
+            kind = "submit" if req.step0 == 0 else "readmit_submit"
+            self.tel.trace.emit(
+                kind, sid=req.sid, farm=self.farm_id, tag=req.tag,
+                priority=req.priority, steps=req.steps, step0=req.step0,
+                signature=str(static_key(req.config, self.n_slots)))
+            self._gauge_load()
         return req.sid
 
     def _admit(self):
-        while True:
-            admitted = self.table.admit_next()
-            if admitted is None:
-                break
-            slot, req = admitted
-            entry = _SlotEntry(req)
-            self.table.replace(slot, entry)
-            try:
-                self.exec.write_slot(slot, host_params(req.config),
-                                     state=req.init_state)
-            except Exception as e:
-                # a request whose admission raises (bad readmission state,
-                # mis-shaped fields, ...) fails alone, as a per-sim result
-                self._fail(slot, entry, e)
-                continue
-            if entry.steps_done >= req.steps:
-                # already at its target: harvest without stepping, so a
-                # steps=0 request never advances the batch
-                self._finish(slot, entry, "steps")
+        with self.tel.section("farm.admit"):
+            while True:
+                admitted = self.table.admit_next()
+                if admitted is None:
+                    break
+                slot, req = admitted
+                entry = _SlotEntry(req)
+                self.table.replace(slot, entry)
+                self.tel.trace.emit("admit", sid=req.sid, farm=self.farm_id,
+                                    slot=slot, step0=req.step0, tag=req.tag)
+                if self.monitor is not None:
+                    # ring rows stamped before this device step belong to
+                    # the slot's previous occupant
+                    self.monitor.admit(req.sid, slot, tag=req.tag,
+                                       last_step=self.device_steps - 1)
+                try:
+                    self.exec.write_slot(slot, host_params(req.config),
+                                         state=req.init_state)
+                except Exception as e:
+                    # a request whose admission raises (bad readmission
+                    # state, mis-shaped fields, ...) fails alone, as a
+                    # per-sim result
+                    self._fail(slot, entry, e)
+                    continue
+                if self.on_transition is not None:
+                    self.on_transition("running", req, None)
+                if entry.steps_done >= req.steps:
+                    # already at its target: harvest without stepping, so
+                    # a steps=0 request never advances the batch
+                    self._finish(slot, entry, "steps")
+            self._gauge_load()
 
     # -- stepping -------------------------------------------------------------
     def _chunk_size(self, max_chunk: int | None) -> int:
         """Steps until the next host decision point: a slot reaching its
         target, the next steady-state check boundary (when a resident sim
-        watches one), or the caller's budget.  Chunking is numerics-neutral
-        — tested bitwise against single-stepping."""
+        watches one, or health is on: the ring drains there), or the
+        caller's budget.  Chunking is numerics-neutral — tested bitwise
+        against single-stepping."""
         chunk = min(e.req.steps - e.steps_done
                     for _, e in self.table.occupied())
-        if any(e.req.steady_tol is not None or e.req.residual_tol is not None
-               for _, e in self.table.occupied()):
+        if self.monitor is not None or any(
+                e.req.steady_tol is not None or e.req.residual_tol is not None
+                for _, e in self.table.occupied()):
             boundary = self.check_steady_every - (
                 self.device_steps % self.check_steady_every)
             chunk = min(chunk, boundary)
@@ -242,30 +322,111 @@ class SimulationFarm:
                           for _, e in self.table.occupied())
         at_boundary = (self.device_steps + chunk) % self.check_steady_every == 0
         resid = None
+        want_wall = self.tel.enabled or self.heartbeat is not None
+        t_chunk = time.perf_counter() if want_wall else 0.0
         try:
-            if watch_resid and at_boundary:
-                # land the chunk's last step alone: the residual compares
-                # consecutive states
-                if chunk > 1:
-                    self.exec.step_many(chunk - 1)
-                prev = self.exec.state
-                self.exec.step_many(1)
-                resid = self.exec.residuals(prev)
-            else:
-                self.exec.step_many(chunk)
+            with self.tel.section("farm.step_chunk"), \
+                    self.tel.named_scope("farm.step_chunk"):
+                if watch_resid and at_boundary:
+                    # land the chunk's last step alone: the residual
+                    # compares consecutive states
+                    if chunk > 1:
+                        self.exec.step_many(chunk - 1)
+                    prev = self.exec.state
+                    self.exec.step_many(1)
+                    resid = self.exec.residuals(prev)
+                else:
+                    self.exec.step_many(chunk)
+                # only behind enabled telemetry: the section's clock (and
+                # the watchdog's) then covers the chunk's device work
+                self.tel.fence(self.exec.state)
         except Exception as e:
             # the batched step is shared by every resident sim, so all fail
             for slot, entry in list(self.table.occupied()):
                 self._fail(slot, entry, e)
             return 0
+        if self.tel.enabled:
+            self.tel.metrics.inc("sim.steps_total",
+                                 chunk * self.table.n_active)
+            for _, entry in self.table.occupied():
+                if not entry.started:
+                    entry.started = True
+                    self.tel.trace.emit("first_step", sid=entry.req.sid,
+                                        farm=self.farm_id,
+                                        device_step=self.device_steps)
+        if self.heartbeat is not None:
+            # the service's watchdog hook: chunk wall time + liveness beat
+            self.heartbeat(time.perf_counter() - t_chunk)
         self.device_steps += chunk
         for _, entry in self.table.occupied():
             entry.steps_done += chunk
+        # drain and quarantine BEFORE the steps-target harvest: a sim that
+        # goes bad in the chunk that would have finished it reports
+        # "diverged", not a healthy-looking "steps" result
+        self._drain_health()
         for slot, entry in list(self.table.occupied()):
             if entry.steps_done >= entry.req.steps:
                 self._finish(slot, entry, "steps")
         self._check_steady(resid)
         return chunk
+
+    def _drain_health(self):
+        """Copy the device health ring to the host (one copy) at a harvest
+        boundary, run every resident sim's state machine, quarantine the
+        NaN/diverged ones."""
+        if (self.monitor is None
+                or self.device_steps % self.check_steady_every):
+            return
+        occupied = list(self.table.occupied())
+        if not occupied:
+            return
+        with self.tel.section("farm.health_drain"):
+            rings = self.exec.read_health()
+        self.tel.metrics.inc("health.drains")
+        from repro_torch.obs.health import DIVERGED, NAN
+
+        for slot, entry in occupied:
+            rec = self.monitor.observe(entry.req.sid, rings[slot])
+            if rec.state in (DIVERGED, NAN) and self.health.quarantine:
+                self._quarantine(slot, entry, rec)
+        self.monitor.export_gauges()
+
+    def _quarantine(self, slot: int, entry: _SlotEntry, rec):
+        """Release a NaN/diverged sim: flight-record its last-K health
+        frames and final (poisoned) state, resolve it with
+        ``terminated="diverged"``, free the slot.  The other slots never
+        see any of this: slots never interact, so they step on bitwise as
+        if the bad sim had never been admitted."""
+        req = entry.req
+        with self.tel.section("farm.quarantine"):
+            state = self.exec.read_slot(slot)
+        flight_path = None
+        if self.flight is not None:
+            flight_path = self.flight.record(
+                req.sid, frames=rec.frames_array(), state=state,
+                meta={"tag": req.tag, "farm": self.farm_id, "slot": slot,
+                      "state": rec.state, "cause": rec.cause,
+                      "steps_done": entry.steps_done,
+                      "device_step": self.device_steps,
+                      "thresholds": dataclasses.asdict(self.health),
+                      "signature": str(static_key(req.config,
+                                                  self.n_slots))})
+        err = (f"health: {rec.state} ({rec.cause}) at device step "
+               f"{self.device_steps}"
+               + (f"; flight record: {flight_path}" if flight_path else ""))
+        self.results[req.sid] = SimResult(
+            sid=req.sid, tag=req.tag, steps_done=entry.steps_done,
+            terminated="diverged", state=state, config=req.config,
+            error=err)
+        self._live.discard(req.sid)
+        self.table.release(slot)
+        self.exec.clear_slot(slot)
+        self.monitor.release(req.sid)
+        self.tel.metrics.inc("health.quarantines")
+        self._resolved(req, entry.steps_done, "diverged", error=err)
+        if self.on_transition is not None:
+            self.on_transition("diverged", req, self.results[req.sid],
+                               flight_path=flight_path)
 
     def _check_steady(self, resid=None):
         if self.device_steps % self.check_steady_every:
@@ -293,13 +454,20 @@ class SimulationFarm:
         self._live.discard(entry.req.sid)
         self.table.release(slot)
         self.exec.clear_slot(slot)
+        if self.monitor is not None:
+            self.monitor.release(entry.req.sid)
+        self._resolved(entry.req, result.steps_done, result.terminated,
+                       error=result.error)
 
     def _finish(self, slot: int, entry: _SlotEntry, reason: str):
         req = entry.req
+        with self.tel.section("farm.harvest"):
+            state = self.exec.read_slot(slot)
         self._release(slot, entry, SimResult(
             sid=req.sid, tag=req.tag, steps_done=entry.steps_done,
-            terminated=reason, state=self.exec.read_slot(slot),
-            config=req.config))
+            terminated=reason, state=state, config=req.config))
+        if self.on_transition is not None:
+            self.on_transition("done", req, self.results[req.sid])
 
     def _fail(self, slot: int, entry: _SlotEntry, exc: BaseException):
         """Record a per-sim failure as a harvestable result and free the
@@ -310,6 +478,28 @@ class SimulationFarm:
             sid=req.sid, tag=req.tag, steps_done=entry.steps_done,
             terminated="failed", state={}, config=req.config,
             error=f"{type(exc).__name__}: {exc}"))
+        if self.on_transition is not None:
+            self.on_transition("failed", req, self.results[req.sid])
+
+    def _resolved(self, req: SimRequest, steps_done: int, reason: str,
+                  error: str | None = None):
+        """Telemetry for a sid leaving the farm (finished or failed)."""
+        if not self.tel.enabled:
+            return
+        if reason in ("steady", "residual"):
+            self.tel.trace.emit("steady", sid=req.sid, farm=self.farm_id,
+                                criterion=reason, steps_done=steps_done)
+        extra = {"error": error} if error else {}
+        self.tel.trace.emit("result", sid=req.sid, farm=self.farm_id,
+                            terminated=reason, steps_done=steps_done,
+                            tag=req.tag, **extra)
+        self.tel.metrics.inc("sim.results", terminated=reason)
+        t0 = self._submit_ts.pop(req.sid, None)
+        if t0 is not None:
+            self.tel.metrics.observe("service.submit_to_result_seconds",
+                                     time.perf_counter() - t0,
+                                     priority=req.priority)
+        self._gauge_load()
 
     def run(self, max_device_steps: int, until=None) -> int:
         """Step until the budget, the farm drains, or ``until()`` is true.
@@ -342,10 +532,19 @@ class SimulationFarm:
         """
         for slot, entry in self.table.occupied():
             if entry.req.sid == sid:
-                state = self.exec.read_slot(slot)
+                with self.tel.section("farm.evict"):
+                    state = self.exec.read_slot(slot)
                 self._live.discard(sid)
                 self.table.release(slot)
                 self.exec.clear_slot(slot)
+                if self.monitor is not None:
+                    self.monitor.release(sid)
+                if self.tel.enabled:
+                    self.tel.metrics.inc("sim.evictions")
+                    self.tel.trace.emit("evict", sid=sid, farm=self.farm_id,
+                                        slot=slot,
+                                        steps_done=entry.steps_done)
+                    self._gauge_load()
                 return entry.req, state, entry.steps_done
         return None
 
@@ -358,3 +557,23 @@ class SimulationFarm:
             if entry.req.sid == sid:
                 return entry.steps_done
         return None
+
+    def health_snapshot(self) -> dict:
+        """One dashboard frame: farm id, device step, queue depth, and one
+        row per slot (free slots included), with each resident sim's latest
+        health frame when monitoring is on.  Rendered by
+        ``repro_torch.obs.health.render_dashboard`` / ``Runtime.watch``."""
+        slots = []
+        for slot, entry in enumerate(self.table.slots()):
+            if not isinstance(entry, _SlotEntry):
+                slots.append({"slot": slot, "sid": None})
+                continue
+            row = {"slot": slot, "sid": entry.req.sid, "tag": entry.req.tag,
+                   "steps_done": entry.steps_done, "steps": entry.req.steps}
+            if self.monitor is not None:
+                row["health"] = self.monitor.frame_of(entry.req.sid)
+            slots.append(row)
+        return {"farm": self.farm_id, "device_steps": self.device_steps,
+                "queued": self.table.n_queued, "slots": slots,
+                "states": (self.monitor.counts()
+                           if self.monitor is not None else {})}

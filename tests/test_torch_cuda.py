@@ -20,7 +20,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels.ref import MaskSpec
 
 # max|kernel - plain| <= 1e-5 * max(1, max|plain|): the same float32
-# expression, with FMA contraction in the kernel only
+# expression (the stencils, rounded as written, are also held bitwise)
 RTOL = 1e-5
 SHAPES = {"cube": (None, (16, 16, 16)), "odd": (None, (5, 7, 3)),
           "batched": (3, (9, 6, 33))}
@@ -66,6 +66,67 @@ def test_kernel_matches_plain_version(card, name, shape):
         assert g.shape == w.shape and g.device.type == "cuda"
         tol = RTOL * max(1.0, float(w.abs().max()))
         assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [None, 4])
+@pytest.mark.parametrize("name", list(stencil3d.DESCRIPTORS))
+def test_stencils_equal_their_plain_versions_bitwise_at_64(card, name, slots):
+    """Every operation of the stencil kernels is rounded as written, in the
+    plain body's order, so kernel and plain version agree bit for bit."""
+    xs, table = _inputs(name, slots, (64, 64, 64), card, seed=5)
+    got = stencil3d_cuda.KERNELS[name](*xs, table)
+    want = stencil3d_cuda.PLAIN[name](*xs, table)
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(stencil3d.DESCRIPTORS))
+def test_plain_stencils_on_the_card_equal_the_cpu_bitwise(card, name):
+    """The plain bodies divide by a 0-dim tensor on the operand's device:
+    no reciprocal multiply on the card, so card and CPU agree bit for bit."""
+    xs, table = _inputs(name, 2, (64, 64, 64), card, seed=6)
+    on_card = stencil3d_cuda.PLAIN[name](*xs, table)
+    on_cpu = stencil3d_cuda.PLAIN[name](*(x.cpu() for x in xs), table.cpu())
+    for g, w in zip(on_card if isinstance(on_card, tuple) else (on_card,),
+                    on_cpu if isinstance(on_cpu, tuple) else (on_cpu,)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_telemetry_and_health_on_farm_equals_the_off_farm_bitwise(card,
+                                                                  tmp_path):
+    runs = [dict(steps=3, re=50.0), dict(steps=7, re=200.0),
+            dict(steps=2, re=400.0), dict(steps=5, re=100.0),
+            dict(steps=6, re=800.0)]
+
+    def drive(**posture):
+        rt = api.runtime(n=64, nz=64, n_slots=4, device=card,
+                         backend="cuda", jacobi_iters=8, check_every=4,
+                         **posture)
+        sids = [rt.submit("cavity", **kw) for kw in runs]
+        rt.services()[0].run(2)
+        assert rt.evict(sids[1]) and rt.readmit(sids[1])
+        out = rt.drain()
+        return rt, [out[s] for s in sids]
+
+    stencil3d_cuda.reset_launches()
+    _, off = drive()
+    off_launches = dict(stencil3d_cuda.LAUNCHES)
+    stencil3d_cuda.reset_launches()
+    rt, on = drive(telemetry=True, health=True, ckpt_dir=str(tmp_path),
+                   store=True)
+    assert dict(stencil3d_cuda.LAUNCHES) == off_launches
+    farm = rt.services()[0].farm
+    assert rt.telemetry.metrics.get("health.drains") <= \
+        farm.device_steps // farm.check_steady_every
+    for a, b in zip(on, off):
+        assert (a.terminated, a.steps_done) == (b.terminated, b.steps_done)
+        for f in ("vx", "vy", "vz", "p"):
+            assert torch.equal(a.state[f], b.state[f]), f
 
 
 @pytest.mark.cuda
@@ -299,7 +360,41 @@ def test_split_k_decode_leaves_its_tickets_at_zero(card):
         again = attention_cuda.flash_attention(q, k, v, spec, valid)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
-    assert int(attention_cuda._TICKETS[q.device].abs().sum()) == 0
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    assert int(attention_cuda._TICKETS[q.device, stream].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_split_k_decodes_on_two_streams_keep_their_own_tickets(card):
+    """Two split-K decodes with different inputs, launched concurrently on
+    two streams of the card, several times over: each result equals its
+    plain twin (``ref.split_k_decode_reference``) within the per-row
+    tolerance, and every ticket counter reads 0 afterwards."""
+    from repro_torch.kernels.ref import split_k_decode_reference
+
+    q, k, v, spec, valid = _attn_inputs("decode_gqa_llama3", card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    q2 = torch.randn(q.shape, generator=gen, device=card).to(q.dtype)
+    k2, v2 = (torch.randn(k.shape, generator=gen, device=card).to(k.dtype)
+              for _ in range(2))
+    cases = ((q, k, v), (q2, k2, v2))
+    want = [split_k_decode_reference(a, b, c, spec, valid)
+            for a, b, c in cases]
+    streams = [torch.cuda.Stream(card) for _ in cases]
+    torch.cuda.synchronize()
+    for _ in range(8):
+        got = []
+        for st, (a, b, c) in zip(streams, cases):
+            with torch.cuda.stream(st):
+                got.append(attention_cuda.flash_attention(a, b, c, spec, valid))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert _share_of_tolerance(g, w, q.dtype) <= 1.0
+    for st in streams:
+        assert int(attention_cuda._TICKETS[q.device, st.cuda_stream]
+                   .abs().sum()) == 0
+    assert all(int(t.abs().sum()) == 0
+               for t in attention_cuda._TICKETS.values())
 
 
 @pytest.mark.cuda

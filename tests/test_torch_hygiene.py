@@ -42,6 +42,15 @@ LM_SLICE = ("repro_torch.models.config", "repro_torch.configs.registry",
             "repro_torch.models.blocks", "repro_torch.models.mamba2",
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.serve.engine", "repro_torch.launch.serve")
+# the observability and durability slice, and the leftovers ported with it
+DURABLE_SLICE = ("repro_torch.obs", "repro_torch.obs.metrics",
+                 "repro_torch.obs.timers", "repro_torch.obs.trace",
+                 "repro_torch.obs.bench", "repro_torch.obs.health",
+                 "repro_torch.ckpt", "repro_torch.ckpt.checkpointer",
+                 "repro_torch.jobs", "repro_torch.jobs.codec",
+                 "repro_torch.jobs.store", "repro_torch.ft",
+                 "repro_torch.ft.watchdog", "repro_torch.core.ccl",
+                 "repro_torch.core.mol")
 CUDA_SOURCES = ("stencil3d.cu", "jacobi.cu", "attention.cu", "ssd.cu")
 
 
@@ -53,6 +62,11 @@ def test_the_checks_cover_the_farm_slice():
 def test_the_checks_cover_the_lm_slice():
     modules = {_module_name(p) for p in _port_files()}
     assert set(LM_SLICE) <= modules, set(LM_SLICE) - modules
+
+
+def test_the_checks_cover_the_durable_slice():
+    modules = {_module_name(p) for p in _port_files()}
+    assert set(DURABLE_SLICE) <= modules, set(DURABLE_SLICE) - modules
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
@@ -164,7 +178,8 @@ print(json.dumps({{
                       (stencil3d_cuda, jacobi_cuda, attention_cuda, ssd_cuda))
                   + _build.load.cache_info().currsize,
     "has_main": callable(smoke.main),
-    "slices": all(m in sys.modules for m in {FARM_SLICE + LM_SLICE!r}),
+    "slices": all(m in sys.modules
+                  for m in {FARM_SLICE + LM_SLICE + DURABLE_SLICE!r}),
 }}))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
