@@ -20,7 +20,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              operation of theirs is rounded as written), and each plain
              stencil body on the card must equal the same body on the CPU
              bit for bit on a seeded 64^3 input;
-             CUDA-event times of kernel and plain version (the kernel's
+             CUDA-event times of kernel (under the autotuned tile the
+             main path launches) and plain version (the kernel's
              with the stream given a head start, so that its own device
              time is read, not its wrapper's host time) beside the least
              time the card could take (bytes over 3.35 TB/s or operations
@@ -50,6 +51,18 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              bitwise an uninterrupted run.  Overheads: the batched step
              with telemetry and health on against off, a health drain, the
              spill (ms, MB/s) and the restore, trace events, peak memory;
+   perf      the performance accounting: each stencil under its
+             autotuned tile (``core.autotune.tile_for``) against
+             ``block_for`` at 256^3, serial and 4-slot, in turns (bitwise,
+             and at most 2% slower); the serial run of ``main`` and the
+             farm of ``farm`` again with telemetry on, bitwise theirs with
+             the same launch counts, and their ``perf_report()`` rows
+             (counted FLOPs and HBM bytes, roofline and measured seconds,
+             utilization, bottleneck, the bytes by op class; the op-cost
+             trace must launch nothing); ``report(perf=True)`` and the
+             ``repro_perf_*`` gauges of ``prometheus_text(perf=True)``; and
+             the durable farm's ``health_overhead_model`` beside its
+             measured on/off cost;
 7. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
              launches a step and no JACOBI_PRESSURE;
 8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
@@ -93,6 +106,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -121,12 +135,6 @@ KERNEL_RTOL = 1e-5
 # bounded because the Jacobi iteration is contractive
 PATH_RTOL = 1e-4
 
-# float32 operations per interior cell, counted from the kernel sources
-# (csrc/stencil3d.cu, csrc/jacobi.cu: per cell and sweep), an FMA as two;
-# none depends on the data
-OPS_PER_CELL = {"UPDATE_VELOCITY": 144, "DIVERGENCE": 6,
-                "JACOBI_PRESSURE": 11, "PROJECT_VELOCITY": 10,
-                "JACOBI_FUSED": 11}
 STENCILS = ("UPDATE_VELOCITY", "DIVERGENCE", "JACOBI_PRESSURE",
             "PROJECT_VELOCITY")
 LM_KERNELS = ("FLASH_ATTENTION", "SSD_INTRA")
@@ -167,6 +175,9 @@ FARM_SLOTS = 4
 FARM_RES = (50.0, 100.0, 200.0, 400.0, 800.0)
 FARM_STEPS = (8, 12, 6, 10, 14)
 EVICT, EVICT_AT = 1, 4
+# the perf phase: a stencil under its autotuned tile may take at most this
+# share of its time under block_for (both in the same run)
+TILE_SLOWER_MAX = 1.02
 # the durable phase: the farm's requests plus one poisoned with a time step
 # far past the CFL limit; the crash run's store-backed process (2 slots,
 # CRASH_STEPS a request), killed after its first snapshot
@@ -389,7 +400,9 @@ def plain_card_vs_cpu(name, dev):
 def phase_kernels(dev):
     import torch
     from repro_torch.cfd import cavity
+    from repro_torch.core import autotune
     from repro_torch.kernels import stencil3d, stencil3d_cuda as sc
+    from repro_torch.launch import op_cost
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     main_cfg = cavity.config(N, nz=N)
@@ -419,22 +432,25 @@ def phase_kernels(dev):
                     "max_abs_diff": err, "tolerance": tol, "finite": finite,
                     "bitwise": bitwise}
             if case in ("main", "farm"):
-                nbytes = (sum(t.numel() for t in inputs)
-                          + sum(o.numel() for o in outs) + table.numel()) * 4
-                ops = (S or 1) * OPS_PER_CELL[name] * N ** 3
+                nbytes, ops = op_cost.stencil_cost(name, inputs, outs, table)
                 kern = sc.KERNELS[name]
                 plain = sc.PLAIN[name]
+                # the main path's launch: the autotuned tile
+                tile = autotune.tile_for(stencil3d.DESCRIPTORS[name],
+                                         interior).tile
                 line.update(
-                    kernel_ms=cuda_ms(lambda: kern(*inputs, table), reps=50,
-                                      head_start=True),
+                    tile=list(tile),
+                    kernel_ms=cuda_ms(lambda: kern(*inputs, table, tile=tile),
+                                      reps=50, head_start=True),
                     plain_ms=cuda_ms(lambda: plain(*inputs, table), reps=5,
                                      warmup=1),
                     **bound(nbytes, ops, F32_OPS_PER_S), library_ms=None)
                 res["cases"][case] = {k: line[k] for k in
-                                      ("kernel_ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}
+                                      ("tile", "kernel_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
                 if case == "main":
-                    res.update(res["cases"][case])
+                    res.update({k: v for k, v in res["cases"][case].items()
+                                if k != "tile"})
             emit(line)
             require(finite, f"{name} ({case}): non-finite output")
             require(err <= tol, f"{name} ({case}): max|kernel - plain| "
@@ -461,6 +477,7 @@ def jacobi_fused_cases(gen, dev):
     kernel alone given p with its x-low ghost face of k planes zeroed)."""
     import torch
     from repro_torch.kernels import jacobi_cuda as jc
+    from repro_torch.launch import op_cost
 
     h, omega = 1.0 / N, 1.0                   # the solver's h and omega
     seg = jc.SEGMENT
@@ -493,10 +510,7 @@ def jacobi_fused_cases(gen, dev):
                 "max_abs_diff": err, "tolerance": tol, "finite": finite,
                 "planted_fault_max_abs_diff": fault}
         if case in ("main", "farm"):
-            nbytes = (p.numel() + rhs.numel() + got.numel()) * 4
-            # sweep s updates the interior grown by k - s rings
-            ops = (S or 1) * OPS_PER_CELL["JACOBI_FUSED"] * sum(
-                (N + 2 * (k - s)) ** 3 for s in range(1, k + 1))
+            nbytes, ops = op_cost.jacobi_fused_cost(p, rhs, got, k)
             line.update(
                 kernel_ms=cuda_ms(lambda: jc.jacobi_fused(
                     p, rhs, h=h, omega=omega, sweeps=k), reps=50,
@@ -565,19 +579,6 @@ ATTN_CASES = [
 ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3")
 
 
-def attention_mask(b, sq, sk, causal, q_offset, prefix_len, valid, dev):
-    """(B, Sq, Sk) boolean: which keys each query row sees."""
-    import torch
-
-    qpos = torch.arange(sq, device=dev)[:, None]
-    kpos = torch.arange(sk, device=dev)[None, :]
-    m = torch.ones((sq, sk), dtype=torch.bool, device=dev)
-    if causal:
-        m = (kpos <= qpos + q_offset) | (kpos < prefix_len)
-    v = torch.full((b,), sk, device=dev) if valid is None else valid
-    return m[None] & (kpos[None] < v[:, None, None])
-
-
 def attention_diff(got, want, dtype: str):
     """max|got - want| and its largest share of the per-row tolerance
     ATTN_RTOL * max|want row| + ATTN_ATOL (a row: one query, one head)."""
@@ -595,6 +596,7 @@ def attention_cases(gen, dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.launch import op_cost
     from repro_torch.models.attention import MaskSpec
 
     res = {"max_abs_err": 0.0, "cases": {}}
@@ -619,15 +621,8 @@ def attention_cases(gen, dev):
                  else (vt - ATTN_FAULT_KEYS).clamp(min=1))
         _, fault_share = attention_diff(
             ac.flash_attention(q, k, v, spec, short), want, qdt)
-        mask = attention_mask(b, sq, sk, causal, off, pre, vt, dev)
-        seen = int(mask.sum())                  # (row, key) pairs computed
-        # bytes: q and the output once, and the k/v rows some row sees
-        kv_rows = int(mask.any(dim=1).sum())
-        nbytes = (2 * q.numel() * q.element_size()
-                  + 2 * kv_rows * kh * d * k.element_size())
-        if vt is not None:
-            nbytes += vt.numel() * 8
-        ops = 4 * h * d * seen
+        mask = op_cost.attention_mask(b, sq, sk, causal, off, pre, vt, dev)
+        nbytes, ops = op_cost.flash_attention_cost(q, k, mask, vt)
         # the library yardstick: SDPA (B, H, S, D) on k/v in q's dtype, with
         # is_causal for a plain causal mask (its fastest route) and the
         # explicit boolean mask for the rest
@@ -702,6 +697,7 @@ def ssd_cases(gen, dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_cuda as sc
+    from repro_torch.launch import op_cost
 
     res = {"max_abs_err": 0.0, "cases": {}}
     for case, (bsz, nc, l, g, r, p, n) in SSD_CASES:
@@ -722,13 +718,7 @@ def ssd_cases(gen, dev):
         s_bad[:, :, :, -1] = 0.0
         fault = float((sc.ssd_intra(*args[:5], s_bad) - want).abs().max())
         del s_bad
-        # operations the function needs per (batch, chunk, group): the
-        # causal half of C.B^T, and per head the weights (exp, two
-        # products), W.x over m <= l, C.s_in and its scaling by exp(cum)
-        tri = l * (l + 1) // 2
-        ops = bsz * nc * g * (tri * 2 * n + r * (tri * (2 * p + 3)
-                                                  + l * (2 * n * p + 2 * p)))
-        nbytes = (sum(t.numel() for t in args) + got.numel()) * 4
+        nbytes, ops = op_cost.ssd_intra_cost(args, got)
         line = {"phase": "kernel", "kernel": "SSD_INTRA", "case": case,
                 "shape": dict(zip("B nc L G R P N".split(),
                                   (bsz, nc, l, g, r, p, n))),
@@ -829,7 +819,7 @@ def phase_main(kernel_results, dev):
     require(launches == expected, f"launch counts {launches} != {expected}")
     require(all(v == 0 for v in torch_launches.values()),
             f"torch backend launched CUDA kernels: {torch_launches}")
-    return launches
+    return launches, res_cuda.state
 
 
 def agreement(got: dict, want: dict, what: str) -> dict:
@@ -922,6 +912,16 @@ def batched_step_ms(dev, **solver) -> float:
     svc.run(reps)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+def farm_executor(dev, **solver):
+    """The 256^3 4-slot farm's executor, one request admitted, not run."""
+    from repro_torch import api
+
+    rt = api.runtime(n=N, nz=N, n_slots=FARM_SLOTS, backend="cuda",
+                     device=dev, **solver)
+    rt.submit("cavity", steps=1, re=FARM_RES[0])
+    return rt.services()[0].farm.exec
 
 
 def phase_farm(dev, label: str, per_step: dict, **solver):
@@ -1023,6 +1023,7 @@ def phase_durable(dev, farm_launches: dict, farm_results: list, smi: str):
     store on; a poisoned request quarantined; a crash and its recovery."""
     import torch
     from repro_torch import api, obs
+    from repro_torch.obs import perf
 
     shutil.rmtree(DURABLE_DIR, ignore_errors=True)
     os.makedirs(DURABLE_DIR)
@@ -1156,6 +1157,14 @@ def phase_durable(dev, farm_launches: dict, farm_results: list, smi: str):
                "off": [batched_step_ms(dev)]}
     step_ms["on"].append(batched_step_ms(dev, **on_kw))
     drain_ms = drain_s / max(drain_n, 1) * 1e3
+    # ... and what the op-cost model says it costs: one diagnostics pass a
+    # check interval, counted on the two executors' real batched steps
+    health = perf.health_overhead_model(farm_executor(dev),
+                                        farm_executor(dev, **on_kw),
+                                        check_every)
+    require(health["status"] == "ok", f"durable: health model {health}")
+    health["measured_overhead"] = (sum(step_ms["on"]) / len(step_ms["on"])
+                                   / step_ms["off"][0] - 1.0)
     emit({"phase": "durable", "grid": [N, N, N], "slots": FARM_SLOTS,
           "card": smi, "launches": launches, "expected": farm_launches,
           "bitwise_vs_farm": True, "wall_s": wall,
@@ -1168,12 +1177,151 @@ def phase_durable(dev, farm_launches: dict, farm_results: list, smi: str):
           "max_memory_allocated": peak,
           "batched_step_ms_on": step_ms["on"],
           "batched_step_ms_off": step_ms["off"],
+          "health_overhead": health,
           "quarantine": quarantine, "quarantine_survivors_bitwise": True,
           "crash": {"child_s": child_s, "statuses_at_restart": statuses,
                     "recover_and_drain_s": resume_s,
                     "resumed_bitwise": True}})
     torch.cuda.empty_cache()
-    return launches
+    return launches, health
+
+
+def tiles_against_block_for(dev) -> dict:
+    """Each stencil under its autotuned tile and under ``block_for`` at
+    256^3, serial and at the farm's 4-slot launch: the outputs bit for bit,
+    and the device times in turns (tuned, block_for, block_for, tuned)."""
+    import torch
+    from repro_torch.cfd import cavity
+    from repro_torch.core import autotune
+    from repro_torch.kernels import stencil3d, stencil3d_cuda as sc
+
+    out = {}
+    for name in STENCILS:
+        tile = autotune.tile_for(stencil3d.DESCRIPTORS[name], (N,) * 3).tile
+        kern = sc.KERNELS[name]
+        row = {"tile": list(tile), "block_for": list(sc.block_for(N, N))}
+        for case, S in (("serial", None), ("farm", FARM_SLOTS)):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+            inputs = kernel_inputs(name, S, (N,) * 3, gen, dev)
+            cfgs = [cavity.config(N, nz=N, re=re)
+                    for re in FARM_RES[:S or 1]]
+            table = param_rows(name, cfgs, dev)
+            table = table if S else table[0]
+            want, got = kern(*inputs, table), kern(*inputs, table, tile=tile)
+            torch.cuda.synchronize()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+            ms = {"tuned": [], "block_for": []}
+            for which in ("tuned", "block_for", "block_for", "tuned"):
+                t = tile if which == "tuned" else None
+                ms[which].append(cuda_ms(lambda: kern(*inputs, table, tile=t),
+                                         reps=50, head_start=True))
+            tuned = sum(ms["tuned"]) / 2
+            block_for = sum(ms["block_for"]) / 2
+            row[case] = {"kernel_ms_tuned": ms["tuned"],
+                         "kernel_ms_block_for": ms["block_for"],
+                         "tuned_over_block_for": tuned / block_for,
+                         "bitwise": bitwise}
+            require(bitwise, f"perf: {name} ({case}) under the tile {tile} "
+                             "differs from block_for")
+            require(tuned <= TILE_SLOWER_MAX * block_for,
+                    f"perf: {name} ({case}) under the tile {tile} takes "
+                    f"{tuned:.4f} ms, block_for {block_for:.4f} ms")
+            del inputs, want, got
+        out[name] = row
+    torch.cuda.empty_cache()
+    return out
+
+
+def perf_rows(rep) -> list:
+    """The report's rows as the perf line gives them: the roofline join
+    and each op class's share of the counted HBM bytes."""
+    keys = ("name", "kind", "status", "flops", "hbm_bytes", "memory_s",
+            "compute_s", "roofline_s", "measured_s", "invocations",
+            "utilization", "bottleneck", "error")
+    rows = []
+    for d in rep.rows():
+        row = {k: d[k] for k in keys}
+        row["op_classes"] = {
+            k: dict(v, bytes_share=v["bytes"] / d["hbm_bytes"])
+            for k, v in d["op_classes"].items()}
+        rows.append(row)
+        require(d["status"] == "ok" and bool(d["measured_s"])
+                and d["measured_s"] > 0 and d["bottleneck"] == "memory",
+                f"perf: row {row}")
+    return rows
+
+
+def phase_perf(dev, smi: str, serial_state: dict, farm_launches: dict,
+               farm_results: list, health: dict) -> dict:
+    """The performance accounting on the card: the autotuned tiles against
+    block_for; the serial 256^3 run and the 4-slot farm with telemetry on,
+    bitwise those of the main and farm phases with the same launches, and
+    their ``perf_report()`` rows (the trace launching nothing); the health
+    model of the durable phase's farm beside its measured cost."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import autotune
+
+    tiles = tiles_against_block_for(dev)
+    paths, runtimes = {}, {}
+    torch.cuda.synchronize()
+    reset_counts()
+    rt = api.runtime(n=N, nz=N, backend="cuda", device=dev, telemetry=True)
+    res = rt.run("cavity", steps=STEPS, re=100.0)
+    torch.cuda.synchronize()
+    paths["perf_serial"] = read_counts()
+    expected = {k: STEPS * v for k, v in PER_STEP.items()}
+    require(paths["perf_serial"] == expected,
+            f"perf: serial launch counts {paths['perf_serial']} != {expected}")
+    bitwise_results(res.state, serial_state,
+                    "perf: the serial run with telemetry against the main "
+                    "phase's")
+    del res
+    runtimes["serial"] = rt
+
+    reset_counts()
+    rt, sids, out = drive_farm(dev, "cuda", telemetry=True)
+    torch.cuda.synchronize()
+    paths["perf_farm"] = read_counts()
+    require(paths["perf_farm"] == farm_launches,
+            f"perf: farm launch counts {paths['perf_farm']} != "
+            f"{farm_launches}")
+    for sid, want in zip(sids, farm_results):
+        bitwise_results(out[sid].state, want.state,
+                        f"perf: farm sid {sid} against the farm phase")
+    del out
+    runtimes["farm"] = rt
+
+    rows, trace_s = {}, {}
+    for label, rt in runtimes.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = rt.perf_report()
+        trace_s[label] = time.perf_counter() - t0
+        text = rt.report(perf=True)
+        traced = read_counts()
+        require(all(v == 0 for v in traced.values()),
+                f"perf: the {label} trace launched {traced}")
+        require("perf accounting" in text, f"perf: {label} report")
+        require(rep.chip.name == "h100-sxm", f"perf: chip {rep.chip.name}")
+        rows[label] = perf_rows(rep)
+    kinds = [[r["kind"] for r in rows[k]] for k in ("serial", "farm")]
+    require(kinds == [["serial-bin"], ["farm-step"]], f"perf: rows {kinds}")
+    scrape = runtimes["farm"].services()[0].prometheus_text(perf=True)
+    require("repro_perf_utilization" in scrape
+            and "repro_perf_bottleneck" in scrape, "perf: the scrape")
+    emit({"phase": "perf", "grid": [N, N, N], "slots": FARM_SLOTS,
+          "card": smi, "tiles": tiles,
+          "tile_cache": autotune.tile_cache_stats(),
+          "serial": rows["serial"][0], "farm": rows["farm"][0],
+          "trace_s": trace_s, "launches": paths,
+          "bitwise_with_accounting": True, "health_overhead": health})
+    del runtimes, rt
+    gc.collect()          # the runtimes' reference cycles, before the next
+    torch.cuda.empty_cache()    # phase reads its peak memory
+    return paths
 
 
 def phase_throughput(dev):
@@ -1488,10 +1636,14 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda")
     kernel_results = phase_kernels(dev)
-    paths = {"serial": phase_main(kernel_results, dev)}
+    paths = {}
+    paths["serial"], serial_state = phase_main(kernel_results, dev)
     paths["farm"], farm_results = phase_farm(dev, "farm", PER_STEP)
-    paths["durable"] = phase_durable(dev, paths["farm"], farm_results, smi)
-    del farm_results
+    paths["durable"], health = phase_durable(dev, paths["farm"],
+                                             farm_results, smi)
+    paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
+                            farm_results, health))
+    del farm_results, serial_state
     paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
                                         fused_sweeps=FUSED_K)
     paths["throughput"] = phase_throughput(dev)

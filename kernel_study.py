@@ -3,7 +3,8 @@
 (``csrc/ssd.cu``) and the four stencils (``csrc/stencil3d.cu``) on one
 NVIDIA card.
 
-    python3 kernel_study.py [--parent DIR] [--only jacobi,ssd,stencil,farm]
+    python3 kernel_study.py [--parent DIR]
+                            [--only jacobi,ssd,stencil,tiles,farm]
 
 1. jacobi: the committed source and variants of it made by replacing one
    design constant, each built with nvcc beside the committed library:
@@ -36,7 +37,16 @@ NVIDIA card.
    the output equals the plain version bit for bit.  Also ``div_op``
    (``/`` in place of ``__fdiv_rn`` in JACOBI_PRESSURE: the same IEEE
    division) and ``div64`` (only the row split back to 64 bits).
-4. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
+4. tiles: the four stencils as committed under launch tiles ``(tx, ty,
+   tz)`` (a block of tz x ty threads walking tx x planes): the wrapper's
+   default ``block_for``, the (8, 32) block walking 2..32 planes, other
+   block shapes, and the autotuner's choice for 1, 2, 4 and 8 waves
+   (``autotune.choose_tile(waves=...)``), at chip_smoke's serial 256^3 call
+   and the farm's 4-slot call: device time, taken in turn forward and then
+   backward, and whether the output equals block_for's bit for bit.  The
+   tiles that walk also run on ``walk_unroll2`` and ``walk_unroll4``, the
+   source with the walk's loop unrolled by 2 or 4.
+5. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
    4-slot farm's batched step, unfused and with ``fused_sweeps=2``, on
    DIR's tree and on this one in turns (parent, this, this, parent), each
    in its own process (``chip_smoke.batched_step_ms`` of that tree).
@@ -88,13 +98,23 @@ VARIANTS = [
     ("stencil3d", "div_op", [
         ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
          "sub(nbr, mul(h2, rhs[o])) / 6.0f")]),
+    ("stencil3d", "walk_unroll2", [
+        ("""    for (int64_t r = r##0,  """,
+         """    _Pragma("unroll 2") for (int64_t r = r##0,  """)]),
+    ("stencil3d", "walk_unroll4", [
+        ("""    for (int64_t r = r##0,  """,
+         """    _Pragma("unroll 4") for (int64_t r = r##0,  """)]),
     ("stencil3d", "div64", [
         ("""  const unsigned q = (unsigned)r / (unsigned)nx;
   s = q;
   i = r - (int64_t)q * nx;""", """  s = r / nx;
   i = r - s * nx;""")]),
 ]
-SECTIONS = ("jacobi", "ssd", "stencil", "farm")
+SECTIONS = ("jacobi", "ssd", "stencil", "tiles", "farm")
+# launch tiles (tx, ty, tz) of the tiles section, block_for's first
+TILES = [(1, 8, 32), (2, 8, 32), (4, 8, 32), (8, 8, 32), (16, 8, 32),
+         (32, 8, 32), (1, 4, 64), (4, 4, 64), (1, 2, 128), (1, 1, 256)]
+TILE_WAVES = (1, 2, 4, 8)
 REPS = 30
 
 # one tree's batched farm step, unfused and fused, twice each
@@ -272,6 +292,61 @@ def study_stencil(libs):
         st._lib = lib
 
 
+def study_tiles(libs):
+    import torch
+    import chip_smoke as cs
+    from repro_torch.cfd import cavity
+    from repro_torch.core import autotune
+    from repro_torch.kernels import stencil3d, stencil3d_cuda as st
+
+    dev = torch.device("cuda")
+    lib = st._lib
+    walks = [name for name in libs if name.startswith("walk_")]
+    try:
+        for kname in cs.STENCILS:
+            desc = stencil3d.DESCRIPTORS[kname]
+            tuned = {w: autotune.choose_tile(desc, (cs.N,) * 3, waves=w).tile
+                     for w in TILE_WAVES}
+            tiles = list(dict.fromkeys(TILES + list(tuned.values())))
+            runs = [("design", t) for t in tiles] + [
+                (v, t) for v in walks for t in tiles if t[0] > 1]
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+            times = {r: {} for r in runs}
+            same = {r: {} for r in runs}
+            for case, slots in (("main", None), ("farm", cs.FARM_SLOTS)):
+                cfgs = [cavity.config(cs.N, nz=cs.N, re=re)
+                        for re in cs.FARM_RES[:slots or 1]]
+                inputs = cs.kernel_inputs(kname, slots, (cs.N,) * 3, gen, dev)
+                table = cs.param_rows(kname, cfgs, dev)
+                table = table if slots else table[0]
+                st._lib = lambda: libs["design"]
+                want = st.KERNELS[kname](*inputs, table)
+                want = want if isinstance(want, tuple) else (want,)
+                for run in turns(runs):
+                    variant, tile = run
+                    st._lib = lambda variant=variant: libs[variant]
+                    fn = lambda: st.KERNELS[kname](*inputs, table, tile=tile)
+                    got = fn()
+                    torch.cuda.synchronize()
+                    got = got if isinstance(got, tuple) else (got,)
+                    same[run][case] = all(torch.equal(g, w)
+                                          for g, w in zip(got, want))
+                    times[run].setdefault(case, []).append(
+                        cs.cuda_ms(fn, REPS, head_start=True))
+                    del got
+                del inputs, want
+                torch.cuda.empty_cache()
+            for variant, tile in runs:
+                emit({"phase": "tiles", "kernel": kname, "variant": variant,
+                      "tile": list(tile),
+                      "tuned_for_waves": [w for w, t in tuned.items()
+                                          if t == tile],
+                      "kernel_ms": times[(variant, tile)],
+                      "bitwise_vs_block_for": same[(variant, tile)]})
+    finally:
+        st._lib = lib
+
+
 def study_farm(parent: str):
     for name in ("parent", "this", "this", "parent"):
         tree = parent if name == "parent" else ROOT
@@ -304,14 +379,19 @@ def main() -> int:
                           "power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip(), flush=True)
-    sources = {"jacobi": "jacobi", "ssd": "ssd", "stencil": "stencil3d"}
+    sources = {"jacobi": "jacobi", "ssd": "ssd", "stencil": "stencil3d",
+               "tiles": "stencil3d"}
     libs = build_variants({sources[s] for s in only if s in sources})
     if "jacobi" in only:
         study_jacobi(libs["jacobi"])
     if "ssd" in only:
         study_ssd(libs["ssd"])
     if "stencil" in only:
-        study_stencil(libs["stencil3d"])
+        study_stencil({k: v for k, v in libs["stencil3d"].items()
+                       if not k.startswith("walk_")})
+    if "tiles" in only:
+        study_tiles({k: v for k, v in libs["stencil3d"].items()
+                     if k == "design" or k.startswith("walk_")})
     if args.parent and "farm" in only:
         study_farm(os.path.abspath(args.parent))
     return 0

@@ -12,7 +12,8 @@ serial solver step, or a ``SimulationService`` farm per static signature:
     rt.result(sid)                                  # ... poll/evict/drain
 
 The reference's observability and durability postures come with it:
-``telemetry`` (timers, metrics, lifecycle traces; :meth:`Runtime.report`),
+``telemetry`` (timers, metrics, lifecycle traces; :meth:`Runtime.report`,
+and with it the perf accounting, :meth:`Runtime.perf_report`),
 ``health`` (in-situ diagnostics, NaN quarantine, flight records;
 :meth:`Runtime.watch`), ``ckpt_dir`` (evictions spilled to disk) and
 ``store`` (the durable job store: ``enqueue``/``claim``/``recover``, a
@@ -180,6 +181,10 @@ class Runtime:
         self._routes: dict[int, tuple[SimulationService, int]] = {}
         self._failed: dict[int, SimResult] = {}
         self._scenario_of: dict[int, str] = {}
+        # latest PreparedRun per scenario, kept only under telemetry so the
+        # perf accounting can trace the serial EVOLVE bin; the off path
+        # pins no extra field state
+        self._prepared: dict[str, PreparedRun] = {}
         self._next_sid = 0
         self.store = resolve_store(self.config.store, self.config.ckpt_dir)
         # job_ids this process admitted itself: a claim never returns one
@@ -216,8 +221,11 @@ class Runtime:
         tel = self.telemetry if self.telemetry.enabled else None
         state = sched.compile_bin("INITIAL", telemetry=tel)({})
         step = sched.compile_bin("EVOLVE", telemetry=tel)
-        return PreparedRun(scenario=sc, solver=solver, schedule=sched,
-                           state=state, step=step, config=cfg)
+        pr = PreparedRun(scenario=sc, solver=solver, schedule=sched,
+                         state=state, step=step, config=cfg)
+        if self.telemetry.enabled:
+            self._prepared[sc.name] = pr
+        return pr
 
     # -- single-run drive -----------------------------------------------------
     def run(self, scenario, *, n: int | None = None,
@@ -569,10 +577,6 @@ class Runtime:
             time.sleep(refresh_s)
         return text
 
-    def report(self) -> str:
-        """This runtime's telemetry report: timers and metrics."""
-        return obs.report(self.telemetry)
-
     # -- introspection --------------------------------------------------------
     def device_steps(self) -> int:
         """Total batched steps across every resolved farm."""
@@ -580,6 +584,24 @@ class Runtime:
 
     def services(self) -> tuple[SimulationService, ...]:
         return tuple(self._services.values())
+
+    def perf_report(self, chip="auto", dtype: str = "f32"):
+        """Cost-model-grounded accounting of every step this runtime ran:
+        one :class:`repro_torch.obs.perf.PerfReport` row per farm signature
+        and prepared serial scenario, with the predicted FLOPs and HBM bytes
+        (the op-cost trace) joined against the measured timer sections (see
+        ``repro_torch.obs.perf``)."""
+        from repro_torch.obs import perf
+
+        return perf.report_for_runtime(self, chip=chip, dtype=dtype)
+
+    def report(self, perf: bool = False, chip="auto") -> str:
+        """This runtime's telemetry report (timers + metrics); ``perf=True``
+        appends the roofline-attributed perf accounting."""
+        text = obs.report(self.telemetry)
+        if perf:
+            text += "\n" + self.perf_report(chip=chip).render()
+        return text
 
     def analyze(self, result: RunResult | SimResult) -> dict:
         """Scenario ANALYSIS diagnostics for a finished run (equal to

@@ -25,6 +25,7 @@ template every parameter table is built there.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Callable
@@ -209,6 +210,10 @@ class NavierStokes3D:
         if params is None:
             params = params_from_config(c, self.device)
         kw = dict(template=c.template or "TORCH")
+        # the stencils' launch tile: the chip-aware choice, resolved per
+        # local interior and memoized (autotune.tile_for), so serial and
+        # farm runs of one grid launch the same tiles
+        skw = dict(kw, tile="auto") if kw["template"] == "CUDA" else kw
         h = c.h
         batched = state["vx"].dim() == 4
 
@@ -228,7 +233,7 @@ class NavierStokes3D:
 
         def upd_packed(padded):
             out = ops.update_velocity(padded[0], padded[1], padded[2],
-                                      **vel_params, **kw)
+                                      **vel_params, **skw)
             return torch.stack(out)
 
         if c.overlap:
@@ -251,14 +256,15 @@ class NavierStokes3D:
         else:
             pads = [exchange_pad(v, (1, 1, 1), specs(f))
                     for f, v in (("vx", vx), ("vy", vy), ("vz", vz))]
-            vx_s, vy_s, vz_s = ops.update_velocity(*pads, **vel_params, **kw)
+            vx_s, vy_s, vz_s = ops.update_velocity(*pads, **vel_params,
+                                                   **skw)
 
         vx_s, vy_s, vz_s = vx_s * mvx, vy_s * mvy, vz_s * mvz
 
         # -- 2. divergence rhs
         pads = [exchange_pad(v, ((1, 0),) * 3, specs(f))
                 for f, v in (("vx", vx_s), ("vy", vy_s), ("vz", vz_s))]
-        rhs = ops.divergence(*pads, h=h, **kw) / grid(dt)
+        rhs = ops.divergence(*pads, h=h, **skw) / grid(dt)
 
         # -- 3. pressure Poisson (warm start from previous p)
         p_specs = specs("p")
@@ -267,7 +273,8 @@ class NavierStokes3D:
         def jacobi_body(pcur):
             if k <= 1:
                 pp = exchange_pad(pcur, (1, 1, 1), p_specs)
-                return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega, **kw)
+                return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega,
+                                           **skw)
             pp = exchange_pad(pcur, (k, k, k), p_specs)
             rr = exchange_pad(rhs, (k, k, k), p_specs)
             return ops.jacobi_smooth(pp, rr, h=h, omega=c.jacobi_omega,
@@ -283,10 +290,23 @@ class NavierStokes3D:
         # -- 4. projection
         pp = exchange_pad(p_new, ((0, 1),) * 3, p_specs)
         vx_n, vy_n, vz_n = ops.project_velocity(vx_s, vy_s, vz_s, pp,
-                                                dt=dt, h=h, **kw)
+                                                dt=dt, h=h, **skw)
         vx_n, vy_n, vz_n = vx_n * mvx, vy_n * mvy, vz_n * mvz
 
         return dict(state, vx=vx_n, vy=vy_n, vz=vz_n, p=p_new)
+
+    def cost_twin(self) -> "NavierStokes3D":
+        """This solver on the ``meta`` device with the CUDA template: the
+        twin a cost trace runs (``repro_torch.launch.op_cost``).  Its
+        stencil wrappers book their declared cost and launch nothing; its
+        fields and parameters must be given as ``meta`` tensors (it makes
+        none itself)."""
+        twin = copy.copy(self)
+        twin.config = dataclasses.replace(self.config, template="CUDA")
+        twin.device = torch.device("meta")
+        twin.driver = GridDriver(self.domain, twin.device)
+        twin._build_bcs()
+        return twin
 
     def make_step(self) -> Callable[[dict], dict]:
         """The step with this config's scalars as device tensors, threaded

@@ -8,6 +8,8 @@ Public surface:
   schedule.Schedule                            — schedule tree
   ccl.parse_ccl / parse_ccl_file               — the paper's cacuda.ccl syntax
   mol.INTEGRATORS                              — MoL Runge-Kutta integrators
+  autotune.choose_tile / tile_for              — roofline-driven launch tiles
+  rooflinemodel.resolve_chip / CHIPS           — chip registry and terms
 """
 from repro_torch.core.descriptor import Intent, StencilDescriptor, VariableGroup, descriptor
 from repro_torch.core.generator import FieldView, GeneratedKernel, KernelContext, generate, generate_pair
@@ -23,3 +25,10 @@ from repro_torch.core.driver import Domain, GridDriver
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.ccl import CCLSyntaxError, parse_ccl, parse_ccl_file
 from repro_torch.core.mol import INTEGRATORS
+from repro_torch.core.autotune import (
+    choose_tile, reset_tile_cache, tile_cache_stats, tile_for, tuned,
+)
+from repro_torch.core.rooflinemodel import (
+    CHIPS, CPU_HOST, H100_SXM, Chip, RooflineTerms, resolve_chip,
+    terms_from_counts,
+)

@@ -11,6 +11,9 @@ the port the same descriptor drives two templates:
   (``stencil3d.TABLES``: declared parameters and the terms ``DERIVED``
   from them) — the twin of the reference 3DBLOCK template's scalar table.
   A descriptor with no kernel raises; the body is never run in its place.
+  The launch tile is the kernel's ``tile`` (``None``: the wrapper's
+  ``block_for``; ``kernels.ops.apply_kernel(tile="auto")`` gives the
+  autotuner's choice).
 * ``TORCH`` — the eager expansion of the body (shifted slices of the padded
   tensors), the twin of the reference JNP template: the oracle for kernel
   tests, the shape-polymorphic kernel, and the path on the CPU.
@@ -156,6 +159,7 @@ class GeneratedKernel:
     desc: StencilDescriptor
     body: Callable[[KernelContext], dict[str, torch.Tensor]]
     template: str
+    tile: tuple[int, int, int] | None = None    # CUDA launch tile
 
     # ---- TORCH template ---------------------------------------------------
     def _apply_torch(self, arrays: dict[str, torch.Tensor],
@@ -204,7 +208,8 @@ class GeneratedKernel:
                             columns=stencil3d.TABLES[self.desc.name])
         if not batched:
             table = table[0]
-        outs = launch(*(arrays[n] for n in self.desc.inputs), table)
+        outs = launch(*(arrays[n] for n in self.desc.inputs), table,
+                      tile=self.tile)
         if torch.is_tensor(outs):
             outs = (outs,)
         return dict(zip(self.desc.outputs, outs))
@@ -249,16 +254,19 @@ def generate(
     body: Callable[[KernelContext], dict[str, torch.Tensor]],
     *,
     template: str | None = None,
+    tile: tuple[int, int, int] | None = None,
 ) -> GeneratedKernel:
     """Expand ``desc`` + ``body`` into an executable kernel.
 
     ``template=None`` uses the descriptor's TYPE (``3DBLOCK`` -> ``CUDA``,
-    ``JNP`` -> ``TORCH``).
+    ``JNP`` -> ``TORCH``).  ``tile`` is the CUDA template's launch tile
+    ``(tx, ty, tz)``; the TORCH template has none and ignores it.
     """
     tmpl = template or _TEMPLATE_OF_TYPE[desc.type]
     if tmpl not in TEMPLATES:
         raise ValueError(f"unknown template {tmpl!r} (have {TEMPLATES})")
-    return GeneratedKernel(desc=desc, body=body, template=tmpl)
+    return GeneratedKernel(desc=desc, body=body, template=tmpl,
+                           tile=None if tile is None else tuple(tile))
 
 
 def generate_pair(desc, body):

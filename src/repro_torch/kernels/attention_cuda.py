@@ -37,7 +37,10 @@ On a CUDA tensor the wrapper launches the kernel on the current stream
 without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]`` and to
 ``ROUTE_LAUNCHES[route]``.  On a CPU tensor it runs the plain version,
 ``kernels.ref.full_mha_reference``, which is also what the kernel is
-checked against on the card (:func:`flash_attention_plain`).
+checked against on the card (:func:`flash_attention_plain`).  On a
+``meta`` tensor (a cost trace) it books its declared cost
+(``op_cost.flash_attention_cost``, every key valid) and returns an empty
+output, launching nothing.
 """
 from __future__ import annotations
 
@@ -229,11 +232,29 @@ def _run(q, k, v, spec, kv_valid_len, scale, plain: bool):
     _check(q, k, v, kv_valid_len)
     if plain or q.device.type == "cpu":
         return full_mha_reference(q, k, v, spec, kv_valid_len, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"FLASH_ATTENTION: unsupported device {q.device}")
     if k.dtype != v.dtype:
         raise TypeError(f"FLASH_ATTENTION: k is {k.dtype}, v is {v.dtype}")
+    if q.device.type == "meta":
+        return _book(q, k, spec, kv_valid_len)
     return _launch(q, k, v, spec, kv_valid_len, scale)
+
+
+def _book(q, k, spec, kv_valid_len):
+    """A cost trace's call: the declared cost booked, an empty output.  The
+    valid lengths of a ``meta`` call are not known, so every key counts as
+    valid (the most the call could need)."""
+    from repro_torch.launch import op_cost
+
+    b, sq, h, d = q.shape
+    mask = op_cost.attention_mask(b, sq, k.shape[1], spec.causal,
+                                  spec.q_offset, spec.prefix_len)
+    nbytes, ops = op_cost.flash_attention_cost(q, k, mask)
+    if torch.is_tensor(kv_valid_len):
+        nbytes += b * 8
+    op_cost.book("FLASH_ATTENTION", nbytes, ops)
+    return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
 
 
 def flash_attention(q, k, v, spec, kv_valid_len=None, scale=None):

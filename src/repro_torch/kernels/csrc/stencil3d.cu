@@ -10,8 +10,14 @@
 //   * one thread per output cell, threadIdx.x along the contiguous z axis
 //     so that every load and store of a warp is coalesced (fields are
 //     C-order (S, X, Y, Z) float32, S the slot axis);
-//   * blockIdx.z strides over the (slot, x) rows, so any interior shape and
-//     any slot count launch, with bounds checks and no tile divisibility;
+//   * a block of (tz, ty) threads covers tz cells along z and ty rows along
+//     y, and walks tx consecutive (slot, x) rows; blockIdx.z strides over
+//     the groups of tx rows, so any interior shape and any slot count
+//     launch, with bounds checks and no tile divisibility.  The launcher
+//     takes the tile (tx, ty, tz) from its caller: the wrapper's block_for
+//     default (tx = 1) or the autotuner's choice
+//     (repro_torch.core.autotune.tile_for).  Which thread computes a cell
+//     changes nothing in its arithmetic, so every tile gives the same bits;
 //   * per-slot parameters come from an (S, n_params) float32 table on the
 //     device, one row per slot (the twin of the generator's scalar table),
 //     in the column order of repro_torch.kernels.stencil3d.TABLES: the
@@ -26,9 +32,11 @@
 // DIVERGENCE ~16 (12 read, 4 written), JACOBI_PRESSURE 12,
 // PROJECT_VELOCITY 28.  Against that, the arithmetic per cell (about 150,
 // 6, 13 and 10 float operations) is far below the card's balance point.
-// This first design relies on L1/L2 for the reuse of neighbour values
-// between adjacent threads; shared-memory tiles and TMA staging of the
-// halo-expanded block are later work.
+// The design relies on L1/L2 for the reuse of neighbour values between
+// adjacent threads; a block that walks x planes (tx > 1) finds the planes
+// it read for the previous row in its SM's L1 rather than in L2.
+// Shared-memory tiles and TMA staging of the halo-expanded block are later
+// work.
 //
 // Every float operation is rounded as written, in the order of the plain
 // body (repro_torch/kernels/stencil3d.py, whose order the reference's
@@ -46,31 +54,26 @@
 
 namespace {
 
+// the most threads a block may have (__launch_bounds__ below); the wrapper
+// holds the same number (stencil3d_cuda.MAX_THREADS)
 constexpr int kThreads = 256;
 constexpr int64_t kMaxGridZ = 65535;
 
-// Block: up to 32 threads along z (the contiguous axis), the rest along y,
-// shrunk for small interiors so thin shells do not launch idle threads.
-dim3 block_for(int64_t ny, int64_t nz) {
-  int bx = 1;
-  while (bx < nz && bx < 32) bx <<= 1;
-  int by = kThreads / bx;
-  while (by > 1 && by / 2 >= ny) by >>= 1;
-  return dim3(bx, by, 1);
-}
-
-dim3 grid_for(dim3 block, int64_t S, int64_t nx, int64_t ny, int64_t nz) {
-  int64_t rows = S * nx;
+dim3 grid_for(dim3 block, int tx, int64_t S, int64_t nx, int64_t ny,
+              int64_t nz) {
+  const int64_t groups = (S * nx + tx - 1) / tx;
   return dim3((unsigned)((nz + block.x - 1) / block.x),
               (unsigned)((ny + block.y - 1) / block.y),
-              (unsigned)(rows < kMaxGridZ ? rows : kMaxGridZ));
+              (unsigned)(groups < kMaxGridZ ? groups : kMaxGridZ));
 }
 
 // A grid.y above its limit of 65535 is refused by the launch itself, and
 // cudaGetLastError() reports it.  The (slot, x) rows are numbered in 32 bits
-// (row_of).
-bool bad_extent(int64_t S, int64_t nx, int64_t ny, int64_t nz) {
-  return S <= 0 || nx <= 0 || ny <= 0 || nz <= 0 || S * nx > INT32_MAX;
+// (row_of).  The wrapper checks the tile against the interior as well.
+bool bad_launch(int64_t S, int64_t nx, int64_t ny, int64_t nz, int tx,
+                int ty, int tz) {
+  return S <= 0 || nx <= 0 || ny <= 0 || nz <= 0 || S * nx > INT32_MAX ||
+         tx <= 0 || ty <= 0 || tz <= 0 || ty * tz > kThreads;
 }
 
 // Slot s and x index i of row r = s * nx + i, by a 32-bit division: a 64-bit
@@ -83,6 +86,21 @@ __device__ __forceinline__ void row_of(int64_t r, int64_t nx, int64_t& s,
   i = r - (int64_t)q * nx;
 }
 
+// The rows a block computes: groups of tx consecutive (slot, x) rows, the
+// group index striding over blockIdx.z.  Each kernel comes in two
+// instantiations: kWalk = false is for tx = 1, where the walk reduces to the
+// one-row loop r = blockIdx.z, blockIdx.z + gridDim.z, ... with nothing
+// around it (a loop with a bound known only at run time around the body
+// cost the three small kernels 2-42% at tx = 1, whose blocks then walk
+// nothing); kWalk = true walks tx rows.
+#define ROWS(r)                                                            \
+  for (int64_t r##0 = (int64_t)blockIdx.z * (kWalk ? tx : 1); r##0 < S * nx; \
+       r##0 += (int64_t)gridDim.z * (kWalk ? tx : 1))                      \
+    for (int64_t r = r##0,                                                 \
+                 r##1 = kWalk && r##0 + tx < S * nx ? r##0 + tx            \
+                        : kWalk ? S * nx : r##0 + 1;                       \
+         r < r##1; ++r)
+
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -94,17 +112,18 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 // in: vx, vy, vz padded by 1 on every side, (S, nx+2, ny+2, nz+2)
 // out: three (S, nx, ny, nz); table dt, 1/h, 1/h^2, nu, fx, fy, fz
 // ---------------------------------------------------------------------------
+template <bool kWalk>
 __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ oz,
     const float* __restrict__ table, int64_t S, int64_t nx, int64_t ny,
-    int64_t nz) {
+    int64_t nz, int tx) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
-  for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
+  ROWS(r) {
     int64_t s, i;
     row_of(r, nx, s, i);
     const float* prm = table + s * 7;
@@ -199,16 +218,17 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
 // in: vx, vy, vz padded by 1 on the lo side, (S, nx+1, ny+1, nz+1)
 // out: (S, nx, ny, nz); table 1/h
 // ---------------------------------------------------------------------------
+template <bool kWalk>
 __global__ void __launch_bounds__(kThreads) divergence_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, float* __restrict__ out,
     const float* __restrict__ table, int64_t S, int64_t nx, int64_t ny,
-    int64_t nz) {
+    int64_t nz, int tx) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 1, sx = (ny + 1) * sy, ss = (nx + 1) * sx;
-  for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
+  ROWS(r) {
     int64_t s, i;
     row_of(r, nx, s, i);
     const float ih = table[s];
@@ -227,15 +247,16 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
 // in: p padded by 1 on every side (S, nx+2, ny+2, nz+2), rhs (S, nx, ny, nz)
 // out: (S, nx, ny, nz); table h^2, omega, 1 - omega
 // ---------------------------------------------------------------------------
+template <bool kWalk>
 __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
     const float* __restrict__ p, const float* __restrict__ rhs,
     float* __restrict__ out, const float* __restrict__ table, int64_t S,
-    int64_t nx, int64_t ny, int64_t nz) {
+    int64_t nx, int64_t ny, int64_t nz, int tx) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
-  for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
+  ROWS(r) {
     int64_t s, i;
     row_of(r, nx, s, i);
     const float h2 = table[s * 3], omega = table[s * 3 + 1],
@@ -258,17 +279,18 @@ __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
 // in: vx, vy, vz (S, nx, ny, nz), p padded by 1 on the hi side
 // (S, nx+1, ny+1, nz+1); out: three (S, nx, ny, nz); table dt, h
 // ---------------------------------------------------------------------------
+template <bool kWalk>
 __global__ void __launch_bounds__(kThreads) project_velocity_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, const float* __restrict__ p,
     float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ oz,
     const float* __restrict__ table, int64_t S, int64_t nx, int64_t ny,
-    int64_t nz) {
+    int64_t nz, int tx) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= ny || k >= nz) return;
   const int64_t sy = nz + 1, sx = (ny + 1) * sy, ss = (nx + 1) * sx;
-  for (int64_t r = blockIdx.z; r < S * nx; r += gridDim.z) {
+  ROWS(r) {
     int64_t s, i;
     row_of(r, nx, s, i);
     const float sc = __fdiv_rn(table[s * 2], table[s * 2 + 1]);
@@ -289,36 +311,54 @@ cudaError_t stencil3d_update_velocity(const float* vx, const float* vy,
                                       const float* vz, float* ox, float* oy,
                                       float* oz, const float* table,
                                       int64_t S, int64_t nx, int64_t ny,
-                                      int64_t nz, void* stream) {
-  if (bad_extent(S, nx, ny, nz)) return cudaErrorInvalidValue;
-  const dim3 block = block_for(ny, nz);
-  update_velocity_kernel<<<grid_for(block, S, nx, ny, nz), block, 0,
-                           (cudaStream_t)stream>>>(vx, vy, vz, ox, oy, oz,
-                                                   table, S, nx, ny, nz);
+                                      int64_t nz, int tx, int ty, int tz,
+                                      void* stream) {
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tx == 1)
+    update_velocity_kernel<false><<<grid, block, 0, st>>>(
+        vx, vy, vz, ox, oy, oz, table, S, nx, ny, nz, tx);
+  else
+    update_velocity_kernel<true><<<grid, block, 0, st>>>(
+        vx, vy, vz, ox, oy, oz, table, S, nx, ny, nz, tx);
   return cudaGetLastError();
 }
 
 cudaError_t stencil3d_divergence(const float* vx, const float* vy,
                                  const float* vz, float* out,
                                  const float* table, int64_t S, int64_t nx,
-                                 int64_t ny, int64_t nz, void* stream) {
-  if (bad_extent(S, nx, ny, nz)) return cudaErrorInvalidValue;
-  const dim3 block = block_for(ny, nz);
-  divergence_kernel<<<grid_for(block, S, nx, ny, nz), block, 0,
-                      (cudaStream_t)stream>>>(vx, vy, vz, out, table, S, nx,
-                                              ny, nz);
+                                 int64_t ny, int64_t nz, int tx, int ty,
+                                 int tz, void* stream) {
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tx == 1)
+    divergence_kernel<false><<<grid, block, 0, st>>>(
+        vx, vy, vz, out, table, S, nx, ny, nz, tx);
+  else
+    divergence_kernel<true><<<grid, block, 0, st>>>(
+        vx, vy, vz, out, table, S, nx, ny, nz, tx);
   return cudaGetLastError();
 }
 
 cudaError_t stencil3d_jacobi_pressure(const float* p, const float* rhs,
                                       float* out, const float* table,
                                       int64_t S, int64_t nx, int64_t ny,
-                                      int64_t nz, void* stream) {
-  if (bad_extent(S, nx, ny, nz)) return cudaErrorInvalidValue;
-  const dim3 block = block_for(ny, nz);
-  jacobi_pressure_kernel<<<grid_for(block, S, nx, ny, nz), block, 0,
-                           (cudaStream_t)stream>>>(p, rhs, out, table, S, nx,
-                                                   ny, nz);
+                                      int64_t nz, int tx, int ty, int tz,
+                                      void* stream) {
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tx == 1)
+    jacobi_pressure_kernel<false><<<grid, block, 0, st>>>(
+        p, rhs, out, table, S, nx, ny, nz, tx);
+  else
+    jacobi_pressure_kernel<true><<<grid, block, 0, st>>>(
+        p, rhs, out, table, S, nx, ny, nz, tx);
   return cudaGetLastError();
 }
 
@@ -327,12 +367,17 @@ cudaError_t stencil3d_project_velocity(const float* vx, const float* vy,
                                        float* ox, float* oy, float* oz,
                                        const float* table, int64_t S,
                                        int64_t nx, int64_t ny, int64_t nz,
-                                       void* stream) {
-  if (bad_extent(S, nx, ny, nz)) return cudaErrorInvalidValue;
-  const dim3 block = block_for(ny, nz);
-  project_velocity_kernel<<<grid_for(block, S, nx, ny, nz), block, 0,
-                            (cudaStream_t)stream>>>(vx, vy, vz, p, ox, oy, oz,
-                                                    table, S, nx, ny, nz);
+                                       int tx, int ty, int tz, void* stream) {
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tx == 1)
+    project_velocity_kernel<false><<<grid, block, 0, st>>>(
+        vx, vy, vz, p, ox, oy, oz, table, S, nx, ny, nz, tx);
+  else
+    project_velocity_kernel<true><<<grid, block, 0, st>>>(
+        vx, vy, vz, p, ox, oy, oz, table, S, nx, ny, nz, tx);
   return cudaGetLastError();
 }
 

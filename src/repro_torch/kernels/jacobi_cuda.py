@@ -14,7 +14,10 @@ On a CUDA tensor the wrapper allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, and adds one to
 ``LAUNCHES["JACOBI_FUSED"]``.  On a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.jacobi.jacobi_fused_ref`, which is also what the
-kernel is checked against on the card (:func:`jacobi_fused_plain`).
+kernel is checked against on the card (:func:`jacobi_fused_plain`).  On
+a ``meta`` tensor (a cost trace) it books its declared cost
+(``op_cost.jacobi_fused_cost``) and returns an empty output, launching
+nothing.
 """
 from __future__ import annotations
 
@@ -97,15 +100,21 @@ def _run(p, rhs, h, omega, sweeps, plain: bool):
     nx, ny, nz = _check(p, rhs, h, omega, sweeps)
     if plain or p.device.type == "cpu":
         return jacobi_fused_ref(p, rhs, h=h, omega=omega, sweeps=sweeps)
-    if p.device.type != "cuda":
+    if p.device.type not in ("cuda", "meta"):
         raise ValueError(f"JACOBI_FUSED: unsupported device {p.device}")
     if sweeps > MAX_SWEEPS:
         raise ValueError(f"JACOBI_FUSED: the kernel takes sweeps <= "
                          f"{MAX_SWEEPS}, got {sweeps}")
-    lib = _lib()
     lead = p.shape[:-3]
     S = p.shape[0] if lead else 1
     out = torch.empty((*lead, nx, ny, nz), dtype=torch.float32, device=p.device)
+    if p.device.type == "meta":
+        from repro_torch.launch import op_cost
+
+        op_cost.book("JACOBI_FUSED", *op_cost.jacobi_fused_cost(p, rhs, out,
+                                                                sweeps))
+        return out
+    lib = _lib()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.jacobi_fused(p.data_ptr(), rhs.data_ptr(), out.data_ptr(),

@@ -26,18 +26,42 @@ from repro_torch.kernels.ssd import ssd_intra_reference
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str, template: str):
+def _kernel(name: str, template: str, tile: tuple | None):
     return generate(stencil3d.DESCRIPTORS[name], stencil3d.BODIES[name],
-                    template=template)
+                    template=template, tile=tile)
+
+
+def _auto_tile(name: str, arrays: dict) -> tuple:
+    """The autotuned launch tile for this kernel's local interior.
+
+    Resolved from one slot's interior (the slot axis is no part of it), so
+    the farm's batched call and a serial run of the same grid tune
+    identically: the memoized choice lives in ``autotune._TILE_CACHE``."""
+    from repro_torch.core import autotune
+
+    desc = stencil3d.DESCRIPTORS[name]
+    first = arrays[desc.inputs[0]]
+    space = tuple(first.shape[-3:])
+    if desc.inputs[0] in desc.cached_inputs:
+        space = tuple(s - lo - hi for s, lo, hi in
+                      zip(space, desc.halo_lo, desc.halo_hi))
+    return autotune.tile_for(desc, space, itemsize=first.element_size()).tile
 
 
 def apply_kernel(name: str, arrays: dict, *, template: str | None = None,
-                 tile=None, **params):
-    """Run one descriptor kernel.  ``tile`` is accepted and ignored, as on
-    the reference's JNP template: neither template here has tiles (the
-    tile autotuner is ROADMAP queue 1, item 10)."""
+                 tile: tuple | str | None = None, **params):
+    """Run one descriptor kernel.  ``tile`` is the CUDA template's launch
+    tile: a concrete ``(tx, ty, tz)``, ``"auto"`` for the autotuner's
+    chip-aware choice (:func:`repro_torch.core.autotune.tile_for`), or
+    ``None`` for the wrapper's ``block_for``; the TORCH template has no
+    tiles and ignores it, as the reference's JNP template does."""
     first = arrays[stencil3d.DESCRIPTORS[name].inputs[0]]
-    kern = _kernel(name, template or default_template(first.device))
+    tmpl = template or default_template(first.device)
+    if tmpl != "CUDA":
+        tile = None
+    elif tile == "auto":
+        tile = _auto_tile(name, arrays)
+    kern = _kernel(name, tmpl, None if tile is None else tuple(tile))
     if first.dim() == 3:
         return kern(arrays, **params)
     per_slot = tuple(k for k, v in params.items()

@@ -15,7 +15,9 @@ On a CUDA tensor the wrapper launches the kernel on the current stream
 without synchronising and adds one to ``LAUNCHES["SSD_INTRA"]``.  On a CPU
 tensor it runs the plain version, :func:`repro_torch.kernels.ssd.
 ssd_intra_reference`, which is also what the kernel is checked against on
-the card (:func:`ssd_intra_plain`).
+the card (:func:`ssd_intra_plain`).  On a ``meta`` tensor (a cost trace)
+it books its declared cost (``op_cost.ssd_intra_cost``) and returns an
+empty output, launching nothing.
 """
 from __future__ import annotations
 
@@ -93,6 +95,13 @@ def _run(x, log_decay, in_scale, b_, c_, s_in, plain: bool):
     bsz, nc, l, g, r, n, p = _check(x, log_decay, in_scale, b_, c_, s_in)
     if plain or x.device.type == "cpu":
         return ssd_intra_reference(x, log_decay, in_scale, b_, c_, s_in)
+    if x.device.type == "meta":
+        from repro_torch.launch import op_cost
+
+        y = torch.empty_like(x)
+        op_cost.book("SSD_INTRA", *op_cost.ssd_intra_cost(
+            (x, log_decay, in_scale, b_, c_, s_in), y))
+        return y
     if x.device.type != "cuda":
         raise ValueError(f"SSD_INTRA: unsupported device {x.device}")
     if l > MAX_L or n > MAX_N or p > MAX_P:

@@ -245,3 +245,15 @@ def report(tel: Telemetry | None = None) -> str:
     """Render the handle's (default: the most recently enabled
     telemetry's) timer/metrics summary."""
     return (tel if tel is not None else _CURRENT).report()
+
+
+def __getattr__(name: str):
+    # repro_torch.obs.perf pulls in the roofline chips and, at call time,
+    # the op-cost trace and the farm stack: lazy, so `import
+    # repro_torch.obs` stays light and the farm's own top-level
+    # `from repro_torch import obs` cannot cycle through it
+    if name == "perf":
+        import importlib
+
+        return importlib.import_module("repro_torch.obs.perf")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

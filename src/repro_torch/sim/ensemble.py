@@ -186,6 +186,29 @@ class EnsembleExecutor:
             self._ring_steps.append(self.steps_taken + int(k) - 1)
         self.steps_taken += int(k)
 
+    def step_args(self, k: int, device="meta") -> tuple:
+        """The arguments of one ``run_k`` call of ``k`` batched steps,
+        ``(state, params[, ring], k)`` with the health ring when it is on,
+        as empty tensors of the live shapes and dtypes on ``device``: what
+        a cost trace runs (the reference lowers its live arrays; here the
+        trace runs on ``meta`` twins, so the live batch is never read or
+        changed)."""
+        def twin(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=device)
+
+        args = [{f: twin(t) for f, t in self.state.items()},
+                {f: torch.empty(v.shape, dtype=torch.float32, device=device)
+                 for f, v in self.params.items()}]
+        if self.health_ring is not None:
+            args.append(twin(self.health_ring))
+        return (*args, int(k))
+
+    def cost_step(self):
+        """``run_k`` of this executor's batched step on the solver's
+        ``meta`` twin (``NavierStokes3D.cost_twin``): the step a cost trace
+        runs on :meth:`step_args`, with the health ring when it is on."""
+        return make_ensemble_step(self.solver.cost_twin(), self.health_window)
+
     def read_health(self) -> np.ndarray:
         """Host copy of the ``(slots, K, N_DIAG)`` health ring: the one
         device-to-host copy of the health path, which the farm makes only

@@ -307,9 +307,23 @@ class SimulationService:
         self._requeued_progress[sid] = ev.steps_done
         return True
 
-    def prometheus_text(self) -> str:
+    def prometheus_text(self, perf: bool = False, chip="auto") -> str:
         """Prometheus text exposition of this service's telemetry registry;
-        empty when telemetry is off."""
+        empty when telemetry is off.  ``perf=True`` first mirrors the
+        accounting of the farm's batched step into ``repro_perf_*`` gauges
+        (utilization, roofline seconds, predicted FLOPs and HBM bytes per
+        invocation) so that a scraper sees prediction and measurement side
+        by side."""
+        if perf and self.tel.enabled:
+            from repro_torch.obs import perf as _perf
+
+            chunk_s, _ = _perf._find_sections(self.tel.timers.snapshot(),
+                                              "farm.step_chunk")
+            per_step = (chunk_s / self.farm.device_steps
+                        if chunk_s and self.farm.device_steps else None)
+            row = _perf.farm_cost_row(self, measured_s=per_step)
+            chip = _perf.resolve_chip(chip, self.farm.exec.device)
+            _perf.PerfReport([row], chip=chip).export_gauges(self.tel.metrics)
         return self.tel.metrics.to_prometheus()
 
     def drain(self, max_device_steps: int = 100_000) -> dict[int, SimResult]:

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch.core import autotune
 from repro_torch.kernels import (
     attention_cuda, jacobi_cuda, ssd_cuda, stencil3d, stencil3d_cuda,
 )
@@ -240,6 +241,89 @@ def test_jacobi_fused_check_rejects_a_zeroed_ghost_face(card, sweeps):
                                    sweeps=sweeps)
     tol = RTOL * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) > tol
+
+
+# launch tiles (tx, ty, tz) held against block_for, by shape: (slots,
+# interior, legal tiles besides the autotuner's choice)
+TILE_CASES = {
+    "256": (None, (256, 256, 256),
+            [(8, 8, 32), (32, 8, 32), (3, 5, 33), (7, 2, 96), (1, 1, 256)]),
+    "256x4": (4, (256, 256, 256),
+              [(8, 8, 32), (16, 8, 32), (5, 4, 64), (256, 1, 128)]),
+    "odd": (None, (5, 7, 3), [(1, 1, 1), (2, 3, 5), (5, 13, 4), (3, 7, 3)]),
+    "odd63": (None, (63, 65, 33),
+              [(2, 8, 32), (7, 4, 64), (63, 1, 32), (9, 65, 3)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("name", list(stencil3d.DESCRIPTORS))
+def test_every_tile_equals_block_for_bitwise(card, name, case):
+    """Which thread computes a cell changes nothing in its arithmetic: the
+    autotuner's tile and other legal tiles give block_for's bits."""
+    slots, interior, tiles = TILE_CASES[case]
+    xs, table = _inputs(name, slots, interior, card, seed=7)
+    kern = stencil3d_cuda.KERNELS[name]
+    want = kern(*xs, table)
+    want = want if isinstance(want, tuple) else (want,)
+    tuned = autotune.tile_for(stencil3d.DESCRIPTORS[name], interior).tile
+    for tile in [tuned, *tiles]:
+        before = stencil3d_cuda.LAUNCHES[name]
+        got = kern(*xs, table, tile=tile)
+        torch.cuda.synchronize()
+        assert stencil3d_cuda.LAUNCHES[name] == before + 1
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (tile, float((g - w).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(0, 8, 32), (1, 16, 32), (17, 8, 32),
+                                  (1, 8, 64), (1, 40, 4), (1.5, 8, 32)])
+def test_a_bad_tile_raises_and_launches_nothing(card, tile):
+    xs, table = _inputs("JACOBI_PRESSURE", None, (16, 16, 32), card)
+    before = dict(stencil3d_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="tile"):
+        stencil3d_cuda.jacobi_pressure(*xs, table, tile=tile)
+    assert stencil3d_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_serial_and_farm_share_autotuned_tiles(card):
+    """The launch tile is resolved per (kernel, local interior, chip) and
+    memoized: the farm's batched steps re-read the serial run's choices
+    (zero extra misses)."""
+    autotune.reset_tile_cache()
+    rt = api.runtime(n=24, nz=16, n_slots=2, device=card, backend="cuda",
+                     jacobi_iters=4)
+    rt.run("cavity", steps=2, re=100.0)
+    after_serial = autotune.tile_cache_stats()
+    assert after_serial["misses"] == len(stencil3d.DESCRIPTORS)
+    rt.submit("cavity", steps=3, re=150.0)
+    rt.drain()
+    after_farm = autotune.tile_cache_stats()
+    assert after_farm["misses"] == after_serial["misses"]
+    assert after_farm["hits"] > after_serial["hits"]
+
+
+@pytest.mark.cuda
+def test_perf_report_on_the_card_launches_nothing(card):
+    rt = api.runtime(n=24, nz=16, n_slots=2, device=card, backend="cuda",
+                     telemetry=True, jacobi_iters=4)
+    rt.run("cavity", steps=2, re=100.0)
+    rt.submit("cavity", steps=3, re=150.0)
+    rt.drain()
+    torch.cuda.synchronize()
+    before = {**stencil3d_cuda.LAUNCHES, **jacobi_cuda.LAUNCHES}
+    rep = rt.perf_report()
+    assert {**stencil3d_cuda.LAUNCHES, **jacobi_cuda.LAUNCHES} == before
+    assert rep.chip.name == "h100-sxm"
+    rows = rep.rows()
+    assert [r["kind"] for r in rows] == ["farm-step", "serial-bin"]
+    for r in rows:
+        assert r["status"] == "ok", r["error"]
+        assert r["measured_s"] > 0 and r["bottleneck"] == "memory"
 
 
 @pytest.mark.cuda

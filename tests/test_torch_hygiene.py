@@ -51,6 +51,9 @@ DURABLE_SLICE = ("repro_torch.obs", "repro_torch.obs.metrics",
                  "repro_torch.jobs.store", "repro_torch.ft",
                  "repro_torch.ft.watchdog", "repro_torch.core.ccl",
                  "repro_torch.core.mol")
+# the performance-accounting slice
+PERF_SLICE = ("repro_torch.core.rooflinemodel", "repro_torch.core.autotune",
+              "repro_torch.launch.op_cost", "repro_torch.obs.perf")
 CUDA_SOURCES = ("stencil3d.cu", "jacobi.cu", "attention.cu", "ssd.cu")
 
 
@@ -67,6 +70,11 @@ def test_the_checks_cover_the_lm_slice():
 def test_the_checks_cover_the_durable_slice():
     modules = {_module_name(p) for p in _port_files()}
     assert set(DURABLE_SLICE) <= modules, set(DURABLE_SLICE) - modules
+
+
+def test_the_checks_cover_the_perf_slice():
+    modules = {_module_name(p) for p in _port_files()}
+    assert set(PERF_SLICE) <= modules, set(PERF_SLICE) - modules
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
@@ -179,7 +187,8 @@ print(json.dumps({{
                   + _build.load.cache_info().currsize,
     "has_main": callable(smoke.main),
     "slices": all(m in sys.modules
-                  for m in {FARM_SLICE + LM_SLICE + DURABLE_SLICE!r}),
+                  for m in {FARM_SLICE + LM_SLICE + DURABLE_SLICE
+                            + PERF_SLICE!r}),
 }}))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

@@ -70,4 +70,5 @@ def test_kernel_study_covers_both_kernels_and_every_design_axis():
                     ("jacobi", "threads"),
                     ("jacobi", "mul_sixth"), ("ssd", "heads"),
                     ("ssd", "tf32_once"), ("stencil3d", "contract"),
-                    ("stencil3d", "div_op"), ("stencil3d", "div")}
+                    ("stencil3d", "div_op"), ("stencil3d", "div"),
+                    ("stencil3d", "walk_unroll")}
