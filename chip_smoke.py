@@ -83,23 +83,44 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              ``cuda`` and the ``torch`` backends, whose logits must agree,
              and once more with a planted attention fault (every launch
              given 64 keys too few), which the check must reject.
+11. train    zamba2-1.2b trained through ``train.step.make_train_step``
+             and ``data.pipeline.PackedLMDataset``, FLASH_ATTENTION and
+             SSD_INTRA forward under their autograd Functions (the
+             plain versions' gradient backward).  (a) Gradient parity at
+             the published widths, 4 layers (2 shared-block applications),
+             2048 tokens: one loss + backward on the CUDA and the TORCH
+             template from the same weights and batch; losses within 2e-2,
+             every leaf's gradient within 5e-2 relative norm error and
+             0.99 cosine, none zero where TORCH's is not; and a planted
+             backward that drops q's gradient, which the check must reject.
+             (b) All 38 layers, bf16, remat ``block``, 4096 tokens (train_4k),
+             micro-batch 1 and 2 microbatches a step (a global batch of 2,
+             cut from 256): one warm-up step, then 4 timed steps with the
+             counters reset just before: exactly 2 x 19 x 2 FLASH_ATTENTION
+             and 2 x 38 x 2 SSD_INTRA launches a step (remat runs each
+             forward twice); finite losses, step ms, tokens/s, MFU, peak
+             memory, the device's busy share of a profiled step, and the
+             plain backward's time a region at these shapes.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
-shapes, llama3-8b's GQA widths at prefill and decode, an odd shape with
+shapes and its 4096-token training forward, llama3-8b's GQA widths at
+prefill and decode, an odd shape with
 ``prefix_len`` and ``q_offset``, blind rows and valid lengths about a
 split on the bf16 routes, and a bf16-q float32-k/v prefill on the CUDA-core
 route: every route of ``attention_cuda.route`` is launched and checked per
 query row, and a planted fault of 64 missing keys must fail the same
-check) and SSD_INTRA (the zamba2 prefills of 512, 1024 and 2048 tokens
-and an odd shape, each with a planted fault, one head's s_in zeroed)
+check) and SSD_INTRA (the zamba2 prefills of 512, 1024 and 2048 tokens,
+its 4096-token training forward (32 chunks) and an odd shape, each with a
+planted fault, one head's s_in zeroed)
 against their plain versions, beside ``scaled_dot_product_attention``'s
 time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
 
 The line before the last is the ``{"kernels": [...]}`` summary
-(FLASH_ATTENTION's entry carries its prefill, decode and llama3 GQA cases
-side by side under ``cases``, the stencils and JACOBI_FUSED their serial
-and farm calls, SSD_INTRA its three prefill lengths); the last
+(FLASH_ATTENTION's entry carries its prefill, decode, llama3 GQA and
+training cases side by side under ``cases``, the stencils and JACOBI_FUSED
+their serial and farm calls, SSD_INTRA its three prefill lengths and its
+training shape; ``launches_by_path`` includes the train phase's); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -108,6 +129,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import signal
@@ -218,6 +240,23 @@ ATTN_FAULT_KEYS = 64
 # SSD_INTRA kernel vs plain, float32: the decay exponents are differences
 # of cumulative sums of up to 128 terms taken in another order
 SSD_RTOL = 1e-4
+
+# the training path: zamba2-1.2b at its published widths (bf16, block
+# remat), train_4k's sequence (configs/shapes.py), micro-batch 1 and two
+# microbatches a step: a global batch of 2, cut from train_4k's 256 to fit
+# the run's time; one warm-up step, then TRAIN_STEPS timed
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_ACCUM = 4096, 1, 2
+TRAIN_STEPS, TRAIN_LR = 4, 3e-4
+# gradient parity: zamba2's widths at 4 Mamba layers (2 applications of the
+# shared block), 2048 tokens, batch 1, one loss + backward on the CUDA and
+# on the TORCH template.  Both compute in bf16 and differ in the kernels'
+# float32 summation order, which can flip an activation's bf16 rounding by
+# one ulp (2^-8); such flips pass through 4 layers into the loss (2e-2
+# relative) and each gradient (relative norm error 5e-2, cosine 0.99).  A
+# lost gradient (a region autograd cannot see through, a dropped head)
+# zeroes a leaf or moves it by its full norm.
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 4, 2048
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_GRAD_COS = 2e-2, 5e-2, 0.99
 
 
 def emit(obj) -> None:
@@ -574,9 +613,12 @@ ATTN_CASES = [
     # the CUDA-core route kept for bf16 q with a float32 k/v at Sq > 8
     ("prefill_f32_kv", 1, 1024, 1024, 32, 32, 64, "bfloat16", "float32",
      (True, 0, 0), None),
+    # the train phase's forward: zamba2-1.2b at train_4k's 4096 tokens
+    ("train_4k", 1, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 64, "bfloat16",
+     "bfloat16", (True, 0, 0), None),
 ]
 # the cases whose times the kernels line gives side by side
-ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3")
+ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k")
 
 
 def attention_diff(got, want, dtype: str):
@@ -681,12 +723,13 @@ def attention_cases(gen, dev):
 
 
 # B nc L G R P N: the zamba2-1.2b prefills of 1024 (the headline), 512 and
-# 2048 tokens (chunks of 128, one group, 64 heads of 64, state 64), and an
-# odd shape
+# 2048 tokens (chunks of 128, one group, 64 heads of 64, state 64), an
+# odd shape, and the train phase's 4096 tokens (32 chunks)
 SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),
              ("prefill_512", (1, 4, 128, 1, 64, 64, 64)),
              ("prefill_2048", (1, 16, 128, 1, 64, 64, 64)),
-             ("odd", (2, 3, 48, 1, 3, 16, 8))]
+             ("odd", (2, 3, 48, 1, 3, 16, 8)),
+             ("train_4k", (1, TRAIN_SEQ // 128, 128, 1, 64, 64, 64))]
 
 
 def ssd_cases(gen, dev):
@@ -725,7 +768,7 @@ def ssd_cases(gen, dev):
                 "max_abs_diff": err, "tolerance": tol,
                 "share_of_tolerance": err / tol, "finite": finite,
                 "planted_fault_max_abs_diff": fault}
-        if case.startswith("prefill"):
+        if case != "odd":
             line.update(
                 kernel_ms=cuda_ms(lambda: sc.ssd_intra(*args), reps=20,
                                   head_start=True),
@@ -1427,15 +1470,18 @@ def lm_requests(cfg):
                     max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, cpu_ops: bool = True) -> dict:
     """Wall time of ``fn`` (ending in a synchronise) and the profiler's
-    device kernel time inside it."""
+    device kernel time inside it, FLASH_ATTENTION's and SSD_INTRA's part
+    of it.  ``cpu_ops=False`` records only the device's activity (a
+    training step's host ops would cost the profiler more than the step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1447,8 +1493,11 @@ def device_busy(fn) -> dict:
     names = ("prefill_kernel", "decode_kernel", "flash_kernel")
     attn = sum(ev.self_device_time_total for ev in events
                if any(name in ev.key for name in names)) / 1e3
+    ssd = sum(ev.self_device_time_total for ev in events
+              if "ssd_intra_kernel" in ev.key) / 1e3
     return {"wall_ms": wall, "device_ms": busy,
             "flash_attention_ms": attn if busy else "not measured",
+            "ssd_intra_ms": ssd if busy else "not measured",
             "busy_share": busy / wall if busy else "not measured"}
 
 
@@ -1621,6 +1670,260 @@ def lm_parity(cfg, lm, dev):
     return rows
 
 
+def _zero_dq_fn():
+    """The planted fault for the gradient-parity check: FLASH_ATTENTION's
+    Function with a backward that drops q's gradient."""
+    import torch
+    from repro_torch.kernels import autograd
+
+    base = autograd.FlashAttentionFn
+
+    class ZeroDq(base):
+        @staticmethod
+        def backward(ctx, grad_out):
+            dq, *rest = base.backward(ctx, grad_out)
+            return (torch.zeros_like(dq), *rest)
+
+    return ZeroDq
+
+
+def train_grads(cfg, lm, batch, template):
+    """(loss, {name: float32 gradient}) of one ``loss_fn`` + backward."""
+    import torch
+    from repro_torch.models import model
+
+    for p in lm.parameters():
+        p.grad = None
+    loss, _ = model.loss_fn(lm, cfg, batch, template=template)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float() for n, p in lm.named_parameters()}
+    for p in lm.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def grad_parity(got: dict, want: dict) -> dict:
+    """Leaf by leaf: relative gradient-norm error and cosine of ``got``
+    against ``want``, and the leaves that fail TRAIN_GRAD_REL /
+    TRAIN_GRAD_COS or are zero where ``want``'s are not."""
+    worst_rel, worst_cos, bad = 0.0, 1.0, []
+    for name, w in want.items():
+        g = got[name]
+        wn, gn = float(w.norm()), float(g.norm())
+        if wn == 0:
+            continue
+        if gn == 0:
+            bad.append(f"{name}: zero")
+            continue
+        rel = float((g - w).norm()) / wn
+        cos = float((g * w).sum()) / (gn * wn)
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        if rel > TRAIN_GRAD_REL or cos < TRAIN_GRAD_COS:
+            bad.append(f"{name}: rel {rel:.3g} cos {cos:.4f}")
+    return {"worst_rel_norm_err": worst_rel, "worst_cosine": worst_cos,
+            "failing_leaves": bad}
+
+
+def train_parity(dev) -> dict:
+    """(a) one loss + backward at zamba2's widths, 4 layers, on the CUDA and
+    the TORCH template from the same weights and batch; then once more on
+    CUDA with the planted zero-dq fault, which the check must reject."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, PackedLMDataset
+    from repro_torch.kernels import autograd
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              num_layers=TRAIN_PARITY_LAYERS)
+    lm = model.init_params(cfg, SEED, device=dev).requires_grad_(True)
+    ds = PackedLMDataset(DataConfig(seed=SEED, vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_PARITY_SEQ, global_batch=1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
+    reset_counts()
+    loss_cuda, g_cuda = train_grads(cfg, lm, batch, "CUDA")
+    launched = read_counts()
+    loss_torch, g_torch = train_grads(cfg, lm, batch, "TORCH")
+    good = autograd.FlashAttentionFn
+    autograd.FlashAttentionFn = _zero_dq_fn()
+    try:
+        _, g_fault = train_grads(cfg, lm, batch, "CUDA")
+    finally:
+        autograd.FlashAttentionFn = good
+    ok, fault = grad_parity(g_cuda, g_torch), grad_parity(g_fault, g_torch)
+    n_attn = cfg.num_layers // cfg.attn_every
+    out = {"layers": cfg.num_layers, "attn_applications": n_attn,
+           "seq": TRAIN_PARITY_SEQ, "loss_cuda": loss_cuda,
+           "loss_torch": loss_torch,
+           "loss_rel_diff": abs(loss_cuda - loss_torch) / abs(loss_torch),
+           "leaves": len(g_torch), "launches_cuda": launched, **ok,
+           "planted_fault_failing_leaves": fault["failing_leaves"],
+           "tolerances": {"loss_rel": TRAIN_LOSS_RTOL,
+                          "grad_rel_norm": TRAIN_GRAD_REL,
+                          "grad_cosine": TRAIN_GRAD_COS}}
+    del lm, g_cuda, g_torch, g_fault
+    torch.cuda.empty_cache()
+    require(out["loss_rel_diff"] <= TRAIN_LOSS_RTOL,
+            f"train parity: losses {loss_cuda} (cuda) and {loss_torch} "
+            f"(torch) differ by more than {TRAIN_LOSS_RTOL}")
+    require(not ok["failing_leaves"],
+            f"train parity: gradients disagree: {ok['failing_leaves'][:5]}")
+    require(any(".attn.wq: zero" in f for f in fault["failing_leaves"]),
+            "train parity: the check passed a FLASH_ATTENTION backward that "
+            f"drops q's gradient ({fault['failing_leaves'][:5]})")
+    # remat "block" runs each group's forward twice
+    want = {"FLASH_ATTENTION": 2 * n_attn, "SSD_INTRA": 2 * cfg.num_layers}
+    require({k: launched[k] for k in want} == want,
+            f"train parity: launches {launched}, expected {want}")
+    return out
+
+
+def plain_backward_ms(cfg, dev) -> dict:
+    """Device time of one plain backward of each kernel's region at the
+    train phase's shapes (what the Functions run, and what a backward
+    kernel would replace)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import MaskSpec, chunked_mha
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    qkv = [rnd(1, TRAIN_SEQ, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
+           .requires_grad_(True) for _ in range(3)]
+    out = chunked_mha(*qkv, MaskSpec(causal=True), q_chunk=cfg.q_chunk,
+                      kv_chunk=cfg.kv_chunk, template="CUDA")
+    g = torch.randn_like(out)
+    attn = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
+                                               retain_graph=True),
+                   reps=3, warmup=1)
+    nc, heads = TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_heads
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
+    args = [rnd(1, nc, cfg.ssm_chunk, 1, heads, p),
+            -F.softplus(rnd(1, nc, cfg.ssm_chunk, 1, heads)),
+            F.softplus(rnd(1, nc, cfg.ssm_chunk, 1, heads)),
+            rnd(1, nc, cfg.ssm_chunk, 1, n), rnd(1, nc, cfg.ssm_chunk, 1, n),
+            rnd(1, nc, 1, heads, n, p) * 0.3]
+    args = [a.requires_grad_(True) for a in args]
+    y = ops.ssd_intra(*args, template="CUDA")
+    gy = torch.randn_like(y)
+    ssd = cuda_ms(lambda: torch.autograd.grad(y, args, gy,
+                                              retain_graph=True),
+                  reps=3, warmup=1)
+    return {"FLASH_ATTENTION": attn, "SSD_INTRA": ssd}
+
+
+def phase_train(dev, smi: str):
+    """zamba2-1.2b trained at its published widths through
+    ``train.step.make_train_step`` and ``PackedLMDataset``: (a) gradient
+    parity of the CUDA template against TORCH with a planted fault, then
+    (b) one warm-up step and TRAIN_STEPS timed steps at train_4k's
+    sequence, with the launch counters reset just before them."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, PackedLMDataset, Prefetcher
+    from repro_torch.models import model
+    from repro_torch.models.config import LOCAL
+    from repro_torch.models.transformer import n_attn_layers
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    parity = train_parity(dev)
+    parts = {"parity_s": time.perf_counter() - t_phase}
+    cfg = get_config(LM_ARCH)
+    require(cfg.remat == "block", f"train: remat {cfg.remat!r}, not block")
+    global_batch = TRAIN_MICRO * TRAIN_ACCUM
+    lm = model.init_params(cfg, SEED, device=dev)
+    total = 1 + TRAIN_STEPS
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, total // 10 + 1, total))
+    opt_state = opt.init(lm)
+    step_fn = make_train_step(cfg, LOCAL, opt, grad_accum=TRAIN_ACCUM)
+    ds = PackedLMDataset(DataConfig(seed=SEED, vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=global_batch), cfg)
+    it = Prefetcher(ds.iterate(0), depth=2)
+    batches = lambda: {k: torch.from_numpy(v).to(dev)
+                       for k, v in next(it).items()}
+
+    def one_step():
+        nonlocal lm, opt_state
+        lm, opt_state, met = step_fn(lm, opt_state, batches())
+        return met
+
+    torch.cuda.synchronize()
+    parts["setup_s"] = time.perf_counter() - t_phase - parts["parity_s"]
+    t0 = time.perf_counter()
+    met = one_step()                                   # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses, step_ms = [float(met["loss"])], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        met = one_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under the profiler: the device's busy share
+    t0 = time.perf_counter()
+    busy = device_busy(lambda: losses.append(float(one_step()["loss"])),
+                       cpu_ops=False)
+    parts["profiled_step_s"] = time.perf_counter() - t0
+    it.close()
+    n_attn, n_mamba = n_attn_layers(cfg), cfg.num_layers
+    # each microbatch runs every forward twice (remat "block"); the
+    # backward is the plain versions' gradient and launches nothing
+    per_step = {"FLASH_ATTENTION": 2 * n_attn * TRAIN_ACCUM,
+                "SSD_INTRA": 2 * n_mamba * TRAIN_ACCUM}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({k: v * TRAIN_STEPS for k, v in per_step.items()})
+    med = sorted(step_ms)[len(step_ms) // 2]
+    tokens = global_batch * TRAIN_SEQ
+    flops = model.model_flops_per_step(cfg, global_batch, TRAIN_SEQ)
+    t0 = time.perf_counter()
+    bwd = plain_backward_ms(cfg, dev)
+    parts["plain_backward_s"] = time.perf_counter() - t0
+    line = {"phase": "train", "arch": LM_ARCH, "card": smi,
+            "params": sum(p.numel() for p in lm.parameters()),
+            "seq": TRAIN_SEQ, "micro_batch": TRAIN_MICRO,
+            "grad_accum": TRAIN_ACCUM, "global_batch": global_batch,
+            "reduced": "global batch 2, cut from train_4k's 256 to fit the "
+                       "run's time; 1 warm-up and 4 timed steps",
+            "remat": cfg.remat, "lr_peak": TRAIN_LR,
+            "parity": parity, "warmup_step_s": warm_s, "losses": losses,
+            "step_ms": step_ms, "step_ms_median": med,
+            "tokens_per_s": tokens / (med / 1e3),
+            "model_flops_per_step": flops,
+            "mfu": flops / (med / 1e3) / BF16_OPS_PER_S,
+            "max_memory_allocated": peak, "launches": launches,
+            "expected": expected, "launches_per_step": per_step,
+            "step_busy": busy,
+            "busy_share_of_median_step": (busy["device_ms"] / med
+                                          if busy["device_ms"] else
+                                          "not measured"),
+            # one backward a region a microbatch: half the launches
+            "plain_backward_ms": bwd,
+            "plain_backward_ms_per_step": {
+                k: bwd[k] * (v // 2) for k, v in per_step.items()},
+            "seconds": time.perf_counter() - t_phase, **parts}
+    emit(line)
+    require(all(math.isfinite(x) for x in losses),
+            f"train: non-finite losses {losses}")
+    require(launches == expected,
+            f"train: launch counts {launches} != {expected}")
+    del lm, opt_state, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     import torch
@@ -1649,6 +1952,7 @@ def main() -> int:
     paths["throughput"] = phase_throughput(dev)
     phase_physics(dev)
     paths["lm"] = phase_lm(dev)
+    paths["train"] = phase_train(dev, smi)
     # each kernel's launches on the path that carries it: the farm for the
     # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
     # serving path for FLASH_ATTENTION and SSD_INTRA

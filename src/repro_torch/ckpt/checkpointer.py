@@ -18,8 +18,9 @@ either package reads the other's snapshots:
 * restore — ``restore`` rebuilds a target tree's structure with tensors on
   the device asked for (or the target's own).
 
-A tree is a tensor, a numpy array or a scalar (a leaf), or a dict, list or
-tuple of trees; ``None`` holds no leaf.  It is flattened here, dicts in
+A tree is a tensor, a numpy array or a scalar (a leaf), or a dict, list,
+tuple or ``NamedTuple`` (an optimizer state) of trees; ``None`` holds no
+leaf.  It is flattened here, dicts in
 sorted key order as ``jax.tree_util`` orders them, so ``leaf_i`` names the
 same leaf in both packages.  Only the manifest's ``treedef`` string is the
 port's own spelling of the structure; no reader parses it.
@@ -45,7 +46,7 @@ def flatten(tree) -> tuple[list, object]:
         if isinstance(node, dict):
             return {k: walk(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(x) for x in node)
+            return _rebuild(node, [walk(x) for x in node])
         if node is None:
             return None
         leaves.append(node)
@@ -64,10 +65,18 @@ def unflatten(structure, leaves):
         if isinstance(node, dict):
             return {k: build(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(build(x) for x in node)
+            return _rebuild(node, [build(x) for x in node])
         return None
 
     return build(structure)
+
+
+def _rebuild(node, children: list):
+    """A list or tuple of ``node``'s type holding ``children``: a
+    ``NamedTuple`` takes them as positional fields."""
+    if hasattr(node, "_fields"):
+        return type(node)(*children)
+    return type(node)(children)
 
 
 class _Leaf:
@@ -80,9 +89,13 @@ _LEAF = _Leaf()
 
 def to_numpy(x) -> np.ndarray:
     """A host numpy copy of a leaf (a tensor on any device, an array or a
-    scalar)."""
+    scalar).  A bfloat16 tensor, which numpy cannot hold, is kept as
+    float32 (exact); ``restore`` casts it back to the target's dtype."""
     if torch.is_tensor(x):
-        return x.detach().to("cpu").numpy().copy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.to("cpu").numpy().copy()
     return np.array(x)
 
 
@@ -229,7 +242,8 @@ class Checkpointer:
             if tuple(arr.shape) != tuple(shape):
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != "
                                  f"target {tuple(shape)}")
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            # ascontiguousarray makes a 0-d leaf 1-d: keep its shape
+            t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
             if torch.is_tensor(ref):
                 t = t.to(dtype=ref.dtype,
                          device=device if device is not None else ref.device)

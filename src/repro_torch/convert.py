@@ -11,8 +11,13 @@ go back to numpy for comparison.
 For a language model, :func:`lm_params_from_numpy` takes the reference's
 parameter tree (nested dicts of numpy arrays, stacked ``(L, ...)`` leaves
 under ``stack/layers``) and returns the port's ``LM`` with the same values
-bitwise; :func:`caches_from_numpy` and :func:`caches_to_numpy` carry the
-decode caches (``KVCache`` pairs, ``Mamba2State``) both ways.
+bitwise, and :func:`lm_params_to_numpy` goes back; :func:`caches_from_numpy`
+and :func:`caches_to_numpy` carry the decode caches (``KVCache`` pairs,
+``Mamba2State``) both ways.  For training, :func:`adamw_state_from_numpy`
+and :func:`adamw_state_to_numpy` carry the optimizer state (its moments
+stacked like the parameters) and :func:`grads_to_numpy` gives a model's
+gradients in the reference's tree.  One name map serves all of them:
+:func:`reference_path` (a port name to the reference's path).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.cfd.ns3d import CFDConfig
+from repro_torch.ckpt.checkpointer import to_numpy
 from repro_torch.device import resolve_device
 
 
@@ -94,25 +100,100 @@ def _flatten(tree, prefix=()) -> Iterator[tuple[tuple, np.ndarray]]:
         yield prefix, tree
 
 
-def lm_params_from_numpy(cfg, tree: Mapping, device=None):
-    """The port's ``LM`` holding the reference's parameters ``tree`` (its
-    ``init_params`` pytree as numpy arrays) on ``device``: a stacked leaf
-    ``stack/layers/<path>`` of shape (L, ...) becomes ``stack.layers.<i>.
-    <path>`` for each layer i; every other path keeps its name."""
-    from repro_torch.models import model
+def reference_path(name: str) -> str:
+    """The reference's ``/``-joined tree path (``dist.sharding._path_str``)
+    of a port parameter name: ``stack.layers.<i>.<path>`` is the stacked
+    leaf ``stack/layers/<path>``; every other name keeps its parts."""
+    parts = name.split(".")
+    if parts[:2] == ["stack", "layers"]:
+        del parts[2]
+    return "/".join(parts)
 
-    dev = resolve_device(device)
-    state = {}
+
+def _port_named(tree: Mapping, device) -> dict:
+    """A reference parameter-shaped tree as port names -> tensors: a
+    stacked leaf ``stack/layers/<path>`` of shape (L, ...) becomes
+    ``stack.layers.<i>.<path>`` for each layer i."""
+    out = {}
     for path, arr in _flatten(tree):
         if path[:2] == ("stack", "layers"):
             for i in range(arr.shape[0]):
                 key = ("stack", "layers", str(i)) + path[2:]
-                state[".".join(key)] = _tensor(arr[i]).to(dev)
+                out[".".join(key)] = _tensor(arr[i]).to(device)
         else:
-            state[".".join(path)] = _tensor(arr).to(dev)
+            out[".".join(path)] = _tensor(arr).to(device)
+    return out
+
+
+def _put(tree: dict, parts, value) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = value
+
+
+def _reference_tree(named: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`_port_named`: numpy leaves (``to_numpy``: a
+    bfloat16 tensor as float32, exactly) in the reference's nested dicts,
+    the layers stacked along a leading axis in index order."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[:2] == ["stack", "layers"]:
+            stacked.setdefault(reference_path(name), {})[int(parts[2])] = t
+        else:
+            _put(tree, parts, to_numpy(t))
+    for path, by_layer in stacked.items():
+        _put(tree, path.split("/"),
+             np.stack([to_numpy(by_layer[i]) for i in sorted(by_layer)]))
+    return tree
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device=None):
+    """The port's ``LM`` holding the reference's parameters ``tree`` (its
+    ``init_params`` pytree as numpy arrays) on ``device``, bitwise: names
+    by :func:`reference_path`."""
+    from repro_torch.models import model
+
     lm = model.init_params(cfg, device="meta")
-    lm.load_state_dict(state, strict=True, assign=True)
+    lm.load_state_dict(_port_named(tree, resolve_device(device)),
+                       strict=True, assign=True)
     return lm
+
+
+def lm_params_to_numpy(lm) -> dict:
+    """The port model's parameters in the reference's tree (numpy; a
+    bfloat16 parameter as float32)."""
+    return _reference_tree(dict(lm.named_parameters()))
+
+
+def grads_to_numpy(lm) -> dict:
+    """The gradients held on the port model's parameters (``.grad``) in
+    the reference's tree, as :func:`lm_params_to_numpy` lays it out."""
+    missing = [n for n, p in lm.named_parameters() if p.grad is None]
+    if missing:
+        raise ValueError(f"no gradient on {missing[:3]}... "
+                         f"({len(missing)} parameters)")
+    return _reference_tree({n: p.grad for n, p in lm.named_parameters()})
+
+
+def adamw_state_from_numpy(state, device=None):
+    """The port's ``AdamWState`` for the reference's (numpy leaves; its
+    moments stacked like the parameters): moments keyed by port name,
+    the step a 0-d int32 tensor, on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    return AdamWState(step=_tensor(state.step).to(dev),
+                      m=_port_named(state.m, dev),
+                      v=_port_named(state.v, dev))
+
+
+def adamw_state_to_numpy(state):
+    """The port's ``AdamWState`` with numpy leaves in the reference's
+    layout: the step a 0-d array, the moments in its tree."""
+    return type(state)(step=to_numpy(state.step),
+                       m=_reference_tree(state.m), v=_reference_tree(state.v))
 
 
 def caches_from_numpy(tree, device=None):

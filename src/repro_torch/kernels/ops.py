@@ -17,8 +17,8 @@ import torch
 from repro_torch.core.generator import generate
 from repro_torch.device import default_template, resolve_template
 from repro_torch.kernels import (
-    attention as attention_plain, attention_cuda, jacobi_cuda, ssd_cuda,
-    stencil3d,
+    attention as attention_plain, attention_cuda, autograd, jacobi_cuda,
+    ssd_cuda, stencil3d,
 )
 from repro_torch.kernels.jacobi import jacobi_fused_ref
 from repro_torch.kernels.ref import MaskSpec
@@ -124,8 +124,12 @@ def mha(q, k, v, *, causal=True, q_offset=0, template=None, block_q=128,
 
 def ssd_intra(x, log_decay, in_scale, b_, c_, s_in, *, template=None):
     """Intra-chunk SSD (shapes as ``kernels.ssd.ssd_intra_reference``): the
-    SSD_INTRA kernel on the card, else its plain version."""
+    SSD_INTRA kernel on the card, else its plain version.  When autograd
+    records the call, the kernel goes through ``autograd.SSDIntraFn`` (the
+    plain version's gradient)."""
     if resolve_template(template, x.device) == "TORCH":
         return ssd_intra_reference(x, log_decay, in_scale, b_, c_, s_in)
-    return ssd_cuda.ssd_intra(*(t.contiguous() for t in
-                                (x, log_decay, in_scale, b_, c_, s_in)))
+    args = [t.contiguous() for t in (x, log_decay, in_scale, b_, c_, s_in)]
+    if autograd.wants_grad(*args):
+        return autograd.ssd_intra(*args)
+    return ssd_cuda.ssd_intra(*args)

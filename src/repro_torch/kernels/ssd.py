@@ -13,6 +13,14 @@ chunk, group):
 ``ssd_intra_reference`` is that math in plain PyTorch; the hand-written
 kernel (``kernels/ssd_cuda.py``, ``csrc/ssd.cu``) replaces the reference's
 Pallas ``ssd_intra_pallas`` and is checked against this function.
+
+The causal mask is applied to ``cum_i - cum_j`` before the exponential,
+as the kernel applies it.  Above the diagonal that difference is positive
+and, once a chunk's decays sum past ~88, ``exp`` overflows to inf: the
+reference's jnp body (``exp`` first, then ``where``) gives the same values
+but a NaN gradient there (0 · inf), which a training step spreads to every
+parameter.  Masking first gives the same output bit for bit and a finite
+gradient (this function is also the backward of ``autograd.SSDIntraFn``).
 """
 from __future__ import annotations
 
@@ -26,8 +34,8 @@ def ssd_intra_reference(x, log_decay, in_scale, b_, c_, s_in):
     l = x.shape[2]
     diff = cum[:, :, :, None, :, :] - cum[:, :, None, :, :, :]
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
-    lmat = torch.where(mask[None, None, :, :, None, None], torch.exp(diff),
-                       0.0)
+    mask = mask[None, None, :, :, None, None]
+    lmat = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
     scores = torch.einsum("bclgn,bcmgn->bclmg", c_, b_)
     attw = scores[..., None] * lmat * in_scale[:, :, None, :, :, :]
     y = torch.einsum("bclmgr,bcmgrp->bclgrp", attw, x)

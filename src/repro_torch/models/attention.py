@@ -17,12 +17,17 @@ fused Pallas kernel on the TPU (``full_mha`` and each q chunk of
 ``CUDA`` template (the default for tensors on the card) both functions call
 ``kernels.attention_cuda.flash_attention``; on ``TORCH`` they run the
 kernel's plain versions, ``kernels.ref.full_mha_reference`` and
-``kernels.attention.chunked_attention``.
+``kernels.attention.chunked_attention``.  When autograd records the call
+(grad mode on, an input requiring grad), the ``CUDA`` template goes through
+``kernels.autograd.FlashAttentionFn``: the kernel forward, and the gradient
+of the plain version the ``TORCH`` template would run.
 """
 from __future__ import annotations
 
+import functools
+
 from repro_torch.device import resolve_template
-from repro_torch.kernels import attention_cuda
+from repro_torch.kernels import attention_cuda, autograd
 from repro_torch.kernels.attention import chunked_attention
 from repro_torch.kernels.ref import MaskSpec, _per_batch, full_mha_reference
 
@@ -31,6 +36,9 @@ def full_mha(q, k, v, spec: MaskSpec = MaskSpec(), kv_valid_len=None,
              scale=None, template=None):
     """O(S^2)-memory attention (small-sequence / oracle / decode path)."""
     if resolve_template(template, q.device) == "CUDA":
+        if autograd.wants_grad(q, k, v):
+            return autograd.flash_attention(q, k, v, spec, kv_valid_len,
+                                            scale, plain=full_mha_reference)
         return attention_cuda.flash_attention(q, k, v, spec, kv_valid_len,
                                               scale)
     return full_mha_reference(q, k, v, spec, kv_valid_len, scale)
@@ -45,9 +53,18 @@ def chunked_mha(q, k, v, spec: MaskSpec = MaskSpec(), *, q_chunk: int = 1024,
     if _per_batch(kv_valid_len):
         raise ValueError("chunked_mha takes one valid length for the batch; "
                          "per-row lengths go through full_mha")
+    plain = functools.partial(_chunked, q_chunk=q_chunk, kv_chunk=kv_chunk)
     if resolve_template(template, q.device) == "CUDA":
+        if autograd.wants_grad(q, k, v):
+            return autograd.flash_attention(q, k, v, spec, kv_valid_len,
+                                            scale, plain=plain)
         return attention_cuda.flash_attention(q, k, v, spec, kv_valid_len,
                                               scale)
+    return plain(q, k, v, spec, kv_valid_len, scale)
+
+
+def _chunked(q, k, v, spec, kv_valid_len, scale, *, q_chunk, kv_chunk):
+    """``chunked_attention`` with ``full_mha``'s positional arguments."""
     return chunked_attention(q, k, v, spec, q_chunk=q_chunk,
                              kv_chunk=kv_chunk, kv_valid_len=kv_valid_len,
                              scale=scale)

@@ -95,6 +95,14 @@ class ModelConfig:
         return sum(p.numel() for p in
                    model.init_params(self, device="meta").parameters())
 
+    def active_param_count(self) -> int:
+        """Active parameters per token: every parameter, for the families
+        the port takes (the reference counts only routed experts of a MoE,
+        whose family is ROADMAP queue 1, item 11)."""
+        if self.num_experts:
+            raise not_ported("active parameters of a MoE config", 11)
+        return self.param_count()
+
 
 def not_ported(what: str, item: int | str) -> NotImplementedError:
     """The error for a part of the LM stack the port does not take yet."""

@@ -19,7 +19,9 @@ from torch import nn
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """An inference-only parameter (no autograd on the serving path)."""
+    """A parameter created frozen: the serving path records no autograd
+    graph.  Training turns gradients on for the whole model
+    (``model.requires_grad_(True)``, ``train.step.make_train_step``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

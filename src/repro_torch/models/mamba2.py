@@ -6,8 +6,9 @@ sequence into chunks, computes the quadratic intra-chunk part locally and
 passes a small carried state between chunks.  The intra-chunk part is the
 reference's ``__kernel__ssd`` region: it goes through ``ops.ssd_intra``,
 the SSD_INTRA kernel on the ``CUDA`` template and its plain version on
-``TORCH``; the inter-chunk relay stays plain PyTorch (a loop over chunks,
-the reference's ``lax.scan``).
+``TORCH`` (under autograd, the kernel forward with the plain version's
+gradient, ``kernels.autograd.SSDIntraFn``); the inter-chunk relay stays
+plain PyTorch (a loop over chunks, the reference's ``lax.scan``).
 
 Layout: x (B, S, G, R, P) with H = G·R heads (G = ``ssm_groups`` share one
 (B̄, C̄) pair).  All SSD math runs in float32.  Sequence parallelism

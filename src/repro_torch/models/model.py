@@ -1,29 +1,38 @@
-"""Model API for the serving path.
+"""Model API: training loss, prefill and decode.
 
 The port's copy of ``repro.models.model``:
 
     model = init_params(cfg, seed_or_generator, device=...)
+    loss, metrics  = loss_fn(model, cfg, batch)                  # train
     logits, caches = prefill(model, cfg, batch, caches)
     logits, caches = decode_step(model, cfg, token, caches, cache_len)
 
 ``model`` is an ``LM`` module whose ``state_dict`` keys follow the
 reference's parameter tree (``embed.table``, ``stack.layers.<i>....``,
 ``stack.shared_attn....``, ``final_norm.scale``, ``unembed.w``).  ``batch``
-is a dict with ``tokens`` (B, S) int; the reference's modality stubs
-(``embeds``, ``prefix_embeds``) and the training loss (``loss_fn``,
-``chunked_xent``) are ROADMAP queue 1, item 11.  ``template`` selects the
-kernels: ``CUDA`` (the default on the card) or ``TORCH`` (their plain
-versions).
+is a dict with ``tokens`` (B, S) int and, for the loss, ``targets`` (B, S)
+int (next-token labels; negative ones are masked); the reference's modality
+stubs (``embeds``, ``prefix_embeds``) are ROADMAP queue 1, item 11.
+``template`` selects the kernels: ``CUDA`` (the default on the card) or
+``TORCH`` (their plain versions).
+
+The loss is computed **chunked over the sequence** (``LOSS_CHUNK``
+positions at a time, each chunk recomputed in the backward): the (B, S, V)
+logits never exist in full, only (B, chunk, V) transients.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg, not_ported
+
+LOSS_CHUNK = 512
 
 
 class LM(nn.Module):
@@ -67,16 +76,79 @@ def embed_inputs(model: LM, cfg: ModelConfig, batch: dict, shard: ShardCfg):
     return shard.constrain_act(x, None, None), 0
 
 
+# ---------------------------------------------------------------------------
+# chunked cross-entropy head
+# ---------------------------------------------------------------------------
+def _xent_chunk(w, hx, tgt):
+    """hx (B,c,d), tgt (B,c) -> (sum_loss, sum_correct, count)."""
+    logits = (hx @ w).float()                                   # (B,c,V)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    valid = (tgt >= 0).float()
+    tgt_logit = torch.gather(logits, -1, tgt.clamp(min=0)[..., None])[..., 0]
+    loss = torch.sum((lse - tgt_logit) * valid)
+    correct = torch.sum((logits.argmax(dim=-1) == tgt).float() * valid)
+    return loss, correct, torch.sum(valid)
+
+
+def chunked_xent(model: LM, cfg: ModelConfig, hidden, targets,
+                 shard: ShardCfg = LOCAL, chunk: int = LOSS_CHUNK):
+    """(mean next-token CE, accuracy) over (B,S,d) hidden vs (B,S) targets.
+
+    Targets < 0 are masked out.  Chunked over S, each chunk recomputed in
+    the backward, so the full-vocab logits never materialise."""
+    b, s, d = hidden.shape
+    w = _unembed_w(model, cfg).to(cfg.compute_dtype)
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    targets = targets.long()
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    hc = hidden.reshape(b, -1, chunk, d)
+    tc = targets.reshape(b, -1, chunk)
+    recompute = torch.is_grad_enabled()
+    z = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    loss, correct, count = z, z, z
+    for i in range(hc.shape[1]):
+        args = (w, hc[:, i], tc[:, i])
+        part = (checkpoint.checkpoint(_xent_chunk, *args, use_reentrant=False)
+                if recompute else _xent_chunk(*args))
+        loss, correct, count = (loss + part[0], correct + part[1],
+                                count + part[2])
+    count = torch.clamp(count, min=1.0)
+    return loss / count, correct / count
+
+
+# ---------------------------------------------------------------------------
+# train / prefill / decode
+# ---------------------------------------------------------------------------
+def loss_fn(model: LM, cfg: ModelConfig, batch: dict,
+            shard: ShardCfg = LOCAL, template=None):
+    """(total loss, metrics) of a batch with ``tokens`` and ``targets``."""
+    x, prefix_len = embed_inputs(model, cfg, batch, shard)
+    positions = torch.arange(x.shape[1], device=x.device)
+    mask = MaskSpec(causal=True, prefix_len=prefix_len)
+    x, _, met = transformer.stack_seq(model.stack, cfg, x, shard,
+                                      positions=positions, mask=mask,
+                                      mode="train", template=template)
+    x = layers.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    loss, acc = chunked_xent(model, cfg, x, batch["targets"], shard)
+    total = loss + met.moe_aux + met.moe_z
+    return total, {"ce": loss, "acc": acc, "moe_aux": met.moe_aux,
+                   "moe_z": met.moe_z, "moe_dropped": met.moe_dropped}
+
+
 def prefill(model: LM, cfg: ModelConfig, batch: dict, caches,
             shard: ShardCfg = LOCAL, template=None):
     """Fill caches from a prompt; returns (last-position logits, caches)."""
     x, prefix_len = embed_inputs(model, cfg, batch, shard)
     positions = torch.arange(x.shape[1], device=x.device)
     mask = MaskSpec(causal=True, prefix_len=prefix_len)
-    x, caches = transformer.stack_seq(model.stack, cfg, x, shard,
-                                      positions=positions, mask=mask,
-                                      caches=caches, mode="prefill",
-                                      template=template)
+    x, caches, _ = transformer.stack_seq(model.stack, cfg, x, shard,
+                                         positions=positions, mask=mask,
+                                         caches=caches, mode="prefill",
+                                         template=template)
     x = layers.rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps)
     logits = x @ _unembed_w(model, cfg).to(x.dtype)
     return logits, caches
@@ -97,3 +169,11 @@ def decode_step(model: LM, cfg: ModelConfig, token, caches, cache_len,
 
 
 init_caches = transformer.init_caches
+
+
+def model_flops_per_step(cfg: ModelConfig, batch: int, seq: int,
+                         training: bool = True) -> float:
+    """MODEL_FLOPS = 6·N_active·D (train) or 2·N_active·D (fwd)."""
+    n = cfg.active_param_count()
+    mult = 6 if training else 2
+    return float(mult) * n * batch * seq

@@ -10,15 +10,21 @@ The port's copy of ``repro.models.transformer``:
 
 Layers run as a Python loop (the reference's ``lax.scan``).  Caches are
 stacked along a leading layer axis, as in the reference, and are updated in
-place: each function returns the caches it was given.  The ``moe``,
-``ssm``, ``audio`` and ``vlm`` families are ROADMAP queue 1, item 11.
+place: each function returns the caches it was given.  In ``mode="train"``
+each layer (dense) or each group (hybrid) runs under the config's
+rematerialisation policy (:func:`_remat`); the shared block of a hybrid
+stack is one set of parameters, so its gradient sums over all its
+applications, as in the reference.  The ``moe``, ``ssm``, ``audio`` and
+``vlm`` families are ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.models import layers, mamba2
 from repro_torch.models.attention import MaskSpec
@@ -26,6 +32,46 @@ from repro_torch.models.blocks import Attention, KVCache, attention
 from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
 
 FAMILIES = ("dense", "hybrid")
+MODES = ("train", "prefill")
+# the matrix products whose outputs ``remat="dots"`` keeps: those with no
+# batch dimension (jax's ``dots_with_no_batch_dims_saveable``); a product
+# of a (B, S, d) activation and a (d, n) weight is one ``mm``
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+class StackMetrics(NamedTuple):
+    moe_aux: torch.Tensor
+    moe_z: torch.Tensor
+    moe_dropped: torch.Tensor
+
+    @staticmethod
+    def zero(device=None):
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return StackMetrics(z, z, z)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's rematerialisation policy: ``none``;
+    ``block`` saves only its inputs and recomputes the rest in the
+    backward; ``dots`` saves the batch-free matrix products' outputs and
+    recomputes the rest."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "block":
+        return functools.partial(checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(checkpoint.checkpoint, fn,
+                                 use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"unknown remat policy {cfg.remat!r} (none, block or "
+                     "dots)")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -133,30 +179,39 @@ def _attn_block(p: AttnBlock, cfg: ModelConfig, x, shard: ShardCfg, *,
 def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
               positions, mask: MaskSpec, caches=None, mode: str = "train",
               template=None):
-    """x (B,S,d) -> (x, caches).  mode: train | prefill (caches filled in
-    place)."""
+    """x (B,S,d) -> (x, caches, metrics).  mode: train (no caches; each
+    layer or group under :func:`_remat`) | prefill (caches filled in
+    place).  ``metrics`` are ``StackMetrics``, zero for these families."""
     _check_family(cfg)
-    if cfg.family == "dense":
-        return _seq_attn_stack(stack, cfg, x, shard, positions=positions,
-                               mask=mask, caches=caches, template=template)
-    return _seq_hybrid_stack(stack, cfg, x, shard, positions=positions,
-                             mask=mask, caches=caches, template=template)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} ({' or '.join(MODES)})")
+    if mode == "train" and caches is not None:
+        raise ValueError("mode='train' takes no caches")
+    seq = _seq_attn_stack if cfg.family == "dense" else _seq_hybrid_stack
+    x = seq(stack, cfg, x, shard, positions=positions, mask=mask,
+            caches=caches, train=mode == "train", template=template)
+    return x, caches, StackMetrics.zero(x.device)
 
 
-def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches,
+def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches, train,
                     template):
+    def body(x, lp, cache):
+        return _attn_block(lp, cfg, x, shard, positions=positions, mask=mask,
+                           cache=cache, template=template)[0]
+
+    body = _remat(body, cfg) if train else body
     for i, lp in enumerate(stack.layers):
-        x, _ = _attn_block(lp, cfg, x, shard, positions=positions, mask=mask,
-                           cache=_layer_kv(caches, i), template=template)
-    return x, caches
+        x = body(x, lp, _layer_kv(caches, i))
+    return x
 
 
 def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
-                      template):
+                      train, template):
     """Each group: the shared attention block (its own KV cache), then
     ``attn_every`` Mamba2 layers (their states at layers g·E .. g·E+E-1)."""
     with_caches = caches is not None
-    for g in range(n_attn_layers(cfg)):
+
+    def group(x, g):
         acache = _layer_kv(caches["attn"], g) if with_caches else None
         x, _ = _attn_block(stack.shared_attn, cfg, x, shard,
                            positions=positions, mask=mask, cache=acache,
@@ -173,7 +228,12 @@ def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
             if with_caches:
                 for dst, src in zip(ms, nm):
                     dst.copy_(src)
-    return x, caches
+        return x
+
+    group = _remat(group, cfg) if train else group
+    for g in range(n_attn_layers(cfg)):
+        x = group(x, g)
+    return x
 
 
 # ---------------------------------------------------------------------------

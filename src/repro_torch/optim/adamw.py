@@ -1,0 +1,108 @@
+"""AdamW with dtype-configurable state.
+
+The port's copy of ``repro.optim.adamw``.  The update math always runs in
+float32; the moments are cast on read and write, so ``m_dtype`` /
+``v_dtype`` = bfloat16 halves their memory.  The clip scale is
+``min(1, clip_norm / max(|g|, 1e-12))`` and the bias corrections use the
+incremented step, as in the reference; every division is a true division
+on the card too (``device.true_divide``, or a tensor by a tensor).
+
+The state holds the moments by parameter name (``model.named_parameters``).
+``update`` writes the new parameters and moments **in place** (the
+reference returns new trees): at 1.1 G parameters a second copy of the
+parameters and of both moments would cost 11 GB.
+
+``decay_filter`` sees the reference's ``/``-joined path of each parameter
+(``convert.reference_path``: the layer index of a stacked layer dropped),
+so it masks exactly the reference's leaves — including the reference's
+quirk that ``"/b"`` does not match ``mamba/conv_b``, which is decayed.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.convert import reference_path
+from repro_torch.device import true_divide
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor      # 0-d int32
+    m: Any                  # {parameter name: tensor}
+    v: Any
+
+
+def default_decay_filter(path: str) -> bool:
+    """The reference's mask: paths whose params skip weight decay (norms,
+    biases)."""
+    return not any(s in path for s in ("norm", "scale", "bias", "/b",
+                                       "A_log", "dt_bias"))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[torch.Tensor], torch.Tensor] | float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    m_dtype: Any = torch.float32
+    v_dtype: Any = torch.float32
+    clip_norm: float | None = 1.0
+    decay_filter: Callable[[str], bool] = default_decay_filter
+
+    def init(self, model) -> AdamWState:
+        named = dict(model.named_parameters())
+        dev = next(iter(named.values())).device
+        zeros = lambda dt: {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+                            for n, p in named.items()}
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                          m=zeros(self.m_dtype), v=zeros(self.v_dtype))
+
+    def decays(self, name: str) -> bool:
+        """Whether the parameter ``name`` takes weight decay."""
+        return bool(self.weight_decay) and \
+            self.decay_filter(reference_path(name))
+
+    def _lr(self, step):
+        if callable(self.lr):
+            return self.lr(step)
+        return torch.full((), self.lr, dtype=torch.float32, device=step.device)
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: AdamWState, model):
+        """One step: ``grads`` by parameter name.  Returns (model, state,
+        stats), the model's parameters and the moments updated in place."""
+        step = state.step + 1
+        gnorm = global_norm(grads.values())
+        scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+        if self.clip_norm is not None:
+            scale = torch.clamp(true_divide(
+                self.clip_norm, torch.clamp(gnorm, min=1e-12)), max=1.0)
+
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** step.float()
+        bc2 = 1.0 - b2 ** step.float()
+        lr = self._lr(step)
+
+        for name, p in model.named_parameters():
+            g, m, v = grads[name], state.m[name], state.v[name]
+            gf = g.float() * scale
+            mf = b1 * m.float() + (1 - b1) * gf
+            vf = b2 * v.float() + (1 - b2) * gf * gf
+            upd = (mf / bc1) / (torch.sqrt(vf / bc2) + self.eps)
+            if self.decays(name):
+                upd = upd + self.weight_decay * p.float()
+            p.copy_((p.float() - lr * upd).to(p.dtype))
+            m.copy_(mf.to(self.m_dtype))
+            v.copy_(vf.to(self.v_dtype))
+        return (model, AdamWState(step=step, m=state.m, v=state.v),
+                {"grad_norm": gnorm, "lr": lr, "clip_scale": scale})
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tensors))

@@ -591,3 +591,121 @@ def test_smoke_model_kernels_agree_with_plain_path(card, arch):
         assert launched == ((2 * n_attn, n_ssd) if tmpl == "CUDA" else (0, 0))
     for a, b in zip(outs["CUDA"], outs["TORCH"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd at the train phase's shapes
+# ---------------------------------------------------------------------------
+def _qkv_views(dev, s=4096, h=32, d=64):
+    """q, k, v as the training path may hand them over: strided views into
+    one (B, S, 3, H, D) bf16 tensor that requires grad (rows 16-byte
+    aligned, last dimension contiguous)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = torch.randn(1, s, 3, h, d, generator=gen, device=dev)
+    base = base.to(torch.bfloat16).requires_grad_(True)
+    return base, [base[:, :, i] for i in range(3)]
+
+
+@pytest.mark.cuda
+def test_flash_attention_trains_at_4096_tokens(card):
+    """The kernel forward at train_4k's 4096 tokens on non-contiguous
+    grad-mode views (within the per-row tolerance of the plain forward),
+    one launch, and the gradient of the plain chunked version bit for bit
+    (the Function's backward recomputes it on the same inputs)."""
+    from repro_torch.models.attention import chunked_mha
+
+    base, (q, k, v) = _qkv_views(card)
+    assert not q.is_contiguous()
+    spec = MaskSpec(causal=True)
+    before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
+    out = chunked_mha(q, k, v, spec, q_chunk=1024, kv_chunk=1 << 30,
+                      template="CUDA")
+    assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before + 1
+    assert out.grad_fn is not None
+    want = chunked_mha(q, k, v, spec, q_chunk=1024, kv_chunk=1 << 30,
+                       template="TORCH")
+    assert _share_of_tolerance(out.detach(), want.detach(),
+                               torch.bfloat16) <= 1.0
+    g = torch.randn_like(out)
+    (got,) = torch.autograd.grad(out, base, g)
+    (ref,) = torch.autograd.grad(want, base, g)
+    torch.cuda.synchronize()
+    assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_ssd_intra_trains_at_32_chunks(card):
+    """SSD_INTRA at nc = 32 (train_4k's 4096 tokens in chunks of 128) with
+    grad-mode inputs: within 1e-4 of the plain forward, one launch, and the
+    plain version's gradient bit for bit."""
+    from repro_torch.kernels import ops
+
+    bsz, nc, l, g, r, p, n = 1, 32, 128, 1, 64, 64, 64
+    gen = torch.Generator(device=card).manual_seed(9)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=card)
+    args = [rnd(bsz, nc, l, g, r, p),
+            -torch.nn.functional.softplus(rnd(bsz, nc, l, g, r)),
+            torch.nn.functional.softplus(rnd(bsz, nc, l, g, r)),
+            rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n),
+            rnd(bsz, nc, g, r, n, p) * 0.3]
+    args = [a.requires_grad_(True) for a in args]
+    before = ssd_cuda.LAUNCHES["SSD_INTRA"]
+    y = ops.ssd_intra(*args, template="CUDA")
+    want = ops.ssd_intra(*args, template="TORCH")
+    assert ssd_cuda.LAUNCHES["SSD_INTRA"] == before + 1
+    tol = 1e-4 * max(1.0, float(want.detach().abs().max()))
+    assert float((y - want).detach().abs().max()) <= tol
+    gy = torch.randn_like(y)
+    got = torch.autograd.grad(y, args, gy)
+    ref = torch.autograd.grad(want, args, gy)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["block", "dots"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b"])
+def test_smoke_model_gradients_on_the_cuda_template(card, arch, remat):
+    """A float32 smoke model's loss and gradients on the CUDA template (the
+    kernels forward, the plain versions' gradients) against the TORCH
+    template: 1e-4 of each leaf's largest gradient, every non-zero leaf
+    non-zero, and each kernel launched twice a region (the remat policy's
+    recompute reruns the forward)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, smoke
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(smoke(get_config(arch), layers=4),
+                              remat=remat)
+    lm = model.init_params(cfg, 0, device=card).requires_grad_(True)
+    gen = torch.Generator(device=card).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=card,
+                         generator=gen)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    grads, losses = {}, {}
+    for tmpl in ("CUDA", "TORCH"):
+        attention_cuda.reset_launches()
+        ssd_cuda.reset_launches()
+        for p in lm.parameters():
+            p.grad = None
+        loss, _ = model.loss_fn(lm, cfg, batch, template=tmpl)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses[tmpl] = float(loss.detach())
+        grads[tmpl] = {n: p.grad.clone() for n, p in lm.named_parameters()}
+        n_attn = cfg.num_layers // (cfg.attn_every or 1)
+        n_ssd = cfg.num_layers if cfg.family == "hybrid" else 0
+        launched = (attention_cuda.LAUNCHES["FLASH_ATTENTION"],
+                    ssd_cuda.LAUNCHES["SSD_INTRA"])
+        assert launched == ((2 * n_attn, 2 * n_ssd) if tmpl == "CUDA"
+                            else (0, 0))
+    assert abs(losses["CUDA"] - losses["TORCH"]) <= 1e-5 * losses["TORCH"]
+    for name, want in grads["TORCH"].items():
+        got = grads["CUDA"][name]
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * max(scale, 1e-30), \
+            name
+        assert (scale == 0) or float(got.abs().max()) > 0, name
