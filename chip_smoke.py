@@ -101,10 +101,32 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              forward twice); finite losses, step ms, tokens/s, MFU, peak
              memory, the device's busy share of a profiled step, and the
              plain backward's time a region at these shapes.
+12. moe      qwen3-moe-235b-a22b (4 of 94 layers) and kimi-k2-1t-a32b (1
+             of 61) at their published widths (bf16 weights from
+             ``init_params`` at seed 0, float32 caches), one after the
+             other, through ``ServingEngine(slots=4, max_seq=4096,
+             backend="cuda")``: 6 and 4 requests of 200..1500 prompt
+             tokens and 16 new tokens each, drained, with the launch
+             counters reset just before: exactly ``layers`` FLASH_ATTENTION
+             launches a prefill (tensor-core route) and a decode step
+             (split-K route; kimi's head dim is 112), no SSD_INTRA; the
+             summed dropped fraction of each prefill; prefill ms per
+             bucket, decode-step ms, tokens/s, the device's busy share of
+             a decode step and the expert FFN's part of it (and alone, at
+             the decode's buffer, beside its weights' bytes bound), init
+             time and peak memory; two prefills of one prompt bitwise
+             equal; then a 1,000-token prompt and 4 decode steps
+             teacher-forced (the tokens, and each layer's input) on the
+             ``cuda`` and ``torch`` templates: at least 0.98 of the
+             (layer, token) top-k sets equal and the logits within 5e-2
+             relative L2, and the planted attention fault rejected; the
+             free-running runs reported beside (cuda against torch, and
+             two plain versions against each other).
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes and its 4096-token training forward, llama3-8b's GQA widths at
-prefill and decode, an odd shape with
+prefill and decode, qwen3-moe's GQA 16:1 and kimi-k2's head dim 112 at
+prefill and decode and on the CUDA-core route, an odd shape with
 ``prefix_len`` and ``q_offset``, blind rows and valid lengths about a
 split on the bf16 routes, and a bf16-q float32-k/v prefill on the CUDA-core
 route: every route of ``attention_cuda.route`` is launched and checked per
@@ -117,16 +139,17 @@ time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
 
 The line before the last is the ``{"kernels": [...]}`` summary
-(FLASH_ATTENTION's entry carries its prefill, decode, llama3 GQA and
-training cases side by side under ``cases``, the stencils and JACOBI_FUSED
-their serial and farm calls, SSD_INTRA its three prefill lengths and its
-training shape; ``launches_by_path`` includes the train phase's); the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the rest of the repository beside it, the script exits non-zero
-and prints no result.
+(FLASH_ATTENTION's entry carries its prefill, decode, llama3 GQA,
+training and moe cases side by side under ``cases``, the stencils and
+JACOBI_FUSED their serial and farm calls, SSD_INTRA its three prefill
+lengths and its training shape; ``launches_by_path`` includes the train
+and moe phases'); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -257,6 +280,23 @@ TRAIN_STEPS, TRAIN_LR = 4, 3e-4
 # zeroes a leaf or moves it by its full norm.
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 4, 2048
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_GRAD_COS = 2e-2, 5e-2, 0.99
+
+# the moe serving path: each config at its published widths, depth cut to
+# fit one card (qwen3-moe: 4 of 94 layers, 22.4 GB of bf16 weights;
+# kimi-k2: 1 of 61, 38.8 GB), served by 4 slots: (arch, layers, requests)
+MOE_ARCHS = (("qwen3-moe-235b-a22b", 4, 6), ("kimi-k2-1t-a32b", 1, 4))
+MOE_PROMPT, MOE_NEW = (200, 1500), 16
+MOE_PARITY_PLEN = 1000
+# CUDA vs TORCH templates, teacher-forced through a 1,000-token prefill and
+# 4 decode steps from the same weights (tokens, and each layer's input:
+# moe_parity).  The two differ in attention's bf16 rounding (one ulp of an
+# activation, 2^-8), and routing is discrete: a token whose 8th and 9th
+# expert are that close flips one expert, so the check is on the top-k
+# sets (at least MOE_TOPK_AGREE of the (layer, token) sets equal) and on
+# the logits' relative L2 error (at most MOE_LOGIT_REL: a flipped expert
+# carries the smallest of 8 gates).  A lost key tile moves the last rows'
+# attention, and with it their experts and logits, by far more.
+MOE_TOPK_AGREE, MOE_LOGIT_REL = 0.98, 5e-2
 
 
 def emit(obj) -> None:
@@ -616,9 +656,25 @@ ATTN_CASES = [
     # the train phase's forward: zamba2-1.2b at train_4k's 4096 tokens
     ("train_4k", 1, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 64, "bfloat16",
      "bfloat16", (True, 0, 0), None),
+    # the moe phase's shapes: qwen3-moe's GQA 16:1 (64 query heads over 4
+    # kv heads of 128) and kimi-k2's head dim 112 (64 over 8), a 1,024-token
+    # prefill and a 4-slot decode over a 4,096-row float32 cache; and the
+    # CUDA-core route at D 112 (float32 q, Sq > 8)
+    ("prefill_gqa_qwen3moe", 1, 1024, 1024, 64, 4, 128, "bfloat16",
+     "bfloat16", (True, 0, 0), None),
+    ("decode_gqa_qwen3moe", 4, 1, LM_MAX_SEQ, 64, 4, 128, "bfloat16",
+     "float32", (False, 0, 0), (37, 1024, 2047, 4000)),
+    ("prefill_kimi_d112", 1, 1024, 1024, 64, 8, 112, "bfloat16",
+     "bfloat16", (True, 0, 0), None),
+    ("decode_kimi_d112", 4, 1, LM_MAX_SEQ, 64, 8, 112, "bfloat16",
+     "float32", (False, 0, 0), (37, 1024, 2047, 4000)),
+    ("cuda_core_d112", 1, 256, 256, 16, 2, 112, "float32", "float32",
+     (True, 0, 0), None),
 ]
 # the cases whose times the kernels line gives side by side
-ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k")
+ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k",
+                 "prefill_gqa_qwen3moe", "decode_gqa_qwen3moe",
+                 "prefill_kimi_d112", "decode_kimi_d112", "cuda_core_d112")
 
 
 def attention_diff(got, want, dtype: str):
@@ -1460,21 +1516,26 @@ def phase_physics(dev):
 
 
 # ---------------------------------------------------------------------------
-def lm_requests(cfg):
+def lm_requests(cfg, n: int = LM_REQUESTS, prompt=LM_PROMPT,
+                new: int = LM_NEW):
+    """``n`` seeded requests of ``prompt`` = (lo, hi) tokens, ``new`` new
+    tokens each."""
     import numpy as np
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
-    return [Request(i, rng.integers(0, cfg.vocab_size, size=int(n)),
-                    max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
+    lens = rng.integers(prompt[0], prompt[1] + 1, size=n)
+    return [Request(i, rng.integers(0, cfg.vocab_size, size=int(m)),
+                    max_new_tokens=new) for i, m in enumerate(lens)]
 
 
-def device_busy(fn, cpu_ops: bool = True) -> dict:
+def device_busy(fn, cpu_ops: bool = True, ranges=()) -> dict:
     """Wall time of ``fn`` (ending in a synchronise) and the profiler's
     device kernel time inside it, FLASH_ATTENTION's and SSD_INTRA's part
-    of it.  ``cpu_ops=False`` records only the device's activity (a
-    training step's host ops would cost the profiler more than the step)."""
+    of it, and the device time inside each ``record_function`` range named
+    in ``ranges``.  ``cpu_ops=False`` records only the device's activity
+    (a training step's host ops would cost the profiler more than the
+    step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1486,19 +1547,51 @@ def device_busy(fn, cpu_ops: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    # a range may also show as a device-side annotation: kept out of the sum
+    events = [ev for ev in averages if ev.device_type == DeviceType.CUDA
+              and ev.key not in ranges]
     busy = sum(ev.self_device_time_total for ev in events) / 1e3
+    # each range: its device-side span, or its host range's kernels
+    in_range = {}
+    for ev in averages:
+        if ev.key in ranges:
+            ms = (ev.self_device_time_total if ev.device_type ==
+                  DeviceType.CUDA else ev.device_time_total) / 1e3
+            in_range[ev.key] = max(in_range.get(ev.key, 0.0), ms)
     # FLASH_ATTENTION's three kernels (csrc/attention.cu)
     names = ("prefill_kernel", "decode_kernel", "flash_kernel")
     attn = sum(ev.self_device_time_total for ev in events
                if any(name in ev.key for name in names)) / 1e3
     ssd = sum(ev.self_device_time_total for ev in events
               if "ssd_intra_kernel" in ev.key) / 1e3
-    return {"wall_ms": wall, "device_ms": busy,
+    out = {f"{name}_ms": in_range.get(name) or "not measured"
+           for name in ranges}
+    return {"wall_ms": wall, "device_ms": busy, **out,
             "flash_attention_ms": attn if busy else "not measured",
             "ssd_intra_ms": ssd if busy else "not measured",
             "busy_share": busy / wall if busy else "not measured"}
+
+
+def drive_engine(eng):
+    """Drain ``eng`` step by step with the launch counters reset just
+    before: per step (requests admitted, ms), the wall seconds, the
+    launches and FLASH_ATTENTION's launches by route."""
+    import torch
+    from repro_torch.kernels import attention_cuda as ac
+
+    reset_counts()
+    steps, t_start = [], time.perf_counter()
+    while True:
+        queued = eng.table.n_queued
+        t0 = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        steps.append((queued - eng.table.n_queued,
+                      (time.perf_counter() - t0) * 1e3))
+    return (steps, time.perf_counter() - t_start, read_counts(),
+            dict(ac.ROUTE_LAUNCHES))
 
 
 def phase_lm(dev):
@@ -1507,7 +1600,6 @@ def phase_lm(dev):
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import attention_cuda as ac
     from repro_torch.models import model
     from repro_torch.models.transformer import n_attn_layers
     from repro_torch.serve.engine import ServingEngine, _bucket
@@ -1527,19 +1619,7 @@ def phase_lm(dev):
         eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    steps, t_start = [], time.perf_counter()
-    while True:
-        queued = eng.table.n_queued
-        t0 = time.perf_counter()
-        if not eng.step():
-            break
-        torch.cuda.synchronize()
-        steps.append((queued - eng.table.n_queued,
-                      (time.perf_counter() - t0) * 1e3))
-    wall = time.perf_counter() - t_start
-    launches = read_counts()
-    routes = dict(ac.ROUTE_LAUNCHES)
+    steps, wall, launches, routes = drive_engine(eng)
     peak = torch.cuda.max_memory_allocated()
     prefills, decode_steps = sum(a for a, _ in steps), eng.steps
     expected = dict.fromkeys(launches, 0)
@@ -1616,7 +1696,6 @@ def lm_parity(cfg, lm, dev):
     ATTN_FAULT_KEYS keys too few, shows that the check rejects a fault of
     that size."""
     import torch
-    from repro_torch.kernels import attention_cuda as ac
     from repro_torch.models import model
 
     prompt = torch.from_numpy(lm_requests(cfg)[0].prompt).to(dev)[None]
@@ -1639,22 +1718,8 @@ def lm_parity(cfg, lm, dev):
 
     want, tokens = run("TORCH", None)
     got, _ = run("CUDA", tokens)
-    # the planted fault the parity check must reject: every FLASH_ATTENTION
-    # launch given a valid key length ATTN_FAULT_KEYS short
-    launch = ac._launch
-
-    def short(q, k, v, spec, valid, scale):
-        sk = k.shape[1]
-        valid = (sk - ATTN_FAULT_KEYS if valid is None
-                 else (valid - ATTN_FAULT_KEYS).clamp(min=1)
-                 if torch.is_tensor(valid) else max(1, valid - ATTN_FAULT_KEYS))
-        return launch(q, k, v, spec, valid, scale)
-
-    ac._launch = short
-    try:
+    with planted_short_attention():
         faulty, _ = run("CUDA", tokens)
-    finally:
-        ac._launch = launch
     rows = []
     for i, (a, b, c) in enumerate(zip(got, want, faulty)):
         require(bool(torch.isfinite(a).all()), f"lm parity {i}: not finite")
@@ -1925,6 +1990,313 @@ def phase_train(dev, smi: str):
 
 
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def recording(module, name: str, keep):
+    """Inside the context, ``module.name`` also appends ``keep(result)`` of
+    each call to the list the context yields."""
+    fn, seen = getattr(module, name), []
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        seen.append(keep(out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def planted_short_attention():
+    """The planted fault the parity checks must reject: inside the
+    context, every FLASH_ATTENTION launch is given a valid key length
+    ATTN_FAULT_KEYS short."""
+    import torch
+    from repro_torch.kernels import attention_cuda as ac
+
+    launch = ac._launch
+
+    def short(q, k, v, spec, valid, scale):
+        sk = k.shape[1]
+        valid = (sk - ATTN_FAULT_KEYS if valid is None
+                 else (valid - ATTN_FAULT_KEYS).clamp(min=1)
+                 if torch.is_tensor(valid)
+                 else max(1, valid - ATTN_FAULT_KEYS))
+        return launch(q, k, v, spec, valid, scale)
+
+    ac._launch = short
+    try:
+        yield
+    finally:
+        ac._launch = launch
+
+
+def moe_parity(cfg, lm, dev):
+    """One MOE_PARITY_PLEN-token prompt prefilled, then LM_PARITY_STEPS
+    decode steps on the TORCH template (choosing the tokens) and on the
+    CUDA template, each MoE layer's top-k sets recorded.
+
+    The checked CUDA run is teacher-forced in its tokens and in each
+    layer's input: every attention block takes the TORCH run's input to
+    that block (its KV cache rows then follow from the same inputs), so a
+    layer's top-k sets and the logits differ from TORCH's by one
+    application of the kernel, not by what earlier layers passed on.  Left
+    free, the runs diverge by a cascade that any two correct attentions
+    show: a near-tie flips one expert in layer 0, that token's residual
+    changes, and the next layer's attention passes the change to every
+    later token.  The free run is reported beside the checked one, with
+    the same cascade between two plain versions (TORCH with its kv_chunk
+    at 256 instead of the whole sequence: the online softmax over four
+    chunks).  The checked run again with the planted attention fault,
+    which the check must reject."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import model, moe, transformer
+
+    rng = np.random.default_rng(SEED + 1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=MOE_PARITY_PLEN)).to(dev)[None]
+    block = transformer._attn_block
+
+    def run(template, tokens=None, inputs=None, run_cfg=cfg):
+        seen = []                   # each attention block's input
+
+        def forced_block(p, cfg_, x, shard, **kw):
+            seen.append(x)
+            if inputs is not None:
+                x = inputs[len(seen) - 1]
+            return block(p, cfg_, x, shard, **kw)
+
+        transformer._attn_block = forced_block
+        try:
+            with recording(moe, "_route", lambda out: out[0]) as experts:
+                caches = model.init_caches(run_cfg, 1, LM_MAX_SEQ,
+                                           torch.float32, dev)
+                logits, caches = model.prefill(lm, run_cfg,
+                                               {"tokens": prompt}, caches,
+                                               template=template)
+                out, chosen = [logits[0, -1].float()], []
+                for step in range(LM_PARITY_STEPS):
+                    tok = tokens[step] if tokens else int(out[-1].argmax())
+                    chosen.append(tok)
+                    logits, caches = model.decode_step(
+                        lm, run_cfg, torch.tensor([[tok]], device=dev),
+                        caches, MOE_PARITY_PLEN + step, template=template)
+                    out.append(logits[0, -1].float())
+                torch.cuda.synchronize()
+        finally:
+            transformer._attn_block = block
+        return {"logits": out, "tokens": chosen, "experts": experts,
+                "inputs": seen}
+
+    def compare(got, want):
+        by_layer = [[0, 0] for _ in range(cfg.num_layers)]
+        for i, (a, b) in enumerate(zip(got["experts"], want["experts"])):
+            same = torch.sort(a, 1).values == torch.sort(b, 1).values
+            by_layer[i % cfg.num_layers][0] += int(same.all(dim=1).sum())
+            by_layer[i % cfg.num_layers][1] += b.shape[0]
+        rel = [float((a - b).norm() / b.norm())
+               for a, b in zip(got["logits"], want["logits"])]
+        return {"topk_sets_agree": (sum(n for n, _ in by_layer)
+                                    / sum(t for _, t in by_layer)),
+                "topk_sets_agree_by_layer": [n / t for n, t in by_layer],
+                "topk_sets": sum(t for _, t in by_layer),
+                "logits_rel_l2": rel, "logits_rel_l2_max": max(rel),
+                "argmax_equal": [int(a.argmax()) == int(b.argmax())
+                                 for a, b in zip(got["logits"],
+                                                 want["logits"])],
+                "finite": all(bool(torch.isfinite(a).all())
+                              for a in got["logits"])}
+
+    want = run("TORCH")
+    tokens, inputs = want["tokens"], want["inputs"]
+    res = compare(run("CUDA", tokens, inputs), want)
+    free = compare(run("CUDA", tokens), want)
+    plain = compare(run("TORCH", tokens, run_cfg=dataclasses.replace(
+        cfg, kv_chunk=256)), want)
+    with planted_short_attention():
+        fault = compare(run("CUDA", tokens, inputs), want)
+    passes = lambda r: (r["finite"] and r["topk_sets_agree"] >= MOE_TOPK_AGREE
+                        and r["logits_rel_l2_max"] <= MOE_LOGIT_REL)
+    res.update(prompt_len=MOE_PARITY_PLEN, steps=LM_PARITY_STEPS,
+               layer_inputs_forced=True, passes=passes(res),
+               free_running=free, free_running_plain_vs_plain=plain,
+               planted_fault=fault, planted_fault_passes=passes(fault))
+    return res
+
+
+def moe_serve(arch: str, layers: int, n_requests: int, dev, smi: str):
+    """One moe config at its published widths, ``layers`` deep: served,
+    checked and timed (phase 12)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model, moe, transformer
+    from repro_torch.serve.engine import ServingEngine, _bucket
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = model.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    eng = ServingEngine(cfg, lm, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                        device=dev, backend="cuda")
+    reqs = lm_requests(cfg, n_requests, MOE_PROMPT, MOE_NEW)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # each prefill's summed dropped fraction (stack_seq's metrics; a
+    # decode step goes through stack_step, which returns none)
+    with recording(transformer, "stack_seq",
+                   lambda out: out[2].moe_dropped) as drops:
+        steps, wall, launches, routes = drive_engine(eng)
+    peak = torch.cuda.max_memory_allocated()
+    prefills, decode_steps = sum(a for a, _ in steps), eng.steps
+    expected = dict.fromkeys(launches, 0)
+    expected["FLASH_ATTENTION"] = layers * (prefills + decode_steps)
+    expected_routes = {"tensor_core_prefill": layers * prefills,
+                       "split_k_decode": layers * decode_steps,
+                       "cuda_core": 0}
+    done = {r.rid: r for r in eng.finished}
+    tokens = sum(len(r.output) for r in done.values())
+    decode_ms = sorted(ms for a, ms in steps if a == 0)
+
+    # prefill time per bucket (one slot's cache rows); the same prompt
+    # prefilled twice must give the same logits bit for bit
+    one = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prefill_ms = {}
+    for b in sorted({_bucket(len(r.prompt)) for r in reqs}):
+        toks = torch.randint(0, cfg.vocab_size, (1, b), device=dev,
+                             generator=gen)
+        prefill_ms[b] = cuda_ms(lambda: model.prefill(
+            lm, cfg, {"tokens": toks}, one, template="CUDA"), reps=3,
+            warmup=1)
+    prompt = torch.from_numpy(reqs[0].prompt).to(dev)[None]
+    twice = []
+    for _ in range(2):
+        one.k.zero_()
+        one.v.zero_()
+        twice.append(model.prefill(lm, cfg, {"tokens": prompt}, one,
+                                   template="CUDA")[0])
+    deterministic = torch.equal(twice[0], twice[1])
+    del one, twice
+
+    # a decode step with every slot resident, under the profiler: the
+    # device's busy share and the expert FFN's part of the device time
+    for r in lm_requests(cfg, LM_SLOTS, MOE_PROMPT, MOE_NEW):
+        r.max_new_tokens = 1000
+        eng.submit(r)
+    eng.step()                                  # admit all four
+    eng.step()
+    ffn = moe._expert_ffn
+
+    def labelled(*args):
+        with torch.profiler.record_function("expert_ffn"):
+            return ffn(*args)
+
+    moe._expert_ffn = labelled
+    try:
+        busy = device_busy(eng.step, ranges=("expert_ffn",))
+    finally:
+        moe._expert_ffn = ffn
+    if busy["device_ms"] and busy["expert_ffn_ms"] != "not measured":
+        busy["expert_ffn_share"] = busy["expert_ffn_ms"] / busy["device_ms"]
+    # the expert FFN alone at the decode step's buffer (E, capacity(4), d),
+    # beside the least time for its weights' bytes
+    experts = lm.stack.layers[0].ffn.experts
+    cap = moe._capacity(LM_SLOTS, cfg)
+    xin = torch.zeros(cfg.num_experts, cap, cfg.d_model,
+                      dtype=cfg.compute_dtype, device=dev)
+    ffn_ms = cuda_ms(lambda: moe._expert_ffn(experts, xin,
+                                             cfg.compute_dtype), reps=10)
+    ffn_bytes = sum(t.numel() * t.element_size()
+                    for t in (experts.gate, experts.up, experts.down))
+    del eng, xin
+    parity = moe_parity(cfg, lm, dev)
+
+    line = {"phase": "moe", "arch": arch, "card": smi,
+            "layers": layers, "published_layers": get_config(arch).num_layers,
+            "reduced": f"depth {layers} of {get_config(arch).num_layers} "
+                       "layers to fit one card; every width published",
+            "params": n_params, "active_params_per_token":
+                cfg.active_param_count(),
+            "init_s": init_s, "init_max_memory_allocated": init_peak,
+            "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+            "requests": n_requests,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "new_tokens": MOE_NEW, "engine_steps": decode_steps,
+            "prefills": prefills, "launches": launches, "expected": expected,
+            "flash_attention_routes": routes,
+            "expected_routes": expected_routes,
+            "prefill_moe_dropped": [float(d) for d in drops],
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefill_ms_by_bucket": prefill_ms,
+            "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+            "decode_step_ms_min": decode_ms[0],
+            "decode_steps_timed": len(decode_ms),
+            "decode_step_busy": busy,
+            "expert_ffn_decode_ms_a_layer": ffn_ms,
+            "expert_ffn_decode_bound_ms_a_layer":
+                ffn_bytes / HBM_BYTES_PER_S * 1e3,
+            "max_memory_allocated": peak,
+            "prefill_bitwise_deterministic": deterministic,
+            "parity": parity,
+            "first_tokens": {rid: done[rid].output[:8]
+                             for rid in sorted(done)}}
+    emit(line)
+    require(len(done) == n_requests and prefills == n_requests,
+            f"moe {arch}: {len(done)} of {n_requests} requests finished")
+    require(all(len(r.output) == MOE_NEW and
+                all(0 <= t < cfg.vocab_size for t in r.output)
+                for r in done.values()),
+            f"moe {arch}: outputs of the wrong length")
+    require(launches == expected,
+            f"moe {arch}: launch counts {launches} != {expected}")
+    require(routes == expected_routes,
+            f"moe {arch}: FLASH_ATTENTION routes {routes} != "
+            f"{expected_routes}")
+    require(len(drops) == prefills and all(
+        0.0 <= float(d) < layers for d in drops),
+        f"moe {arch}: prefill dropped fractions {drops}")
+    require(deterministic, f"moe {arch}: two prefills of one prompt differ")
+    require(parity["passes"], f"moe {arch}: cuda and torch templates "
+                              f"disagree: {parity}")
+    require(not parity["planted_fault_passes"],
+            f"moe {arch}: the parity check passed a planted attention "
+            f"fault: {parity['planted_fault']}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(dev, smi: str):
+    """Phase 12: the moe family at its published widths through the
+    ported ServingEngine on the cuda backend, one config after the
+    other; their launches summed."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    total: dict = {}
+    for arch, layers, n in MOE_ARCHS:
+        for k, v in moe_serve(arch, layers, n, dev, smi).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -1953,6 +2325,7 @@ def main() -> int:
     phase_physics(dev)
     paths["lm"] = phase_lm(dev)
     paths["train"] = phase_train(dev, smi)
+    paths["moe"] = phase_moe(dev, smi)
     # each kernel's launches on the path that carries it: the farm for the
     # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
     # serving path for FLASH_ATTENTION and SSD_INTRA

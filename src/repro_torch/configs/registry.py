@@ -1,11 +1,12 @@
 """Arch registry: ``get_config("<id>")`` + reduced smoke configs.
 
 The port's copy of ``repro.configs.registry``.  It lists the reference's
-ten architectures; the two whose block composition the port carries,
-``zamba2-1.2b`` (hybrid) and ``llama3-8b`` (dense), have configs, and the
-other eight raise ``NotImplementedError`` (ROADMAP queue 1, item 11: the
-``moe``, ``ssm``, ``audio`` and ``vlm`` families).  ``smoke(cfg)`` gives the
-reference's reduced config field for field.
+ten architectures; the four whose block composition the port carries,
+``zamba2-1.2b`` (hybrid), ``llama3-8b`` (dense), ``qwen3-moe-235b-a22b`` and
+``kimi-k2-1t-a32b`` (moe), have configs, and the other six raise
+``NotImplementedError`` (ROADMAP queue 1, item 11: the ``ssm``, ``audio``
+and ``vlm`` families).  ``smoke(cfg)`` gives the reference's reduced config
+field for field.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ from repro_torch.models.config import ModelConfig, not_ported
 ARCHS = {
     "musicgen-large": None,
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
-    "kimi-k2-1t-a32b": None,
-    "qwen3-moe-235b-a22b": None,
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "xlstm-125m": None,
     "qwen1.5-4b": None,
     "llama3-8b": "repro_torch.configs.llama3_8b",
@@ -61,6 +62,10 @@ def smoke(cfg: ModelConfig, *, layers: int = 2) -> ModelConfig:
         kv_chunk=64,
         remat="none",
     )
+    if cfg.num_experts:
+        repl.update(num_experts=8,
+                    num_experts_per_tok=min(2, cfg.num_experts_per_tok),
+                    num_shared_experts=min(1, cfg.num_shared_experts))
     if cfg.family == "hybrid":
         repl.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16,
                     attn_every=2)

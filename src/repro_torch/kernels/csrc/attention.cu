@@ -20,8 +20,10 @@
 //   softmax, accumulator and the final division in float32, the output in
 //   q's dtype.
 //
-// Routing table (the wrapper, kernels/attention_cuda.py:route, picks the
-// route; each entry point below takes only its own inputs):
+// Every route takes D in {32, 64, 112, 128} (112: kimi-k2's 7168 / 64), with
+// the same 1 / sqrt(D) scale the wrapper passes.  Routing table (the
+// wrapper, kernels/attention_cuda.py:route, picks the route; each entry
+// point below takes only its own inputs):
 //
 //   q dtype   k/v dtype        Sq     route
 //   bf16      bf16             > 8    A  tensor-core prefill
@@ -46,7 +48,8 @@
 //    * K and V tiles of 64 keys are staged in a two-stage shared-memory ring
 //      by cp.async (commit/wait_group): tile t + 1 is in flight while tile t
 //      is computed; rows are padded by 16 bytes so that ldmatrix reads hit
-//      eight distinct bank groups;
+//      eight distinct bank groups (a padded row is an odd number of 16-byte
+//      groups at every D taken: 5, 9, 15 and 17 at D 32, 64, 112, 128);
 //    * each warp owns 16 q rows; Q.K^T runs as mma.sync.m16n8k16 bf16 with
 //      f32 accumulation (the bf16 products are exact in f32, as in the
 //      reference's f32 einsum), fragments loaded with ldmatrix;
@@ -75,7 +78,9 @@
 //    * one block serves all H/KH query heads of its kv head (and the Sq <= 8
 //      rows; up to 8 rows a block), so each cache row is read once;
 //    * the rows are read with 16-byte vector loads, a few lanes a row (f32
-//      D 64: 16 lanes, two keys a warp instruction), rounded to bf16 on load;
+//      D 64: 16 lanes, two keys a warp instruction; D 112, whose rows are
+//      not a power of two of chunks: 32 lanes for f32, 16 for bf16, the
+//      last few idle), rounded to bf16 on load;
 //      the logits go to shared memory, each row's max and sum are taken by
 //      one warp, then P.V in f32 FMAs, reduced across warps in shared memory;
 //    * the combine runs in the same launch: each block writes its partial
@@ -100,7 +105,8 @@
 //      warp shuffles and its probabilities go through shared memory to the
 //      P.V product, all float32 FMAs;
 //    * Sq > 8 uses BQ = 64 rows and TPR = 4; Sq <= 8 uses BQ = 8 and
-//      TPR = 32, so that a single query row keeps a whole warp busy.
+//      TPR = 32, so that a single query row keeps a whole warp busy (D 112,
+//      not a multiple of 32: BQ = 16 and TPR = 16, half a warp a row).
 //
 // Each extern "C" launcher enqueues its kernel on the given stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() so the
@@ -330,8 +336,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 template <typename Tq, typename Tkv, int D>
 cudaError_t by_rows(const Params& p, cudaStream_t stream) {
-  if constexpr (std::is_same<Tq, float>::value)   // bf16 q: Sq > 8 only
-    if (p.Sq <= 8) return launch<Tq, Tkv, D, 8, 32>(p, stream);
+  if constexpr (std::is_same<Tq, float>::value) {  // bf16 q: Sq > 8 only
+    if (p.Sq <= 8) {
+      if constexpr (D % 32 == 0) return launch<Tq, Tkv, D, 8, 32>(p, stream);
+      else return launch<Tq, Tkv, D, 16, 16>(p, stream);   // D 112
+    }
+  }
   return launch<Tq, Tkv, D, 64, 4>(p, stream);
 }
 
@@ -340,6 +350,7 @@ cudaError_t by_dim(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return by_rows<Tq, Tkv, 32>(p, stream);
     case 64: return by_rows<Tq, Tkv, 64>(p, stream);
+    case 112: return by_rows<Tq, Tkv, 112>(p, stream);
     case 128: return by_rows<Tq, Tkv, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -655,6 +666,13 @@ constexpr int kThreads = 32 * kWarps;
 template <int RB>
 __host__ __device__ constexpr int split_keys() { return RB >= 4 ? 128 : 256; }
 
+// the least power of two >= n: the lanes a key row takes
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
 // 16 bytes of k/v as float32, rounded to bf16 (q is bf16 on this route)
 __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
   f[0] = round_bf16(__uint_as_float(u.x));
@@ -676,6 +694,10 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
 // Block (split, batch.kv head, row group): rows r of the group are the
 // query rows g * RB + r of the (Sq x rep) rows of its kv head, numbered
 // qi * rep + head-in-group.  Partials: acc (.., RB, D), (m, l) (.., RB).
+// A key row is CPR 16-byte chunks, one a lane, over LPR lanes, the power of
+// two at or above CPR, so that the shuffle reductions stay butterflies: at
+// D 112 a float32 row is 28 chunks on 32 lanes and a bf16 row 14 on 16; the
+// lanes past CPR load nothing and add zeros.
 // Blocks an SM, so that enough loads are in flight: one row of D <= 64
 // fits 85 registers a thread (three blocks), up to four rows 128 (two);
 // tighter caps spill.
@@ -685,11 +707,13 @@ __global__ void __launch_bounds__(kThreads,
     decode_kernel(Params p, float* part_acc, float2* part_ml, int* tickets) {
   constexpr int kSplit = split_keys<RB>();
   constexpr int E = 16 / (int)sizeof(Tkv);   // elements a 16-byte load
-  constexpr int LPR = D / E;                 // lanes a key row
+  constexpr int CPR = D / E;                 // 16-byte chunks a key row
+  constexpr int LPR = pow2_at_least(CPR);    // lanes a key row
   constexpr int KPI = 32 / LPR;              // keys a warp instruction
   constexpr int STEPS = kSplit / (kWarps * KPI);
   constexpr int CH = STEPS < 8 ? STEPS : 8;  // loads in flight a lane
-  static_assert(LPR <= 32 && STEPS % CH == 0, "row must fit a warp");
+  static_assert(D % E == 0 && LPR <= 32 && STEPS % CH == 0,
+                "row must fit a warp");
   __shared__ float s_p[RB][kSplit];          // logits, then probabilities
   __shared__ float s_red[kWarps][RB][D];
   __shared__ float s_m[RB], s_l[RB];
@@ -697,6 +721,7 @@ __global__ void __launch_bounds__(kThreads,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = lane / LPR, sub = lane % LPR;
+  const bool live = sub < CPR;               // this lane holds a chunk
   const int64_t b = blockIdx.y / p.KH, kvh = blockIdx.y % p.KH;
   const int64_t rep = p.H / p.KH, rows = p.Sq * rep;
   const int64_t g0 = (int64_t)blockIdx.z * RB;
@@ -726,7 +751,8 @@ __global__ void __launch_bounds__(kThreads,
       const __nv_bfloat16* qr = (const __nv_bfloat16*)p.q + b * p.q_sb +
                                 qpos[r] * p.q_ss + h * p.q_sh + sub * E;
 #pragma unroll
-      for (int e = 0; e < E; ++e) qv[r][e] = g < rows ? to_f32(qr[e]) : 0.0f;
+      for (int e = 0; e < E; ++e)
+        qv[r][e] = live && g < rows ? to_f32(qr[e]) : 0.0f;
     }
 
     // logits: a warp takes kSplit / 8 consecutive keys, KPI at a time
@@ -736,9 +762,10 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int64_t j = k0 + (int64_t)(warp * STEPS + s0 + c) * KPI + grp;
-        raw[c] = j < kend ? __ldg(reinterpret_cast<const uint4*>(
-                                      kb + j * p.k_ss) + sub)
-                          : make_uint4(0u, 0u, 0u, 0u);
+        raw[c] = live && j < kend
+                     ? __ldg(reinterpret_cast<const uint4*>(kb + j * p.k_ss) +
+                             sub)
+                     : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
@@ -805,9 +832,10 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int64_t j = k0 + (int64_t)(warp * STEPS + s0 + c) * KPI + grp;
-        raw[c] = j < kend ? __ldg(reinterpret_cast<const uint4*>(
-                                      vb + j * p.v_ss) + sub)
-                          : make_uint4(0u, 0u, 0u, 0u);
+        raw[c] = live && j < kend
+                     ? __ldg(reinterpret_cast<const uint4*>(vb + j * p.v_ss) +
+                             sub)
+                     : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
@@ -829,7 +857,7 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
         for (int off = 16; off >= LPR; off >>= 1)
           acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
-        if (grp == 0) s_red[warp][r][sub * E + e] = acc[r][e];
+        if (grp == 0 && live) s_red[warp][r][sub * E + e] = acc[r][e];
       }
     __syncthreads();
     for (int i = tid; i < RB * D; i += kThreads) {
@@ -912,6 +940,8 @@ cudaError_t by_dim(const Params& p, int D, int rb, int groups,
                                      tickets, stream);
     case 64: return by_rows<Tkv, 64>(p, rb, groups, part_acc, part_ml,
                                      tickets, stream);
+    case 112: return by_rows<Tkv, 112>(p, rb, groups, part_acc, part_ml,
+                                       tickets, stream);
     case 128: return by_rows<Tkv, 128>(p, rb, groups, part_acc, part_ml,
                                        tickets, stream);
     default: return cudaErrorInvalidValue;
@@ -975,6 +1005,7 @@ cudaError_t flash_attention_prefill(
   switch (D) {
     case 32: return tc::launch<32>(p, s);
     case 64: return tc::launch<64>(p, s);
+    case 112: return tc::launch<112>(p, s);
     case 128: return tc::launch<128>(p, s);
     default: return cudaErrorInvalidValue;
   }

@@ -4,9 +4,14 @@ engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --smoke --device cpu --requests 8 --slots 4 --max-new 16
 
-Without ``--smoke`` the model runs at its published widths.  ``--device``
-defaults to ``cuda``, where the engine runs the hand-written kernels; on
-``cpu`` it runs their plain versions.
+Without ``--smoke`` the model runs at its published widths and depth.
+``--device`` defaults to ``cuda``, where the engine runs the hand-written
+kernels; on ``cpu`` it runs their plain versions.  The published moe
+configs do not fit one 80 GB card: ``--arch qwen3-moe-235b-a22b`` holds
+94 layers, 470 GB of bf16 weights, and ``kimi-k2-1t-a32b`` 2.1 TB, so
+without ``--smoke`` both stop with CUDA's out-of-memory error while the
+weights are drawn.  ``chip_smoke.py`` serves them at their published widths
+with the depth cut (``dataclasses.replace(cfg, num_layers=...)``).
 """
 from __future__ import annotations
 

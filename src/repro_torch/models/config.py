@@ -6,9 +6,10 @@ dimensions, with ``param_dtype``/``compute_dtype`` as ``torch.dtype``.
 ``meta`` device, which allocates nothing).
 
 ``ShardCfg`` keeps only the single-device posture, ``LOCAL``: every
-constraint is the identity.  A mesh, sequence-parallel Mamba2 or a MoE
-mode other than ``local`` raises ``NotImplementedError`` (ROADMAP queue 1,
-items 9 and 11).
+constraint is the identity and a MoE layer computes every expert
+(``moe_mode="local"``).  A mesh, sequence-parallel Mamba2 or the mesh
+postures ``moe_mode="tp"``/``"a2a"`` raise ``NotImplementedError`` (ROADMAP
+queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -96,12 +97,21 @@ class ModelConfig:
                    model.init_params(self, device="meta").parameters())
 
     def active_param_count(self) -> int:
-        """Active parameters per token: every parameter, for the families
-        the port takes (the reference counts only routed experts of a MoE,
-        whose family is ROADMAP queue 1, item 11)."""
-        if self.num_experts:
-            raise not_ported("active parameters of a MoE config", 11)
-        return self.param_count()
+        """Active parameters per token (MoE: the routed experts' parameters
+        count at ``num_experts_per_tok / num_experts``; the router and the
+        shared experts count in full)."""
+        from repro_torch.models import model
+
+        total = expert_total = 0
+        lm = model.init_params(self, device="meta")
+        for name, p in lm.named_parameters():
+            total += p.numel()
+            if "experts" in name.split("."):
+                expert_total += p.numel()
+        if not self.num_experts:
+            return total
+        active_frac = self.num_experts_per_tok / self.num_experts
+        return total - expert_total + int(expert_total * active_frac)
 
 
 def not_ported(what: str, item: int | str) -> NotImplementedError:
@@ -125,7 +135,8 @@ class ShardCfg:
             raise not_ported("sequence-parallel Mamba2 (ssm_sp, "
                              "_mamba2_seq_sp)", 9)
         if self.moe_mode != "local":
-            raise not_ported(f"moe_mode={self.moe_mode!r}", 11)
+            raise not_ported(f"moe_mode={self.moe_mode!r} (expert parallelism "
+                             "over a mesh)", 9)
 
     def constrain(self, x, spec=None):
         return x

@@ -1,8 +1,11 @@
-"""The decoder layer stack for the ``dense`` and ``hybrid`` families.
+"""The decoder layer stack for the ``dense``, ``moe`` and ``hybrid`` families.
 
 The port's copy of ``repro.models.transformer``:
 
   dense   — GQA attention + SwiGLU MLP (pre-norm residual), per layer
+  moe     — GQA attention + top-k MoE FFN (+ shared experts), per layer
+            (``models/moe.py``); its load-balance and z losses and dropped
+            fraction come back as ``StackMetrics`` summed over the layers
   hybrid  — Mamba2 blocks with ONE weight-tied shared attention+MLP block
             applied before each group of ``attn_every`` layers (zamba2):
             G = L / attn_every applications, each with its own KV cache;
@@ -14,8 +17,8 @@ place: each function returns the caches it was given.  In ``mode="train"``
 each layer (dense) or each group (hybrid) runs under the config's
 rematerialisation policy (:func:`_remat`); the shared block of a hybrid
 stack is one set of parameters, so its gradient sums over all its
-applications, as in the reference.  The ``moe``, ``ssm``, ``audio`` and
-``vlm`` families are ROADMAP queue 1, item 11.
+applications, as in the reference.  The ``ssm``, ``audio`` and ``vlm``
+families are ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -26,12 +29,12 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
-from repro_torch.models import layers, mamba2
+from repro_torch.models import layers, mamba2, moe
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.blocks import Attention, KVCache, attention
 from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid")
 MODES = ("train", "prefill")
 # the matrix products whose outputs ``remat="dots"`` keeps: those with no
 # batch dimension (jax's ``dots_with_no_batch_dims_saveable``); a product
@@ -93,7 +96,7 @@ def n_attn_layers(cfg: ModelConfig) -> int:
 # init
 # ---------------------------------------------------------------------------
 class AttnBlock(nn.Module):
-    """Pre-norm attention + SwiGLU MLP."""
+    """Pre-norm attention + SwiGLU MLP (the ``moe`` family: + MoE FFN)."""
 
     def __init__(self, gen, cfg: ModelConfig, device=None):
         super().__init__()
@@ -102,8 +105,9 @@ class AttnBlock(nn.Module):
                               cfg.num_kv_heads, cfg.head_dim, cfg.param_dtype,
                               device, cfg.qkv_bias)
         self.ln2 = layers.RMSNorm(cfg.d_model, device)
-        self.ffn = layers.MLP(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype,
-                              device)
+        self.ffn = (moe.MoE(gen, cfg, device) if cfg.family == "moe"
+                    else layers.MLP(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.param_dtype, device))
 
 
 class MambaLayer(nn.Module):
@@ -121,7 +125,7 @@ class LayerStack(nn.Module):
     def __init__(self, gen, cfg: ModelConfig, device=None):
         super().__init__()
         _check_family(cfg)
-        block = AttnBlock if cfg.family == "dense" else MambaLayer
+        block = MambaLayer if cfg.family == "hybrid" else AttnBlock
         self.layers = nn.ModuleList(block(gen, cfg, device)
                                     for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
@@ -134,8 +138,9 @@ def init_layer_stack(gen, cfg: ModelConfig, device=None) -> LayerStack:
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 cache_dtype=torch.bfloat16, device=None) -> Any:
-    """Decode-time state for the whole stack: a stacked ``KVCache`` (dense),
-    or {"mamba": stacked ``Mamba2State``, "attn": stacked ``KVCache``}."""
+    """Decode-time state for the whole stack: a stacked ``KVCache`` (dense,
+    moe), or {"mamba": stacked ``Mamba2State``, "attn": stacked
+    ``KVCache``} (hybrid)."""
     _check_family(cfg)
 
     def kv(n):
@@ -143,7 +148,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
         return KVCache(k=torch.zeros(shape, dtype=cache_dtype, device=device),
                        v=torch.zeros(shape, dtype=cache_dtype, device=device))
 
-    if cfg.family == "dense":
+    if cfg.family != "hybrid":
         return kv(cfg.num_layers)
     st = mamba2.mamba2_init_state(cfg, batch, device)
     stacked = mamba2.Mamba2State(*(
@@ -157,20 +162,27 @@ def _layer_kv(caches: KVCache | None, i: int) -> KVCache | None:
 
 
 # ---------------------------------------------------------------------------
-# one attention block (dense family + the hybrid shared block)
+# one attention block (dense/moe families + the hybrid shared block)
 # ---------------------------------------------------------------------------
 def _attn_block(p: AttnBlock, cfg: ModelConfig, x, shard: ShardCfg, *,
                 positions, mask: MaskSpec, cache=None, cache_len=None,
                 template=None):
+    """Returns (x, cache, StackMetrics): the MoE layer's, or zeros."""
     h, new_cache = attention(
         p.attn, layers.rmsnorm(p.ln1, x, cfg.norm_eps),
         rope_theta=cfg.rope_theta, positions=positions, mask=mask,
         cache=cache, cache_len=cache_len,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, template=template)
     x = shard.constrain_act(x + h, None, None)
-    y = layers.mlp(p.ffn, layers.rmsnorm(p.ln2, x, cfg.norm_eps))
+    y = layers.rmsnorm(p.ln2, x, cfg.norm_eps)
+    if cfg.family == "moe":
+        y, met = moe.moe_apply(p.ffn, cfg, y, shard)
+        metrics = StackMetrics(met.aux_loss, met.z_loss, met.dropped_frac)
+    else:
+        y = layers.mlp(p.ffn, y)
+        metrics = StackMetrics.zero(x.device)
     x = shard.constrain_act(x + y.to(x.dtype), None, None)
-    return x, new_cache
+    return x, new_cache, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -181,28 +193,39 @@ def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
               template=None):
     """x (B,S,d) -> (x, caches, metrics).  mode: train (no caches; each
     layer or group under :func:`_remat`) | prefill (caches filled in
-    place).  ``metrics`` are ``StackMetrics``, zero for these families."""
+    place).  ``metrics`` are ``StackMetrics``: the MoE layers' summed over
+    the layers (the reference's ``jax.tree.map(jnp.sum, mets)``), zero for
+    the other families."""
     _check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} ({' or '.join(MODES)})")
     if mode == "train" and caches is not None:
         raise ValueError("mode='train' takes no caches")
-    seq = _seq_attn_stack if cfg.family == "dense" else _seq_hybrid_stack
-    x = seq(stack, cfg, x, shard, positions=positions, mask=mask,
-            caches=caches, train=mode == "train", template=template)
-    return x, caches, StackMetrics.zero(x.device)
+    if cfg.family == "hybrid":
+        x = _seq_hybrid_stack(stack, cfg, x, shard, positions=positions,
+                              mask=mask, caches=caches,
+                              train=mode == "train", template=template)
+        return x, caches, StackMetrics.zero(x.device)
+    x, metrics = _seq_attn_stack(stack, cfg, x, shard, positions=positions,
+                                 mask=mask, caches=caches,
+                                 train=mode == "train", template=template)
+    return x, caches, metrics
 
 
 def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches, train,
                     template):
+    """(x, StackMetrics summed over the layers)."""
     def body(x, lp, cache):
-        return _attn_block(lp, cfg, x, shard, positions=positions, mask=mask,
-                           cache=cache, template=template)[0]
+        x, _, met = _attn_block(lp, cfg, x, shard, positions=positions,
+                                mask=mask, cache=cache, template=template)
+        return (x, *met)
 
     body = _remat(body, cfg) if train else body
+    mets = []
     for i, lp in enumerate(stack.layers):
-        x = body(x, lp, _layer_kv(caches, i))
-    return x
+        x, *met = body(x, lp, _layer_kv(caches, i))
+        mets.append(met)
+    return x, StackMetrics(*(torch.stack(m).sum() for m in zip(*mets)))
 
 
 def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
@@ -213,9 +236,9 @@ def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
 
     def group(x, g):
         acache = _layer_kv(caches["attn"], g) if with_caches else None
-        x, _ = _attn_block(stack.shared_attn, cfg, x, shard,
-                           positions=positions, mask=mask, cache=acache,
-                           template=template)
+        x, _, _ = _attn_block(stack.shared_attn, cfg, x, shard,
+                              positions=positions, mask=mask, cache=acache,
+                              template=template)
         for e in range(cfg.attn_every):
             i = g * cfg.attn_every + e
             lp = stack.layers[i]
@@ -254,7 +277,7 @@ def stack_step(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
     block = lambda p, x, cache: _attn_block(
         p, cfg, x, shard, positions=positions, mask=mask, cache=cache,
         cache_len=cache_len, template=template)[0]
-    if cfg.family == "dense":
+    if cfg.family != "hybrid":
         for i, lp in enumerate(stack.layers):
             x = block(lp, x, _layer_kv(caches, i))
         return x, caches

@@ -382,6 +382,29 @@ ATTN_CASES = {
     # the CUDA-core route kept for bf16 q with a float32 k/v at Sq > 8
     "prefill_f32_kv": (2, 40, 90, 4, 2, 64, torch.bfloat16, torch.float32,
                        MaskSpec(), None),
+    # head dim 112 (kimi-k2) on every route: the tensor-core prefill at GQA
+    # 8:1 with a ragged last tile; the split-K decode with float32 rows (28
+    # chunks on 32 lanes) in blocks of 8 and 2 rows, and bf16 rows (14 on
+    # 16) with a batch row that sees no key; the CUDA-core route for float32
+    # q at Sq > 8 and Sq <= 8 (half a warp a row), and bf16 q with a float32
+    # k/v
+    "prefill_d112_gqa8": (1, 200, 200, 16, 2, 112, torch.bfloat16, None,
+                          MaskSpec(), None),
+    "decode_d112_f32_cache": (4, 1, 600, 16, 2, 112, torch.bfloat16,
+                              torch.float32, MaskSpec(causal=False),
+                              (37, 600, 1, 300)),
+    "decode_d112_two_rows": (3, 1, 520, 4, 2, 112, torch.bfloat16,
+                             torch.float32, MaskSpec(causal=False),
+                             (0, 257, 520)),
+    "decode_d112_bf16": (2, 1, 300, 8, 8, 112, torch.bfloat16, None,
+                         MaskSpec(causal=False), (0, 257)),
+    "cuda_core_d112_f32": (1, 65, 65, 8, 2, 112, torch.float32, None,
+                           MaskSpec(), None),
+    "cuda_core_d112_f32_decode": (2, 3, 90, 4, 2, 112, torch.float32, None,
+                                  MaskSpec(causal=True, q_offset=80),
+                                  (90, 70)),
+    "prefill_f32_kv_d112": (2, 40, 90, 4, 2, 112, torch.bfloat16,
+                            torch.float32, MaskSpec(), None),
 }
 
 
@@ -432,6 +455,22 @@ def test_every_route_is_taken(card):
     routes = {attention_cuda.route(a[6], a[7] or a[6], a[1])
               for a in ATTN_CASES.values()}
     assert routes == set(attention_cuda.ROUTES)
+    d112 = {attention_cuda.route(a[6], a[7] or a[6], a[1])
+            for a in ATTN_CASES.values() if a[5] == 112}
+    assert d112 == set(attention_cuda.ROUTES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_a_head_dim_outside_the_set_raises_and_launches_nothing(card, d):
+    before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
+    for sq, kvdt in ((40, torch.bfloat16), (1, torch.float32),
+                     (40, torch.float32)):
+        q = torch.zeros(1, sq, 2, d, dtype=torch.bfloat16, device=card)
+        kv = torch.zeros(1, 64, 2, d, dtype=kvdt, device=card)
+        with pytest.raises(ValueError, match="head dim"):
+            attention_cuda.flash_attention(q, kv, kv, MaskSpec())
+    assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before
 
 
 @pytest.mark.cuda
@@ -563,7 +602,8 @@ def test_ssd_heads_per_block_keeps_one_and_a_half_blocks_an_sm(card, nc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b",
+                                  "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"])
 def test_smoke_model_kernels_agree_with_plain_path(card, arch):
     from repro_torch.configs.registry import get_config, smoke
     from repro_torch.models import model
@@ -591,6 +631,35 @@ def test_smoke_model_kernels_agree_with_plain_path(card, arch):
         assert launched == ((2 * n_attn, n_ssd) if tmpl == "CUDA" else (0, 0))
     for a, b in zip(outs["CUDA"], outs["TORCH"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_moe_layer_at_qwen3_width_is_bitwise_deterministic(card):
+    """One MoE layer at qwen3-moe's published widths (128 experts of 4096
+    x 1536, top-8, bf16) on a 2,048-token prefill and a 4-token decode: two
+    calls give the same bits (a stable dispatch sort, the combine summed in
+    expert order: no atomics decide a value).  The prefill's tokens share a
+    direction, as a layer's activations do, so experts overflow and drop;
+    the decode's capacity of 8 never drops."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.config import LOCAL
+
+    cfg = get_config("qwen3-moe-235b-a22b")
+    layer = moe.MoE(torch.Generator(device=card).manual_seed(0), cfg, card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    base = torch.randn(cfg.d_model, generator=gen, device=card)
+    for shape in ((1, 2048), (4, 1)):
+        x = (2.0 * base + torch.randn(*shape, cfg.d_model, generator=gen,
+                                      device=card)).to(torch.bfloat16)
+        a, met_a = moe.moe_apply(layer, cfg, x, LOCAL)
+        b, met_b = moe.moe_apply(layer, cfg, x, LOCAL)
+        torch.cuda.synchronize()
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert all(torch.equal(u, v) for u, v in zip(met_a, met_b))
+        assert bool(torch.isfinite(a).all())
+        dropped = float(met_a.dropped_frac)
+        assert (0.0 < dropped < 1.0) if shape[1] > 1 else dropped == 0.0
 
 
 # ---------------------------------------------------------------------------

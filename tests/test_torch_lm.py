@@ -1,7 +1,10 @@
 """The port's language-model serving slice against the JAX reference, on
 the CPU: configs, parameters carried across by ``lm_params_from_numpy``,
 prefill logits and caches, per-slot decode steps, and the continuous-
-batching ``ServingEngine`` (the same greedy tokens per request).
+batching ``ServingEngine`` (the same greedy tokens per request), for the
+hybrid, dense and moe families (zamba2-1.2b, llama3-8b, qwen3-moe-235b-a22b
+and kimi-k2-1t-a32b).  The moe engine's bucket pads are routed like any
+token and count toward the expert capacity, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from repro_torch.models import model  # noqa: E402
 from repro_torch.models.config import ShardCfg  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
-ARCHS = ("zamba2-1.2b", "llama3-8b")
+ARCHS = ("zamba2-1.2b", "llama3-8b", "qwen3-moe-235b-a22b",
+         "kimi-k2-1t-a32b")
 # float32 smoke models: the packages differ in summation order only; 2e-5
 # of the logits' scale (~3) covers two layers' and a decode step's worth.
 TOL = 2e-5
@@ -85,12 +89,12 @@ def test_other_architectures_and_postures_are_not_ported():
         ShardCfg(mesh=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(ssm_sp=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(moe_mode="a2a")
-    moe = dataclasses.replace(registry.smoke(registry.get_config("llama3-8b")),
-                              family="moe")
+    ssm = dataclasses.replace(registry.smoke(registry.get_config("llama3-8b")),
+                              family="ssm")
     with pytest.raises(NotImplementedError, match="item 11"):
-        model.init_params(moe, 0, device="cpu")
+        model.init_params(ssm, 0, device="cpu")
     _, cfg, _, lm = _pair("llama3-8b")
     with pytest.raises(NotImplementedError, match="item 11"):
         model.prefill(lm, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long),

@@ -619,4 +619,5 @@ def test_what_is_not_ported_raises(pairs):
                       {"embeds": torch.zeros(1, 4, cfg.d_model),
                        "targets": torch.zeros(1, 4, dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="item 11"):
-        dataclasses.replace(cfg, num_experts=8).active_param_count()
+        model.model_flops_per_step(dataclasses.replace(cfg, family="ssm"),
+                                   1, 64)
