@@ -122,6 +122,23 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              relative L2, and the planted attention fault rejected; the
              free-running runs reported beside (cuda against torch, and
              two plain versions against each other).
+13. ssm      xlstm-125m at its published widths and depth (12 layers,
+             sLSTM at 5 and 11; bf16 weights from ``init_params`` at seed
+             0) through ``ServingEngine(slots=4, max_seq=4096,
+             backend="cuda")``, the lm phase's eight requests, drained,
+             with the launch counters reset just before: exactly 10
+             SSD_INTRA launches a prefill (one a mLSTM layer, at G 4, R 1,
+             N 384, P 385) and none a decode step, no FLASH_ATTENTION;
+             prefill ms per bucket and the host time of its two sLSTM
+             loops, decode-step ms, tokens/s, the device's busy share of a
+             decode step, peak memory; two prefills of one prompt bitwise
+             equal; then the lm phase's first prompt and 4 decode steps
+             teacher-forced (the tokens, and each block's input) on the
+             ``cuda`` and ``torch`` templates: each token row of every
+             block's output and of every mLSTM layer's SSD output, and the
+             logits, within 5e-2 relative L2, and the same run with one
+             mLSTM layer's s_in zeroed rejected; the free-running runs
+             (logits, greedy tokens) reported beside.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes and its 4096-token training forward, llama3-8b's GQA widths at
@@ -132,8 +149,10 @@ split on the bf16 routes, and a bf16-q float32-k/v prefill on the CUDA-core
 route: every route of ``attention_cuda.route`` is launched and checked per
 query row, and a planted fault of 64 missing keys must fail the same
 check) and SSD_INTRA (the zamba2 prefills of 512, 1024 and 2048 tokens,
-its 4096-token training forward (32 chunks) and an odd shape, each with a
-planted fault, one head's s_in zeroed)
+its 4096-token training forward (32 chunks) and an odd shape; the
+xlstm-125m prefills of 512, 1024 and 2048 tokens on mLSTM-like inputs, N
+200 / P 129 / L 48 and N 129 / P 385; each with a planted fault, one
+head's s_in zeroed)
 against their plain versions, beside ``scaled_dot_product_attention``'s
 time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
@@ -141,9 +160,10 @@ boolean mask; a yardstick only, the port never calls it).
 The line before the last is the ``{"kernels": [...]}`` summary
 (FLASH_ATTENTION's entry carries its prefill, decode, llama3 GQA,
 training and moe cases side by side under ``cases``, the stencils and
-JACOBI_FUSED their serial and farm calls, SSD_INTRA its three prefill
-lengths and its training shape; ``launches_by_path`` includes the train
-and moe phases'); the last line is ``{"ok": true, "device": {...}}``.
+JACOBI_FUSED their serial and farm calls, SSD_INTRA its three zamba2 and
+three xlstm prefill lengths and its training shape; ``launches_by_path``
+includes the train, moe and ssm phases'); the last line is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
 """
@@ -297,6 +317,11 @@ MOE_PARITY_PLEN = 1000
 # carries the smallest of 8 gates).  A lost key tile moves the last rows'
 # attention, and with it their experts and logits, by far more.
 MOE_TOPK_AGREE, MOE_LOGIT_REL = 0.98, 5e-2
+
+# the ssm serving path: xlstm-125m at its published widths and depth (12
+# layers: sLSTM at 5 and 11, mLSTM elsewhere), through the lm phase's
+# engine and drive (LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_PROMPT, LM_NEW)
+SSM_ARCH = "xlstm-125m"
 
 
 def emit(obj) -> None:
@@ -780,19 +805,55 @@ def attention_cases(gen, dev):
 
 # B nc L G R P N: the zamba2-1.2b prefills of 1024 (the headline), 512 and
 # 2048 tokens (chunks of 128, one group, 64 heads of 64, state 64), an
-# odd shape, and the train phase's 4096 tokens (32 chunks)
+# odd shape, and the train phase's 4096 tokens (32 chunks); the
+# xlstm-125m prefills of 512, 1024 and 2048 tokens (its mLSTM: 4 heads as
+# the groups, R 1, N 384 = the head dim, P 385 = v and the normalizer's
+# ones column), and two untimed odd shapes across N and P 128
 SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),
              ("prefill_512", (1, 4, 128, 1, 64, 64, 64)),
              ("prefill_2048", (1, 16, 128, 1, 64, 64, 64)),
              ("odd", (2, 3, 48, 1, 3, 16, 8)),
-             ("train_4k", (1, TRAIN_SEQ // 128, 128, 1, 64, 64, 64))]
+             ("train_4k", (1, TRAIN_SEQ // 128, 128, 1, 64, 64, 64)),
+             ("prefill_xlstm_512", (1, 4, 128, 4, 1, 385, 384)),
+             ("prefill_xlstm_1024", (1, 8, 128, 4, 1, 385, 384)),
+             ("prefill_xlstm_2048", (1, 16, 128, 4, 1, 385, 384)),
+             ("odd_n200_p129_l48", (2, 3, 48, 2, 3, 129, 200)),
+             ("odd_n129_p385", (1, 2, 128, 1, 2, 385, 129))]
+
+
+def mlstm_ssd_inputs(shape, gen, dev):
+    """SSD_INTRA's inputs as an mLSTM layer makes them: v with the ones
+    column, log_decay = log_sigmoid(3 + noise) (the forget bias 3),
+    in_scale = exp(8 tanh(i / 8)) with i spread over the cap (up to e^8 =
+    2,981), k / sqrt(N), and s_in the inter-chunk relay of the same inputs
+    (``ssd_core``'s), so that the state term is of the output's scale."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, nc, l, g, r, p, n = shape
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    x = rnd(bsz, nc, l, g, r, p)
+    x[..., -1] = 1.0
+    ld = F.logsigmoid(3.0 + rnd(bsz, nc, l, g, r))
+    dt = torch.exp(8.0 * torch.tanh((rnd(bsz, nc, l, g, r) * 6 - 2) / 8))
+    b_ = rnd(bsz, nc, l, g, n) / math.sqrt(n)
+    c_ = rnd(bsz, nc, l, g, n)
+    cum = torch.cumsum(ld, dim=2)
+    w = torch.exp(cum[:, :, -1:] - cum) * dt
+    sc = torch.einsum("bclgn,bclgr,bclgrp->bcgrnp", b_, w, x)
+    s_in = torch.zeros_like(sc)
+    for c in range(1, nc):
+        s_in[:, c] = (s_in[:, c - 1] * torch.exp(cum[:, c - 1, -1])[..., None,
+                                                                   None]
+                      + sc[:, c - 1])
+    return x, ld, dt, b_, c_, s_in
 
 
 def ssd_cases(gen, dev):
-    """SSD_INTRA against ``ssd_intra_reference`` at the zamba2-1.2b prefill
-    shapes (timed) and an odd shape; and for each, a planted fault the
-    check must reject (the kernel alone given s_in with its last head
-    zeroed)."""
+    """SSD_INTRA against ``ssd_intra_reference`` at the zamba2-1.2b and
+    xlstm-125m prefill shapes (timed), odd shapes; and for each, a planted
+    fault the check must reject (the kernel alone given s_in with its last
+    head zeroed; at R 1 every head's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_cuda as sc
@@ -800,13 +861,18 @@ def ssd_cases(gen, dev):
 
     res = {"max_abs_err": 0.0, "cases": {}}
     for case, (bsz, nc, l, g, r, p, n) in SSD_CASES:
-        rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
-        x = rnd(bsz, nc, l, g, r, p)
-        ld = -F.softplus(rnd(bsz, nc, l, g, r))
-        dt = F.softplus(rnd(bsz, nc, l, g, r))
-        b_, c_ = rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n)
-        s_in = rnd(bsz, nc, g, r, n, p) * 0.3
-        args = (x, ld, dt, b_, c_, s_in)
+        if "xlstm" in case:
+            args = mlstm_ssd_inputs((bsz, nc, l, g, r, p, n), gen, dev)
+        else:
+            rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                             device=dev)
+            x = rnd(bsz, nc, l, g, r, p)
+            ld = -F.softplus(rnd(bsz, nc, l, g, r))
+            dt = F.softplus(rnd(bsz, nc, l, g, r))
+            b_, c_ = rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n)
+            s_in = rnd(bsz, nc, g, r, n, p) * 0.3
+            args = (x, ld, dt, b_, c_, s_in)
+        x, s_in = args[0], args[5]
         got = sc.ssd_intra(*args)
         want = sc.ssd_intra_plain(*args)
         torch.cuda.synchronize()
@@ -824,7 +890,7 @@ def ssd_cases(gen, dev):
                 "max_abs_diff": err, "tolerance": tol,
                 "share_of_tolerance": err / tol, "finite": finite,
                 "planted_fault_max_abs_diff": fault}
-        if case != "odd":
+        if not case.startswith("odd"):
             line.update(
                 kernel_ms=cuda_ms(lambda: sc.ssd_intra(*args), reps=20,
                                   head_start=True),
@@ -2297,6 +2363,283 @@ def phase_moe(dev, smi: str):
 
 
 # ---------------------------------------------------------------------------
+def ssm_parity(cfg, lm, dev):
+    """One prompt (the lm phase's first) prefilled, then LM_PARITY_STEPS
+    decode steps on the TORCH template (choosing the tokens) and on the
+    CUDA template, each block's input and output recorded.
+
+    The checked CUDA run is teacher-forced in its tokens and in each
+    block's input: every xLSTM block takes the TORCH run's input to that
+    block, so each block's output differs from TORCH's by one application
+    of the kernel (SSD_INTRA in the mLSTM prefills), not by what earlier
+    blocks passed on.  The check holds the logits and each token row of
+    every block's output to LM_PARITY_RTOL in relative L2.  The block
+    outputs are what can see a fault, since with forced inputs the logits
+    follow from the last block, an sLSTM; and a row at a time, since a
+    chunk's incoming state weighs only on its first rows (the forget gate
+    decays it by ~0.95 a step), which a norm over the whole prompt
+    dilutes.  At random init an mLSTM cell's output is far below the
+    RMSNorm's eps, so an mLSTM block adds little to the residual stream:
+    the check also holds each (token, head) row of every mLSTM layer's SSD
+    output (``ssd_core``'s y, which SSD_INTRA computes) to LM_PARITY_RTOL.  Beside it: the free-running runs (tokens forced, inputs
+    free; and nothing forced, the greedy tokens' agreement).  Then the
+    checked run again with one mLSTM layer's s_in zeroed (the first
+    SSD_INTRA launch of the prefill), which the check must reject."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model, xlstm
+
+    prompt = torch.from_numpy(lm_requests(cfg)[0].prompt).to(dev)[None]
+    plen = prompt.shape[1]
+    names = ("mlstm_seq", "slstm_seq", "mlstm_step", "slstm_step")
+    blocks = {name: getattr(xlstm, name) for name in names}
+    core = xlstm.ssd_core
+
+    def run(template, tokens=None, inputs=None):
+        seen, outs, ssd = [], [], []
+
+        def recorded_core(*args, **kw):
+            y, final = core(*args, **kw)
+            ssd.append(y)
+            return y, final
+
+        def forced(fn):
+            def call(p, cfg_, x, *args, **kw):
+                seen.append(x)
+                if inputs is not None:
+                    x = inputs[len(seen) - 1]
+                out = fn(p, cfg_, x, *args, **kw)
+                outs.append(out[0].float())
+                return out
+            return call
+
+        for name in names:
+            setattr(xlstm, name, forced(blocks[name]))
+        xlstm.ssd_core = recorded_core
+        try:
+            caches = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32,
+                                       dev)
+            logits, caches = model.prefill(lm, cfg, {"tokens": prompt},
+                                           caches, template=template)
+            out, chosen = [logits[0, -1].float()], []
+            for step in range(LM_PARITY_STEPS):
+                tok = tokens[step] if tokens else int(out[-1].argmax())
+                chosen.append(tok)
+                logits, caches = model.decode_step(
+                    lm, cfg, torch.tensor([[tok]], device=dev), caches,
+                    plen + step, template=template)
+                out.append(logits[0, -1].float())
+            torch.cuda.synchronize()
+        finally:
+            for name in names:
+                setattr(xlstm, name, blocks[name])
+            xlstm.ssd_core = core
+        return {"logits": out, "tokens": chosen, "inputs": seen,
+                "outputs": outs, "ssd": ssd}
+
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+
+    def row_rel(a, b):         # the worst token row's relative L2 error
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+    def compare(got, want):
+        logits = [rel(a, b) for a, b in zip(got["logits"], want["logits"])]
+        blocks_ = [row_rel(a, b)
+                   for a, b in zip(got["outputs"], want["outputs"])]
+        return {"logits_rel_l2": logits, "logits_rel_l2_max": max(logits),
+                "ssd_rows_rel_l2_max": max(
+                    row_rel(a, b) for a, b in zip(got["ssd"], want["ssd"])),
+                "block_rows_rel_l2_max": max(blocks_),
+                "block_outputs_rel_l2_max": max(
+                    rel(a, b) for a, b in zip(got["outputs"],
+                                              want["outputs"])),
+                "block_worst": int(max(range(len(blocks_)),
+                                       key=blocks_.__getitem__)),
+                "argmax_equal": [int(a.argmax()) == int(b.argmax())
+                                 for a, b in zip(got["logits"],
+                                                 want["logits"])],
+                "finite": all(bool(torch.isfinite(a).all())
+                              for a in got["logits"] + got["outputs"])}
+
+    want = run("TORCH")
+    tokens, inputs = want["tokens"], want["inputs"]
+    res = compare(run("CUDA", tokens, inputs), want)
+    free = compare(run("CUDA", tokens), want)
+    greedy = run("CUDA")
+    kernel = ops.ssd_intra
+    calls = []
+
+    def zeroed_s_in(x, log_decay, in_scale, b_, c_, s_in, template=None):
+        calls.append(1)
+        if len(calls) == 1:
+            s_in = torch.zeros_like(s_in)
+        return kernel(x, log_decay, in_scale, b_, c_, s_in,
+                      template=template)
+
+    ops.ssd_intra = zeroed_s_in
+    try:
+        fault = compare(run("CUDA", tokens, inputs), want)
+    finally:
+        ops.ssd_intra = kernel
+    passes = lambda r: (r["finite"]
+                        and r["logits_rel_l2_max"] <= LM_PARITY_RTOL
+                        and r["block_rows_rel_l2_max"] <= LM_PARITY_RTOL
+                        and r["ssd_rows_rel_l2_max"] <= LM_PARITY_RTOL)
+    res.update(prompt_len=plen, steps=LM_PARITY_STEPS,
+               block_inputs_forced=True, passes=passes(res),
+               free_running=free,
+               free_running_greedy_tokens_agree=sum(
+                   a == b for a, b in zip(greedy["tokens"], tokens))
+               / len(tokens),
+               planted_fault=fault, planted_fault_passes=passes(fault))
+    return res
+
+
+def slstm_host_ms(cfg, lm, dev, b: int) -> dict:
+    """One CUDA prefill of ``b`` tokens with each sLSTM layer's sequence
+    (the loop over time: ``b`` steps of eager ops) timed alone, wall clock
+    between synchronises; the prefill's wall time beside it."""
+    import torch
+    from repro_torch.models import model, xlstm
+
+    fn, spent = xlstm.slstm_seq, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    toks = torch.zeros((1, b), dtype=torch.long, device=dev)
+    caches = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+    xlstm.slstm_seq = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(lm, cfg, {"tokens": toks}, caches, template="CUDA")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        xlstm.slstm_seq = fn
+    return {"prefill_wall_ms": wall, "slstm_layers_ms": spent,
+            "slstm_share": sum(spent) / wall}
+
+
+def phase_ssm(dev, smi: str):
+    """Phase 13: xlstm-125m at its published widths and depth through the
+    ported ServingEngine on the cuda backend: exact launch counts (10
+    SSD_INTRA a prefill, none a decode step), two prefills bitwise equal,
+    CUDA-vs-TORCH parity with a planted fault, and the times."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServingEngine, _bucket
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SSM_ARCH)
+    n_mlstm = cfg.num_layers - len(cfg.slstm_indices)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = model.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    eng = ServingEngine(cfg, lm, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                        device=dev, backend="cuda")
+    reqs = lm_requests(cfg)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, wall, launches, routes = drive_engine(eng)
+    peak = torch.cuda.max_memory_allocated()
+    prefills, decode_steps = sum(a for a, _ in steps), eng.steps
+    expected = dict.fromkeys(launches, 0)
+    expected["SSD_INTRA"] = n_mlstm * prefills
+    done = {r.rid: r for r in eng.finished}
+    tokens = sum(len(r.output) for r in done.values())
+    decode_ms = sorted(ms for a, ms in steps if a == 0)
+
+    # prefill time per bucket (one slot's cache rows), the sLSTM loop's
+    # host time inside one prefill a bucket; the same prompt prefilled
+    # twice must give the same logits bit for bit
+    buckets = sorted({_bucket(len(r.prompt)) for r in reqs})
+    one = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prefill_ms, slstm = {}, {}
+    for b in buckets:
+        toks = torch.randint(0, cfg.vocab_size, (1, b), device=dev,
+                             generator=gen)
+        prefill_ms[b] = cuda_ms(lambda: model.prefill(
+            lm, cfg, {"tokens": toks}, one, template="CUDA"), reps=2,
+            warmup=1)
+        slstm[b] = slstm_host_ms(cfg, lm, dev, b)
+    prompt = torch.from_numpy(reqs[0].prompt).to(dev)[None]
+    twice = []
+    for _ in range(2):
+        model.reset_caches(cfg, one)
+        twice.append(model.prefill(lm, cfg, {"tokens": prompt}, one,
+                                   template="CUDA")[0])
+    deterministic = torch.equal(twice[0], twice[1])
+    del one, twice
+
+    # a decode step with every slot resident, under the profiler
+    for r in lm_requests(cfg)[:LM_SLOTS]:
+        r.max_new_tokens = 1000
+        eng.submit(r)
+    eng.step()                                  # admit all four
+    eng.step()
+    busy = device_busy(eng.step)
+    del eng
+    parity = ssm_parity(cfg, lm, dev)
+
+    line = {"phase": "ssm", "arch": SSM_ARCH, "card": smi,
+            "layers": cfg.num_layers, "slstm_layers": list(cfg.slstm_indices),
+            "reduced": "nothing: every width and all 12 layers published",
+            "params": n_params, "init_s": init_s,
+            "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+            "requests": LM_REQUESTS,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "new_tokens": LM_NEW, "engine_steps": decode_steps,
+            "prefills": prefills, "launches": launches, "expected": expected,
+            "flash_attention_routes": routes,
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefill_ms_by_bucket": prefill_ms,
+            "slstm_host_by_bucket": slstm,
+            "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+            "decode_step_ms_min": decode_ms[0],
+            "decode_steps_timed": len(decode_ms),
+            "decode_step_busy": busy, "max_memory_allocated": peak,
+            "prefill_bitwise_deterministic": deterministic,
+            "parity": parity,
+            "first_tokens": {rid: done[rid].output[:8]
+                             for rid in sorted(done)}}
+    emit(line)
+    require(len(done) == LM_REQUESTS and prefills == LM_REQUESTS,
+            f"ssm: {len(done)} of {LM_REQUESTS} requests finished")
+    require(all(len(r.output) == LM_NEW and
+                all(0 <= t < cfg.vocab_size for t in r.output)
+                for r in done.values()), "ssm: outputs of the wrong length")
+    require(launches == expected,
+            f"ssm: launch counts {launches} != {expected}")
+    require(deterministic, "ssm: two prefills of one prompt differ")
+    require(parity["passes"], f"ssm: cuda and torch templates disagree: "
+                              f"{parity}")
+    require(not parity["planted_fault_passes"],
+            f"ssm: the parity check passed a zeroed s_in: "
+            f"{parity['planted_fault']}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -2326,6 +2669,7 @@ def main() -> int:
     paths["lm"] = phase_lm(dev)
     paths["train"] = phase_train(dev, smi)
     paths["moe"] = phase_moe(dev, smi)
+    paths["ssm"] = phase_ssm(dev, smi)
     # each kernel's launches on the path that carries it: the farm for the
     # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
     # serving path for FLASH_ATTENTION and SSD_INTRA

@@ -25,10 +25,15 @@ NVIDIA card.
    the tiling).  Device times (CUDA events, the stream given a head start),
    the variants taken in turn forward and then backward.
 2. ssd: heads per block fixed at 2, 4 and 8 (design: chosen per launch,
-   ``ssd_cuda.heads_per_block``), and tf32_once, one TF32 product in place
-   of the 3xTF32 split.  Each runs the zamba2-1.2b
+   ``ssd_cuda.heads_per_block``), tf32_once, one TF32 product in place
+   of the 3xTF32 split, and tail_mmas, every warp's MMAs run over all its
+   n-tiles (design: a warp skips the 8-column tiles past P, which only a
+   column tile at P's end has).  Each runs the zamba2-1.2b and xlstm-125m
    prefill shapes of ``chip_smoke.SSD_CASES`` (512, 1024 and 2048 tokens):
-   device time and the largest share of the SSD_RTOL check.
+   device time and the largest share of the SSD_RTOL check.  With
+   ``--parent DIR``, also the zamba2 prefill shapes on DIR's tree and on
+   this one in turns (parent, this, this, parent), each in its own process
+   (``chip_smoke.SSD_CASES`` inputs, ``chip_smoke.cuda_ms`` of that tree).
 3. stencil: the four stencil kernels as committed (every operation
    rounded as written, the (slot, x) row split by a 32-bit division) and
    ``contract``, the source as it was before both (plain operators that
@@ -83,6 +88,13 @@ VARIANTS = [
     ("ssd", "heads8", [("constexpr int kHeads = 0;", "constexpr int kHeads = 8;")]),
     ("ssd", "tf32_once", [("constexpr bool kSplit = true;",
                            "constexpr bool kSplit = false;")]),
+    ("ssd", "tail_mmas", [
+        ("if (j < jn) mma(acc[j], al, bh[j][0], bh[j][1]);",
+         "mma(acc[j], al, bh[j][0], bh[j][1]);"),
+        ("if (j < jn) mma(acc[j], ah, bl[j][0], bl[j][1]);",
+         "mma(acc[j], ah, bl[j][0], bl[j][1]);"),
+        ("if (j < jn) mma(acc[j], ah, bh[j][0], bh[j][1]);",
+         "mma(acc[j], ah, bh[j][0], bh[j][1]);")]),
     ("stencil3d", "contract", [
         ("""  const unsigned q = (unsigned)r / (unsigned)nx;
   s = q;
@@ -125,6 +137,30 @@ import chip_smoke as cs
 dev = torch.device("cuda")
 out = {name: [cs.batched_step_ms(dev, **kw) for _ in range(2)]
        for name, kw in (("farm", {}), ("farm_fused", {"fused_sweeps": cs.FUSED_K}))}
+print(json.dumps(out))
+'''
+
+# one tree's SSD_INTRA at the zamba2 prefill shapes (its wrapper, its
+# build), the stream given a head start
+SSD_TREE = r'''
+import json, sys, torch
+import torch.nn.functional as F
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/src")
+import chip_smoke as cs
+from repro_torch.kernels import ssd_cuda as sc
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+out = {}
+for case, (bsz, nc, l, g, r, p, n) in (("prefill_512", (1, 4, 128, 1, 64, 64, 64)),
+                                       ("prefill", (1, 8, 128, 1, 64, 64, 64)),
+                                       ("prefill_2048", (1, 16, 128, 1, 64, 64, 64))):
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    args = (rnd(bsz, nc, l, g, r, p), -F.softplus(rnd(bsz, nc, l, g, r)),
+            F.softplus(rnd(bsz, nc, l, g, r)), rnd(bsz, nc, l, g, n),
+            rnd(bsz, nc, l, g, n), rnd(bsz, nc, g, r, n, p) * 0.3)
+    out[case] = [cs.cuda_ms(lambda: sc.ssd_intra(*args), 30, head_start=True)
+                 for _ in range(3)]
 print(json.dumps(out))
 '''
 
@@ -347,6 +383,18 @@ def study_tiles(libs):
         st._lib = lib
 
 
+def study_ssd_parent(parent: str):
+    for name in ("parent", "this", "this", "parent"):
+        tree = parent if name == "parent" else ROOT
+        out = subprocess.run([sys.executable, "-c", SSD_TREE, tree],
+                             capture_output=True, text=True, timeout=900,
+                             cwd=tree)
+        if out.returncode:
+            raise SystemExit(f"SSD_INTRA on {tree} failed:\n{out.stderr}")
+        emit({"phase": "ssd_parent", "tree": name, "root": tree,
+              "kernel_ms": json.loads(out.stdout.strip().splitlines()[-1])})
+
+
 def study_farm(parent: str):
     for name in ("parent", "this", "this", "parent"):
         tree = parent if name == "parent" else ROOT
@@ -364,7 +412,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="a checkout of another commit, for the "
-                                     "farm-step comparison")
+                                     "farm-step and SSD_INTRA comparisons")
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="comma-separated sections to run "
                          f"(default: {','.join(SECTIONS)})")
@@ -386,6 +434,8 @@ def main() -> int:
         study_jacobi(libs["jacobi"])
     if "ssd" in only:
         study_ssd(libs["ssd"])
+    if args.parent and "ssd" in only:
+        study_ssd_parent(os.path.abspath(args.parent))
     if "stencil" in only:
         study_stencil({k: v for k, v in libs["stencil3d"].items()
                        if not k.startswith("walk_")})

@@ -1,0 +1,19 @@
+"""granite-8b [dense] — llama-arch, code [arXiv:2405.04324; hf].
+36L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=49152.
+"""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="granite-8b",
+        family="dense",
+        num_layers=36,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        d_ff=14_336,
+        vocab_size=49_152,
+        rope_theta=10_000_000.0,
+        tie_embeddings=True,
+    )

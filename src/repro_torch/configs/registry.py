@@ -1,11 +1,12 @@
 """Arch registry: ``get_config("<id>")`` + reduced smoke configs.
 
 The port's copy of ``repro.configs.registry``.  It lists the reference's
-ten architectures; the four whose block composition the port carries,
-``zamba2-1.2b`` (hybrid), ``llama3-8b`` (dense), ``qwen3-moe-235b-a22b`` and
-``kimi-k2-1t-a32b`` (moe), have configs, and the other six raise
-``NotImplementedError`` (ROADMAP queue 1, item 11: the ``ssm``, ``audio``
-and ``vlm`` families).  ``smoke(cfg)`` gives the reference's reduced config
+ten architectures; the eight whose block composition the port carries,
+``zamba2-1.2b`` (hybrid), ``llama3-8b``, ``qwen1.5-4b``, ``minitron-4b``
+and ``granite-8b`` (dense), ``qwen3-moe-235b-a22b`` and ``kimi-k2-1t-a32b``
+(moe) and ``xlstm-125m`` (ssm), have configs, and the other two raise
+``NotImplementedError`` (ROADMAP queue 1, item 11: the ``audio`` and
+``vlm`` families).  ``smoke(cfg)`` gives the reference's reduced config
 field for field.
 """
 from __future__ import annotations
@@ -22,11 +23,11 @@ ARCHS = {
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
-    "xlstm-125m": None,
-    "qwen1.5-4b": None,
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "qwen1.5-4b": "repro_torch.configs.qwen1p5_4b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
-    "minitron-4b": None,
-    "granite-8b": None,
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "granite-8b": "repro_torch.configs.granite_8b",
     "paligemma-3b": None,
 }
 
@@ -69,4 +70,9 @@ def smoke(cfg: ModelConfig, *, layers: int = 2) -> ModelConfig:
     if cfg.family == "hybrid":
         repl.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16,
                     attn_every=2)
+    if cfg.family == "ssm":
+        repl.update(slstm_indices=(1,), ssm_chunk=16, d_model=64,
+                    num_heads=2, num_kv_heads=2)
+    if cfg.num_prefix_tokens:
+        repl.update(num_prefix_tokens=8)
     return dataclasses.replace(cfg, **repl)

@@ -10,10 +10,12 @@ go back to numpy for comparison.
 
 For a language model, :func:`lm_params_from_numpy` takes the reference's
 parameter tree (nested dicts of numpy arrays, stacked ``(L, ...)`` leaves
-under ``stack/layers``) and returns the port's ``LM`` with the same values
-bitwise, and :func:`lm_params_to_numpy` goes back; :func:`caches_from_numpy`
-and :func:`caches_to_numpy` carry the decode caches (``KVCache`` pairs,
-``Mamba2State``) both ways.  For training, :func:`adamw_state_from_numpy`
+under ``stack/layers``, or for the ``ssm`` family a tuple of per-layer
+dicts there) and returns the port's ``LM`` with the same values bitwise,
+and :func:`lm_params_to_numpy` goes back; :func:`caches_from_numpy` and
+:func:`caches_to_numpy` carry the decode caches (``KVCache`` pairs,
+``Mamba2State``, and the ``ssm`` family's tuple of per-layer
+``MLSTMState``/``SLSTMState``) both ways.  For training, :func:`adamw_state_from_numpy`
 and :func:`adamw_state_to_numpy` carry the optimizer state (its moments
 stacked like the parameters) and :func:`grads_to_numpy` gives a model's
 gradients in the reference's tree.  One name map serves all of them:
@@ -93,19 +95,26 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def _flatten(tree, prefix=()) -> Iterator[tuple[tuple, np.ndarray]]:
+    """(path, leaf) pairs of nested dicts and lists or tuples; an element
+    of a sequence is named by its index, as a string."""
     if isinstance(tree, Mapping):
         for k, v in tree.items():
             yield from _flatten(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (str(i),))
     else:
         yield prefix, tree
 
 
-def reference_path(name: str) -> str:
+def reference_path(name: str, stacked: bool = True) -> str:
     """The reference's ``/``-joined tree path (``dist.sharding._path_str``)
     of a port parameter name: ``stack.layers.<i>.<path>`` is the stacked
-    leaf ``stack/layers/<path>``; every other name keeps its parts."""
+    leaf ``stack/layers/<path>`` (``stacked``), or the per-layer leaf
+    ``stack/layers/<i>/<path>`` (the ``ssm`` family's stack,
+    ``LayerStack.stacked`` False); every other name keeps its parts."""
     parts = name.split(".")
-    if parts[:2] == ["stack", "layers"]:
+    if stacked and parts[:2] == ["stack", "layers"]:
         del parts[2]
     return "/".join(parts)
 
@@ -113,10 +122,11 @@ def reference_path(name: str) -> str:
 def _port_named(tree: Mapping, device) -> dict:
     """A reference parameter-shaped tree as port names -> tensors: a
     stacked leaf ``stack/layers/<path>`` of shape (L, ...) becomes
-    ``stack.layers.<i>.<path>`` for each layer i."""
+    ``stack.layers.<i>.<path>`` for each layer i; a per-layer leaf
+    ``stack/layers/<i>/<path>`` keeps its parts."""
     out = {}
     for path, arr in _flatten(tree):
-        if path[:2] == ("stack", "layers"):
+        if path[:2] == ("stack", "layers") and not path[2].isdigit():
             for i in range(arr.shape[0]):
                 key = ("stack", "layers", str(i)) + path[2:]
                 out[".".join(key)] = _tensor(arr[i]).to(device)
@@ -131,21 +141,30 @@ def _put(tree: dict, parts, value) -> None:
     tree[parts[-1]] = value
 
 
-def _reference_tree(named: Mapping[str, torch.Tensor]) -> dict:
+def _reference_tree(named: Mapping[str, torch.Tensor],
+                    stacked: bool = True) -> dict:
     """The inverse of :func:`_port_named`: numpy leaves (``to_numpy``: a
     bfloat16 tensor as float32, exactly) in the reference's nested dicts,
-    the layers stacked along a leading axis in index order."""
+    the layers stacked along a leading axis in index order (``stacked``),
+    or a tuple of per-layer dicts (the ``ssm`` family)."""
     tree: dict = {}
-    stacked: dict = {}
+    by_path: dict = {}
+    per_layer: dict = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[:2] == ["stack", "layers"]:
-            stacked.setdefault(reference_path(name), {})[int(parts[2])] = t
-        else:
+        if parts[:2] != ["stack", "layers"]:
             _put(tree, parts, to_numpy(t))
-    for path, by_layer in stacked.items():
+        elif stacked:
+            by_path.setdefault(reference_path(name), {})[int(parts[2])] = t
+        else:
+            _put(per_layer.setdefault(int(parts[2]), {}), parts[3:],
+                 to_numpy(t))
+    for path, by_layer in by_path.items():
         _put(tree, path.split("/"),
              np.stack([to_numpy(by_layer[i]) for i in sorted(by_layer)]))
+    if per_layer:
+        _put(tree, ["stack", "layers"],
+             tuple(per_layer[i] for i in sorted(per_layer)))
     return tree
 
 
@@ -164,7 +183,7 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None):
 def lm_params_to_numpy(lm) -> dict:
     """The port model's parameters in the reference's tree (numpy; a
     bfloat16 parameter as float32)."""
-    return _reference_tree(dict(lm.named_parameters()))
+    return _reference_tree(dict(lm.named_parameters()), lm.stack.stacked)
 
 
 def grads_to_numpy(lm) -> dict:
@@ -174,7 +193,8 @@ def grads_to_numpy(lm) -> dict:
     if missing:
         raise ValueError(f"no gradient on {missing[:3]}... "
                          f"({len(missing)} parameters)")
-    return _reference_tree({n: p.grad for n, p in lm.named_parameters()})
+    return _reference_tree({n: p.grad for n, p in lm.named_parameters()},
+                           lm.stack.stacked)
 
 
 def adamw_state_from_numpy(state, device=None):
@@ -197,15 +217,19 @@ def adamw_state_to_numpy(state):
 
 
 def caches_from_numpy(tree, device=None):
-    """The reference's decode caches (numpy leaves, ``KVCache`` /
-    ``Mamba2State`` named tuples, dicts of them) as the port's, on
-    ``device``."""
+    """The reference's decode caches (numpy leaves; ``KVCache``,
+    ``Mamba2State``, ``MLSTMState`` and ``SLSTMState`` named tuples, dicts
+    and tuples of them) as the port's, on ``device``."""
     from repro_torch.models.blocks import KVCache
     from repro_torch.models.mamba2 import Mamba2State
+    from repro_torch.models.xlstm import MLSTMState, SLSTMState
 
     if isinstance(tree, Mapping):
         return {k: caches_from_numpy(v, device) for k, v in tree.items()}
-    cls = {("k", "v"): KVCache, ("conv", "ssm"): Mamba2State}[tree._fields]
+    if not hasattr(tree, "_fields"):               # the ssm family's layers
+        return tuple(caches_from_numpy(v, device) for v in tree)
+    cls = {c._fields: c for c in (KVCache, Mamba2State, MLSTMState,
+                                  SLSTMState)}[tree._fields]
     dev = resolve_device(device)
     return cls(*(_tensor(a).to(dev) for a in tree))
 
@@ -214,4 +238,6 @@ def caches_to_numpy(caches):
     """The port's caches with numpy leaves, in the same structure."""
     if isinstance(caches, Mapping):
         return {k: caches_to_numpy(v) for k, v in caches.items()}
+    if not hasattr(caches, "_fields"):
+        return tuple(caches_to_numpy(v) for v in caches)
     return type(caches)(*(t.detach().cpu().numpy() for t in caches))

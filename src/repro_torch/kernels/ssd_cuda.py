@@ -7,9 +7,10 @@ the reference's Pallas ``repro.kernels.ssd.ssd_intra_pallas``.
 
 Shapes: x (B, nc, L, G, R, P), log_decay/in_scale (B, nc, L, G, R),
 b_/c_ (B, nc, L, G, N), s_in (B, nc, G, R, N, P), all float32 and
-C-contiguous on one device, with L <= 256, N <= 128 and P <= 128; the result
-is a new (B, nc, L, G, R, P) float32 tensor.  The wrapper checks all of
-that and raises on anything else.
+C-contiguous on one device, with L <= 256, N <= 512 and P <= 512 (the
+zamba2 chunk's N 64 / P 64 and the mLSTM's N 384 / P 385 among them); the
+result is a new (B, nc, L, G, R, P) float32 tensor.  The wrapper checks all
+of that and raises on anything else.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream
 without synchronising and adds one to ``LAUNCHES["SSD_INTRA"]``.  On a CPU
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.kernels.ssd import ssd_intra_reference
 
-MAX_L, MAX_N, MAX_P = 256, 128, 128     # the kernel's shared-memory tiles
+MAX_L, MAX_N, MAX_P = 256, 512, 512     # csrc/ssd.cu's kMaxL, kMaxN, kMaxP
 
 # launches since the last reset (CUDA launches only)
 LAUNCHES = {"SSD_INTRA": 0}
@@ -48,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_intra.restype = ctypes.c_int
     lib.ssd_max_dims.argtypes = [ctypes.c_int]
     lib.ssd_max_dims.restype = ctypes.c_int
-    lib.ssd_heads_per_block.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 3
+    lib.ssd_heads_per_block.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 4
     lib.ssd_heads_per_block.restype = ctypes.c_int
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
@@ -60,8 +61,8 @@ def _lib() -> ctypes.CDLL:
 def heads_per_block(x) -> int:
     """Heads one block of the kernel takes for an x of shape
     (B, nc, L, G, R, P) on the current card."""
-    bsz, nc, l, g, r, _ = x.shape
-    return _lib().ssd_heads_per_block(bsz * nc, l, g, r)
+    bsz, nc, l, g, r, p = x.shape
+    return _lib().ssd_heads_per_block(bsz * nc, l, g, r, p)
 
 
 def _check(x, log_decay, in_scale, b_, c_, s_in) -> tuple:

@@ -6,7 +6,9 @@ engine.
 
 Without ``--smoke`` the model runs at its published widths and depth.
 ``--device`` defaults to ``cuda``, where the engine runs the hand-written
-kernels; on ``cpu`` it runs their plain versions.  The published moe
+kernels; on ``cpu`` it runs their plain versions.  ``--arch xlstm-125m``
+serves the ``ssm`` family (its mLSTM prefills launch SSD_INTRA, its sLSTM
+layers loop over the prompt's tokens in eager ops).  The published moe
 configs do not fit one 80 GB card: ``--arch qwen3-moe-235b-a22b`` holds
 94 layers, 470 GB of bf16 weights, and ``kimi-k2-1t-a32b`` 2.1 TB, so
 without ``--smoke`` both stop with CUDA's out-of-memory error while the

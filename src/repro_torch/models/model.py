@@ -12,8 +12,10 @@ reference's parameter tree (``embed.table``, ``stack.layers.<i>....``,
 ``stack.shared_attn....``, ``final_norm.scale``, ``unembed.w``).  ``batch``
 is a dict with ``tokens`` (B, S) int and, for the loss, ``targets`` (B, S)
 int (next-token labels; negative ones are masked); the reference's modality
-stubs (``embeds``, ``prefix_embeds``) are ROADMAP queue 1, item 11.
-``template`` selects the kernels: ``CUDA`` (the default on the card) or
+stubs (``embeds``, ``prefix_embeds``) are ROADMAP queue 1, item 11, and so
+is the ``ssm`` family's loss (it serves: prefill and decode).
+``reset_caches`` sets caches, or one slot's rows of them, back to
+``init_caches``' values.  ``template`` selects the kernels: ``CUDA`` (the default on the card) or
 ``TORCH`` (their plain versions).
 
 The loss is computed **chunked over the sequence** (``LOSS_CHUNK``
@@ -169,6 +171,7 @@ def decode_step(model: LM, cfg: ModelConfig, token, caches, cache_len,
 
 
 init_caches = transformer.init_caches
+reset_caches = transformer.reset_caches
 
 
 def model_flops_per_step(cfg: ModelConfig, batch: int, seq: int,

@@ -1,4 +1,5 @@
-"""The decoder layer stack for the ``dense``, ``moe`` and ``hybrid`` families.
+"""The decoder layer stack for the ``dense``, ``moe``, ``hybrid`` and ``ssm``
+families.
 
 The port's copy of ``repro.models.transformer``:
 
@@ -10,15 +11,20 @@ The port's copy of ``repro.models.transformer``:
             applied before each group of ``attn_every`` layers (zamba2):
             G = L / attn_every applications, each with its own KV cache;
             the Mamba states are stacked over all L layers
+  ssm     — xLSTM: mLSTM blocks with sLSTM at ``slstm_indices``
+            (``models/xlstm.py``), a heterogeneous stack: its caches are a
+            tuple of per-layer ``MLSTMState``/``SLSTMState`` (batch axis
+            0), as in the reference
 
 Layers run as a Python loop (the reference's ``lax.scan``).  Caches are
-stacked along a leading layer axis, as in the reference, and are updated in
-place: each function returns the caches it was given.  In ``mode="train"``
-each layer (dense) or each group (hybrid) runs under the config's
-rematerialisation policy (:func:`_remat`); the shared block of a hybrid
-stack is one set of parameters, so its gradient sums over all its
-applications, as in the reference.  The ``ssm``, ``audio`` and ``vlm``
-families are ROADMAP queue 1, item 11.
+stacked along a leading layer axis (but the ``ssm`` family's), as in the
+reference, and are updated in place: each function returns the caches it
+was given.  In ``mode="train"`` each layer (dense) or each group (hybrid)
+runs under the config's rematerialisation policy (:func:`_remat`); the
+shared block of a hybrid stack is one set of parameters, so its gradient
+sums over all its applications, as in the reference.  Training the ``ssm``
+family, and the ``audio`` and ``vlm`` families, are ROADMAP queue 1, item
+11.
 """
 from __future__ import annotations
 
@@ -29,12 +35,12 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
-from repro_torch.models import layers, mamba2, moe
+from repro_torch.models import layers, mamba2, moe, xlstm
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.blocks import Attention, KVCache, attention
 from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 MODES = ("train", "prefill")
 # the matrix products whose outputs ``remat="dots"`` keeps: those with no
 # batch dimension (jax's ``dots_with_no_batch_dims_saveable``); a product
@@ -120,14 +126,24 @@ class MambaLayer(nn.Module):
 
 
 class LayerStack(nn.Module):
-    """``layers`` (one module per layer) and, for hybrid, ``shared_attn``."""
+    """``layers`` (one module per layer) and, for hybrid, ``shared_attn``.
+
+    ``stacked`` says whether the reference stacks the layers' parameters
+    along a leading axis (every family but ``ssm``, whose layers are a
+    tuple of per-layer trees): ``convert.py`` lays the tree out by it."""
 
     def __init__(self, gen, cfg: ModelConfig, device=None):
         super().__init__()
         _check_family(cfg)
-        block = MambaLayer if cfg.family == "hybrid" else AttnBlock
-        self.layers = nn.ModuleList(block(gen, cfg, device)
-                                    for _ in range(cfg.num_layers))
+        self.stacked = cfg.family != "ssm"
+        if cfg.family == "ssm":
+            block = lambda i: (xlstm.SLSTMBlock if i in cfg.slstm_indices
+                               else xlstm.MLSTMBlock)
+        else:
+            block = lambda i: (MambaLayer if cfg.family == "hybrid"
+                               else AttnBlock)
+        self.layers = nn.ModuleList(block(i)(gen, cfg, device)
+                                    for i in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared_attn = AttnBlock(gen, cfg, device)
 
@@ -139,9 +155,15 @@ def init_layer_stack(gen, cfg: ModelConfig, device=None) -> LayerStack:
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 cache_dtype=torch.bfloat16, device=None) -> Any:
     """Decode-time state for the whole stack: a stacked ``KVCache`` (dense,
-    moe), or {"mamba": stacked ``Mamba2State``, "attn": stacked
-    ``KVCache``} (hybrid)."""
+    moe), {"mamba": stacked ``Mamba2State``, "attn": stacked ``KVCache``}
+    (hybrid), or a tuple of per-layer ``SLSTMState``/``MLSTMState`` in
+    float32 whatever ``cache_dtype`` (ssm)."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return tuple(xlstm.slstm_init_state(cfg, batch, device)
+                     if i in cfg.slstm_indices
+                     else xlstm.mlstm_init_state(cfg, batch, device)
+                     for i in range(cfg.num_layers))
 
     def kv(n):
         shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
@@ -155,6 +177,28 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
         torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=device)
         for t in st))
     return {"mamba": stacked, "attn": kv(n_attn_layers(cfg))}
+
+
+def reset_caches(cfg: ModelConfig, caches) -> None:
+    """Set ``caches`` (or views of some of their rows) in place to the
+    values :func:`init_caches` starts them at: zeros, but the sLSTM
+    max-state's -1e30."""
+    if cfg.family != "ssm":
+        for leaf in (caches.values() if isinstance(caches, dict)
+                     else (caches,)):
+            for t in leaf:
+                t.zero_()
+        return
+    fresh = init_caches(cfg, caches[0].c.shape[0], 0,
+                        device=caches[0].c.device)
+    for state, init in zip(caches, fresh):
+        _copy_state(state, init)
+
+
+def _copy_state(dst, src) -> None:
+    """Each tensor of ``src`` into the same field of ``dst``, in place."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 def _layer_kv(caches: KVCache | None, i: int) -> KVCache | None:
@@ -206,6 +250,11 @@ def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
                               mask=mask, caches=caches,
                               train=mode == "train", template=template)
         return x, caches, StackMetrics.zero(x.device)
+    if cfg.family == "ssm":
+        if mode == "train":
+            raise not_ported("training the 'ssm' family", 11)
+        x = _seq_xlstm_stack(stack, cfg, x, caches=caches, template=template)
+        return x, caches, StackMetrics.zero(x.device)
     x, metrics = _seq_attn_stack(stack, cfg, x, shard, positions=positions,
                                  mask=mask, caches=caches,
                                  train=mode == "train", template=template)
@@ -249,13 +298,26 @@ def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
                 state=ms, return_state=with_caches, template=template)
             x = shard.constrain_act(x + h.to(x.dtype), None, None)
             if with_caches:
-                for dst, src in zip(ms, nm):
-                    dst.copy_(src)
+                _copy_state(ms, nm)
         return x
 
     group = _remat(group, cfg) if train else group
     for g in range(n_attn_layers(cfg)):
         x = group(x, g)
+    return x
+
+
+def _seq_xlstm_stack(stack, cfg, x, *, caches, template):
+    """Each layer an sLSTM (at ``slstm_indices``) or an mLSTM block; with
+    caches, each layer starts from its state and leaves its final state
+    there."""
+    for i, lp in enumerate(stack.layers):
+        st = caches[i] if caches is not None else None
+        fn = xlstm.slstm_seq if i in cfg.slstm_indices else xlstm.mlstm_seq
+        x, ns = fn(lp, cfg, x, state=st, return_state=caches is not None,
+                   template=template)
+        if caches is not None:
+            _copy_state(st, ns)
     return x
 
 
@@ -277,6 +339,14 @@ def stack_step(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
     block = lambda p, x, cache: _attn_block(
         p, cfg, x, shard, positions=positions, mask=mask, cache=cache,
         cache_len=cache_len, template=template)[0]
+    if cfg.family == "ssm":
+        xt = x[:, 0]
+        for i, lp in enumerate(stack.layers):
+            fn = (xlstm.slstm_step if i in cfg.slstm_indices
+                  else xlstm.mlstm_step)
+            xt, ns = fn(lp, cfg, xt, caches[i])
+            _copy_state(caches[i], ns)
+        return xt[:, None], caches
     if cfg.family != "hybrid":
         for i, lp in enumerate(stack.layers):
             x = block(lp, x, _layer_kv(caches, i))
@@ -292,6 +362,5 @@ def stack_step(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
                 lp.mamba, cfg, layers.rmsnorm(lp.ln, x[:, 0], cfg.norm_eps),
                 ms)
             x = x + h[:, None].to(x.dtype)
-            for dst, src in zip(ms, nm):
-                dst.copy_(src)
+            _copy_state(ms, nm)
     return x, caches

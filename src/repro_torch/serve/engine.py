@@ -14,10 +14,14 @@ the slot, and the last real prompt token is decoded again at position
 ``plen - 1`` to give the first new token.  For attention that re-decode is
 harmless (the pads are masked and the KV rewrite is idempotent); for the
 hybrid family the Mamba states absorb the pads and the repeated token, so
-zamba2's tokens depend on the bucket, as they do in the reference (ROADMAP
-queue 3).  The port prefills into views of the slot's cache rows, zeroed
-first, where the reference prefills a fresh one-slot cache and copies it
-in: the same values.
+zamba2's and xlstm's tokens depend on the bucket, as they do in the
+reference (ROADMAP queue 3).  The port prefills into views of the slot's
+cache rows, first set to a fresh cache's values (``model.reset_caches``:
+zeros, and the sLSTM max-state's -1e30), where the reference prefills a
+fresh one-slot cache and copies it in: the same values.  Each cache leaf's
+slot axis is found as the reference finds it, as the axis whose extent
+follows the number of slots (1 under a stacked layer axis, 0 for the
+``ssm`` family's per-layer states).
 
 ``device`` and ``backend`` mean what they mean in ``repro_torch.api``:
 ``device`` None is ``cuda``; ``backend`` ``torch`` runs the plain versions,
@@ -55,17 +59,32 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
     return -(-n // 2048) * 2048
 
 
-def _slot_view(caches, s: int):
-    """Each cache leaf's rows for slot ``s`` (batch axis 1), as views."""
-    if isinstance(caches, dict):
-        return {k: _slot_view(v, s) for k, v in caches.items()}
-    return type(caches)(*(t[:, s:s + 1] for t in caches))
+def _map(fn, tree, *rest):
+    """``fn`` over the tensors of a cache tree (dicts, tuples and named
+    tuples of tensors) and the matching leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in
+                tree.items()}
+    if isinstance(tree, tuple):
+        out = [_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)
 
 
-def _zero(caches) -> None:
-    for leaf in (caches.values() if isinstance(caches, dict) else (caches,)):
-        for t in leaf:
-            t.zero_()
+def _batch_axes(cfg: ModelConfig, slots: int, max_seq: int):
+    """Each cache leaf's slot axis: the one whose extent differs between
+    caches for ``slots`` and ``slots + 1`` (shapes on ``meta``)."""
+    shapes = [model.init_caches(cfg, n, max_seq, torch.float32, "meta")
+              for n in (slots, slots + 1)]
+    return _map(lambda a, b: next(i for i, (u, v) in
+                                  enumerate(zip(a.shape, b.shape)) if u != v),
+                *shapes)
+
+
+def _slot_view(caches, axes, s: int):
+    """Each cache leaf's rows for slot ``s`` along its slot axis, as
+    views."""
+    return _map(lambda t, ax: t.narrow(ax, s, 1), caches, axes)
 
 
 class ServingEngine:
@@ -89,6 +108,7 @@ class ServingEngine:
         self.budgets = np.zeros((slots,), np.int64)
         self.caches = model.init_caches(cfg, slots, max_seq, torch.float32,
                                         self.device)
+        self._batch_axes = _batch_axes(cfg, slots, max_seq)
         self.last_token = np.zeros((slots, 1), np.int64)
         self.steps = 0
 
@@ -109,8 +129,8 @@ class ServingEngine:
             plen = len(req.prompt)
             toks = np.zeros((1, _bucket(plen)), np.int64)
             toks[0, :plen] = req.prompt
-            one_cache = _slot_view(self.caches, s)
-            _zero(one_cache)
+            one_cache = _slot_view(self.caches, self._batch_axes, s)
+            model.reset_caches(self.cfg, one_cache)
             model.prefill(self.params, self.cfg,
                           {"tokens": torch.from_numpy(toks).to(self.device)},
                           one_cache, self.shard, template=self.template)

@@ -544,7 +544,14 @@ SSD_CASES = {"zamba2_chunk": (1, 2, 128, 1, 8, 64, 64),
              # and 48, and N, P that rule out 16-byte copies
              "heads_not_multiple": (1, 2, 128, 1, 6, 64, 64),
              "l200_heads5": (1, 1, 200, 2, 5, 32, 16),
-             "l48_unaligned": (2, 1, 48, 1, 7, 5, 3)}
+             "l48_unaligned": (2, 1, 48, 1, 7, 5, 3),
+             # the xlstm-125m mLSTM's 512-token prefill (its 4 heads as the
+             # groups, N 384, P 385) on mLSTM-like inputs, and shapes across
+             # N and P 128 (N slices, column tiles, a last tile of 8)
+             "mlstm_prefill": (1, 4, 128, 4, 1, 385, 384),
+             "n200_p129_l48": (2, 3, 48, 2, 3, 129, 200),
+             "n129_p385": (1, 2, 128, 1, 2, 385, 129),
+             "n512_p512_l256": (1, 1, 256, 2, 3, 512, 512)}
 
 
 def _ssd_inputs(case, dev):
@@ -552,6 +559,23 @@ def _ssd_inputs(case, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     x = rnd(bsz, nc, l, g, r, p)
+    if case.startswith("mlstm"):
+        # v with the ones column, the forget bias 3, the input gate capped
+        # at e^8, k / sqrt(N), and s_in the relay of these inputs (the
+        # state term at the output's scale)
+        x[..., -1] = 1.0
+        ld = torch.nn.functional.logsigmoid(3.0 + rnd(bsz, nc, l, g, r))
+        dt = torch.exp(8 * torch.tanh((rnd(bsz, nc, l, g, r) * 6 - 2) / 8))
+        b_, c_ = rnd(bsz, nc, l, g, n) / n ** 0.5, rnd(bsz, nc, l, g, n)
+        cum = torch.cumsum(ld, dim=2)
+        w = torch.exp(cum[:, :, -1:] - cum) * dt
+        sc = torch.einsum("bclgn,bclgr,bclgrp->bcgrnp", b_, w, x)
+        s_in = torch.zeros_like(sc)
+        for c in range(1, nc):
+            s_in[:, c] = (s_in[:, c - 1]
+                          * torch.exp(cum[:, c - 1, -1])[..., None, None]
+                          + sc[:, c - 1])
+        return x, ld, dt, b_, c_, s_in
     ld = -torch.nn.functional.softplus(rnd(bsz, nc, l, g, r))
     dt = torch.nn.functional.softplus(rnd(bsz, nc, l, g, r))
     b_, c_ = rnd(bsz, nc, l, g, n), rnd(bsz, nc, l, g, n)
@@ -589,6 +613,23 @@ def test_ssd_intra_check_rejects_a_zeroed_head_state(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 513, 64), (128, 64, 513),
+                                   (257, 64, 64)])
+def test_ssd_intra_beyond_its_limits_raises_and_launches_nothing(card, shape):
+    """L <= 256, N <= 512 and P <= 512 (csrc/ssd.cu's kMax*): a larger
+    shape raises in the wrapper, before any launch."""
+    l, n, p = shape
+    x = torch.zeros(1, 1, l, 1, 1, p, device=card)
+    gates = torch.zeros(1, 1, l, 1, 1, device=card)
+    bc = torch.zeros(1, 1, l, 1, n, device=card)
+    s_in = torch.zeros(1, 1, 1, 1, n, p, device=card)
+    before = ssd_cuda.LAUNCHES["SSD_INTRA"]
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ssd_cuda.ssd_intra(x, gates, gates, bc, bc, s_in)
+    assert ssd_cuda.LAUNCHES["SSD_INTRA"] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nc", [1, 4, 8, 16, 64])
 def test_ssd_heads_per_block_keeps_one_and_a_half_blocks_an_sm(card, nc):
     """SSD_INTRA shares each block's C.B^T among H heads: the most of 8, 4,
@@ -603,7 +644,8 @@ def test_ssd_heads_per_block_keeps_one_and_a_half_blocks_an_sm(card, nc):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b",
-                                  "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"])
+                                  "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+                                  "xlstm-125m"])
 def test_smoke_model_kernels_agree_with_plain_path(card, arch):
     from repro_torch.configs.registry import get_config, smoke
     from repro_torch.models import model
@@ -612,8 +654,12 @@ def test_smoke_model_kernels_agree_with_plain_path(card, arch):
     lm = model.init_params(cfg, 0, device=card)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), device=card,
                          generator=torch.Generator(device=card).manual_seed(2))
-    n_attn = cfg.num_layers // (cfg.attn_every or 1)
-    n_ssd = cfg.num_layers if cfg.family == "hybrid" else 0
+    n_attn = (0 if cfg.family == "ssm"
+              else cfg.num_layers // (cfg.attn_every or 1))
+    # SSD_INTRA a prefill: every Mamba2 layer; xlstm's mLSTM layers
+    n_ssd = {"hybrid": cfg.num_layers,
+             "ssm": cfg.num_layers - len(cfg.slstm_indices)}.get(
+                 cfg.family, 0)
     outs = {}
     for tmpl in ("CUDA", "TORCH"):
         attention_cuda.reset_launches()

@@ -99,7 +99,7 @@ def test_kill_resume_end_to_end(tmp_path):
 
 def test_train_loss_decreases(tmp_path):
     """The port's twin of ``tests/test_system.py``'s check, on llama3-8b
-    (the reference's granite-8b config is not ported)."""
+    (the reference's runs granite-8b, the same dense block)."""
     out = _run(["--steps", "40", "--batch", "4", "--seq", "128", "--lr",
                 "3e-3", "--ckpt-dir", str(tmp_path)])
     lines = [l for l in out.splitlines() if l.startswith("[train] done")]

@@ -2,9 +2,11 @@
 the CPU: configs, parameters carried across by ``lm_params_from_numpy``,
 prefill logits and caches, per-slot decode steps, and the continuous-
 batching ``ServingEngine`` (the same greedy tokens per request), for the
-hybrid, dense and moe families (zamba2-1.2b, llama3-8b, qwen3-moe-235b-a22b
-and kimi-k2-1t-a32b).  The moe engine's bucket pads are routed like any
-token and count toward the expert capacity, as in the reference.
+hybrid, dense, moe and ssm families (zamba2-1.2b; llama3-8b, qwen1.5-4b,
+minitron-4b and granite-8b; qwen3-moe-235b-a22b and kimi-k2-1t-a32b;
+xlstm-125m).  The moe engine's bucket pads are routed like any token and
+count toward the expert capacity, as in the reference; the ssm family's
+states absorb the pads and the re-decoded token, as zamba2's do.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from repro_torch.models.config import ShardCfg  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 ARCHS = ("zamba2-1.2b", "llama3-8b", "qwen3-moe-235b-a22b",
-         "kimi-k2-1t-a32b")
+         "kimi-k2-1t-a32b", "xlstm-125m", "qwen1.5-4b", "minitron-4b",
+         "granite-8b")
 # float32 smoke models: the packages differ in summation order only; 2e-5
 # of the logits' scale (~3) covers two layers' and a decode step's worth.
 TOL = 2e-5
@@ -91,10 +94,10 @@ def test_other_architectures_and_postures_are_not_ported():
         ShardCfg(ssm_sp=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(moe_mode="a2a")
-    ssm = dataclasses.replace(registry.smoke(registry.get_config("llama3-8b")),
-                              family="ssm")
+    audio = dataclasses.replace(
+        registry.smoke(registry.get_config("llama3-8b")), family="audio")
     with pytest.raises(NotImplementedError, match="item 11"):
-        model.init_params(ssm, 0, device="cpu")
+        model.init_params(audio, 0, device="cpu")
     _, cfg, _, lm = _pair("llama3-8b")
     with pytest.raises(NotImplementedError, match="item 11"):
         model.prefill(lm, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long),
@@ -108,7 +111,10 @@ def test_init_params_has_the_reference_tree_and_distributions(arch):
     ref = {".".join(k): np.asarray(v) for k, v in
            convert._flatten(jax.tree.map(np.asarray, rp))}
     got = lm.state_dict()
-    stacked = {k for k in ref if k.startswith("stack.layers.")}
+    # the reference stacks the layers' leaves along a leading axis, but the
+    # ssm family's, a tuple of per-layer trees named by their index
+    stacked = ({k for k in ref if k.startswith("stack.layers.")}
+               if lm.stack.stacked else set())
     for k in stacked:
         for i in range(cfg.num_layers):
             name = k.replace("stack.layers.", f"stack.layers.{i}.", 1)

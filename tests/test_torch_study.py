@@ -69,6 +69,7 @@ def test_kernel_study_covers_both_kernels_and_every_design_axis():
     assert axes == {("jacobi", "seg"), ("jacobi", "tile"), ("jacobi", "ahead"),
                     ("jacobi", "threads"),
                     ("jacobi", "mul_sixth"), ("ssd", "heads"),
-                    ("ssd", "tf32_once"), ("stencil3d", "contract"),
+                    ("ssd", "tf32_once"), ("ssd", "tail_mmas"),
+                    ("stencil3d", "contract"),
                     ("stencil3d", "div_op"), ("stencil3d", "div"),
                     ("stencil3d", "walk_unroll")}

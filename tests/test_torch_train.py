@@ -619,5 +619,5 @@ def test_what_is_not_ported_raises(pairs):
                       {"embeds": torch.zeros(1, 4, cfg.d_model),
                        "targets": torch.zeros(1, 4, dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="item 11"):
-        model.model_flops_per_step(dataclasses.replace(cfg, family="ssm"),
+        model.model_flops_per_step(dataclasses.replace(cfg, family="audio"),
                                    1, 64)
