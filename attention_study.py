@@ -11,13 +11,18 @@
    decode_no_cap      the split-K decode without its blocks-per-SM launch
                       bounds;
    decode_split_256   256-key decode splits for every block, also those
-                      serving 4 or more rows (GQA).
+                      serving 4 or more rows (GQA);
+   prefill_d256_64_keys  64-key K/V tiles for the tensor-core prefill at
+                      head dim 256 too, in place of 32.
+
+   Each library's ptxas report (registers, spills) of its head-dim-256
+   instantiations is printed.
 
    Each variant runs the tensor-core and split-K cases of
-   ``chip_smoke.ATTN_CASES`` against the plain version (the largest share
-   of the per-row tolerance, as chip_smoke holds it) and is timed on the
-   device (CUDA events, the stream given a head start), the variants taken
-   in turn forward and then backward.  p_bf16_once also runs chip_smoke's
+   ``chip_smoke.ATTN_CASES`` and ``MM_ATTN_CASES`` against the plain
+   version (the largest share of the per-row tolerance, as chip_smoke
+   holds it) and is timed on the device (CUDA events, the stream given a
+   head start), the variants taken in turn forward and then backward.  p_bf16_once also runs chip_smoke's
    lm parity (zamba2-1.2b, cuda vs torch logits).
 2. decode step (with ``--parent DIR``, a checkout of another commit): a
    zamba2-1.2b decode step with four slots resident, profiled on DIR's
@@ -46,9 +51,14 @@ VARIANTS = [
                      ("        mma_bf16(o[i + 1], pl, vf[2], vf[3]);\n", "")]),
     ("decode_no_cap", [("__launch_bounds__(kThreads,\n"
                         "                                  RB == 1 && D <= 64"
-                        " ? 3 : RB <= 4 ? 2 : 1)",
+                        "        ? 3\n"
+                        "                                  : RB <= 4 && D <= "
+                        "128 ? 2\n"
+                        "                                                    "
+                        "    : 1)",
                         "__launch_bounds__(kThreads)")]),
     ("decode_split_256", [("return RB >= 4 ? 128 : 256;", "return 256;")]),
+    ("prefill_d256_64_keys", [("return D > 128 ? 32 : 64;", "return 64;")]),
 ]
 REPS = 30
 
@@ -93,6 +103,19 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def d256_ptxas(log: str) -> dict:
+    """Each head-dim-256 kernel's ptxas lines (spills, registers) in a
+    build log, by the kernel's mangled name from its template on."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name[name.find("kernelI"):] if "Li256E" in name else None
+        elif entry and ("spill" in line or "registers" in line):
+            out.setdefault(entry, []).append(line.strip())
+    return out
+
+
 def build_variants():
     """The committed library and one library a variant, built at once."""
     from repro_torch.kernels import _build, attention_cuda as ac
@@ -113,12 +136,15 @@ def build_variants():
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {"design": ac._lib()}
+    emit({"phase": "ptxas", "variant": "design",
+          "d256": d256_ptxas(_build.build_info["attention"]["log"])})
     load = _build.load
     try:
         for name, (proc, so) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode:
                 raise SystemExit(f"{name}: nvcc failed\n{log}")
+            emit({"phase": "ptxas", "variant": name, "d256": d256_ptxas(log)})
             _build.load = lambda _name, so=so: ctypes.CDLL(str(so))
             libs[name] = ac._lib.__wrapped__()   # the wrapper's argtypes
     finally:
@@ -138,7 +164,7 @@ def study_variants(libs):
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     cases = {}
     for (case, b, sq, sk, h, kh, d, qdt, kvdt, (causal, off, pre),
-         valid) in cs.ATTN_CASES:           # chip_smoke's inputs, in order
+         valid) in cs.ATTN_CASES + cs.MM_ATTN_CASES:   # chip_smoke's inputs
         qdt_, kvdt_ = getattr(torch, qdt), getattr(torch, kvdt)
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(qdt_)
         k, v = (torch.randn(b, sk, kh, d, generator=gen, device=dev)

@@ -139,6 +139,34 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              logits, within 5e-2 relative L2, and the same run with one
              mLSTM layer's s_in zeroed rejected; the free-running runs
              (logits, greedy tokens) reported beside.
+14. multimodal  FLASH_ATTENTION at the phase's shapes first (paligemma's
+             1,024-row prefill with its 256-token prefix and 4-slot decode,
+             head dim 256 over one kv head; the CUDA-core route at head dim
+             256; musicgen's 1,500-frame prefill), each against its plain
+             version with a planted fault, its lines joining the kernel
+             summary.  Then paligemma-3b (18 layers, 8 heads of 256 over 1)
+             and musicgen-large (48 layers, 32 heads of 64) at their
+             published widths and depths (bf16 weights from ``init_params``
+             at seed 0, float32 caches), one after the other, through
+             ``ServingEngine(slots=4, max_seq=4096, backend="cuda")``: 6
+             token prompts of 200..1500 tokens and 16 new tokens each,
+             drained, with the launch counters reset just before: exactly
+             ``layers`` FLASH_ATTENTION launches a prefill (tensor-core
+             route) and a decode step (split-K route); prefill ms per
+             bucket, decode-step ms, tokens/s, the device's busy share of a
+             decode step, init and serving peak memory.  Then each arch's
+             stub embeddings (``models.multimodal``) through
+             ``model.prefill`` and 8 decode steps with the counters reset:
+             paligemma's 256 patch embeddings before 768 text tokens (a
+             1,024-row prefill, ``prefix_len`` 256), musicgen's 1,500 frame
+             embeddings; the same launch counts and routes, the prefill
+             timed and run twice (bitwise equal), and the CUDA template
+             against TORCH teacher-forced in tokens and each block's input:
+             the logits, each token row of every block's output and each
+             (token, head) row of every attention output within 5e-2
+             relative L2; a planted 64-key fault and, for paligemma, the
+             prefill run causal only (``prefix_len`` 0) rejected, the
+             latter by the prefix rows' attention outputs.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes and its 4096-token training forward, llama3-8b's GQA widths at
@@ -159,11 +187,12 @@ boolean mask; a yardstick only, the port never calls it).
 
 The line before the last is the ``{"kernels": [...]}`` summary
 (FLASH_ATTENTION's entry carries its prefill, decode, llama3 GQA,
-training and moe cases side by side under ``cases``, the stencils and
+training, moe and multimodal (head dim 256) cases side by side under
+``cases`` and its head dims under ``head_dims``, the stencils and
 JACOBI_FUSED their serial and farm calls, SSD_INTRA its three zamba2 and
 three xlstm prefill lengths and its training shape; ``launches_by_path``
-includes the train, moe and ssm phases'); the last line is ``{"ok": true,
-"device": {...}}``.
+includes the train, moe, ssm and multimodal phases'); the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
 """
@@ -322,6 +351,32 @@ MOE_TOPK_AGREE, MOE_LOGIT_REL = 0.98, 5e-2
 # layers: sLSTM at 5 and 11, mLSTM elsewhere), through the lm phase's
 # engine and drive (LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_PROMPT, LM_NEW)
 SSM_ARCH = "xlstm-125m"
+
+# the multimodal serving path: paligemma-3b (vlm) and musicgen-large (audio)
+# at their published widths and depths, one after the other, through the
+# moe phase's drive (MM_REQUESTS requests of MOE_PROMPT tokens, MOE_NEW new
+# tokens each); then each arch's stub embeddings through model.prefill and
+# MM_STEPS decode steps: paligemma's 256 patch embeddings before MM_TEXT
+# text tokens, musicgen's MM_FRAMES frame embeddings (30 s at EnCodec's
+# 50 Hz).  The parity check holds the CUDA template to the TORCH template
+# at LM_PARITY_RTOL, teacher-forced in tokens and in each block's input.
+MM_ARCHS = ("paligemma-3b", "musicgen-large")
+MM_REQUESTS, MM_TEXT, MM_FRAMES, MM_STEPS = 6, 768, 1500, 8
+# FLASH_ATTENTION at the phase's shapes: paligemma's prefill (8 query heads
+# of 256 over one kv head, the 256-token bidirectional prefix) and 4-slot
+# decode over the 4,096-row float32 cache, the CUDA-core route at head dim
+# 256, and musicgen's 1,500-frame prefill (32 heads of 64), a sequence
+# length no other case runs
+MM_ATTN_CASES = [
+    ("prefill_paligemma_d256", 1, 1024, 1024, 8, 1, 256, "bfloat16",
+     "bfloat16", (True, 0, 256), None),
+    ("decode_paligemma_d256", 4, 1, LM_MAX_SEQ, 8, 1, 256, "bfloat16",
+     "float32", (False, 0, 0), (37, 1024, 2047, 4000)),
+    ("cuda_core_d256", 1, 256, 256, 8, 1, 256, "float32", "float32",
+     (True, 0, 0), None),
+    ("prefill_musicgen", 1, MM_FRAMES, MM_FRAMES, 32, 32, 64, "bfloat16",
+     "bfloat16", (True, 0, 0), None),
+]
 
 
 def emit(obj) -> None:
@@ -711,11 +766,12 @@ def attention_diff(got, want, dtype: str):
     return float(diff.max()), float((diff / tol).max())
 
 
-def attention_cases(gen, dev):
+def attention_cases(gen, dev, cases=ATTN_CASES, headline=ATTN_HEADLINE):
     """FLASH_ATTENTION against its plain version (``full_mha`` on the
-    TORCH template) at the lm path's prefill and decode shapes, llama3-8b's
-    GQA widths, an odd shape and the edges of each route; each timed beside
-    ``scaled_dot_product_attention`` on the same inputs and mask."""
+    TORCH template) at ``cases``' shapes (by default the lm path's prefill
+    and decode shapes, llama3-8b's GQA widths, an odd shape and the edges
+    of each route); each timed beside ``scaled_dot_product_attention`` on
+    the same inputs and mask, the ``headline`` cases' times kept."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_cuda as ac
@@ -724,7 +780,7 @@ def attention_cases(gen, dev):
 
     res = {"max_abs_err": 0.0, "cases": {}}
     for (case, b, sq, sk, h, kh, d, qdt, kvdt, (causal, off, pre),
-         valid) in ATTN_CASES:
+         valid) in cases:
         qdt_, kvdt_ = getattr(torch, qdt), getattr(torch, kvdt)
         path = ac.route(qdt_, kvdt_, sq)
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(qdt_)
@@ -789,7 +845,7 @@ def attention_cases(gen, dev):
                 f"{ATTN_FAULT_KEYS} keys too few ({fault_share} of the "
                 f"tolerance)")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if case in ATTN_HEADLINE:
+        if case in headline:
             res["cases"][case] = {key: line[key] for key in
                                   ("route", "kernel_ms", "call_ms",
                                    "plain_ms", "library_ms", "bound_ms",
@@ -798,7 +854,7 @@ def attention_cases(gen, dev):
             res.update(res["cases"][case])
         del q, k, v, got, want, mask
     require({ac.route(getattr(torch, c[7]), getattr(torch, c[8]), c[2])
-             for c in ATTN_CASES} == set(ac.ROUTES),
+             for c in cases} == set(ac.ROUTES),
             "FLASH_ATTENTION: a route has no case")
     return res
 
@@ -2363,6 +2419,14 @@ def phase_moe(dev, smi: str):
 
 
 # ---------------------------------------------------------------------------
+def row_rel(a, b) -> float:
+    """The worst row's relative L2 error (a row: the last dimension), in
+    float32."""
+    a = a.float().reshape(-1, a.shape[-1])
+    b = b.float().reshape(-1, b.shape[-1])
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
 def ssm_parity(cfg, lm, dev):
     """One prompt (the lm phase's first) prefilled, then LM_PARITY_STEPS
     decode steps on the TORCH template (choosing the tokens) and on the
@@ -2438,10 +2502,6 @@ def ssm_parity(cfg, lm, dev):
                 "outputs": outs, "ssd": ssd}
 
     rel = lambda a, b: float((a - b).norm() / b.norm())
-
-    def row_rel(a, b):         # the worst token row's relative L2 error
-        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
-        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
 
     def compare(got, want):
         logits = [rel(a, b) for a, b in zip(got["logits"], want["logits"])]
@@ -2640,6 +2700,338 @@ def phase_ssm(dev, smi: str):
 
 
 # ---------------------------------------------------------------------------
+def mm_parity(cfg, lm, dev, batch, plen: int, prefix_len: int):
+    """``batch`` (the stub embeddings, and paligemma's text tokens)
+    prefilled, then MM_STEPS decode steps, on the TORCH template (choosing
+    the tokens) and on the CUDA template, each attention block's input and
+    output and each attention output recorded.
+
+    The checked CUDA run is teacher-forced in its tokens and in each
+    block's input, as in the moe and ssm phases, so each block differs
+    from TORCH's by one application of the kernel.  The check holds the
+    logits, each token row of every block's output and each (token, head)
+    row of every attention output to LM_PARITY_RTOL in relative L2: at
+    random init the logits alone can miss a fault.  Beside it the free
+    run (tokens forced, block inputs free).  Planted faults, each run
+    through the checked run, each to be rejected: every FLASH_ATTENTION
+    launch given ATTN_FAULT_KEYS keys too few; and, where there is a
+    prefix, the prefill's attention run causal only (``prefix_len`` 0),
+    which the prefix rows' attention outputs must show."""
+    import torch
+    from repro_torch.models import blocks, model, transformer
+
+    block = transformer._attn_block
+    seq_attn, step_attn = blocks.chunked_mha, blocks.decode_mha
+
+    def run(template, tokens=None, inputs=None, causal_only=False):
+        seen, outs, attn = [], [], []
+
+        def forced_block(p, cfg_, x, shard, **kw):
+            seen.append(x)
+            if inputs is not None:
+                x = inputs[len(seen) - 1]
+            out = block(p, cfg_, x, shard, **kw)
+            outs.append(out[0])
+            return out
+
+        def recorded(fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                attn.append(out)
+                return out
+            return call
+
+        def no_prefix(q, k, v, spec, *args, **kw):
+            return seq_attn(q, k, v, spec._replace(prefix_len=0), *args, **kw)
+
+        transformer._attn_block = forced_block
+        blocks.chunked_mha = recorded(no_prefix if causal_only else seq_attn)
+        blocks.decode_mha = recorded(step_attn)
+        try:
+            caches = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32,
+                                       dev)
+            logits, caches = model.prefill(lm, cfg, batch, caches,
+                                           template=template)
+            out, chosen = [logits[0, -1].float()], []
+            for step in range(MM_STEPS):
+                tok = tokens[step] if tokens else int(out[-1].argmax())
+                chosen.append(tok)
+                logits, caches = model.decode_step(
+                    lm, cfg, torch.tensor([[tok]], device=dev), caches,
+                    plen + step, template=template)
+                out.append(logits[0, -1].float())
+            torch.cuda.synchronize()
+        finally:
+            transformer._attn_block = block
+            blocks.chunked_mha, blocks.decode_mha = seq_attn, step_attn
+        return {"logits": out, "tokens": chosen, "inputs": seen,
+                "outputs": outs, "attention": attn}
+
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+
+    def compare(got, want):
+        logits = [rel(a, b) for a, b in zip(got["logits"], want["logits"])]
+        pairs = list(zip(got["attention"], want["attention"]))
+        prefill = [(a, b) for a, b in pairs if b.shape[1] == plen]
+        return {"logits_rel_l2": logits, "logits_rel_l2_max": max(logits),
+                "block_rows_rel_l2_max": max(
+                    row_rel(a, b) for a, b in zip(got["outputs"],
+                                                  want["outputs"])),
+                "attention_rows_rel_l2_max": max(row_rel(a, b)
+                                                 for a, b in pairs),
+                "prefix_attention_rows_rel_l2_max": (max(
+                    row_rel(a[:, :prefix_len], b[:, :prefix_len])
+                    for a, b in prefill) if prefix_len else None),
+                "attention_outputs": len(pairs),
+                "prefill_attention_outputs": len(prefill),
+                "argmax_equal": [int(a.argmax()) == int(b.argmax())
+                                 for a, b in zip(got["logits"],
+                                                 want["logits"])],
+                "finite": all(bool(torch.isfinite(a).all())
+                              for a in got["logits"] + got["outputs"])}
+
+    want = run("TORCH")
+    tokens, inputs = want["tokens"], want["inputs"]
+    res = compare(run("CUDA", tokens, inputs), want)
+    free = compare(run("CUDA", tokens), want)
+    with planted_short_attention():
+        faults = {"short_keys": compare(run("CUDA", tokens, inputs), want)}
+    if prefix_len:
+        faults["prefix_len_0"] = compare(
+            run("CUDA", tokens, inputs, causal_only=True), want)
+    passes = lambda r: (r["finite"]
+                        and r["logits_rel_l2_max"] <= LM_PARITY_RTOL
+                        and r["block_rows_rel_l2_max"] <= LM_PARITY_RTOL
+                        and r["attention_rows_rel_l2_max"] <= LM_PARITY_RTOL)
+    res.update(rtol=LM_PARITY_RTOL, prompt_len=plen, prefix_len=prefix_len,
+               steps=MM_STEPS, block_inputs_forced=True, passes=passes(res),
+               free_running=free, planted_faults=faults,
+               planted_faults_pass={k: passes(v) for k, v in faults.items()})
+    return res
+
+
+def mm_embeddings(cfg, lm, dev) -> dict:
+    """The arch's stub embeddings (``models.multimodal``) through
+    ``model.prefill`` and MM_STEPS greedy ``decode_step``s on the CUDA
+    template, with the launch counters reset just before: one
+    FLASH_ATTENTION launch a layer a prefill (tensor-core route, the
+    prefix bidirectional) and a decode step (split-K); the prefill timed
+    and run twice (bitwise equal), then the parity check."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.models import model, multimodal
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 2)
+    if cfg.family == "vlm":
+        text = rng.integers(0, cfg.vocab_size, size=(1, MM_TEXT))
+        batch = {"prefix_embeds": multimodal.patch_embeddings(gen, cfg, 1),
+                 "tokens": torch.from_numpy(text).to(dev)}
+        prefix_len = cfg.num_prefix_tokens
+        plen = prefix_len + MM_TEXT
+    else:
+        batch = {"embeds": multimodal.frame_embeddings(gen, cfg, 1,
+                                                       MM_FRAMES)}
+        prefix_len, plen = 0, MM_FRAMES
+    fresh = lambda: model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+    caches = fresh()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(lm, cfg, batch, caches, template="CUDA")
+    torch.cuda.synchronize()
+    prefill_wall_ms = (time.perf_counter() - t0) * 1e3
+    prefill_routes = dict(ac.ROUTE_LAUNCHES)
+    first = logits[0, -1].float()
+    chosen, step_ms = [], []
+    for step in range(MM_STEPS):
+        tok = int(logits[0, -1].argmax())
+        chosen.append(tok)
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(
+            lm, cfg, torch.tensor([[tok]], device=dev), caches, plen + step,
+            template="CUDA")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, routes = read_counts(), dict(ac.ROUTE_LAUNCHES)
+    finite = bool(torch.isfinite(first).all()) and bool(
+        torch.isfinite(logits).all())
+    n = cfg.num_layers
+    expected = dict.fromkeys(launches, 0)
+    expected["FLASH_ATTENTION"] = n * (1 + MM_STEPS)
+    expected_routes = {"tensor_core_prefill": n, "split_k_decode":
+                       n * MM_STEPS, "cuda_core": 0}
+    del caches
+    one = fresh()
+    prefill_ms = cuda_ms(lambda: model.prefill(lm, cfg, batch, one,
+                                               template="CUDA"),
+                         reps=3, warmup=1)
+    twice = []
+    for _ in range(2):
+        model.reset_caches(cfg, one)
+        twice.append(model.prefill(lm, cfg, batch, one, template="CUDA")[0])
+    deterministic = torch.equal(twice[0], twice[1])
+    del one, twice
+    parity = mm_parity(cfg, lm, dev, batch, plen, prefix_len)
+    res = {"input": sorted(batch), "prompt_len": plen,
+           "prefix_len": prefix_len, "decode_steps": MM_STEPS,
+           "launches": launches, "expected": expected,
+           "flash_attention_routes": routes,
+           "expected_routes": expected_routes,
+           "prefill_flash_attention_routes": prefill_routes,
+           "prefill_ms": prefill_ms, "prefill_wall_ms": prefill_wall_ms,
+           "decode_step_ms": step_ms, "tokens": chosen, "finite": finite,
+           "prefill_bitwise_deterministic": deterministic, "parity": parity}
+    what = f"multimodal {cfg.name} embeddings"
+    require(finite, f"{what}: non-finite logits")
+    require(all(0 <= t < cfg.vocab_size for t in chosen),
+            f"{what}: tokens outside the vocabulary")
+    require(launches == expected,
+            f"{what}: launch counts {launches} != {expected}")
+    require(routes == expected_routes,
+            f"{what}: FLASH_ATTENTION routes {routes} != {expected_routes}")
+    require(deterministic, f"{what}: two prefills of one input differ")
+    require(parity["passes"],
+            f"{what}: cuda and torch templates disagree: {parity}")
+    require(not any(parity["planted_faults_pass"].values()),
+            f"{what}: the parity check passed a planted fault: "
+            f"{parity['planted_faults_pass']}")
+    if prefix_len:
+        require(parity["planted_faults"]["prefix_len_0"]
+                ["prefix_attention_rows_rel_l2_max"] > LM_PARITY_RTOL,
+                f"{what}: the prefix rows passed a causal-only prefill")
+    return res
+
+
+def mm_serve(arch: str, dev, smi: str):
+    """One multimodal arch at its published widths and depth: served on
+    token prompts, checked and timed, then its embeddings path (phase
+    14)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServingEngine, _bucket
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = model.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    eng = ServingEngine(cfg, lm, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                        device=dev, backend="cuda")
+    reqs = lm_requests(cfg, MM_REQUESTS, MOE_PROMPT, MOE_NEW)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, wall, launches, routes = drive_engine(eng)
+    peak = torch.cuda.max_memory_allocated()
+    prefills, decode_steps = sum(a for a, _ in steps), eng.steps
+    n = cfg.num_layers
+    expected = dict.fromkeys(launches, 0)
+    expected["FLASH_ATTENTION"] = n * (prefills + decode_steps)
+    expected_routes = {"tensor_core_prefill": n * prefills,
+                       "split_k_decode": n * decode_steps, "cuda_core": 0}
+    done = {r.rid: r for r in eng.finished}
+    tokens = sum(len(r.output) for r in done.values())
+    decode_ms = sorted(ms for a, ms in steps if a == 0)
+
+    # prefill time per bucket (one slot's cache rows)
+    one = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prefill_ms = {}
+    for b in sorted({_bucket(len(r.prompt)) for r in reqs}):
+        toks = torch.randint(0, cfg.vocab_size, (1, b), device=dev,
+                             generator=gen)
+        prefill_ms[b] = cuda_ms(lambda: model.prefill(
+            lm, cfg, {"tokens": toks}, one, template="CUDA"), reps=3,
+            warmup=1)
+    del one
+    # a decode step with every slot resident, under the profiler
+    for r in lm_requests(cfg, LM_SLOTS, MOE_PROMPT, MOE_NEW):
+        r.max_new_tokens = 1000
+        eng.submit(r)
+    eng.step()                                  # admit all four
+    eng.step()
+    busy = device_busy(eng.step)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = mm_embeddings(cfg, lm, dev)
+
+    line = {"phase": "multimodal", "arch": arch, "family": cfg.family,
+            "card": smi, "layers": n,
+            "reduced": f"nothing: every width and all {n} layers published",
+            "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+            "params": n_params, "init_s": init_s,
+            "init_max_memory_allocated": init_peak,
+            "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+            "requests": MM_REQUESTS,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "new_tokens": MOE_NEW, "engine_steps": decode_steps,
+            "prefills": prefills, "launches": launches, "expected": expected,
+            "flash_attention_routes": routes,
+            "expected_routes": expected_routes,
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefill_ms_by_bucket": prefill_ms,
+            "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+            "decode_step_ms_min": decode_ms[0],
+            "decode_steps_timed": len(decode_ms),
+            "decode_step_busy": busy, "max_memory_allocated": peak,
+            "embeddings": emb,
+            "first_tokens": {rid: done[rid].output[:8]
+                             for rid in sorted(done)}}
+    emit(line)
+    require(len(done) == MM_REQUESTS and prefills == MM_REQUESTS,
+            f"multimodal {arch}: {len(done)} of {MM_REQUESTS} requests "
+            "finished")
+    require(all(len(r.output) == MOE_NEW and
+                all(0 <= t < cfg.vocab_size for t in r.output)
+                for r in done.values()),
+            f"multimodal {arch}: outputs of the wrong length")
+    require(launches == expected,
+            f"multimodal {arch}: launch counts {launches} != {expected}")
+    require(routes == expected_routes,
+            f"multimodal {arch}: FLASH_ATTENTION routes {routes} != "
+            f"{expected_routes}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v + emb["launches"][k] for k, v in launches.items()}
+
+
+def phase_multimodal(dev, smi: str, kernel_results: dict):
+    """Phase 14: FLASH_ATTENTION at the multimodal shapes (head dim 256 on
+    every route; its lines join the kernel summary), then paligemma-3b and
+    musicgen-large at their published widths and depths, one after the
+    other; their launches summed."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases = attention_cases(gen, dev, MM_ATTN_CASES,
+                            [c[0] for c in MM_ATTN_CASES])
+    from repro_torch.kernels import attention_cuda as ac
+
+    attn = kernel_results["FLASH_ATTENTION"]
+    attn["head_dims"] = list(ac.HEAD_DIMS)
+    attn["cases"].update(cases["cases"])
+    attn["max_abs_err"] = max(attn["max_abs_err"], cases["max_abs_err"])
+    torch.cuda.empty_cache()
+    total: dict = {}
+    for arch in MM_ARCHS:
+        for k, v in mm_serve(arch, dev, smi).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -2670,6 +3062,7 @@ def main() -> int:
     paths["train"] = phase_train(dev, smi)
     paths["moe"] = phase_moe(dev, smi)
     paths["ssm"] = phase_ssm(dev, smi)
+    paths["multimodal"] = phase_multimodal(dev, smi, kernel_results)
     # each kernel's launches on the path that carries it: the farm for the
     # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
     # serving path for FLASH_ATTENTION and SSD_INTRA
@@ -2687,7 +3080,7 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-        **({"cases": r["cases"]} if "cases" in r else {}),
+        **({key: r[key] for key in ("head_dims", "cases") if key in r}),
     } for name, r in kernel_results.items()]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})

@@ -1,13 +1,12 @@
 """Arch registry: ``get_config("<id>")`` + reduced smoke configs.
 
-The port's copy of ``repro.configs.registry``.  It lists the reference's
-ten architectures; the eight whose block composition the port carries,
-``zamba2-1.2b`` (hybrid), ``llama3-8b``, ``qwen1.5-4b``, ``minitron-4b``
-and ``granite-8b`` (dense), ``qwen3-moe-235b-a22b`` and ``kimi-k2-1t-a32b``
-(moe) and ``xlstm-125m`` (ssm), have configs, and the other two raise
-``NotImplementedError`` (ROADMAP queue 1, item 11: the ``audio`` and
-``vlm`` families).  ``smoke(cfg)`` gives the reference's reduced config
-field for field.
+The port's copy of ``repro.configs.registry``: the reference's ten
+architectures, ``zamba2-1.2b`` (hybrid), ``llama3-8b``, ``qwen1.5-4b``,
+``minitron-4b`` and ``granite-8b`` (dense), ``qwen3-moe-235b-a22b`` and
+``kimi-k2-1t-a32b`` (moe), ``xlstm-125m`` (ssm), ``musicgen-large``
+(audio) and ``paligemma-3b`` (vlm), each a config field for field the
+reference's.  ``smoke(cfg)`` gives the reference's reduced config field
+for field.
 """
 from __future__ import annotations
 
@@ -16,10 +15,10 @@ import importlib
 
 import torch
 
-from repro_torch.models.config import ModelConfig, not_ported
+from repro_torch.models.config import ModelConfig
 
 ARCHS = {
-    "musicgen-large": None,
+    "musicgen-large": "repro_torch.configs.musicgen_large",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
@@ -28,7 +27,7 @@ ARCHS = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "granite-8b": "repro_torch.configs.granite_8b",
-    "paligemma-3b": None,
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 
@@ -39,8 +38,6 @@ def list_archs() -> list[str]:
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; choose from {list(ARCHS)}")
-    if ARCHS[name] is None:
-        raise not_ported(f"arch {name!r}", 11)
     return importlib.import_module(ARCHS[name]).config()
 
 

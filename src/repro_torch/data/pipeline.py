@@ -1,9 +1,15 @@
 """Deterministic sharded data pipeline.
 
-The port's copy of ``repro.data.pipeline``, in numpy only: for the same
-``(seed, step, shard)`` a batch equals the reference's bitwise.  The
-``audio`` and ``vlm`` families' stub embeddings are ROADMAP queue 1,
-item 11: a dataset for either raises.
+The port's copy of ``repro.data.pipeline``: for the same ``(seed, step,
+shard)`` a batch's tokens and targets equal the reference's bitwise.  For
+the ``audio`` and ``vlm`` families a batch also carries the modality stubs,
+keyed as the reference keys them: ``embeds`` (b, S, d) in place of
+``tokens`` (audio; ``multimodal.frame_embeddings``) and ``prefix_embeds``
+(b, P, d) (vlm; ``multimodal.patch_embeddings``), each drawn from a CPU
+``torch.Generator`` seeded with the reference's key.  Their values are the
+port's own (jax's threefry stream is not reproduced) and equal run to run;
+they are float32 numpy arrays holding values of the config's
+``compute_dtype``, so that ``embed_inputs``' cast is exact.
 
 Production posture without external deps: a synthetic-corpus tokenizer-free
 source (seeded Zipf mixture with Markov structure so the LM loss actually
@@ -24,8 +30,10 @@ import threading
 from typing import Iterator
 
 import numpy as np
+import torch
 
-from repro_torch.models.config import ModelConfig, not_ported
+from repro_torch.models import multimodal
+from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +94,6 @@ class PackedLMDataset:
     """
 
     def __init__(self, cfg: DataConfig, model_cfg: ModelConfig | None = None):
-        if model_cfg is not None and model_cfg.family in ("audio", "vlm"):
-            raise not_ported(f"the {model_cfg.family!r} family's stub "
-                             "embeddings", 11)
         self.cfg = cfg
         self.corpus = SyntheticCorpus(cfg)
         self.model_cfg = model_cfg
@@ -124,7 +129,18 @@ class PackedLMDataset:
             x, y = self._sequence(seq_id)
             xs.append(x)
             ys.append(y)
-        return {"tokens": np.stack(xs), "targets": np.stack(ys)}
+        out = {"tokens": np.stack(xs), "targets": np.stack(ys)}
+        mc = self.model_cfg
+        if mc is not None and mc.family == "audio":
+            gen = _generator(hash((self.cfg.seed, step, shard_idx)))
+            out["embeds"] = multimodal.frame_embeddings(
+                gen, mc, b, self.cfg.seq_len).float().numpy()
+            del out["tokens"]
+        if mc is not None and mc.family == "vlm":
+            gen = _generator(hash((self.cfg.seed, 3, step, shard_idx)))
+            out["prefix_embeds"] = multimodal.patch_embeddings(
+                gen, mc, b).float().numpy()
+        return out
 
     def iterate(self, start_step: int = 0, shard_idx: int = 0,
                 num_shards: int = 1) -> Iterator[dict]:
@@ -132,6 +148,11 @@ class PackedLMDataset:
         while True:
             yield self.batch(step, shard_idx, num_shards)
             step += 1
+
+
+def _generator(key: int) -> torch.Generator:
+    """A CPU generator seeded as the reference seeds its PRNG key."""
+    return torch.Generator().manual_seed(key % (2 ** 31))
 
 
 class Prefetcher:

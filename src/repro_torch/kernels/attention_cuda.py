@@ -7,10 +7,10 @@ attention of the reference's ``__kernel__attention`` regions
 ``repro.kernels.attention.flash_attention``.
 
 Layout BSHD: q (B, Sq, H, D), k/v (B, Sk, KH, D) with H a multiple of KH
-and D in ``HEAD_DIMS`` (32, 64, 112, 128; any other raises); each may be a
-strided view whose last dimension is contiguous (the decode path passes its
-cache directly).  q is bfloat16 or
-float32; k and v are bfloat16 or float32 and are read in q's dtype.
+and D in ``HEAD_DIMS`` (32, 64, 112, 128, 256; any other raises); each may
+be a strided view whose last dimension is contiguous (the decode path passes
+its cache directly).  q is bfloat16 or float32; k and v are bfloat16 or
+float32 and are read in q's dtype.
 ``spec`` is a ``MaskSpec`` (causal, q_offset, prefix_len); ``kv_valid_len``
 is None, an int, a 0-d tensor or a (B,) integer tensor on q's device.  The
 output is a new contiguous (B, Sq, H, D) tensor in q's dtype.  The wrapper
@@ -53,7 +53,7 @@ import torch
 
 from repro_torch.kernels.ref import full_mha_reference
 
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("tensor_core_prefill", "split_k_decode", "cuda_core")
 DECODE_MAX_SQ = 8        # the split-K decode takes Sq <= 8 query rows

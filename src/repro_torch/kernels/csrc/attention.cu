@@ -20,8 +20,9 @@
 //   softmax, accumulator and the final division in float32, the output in
 //   q's dtype.
 //
-// Every route takes D in {32, 64, 112, 128} (112: kimi-k2's 7168 / 64), with
-// the same 1 / sqrt(D) scale the wrapper passes.  Routing table (the
+// Every route takes D in {32, 64, 112, 128, 256} (112: kimi-k2's 7168 / 64;
+// 256: paligemma-3b's heads), with the same 1 / sqrt(D) scale the wrapper
+// passes.  Routing table (the
 // wrapper, kernels/attention_cuda.py:route, picks the route; each entry
 // point below takes only its own inputs):
 //
@@ -45,14 +46,20 @@
 //    * one block of 4 warps per (batch.head, 64-row q tile); q tiles go
 //      heaviest first (the last tile, which sees the most keys, is in the
 //      first wave), so the causal tail does not leave SMs idle;
-//    * K and V tiles of 64 keys are staged in a two-stage shared-memory ring
-//      by cp.async (commit/wait_group): tile t + 1 is in flight while tile t
-//      is computed; rows are padded by 16 bytes so that ldmatrix reads hit
+//    * K and V tiles of 64 keys (32 at D 256) are staged in a two-stage
+//      shared-memory ring by cp.async (commit/wait_group): tile t + 1 is in
+//      flight while tile t is computed; rows are padded by 16 bytes so that ldmatrix reads hit
 //      eight distinct bank groups (a padded row is an odd number of 16-byte
-//      groups at every D taken: 5, 9, 15 and 17 at D 32, 64, 112, 128);
+//      groups at every D taken: 5, 9, 15, 17 and 33 at D 32, 64, 112, 128,
+//      256);
 //    * each warp owns 16 q rows; Q.K^T runs as mma.sync.m16n8k16 bf16 with
 //      f32 accumulation (the bf16 products are exact in f32, as in the
-//      reference's f32 einsum), fragments loaded with ldmatrix;
+//      reference's f32 einsum), fragments loaded with ldmatrix; Q's
+//      fragments stay in registers up to D 128; at D 256, where the O
+//      accumulator alone takes 128 registers a thread, each k-step re-reads
+//      its Q fragment from shared memory and K/V tiles are 32 keys, so that
+//      nothing spills (101,376 bytes of shared memory a block: two blocks
+//      an SM);
 //    * the online softmax runs in registers (a quad of lanes shares a row:
 //      two shuffles per reduction), in base 2 with scale * log2(e) folded in;
 //    * only the tiles that cross the causal diagonal, the valid length or Sk
@@ -80,7 +87,8 @@
 //    * the rows are read with 16-byte vector loads, a few lanes a row (f32
 //      D 64: 16 lanes, two keys a warp instruction; D 112, whose rows are
 //      not a power of two of chunks: 32 lanes for f32, 16 for bf16, the
-//      last few idle), rounded to bf16 on load;
+//      last few idle; f32 D 256, 64 chunks: the warp, two chunks a lane),
+//      rounded to bf16 on load;
 //      the logits go to shared memory, each row's max and sum are taken by
 //      one warp, then P.V in f32 FMAs, reduced across warps in shared memory;
 //    * the combine runs in the same launch: each block writes its partial
@@ -352,6 +360,7 @@ cudaError_t by_dim(const Params& p, int D, cudaStream_t stream) {
     case 64: return by_rows<Tq, Tkv, 64>(p, stream);
     case 112: return by_rows<Tq, Tkv, 112>(p, stream);
     case 128: return by_rows<Tq, Tkv, 128>(p, stream);
+    case 256: return by_rows<Tq, Tkv, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -364,7 +373,6 @@ cudaError_t by_dim(const Params& p, int D, cudaStream_t stream) {
 namespace tc {
 
 constexpr int kBQ = 64;               // q rows a block (16 a warp)
-constexpr int kBK = 64;               // keys a staged tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 
@@ -375,9 +383,24 @@ using bf16 = __nv_bfloat16;
 template <int D>
 __host__ __device__ constexpr int row_stride() { return D + 8; }
 
+// Up to D 128 a staged tile is 64 keys and Q's fragments stay in registers
+// for the whole kernel.  At D 256 a warp's O accumulator alone is 16 x 256
+// f32, 128 registers a thread; Q's 16 k-steps would add 64 more and S's 8
+// tiles of a 64-key tile 32, past the 255 a thread may hold.  There each
+// k-step re-reads its Q fragment from shared memory (Q stays staged there
+// for the whole kernel: one more ldmatrix for every two MMAs of Q.K^T),
+// and a tile is 32 keys (S in 4 tiles, 16 registers): with 64-key tiles
+// the kernel still spills (attention_study.py, variant
+// prefill_d256_64_keys), with 32 it does not.
+template <int D>
+__host__ __device__ constexpr int block_keys() { return D > 128 ? 32 : 64; }
+
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() { return D <= 128; }
+
 template <int D>
 constexpr size_t smem_bytes() {   // Q, then K and V in two stages each
-  return (size_t)(kBQ + 4 * kBK) * row_stride<D>() * sizeof(bf16);
+  return (size_t)(kBQ + 4 * block_keys<D>()) * row_stride<D>() * sizeof(bf16);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -437,16 +460,16 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
-// rows [row0, row0 + 64) of a (rows, D) bf16 matrix with the given row
+// rows [row0, row0 + ROWS) of a (rows, D) bf16 matrix with the given row
 // stride into shared memory; rows at or past n_rows are zero-filled
-template <int D>
+template <int D, int ROWS>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            int64_t stride, int64_t row0,
                                            int64_t n_rows, int tid) {
   constexpr int kChunks = D / 8;      // 16-byte chunks a row
   constexpr int S = row_stride<D>();
 #pragma unroll
-  for (int i = tid; i < 64 * kChunks; i += kThreads) {
+  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const int64_t g = row0 + r;
     const bool ok = g < n_rows;
@@ -458,6 +481,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
 template <int D>
 __global__ void __launch_bounds__(kThreads) prefill_kernel(Params p) {
   constexpr int S = row_stride<D>();
+  constexpr int kBK = block_keys<D>();
+  constexpr bool kQRegs = q_in_registers<D>();
   constexpr int KD = D / 16;          // k-steps of Q.K^T
   constexpr int NT = kBK / 8;         // 8-key column tiles of S
   constexpr int ND = D / 8;           // 8-column tiles of O
@@ -486,9 +511,9 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(Params p) {
     if (lim < full_end) full_end = lim;
   }
 
-  stage_rows<D>(sQ, qb, p.q_ss, q0, p.Sq, tid);
-  stage_rows<D>(sK, kb, p.k_ss, 0, p.Sk, tid);
-  stage_rows<D>(sV, vb, p.v_ss, 0, p.Sk, tid);
+  stage_rows<D, kBQ>(sQ, qb, p.q_ss, q0, p.Sq, tid);
+  stage_rows<D, kBK>(sK, kb, p.k_ss, 0, p.Sk, tid);
+  stage_rows<D, kBK>(sV, vb, p.v_ss, 0, p.Sk, tid);
   cp_async_commit();
 
   // this thread's two rows (groupID and groupID + 8 of the warp's 16) and
@@ -497,7 +522,10 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(Params p) {
   const int col = (lane % 4) * 2;
   const float sl2 = p.scale * kLog2e;
 
-  uint32_t qf[KD][4];
+  // this warp's Q fragment of k-step kk is at q_frag + 32 kk bytes
+  const uint32_t q_frag =
+      smem_addr(sQ + (warp * 16 + lane % 16) * S + (lane / 16) * 8);
+  uint32_t qf[kQRegs ? KD : 1][4];
   float o[ND][4];
 #pragma unroll
   for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
@@ -507,19 +535,19 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(Params p) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {            // the next tile into the other stage
       const int64_t k1 = (int64_t)(t + 1) * kBK;
-      stage_rows<D>(sK + (st ^ 1) * kBK * S, kb, p.k_ss, k1, p.Sk, tid);
-      stage_rows<D>(sV + (st ^ 1) * kBK * S, vb, p.v_ss, k1, p.Sk, tid);
+      stage_rows<D, kBK>(sK + (st ^ 1) * kBK * S, kb, p.k_ss, k1, p.Sk, tid);
+      stage_rows<D, kBK>(sV + (st ^ 1) * kBK * S, vb, p.v_ss, k1, p.Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();                  // tile t (and at t = 0, Q) has landed
-    if (t == 0) {
+    if constexpr (kQRegs) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], smem_addr(sQ + (warp * 16 + lane % 16) * S +
-                                      kk * 16 + (lane / 16) * 8));
+        for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_frag + kk * 32);
+      }
     }
     const bf16* sKt = sK + st * kBK * S;
     const bf16* sVt = sV + st * kBK * S;
@@ -530,13 +558,20 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(Params p) {
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, q_frag + kk * 32);
+      }
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t kf[4];               // key tiles j, j + 1; d halves lo, hi
         ldmatrix_x4(kf, smem_addr(sKt + ((j + lane / 16) * 8 + lane % 8) * S +
                                   kk * 16 + ((lane / 8) % 2) * 8));
-        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[j], a, kf[0], kf[1]);
+        mma_bf16(s[j + 1], a, kf[2], kf[3]);
       }
     }
 
@@ -694,28 +729,45 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
 // Block (split, batch.kv head, row group): rows r of the group are the
 // query rows g * RB + r of the (Sq x rep) rows of its kv head, numbered
 // qi * rep + head-in-group.  Partials: acc (.., RB, D), (m, l) (.., RB).
-// A key row is CPR 16-byte chunks, one a lane, over LPR lanes, the power of
-// two at or above CPR, so that the shuffle reductions stay butterflies: at
-// D 112 a float32 row is 28 chunks on 32 lanes and a bf16 row 14 on 16; the
-// lanes past CPR load nothing and add zeros.
+// A key row is CPR 16-byte chunks over LPR lanes, the power of two at or
+// above CPR, so that the shuffle reductions stay butterflies: at D 112 a
+// float32 row is 28 chunks on 32 lanes and a bf16 row 14 on 16; the lanes
+// past CPR load nothing and add zeros.  A row of more than 32 chunks
+// (float32 at D 256: 1,024 bytes, 64 chunks) takes the whole warp, CPL
+// chunks a lane, chunk c of a lane at c * 32 + lane, so that each warp
+// load still reads 512 contiguous bytes.
 // Blocks an SM, so that enough loads are in flight: one row of D <= 64
-// fits 85 registers a thread (three blocks), up to four rows 128 (two);
-// tighter caps spill.
+// fits 85 registers a thread (three blocks), up to four rows of D <= 128
+// fit 128 (two); tighter caps spill, and so does D 256 at 128 (its q
+// and acc columns are twice D 128's), which takes one block.  The
+// cross-warp sum of P.V goes through kWarps x RB x D floats of dynamic
+// shared memory: at D 256 and 8 rows that is 64 KB, past the 48 KB of
+// static shared memory.
+
 template <typename Tkv, int D, int RB>
 __global__ void __launch_bounds__(kThreads,
-                                  RB == 1 && D <= 64 ? 3 : RB <= 4 ? 2 : 1)
+                                  RB == 1 && D <= 64        ? 3
+                                  : RB <= 4 && D <= 128 ? 2
+                                                        : 1)
     decode_kernel(Params p, float* part_acc, float2* part_ml, int* tickets) {
   constexpr int kSplit = split_keys<RB>();
   constexpr int E = 16 / (int)sizeof(Tkv);   // elements a 16-byte load
   constexpr int CPR = D / E;                 // 16-byte chunks a key row
-  constexpr int LPR = pow2_at_least(CPR);    // lanes a key row
+  constexpr int CPL = CPR > 32 ? CPR / 32 : 1;           // chunks a lane
+  constexpr int LPR = CPR > 32 ? 32 : pow2_at_least(CPR);  // lanes a row
   constexpr int KPI = 32 / LPR;              // keys a warp instruction
   constexpr int STEPS = kSplit / (kWarps * KPI);
-  constexpr int CH = STEPS < 8 ? STEPS : 8;  // loads in flight a lane
-  static_assert(D % E == 0 && LPR <= 32 && STEPS % CH == 0,
+  constexpr int CH = STEPS < 8 / CPL ? STEPS : 8 / CPL;  // keys in flight
+  static_assert(D % E == 0 && (CPR <= 32 || CPR % 32 == 0) &&
+                    STEPS % CH == 0,
                 "row must fit a warp");
+  // the loops over a split's keys are unrolled whole, but where a row takes
+  // two chunks a lane and a block serves one or two rows (256-key splits):
+  // there the whole unrolled loop's loads, hoisted, would not fit 255
+  // registers
+  constexpr int kUnroll = CPL > 1 && RB <= 2 ? 1 : STEPS / CH;
   __shared__ float s_p[RB][kSplit];          // logits, then probabilities
-  __shared__ float s_red[kWarps][RB][D];
+  extern __shared__ float s_red[];           // [kWarps][RB][D]
   __shared__ float s_m[RB], s_l[RB];
   __shared__ int s_last;
 
@@ -740,8 +792,8 @@ __global__ void __launch_bounds__(kThreads,
     if (tid < RB) part_ml[part + tid] = make_float2(-INFINITY, 0.0f);
   } else {
     const int64_t kend = kr.end < k0 + kSplit ? kr.end : k0 + kSplit;
-    // this lane's E columns of each row's q
-    float qv[RB][E];
+    // this lane's CPL x E columns of each row's q
+    float qv[RB][CPL][E];
     int64_t qpos[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
@@ -751,33 +803,42 @@ __global__ void __launch_bounds__(kThreads,
       const __nv_bfloat16* qr = (const __nv_bfloat16*)p.q + b * p.q_sb +
                                 qpos[r] * p.q_ss + h * p.q_sh + sub * E;
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        qv[r][e] = live && g < rows ? to_f32(qr[e]) : 0.0f;
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          qv[r][c][e] =
+              live && g < rows ? to_f32(qr[c * LPR * E + e]) : 0.0f;
     }
 
     // logits: a warp takes kSplit / 8 consecutive keys, KPI at a time
-#pragma unroll
+#pragma unroll(kUnroll)
     for (int s0 = 0; s0 < STEPS; s0 += CH) {
-      uint4 raw[CH];
+      uint4 raw[CH][CPL];
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int64_t j = k0 + (int64_t)(warp * STEPS + s0 + c) * KPI + grp;
-        raw[c] = live && j < kend
-                     ? __ldg(reinterpret_cast<const uint4*>(kb + j * p.k_ss) +
-                             sub)
-                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int u = 0; u < CPL; ++u)
+          raw[c][u] =
+              live && j < kend
+                  ? __ldg(reinterpret_cast<const uint4*>(kb + j * p.k_ss) +
+                          u * LPR + sub)
+                  : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int jj = (warp * STEPS + s0 + c) * KPI + grp;
         const int64_t j = k0 + jj;
-        float kf[E];
-        unpack(raw[c], kf);
+        float kf[CPL][E];
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) unpack(raw[c][u], kf[u]);
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           float d = 0.0f;
 #pragma unroll
-          for (int e = 0; e < E; ++e) d = fmaf(qv[r][e], kf[e], d);
+          for (int u = 0; u < CPL; ++u)
+#pragma unroll
+            for (int e = 0; e < E; ++e) d = fmaf(qv[r][u][e], kf[u][e], d);
 #pragma unroll
           for (int off = LPR / 2; off > 0; off >>= 1)
             d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -821,50 +882,63 @@ __global__ void __launch_bounds__(kThreads,
     __syncthreads();
 
     // acc = P V over the split's keys
-    float acc[RB][E];
+    float acc[RB][CPL][E];
 #pragma unroll
     for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
+      for (int u = 0; u < CPL; ++u)
 #pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][u][e] = 0.0f;
+#pragma unroll(kUnroll)
     for (int s0 = 0; s0 < STEPS; s0 += CH) {
-      uint4 raw[CH];
+      uint4 raw[CH][CPL];
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int64_t j = k0 + (int64_t)(warp * STEPS + s0 + c) * KPI + grp;
-        raw[c] = live && j < kend
-                     ? __ldg(reinterpret_cast<const uint4*>(vb + j * p.v_ss) +
-                             sub)
-                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int u = 0; u < CPL; ++u)
+          raw[c][u] =
+              live && j < kend
+                  ? __ldg(reinterpret_cast<const uint4*>(vb + j * p.v_ss) +
+                          u * LPR + sub)
+                  : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int jj = (warp * STEPS + s0 + c) * KPI + grp;
-        float vf[E];
-        unpack(raw[c], vf);
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float pr = s_p[r][jj];
+        for (int u = 0; u < CPL; ++u) {
+          float vf[E];
+          unpack(raw[c][u], vf);
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+          for (int r = 0; r < RB; ++r) {
+            const float pr = s_p[r][jj];
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[r][u][e] = fmaf(pr, vf[e], acc[r][u][e]);
+          }
         }
       }
     }
 #pragma unroll
     for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
+      for (int u = 0; u < CPL; ++u)
 #pragma unroll
-        for (int off = 16; off >= LPR; off >>= 1)
-          acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
-        if (grp == 0 && live) s_red[warp][r][sub * E + e] = acc[r][e];
-      }
+        for (int e = 0; e < E; ++e) {
+#pragma unroll
+          for (int off = 16; off >= LPR; off >>= 1)
+            acc[r][u][e] += __shfl_xor_sync(0xffffffffu, acc[r][u][e], off);
+          if (grp == 0 && live)
+            s_red[(warp * RB + r) * D + (u * LPR + sub) * E + e] =
+                acc[r][u][e];
+        }
     __syncthreads();
     for (int i = tid; i < RB * D; i += kThreads) {
       const int r = i / D, d = i % D;
       float sum = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += s_red[w][r][d];
+      for (int w = 0; w < kWarps; ++w) sum += s_red[(w * RB + r) * D + d];
       part_acc[(part + r) * D + d] = sum;
     }
     if (tid < RB) part_ml[part + tid] = make_float2(s_m[tid], s_l[tid]);
@@ -908,10 +982,14 @@ template <typename Tkv, int D, int RB>
 cudaError_t launch(const Params& p, int groups, float* part_acc,
                    float2* part_ml, int* tickets, cudaStream_t stream) {
   constexpr int kSplit = split_keys<RB>();
+  auto kernel = decode_kernel<Tkv, D, RB>;
+  const size_t bytes = (size_t)kWarps * RB * D * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.Sk + kSplit - 1) / kSplit),
                   (unsigned)(p.B * p.KH), (unsigned)groups);
-  decode_kernel<Tkv, D, RB><<<grid, kThreads, 0, stream>>>(p, part_acc,
-                                                           part_ml, tickets);
+  kernel<<<grid, kThreads, bytes, stream>>>(p, part_acc, part_ml, tickets);
   return cudaGetLastError();
 }
 
@@ -943,6 +1021,8 @@ cudaError_t by_dim(const Params& p, int D, int rb, int groups,
     case 112: return by_rows<Tkv, 112>(p, rb, groups, part_acc, part_ml,
                                        tickets, stream);
     case 128: return by_rows<Tkv, 128>(p, rb, groups, part_acc, part_ml,
+                                       tickets, stream);
+    case 256: return by_rows<Tkv, 256>(p, rb, groups, part_acc, part_ml,
                                        tickets, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1007,6 +1087,7 @@ cudaError_t flash_attention_prefill(
     case 64: return tc::launch<64>(p, s);
     case 112: return tc::launch<112>(p, s);
     case 128: return tc::launch<128>(p, s);
+    case 256: return tc::launch<256>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }

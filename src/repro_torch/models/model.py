@@ -10,10 +10,20 @@ The port's copy of ``repro.models.model``:
 ``model`` is an ``LM`` module whose ``state_dict`` keys follow the
 reference's parameter tree (``embed.table``, ``stack.layers.<i>....``,
 ``stack.shared_attn....``, ``final_norm.scale``, ``unembed.w``).  ``batch``
-is a dict with ``tokens`` (B, S) int and, for the loss, ``targets`` (B, S)
-int (next-token labels; negative ones are masked); the reference's modality
-stubs (``embeds``, ``prefix_embeds``) are ROADMAP queue 1, item 11, and so
-is the ``ssm`` family's loss (it serves: prefill and decode).
+is a dict of tensors on the model's device:
+
+    tokens        (B, S)  int      — all archs except pure-embeds input
+    targets       (B, S)  int      — the loss only (next-token labels;
+                                     negative ones are masked)
+    embeds        (B, S, d) float  — musicgen's stub frame embeddings
+                                     (``models/multimodal.py``), in place of
+                                     tokens
+    prefix_embeds (B, P, d) float  — paligemma's stub patch embeddings, a
+                                     bidirectional prefix before the tokens;
+                                     the loss scores the text after it
+
+The ``ssm`` family's loss is ROADMAP queue 1, item 11 (it serves: prefill
+and decode).
 ``reset_caches`` sets caches, or one slot's rows of them, back to
 ``init_caches``' values.  ``template`` selects the kernels: ``CUDA`` (the default on the card) or
 ``TORCH`` (their plain versions).
@@ -32,7 +42,7 @@ from torch.utils import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import MaskSpec
-from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg, not_ported
+from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
 
 LOSS_CHUNK = 512
 
@@ -70,12 +80,17 @@ def _unembed_w(model: LM, cfg: ModelConfig):
 
 
 def embed_inputs(model: LM, cfg: ModelConfig, batch: dict, shard: ShardCfg):
-    """Returns (x (B, S, d), prefix_len); the token path only."""
-    for stub in ("embeds", "prefix_embeds"):
-        if stub in batch:
-            raise not_ported(f"the {stub!r} input", 11)
-    x = layers.embed(model.embed, batch["tokens"], cfg.compute_dtype)
-    return shard.constrain_act(x, None, None), 0
+    """Returns (x (B, S_total, d), prefix_len)."""
+    if "embeds" in batch:                       # musicgen stub frontend
+        x = batch["embeds"].to(cfg.compute_dtype)
+    else:
+        x = layers.embed(model.embed, batch["tokens"], cfg.compute_dtype)
+    prefix_len = 0
+    if "prefix_embeds" in batch:                # paligemma stub frontend
+        pre = batch["prefix_embeds"].to(cfg.compute_dtype)
+        x = torch.cat([pre, x], dim=1)
+        prefix_len = pre.shape[1]
+    return shard.constrain_act(x, None, None), prefix_len
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +142,9 @@ def chunked_xent(model: LM, cfg: ModelConfig, hidden, targets,
 # ---------------------------------------------------------------------------
 def loss_fn(model: LM, cfg: ModelConfig, batch: dict,
             shard: ShardCfg = LOCAL, template=None):
-    """(total loss, metrics) of a batch with ``tokens`` and ``targets``."""
+    """(total loss, metrics) of a batch with ``targets`` and ``tokens`` or
+    ``embeds`` (and ``prefix_embeds``: the loss is over the text after
+    the prefix)."""
     x, prefix_len = embed_inputs(model, cfg, batch, shard)
     positions = torch.arange(x.shape[1], device=x.device)
     mask = MaskSpec(causal=True, prefix_len=prefix_len)
@@ -135,6 +152,8 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict,
                                       positions=positions, mask=mask,
                                       mode="train", template=template)
     x = layers.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    if prefix_len:
+        x = x[:, prefix_len:]                  # loss over the text segment
     loss, acc = chunked_xent(model, cfg, x, batch["targets"], shard)
     total = loss + met.moe_aux + met.moe_z
     return total, {"ce": loss, "acc": acc, "moe_aux": met.moe_aux,
@@ -143,7 +162,9 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict,
 
 def prefill(model: LM, cfg: ModelConfig, batch: dict, caches,
             shard: ShardCfg = LOCAL, template=None):
-    """Fill caches from a prompt; returns (last-position logits, caches)."""
+    """Fill caches from a prompt (``tokens`` or ``embeds``, after
+    ``prefix_embeds`` where given, attended bidirectionally); returns
+    (last-position logits, caches)."""
     x, prefix_len = embed_inputs(model, cfg, batch, shard)
     positions = torch.arange(x.shape[1], device=x.device)
     mask = MaskSpec(causal=True, prefix_len=prefix_len)

@@ -1,9 +1,12 @@
-"""The decoder layer stack for the ``dense``, ``moe``, ``hybrid`` and ``ssm``
-families.
+"""The decoder layer stack for every family: ``dense``, ``audio``, ``vlm``,
+``moe``, ``hybrid`` and ``ssm``.
 
 The port's copy of ``repro.models.transformer``:
 
-  dense   — GQA attention + SwiGLU MLP (pre-norm residual), per layer
+  dense / audio / vlm
+          — GQA attention + SwiGLU MLP (pre-norm residual), per layer (the
+            ``audio`` and ``vlm`` families differ from ``dense`` only in
+            their inputs: ``models/model.py`` ``embed_inputs``)
   moe     — GQA attention + top-k MoE FFN (+ shared experts), per layer
             (``models/moe.py``); its load-balance and z losses and dropped
             fraction come back as ``StackMetrics`` summed over the layers
@@ -23,8 +26,7 @@ was given.  In ``mode="train"`` each layer (dense) or each group (hybrid)
 runs under the config's rematerialisation policy (:func:`_remat`); the
 shared block of a hybrid stack is one set of parameters, so its gradient
 sums over all its applications, as in the reference.  Training the ``ssm``
-family, and the ``audio`` and ``vlm`` families, are ROADMAP queue 1, item
-11.
+family is ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from repro_torch.models.attention import MaskSpec
 from repro_torch.models.blocks import Attention, KVCache, attention
 from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "audio", "vlm", "moe", "hybrid", "ssm")
 MODES = ("train", "prefill")
 # the matrix products whose outputs ``remat="dots"`` keeps: those with no
 # batch dimension (jax's ``dots_with_no_batch_dims_saveable``); a product
@@ -85,7 +87,8 @@ def _remat(fn, cfg: ModelConfig):
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise not_ported(f"the {cfg.family!r} family", 11)
+        raise ValueError(f"unknown family {cfg.family!r} (one of "
+                         f"{', '.join(FAMILIES)})")
 
 
 def n_attn_layers(cfg: ModelConfig) -> int:
@@ -155,7 +158,7 @@ def init_layer_stack(gen, cfg: ModelConfig, device=None) -> LayerStack:
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 cache_dtype=torch.bfloat16, device=None) -> Any:
     """Decode-time state for the whole stack: a stacked ``KVCache`` (dense,
-    moe), {"mamba": stacked ``Mamba2State``, "attn": stacked ``KVCache``}
+    audio, vlm, moe), {"mamba": stacked ``Mamba2State``, "attn": stacked ``KVCache``}
     (hybrid), or a tuple of per-layer ``SLSTMState``/``MLSTMState`` in
     float32 whatever ``cache_dtype`` (ssm)."""
     _check_family(cfg)

@@ -36,10 +36,16 @@ def make_loss_fn(cfg: ModelConfig, shard: ShardCfg):
 
 
 def _grads(model, loss) -> dict:
-    """d loss / d every parameter, left on ``.grad`` and returned by name."""
+    """d loss / d every parameter, left on ``.grad`` and returned by name.
+    A parameter the loss does not reach (musicgen's embedding table when
+    ``embeds`` replace the tokens) gets a zero gradient, as ``jax.grad``
+    gives it, so that AdamW still decays it."""
     for p in model.parameters():
         p.grad = None
     loss.backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     return {n: p.grad for n, p in model.named_parameters()}
 
 

@@ -405,6 +405,39 @@ ATTN_CASES = {
                                   (90, 70)),
     "prefill_f32_kv_d112": (2, 40, 90, 4, 2, 112, torch.bfloat16,
                             torch.float32, MaskSpec(), None),
+    # head dim 256 (paligemma-3b: 8 query heads over 1 kv head) on every
+    # route: the tensor-core prefill (Q re-read from shared memory) with the
+    # 256-key bidirectional prefix and a ragged last tile, and with q_offset,
+    # a short prefix and valid lengths; the split-K decode with float32 rows
+    # (64 chunks, two a lane) in blocks of 8 rows, of 8 rows in three groups
+    # (Sq 3 x rep 8, causal, prefix) and of 2 rows with a batch row that
+    # sees no key, and with bf16 rows (32 chunks); the CUDA-core route for
+    # float32 q at Sq > 8 (64-row tiles) and Sq <= 8 (8-row tiles), and bf16
+    # q with a float32 k/v
+    "prefill_d256_mqa8_prefix": (1, 300, 300, 8, 1, 256, torch.bfloat16,
+                                 None, MaskSpec(prefix_len=256), None),
+    "prefill_d256_offset": (2, 77, 133, 4, 2, 256, torch.bfloat16, None,
+                            MaskSpec(causal=True, q_offset=40, prefix_len=9),
+                            (133, 100)),
+    "decode_d256_f32_cache": (4, 1, 600, 8, 1, 256, torch.bfloat16,
+                              torch.float32, MaskSpec(causal=False),
+                              (37, 600, 1, 300)),
+    "decode_d256_row_groups": (2, 3, 700, 8, 1, 256, torch.bfloat16,
+                               torch.float32,
+                               MaskSpec(causal=True, q_offset=500,
+                                        prefix_len=3), (600, 2)),
+    "decode_d256_two_rows": (3, 1, 520, 4, 2, 256, torch.bfloat16,
+                             torch.float32, MaskSpec(causal=False),
+                             (0, 257, 520)),
+    "decode_d256_bf16": (2, 1, 300, 8, 1, 256, torch.bfloat16, None,
+                         MaskSpec(causal=False), (0, 257)),
+    "cuda_core_d256_f32": (1, 256, 256, 8, 1, 256, torch.float32, None,
+                           MaskSpec(), None),
+    "cuda_core_d256_f32_decode": (2, 3, 90, 4, 2, 256, torch.float32, None,
+                                  MaskSpec(causal=True, q_offset=80),
+                                  (90, 70)),
+    "prefill_f32_kv_d256": (2, 40, 90, 4, 2, 256, torch.bfloat16,
+                            torch.float32, MaskSpec(), None),
 }
 
 
@@ -455,13 +488,14 @@ def test_every_route_is_taken(card):
     routes = {attention_cuda.route(a[6], a[7] or a[6], a[1])
               for a in ATTN_CASES.values()}
     assert routes == set(attention_cuda.ROUTES)
-    d112 = {attention_cuda.route(a[6], a[7] or a[6], a[1])
-            for a in ATTN_CASES.values() if a[5] == 112}
-    assert d112 == set(attention_cuda.ROUTES)
+    for d in (112, 256):
+        routes = {attention_cuda.route(a[6], a[7] or a[6], a[1])
+                  for a in ATTN_CASES.values() if a[5] == d}
+        assert routes == set(attention_cuda.ROUTES), d
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [16, 96, 192])
 def test_a_head_dim_outside_the_set_raises_and_launches_nothing(card, d):
     before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
     for sq, kvdt in ((40, torch.bfloat16), (1, torch.float32),
@@ -485,6 +519,46 @@ def test_split_k_decode_leaves_its_tickets_at_zero(card):
     assert torch.equal(first, again)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     assert int(attention_cuda._TICKETS[q.device, stream].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_split_k_decode_d256_leaves_its_tickets_at_zero(card):
+    """The same at head dim 256: paligemma's 8 query heads over one kv head
+    in blocks of 8 rows, float32 rows of 64 chunks."""
+    q, k, v, spec, valid = _attn_inputs("decode_d256_f32_cache", card)
+    before = attention_cuda.ROUTE_LAUNCHES["split_k_decode"]
+    first = attention_cuda.flash_attention(q, k, v, spec, valid)
+    for _ in range(3):
+        again = attention_cuda.flash_attention(q, k, v, spec, valid)
+    torch.cuda.synchronize()
+    assert attention_cuda.ROUTE_LAUNCHES["split_k_decode"] == before + 4
+    assert torch.equal(first, again)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    assert int(attention_cuda._TICKETS[q.device, stream].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_d256_prefix_rule_at_prefix_len_256(card):
+    """paligemma's prefix-LM mask at its widths: 1,024 rows, 8 heads of 256
+    over one kv head, the first 256 positions bidirectional.  The kernel
+    matches its plain version; against the plain causal-only mask it
+    differs in every prefix row (the check rejects it there) and agrees in
+    every row after the prefix, which sees the whole prefix either way."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(1, 1024, h, 256, generator=gen, device=card)
+               .to(torch.bfloat16) for h in (8, 1, 1))
+    before = attention_cuda.ROUTE_LAUNCHES["tensor_core_prefill"]
+    got = attention_cuda.flash_attention(q, k, v, MaskSpec(prefix_len=256))
+    want = attention_cuda.flash_attention_plain(q, k, v,
+                                                MaskSpec(prefix_len=256))
+    causal = attention_cuda.flash_attention_plain(q, k, v, MaskSpec())
+    torch.cuda.synchronize()
+    assert attention_cuda.ROUTE_LAUNCHES["tensor_core_prefill"] == before + 1
+    assert _share_of_tolerance(got, want, q.dtype) <= 1.0
+    for row in range(255):          # row 255 sees keys 0..255 either way
+        assert _share_of_tolerance(got[:, row], causal[:, row],
+                                   q.dtype) > 1.0, row
+    assert _share_of_tolerance(got[:, 255:], causal[:, 255:], q.dtype) <= 1.0
 
 
 @pytest.mark.cuda
@@ -645,7 +719,8 @@ def test_ssd_heads_per_block_keeps_one_and_a_half_blocks_an_sm(card, nc):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3-8b",
                                   "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "musicgen-large",
+                                  "paligemma-3b"])
 def test_smoke_model_kernels_agree_with_plain_path(card, arch):
     from repro_torch.configs.registry import get_config, smoke
     from repro_torch.models import model

@@ -65,11 +65,25 @@ def test_prefetcher_yields_the_stream_in_order_and_closes():
 
 
 def test_stub_embedding_families_are_not_ported():
-    cfg = registry.smoke(registry.get_config("llama3-8b"))
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            pipeline.PackedLMDataset(pipeline.DataConfig(),
-                                     dataclasses.replace(cfg, family=family))
+    """The audio and vlm families' batches, once item 11, carry their stub
+    embeddings as the reference's do (audio: ``embeds`` in place of
+    ``tokens``; vlm: ``prefix_embeds`` beside them), with the same targets;
+    a mesh still raises (item 9)."""
+    kw = dict(seed=5, vocab_size=512, seq_len=48, global_batch=4,
+              doc_len_mean=40)
+    want = rpipe.PackedLMDataset(rpipe.DataConfig(**kw)).batch(2, 1, 2)
+    for arch, stub in (("musicgen-large", "embeds"),
+                       ("paligemma-3b", "prefix_embeds")):
+        cfg = registry.smoke(registry.get_config(arch))
+        got = pipeline.PackedLMDataset(pipeline.DataConfig(**kw),
+                                       cfg).batch(2, 1, 2)
+        keys = {"targets", stub} | ({"tokens"} if stub == "prefix_embeds"
+                                    else set())
+        assert set(got) == keys
+        np.testing.assert_array_equal(got["targets"], want["targets"])
+        rows = 48 if stub == "embeds" else cfg.num_prefix_tokens
+        assert got[stub].shape == (2, rows, cfg.d_model)
+        assert got[stub].dtype == np.float32
     with pytest.raises(NotImplementedError, match="item 9"):
         launch_train.main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
 

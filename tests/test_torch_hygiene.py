@@ -41,7 +41,10 @@ LM_SLICE = ("repro_torch.models.config", "repro_torch.configs.registry",
             "repro_torch.kernels.ssd", "repro_torch.kernels.ssd_cuda",
             "repro_torch.models.blocks", "repro_torch.models.mamba2",
             "repro_torch.models.transformer", "repro_torch.models.model",
-            "repro_torch.serve.engine", "repro_torch.launch.serve")
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.models.multimodal",
+            "repro_torch.configs.musicgen_large",
+            "repro_torch.configs.paligemma_3b")
 # the observability and durability slice, and the leftovers ported with it
 DURABLE_SLICE = ("repro_torch.obs", "repro_torch.obs.metrics",
                  "repro_torch.obs.timers", "repro_torch.obs.trace",

@@ -1,10 +1,10 @@
 """The port's language-model serving slice against the JAX reference, on
 the CPU: configs, parameters carried across by ``lm_params_from_numpy``,
 prefill logits and caches, per-slot decode steps, and the continuous-
-batching ``ServingEngine`` (the same greedy tokens per request), for the
-hybrid, dense, moe and ssm families (zamba2-1.2b; llama3-8b, qwen1.5-4b,
-minitron-4b and granite-8b; qwen3-moe-235b-a22b and kimi-k2-1t-a32b;
-xlstm-125m).  The moe engine's bucket pads are routed like any token and
+batching ``ServingEngine`` (the same greedy tokens per request), for every
+family: hybrid, dense, moe, ssm, audio and vlm (zamba2-1.2b; llama3-8b,
+qwen1.5-4b, minitron-4b and granite-8b; qwen3-moe-235b-a22b and
+kimi-k2-1t-a32b; xlstm-125m; musicgen-large; paligemma-3b).  The moe engine's bucket pads are routed like any token and
 count toward the expert capacity, as in the reference; the ssm family's
 states absorb the pads and the re-decoded token, as zamba2's do.
 """
@@ -32,7 +32,7 @@ from repro_torch.serve import engine  # noqa: E402
 
 ARCHS = ("zamba2-1.2b", "llama3-8b", "qwen3-moe-235b-a22b",
          "kimi-k2-1t-a32b", "xlstm-125m", "qwen1.5-4b", "minitron-4b",
-         "granite-8b")
+         "granite-8b", "musicgen-large", "paligemma-3b")
 # float32 smoke models: the packages differ in summation order only; 2e-5
 # of the logits' scale (~3) covers two layers' and a decode step's worth.
 TOL = 2e-5
@@ -81,11 +81,10 @@ def test_param_count_matches_the_reference(arch):
 
 
 def test_other_architectures_and_postures_are_not_ported():
+    """Every arch of the reference is ported (the audio and vlm families
+    last); the mesh postures still raise (item 9)."""
     assert registry.list_archs() == rreg.list_archs()
-    for arch in registry.list_archs():
-        if arch not in ARCHS:
-            with pytest.raises(NotImplementedError, match="item 11"):
-                registry.get_config(arch)
+    assert set(registry.list_archs()) == set(ARCHS)
     with pytest.raises(KeyError):
         registry.get_config("gpt-2")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -94,14 +93,27 @@ def test_other_architectures_and_postures_are_not_ported():
         ShardCfg(ssm_sp=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(moe_mode="a2a")
+    # a dense config relabelled audio builds the dense stack, as the
+    # reference's does
     audio = dataclasses.replace(
         registry.smoke(registry.get_config("llama3-8b")), family="audio")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.init_params(audio, 0, device="cpu")
+    dense = model.init_params(
+        registry.smoke(registry.get_config("llama3-8b")), 0, device="cpu")
+    got = model.init_params(audio, 0, device="cpu").state_dict()
+    assert got.keys() == dense.state_dict().keys()
+    assert all(torch.equal(got[k], v) for k, v in dense.state_dict().items())
+    # prefix_embeds in prefill: a bidirectional prefix before the tokens,
+    # whose rows fill the cache's first positions
     _, cfg, _, lm = _pair("llama3-8b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.prefill(lm, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                                "prefix_embeds": torch.zeros(1, 2, 128)}, None)
+    caches = model.init_caches(cfg, 1, 8, torch.float32, "cpu")
+    pre = torch.randn(1, 2, 128, generator=torch.Generator().manual_seed(0))
+    logits, caches = model.prefill(
+        lm, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                  "prefix_embeds": pre}, caches)
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert bool((caches.k[:, :, :6] != 0).any(dim=-1).all())
+    assert not bool(caches.k[:, :, 6:].any())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -605,6 +605,10 @@ def test_model_flops_and_shapes_match_the_reference(arch):
 
 
 def test_what_is_not_ported_raises(pairs):
+    """The mesh postures raise (item 9); the modality inputs, once item 11,
+    now run: ``embeds`` that are the tokens' own embeddings give the
+    tokens' loss bitwise, and an ``audio`` config counts the FLOPs of its
+    dense stack."""
     _, cfg, rp = pairs["llama3-8b"]
 
     class Meshed:
@@ -614,10 +618,16 @@ def test_what_is_not_ported_raises(pairs):
         step_lib.make_train_step(cfg, Meshed(), AdamW())
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.loss_fn(_port_model(cfg, rp), cfg,
-                      {"embeds": torch.zeros(1, 4, cfg.d_model),
-                       "targets": torch.zeros(1, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.model_flops_per_step(dataclasses.replace(cfg, family="audio"),
-                                   1, 64)
+    lm = _port_model(cfg, rp)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(1, 12)))
+    targets = torch.roll(toks, -1, dims=1)
+    with torch.no_grad():
+        embeds = lm.embed.table[toks]
+        want, _ = model.loss_fn(lm, cfg, {"tokens": toks, "targets": targets})
+        got, _ = model.loss_fn(lm, cfg, {"embeds": embeds,
+                                         "targets": targets})
+    assert torch.equal(got, want)
+    assert model.model_flops_per_step(
+        dataclasses.replace(cfg, family="audio"), 1, 64) == \
+        model.model_flops_per_step(cfg, 1, 64)
