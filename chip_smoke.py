@@ -167,20 +167,47 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              relative L2; a planted 64-key fault and, for paligemma, the
              prefill run causal only (``prefix_len`` 0) rejected, the
              latter by the prefix rows' attention outputs.
+15. train   the ssm, vlm and audio families trained as phase 11 trains
+             zamba2, one after the other, each printing a ``train`` line
+             with its ``arch``: (a) gradient parity of the CUDA template
+             against TORCH (losses within 2e-2, every leaf within 5e-2
+             relative norm error and 0.99 cosine; an sLSTM's ``bi``, whose
+             gradient is zero in exact arithmetic, within 5e-2 of the
+             largest leaf's norm) with a planted fault rejected by name:
+             xlstm-125m whole at 1,024 tokens, with an SSD_INTRA backward
+             that drops c_'s gradient (every mLSTM layer's wq must read
+             zero); paligemma-3b at 4 of 18 layers (256 patch embeddings
+             before 768 text tokens) and musicgen-large at 4 of 48 (1,500
+             frame embeddings), with the zero-dq attention backward (every
+             layer's wq zero).  (b) Published widths and full depth, bf16,
+             4,096 tokens (paligemma after its 256 patch embeddings),
+             micro-batch 1; xlstm-125m one microbatch a step (no remat:
+             exactly 10 SSD_INTRA launches a step), paligemma-3b and
+             musicgen-large two (remat ``block``: exactly 2 x 18 x 2 and
+             2 x 48 x 2 FLASH_ATTENTION launches a step, all on the
+             tensor-core route); one warm-up step, then 2 timed steps with
+             the counters reset just before: finite losses, step ms,
+             tokens/s, MFU, peak memory beside the memory reckoned before
+             activations, the device's busy share of a profiled step, the
+             plain backward's time a region at these shapes, and for
+             xlstm the forward sLSTM loops' wall time within one more
+             step.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes and its 4096-token training forward, llama3-8b's GQA widths at
 prefill and decode, qwen3-moe's GQA 16:1 and kimi-k2's head dim 112 at
 prefill and decode and on the CUDA-core route, an odd shape with
 ``prefix_len`` and ``q_offset``, blind rows and valid lengths about a
-split on the bf16 routes, and a bf16-q float32-k/v prefill on the CUDA-core
-route: every route of ``attention_cuda.route`` is launched and checked per
-query row, and a planted fault of 64 missing keys must fail the same
+split on the bf16 routes, a bf16-q float32-k/v prefill on the CUDA-core
+route, and paligemma-3b's training forward (4,352 rows, the 256-row
+prefix, head dim 256 over one kv head): every route of
+``attention_cuda.route`` is launched and checked per query row, and a
+planted fault of 64 missing keys must fail the same
 check) and SSD_INTRA (the zamba2 prefills of 512, 1024 and 2048 tokens,
 its 4096-token training forward (32 chunks) and an odd shape; the
-xlstm-125m prefills of 512, 1024 and 2048 tokens on mLSTM-like inputs, N
-200 / P 129 / L 48 and N 129 / P 385; each with a planted fault, one
-head's s_in zeroed)
+xlstm-125m prefills of 512, 1024 and 2048 tokens and its 4096-token
+training forward (32 chunks) on mLSTM-like inputs, N 200 / P 129 / L 48
+and N 129 / P 385; each with a planted fault, one head's s_in zeroed)
 against their plain versions, beside ``scaled_dot_product_attention``'s
 time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
@@ -190,8 +217,9 @@ The line before the last is the ``{"kernels": [...]}`` summary
 training, moe and multimodal (head dim 256) cases side by side under
 ``cases`` and its head dims under ``head_dims``, the stencils and
 JACOBI_FUSED their serial and farm calls, SSD_INTRA its three zamba2 and
-three xlstm prefill lengths and its training shape; ``launches_by_path``
-includes the train, moe, ssm and multimodal phases'); the last line is
+three xlstm prefill lengths and both training shapes; ``launches_by_path``
+includes the train, moe, ssm and multimodal phases' and each training
+drive of phase 15); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -377,6 +405,19 @@ MM_ATTN_CASES = [
     ("prefill_musicgen", 1, MM_FRAMES, MM_FRAMES, 32, 32, 64, "bfloat16",
      "bfloat16", (True, 0, 0), None),
 ]
+
+# the ssm, vlm and audio families' training drives (phase 15), each at its
+# published widths and depth, bf16: (arch, layers of the gradient-parity
+# run (None: all), its positions, microbatches a step).  Parity: xlstm-125m
+# whole at 1,024 tokens; paligemma-3b at 4 of 18 layers, its 256 patch
+# embeddings before 768 text tokens; musicgen-large at 4 of 48 layers,
+# MM_FRAMES frame embeddings.  Steps at train_4k's 4,096 tokens (paligemma:
+# after its 256 patch embeddings), micro-batch TRAIN_MICRO, one warm-up
+# step then TRAIN_FAMILY_STEPS timed.
+TRAIN_FAMILIES = (("xlstm-125m", None, 1024, 1),
+                  ("paligemma-3b", 4, MM_TEXT, 2),
+                  ("musicgen-large", 4, MM_FRAMES, 2))
+TRAIN_FAMILY_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -750,11 +791,17 @@ ATTN_CASES = [
      "float32", (False, 0, 0), (37, 1024, 2047, 4000)),
     ("cuda_core_d112", 1, 256, 256, 16, 2, 112, "float32", "float32",
      (True, 0, 0), None),
+    # the train phase's paligemma-3b forward: its 256 patch embeddings
+    # (the bidirectional prefix) before train_4k's 4,096 text tokens, 8
+    # query heads of 256 over one kv head
+    ("train_paligemma_d256", 1, TRAIN_SEQ + 256, TRAIN_SEQ + 256, 8, 1,
+     256, "bfloat16", "bfloat16", (True, 0, 256), None),
 ]
 # the cases whose times the kernels line gives side by side
 ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k",
                  "prefill_gqa_qwen3moe", "decode_gqa_qwen3moe",
-                 "prefill_kimi_d112", "decode_kimi_d112", "cuda_core_d112")
+                 "prefill_kimi_d112", "decode_kimi_d112", "cuda_core_d112",
+                 "train_paligemma_d256")
 
 
 def attention_diff(got, want, dtype: str):
@@ -864,7 +911,8 @@ def attention_cases(gen, dev, cases=ATTN_CASES, headline=ATTN_HEADLINE):
 # odd shape, and the train phase's 4096 tokens (32 chunks); the
 # xlstm-125m prefills of 512, 1024 and 2048 tokens (its mLSTM: 4 heads as
 # the groups, R 1, N 384 = the head dim, P 385 = v and the normalizer's
-# ones column), and two untimed odd shapes across N and P 128
+# ones column), the train phase's xlstm-125m forward at 4,096 tokens (32
+# chunks), and two untimed odd shapes across N and P 128
 SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),
              ("prefill_512", (1, 4, 128, 1, 64, 64, 64)),
              ("prefill_2048", (1, 16, 128, 1, 64, 64, 64)),
@@ -873,6 +921,7 @@ SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),
              ("prefill_xlstm_512", (1, 4, 128, 4, 1, 385, 384)),
              ("prefill_xlstm_1024", (1, 8, 128, 4, 1, 385, 384)),
              ("prefill_xlstm_2048", (1, 16, 128, 4, 1, 385, 384)),
+             ("train_xlstm_4096", (1, TRAIN_SEQ // 128, 128, 4, 1, 385, 384)),
              ("odd_n200_p129_l48", (2, 3, 48, 2, 3, 129, 200)),
              ("odd_n129_p385", (1, 2, 128, 1, 2, 385, 129))]
 
@@ -1657,7 +1706,9 @@ def device_busy(fn, cpu_ops: bool = True, ranges=()) -> dict:
     of it, and the device time inside each ``record_function`` range named
     in ``ranges``.  ``cpu_ops=False`` records only the device's activity
     (a training step's host ops would cost the profiler more than the
-    step)."""
+    step) and sums the device records as the profiler took them: a step
+    with the sLSTM loop launches about a million kernels, whose event tree
+    (``key_averages``) would take minutes to build."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1669,24 +1720,29 @@ def device_busy(fn, cpu_ops: bool = True, ranges=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    # a range may also show as a device-side annotation: kept out of the sum
-    events = [ev for ev in averages if ev.device_type == DeviceType.CUDA
-              and ev.key not in ranges]
-    busy = sum(ev.self_device_time_total for ev in events) / 1e3
-    # each range: its device-side span, or its host range's kernels
     in_range = {}
-    for ev in averages:
-        if ev.key in ranges:
-            ms = (ev.self_device_time_total if ev.device_type ==
-                  DeviceType.CUDA else ev.device_time_total) / 1e3
-            in_range[ev.key] = max(in_range.get(ev.key, 0.0), ms)
+    if cpu_ops:
+        averages = prof.key_averages()
+        # a range may also show as a device-side annotation: kept out of
+        # the sum
+        timed = [(ev.key, ev.self_device_time_total / 1e3) for ev in averages
+                 if ev.device_type == DeviceType.CUDA
+                 and ev.key not in ranges]
+        # each range: its device-side span, or its host range's kernels
+        for ev in averages:
+            if ev.key in ranges:
+                ms = (ev.self_device_time_total if ev.device_type ==
+                      DeviceType.CUDA else ev.device_time_total) / 1e3
+                in_range[ev.key] = max(in_range.get(ev.key, 0.0), ms)
+    else:
+        timed = [(ev.name(), (ev.end_ns() - ev.start_ns()) / 1e6)
+                 for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == DeviceType.CUDA]
+    busy = sum(ms for _, ms in timed)
     # FLASH_ATTENTION's three kernels (csrc/attention.cu)
     names = ("prefill_kernel", "decode_kernel", "flash_kernel")
-    attn = sum(ev.self_device_time_total for ev in events
-               if any(name in ev.key for name in names)) / 1e3
-    ssd = sum(ev.self_device_time_total for ev in events
-              if "ssd_intra_kernel" in ev.key) / 1e3
+    attn = sum(ms for key, ms in timed if any(name in key for name in names))
+    ssd = sum(ms for key, ms in timed if "ssd_intra_kernel" in key)
     out = {f"{name}_ms": in_range.get(name) or "not measured"
            for name in ranges}
     return {"wall_ms": wall, "device_ms": busy, **out,
@@ -1874,6 +1930,36 @@ def _zero_dq_fn():
     return ZeroDq
 
 
+def _drop_dc_fn():
+    """The planted fault for the ssm family's gradient-parity check:
+    SSD_INTRA's Function with a backward that drops c_'s gradient (the
+    mLSTM's q reaches the loss only through SSD_INTRA)."""
+    import torch
+    from repro_torch.kernels import autograd
+
+    base = autograd.SSDIntraFn
+
+    class DropDc(base):
+        @staticmethod
+        def backward(ctx, grad_out):
+            *head, dc, ds_in, none = base.backward(ctx, grad_out)
+            return (*head, torch.zeros_like(dc), ds_in, none)
+
+    return DropDc
+
+
+def train_regions(cfg) -> tuple:
+    """(forwards a microbatch, attention regions, SSD regions) of ``cfg``'s
+    training stack: remat ``block`` runs each layer's or group's forward
+    twice; the ``ssm`` stack takes no remat (as the reference's)."""
+    if cfg.family == "ssm":
+        return 1, 0, cfg.num_layers - len(cfg.slstm_indices)
+    require(cfg.remat == "block", f"train: remat {cfg.remat!r}, not block")
+    if cfg.family == "hybrid":
+        return 2, cfg.num_layers // cfg.attn_every, cfg.num_layers
+    return 2, cfg.num_layers, 0
+
+
 def train_grads(cfg, lm, batch, template):
     """(loss, {name: float32 gradient}) of one ``loss_fn`` + backward."""
     import torch
@@ -1884,20 +1970,31 @@ def train_grads(cfg, lm, batch, template):
     loss, _ = model.loss_fn(lm, cfg, batch, template=template)
     loss.backward()
     torch.cuda.synchronize()
-    grads = {n: p.grad.float() for n, p in lm.named_parameters()}
+    grads = {n: (p.grad.float() if p.grad is not None
+                 else torch.zeros_like(p, dtype=torch.float32))
+             for n, p in lm.named_parameters()}
     for p in lm.parameters():
         p.grad = None
     return float(loss.detach()), grads
 
 
-def grad_parity(got: dict, want: dict) -> dict:
+def grad_parity(got: dict, want: dict, zero=()) -> dict:
     """Leaf by leaf: relative gradient-norm error and cosine of ``got``
     against ``want``, and the leaves that fail TRAIN_GRAD_REL /
-    TRAIN_GRAD_COS or are zero where ``want``'s are not."""
-    worst_rel, worst_cos, bad = 0.0, 1.0, []
+    TRAIN_GRAD_COS or are zero where ``want``'s are not.  A leaf in
+    ``zero`` (its gradient is zero in exact arithmetic: float32 noise on
+    both templates) is held at TRAIN_GRAD_REL of the largest leaf's norm,
+    with no cosine."""
+    top = max(float(w.norm()) for w in want.values())
+    worst_rel, worst_cos, bad, rels = 0.0, 1.0, [], {}
     for name, w in want.items():
         g = got[name]
         wn, gn = float(w.norm()), float(g.norm())
+        if name in zero:
+            if float((g - w).norm()) > TRAIN_GRAD_REL * top:
+                bad.append(f"{name}: {float((g - w).norm())} off a zero "
+                           f"gradient")
+            continue
         if wn == 0:
             continue
         if gn == 0:
@@ -1906,133 +2003,199 @@ def grad_parity(got: dict, want: dict) -> dict:
         rel = float((g - w).norm()) / wn
         cos = float((g * w).sum()) / (gn * wn)
         worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        rels[name] = rel
         if rel > TRAIN_GRAD_REL or cos < TRAIN_GRAD_COS:
             bad.append(f"{name}: rel {rel:.3g} cos {cos:.4f}")
     return {"worst_rel_norm_err": worst_rel, "worst_cosine": worst_cos,
+            "worst_leaves": sorted(rels, key=rels.get)[-3:][::-1],
             "failing_leaves": bad}
 
 
-def train_parity(dev) -> dict:
-    """(a) one loss + backward at zamba2's widths, 4 layers, on the CUDA and
-    the TORCH template from the same weights and batch; then once more on
-    CUDA with the planted zero-dq fault, which the check must reject."""
-    import dataclasses
+def zero_grad_leaves(cfg) -> list:
+    """The leaves whose gradient is zero in exact arithmetic: each sLSTM's
+    ``bi`` (from a fresh state a shift of every input-gate logit is
+    absorbed by the stabilizer m)."""
+    if cfg.family != "ssm":
+        return []
+    return [f"stack.layers.{i}.bi" for i in cfg.slstm_indices]
 
+
+def train_batch(cfg, seq: int, global_batch: int, dev, step: int = 0):
+    """Batch ``step`` of ``PackedLMDataset(..., cfg)`` on the card: tokens
+    (and, for paligemma, its patch embeddings; for musicgen, frame
+    embeddings in their place) and targets."""
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, PackedLMDataset
+
+    ds = PackedLMDataset(DataConfig(seed=SEED, vocab_size=cfg.vocab_size,
+                                    seq_len=seq, global_batch=global_batch),
+                         cfg)
+    return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
+
+
+def train_parity(dev, cfg, batch, fault, lost) -> dict:
+    """(a) one loss + backward on the CUDA and the TORCH template from the
+    same weights and batch; then once more on CUDA with ``fault`` =
+    (attribute of ``kernels.autograd``, Function) swapped in, which the
+    check must reject: each leaf in ``lost`` must read zero."""
+    import torch
     from repro_torch.kernels import autograd
     from repro_torch.models import model
 
-    cfg = dataclasses.replace(get_config(LM_ARCH),
-                              num_layers=TRAIN_PARITY_LAYERS)
     lm = model.init_params(cfg, SEED, device=dev).requires_grad_(True)
-    ds = PackedLMDataset(DataConfig(seed=SEED, vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_PARITY_SEQ, global_batch=1))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
     reset_counts()
     loss_cuda, g_cuda = train_grads(cfg, lm, batch, "CUDA")
     launched = read_counts()
     loss_torch, g_torch = train_grads(cfg, lm, batch, "TORCH")
-    good = autograd.FlashAttentionFn
-    autograd.FlashAttentionFn = _zero_dq_fn()
+    attr, planted = fault
+    good = getattr(autograd, attr)
+    setattr(autograd, attr, planted)
     try:
         _, g_fault = train_grads(cfg, lm, batch, "CUDA")
     finally:
-        autograd.FlashAttentionFn = good
-    ok, fault = grad_parity(g_cuda, g_torch), grad_parity(g_fault, g_torch)
-    n_attn = cfg.num_layers // cfg.attn_every
-    out = {"layers": cfg.num_layers, "attn_applications": n_attn,
-           "seq": TRAIN_PARITY_SEQ, "loss_cuda": loss_cuda,
-           "loss_torch": loss_torch,
+        setattr(autograd, attr, good)
+    zero = zero_grad_leaves(cfg)
+    ok = grad_parity(g_cuda, g_torch, zero)
+    fault_found = grad_parity(g_fault, g_torch, zero)["failing_leaves"]
+    fwd, n_attn, n_ssd = train_regions(cfg)
+    positions = sum(batch[k].shape[1] for k in ("tokens", "embeds",
+                                                 "prefix_embeds")
+                    if k in batch)
+    out = {"layers": cfg.num_layers, "attn_regions": n_attn,
+           "ssd_regions": n_ssd, "positions": positions,
+           "loss_cuda": loss_cuda, "loss_torch": loss_torch,
            "loss_rel_diff": abs(loss_cuda - loss_torch) / abs(loss_torch),
-           "leaves": len(g_torch), "launches_cuda": launched, **ok,
-           "planted_fault_failing_leaves": fault["failing_leaves"],
+           "leaves": len(g_torch), "zero_gradient_leaves": zero,
+           "launches_cuda": launched, **ok,
+           "planted_fault": f"{attr}: {planted.__name__}",
+           "planted_fault_failing_leaves": fault_found,
            "tolerances": {"loss_rel": TRAIN_LOSS_RTOL,
                           "grad_rel_norm": TRAIN_GRAD_REL,
                           "grad_cosine": TRAIN_GRAD_COS}}
     del lm, g_cuda, g_torch, g_fault
+    gc.collect()
     torch.cuda.empty_cache()
+    emit({"phase": "train_parity", "arch": cfg.name, **out})
     require(out["loss_rel_diff"] <= TRAIN_LOSS_RTOL,
-            f"train parity: losses {loss_cuda} (cuda) and {loss_torch} "
-            f"(torch) differ by more than {TRAIN_LOSS_RTOL}")
+            f"train parity {cfg.name}: losses {loss_cuda} (cuda) and "
+            f"{loss_torch} (torch) differ by more than {TRAIN_LOSS_RTOL}")
     require(not ok["failing_leaves"],
-            f"train parity: gradients disagree: {ok['failing_leaves'][:5]}")
-    require(any(".attn.wq: zero" in f for f in fault["failing_leaves"]),
-            "train parity: the check passed a FLASH_ATTENTION backward that "
-            f"drops q's gradient ({fault['failing_leaves'][:5]})")
-    # remat "block" runs each group's forward twice
-    want = {"FLASH_ATTENTION": 2 * n_attn, "SSD_INTRA": 2 * cfg.num_layers}
+            f"train parity {cfg.name}: gradients disagree: "
+            f"{ok['failing_leaves'][:5]}")
+    missed = [n for n in lost if f"{n}: zero" not in fault_found]
+    require(not missed,
+            f"train parity {cfg.name}: the check passed {out['planted_fault']}"
+            f" on {missed[:5]} ({fault_found[:5]})")
+    want = {"FLASH_ATTENTION": fwd * n_attn, "SSD_INTRA": fwd * n_ssd}
     require({k: launched[k] for k in want} == want,
-            f"train parity: launches {launched}, expected {want}")
+            f"train parity {cfg.name}: launches {launched}, expected {want}")
     return out
 
 
-def plain_backward_ms(cfg, dev) -> dict:
-    """Device time of one plain backward of each kernel's region at the
-    train phase's shapes (what the Functions run, and what a backward
-    kernel would replace)."""
+def plain_backward_ms(cfg, dev, seq: int = TRAIN_SEQ, prefix: int = 0) -> dict:
+    """Device time of one plain backward of each kernel's region on
+    ``cfg``'s training path at its shapes (``seq`` positions, the first
+    ``prefix`` bidirectional): what the Functions run, and what a backward
+    kernel would replace."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
+    from repro_torch.models import xlstm
     from repro_torch.models.attention import MaskSpec, chunked_mha
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    qkv = [rnd(1, TRAIN_SEQ, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
-           .requires_grad_(True) for _ in range(3)]
-    out = chunked_mha(*qkv, MaskSpec(causal=True), q_chunk=cfg.q_chunk,
-                      kv_chunk=cfg.kv_chunk, template="CUDA")
-    g = torch.randn_like(out)
-    attn = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
-                                               retain_graph=True),
-                   reps=3, warmup=1)
-    nc, heads = TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_heads
-    p, n = cfg.ssm_head_dim, cfg.ssm_state
-    args = [rnd(1, nc, cfg.ssm_chunk, 1, heads, p),
-            -F.softplus(rnd(1, nc, cfg.ssm_chunk, 1, heads)),
-            F.softplus(rnd(1, nc, cfg.ssm_chunk, 1, heads)),
-            rnd(1, nc, cfg.ssm_chunk, 1, n), rnd(1, nc, cfg.ssm_chunk, 1, n),
-            rnd(1, nc, 1, heads, n, p) * 0.3]
-    args = [a.requires_grad_(True) for a in args]
-    y = ops.ssd_intra(*args, template="CUDA")
-    gy = torch.randn_like(y)
-    ssd = cuda_ms(lambda: torch.autograd.grad(y, args, gy,
-                                              retain_graph=True),
-                  reps=3, warmup=1)
-    return {"FLASH_ATTENTION": attn, "SSD_INTRA": ssd}
+    out = {}
+    _, n_attn, n_ssd = train_regions(cfg)
+    if n_attn:
+        q, k, v = [rnd(1, seq, h, cfg.head_dim).to(torch.bfloat16)
+                   .requires_grad_(True)
+                   for h in (cfg.num_heads, cfg.num_kv_heads,
+                             cfg.num_kv_heads)]
+        o = chunked_mha(q, k, v, MaskSpec(causal=True, prefix_len=prefix),
+                        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                        template="CUDA")
+        g = torch.randn_like(o)
+        out["FLASH_ATTENTION"] = cuda_ms(
+            lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True),
+            reps=3, warmup=1)
+        del q, k, v, o, g
+    if n_ssd:
+        chunk = cfg.ssm_chunk
+        if cfg.family == "ssm":             # the mLSTM: heads as groups
+            hd = xlstm._dims(cfg)[2]
+            args = list(mlstm_ssd_inputs(
+                (1, seq // chunk, chunk, cfg.num_heads, 1, hd + 1, hd), gen,
+                dev))
+        else:
+            nc, heads = seq // chunk, cfg.ssm_heads
+            p, n = cfg.ssm_head_dim, cfg.ssm_state
+            args = [rnd(1, nc, chunk, 1, heads, p),
+                    -F.softplus(rnd(1, nc, chunk, 1, heads)),
+                    F.softplus(rnd(1, nc, chunk, 1, heads)),
+                    rnd(1, nc, chunk, 1, n), rnd(1, nc, chunk, 1, n),
+                    rnd(1, nc, 1, heads, n, p) * 0.3]
+        args = [a.requires_grad_(True) for a in args]
+        y = ops.ssd_intra(*args, template="CUDA")
+        gy = torch.randn_like(y)
+        out["SSD_INTRA"] = cuda_ms(
+            lambda: torch.autograd.grad(y, args, gy, retain_graph=True),
+            reps=3, warmup=1)
+    return out
 
 
-def phase_train(dev, smi: str):
-    """zamba2-1.2b trained at its published widths through
-    ``train.step.make_train_step`` and ``PackedLMDataset``: (a) gradient
-    parity of the CUDA template against TORCH with a planted fault, then
-    (b) one warm-up step and TRAIN_STEPS timed steps at train_4k's
-    sequence, with the launch counters reset just before them."""
+@contextlib.contextmanager
+def timing(module, name: str, spent: list):
+    """``module.name`` timed alone while inside: each call's wall time
+    between synchronises, in ms, appended to ``spent``."""
     import torch
-    from repro_torch.configs.registry import get_config
+
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, fn)
+
+
+def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
+    """``cfg`` at its published widths and depth (bf16 weights from
+    ``init_params`` at seed 0) trained through ``make_train_step`` on
+    ``PackedLMDataset(..., cfg)`` at ``seq`` positions, micro-batch
+    TRAIN_MICRO and ``accum`` microbatches a step: one warm-up step, then
+    ``steps`` timed with the launch counters reset just before, then one
+    under the profiler (the device's busy share), and for the ``ssm``
+    family one with each sLSTM layer's forward loop timed alone."""
+    import torch
     from repro_torch.data.pipeline import DataConfig, PackedLMDataset, Prefetcher
-    from repro_torch.models import model
+    from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.models import model, xlstm
     from repro_torch.models.config import LOCAL
-    from repro_torch.models.transformer import n_attn_layers
     from repro_torch.optim.adamw import AdamW
     from repro_torch.optim.schedules import warmup_cosine
     from repro_torch.train.step import make_train_step
 
-    t_phase = time.perf_counter()
-    parity = train_parity(dev)
-    parts = {"parity_s": time.perf_counter() - t_phase}
-    cfg = get_config(LM_ARCH)
-    require(cfg.remat == "block", f"train: remat {cfg.remat!r}, not block")
-    global_batch = TRAIN_MICRO * TRAIN_ACCUM
+    t_start = time.perf_counter()
+    global_batch = TRAIN_MICRO * accum
+    torch.cuda.reset_peak_memory_stats()
     lm = model.init_params(cfg, SEED, device=dev)
-    total = 1 + TRAIN_STEPS
+    n_params = sum(p.numel() for p in lm.parameters())
+    total = 1 + steps
     opt = AdamW(lr=warmup_cosine(TRAIN_LR, total // 10 + 1, total))
     opt_state = opt.init(lm)
-    step_fn = make_train_step(cfg, LOCAL, opt, grad_accum=TRAIN_ACCUM)
+    step_fn = make_train_step(cfg, LOCAL, opt, grad_accum=accum)
     ds = PackedLMDataset(DataConfig(seed=SEED, vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_SEQ,
-                                    global_batch=global_batch), cfg)
+                                    seq_len=seq, global_batch=global_batch),
+                         cfg)
     it = Prefetcher(ds.iterate(0), depth=2)
     batches = lambda: {k: torch.from_numpy(v).to(dev)
                        for k, v in next(it).items()}
@@ -2043,72 +2206,207 @@ def phase_train(dev, smi: str):
         return met
 
     torch.cuda.synchronize()
-    parts["setup_s"] = time.perf_counter() - t_phase - parts["parity_s"]
+    out = {"params": n_params, "setup_s": time.perf_counter() - t_start,
+           "init_peak_memory": torch.cuda.max_memory_allocated()}
     t0 = time.perf_counter()
     met = one_step()                                   # warm-up
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    out["warmup_step_s"] = time.perf_counter() - t0
     losses, step_ms = [float(met["loss"])], []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         met = one_step()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(met["loss"]))
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    out.update(launches=read_counts(), routes=dict(ac.ROUTE_LAUNCHES),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
     # one more step under the profiler: the device's busy share
     t0 = time.perf_counter()
-    busy = device_busy(lambda: losses.append(float(one_step()["loss"])),
-                       cpu_ops=False)
-    parts["profiled_step_s"] = time.perf_counter() - t0
+    out["step_busy"] = device_busy(
+        lambda: losses.append(float(one_step()["loss"])), cpu_ops=False)
+    out["profiled_step_s"] = time.perf_counter() - t0
+    if cfg.family == "ssm":
+        # the forward sLSTM loops (seq steps of eager ops each) timed alone
+        # inside one more step, as the ssm phase times them in a prefill
+        with timing(xlstm, "slstm_seq", []) as spent:
+            t0 = time.perf_counter()
+            losses.append(float(one_step()["loss"]))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        out["slstm_forward"] = {"step_wall_ms": wall,
+                                "slstm_layers_ms": spent,
+                                "slstm_share": sum(spent) / wall}
     it.close()
-    n_attn, n_mamba = n_attn_layers(cfg), cfg.num_layers
-    # each microbatch runs every forward twice (remat "block"); the
-    # backward is the plain versions' gradient and launches nothing
-    per_step = {"FLASH_ATTENTION": 2 * n_attn * TRAIN_ACCUM,
-                "SSD_INTRA": 2 * n_mamba * TRAIN_ACCUM}
-    expected = dict.fromkeys(launches, 0)
-    expected.update({k: v * TRAIN_STEPS for k, v in per_step.items()})
     med = sorted(step_ms)[len(step_ms) // 2]
-    tokens = global_batch * TRAIN_SEQ
-    flops = model.model_flops_per_step(cfg, global_batch, TRAIN_SEQ)
+    positions = seq + (cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    flops = model.model_flops_per_step(cfg, global_batch, positions)
+    out.update(positions=positions, micro_batch=TRAIN_MICRO, grad_accum=accum,
+               global_batch=global_batch, remat=cfg.remat, lr_peak=TRAIN_LR,
+               losses=losses, step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=global_batch * positions / (med / 1e3),
+               model_flops_per_step=flops,
+               mfu=flops / (med / 1e3) / BF16_OPS_PER_S,
+               busy_share_of_median_step=(
+                   out["step_busy"]["device_ms"] / med
+                   if out["step_busy"]["device_ms"] else "not measured"))
+    return out
+
+
+def check_train_steps(cfg, res: dict, steps: int) -> tuple:
+    """The steps' expected launch counts (exact, FLASH_ATTENTION all on the
+    tensor-core route), written into ``res``; returns (the per-step counts,
+    what is wrong: launches, routes or non-finite losses)."""
+    fwd, n_attn, n_ssd = train_regions(cfg)
+    accum = res["grad_accum"]
+    # the backward is the plain versions' gradient and launches nothing
+    per_step = {"FLASH_ATTENTION": fwd * n_attn * accum,
+                "SSD_INTRA": fwd * n_ssd * accum}
+    expected = dict.fromkeys(res["launches"], 0)
+    expected.update({k: v * steps for k, v in per_step.items()})
+    routes = {"tensor_core_prefill": expected["FLASH_ATTENTION"],
+              "split_k_decode": 0, "cuda_core": 0}
+    res.update(expected=expected, expected_routes=routes)
+    wrong = []
+    if not all(math.isfinite(x) for x in res["losses"]):
+        wrong.append(f"non-finite losses {res['losses']}")
+    if res["launches"] != expected:
+        wrong.append(f"launch counts {res['launches']} != {expected}")
+    if res["routes"] != routes:
+        wrong.append(f"FLASH_ATTENTION routes {res['routes']} != {routes}")
+    return per_step, wrong
+
+
+def phase_train(dev, smi: str):
+    """zamba2-1.2b trained at its published widths through
+    ``train.step.make_train_step`` and ``PackedLMDataset``: (a) gradient
+    parity of the CUDA template against TORCH with a planted fault, then
+    (b) one warm-up step and TRAIN_STEPS timed steps at train_4k's
+    sequence, with the launch counters reset just before them."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    t_phase = time.perf_counter()
+    pcfg = dataclasses.replace(get_config(LM_ARCH),
+                               num_layers=TRAIN_PARITY_LAYERS)
+    parity = train_parity(dev, pcfg, train_batch(pcfg, TRAIN_PARITY_SEQ, 1,
+                                                 dev),
+                          ("FlashAttentionFn", _zero_dq_fn()),
+                          ["stack.shared_attn.attn.wq"])
+    parts = {"parity_s": time.perf_counter() - t_phase}
+    cfg = get_config(LM_ARCH)
+    res = train_steps(dev, cfg, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS)
+    per_step, wrong = check_train_steps(cfg, res, TRAIN_STEPS)
     t0 = time.perf_counter()
     bwd = plain_backward_ms(cfg, dev)
     parts["plain_backward_s"] = time.perf_counter() - t0
     line = {"phase": "train", "arch": LM_ARCH, "card": smi,
-            "params": sum(p.numel() for p in lm.parameters()),
+            "params": res["params"],
             "seq": TRAIN_SEQ, "micro_batch": TRAIN_MICRO,
-            "grad_accum": TRAIN_ACCUM, "global_batch": global_batch,
+            "grad_accum": TRAIN_ACCUM, "global_batch": res["global_batch"],
             "reduced": "global batch 2, cut from train_4k's 256 to fit the "
                        "run's time; 1 warm-up and 4 timed steps",
             "remat": cfg.remat, "lr_peak": TRAIN_LR,
-            "parity": parity, "warmup_step_s": warm_s, "losses": losses,
-            "step_ms": step_ms, "step_ms_median": med,
-            "tokens_per_s": tokens / (med / 1e3),
-            "model_flops_per_step": flops,
-            "mfu": flops / (med / 1e3) / BF16_OPS_PER_S,
-            "max_memory_allocated": peak, "launches": launches,
-            "expected": expected, "launches_per_step": per_step,
-            "step_busy": busy,
-            "busy_share_of_median_step": (busy["device_ms"] / med
-                                          if busy["device_ms"] else
-                                          "not measured"),
+            "parity": parity, "warmup_step_s": res["warmup_step_s"],
+            "losses": res["losses"], "step_ms": res["step_ms"],
+            "step_ms_median": res["step_ms_median"],
+            "tokens_per_s": res["tokens_per_s"],
+            "model_flops_per_step": res["model_flops_per_step"],
+            "mfu": res["mfu"],
+            "max_memory_allocated": res["max_memory_allocated"],
+            "launches": res["launches"], "expected": res["expected"],
+            "launches_per_step": per_step,
+            "flash_attention_routes": res["routes"],
+            "step_busy": res["step_busy"],
+            "busy_share_of_median_step": res["busy_share_of_median_step"],
             # one backward a region a microbatch: half the launches
             "plain_backward_ms": bwd,
             "plain_backward_ms_per_step": {
                 k: bwd[k] * (v // 2) for k, v in per_step.items()},
+            "seconds": time.perf_counter() - t_phase,
+            "setup_s": res["setup_s"],
+            "profiled_step_s": res["profiled_step_s"], **parts}
+    emit(line)
+    require(not wrong, f"train: {wrong}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res["launches"]
+
+
+def train_family(dev, smi: str, arch: str, parity_layers, parity_tokens: int,
+                 accum: int) -> dict:
+    """One family's training drive (phase 15): gradient parity at
+    ``parity_layers`` (None: all) and ``parity_tokens`` positions with its
+    planted fault, then train_steps at TRAIN_SEQ and the plain backwards
+    at that shape; one ``train`` line."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    pcfg = (cfg if parity_layers is None
+            else dataclasses.replace(cfg, num_layers=parity_layers))
+    if cfg.family == "ssm":
+        fault = ("SSDIntraFn", _drop_dc_fn())
+        lost = [f"stack.layers.{i}.wq.w" for i in range(pcfg.num_layers)
+                if i not in pcfg.slstm_indices]
+    else:
+        fault = ("FlashAttentionFn", _zero_dq_fn())
+        lost = [f"stack.layers.{i}.attn.wq" for i in range(pcfg.num_layers)]
+    parity = train_parity(dev, pcfg, train_batch(pcfg, parity_tokens, 1, dev),
+                          fault, lost)
+    parts = {"parity_s": time.perf_counter() - t_phase}
+    res = train_steps(dev, cfg, TRAIN_SEQ, accum, TRAIN_FAMILY_STEPS)
+    per_step, wrong = check_train_steps(cfg, res, TRAIN_FAMILY_STEPS)
+    t0 = time.perf_counter()
+    prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+    bwd = plain_backward_ms(cfg, dev, TRAIN_SEQ + prefix, prefix)
+    parts["plain_backward_s"] = time.perf_counter() - t0
+    fwd = train_regions(cfg)[0]
+    n = res["params"]
+    # bf16 weight and .grad, float32 AdamW moments, and the float32
+    # accumulator when the step accumulates (train/step.py, optim/adamw.py)
+    reckoned = n * (2 + 2 + 4 + 4 + (4 if accum > 1 else 0))
+    line = {"phase": "train", "arch": arch, "family": cfg.family,
+            "card": smi, "layers": cfg.num_layers, "seq": TRAIN_SEQ,
+            "reduced": f"global batch {res['global_batch']}, cut from "
+                       f"train_4k's 256 to fit the run's time; 1 warm-up "
+                       f"and {TRAIN_FAMILY_STEPS} timed steps",
+            "parity": parity, **res,
+            "launches_per_step": per_step,
+            "memory_reckoned_before_activations": reckoned,
+            "plain_backward_ms": bwd,
+            # one backward a region a microbatch
+            "plain_backward_ms_per_step": {
+                k: bwd[k] * (v // fwd) for k, v in per_step.items()
+                if k in bwd},
             "seconds": time.perf_counter() - t_phase, **parts}
     emit(line)
-    require(all(math.isfinite(x) for x in losses),
-            f"train: non-finite losses {losses}")
-    require(launches == expected,
-            f"train: launch counts {launches} != {expected}")
-    del lm, opt_state, step_fn
+    require(not wrong, f"train {arch}: {wrong}")
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return res["launches"]
+
+
+def phase_train_families(dev, smi: str) -> dict:
+    """Phase 15: the ssm, vlm and audio families trained at their published
+    widths and depths on the card, one after the other; each drive's
+    launches by path."""
+    import torch
+
+    paths = {}
+    for arch, layers, tokens, accum in TRAIN_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[f"train_{arch}"] = train_family(dev, smi, arch, layers, tokens,
+                                              accum)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -2563,27 +2861,14 @@ def slstm_host_ms(cfg, lm, dev, b: int) -> dict:
     import torch
     from repro_torch.models import model, xlstm
 
-    fn, spent = xlstm.slstm_seq, []
-
-    def timed(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        spent.append((time.perf_counter() - t0) * 1e3)
-        return out
-
     toks = torch.zeros((1, b), dtype=torch.long, device=dev)
     caches = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
-    xlstm.slstm_seq = timed
-    try:
+    with timing(xlstm, "slstm_seq", []) as spent:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model.prefill(lm, cfg, {"tokens": toks}, caches, template="CUDA")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        xlstm.slstm_seq = fn
     return {"prefill_wall_ms": wall, "slstm_layers_ms": spent,
             "slstm_share": sum(spent) / wall}
 
@@ -3063,6 +3348,7 @@ def main() -> int:
     paths["moe"] = phase_moe(dev, smi)
     paths["ssm"] = phase_ssm(dev, smi)
     paths["multimodal"] = phase_multimodal(dev, smi, kernel_results)
+    paths.update(phase_train_families(dev, smi))
     # each kernel's launches on the path that carries it: the farm for the
     # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
     # serving path for FLASH_ATTENTION and SSD_INTRA

@@ -209,11 +209,13 @@ def adamw_state_from_numpy(state, device=None):
                       v=_port_named(state.v, dev))
 
 
-def adamw_state_to_numpy(state):
+def adamw_state_to_numpy(state, stacked: bool = True):
     """The port's ``AdamWState`` with numpy leaves in the reference's
-    layout: the step a 0-d array, the moments in its tree."""
+    layout: the step a 0-d array, the moments in its tree (``stacked``:
+    the model's ``LayerStack.stacked``)."""
     return type(state)(step=to_numpy(state.step),
-                       m=_reference_tree(state.m), v=_reference_tree(state.v))
+                       m=_reference_tree(state.m, stacked),
+                       v=_reference_tree(state.v, stacked))
 
 
 def caches_from_numpy(tree, device=None):

@@ -156,7 +156,11 @@ def _generator(key: int) -> torch.Generator:
 
 
 class Prefetcher:
-    """Background-thread prefetch (depth-N queue) over a batch iterator."""
+    """Background-thread prefetch (depth-N queue) over a batch iterator.
+
+    ``close`` returns once the thread has stopped: a batch that the thread
+    is still drawing with torch when the interpreter exits (the stub
+    embeddings of the audio and vlm families) aborts the process."""
 
     def __init__(self, it: Iterator[dict], depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -167,7 +171,8 @@ class Prefetcher:
                 if self._stop.is_set():
                     return
                 self._q.put(item)
-            self._q.put(None)
+            if not self._stop.is_set():
+                self._q.put(None)
 
         self._t = threading.Thread(target=worker, daemon=True)
         self._t.start()
@@ -183,8 +188,10 @@ class Prefetcher:
 
     def close(self):
         self._stop.set()
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
+        while self._t.is_alive():
+            try:                           # free a put the thread waits on
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._t.join(timeout=0.05)

@@ -22,8 +22,8 @@ is a dict of tensors on the model's device:
                                      bidirectional prefix before the tokens;
                                      the loss scores the text after it
 
-The ``ssm`` family's loss is ROADMAP queue 1, item 11 (it serves: prefill
-and decode).
+Every family trains and serves; the ``ssm`` family's stack takes no
+remat in training, as the reference's.
 ``reset_caches`` sets caches, or one slot's rows of them, back to
 ``init_caches``' values.  ``template`` selects the kernels: ``CUDA`` (the default on the card) or
 ``TORCH`` (their plain versions).

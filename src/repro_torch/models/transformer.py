@@ -25,8 +25,9 @@ reference, and are updated in place: each function returns the caches it
 was given.  In ``mode="train"`` each layer (dense) or each group (hybrid)
 runs under the config's rematerialisation policy (:func:`_remat`); the
 shared block of a hybrid stack is one set of parameters, so its gradient
-sums over all its applications, as in the reference.  Training the ``ssm``
-family is ROADMAP queue 1, item 11.
+sums over all its applications, as in the reference.  The ``ssm`` stack
+trains with no rematerialisation whatever ``cfg.remat`` says, as the
+reference's ``_seq_xlstm_stack`` does.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from torch.utils import checkpoint
 from repro_torch.models import layers, mamba2, moe, xlstm
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.blocks import Attention, KVCache, attention
-from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
+from repro_torch.models.config import ModelConfig, ShardCfg
 
 FAMILIES = ("dense", "audio", "vlm", "moe", "hybrid", "ssm")
 MODES = ("train", "prefill")
@@ -239,7 +240,7 @@ def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
               positions, mask: MaskSpec, caches=None, mode: str = "train",
               template=None):
     """x (B,S,d) -> (x, caches, metrics).  mode: train (no caches; each
-    layer or group under :func:`_remat`) | prefill (caches filled in
+    layer or group under :func:`_remat`, but the ``ssm`` family's) | prefill (caches filled in
     place).  ``metrics`` are ``StackMetrics``: the MoE layers' summed over
     the layers (the reference's ``jax.tree.map(jnp.sum, mets)``), zero for
     the other families."""
@@ -254,8 +255,6 @@ def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
                               train=mode == "train", template=template)
         return x, caches, StackMetrics.zero(x.device)
     if cfg.family == "ssm":
-        if mode == "train":
-            raise not_ported("training the 'ssm' family", 11)
         x = _seq_xlstm_stack(stack, cfg, x, caches=caches, template=template)
         return x, caches, StackMetrics.zero(x.device)
     x, metrics = _seq_attn_stack(stack, cfg, x, shard, positions=positions,
@@ -313,7 +312,7 @@ def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
 def _seq_xlstm_stack(stack, cfg, x, *, caches, template):
     """Each layer an sLSTM (at ``slstm_indices``) or an mLSTM block; with
     caches, each layer starts from its state and leaves its final state
-    there."""
+    there.  Training runs the same loop with no remat."""
     for i, lp in enumerate(stack.layers):
         st = caches[i] if caches is not None else None
         fn = xlstm.slstm_seq if i in cfg.slstm_indices else xlstm.mlstm_seq

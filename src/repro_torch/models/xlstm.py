@@ -59,6 +59,13 @@ class SLSTMState(NamedTuple):
     h: torch.Tensor      # (B, H, P) previous output (recurrent input), fp32
 
 
+def _at_least_one(t):
+    """max(t, 1.0) as ``jnp.maximum(t, 1.0)``: the same values, and at a tie
+    the gradient split half to each side (``torch.clamp`` would pass all of
+    it to ``t``)."""
+    return torch.maximum(t, t.new_ones(()))
+
+
 def _dims(cfg: ModelConfig):
     h = cfg.num_heads
     d_inner = int(cfg.d_model * cfg.mlstm_proj_factor)
@@ -173,7 +180,7 @@ def mlstm_seq(p: MLSTMBlock, cfg: ModelConfig, x,
         state.c[:, :, None] if state is not None else None,
         template=template)
     y_aug = y_aug[:, :, :, 0]                    # (B,S,H,P+1)
-    hval = y_aug[..., :hd] / torch.clamp(torch.abs(y_aug[..., hd:]), min=1.0)
+    hval = y_aug[..., :hd] / _at_least_one(torch.abs(y_aug[..., hd:]))
     out = _mlstm_out(p, cfg, hval, z, x)
     if not return_state:
         return out, None
@@ -204,7 +211,7 @@ def mlstm_step(p: MLSTMBlock, cfg: ModelConfig, x_t, state: MLSTMState):
     v_aug = torch.cat([v, ones], dim=-1)
     c_new = f * state.c + i * k[..., :, None] * v_aug[..., None, :]
     y_aug = torch.einsum("bhn,bhnp->bhp", q, c_new)           # (B,H,P+1)
-    hval = y_aug[..., :hd] / torch.clamp(torch.abs(y_aug[..., hd:]), min=1.0)
+    hval = y_aug[..., :hd] / _at_least_one(torch.abs(y_aug[..., hd:]))
     out = _mlstm_out(p, cfg, hval[:, None], z, x1)[:, 0]
     new_state = MLSTMState(c=c_new, n=c_new[..., hd], conv=window[:, 1:])
     return out, new_state
@@ -250,7 +257,10 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device=None) -> SLSTMState:
 
 def _slstm_cell(p: SLSTMBlock, gx: dict, state: SLSTMState) -> SLSTMState:
     """One stabilized sLSTM step.  gx: (B,H,P) pre-activations from the
-    input path; the recurrent contributions are added here."""
+    input path; the recurrent contributions are added here.  From a fresh
+    state n is 1.0 at the first step whatever the parameters (exp(i - m)
+    with m = i), so the floor's tie there carries no gradient and
+    ``clamp`` gives the reference's."""
     hp = state.h
     rec = lambda r: torch.einsum("bhp,hpq->bhq", hp, r)
     z = torch.tanh(gx["z"] + rec(p.rz) + p.bz)

@@ -13,8 +13,9 @@ reference returns new trees): at 1.1 G parameters a second copy of the
 parameters and of both moments would cost 11 GB.
 
 ``decay_filter`` sees the reference's ``/``-joined path of each parameter
-(``convert.reference_path``: the layer index of a stacked layer dropped),
-so it masks exactly the reference's leaves — including the reference's
+(``convert.reference_path``: the layer index of a stacked layer dropped,
+kept for the ``ssm`` family's per-layer stack), so it masks exactly the
+reference's leaves — including the reference's
 quirk that ``"/b"`` does not match ``mamba/conv_b``, which is decayed.
 """
 from __future__ import annotations
@@ -61,10 +62,11 @@ class AdamW:
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m=zeros(self.m_dtype), v=zeros(self.v_dtype))
 
-    def decays(self, name: str) -> bool:
-        """Whether the parameter ``name`` takes weight decay."""
+    def decays(self, name: str, stacked: bool = True) -> bool:
+        """Whether the parameter ``name`` takes weight decay; ``stacked``
+        is the model's ``LayerStack.stacked``."""
         return bool(self.weight_decay) and \
-            self.decay_filter(reference_path(name))
+            self.decay_filter(reference_path(name, stacked))
 
     def _lr(self, step):
         if callable(self.lr):
@@ -86,6 +88,7 @@ class AdamW:
         bc1 = 1.0 - b1 ** step.float()
         bc2 = 1.0 - b2 ** step.float()
         lr = self._lr(step)
+        stacked = getattr(getattr(model, "stack", None), "stacked", True)
 
         for name, p in model.named_parameters():
             g, m, v = grads[name], state.m[name], state.v[name]
@@ -93,7 +96,7 @@ class AdamW:
             mf = b1 * m.float() + (1 - b1) * gf
             vf = b2 * v.float() + (1 - b2) * gf * gf
             upd = (mf / bc1) / (torch.sqrt(vf / bc2) + self.eps)
-            if self.decays(name):
+            if self.decays(name, stacked):
                 upd = upd + self.weight_decay * p.float()
             p.copy_((p.float() - lr * upd).to(p.dtype))
             m.copy_(mf.to(self.m_dtype))

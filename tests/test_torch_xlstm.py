@@ -51,6 +51,9 @@ TOL = {"float32": 1e-5,
 # conv tail rounded the other way (prefill casts it to the compute dtype,
 # the step keeps it in float32: ~1e-4 of the state's scale at bf16)
 STATE_TOL = TOL["float32"]
+# float32 gradients, per leaf: max|port - ref| <= GRAD_TOL * max|ref| (the
+# training tests' tolerance, tests/test_torch_train.py)
+GRAD_TOL = 1e-4
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -385,12 +388,106 @@ def test_ssm_caches_and_params_round_trip_bitwise():
         "stack/layers/attn/wq"
 
 
-def test_training_the_ssm_family_is_not_ported():
-    """The family serves; its loss (mode='train') raises, citing item 11."""
-    _, cfg, _, lm = _engine_pair()
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.loss_fn(lm, cfg, {"tokens": toks, "targets": toks})
+def _block_grads(kind, rp, block, jx, tx, state=None, rstate=None):
+    """d sum(w * out) / d (x, every parameter) of one block call, ``w`` a
+    seeded weight: ``jax.grad`` of the reference's function and
+    ``torch.autograd.grad`` of the port's, as (port name -> (port, ref))
+    numpy pairs.  ``kind``: mlstm_seq, mlstm_step or slstm_seq."""
+    rcfg, cfg = _cfgs()
+    rfn, pfn = getattr(rx, kind), getattr(xlstm, kind)
+    run_r = ((lambda p, x: rfn(p, rcfg, x, rstate)[0]) if state is not None
+             else (lambda p, x: rfn(p, rcfg, x)[0]))
+    out_shape = jax.eval_shape(run_r, rp, jx).shape
+    w = np.random.RandomState(9).randn(*out_shape).astype(np.float32)
+    rg, rgx = jax.grad(lambda p, x: jnp.sum(run_r(p, x) * w),
+                       argnums=(0, 1))(rp, jx)
+    block.requires_grad_(True)
+    tx = tx.clone().requires_grad_(True)
+    out = (pfn(block, cfg, tx, state) if state is not None
+           else pfn(block, cfg, tx))[0]
+    names = [n for n, _ in block.named_parameters()]
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                              [tx, *block.parameters()])
+    want = {".".join(k): np.asarray(v) for k, v in
+            convert._flatten(jax.tree.map(np.asarray, rg))}
+    pairs = {"x": (got[0].numpy(), np.asarray(rgx))}
+    pairs.update((n, (g.numpy(), want[n])) for n, g in zip(names, got[1:]))
+    return pairs
+
+
+# leaves whose gradient is zero in exact arithmetic, so float32 noise in
+# both packages: the sLSTM's ``bi`` from a fresh state (a shift of every
+# input-gate logit is absorbed by the stabilizer m), and on the tie inputs
+# the mLSTM's conv (every token's output is one scale of its v rows, which
+# the RMSNorm removes); held at GRAD_TOL of the block's largest gradient
+ZERO_GRAD = {"slstm_seq": {"bi"}, "mlstm_seq": {"conv_w", "conv_b"},
+             "mlstm_step": {"conv_w", "conv_b"}}
+
+
+def _grad_errors(pairs, zero=()) -> dict:
+    """Per leaf: max|port - ref| over max|ref|, or over the largest leaf's
+    for the leaves in ``zero`` and those whose reference gradient is 0."""
+    top = max(float(np.abs(w).max()) for _, w in pairs.values())
+    own = lambda n, w: (top if n in zero else float(np.abs(w).max())) or top
+    return {n: float(np.abs(g - w).max()) / own(n, w)
+            for n, (g, w) in pairs.items()}
+
+
+def _normalizer_tie(rp):
+    """The mLSTM block's parameters set so that each head's normalizer
+    |n·q| is 1.0 exactly at the first token and t + 1 after it: the conv
+    gives silu(64) = 64 in every channel, q and k are 8 and 1 in one
+    component of each head (0 elsewhere), k·q / sqrt(64) = 1, the input
+    gate exp(8 tanh(0)) = 1 and the forget gate exp(log_sigmoid(100)) = 1
+    — every value exact in float32 in both packages."""
+    rcfg, cfg = _cfgs()
+    h, di, hd = xlstm._dims(cfg)
+    assert hd == 64
+    rp = jax.tree.map(np.array, rp)
+    rp["conv_w"][:] = 0.0
+    rp["conv_b"][:] = 64.0
+    for name, val in (("wq", 2.0 ** -3), ("wk", 2.0 ** -6)):
+        rp[name]["w"][:] = 0.0
+        rp[name]["w"][0, ::hd] = val
+    rp["wi"]["w"][:] = 0.0
+    rp["wf"]["w"][:] = 0.0
+    rp["bi"][:] = 0.0
+    rp["bf"][:] = 100.0
+    block = xlstm.MLSTMBlock(None, cfg, "meta")
+    block.load_state_dict(
+        {".".join(k): convert._tensor(v) for k, v in convert._flatten(rp)},
+        strict=True, assign=True)
+    return jax.tree.map(jnp.asarray, rp), block
+
+
+@pytest.mark.parametrize("kind", ["mlstm_seq", "mlstm_step", "slstm_seq"])
+def test_gradients_at_the_normalizer_tie_match_the_reference(kind):
+    """Where the normalizer the output divides by meets its floor of 1.0
+    exactly, ``jnp.maximum``'s gradient goes half to each side: the mLSTM's
+    |n·q| on inputs built to reach 1.0 (``_normalizer_tie``: the first
+    token of a 20-token sequence over two chunks, and one decode step from
+    a zero state), where a floor that passes the whole gradient
+    (``torch.clamp``) is off by the whole of wk's gradient; and the sLSTM's
+    n at the first step from a fresh state (exp(i - m) = exp(0)), a
+    constant, where either floor gives the reference's gradient.  The
+    port's gradient of x and of every parameter matches ``jax.grad`` of the
+    reference's block (float32, GRAD_TOL of each leaf's scale, as
+    ``tests/test_torch_train.py``)."""
+    rcfg, cfg, rp, block = _block_pair(kind[:5])
+    state = rstate = None
+    if kind == "mlstm_step":
+        rp, block = _normalizer_tie(rp)
+        jx, tx = _x((2, cfg.d_model), 11, "float32")
+        rstate = rx.mlstm_init_state(rcfg, 2)
+        state = xlstm.mlstm_init_state(cfg, 2)
+    else:
+        if kind == "mlstm_seq":
+            rp, block = _normalizer_tie(rp)
+        jx, tx = _x((2, 20, cfg.d_model), 12, "float32")
+    errs = _grad_errors(_block_grads(kind, rp, block, jx, tx, state, rstate),
+                        ZERO_GRAD[kind])
+    assert max(errs.values()) <= GRAD_TOL, sorted(errs.items(),
+                                                  key=lambda e: -e[1])[:4]
 
 
 def test_flops_and_parameter_counts_match_the_reference():
