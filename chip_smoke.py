@@ -167,9 +167,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              relative L2; a planted 64-key fault and, for paligemma, the
              prefill run causal only (``prefix_len`` 0) rejected, the
              latter by the prefix rows' attention outputs.
-15. train   the ssm, vlm and audio families trained as phase 11 trains
-             zamba2, one after the other, each printing a ``train`` line
-             with its ``arch``: (a) gradient parity of the CUDA template
+15. train   the ssm, vlm, audio and moe families trained as phase 11
+             trains zamba2, one after the other, each printing a ``train``
+             line with its ``arch``: (a) gradient parity of the CUDA template
              against TORCH (losses within 2e-2, every leaf within 5e-2
              relative norm error and 0.99 cosine; an sLSTM's ``bi``, whose
              gradient is zero in exact arithmetic, within 5e-2 of the
@@ -179,19 +179,33 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              zero); paligemma-3b at 4 of 18 layers (256 patch embeddings
              before 768 text tokens) and musicgen-large at 4 of 48 (1,500
              frame embeddings), with the zero-dq attention backward (every
-             layer's wq zero).  (b) Published widths and full depth, bf16,
-             4,096 tokens (paligemma after its 256 patch embeddings),
-             micro-batch 1; xlstm-125m one microbatch a step (no remat:
-             exactly 10 SSD_INTRA launches a step), paligemma-3b and
-             musicgen-large two (remat ``block``: exactly 2 x 18 x 2 and
-             2 x 48 x 2 FLASH_ATTENTION launches a step, all on the
-             tensor-core route); one warm-up step, then 2 timed steps with
-             the counters reset just before: finite losses, step ms,
-             tokens/s, MFU, peak memory beside the memory reckoned before
-             activations, the device's busy share of a profiled step, the
-             plain backward's time a region at these shapes, and for
-             xlstm the forward sLSTM loops' wall time within one more
-             step.
+             layer's wq zero); qwen3-moe-235b-a22b at 1 of 94 layers and
+             1,024 tokens, TORCH first with each ``moe._route`` call's
+             top-k ids recorded and the CUDA runs taking them in order
+             (the remat recompute's calls included; the gates the
+             router's own probabilities at them), the zero-dq fault caught
+             on ``stack.layers.0.attn.wq``, and a free CUDA run's top-k
+             agreement and gradients reported beside.  (b) Published
+             widths, bf16, 4,096 tokens (paligemma after its 256 patch
+             embeddings), micro-batch 1, AdamW's moments in
+             ``launch.dryrun.train_plan``'s dtype (bf16 for qwen3-moe,
+             float32 for the rest); full depth but qwen3-moe's 1 of 94
+             layers; xlstm-125m one microbatch a step (no remat: exactly 10
+             SSD_INTRA launches a step), paligemma-3b, musicgen-large and
+             qwen3-moe two (remat ``block``: exactly 2 x 18 x 2, 2 x 48 x 2
+             and 2 x 1 x 2 FLASH_ATTENTION launches a step, all on the
+             tensor-core route); first the drive's exact configuration
+             reckoned by ``launch.dryrun`` (it must fit the card), then one
+             warm-up step, then 2 timed steps with the counters reset just
+             before: finite losses, step ms, tokens/s, MFU, peak memory
+             beside the dry run's argument and peak bytes (the argument
+             bytes at most the measured peak, argument + peak within 25%
+             of it; phase 11's
+             zamba2 drive is reckoned the same way), the device's busy
+             share of a profiled step, the plain backward's time a region
+             at these shapes, and for xlstm the forward sLSTM loops' wall
+             time within one more step.  Last a ``dryrun`` line: kimi-k2
+             train_4k at 1 of 61 layers reckoned, which must not fit.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes and its 4096-token training forward, llama3-8b's GQA widths at
@@ -199,8 +213,9 @@ prefill and decode, qwen3-moe's GQA 16:1 and kimi-k2's head dim 112 at
 prefill and decode and on the CUDA-core route, an odd shape with
 ``prefix_len`` and ``q_offset``, blind rows and valid lengths about a
 split on the bf16 routes, a bf16-q float32-k/v prefill on the CUDA-core
-route, and paligemma-3b's training forward (4,352 rows, the 256-row
-prefix, head dim 256 over one kv head): every route of
+route, paligemma-3b's training forward (4,352 rows, the 256-row
+prefix, head dim 256 over one kv head) and qwen3-moe's (4,096 rows, 64
+query heads over 4 kv heads of 128): every route of
 ``attention_cuda.route`` is launched and checked per query row, and a
 planted fault of 64 missing keys must fail the same
 check) and SSD_INTRA (the zamba2 prefills of 512, 1024 and 2048 tokens,
@@ -416,8 +431,25 @@ MM_ATTN_CASES = [
 # step then TRAIN_FAMILY_STEPS timed.
 TRAIN_FAMILIES = (("xlstm-125m", None, 1024, 1),
                   ("paligemma-3b", 4, MM_TEXT, 2),
-                  ("musicgen-large", 4, MM_FRAMES, 2))
+                  ("musicgen-large", 4, MM_FRAMES, 2),
+                  ("qwen3-moe-235b-a22b", 1, 1024, 2))
 TRAIN_FAMILY_STEPS = 2
+# depth cut to fit one card, for the parity run and the steps alike:
+# qwen3-moe trains 1 of its 94 layers (3.73 G parameters; two layers, 6.2 G,
+# would not fit: launch.dryrun reckons each drive before it runs).  Its
+# parity run takes TORCH's expert choices (forced_routing): routing is
+# discrete, so a CUDA and a TORCH run that pick another expert for one
+# token disagree on that expert's whole gradient.
+TRAIN_DEPTH = {"qwen3-moe-235b-a22b": 1}
+# each training drive's dry run (launch.dryrun at its exact configuration)
+# against its measured max_memory_allocated: the argument bytes (weights,
+# AdamW state, batch) at most the measurement, argument + peak within
+# DRYRUN_MEMORY_RTOL of it (the allocator rounds blocks up and keeps a few
+# small tensors the trace does not see, e.g. the data pipeline's)
+DRYRUN_MEMORY_RTOL = 0.25
+# the moe family's other config, reckoned and not run: kimi-k2 train_4k at
+# one of 61 layers does not fit one card (its training is ROADMAP item 9)
+KIMI_DRYRUN = ("kimi-k2-1t-a32b", 1)
 
 
 def emit(obj) -> None:
@@ -796,12 +828,16 @@ ATTN_CASES = [
     # query heads of 256 over one kv head
     ("train_paligemma_d256", 1, TRAIN_SEQ + 256, TRAIN_SEQ + 256, 8, 1,
      256, "bfloat16", "bfloat16", (True, 0, 256), None),
+    # phase 15's qwen3-moe-235b-a22b training forward: train_4k's 4,096
+    # tokens, 64 query heads over 4 kv heads of 128
+    ("train_qwen3_gqa16", 1, TRAIN_SEQ, TRAIN_SEQ, 64, 4, 128, "bfloat16",
+     "bfloat16", (True, 0, 0), None),
 ]
 # the cases whose times the kernels line gives side by side
 ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k",
                  "prefill_gqa_qwen3moe", "decode_gqa_qwen3moe",
                  "prefill_kimi_d112", "decode_kimi_d112", "cuda_core_d112",
-                 "train_paligemma_d256")
+                 "train_paligemma_d256", "train_qwen3_gqa16")
 
 
 def attention_diff(got, want, dtype: str):
@@ -1961,7 +1997,8 @@ def train_regions(cfg) -> tuple:
 
 
 def train_grads(cfg, lm, batch, template):
-    """(loss, {name: float32 gradient}) of one ``loss_fn`` + backward."""
+    """(loss, {name: gradient, in its parameter's dtype}) of one
+    ``loss_fn`` + backward."""
     import torch
     from repro_torch.models import model
 
@@ -1970,8 +2007,7 @@ def train_grads(cfg, lm, batch, template):
     loss, _ = model.loss_fn(lm, cfg, batch, template=template)
     loss.backward()
     torch.cuda.synchronize()
-    grads = {n: (p.grad.float() if p.grad is not None
-                 else torch.zeros_like(p, dtype=torch.float32))
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in lm.named_parameters()}
     for p in lm.parameters():
         p.grad = None
@@ -1985,10 +2021,10 @@ def grad_parity(got: dict, want: dict, zero=()) -> dict:
     ``zero`` (its gradient is zero in exact arithmetic: float32 noise on
     both templates) is held at TRAIN_GRAD_REL of the largest leaf's norm,
     with no cosine."""
-    top = max(float(w.norm()) for w in want.values())
+    top = max(float(w.float().norm()) for w in want.values())
     worst_rel, worst_cos, bad, rels = 0.0, 1.0, [], {}
     for name, w in want.items():
-        g = got[name]
+        g, w = got[name].float(), w.float()
         wn, gn = float(w.norm()), float(g.norm())
         if name in zero:
             if float((g - w).norm()) > TRAIN_GRAD_REL * top:
@@ -2037,26 +2073,50 @@ def train_parity(dev, cfg, batch, fault, lost) -> dict:
     """(a) one loss + backward on the CUDA and the TORCH template from the
     same weights and batch; then once more on CUDA with ``fault`` =
     (attribute of ``kernels.autograd``, Function) swapped in, which the
-    check must reject: each leaf in ``lost`` must read zero."""
+    check must reject: each leaf in ``lost`` must read zero.  For the
+    ``moe`` family TORCH runs first and the CUDA runs take its routing
+    (:func:`forced_routing`); a free CUDA run's top-k agreement with it
+    and its gradients are reported beside."""
     import torch
     from repro_torch.kernels import autograd
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
 
     lm = model.init_params(cfg, SEED, device=dev).requires_grad_(True)
+    routed = cfg.family == "moe"
+    force = contextlib.nullcontext
+    if routed:
+        with recording(moe, "_route", lambda out: out[0]) as chosen:
+            loss_torch, g_torch = train_grads(cfg, lm, batch, "TORCH")
+        force = lambda: forced_routing(chosen)
     reset_counts()
-    loss_cuda, g_cuda = train_grads(cfg, lm, batch, "CUDA")
+    with force():
+        loss_cuda, g_cuda = train_grads(cfg, lm, batch, "CUDA")
     launched = read_counts()
-    loss_torch, g_torch = train_grads(cfg, lm, batch, "TORCH")
+    if not routed:
+        loss_torch, g_torch = train_grads(cfg, lm, batch, "TORCH")
     attr, planted = fault
     good = getattr(autograd, attr)
     setattr(autograd, attr, planted)
     try:
-        _, g_fault = train_grads(cfg, lm, batch, "CUDA")
+        with force():
+            _, g_fault = train_grads(cfg, lm, batch, "CUDA")
     finally:
         setattr(autograd, attr, good)
     zero = zero_grad_leaves(cfg)
     ok = grad_parity(g_cuda, g_torch, zero)
     fault_found = grad_parity(g_fault, g_torch, zero)["failing_leaves"]
+    del g_fault
+    free = {}
+    if routed:
+        with recording(moe, "_route", lambda out: out[0]) as own:
+            loss_free, g_free = train_grads(cfg, lm, batch, "CUDA")
+        free = {"routing_forced": True, "route_calls": len(chosen),
+                "free_running": {
+                    "topk_sets_agree": topk_agreement(own, chosen),
+                    "loss_rel_diff": abs(loss_free - loss_torch)
+                    / abs(loss_torch),
+                    **grad_parity(g_free, g_torch, zero)}}
+        del g_free, own, chosen
     fwd, n_attn, n_ssd = train_regions(cfg)
     positions = sum(batch[k].shape[1] for k in ("tokens", "embeds",
                                                  "prefix_embeds")
@@ -2066,13 +2126,13 @@ def train_parity(dev, cfg, batch, fault, lost) -> dict:
            "loss_cuda": loss_cuda, "loss_torch": loss_torch,
            "loss_rel_diff": abs(loss_cuda - loss_torch) / abs(loss_torch),
            "leaves": len(g_torch), "zero_gradient_leaves": zero,
-           "launches_cuda": launched, **ok,
+           "launches_cuda": launched, **ok, **free,
            "planted_fault": f"{attr}: {planted.__name__}",
            "planted_fault_failing_leaves": fault_found,
            "tolerances": {"loss_rel": TRAIN_LOSS_RTOL,
                           "grad_rel_norm": TRAIN_GRAD_REL,
                           "grad_cosine": TRAIN_GRAD_COS}}
-    del lm, g_cuda, g_torch, g_fault
+    del lm, g_cuda, g_torch
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "train_parity", "arch": cfg.name, **out})
@@ -2178,6 +2238,7 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
     import torch
     from repro_torch.data.pipeline import DataConfig, PackedLMDataset, Prefetcher
     from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.launch.dryrun import train_plan
     from repro_torch.models import model, xlstm
     from repro_torch.models.config import LOCAL
     from repro_torch.optim.adamw import AdamW
@@ -2190,7 +2251,11 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
     lm = model.init_params(cfg, SEED, device=dev)
     n_params = sum(p.numel() for p in lm.parameters())
     total = 1 + steps
-    opt = AdamW(lr=warmup_cosine(TRAIN_LR, total // 10 + 1, total))
+    # the moments' dtypes from the plan (bf16 for a big model); the plan's
+    # grad_accum is cut to ``accum`` for the run's time
+    plan = train_plan(cfg)
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, total // 10 + 1, total),
+                m_dtype=plan["m_dtype"], v_dtype=plan["v_dtype"])
     opt_state = opt.init(lm)
     step_fn = make_train_step(cfg, LOCAL, opt, grad_accum=accum)
     ds = PackedLMDataset(DataConfig(seed=SEED, vocab_size=cfg.vocab_size,
@@ -2207,7 +2272,9 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
 
     torch.cuda.synchronize()
     out = {"params": n_params, "setup_s": time.perf_counter() - t_start,
-           "init_peak_memory": torch.cuda.max_memory_allocated()}
+           "init_peak_memory": torch.cuda.max_memory_allocated(),
+           "moments_dtype": str(plan["m_dtype"]),
+           "plan_grad_accum": plan["grad_accum"]}
     t0 = time.perf_counter()
     met = one_step()                                   # warm-up
     torch.cuda.synchronize()
@@ -2255,6 +2322,48 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
     return out
 
 
+def reckon_drive(cfg, positions: int, accum: int) -> dict:
+    """``launch.dryrun`` at a training drive's exact configuration
+    (``cfg``'s depth, ``positions`` a sequence, micro-batch TRAIN_MICRO,
+    ``accum`` microbatches), before the drive: it must fit the card."""
+    from repro_torch.launch import dryrun
+
+    art = dryrun.run_cell(
+        cfg.name, "train_4k", verbose=False,
+        cfg_overrides={"num_layers": cfg.num_layers},
+        plan_overrides={"grad_accum": accum},
+        shape_overrides={"seq_len": positions,
+                         "global_batch": TRAIN_MICRO * accum})
+    require(art["status"] == "ok",
+            f"dry run {cfg.name}: {art.get('error')}")
+    require(art["fits_hbm"], f"dry run {cfg.name}: {art['memory']} does "
+                             f"not fit the card")
+    return art
+
+
+def dryrun_memory(art: dict, measured: int) -> tuple:
+    """The drive's dry run (:func:`reckon_drive`) beside its measured
+    ``max_memory_allocated``; returns (its line, what is wrong)."""
+    mem = art["memory"]
+    arg, peak = mem["argument_bytes"], mem["peak_bytes"]
+    line = {"argument_bytes": arg, "argument_bytes_by_part":
+            mem["argument_bytes_by_part"], "peak_bytes": peak,
+            "argument_plus_peak": arg + peak,
+            "max_memory_allocated": measured,
+            "argument_share_of_measured": arg / measured,
+            "reckoned_over_measured": (arg + peak) / measured,
+            "fits_hbm": art["fits_hbm"], "plan": art["plan"],
+            "trace_s": art["trace_s"]}
+    wrong = []
+    if arg > measured:
+        wrong.append(f"dry run: argument bytes {arg} above the measured "
+                     f"{measured}")
+    if abs((arg + peak) / measured - 1) > DRYRUN_MEMORY_RTOL:
+        wrong.append(f"dry run: argument + peak {arg + peak} not within "
+                     f"{DRYRUN_MEMORY_RTOL} of the measured {measured}")
+    return line, wrong
+
+
 def check_train_steps(cfg, res: dict, steps: int) -> tuple:
     """The steps' expected launch counts (exact, FLASH_ATTENTION all on the
     tensor-core route), written into ``res``; returns (the per-step counts,
@@ -2299,8 +2408,10 @@ def phase_train(dev, smi: str):
                           ["stack.shared_attn.attn.wq"])
     parts = {"parity_s": time.perf_counter() - t_phase}
     cfg = get_config(LM_ARCH)
+    art = reckon_drive(cfg, TRAIN_SEQ, TRAIN_ACCUM)
     res = train_steps(dev, cfg, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS)
     per_step, wrong = check_train_steps(cfg, res, TRAIN_STEPS)
+    reckoned, off = dryrun_memory(art, res["max_memory_allocated"])
     t0 = time.perf_counter()
     bwd = plain_backward_ms(cfg, dev)
     parts["plain_backward_s"] = time.perf_counter() - t0
@@ -2318,6 +2429,8 @@ def phase_train(dev, smi: str):
             "model_flops_per_step": res["model_flops_per_step"],
             "mfu": res["mfu"],
             "max_memory_allocated": res["max_memory_allocated"],
+            "dryrun_memory": reckoned,
+            "moments_dtype": res["moments_dtype"],
             "launches": res["launches"], "expected": res["expected"],
             "launches_per_step": per_step,
             "flash_attention_routes": res["routes"],
@@ -2331,7 +2444,7 @@ def phase_train(dev, smi: str):
             "setup_s": res["setup_s"],
             "profiled_step_s": res["profiled_step_s"], **parts}
     emit(line)
-    require(not wrong, f"train: {wrong}")
+    require(not wrong + off, f"train: {wrong + off}")
     gc.collect()
     torch.cuda.empty_cache()
     return res["launches"]
@@ -2350,6 +2463,9 @@ def train_family(dev, smi: str, arch: str, parity_layers, parity_tokens: int,
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
+    published = cfg.num_layers
+    if arch in TRAIN_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTH[arch])
     pcfg = (cfg if parity_layers is None
             else dataclasses.replace(cfg, num_layers=parity_layers))
     if cfg.family == "ssm":
@@ -2362,25 +2478,29 @@ def train_family(dev, smi: str, arch: str, parity_layers, parity_tokens: int,
     parity = train_parity(dev, pcfg, train_batch(pcfg, parity_tokens, 1, dev),
                           fault, lost)
     parts = {"parity_s": time.perf_counter() - t_phase}
+    prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+    art = reckon_drive(cfg, TRAIN_SEQ + prefix, accum)
     res = train_steps(dev, cfg, TRAIN_SEQ, accum, TRAIN_FAMILY_STEPS)
     per_step, wrong = check_train_steps(cfg, res, TRAIN_FAMILY_STEPS)
     t0 = time.perf_counter()
-    prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
     bwd = plain_backward_ms(cfg, dev, TRAIN_SEQ + prefix, prefix)
     parts["plain_backward_s"] = time.perf_counter() - t0
     fwd = train_regions(cfg)[0]
-    n = res["params"]
-    # bf16 weight and .grad, float32 AdamW moments, and the float32
-    # accumulator when the step accumulates (train/step.py, optim/adamw.py)
-    reckoned = n * (2 + 2 + 4 + 4 + (4 if accum > 1 else 0))
+    reckoned, off = dryrun_memory(art, res["max_memory_allocated"])
+    cut = ([f"depth {cfg.num_layers} of {published} layers to fit one card"]
+           if cfg.num_layers != published else [])
     line = {"phase": "train", "arch": arch, "family": cfg.family,
-            "card": smi, "layers": cfg.num_layers, "seq": TRAIN_SEQ,
-            "reduced": f"global batch {res['global_batch']}, cut from "
-                       f"train_4k's 256 to fit the run's time; 1 warm-up "
-                       f"and {TRAIN_FAMILY_STEPS} timed steps",
+            "card": smi, "layers": cfg.num_layers,
+            "published_layers": published, "seq": TRAIN_SEQ,
+            "reduced": "; ".join(cut + [
+                f"global batch {res['global_batch']}, cut from train_4k's "
+                f"256 to fit the run's time",
+                f"grad_accum {accum} of train_plan's "
+                f"{res['plan_grad_accum']}",
+                f"1 warm-up and {TRAIN_FAMILY_STEPS} timed steps"]),
             "parity": parity, **res,
             "launches_per_step": per_step,
-            "memory_reckoned_before_activations": reckoned,
+            "dryrun_memory": reckoned,
             "plain_backward_ms": bwd,
             # one backward a region a microbatch
             "plain_backward_ms_per_step": {
@@ -2388,7 +2508,7 @@ def train_family(dev, smi: str, arch: str, parity_layers, parity_tokens: int,
                 if k in bwd},
             "seconds": time.perf_counter() - t_phase, **parts}
     emit(line)
-    require(not wrong, f"train {arch}: {wrong}")
+    require(not wrong + off, f"train {arch}: {wrong + off}")
     gc.collect()
     torch.cuda.empty_cache()
     return res["launches"]
@@ -2406,7 +2526,28 @@ def phase_train_families(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
         paths[f"train_{arch}"] = train_family(dev, smi, arch, layers, tokens,
                                               accum)
+    kimi_dryrun()
     return paths
+
+
+def kimi_dryrun() -> None:
+    """kimi-k2 train_4k at KIMI_DRYRUN's depth, reckoned by the dry run
+    and not run: it must not fit the card."""
+    from repro_torch.launch import dryrun
+
+    arch, layers = KIMI_DRYRUN
+    art = dryrun.run_cell(arch, "train_4k", verbose=False,
+                          cfg_overrides={"num_layers": layers})
+    emit({"phase": "dryrun", "reason": "kimi-k2's training reckoned on one "
+          "card, not run (ROADMAP queue 1, item 9)", "layers": layers,
+          **{k: art.get(k) for k in (
+              "arch", "shape", "status", "error", "plan", "seq_len",
+              "global_batch", "traced_microbatches", "n_params",
+              "n_active_params", "memory", "fits_hbm", "hbm_bytes_of_chip",
+              "flops_per_device", "hbm_bytes_per_device", "trace_s")}})
+    require(art["status"] == "ok", f"dryrun {arch}: {art.get('error')}")
+    require(art["fits_hbm"] is False,
+            f"dryrun {arch}: {layers} layer(s) reckoned to fit one card")
 
 
 # ---------------------------------------------------------------------------
@@ -2426,6 +2567,43 @@ def recording(module, name: str, keep):
         yield seen
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def forced_routing(chosen: list):
+    """Inside the context, the n-th call of ``moe._route`` takes the n-th
+    of ``chosen``'s top-k ids (recorded from another run with
+    :func:`recording`), its gates the router's own probabilities at them.
+    Remat ``block`` calls ``_route`` again in the backward's recompute, in
+    the same order in both runs, so call n of one run is call n of the
+    other.  Yields the ids taken."""
+    from repro_torch.models import moe
+
+    route, taken = moe._route, []
+
+    def forced(params, cfg, x2d):
+        ids = chosen[len(taken)]
+        taken.append(ids)
+        return route(params, cfg, x2d, ids=ids)
+
+    moe._route = forced
+    try:
+        yield taken
+    finally:
+        moe._route = route
+
+
+def topk_agreement(got: list, want: list) -> float:
+    """Share of the (call, token) top-k sets of ``got`` equal to
+    ``want``'s (each a list of (T, k) id tensors, call by call)."""
+    import torch
+
+    same = total = 0
+    for a, b in zip(got, want, strict=True):
+        eq = torch.sort(a, 1).values == torch.sort(b, 1).values
+        same += int(eq.all(dim=1).sum())
+        total += b.shape[0]
+    return same / total
 
 
 @contextlib.contextmanager

@@ -31,9 +31,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 def default_template(device) -> str:
     """The kernel template for tensors on ``device``: ``CUDA`` (the
-    hand-written kernels) on the card, ``TORCH`` (the plain versions)
-    elsewhere."""
-    return "CUDA" if torch.device(device).type == "cuda" else "TORCH"
+    hand-written kernels) on the card and on ``meta`` (a cost trace, which
+    follows the card's path: each kernel wrapper books its declared cost),
+    ``TORCH`` (the plain versions) elsewhere."""
+    return ("CUDA" if torch.device(device).type in ("cuda", "meta")
+            else "TORCH")
 
 
 def resolve_template(template: str | None, device) -> str:

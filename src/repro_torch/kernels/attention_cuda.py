@@ -40,7 +40,7 @@ without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]`` and to
 ``kernels.ref.full_mha_reference``, which is also what the kernel is
 checked against on the card (:func:`flash_attention_plain`).  On a
 ``meta`` tensor (a cost trace) it books its declared cost
-(``op_cost.flash_attention_cost``, every key valid) and returns an empty
+(``op_cost.flash_attention_spec_cost``, every key valid) and returns an empty
 output, launching nothing.
 """
 from __future__ import annotations
@@ -249,9 +249,8 @@ def _book(q, k, spec, kv_valid_len):
     from repro_torch.launch import op_cost
 
     b, sq, h, d = q.shape
-    mask = op_cost.attention_mask(b, sq, k.shape[1], spec.causal,
-                                  spec.q_offset, spec.prefix_len)
-    nbytes, ops = op_cost.flash_attention_cost(q, k, mask)
+    nbytes, ops = op_cost.flash_attention_spec_cost(
+        q, k, spec.causal, spec.q_offset, spec.prefix_len)
     if torch.is_tensor(kv_valid_len):
         nbytes += b * 8
     op_cost.book("FLASH_ATTENTION", nbytes, ops)

@@ -112,12 +112,20 @@ def _expert_ffn(experts: Experts, xin: torch.Tensor,
     return torch.bmm(F.silu(g) * u, experts.down.to(dt))
 
 
-def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor):
+def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor, ids=None):
     """Router: returns (top-k ids (T,k) int32, renormalized gates (T,k)
-    float32, aux loss, z loss)."""
+    float32, aux loss, z loss).  ``ids`` (T, k), when given, replaces the
+    top k: the gates are then the router's own probabilities at those
+    experts, so the router keeps its gradient (a parity check holds two
+    runs to one routing this way; at the top-k ids the outputs are
+    bitwise the unforced ones)."""
     logits = x2d.float() @ params.router                       # (T, E) fp32
     probs = torch.softmax(logits, dim=-1)
-    gates, ids = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    if ids is None:
+        gates, ids = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    else:
+        ids = ids.long()
+        gates = torch.gather(probs, -1, ids)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # load balance: E * sum_e mean(one-hot assignments)_e * mean(probs)_e
     pe = probs.mean(dim=0)                                     # (E,)

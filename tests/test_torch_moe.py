@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -323,6 +325,153 @@ def test_train_launcher_runs_the_smoke_model_on_the_cpu(arch, capsys):
                                 "--log-every", "1"])
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "[train] done: 2 steps" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# forced routing (the card's gradient-parity check), the plan's bf16
+# moments, the sliced AdamW update
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (importing it defines its functions
+    and runs nothing)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(test_torch_harness.ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _loss_and_grads(lm, cfg, batch):
+    for p in lm.parameters():
+        p.grad = None
+    loss, _ = model.loss_fn(lm, cfg, batch, template="TORCH")
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone()
+                                  for n, p in lm.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_route_at_its_own_top_k_ids_is_the_unforced_route_bitwise(pairs,
+                                                                   arch):
+    _, cfg, rp = pairs[arch]
+    lm = _port_model(cfg, rp)
+    x = torch.from_numpy(_x((SEQ, cfg.d_model), 5))
+    params = lm.stack.layers[0].ffn
+    free = moe._route(params, cfg, x)
+    forced = moe._route(params, cfg, x, ids=free[0])
+    for a, b in zip(free, forced):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forced_routing_holds_two_plain_runs_to_one_routing(pairs, arch,
+                                                            remat):
+    """Two TORCH runs whose attentions differ (kv_chunk 64: one chunk;
+    16: the online softmax over four) agree in the loss and every gradient
+    leaf once the second takes the first's top-k ids call by call
+    (``chip_smoke.forced_routing``), remat ``block``'s recompute included;
+    the same run given other ids (each token's from its neighbour) moves
+    the experts' gradients, so the ids are taken."""
+    cs = _chip_smoke()
+    _, cfg, rp = pairs[arch]
+    cfg = dataclasses.replace(cfg, remat=remat)
+    other = dataclasses.replace(cfg, kv_chunk=16)
+    lm = _port_model(cfg, rp).requires_grad_(True)
+    batch = _torch_batch(_batch(0))
+    with cs.recording(moe, "_route", lambda out: out[0]) as chosen:
+        want_loss, want = _loss_and_grads(lm, cfg, batch)
+    calls = cfg.num_layers * (2 if remat == "block" else 1)
+    assert len(chosen) == calls
+    with cs.forced_routing(chosen) as taken:
+        got_loss, got = _loss_and_grads(lm, other, batch)
+    assert len(taken) == calls and all(a is b for a, b in zip(taken, chosen))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=LOSS_RTOL)
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        assert err <= GRAD_TOL * float(w.abs().max()), (name, err)
+    with cs.forced_routing([torch.roll(c, 1, 0) for c in chosen]):
+        _, moved = _loss_and_grads(lm, other, batch)
+    leaf = "stack.layers.0.ffn.experts.gate"
+    assert float((moved[leaf] - want[leaf]).norm()) > \
+        0.1 * float(want[leaf].norm())
+    assert cs.topk_agreement(chosen, chosen) == 1.0
+    assert cs.topk_agreement([torch.roll(c, 1, 0) for c in chosen],
+                             chosen) < 1.0
+
+
+def _plan_moments(arch):
+    from repro_torch.launch.dryrun import train_plan
+
+    plan = train_plan(registry.get_config(arch))
+    return plan["m_dtype"], plan["v_dtype"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_two_steps_with_the_plans_bf16_moments_match_the_reference(pairs,
+                                                                   arch):
+    """The published config's plan gives bf16 moments (>= 128 experts, or
+    d_model >= 4096); the smoke model trains two steps with them in both
+    packages from the same weights and fresh states."""
+    rcfg, cfg, rp = pairs[arch]
+    m_dt, v_dt = _plan_moments(arch)
+    assert m_dt == v_dt == torch.bfloat16
+    sched = (3e-3, 2, 10)
+    ropt = radamw.AdamW(lr=rsched.warmup_cosine(*sched),
+                        m_dtype=jnp.bfloat16, v_dtype=jnp.bfloat16)
+    rts = jax.jit(rstep.make_train_step(rcfg, RLOCAL, ropt))
+    lm = _port_model(cfg, rp)
+    opt = AdamW(lr=schedules.warmup_cosine(*sched), m_dtype=m_dt,
+                v_dtype=v_dt)
+    ts = step_lib.make_train_step(cfg, LOCAL, opt)
+    rst, st = ropt.init(rp), opt.init(lm)
+    for step in (0, 1):
+        b = _batch(step)
+        rp, rst, rmet = rts(rp, rst, jax.tree.map(jnp.asarray, b))
+        lm, st, met = ts(lm, st, _torch_batch(b))
+        for k in ("loss", "ce", "moe_aux", "moe_z", "grad_norm",
+                  "clip_scale"):
+            np.testing.assert_allclose(float(met[k]), float(rmet[k]),
+                                       rtol=LOSS_RTOL, atol=1e-7, err_msg=k)
+    assert all(t.dtype == torch.bfloat16
+               for t in (*st.m.values(), *st.v.values()))
+    assert _leaf_rel(convert.lm_params_to_numpy(lm), rp) <= STATE_RTOL
+    got = convert.adamw_state_to_numpy(st)
+    # one bf16 rounding of float32 values that may differ in their last
+    # bits: a few elements a bf16 ulp (at most 2^-7 relative) apart
+    assert _leaf_rel(got.m, rst.m) <= 2.0 ** -7
+    assert _leaf_rel(got.v, rst.v) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sliced_adamw_update_equals_the_whole_bitwise(pairs, arch,
+                                                      monkeypatch):
+    """AdamW updates a leaf UPDATE_SLICE elements at a time along its first
+    axis; every operation is elementwise, so 100-element slices give the
+    parameters and bf16 moments of the whole-leaf update bit for bit."""
+    from repro_torch.optim import adamw
+
+    _, cfg, rp = pairs[arch]
+    m_dt, v_dt = _plan_moments(arch)
+    opt = AdamW(lr=1e-2, m_dtype=m_dt, v_dtype=v_dt)
+    runs = []
+    for whole in (True, False):
+        if not whole:
+            monkeypatch.setattr(adamw, "UPDATE_SLICE", 100)
+        lm = _port_model(cfg, rp)
+        st = opt.init(lm)
+        for seed in (1, 2):
+            grads = {n: torch.from_numpy(_x(tuple(p.shape), seed + i))
+                     for i, (n, p) in enumerate(lm.named_parameters())}
+            lm, st, _ = opt.update(grads, st, lm)
+        runs.append((dict(lm.named_parameters()), st))
+        sliced = [len(list(adamw._slices(p))) for p in lm.parameters()]
+        assert max(sliced) == (1 if whole else cfg.vocab_size)
+    (pa, sa), (pb, sb) = runs
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]), n
+        assert torch.equal(sa.m[n], sb.m[n]) and torch.equal(sa.v[n],
+                                                             sb.v[n]), n
 
 
 # ---------------------------------------------------------------------------
