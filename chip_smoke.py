@@ -11,12 +11,15 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 3. kernels   each hand-written kernel against its plain PyTorch version on
              the card, at its main-path shape (256^3; k = 2 sweeps for
              JACOBI_FUSED), an odd shape and a slot-batched call with
-             distinct parameter rows, and the farm's 4-slot 256^3 call
-             (timed: the shape of the farm's launches; JACOBI_FUSED also
+             distinct parameter rows, the farm's 4-slot 256^3 call and
+             one rank's block of the decomposed phase, (128, 256, 256)
+             serial and with 2 slots, under the tile autotuned for that
+             block, each with a planted fault, a zeroed x-low plane
+             (timed: the shapes of those paths' launches; JACOBI_FUSED also
              for k = 1..4 and for x extents about its segment length, each
              with a planted fault, a zeroed ghost face, that the check must
              reject); the four stencils must equal their plain versions
-             bit for bit at 256^3, serial and at the 4-slot launch (every
+             bit for bit at every timed shape (every
              operation of theirs is rounded as written), and each plain
              stencil body on the card must equal the same body on the CPU
              bit for bit on a seeded 64^3 input;
@@ -63,6 +66,30 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              ``repro_perf_*`` gauges of ``prometheus_text(perf=True)``; and
              the durable farm's ``health_overhead_model`` beside its
              measured on/off cost;
+   decomposed  the grid split over ranks that share the card, each a
+             process started by ``launch.mesh.spawn`` with gloo (NCCL
+             refuses two ranks on one device; the ghost strips go through
+             pinned host buffers), ``backend="cuda"``: the main phase's
+             256^3 cavity through ``api.runtime(mesh_shape=(2,),
+             decomposition=((0, "shard"),))`` on 2 ranks, within 1e-5 of
+             the main phase's serial state, 20 x (1, 1, 40, 1) launches on
+             each rank and 20 x 20 JACOBI_FUSED with ``fused_sweeps=2``;
+             each rank's padded blocks of the serial fields equal the
+             serial padded field cut into blocks, bitwise, and a transport
+             that swaps the sides' strips is rejected; the farm phase's
+             five requests (one evicted and readmitted) through 4 slots on
+             4 ranks, (slot 2, shard 2), each result bitwise the serial
+             decomposed run of the first shard group; the bytes each rank
+             booked a step as the reference's permute operands equal to
+             ``halo_bytes_per_step`` (23,592,960; 44,564,480 fused;
+             47,185,920 a farm step) and to the count-transport trace, an
+             identity of the accounting, and the bytes it sent (strips with
+             a receiver): rank 0's those of the trace at index 0, a shard
+             line's together one rank's operands; a periodic axis
+             exchanged with itself under NCCL at world size 1, bitwise;
+             two NCCL ranks on the one card, and the error that ends them
+             (recorded); step, exchange and busy times and peak memory
+             per rank;
 7. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
              launches a step and no JACOBI_PRESSURE;
 8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
@@ -309,6 +336,10 @@ SOURCE["SSD_INTRA"] = "src/repro_torch/kernels/csrc/ssd.cu"
 # the farm phases: five requests through four slots, one evicted after
 # EVICT_AT steps and readmitted
 FARM_SLOTS = 4
+# one rank's block in the decomposed phase (256^3 split in two on x) and
+# the slots a rank holds in its slots x shards farm (4 slots over 2)
+DECOMP_LOCAL = (N // 2, N, N)
+DECOMP_FARM_SLOTS = FARM_SLOTS // 2
 FARM_RES = (50.0, 100.0, 200.0, 400.0, 800.0)
 FARM_STEPS = (8, 12, 6, 10, 14)
 EVICT, EVICT_AT = 1, 4
@@ -588,12 +619,15 @@ def param_rows(name, cfgs, dev):
     return torch.stack(rows)
 
 
-def compare(name, inputs, table):
+def compare(name, inputs, table, tile=None, want_inputs=None):
+    """The kernel on ``inputs`` (at ``tile``, else its default) against
+    the plain version on ``want_inputs`` (default: the same inputs)."""
     import torch
     from repro_torch.kernels import stencil3d_cuda as sc
 
-    got = sc.KERNELS[name](*inputs, table)
-    want = sc.PLAIN[name](*inputs, table)
+    got = sc.KERNELS[name](*inputs, table, tile=tile)
+    want = sc.PLAIN[name](*(inputs if want_inputs is None else want_inputs),
+                          table)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -647,29 +681,55 @@ def phase_kernels(dev):
              # the farm's launch: four 256^3 slots (inputs from a generator
              # of their own, so that the other cases' inputs stay as they
              # were)
-             ("farm", FARM_SLOTS, (N, N, N), farm_cfgs)]
+             ("farm", FARM_SLOTS, (N, N, N), farm_cfgs),
+             # the decomposed phase's launches on one rank's block: 256^3
+             # split in two on x, serial and the slots x shards farm's
+             # 2 resident slots (the tile resolved at that local interior)
+             ("decomposed", None, DECOMP_LOCAL, [main_cfg]),
+             ("decomposed_farm", DECOMP_FARM_SLOTS, DECOMP_LOCAL,
+              farm_cfgs[:DECOMP_FARM_SLOTS])]
+    timed = ("main", "farm", "decomposed", "decomposed_farm")
+    # the farm's and the decomposed cases' inputs come from generators of
+    # their own, so that the other cases' inputs stay as they were
     farm_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    decomp_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    gens = {"farm": farm_gen, "decomposed": decomp_gen,
+            "decomposed_farm": decomp_gen}
     results = {}
     for name in stencil3d.DESCRIPTORS:
         res = {"max_abs_err": 0.0, "cases": {}}
         for case, S, interior, cfgs in cases:
-            inputs = kernel_inputs(name, S, interior,
-                                   farm_gen if case == "farm" else gen, dev)
+            inputs = kernel_inputs(name, S, interior, gens.get(case, gen),
+                                   dev)
             table = param_rows(name, cfgs, dev)
             if S is None:
                 table = table[0]
-            err, tol, finite, bitwise, outs = compare(name, inputs, table)
+            decomposed = case.startswith("decomposed")
+            # the path's launch: the tile autotuned for this interior
+            tile = autotune.tile_for(stencil3d.DESCRIPTORS[name],
+                                     interior).tile
+            err, tol, finite, bitwise, outs = compare(
+                name, inputs, table, tile if decomposed else None)
             line = {"phase": "kernel", "kernel": name, "case": case,
                     "slots": S or 1, "interior": list(interior),
                     "max_abs_diff": err, "tolerance": tol, "finite": finite,
                     "bitwise": bitwise}
-            if case in ("main", "farm"):
+            if decomposed:
+                # the planted fault: the kernel alone given its first input
+                # with the x-low plane zeroed must fail the comparison
+                bad = [inputs[0].clone(), *inputs[1:]]
+                bad[0][..., :1, :, :] = 0.0
+                fault, _, _, fault_bitwise, _ = compare(name, bad, table, tile,
+                                                        want_inputs=inputs)
+                del bad
+                line.update(planted_fault_max_abs_diff=fault)
+                require(not fault_bitwise and fault > tol,
+                        f"{name} ({case}): the check passed a zeroed x-low "
+                        f"plane ({fault} <= {tol})")
+            if case in timed:
                 nbytes, ops = op_cost.stencil_cost(name, inputs, outs, table)
                 kern = sc.KERNELS[name]
                 plain = sc.PLAIN[name]
-                # the main path's launch: the autotuned tile
-                tile = autotune.tile_for(stencil3d.DESCRIPTORS[name],
-                                         interior).tile
                 line.update(
                     tile=list(tile),
                     kernel_ms=cuda_ms(lambda: kern(*inputs, table, tile=tile),
@@ -687,7 +747,7 @@ def phase_kernels(dev):
             require(finite, f"{name} ({case}): non-finite output")
             require(err <= tol, f"{name} ({case}): max|kernel - plain| "
                                 f"{err} > {tol}")
-            if case in ("main", "farm"):
+            if case in timed:
                 require(bitwise, f"{name} ({case}): kernel and plain version "
                                  f"differ (max {err}), not bitwise")
             res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -703,7 +763,9 @@ def phase_kernels(dev):
 
 def jacobi_fused_cases(gen, dev):
     """JACOBI_FUSED against ``jacobi_fused_ref`` on the card: the 256^3
-    serial call (k = 2, timed), the fused farm's 4-slot call (timed), an odd
+    serial call (k = 2, timed), the fused farm's 4-slot call (timed), one
+    rank's block of the decomposed phase, serial and at the slots x shards
+    farm's 2 resident slots (timed), an odd
     shape, k = 1..4, x extents about the kernel's segment and a slot batch
     of three; and for each, a planted fault the check must reject (the
     kernel alone given p with its x-low ghost face of k planes zeroed)."""
@@ -715,17 +777,23 @@ def jacobi_fused_cases(gen, dev):
     seg = jc.SEGMENT
     cases = [("main", None, (N, N, N), FUSED_K),
              ("farm", FARM_SLOTS, (N, N, N), FUSED_K),
+             ("decomposed", None, DECOMP_LOCAL, FUSED_K),
+             ("decomposed_farm", DECOMP_FARM_SLOTS, DECOMP_LOCAL, FUSED_K),
              ("odd", None, (5, 7, 3), FUSED_K),
              *((f"k{k}", None, (37, 20, 45), k) for k in (1, 2, 3, 4)),
              *((f"x{nx}", None, (nx, 17, 33), FUSED_K)
                for nx in (1, seg - 1, seg, seg + 1)),
              ("batched", 3, (24, 20, 18), FUSED_K)]
+    # the decomposed cases draw from a generator of their own, so that the
+    # other cases' inputs stay as they were
+    decomp_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     res = {"max_abs_err": 0.0, "cases": {}}
     for case, S, interior, k in cases:
         batch = () if S is None else (S,)
         shape = batch + tuple(n + 2 * k for n in interior)
-        p = torch.rand(shape, generator=gen, device=dev) * 2 - 1
-        rhs = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+        g = decomp_gen if case.startswith("decomposed") else gen
+        p = torch.rand(shape, generator=g, device=dev) * 2 - 1
+        rhs = torch.rand(shape, generator=g, device=dev) * 2 - 1
         got = jc.jacobi_fused(p, rhs, h=h, omega=omega, sweeps=k)
         want = jc.jacobi_fused_plain(p, rhs, h=h, omega=omega, sweeps=k)
         torch.cuda.synchronize()
@@ -741,7 +809,7 @@ def jacobi_fused_cases(gen, dev):
                 "slots": S or 1, "interior": list(interior), "sweeps": k,
                 "max_abs_diff": err, "tolerance": tol, "finite": finite,
                 "planted_fault_max_abs_diff": fault}
-        if case in ("main", "farm"):
+        if case in ("main", "farm", "decomposed", "decomposed_farm"):
             nbytes, ops = op_cost.jacobi_fused_cost(p, rhs, got, k)
             line.update(
                 kernel_ms=cuda_ms(lambda: jc.jacobi_fused(
@@ -1676,6 +1744,438 @@ def phase_throughput(dev):
           "farm_sims_steps_per_s": sim_steps / farm_s,
           "serial_sims_steps_per_s": sim_steps / serial_s,
           "farm_over_serial": serial_s / farm_s})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the decomposed phase: ranks that share the card, joined by gloo (NCCL
+# refuses two ranks on one device), each stepping its block of the grid
+DECOMP = ((0, "shard"),)
+DECOMP_DIR = os.path.join(ROOT, "build", "decomposed")
+DECOMP_FIELDS = ("vx", "vy", "vz", "p")
+DECOMP_TIMEOUT_S = 600.0
+NCCL_PROBE_S = 90.0
+DECOMP_RTOL = 1e-5           # tests/test_cfd.py's decomposed-vs-serial bound
+# halo_bytes_per_step's figures for these drives (checked against the
+# function in the phase): 256^3 split in two on x, its fused_sweeps=2
+# twin, and a farm step with 2 resident slots a rank
+DECOMP_BYTES = {"serial": 23_592_960, "fused": 44_564_480,
+                "farm": 47_185_920}
+
+
+def _rank_device():
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _decomposed_runtime(dev, mesh_shape, mesh_axes, **kw):
+    from repro_torch import api
+
+    return api.runtime(n=N, nz=N, backend="cuda", device=dev,
+                       mesh_shape=mesh_shape, mesh_axes=mesh_axes,
+                       decomposition=DECOMP, **kw)
+
+
+def _swapped_transport():
+    """A P2P transport that hands each ghost the other side's strip: the
+    planted fault the ghost-fill check must reject."""
+    from repro_torch.core.halo import P2PTransport
+
+    class Swapped(P2PTransport):
+        def start(self, link, periodic, to_hi, to_lo):
+            wait = super().start(link, periodic, to_hi, to_lo)
+
+            def swapped():
+                lo, hi = wait()
+                return hi, lo
+
+            return swapped
+
+    return Swapped()
+
+
+def decomposed_serial_rank(serial_path: str) -> dict:
+    """One of two ranks: the 256^3 cavity through the front door with x
+    split in two (20 steps, then its fused_sweeps=2 twin), against the
+    main phase's serial state; the ghost fill of the serial fields; one
+    step's exchange bytes; step, exchange and busy times; peak memory."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.cfd.ns3d import NavierStokes3D
+    from repro_torch.core.halo import exchange_pad
+
+    dev = _rank_device()
+    rank = dist.get_rank()
+    serial = torch.load(serial_path, weights_only=True)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rt = _decomposed_runtime(dev, (2,), ("shard",))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = rt.run("cavity", steps=STEPS, re=100.0)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["max_abs_diff"] = {}
+    for f in DECOMP_FIELDS:
+        a = res.state[f]
+        require(bool(torch.isfinite(a).all()), f"rank {rank}: {f} not finite")
+        require(tuple(a.shape) == (N, N, N), f"{f} shape {tuple(a.shape)}")
+        out["max_abs_diff"][f] = float((a - serial[f]).abs().max())
+    out["ghia"] = res.diagnostics["ghia"]
+    del res
+
+    rt_fused = _decomposed_runtime(dev, (2,), ("shard",),
+                                   fused_sweeps=FUSED_K)
+    reset_counts()
+    res = rt_fused.run("cavity", steps=STEPS, re=100.0)
+    out["fused_launches"] = read_counts()
+    require(all(bool(torch.isfinite(res.state[f]).all())
+                for f in DECOMP_FIELDS), "fused decomposed run not finite")
+    del res
+
+    # one step's exchange bytes, as this rank's transport booked them: the
+    # strips as the reference's permute operands, and those sent
+    steps_of = {}
+    for label, runtime in (("serial", rt), ("fused", rt_fused)):
+        pr = runtime.prepare("cavity", re=100.0)
+        state = pr.step(pr.state)
+        transport = pr.solver.driver.transport
+        transport.reset()
+        state = pr.step(state)
+        out[f"{label}_step_bytes"] = transport.permute_operand_bytes
+        out[f"{label}_step_sent_bytes"] = transport.sent_bytes
+        steps_of[label] = (pr, state)
+
+    # step, exchange and busy times of the serial decomposition
+    pr, state = steps_of["serial"]
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state = pr.step(state)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    p_specs = pr.solver._specs("p")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        exchange_pad(state["p"], (1, 1, 1), p_specs)
+    torch.cuda.synchronize()
+    out["exchange_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    busy = device_busy(lambda: pr.step(state))
+    out["busy"] = {k: busy[k] for k in ("wall_ms", "device_ms",
+                                        "busy_share")}
+
+    # the ghost fill: each padded block of the serial fields equals the
+    # serial padded global field cut into blocks, bit for bit; strips
+    # swapped between the sides must fail the same comparison
+    whole = NavierStokes3D(dataclasses.replace(pr.solver.config,
+                                               decomposition=()), dev)
+    drv = pr.solver.driver
+    sl = drv.block_slices()[0]
+    out["ghost_fill_bitwise"], out["planted_rejected"] = {}, {}
+    for f in DECOMP_FIELDS:
+        glob = exchange_pad(serial[f].to(dev), (1, 1, 1), whole._specs(f))
+        want = glob[sl.start:sl.stop + 2]
+        block = drv.scatter(serial[f])
+        specs = pr.solver._specs(f)
+        got = exchange_pad(block, (1, 1, 1), specs)
+        out["ghost_fill_bitwise"][f] = bool(torch.equal(got, want))
+        link = specs[0].link
+        bad_specs = (dataclasses.replace(specs[0], link=dataclasses.replace(
+            link, transport=_swapped_transport())), *specs[1:])
+        bad = exchange_pad(block, (1, 1, 1), bad_specs)
+        # a field that is zero on the block (vz, in the z-invariant
+        # cavity) moves nothing whichever side its strips land on
+        if bool(block.abs().max() > 0):
+            out["planted_rejected"][f] = not torch.equal(bad, want)
+    return out
+
+
+def decomposed_farm_rank(serial_path: str) -> dict:
+    """One of four ranks on (slot 2, shard 2): the farm phase's five
+    requests at 256^3 through four slots, one evicted and readmitted;
+    then the first shard group runs each request serially, decomposed the
+    same way, and global rank 0 holds the farm's result to it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.cfd.ns3d import NavierStokes3D
+
+    dev = _rank_device()
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rt = _decomposed_runtime(dev, (2, 2), ("slot", "shard"),
+                             n_slots=FARM_SLOTS)
+    reset_counts()
+    t0 = time.perf_counter()
+    sids = [rt.submit("cavity", steps=steps, re=re)
+            for re, steps in zip(FARM_RES, FARM_STEPS)]
+    svc = rt.services()[0]
+    svc.run(EVICT_AT)
+    require(rt.evict(sids[EVICT]), "evict refused")
+    require(rt.poll(sids[EVICT])["status"] == "evicted", "not evicted")
+    require(rt.readmit(sids[EVICT]), "readmit refused")
+    results = rt.drain()
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["device_steps"] = rt.device_steps()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["local_slots"] = list(svc.farm.exec.local_slots)
+    transport = svc.farm.exec.solver.driver.transport
+    out["shard_index"] = int(rt.mesh.get_coordinate()[1])
+    out["farm_bytes"] = transport.permute_operand_bytes
+    out["farm_sent_bytes"] = transport.sent_bytes
+    out["meta"] = {sid: (results[sid].steps_done, results[sid].terminated)
+                   for sid in sids}
+    # the serial decomposed run of each request on the first shard group
+    shard = rt.mesh["shard"]
+    out["bitwise_vs_serial"] = {}
+    if rt.mesh.get_coordinate()[0] == 0:
+        for sid, re, steps in zip(sids, FARM_RES, FARM_STEPS):
+            solver = NavierStokes3D(rt.configure("cavity", re=re), dev, shard)
+            state, step = solver.init_state(), solver.make_step()
+            for _ in range(steps):
+                state = step(state)
+            for f in DECOMP_FIELDS:
+                whole = solver.driver.gather(state[f])
+                if rank == 0:
+                    got = results[sid].state[f]
+                    out["bitwise_vs_serial"][f"{sid}/{f}"] = (
+                        bool(torch.equal(got, whole)),
+                        float((got - whole).abs().max()))
+    return out
+
+
+def nccl_self_rank() -> dict:
+    """World size 1 under NCCL: a periodic axis decomposed over a
+    one-rank mesh axis exchanges its strips with itself through NCCL; the
+    pad must equal the plain periodic pad bitwise."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.halo import (
+        AxisLink, AxisSpec, P2PTransport, exchange_pad,
+    )
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = _rank_device()
+    mesh = make_mesh((1,), ("x",))
+    transport = P2PTransport()
+    link = AxisLink.from_mesh(mesh, "x", transport)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.randn((64, 96, 32), generator=gen, device=dev)
+    plain = [AxisSpec(array_axis=a, periodic=True) for a in range(3)]
+    over = [AxisSpec(array_axis=0, mesh_axis="x", periodic=True, link=link),
+            *plain[1:]]
+    got = exchange_pad(u, (2, 1, 1), over)
+    want = exchange_pad(u, (2, 1, 1), plain)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "bitwise": bool(torch.equal(got, want)),
+            "permute_operand_bytes": transport.permute_operand_bytes,
+            "sent_bytes": transport.sent_bytes}
+
+
+def nccl_two_ranks_rank() -> float:
+    """One of two NCCL ranks on one card: a first collective, which NCCL is
+    expected to refuse (a duplicate device in one communicator)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(1, device=_rank_device())
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t)
+
+
+def nccl_two_ranks_on_one_card(device: str) -> dict:
+    """Why ranks that share the card use gloo: two NCCL ranks on it, and
+    the lines of the error that ends the launch (recorded, not required:
+    it probes the library, not the port)."""
+    from repro_torch.launch.mesh import RankFailed, spawn
+
+    try:
+        sums = spawn(nccl_two_ranks_rank, 2, backend="nccl", device=device,
+                     timeout_s=NCCL_PROBE_S)
+    except RankFailed as e:
+        keep = ("Duplicate GPU", "ncclInvalidUsage", "Error", "deadline",
+                "exited with code")
+        lines = [ln.strip() for ln in str(e).splitlines()
+                 if any(k in ln for k in keep)]
+        return {"refused": True, "message": lines[:6]}
+    return {"refused": False, "sums": sums}
+
+
+def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
+    """The grid split over ranks that share the card (gloo, ghost strips
+    through pinned host memory): the serial 256^3 cavity on 2 ranks
+    against the main phase's serial state, the ghost fill, the slots x
+    shards farm on 4 ranks against serial decomposed runs, the exchange
+    bytes against ``halo_bytes_per_step``, and NCCL at world size 1."""
+    import torch
+    from repro_torch.cfd import cavity
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.obs import perf
+
+    t_phase = time.perf_counter()
+    os.makedirs(DECOMP_DIR, exist_ok=True)
+    serial_path = os.path.join(DECOMP_DIR, "serial.pt")
+    torch.save({f: serial_state[f] for f in DECOMP_FIELDS}, serial_path)
+    torch.cuda.empty_cache()
+
+    # the bytes the analytic model gives these drives, and the op-cost
+    # trace's count with the count transport, before any rank runs
+    cfgs = {"serial": (cavity.config(N, nz=N, decomposition=DECOMP),
+                       {"shard": 2}, 1),
+            "fused": (cavity.config(N, nz=N, decomposition=DECOMP,
+                                    fused_sweeps=FUSED_K), {"shard": 2}, 1),
+            "farm": (cavity.config(N, nz=N, decomposition=DECOMP),
+                     {"slot": 2, "shard": 2}, FARM_SLOTS)}
+    traced, traced_sent = {}, {}
+    for label, (cfg, ext, slots) in cfgs.items():
+        analytic = perf.halo_bytes_per_step(
+            cfg, dict(DECOMP), ext,
+            slots_local=perf._slots_local(slots, ext.get("slot", 1)))
+        require(analytic == DECOMP_BYTES[label],
+                f"{label}: halo_bytes_per_step {analytic} != "
+                f"{DECOMP_BYTES[label]}")
+        counts, _ = perf.decomposed_step_hlo(
+            cfg, n_slots=slots, mesh_axes=tuple({"slot": 1, **ext}.items()))
+        traced[label] = counts["permute_operand_bytes"]
+        traced_sent[label] = counts["sent_bytes"]
+        require(traced[label] == analytic,
+                f"{label}: traced exchange bytes {traced[label]} != "
+                f"{analytic}")
+
+    device = f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    serial = spawn(decomposed_serial_rank, 2, backend="gloo", device=device,
+                   args=(serial_path,), timeout_s=DECOMP_TIMEOUT_S)
+    serial_s = time.perf_counter() - t0
+    expected = {k: STEPS * v for k, v in PER_STEP.items()}
+    expected_fused = {k: STEPS * v for k, v in PER_STEP_FUSED.items()}
+    for r in serial:
+        launches = {k: v for k, v in r["launches"].items() if v}
+        fused = {k: v for k, v in r["fused_launches"].items() if v}
+        require(launches == {k: v for k, v in expected.items() if v},
+                f"rank {r['rank']}: launch counts {launches} != {expected}")
+        require(fused == {k: v for k, v in expected_fused.items() if v},
+                f"rank {r['rank']}: fused launch counts {fused}")
+        for f, d in r["max_abs_diff"].items():
+            require(d <= DECOMP_RTOL, f"rank {r['rank']}: {f} differs from "
+                    f"the serial cuda run by {d} > {DECOMP_RTOL}")
+        require(all(r["ghost_fill_bitwise"].values()),
+                f"rank {r['rank']}: ghost fill {r['ghost_fill_bitwise']}")
+        require(r["planted_rejected"] and all(r["planted_rejected"].values()),
+                f"rank {r['rank']}: swapped strips passed the check "
+                f"{r['planted_rejected']}")
+        require(r["serial_step_bytes"] == DECOMP_BYTES["serial"],
+                f"rank {r['rank']}: {r['serial_step_bytes']} B a step")
+        require(r["fused_step_bytes"] == DECOMP_BYTES["fused"],
+                f"rank {r['rank']}: {r['fused_step_bytes']} B a fused step")
+        require(r["backend"] == "gloo", f"backend {r['backend']}")
+    # what crossed: rank 0 sends what the trace at index 0 sends, and the
+    # two ranks together send one rank's operands (each strip toward the
+    # wall has no receiver)
+    for label in ("serial", "fused"):
+        sent = [r[f"{label}_step_sent_bytes"] for r in serial]
+        require(sent[0] == traced_sent[label],
+                f"{label}: rank 0 sent {sent[0]} B, the trace {traced_sent[label]}")
+        require(sum(sent) == DECOMP_BYTES[label] and min(sent) > 0,
+                f"{label}: the ranks sent {sent} B, not {DECOMP_BYTES[label]}")
+
+    t0 = time.perf_counter()
+    farm = spawn(decomposed_farm_rank, 4, backend="gloo", device=device,
+                 args=(serial_path,), timeout_s=DECOMP_TIMEOUT_S)
+    farm_s = time.perf_counter() - t0
+    head = farm[0]
+    for r in farm:
+        steps = r["device_steps"]
+        want = {k: steps * v for k, v in PER_STEP.items() if v}
+        got = {k: v for k, v in r["launches"].items() if v}
+        require(got == want, f"farm rank {r['rank']}: launches {got} != {want}")
+        require(r["farm_bytes"] == steps * DECOMP_BYTES["farm"],
+                f"farm rank {r['rank']}: {r['farm_bytes']} B over {steps} "
+                "steps")
+        require(r["meta"] == head["meta"], f"rank {r['rank']} metadata")
+        if r["shard_index"] == 0:
+            require(r["farm_sent_bytes"] == steps * traced_sent["farm"],
+                    f"farm rank {r['rank']}: sent {r['farm_sent_bytes']} B")
+    for line in ((0, 1), (2, 3)):          # each slot rank's shard line
+        sent = [farm[i]["farm_sent_bytes"] for i in line]
+        require(sum(sent) == farm[line[0]]["farm_bytes"],
+                f"farm ranks {line}: sent {sent} B")
+    for sid, steps in zip(head["meta"], FARM_STEPS):
+        require(tuple(head["meta"][sid]) == (steps, "steps"),
+                f"farm sid {sid}: {head['meta'][sid]}")
+    require(len(head["bitwise_vs_serial"]) == len(FARM_STEPS) * 4
+            and all(ok for ok, _ in head["bitwise_vs_serial"].values()),
+            f"farm vs serial decomposed: {head['bitwise_vs_serial']}")
+
+    nccl = spawn(nccl_self_rank, 1, backend="nccl", device=device,
+                 timeout_s=120.0)[0]
+    require(nccl["bitwise"] and nccl["backend"] == "nccl",
+            f"NCCL self exchange: {nccl}")
+    nccl_shared = nccl_two_ranks_on_one_card(device)
+
+    launches = {k: sum(r["launches"][k] + r["fused_launches"][k]
+                       for r in serial) + sum(r["launches"][k] for r in farm)
+                for k in serial[0]["launches"]}
+    emit({"phase": "decomposed", "card": smi, "grid": [N, N, N],
+          "decomposition": [list(p) for p in DECOMP],
+          "backend": "gloo (ranks share cuda:0; strips via pinned host)",
+          "serial": {
+              "ranks": 2, "steps": STEPS, "spawn_s": serial_s,
+              "max_abs_diff_vs_serial": {
+                  f: max(r["max_abs_diff"][f] for r in serial)
+                  for f in DECOMP_FIELDS},
+              "tolerance": DECOMP_RTOL, "ghia": serial[0]["ghia"],
+              "launches_per_rank": [r["launches"] for r in serial],
+              "fused_launches_per_rank": [r["fused_launches"]
+                                          for r in serial],
+              "step_ms_per_rank": [r["step_ms"] for r in serial],
+              "exchange_ms_per_rank": [r["exchange_ms"] for r in serial],
+              "busy_per_rank": [r["busy"] for r in serial],
+              "run_s_per_rank": [r["run_s"] for r in serial],
+              "max_memory_allocated_per_rank": [
+                  r["max_memory_allocated"] for r in serial],
+              "ghost_fill_bitwise": serial[0]["ghost_fill_bitwise"],
+              "planted_swap_rejected": serial[0]["planted_rejected"]},
+          "farm": {
+              "ranks": 4, "mesh": {"slot": 2, "shard": 2},
+              "slots": FARM_SLOTS, "spawn_s": farm_s,
+              "device_steps": head["device_steps"],
+              "local_slots": [r["local_slots"] for r in farm],
+              "wall_s_per_rank": [r["wall_s"] for r in farm],
+              "sims_steps_per_s": sum(FARM_STEPS) / head["wall_s"],
+              "bitwise_vs_serial_decomposed": True,
+              "max_memory_allocated_per_rank": [
+                  r["max_memory_allocated"] for r in farm]},
+          # the permute operands equal halo_bytes_per_step by the same
+          # accounting (an identity, not a measure of traffic); "sent" is
+          # what each rank's transport handed to a neighbour
+          "permute_operand_bytes_per_step": {
+              "analytic": DECOMP_BYTES, "traced_meta": traced,
+              "counted_serial": [r["serial_step_bytes"] for r in serial],
+              "counted_fused": [r["fused_step_bytes"] for r in serial],
+              "counted_farm": [r["farm_bytes"] / r["device_steps"]
+                               for r in farm]},
+          "sent_bytes_per_step": {
+              "traced_meta_index_0": traced_sent,
+              "serial": [r["serial_step_sent_bytes"] for r in serial],
+              "fused": [r["fused_step_sent_bytes"] for r in serial],
+              "farm": [r["farm_sent_bytes"] / r["device_steps"]
+                       for r in farm]},
+          "nccl_world_size_1": nccl,
+          "nccl_two_ranks_one_card": nccl_shared, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -3516,6 +4016,7 @@ def main() -> int:
                                              farm_results, smi)
     paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
                             farm_results, health))
+    paths["decomposed"] = phase_decomposed(dev, smi, serial_state)
     del farm_results, serial_state
     paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
                                         fused_sweeps=FUSED_K)

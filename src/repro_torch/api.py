@@ -17,9 +17,17 @@ and with it the perf accounting, :meth:`Runtime.perf_report`),
 ``health`` (in-situ diagnostics, NaN quarantine, flight records;
 :meth:`Runtime.watch`), ``ckpt_dir`` (evictions spilled to disk) and
 ``store`` (the durable job store: ``enqueue``/``claim``/``recover``, a
-restart resumes incomplete work first).  Not ported, raising
-``NotImplementedError`` that names ROADMAP queue 1, item 9: meshes and
-decomposition.
+restart resumes incomplete work first).
+
+Meshes: ``mesh_shape``/``mesh_axes`` lay the ranks of an initialised
+``torch.distributed`` process group out as a mesh (built when the Runtime
+is; ``repro_torch.launch.mesh.spawn`` starts the ranks), and
+``decomposition`` splits each run's grid over named mesh axes, as the
+reference's front door does.  Every rank builds the same Runtime and makes
+the same calls.  A serial run returns the gathered global fields on every
+rank; a farm result carries its fields on global rank 0
+(``repro_torch.sim.farm``).  A job store on a mesh raises
+``NotImplementedError`` naming ROADMAP queue 1, item 9c.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from repro_torch import obs
 from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.core.schedule import Schedule
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.sim.ensemble import plan_decomposition
 from repro_torch.sim.farm import SimResult, not_ported, static_key
 from repro_torch.sim.scenarios import (
     ParamSpec, Scenario, UnknownScenarioError, get_scenario,
@@ -76,8 +85,10 @@ class RuntimeConfig:
     overrides (``jacobi_iters``, ``fused_sweeps``, ``overlap``, ...)
     applied to every scenario config this runtime builds.  The postures
     after ``solver`` are the reference's: ``ckpt_dir``, ``telemetry``,
-    ``health`` and ``store`` as it takes them; ``mesh_shape`` and
-    ``decomposition`` raise on anything but their defaults.
+    ``health`` and ``store`` as it takes them.  ``mesh_shape``/``mesh_axes``
+    name the mesh of ranks (an empty shape means one process);
+    ``decomposition`` maps grid axes to mesh axes, validated and degraded
+    (extent-1 axes dropped) by the farm's ``plan_decomposition`` rules.
     """
 
     n: int = 32                          # grid resolution (n, n, nz)
@@ -100,17 +111,20 @@ class RuntimeConfig:
     # (<ckpt_dir>/jobs.sqlite), a sqlite path, or JobStore kwargs; see
     # repro_torch.jobs.resolve_store
     store: Any = None
-    mesh_shape: tuple = ()               # queue 1, item 9
-    decomposition: tuple = ()            # queue 1, item 9
+    mesh_shape: tuple = ()               # e.g. (2, 2)
+    mesh_axes: tuple = ()                # e.g. ("slot", "shard")
+    slot_axis: str = "slot"              # farm slot axis when meshed
+    decomposition: tuple = ()            # e.g. ((0, "shard"),)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(have {sorted(BACKENDS)})")
-        if self.decomposition:
-            raise not_ported("decomposition")
-        if self.mesh_shape:
-            raise not_ported("mesh")
+        if bool(self.mesh_shape) != bool(self.mesh_axes) or \
+                len(self.mesh_shape) != len(self.mesh_axes):
+            raise ValueError(
+                f"mesh_shape {self.mesh_shape!r} and mesh_axes "
+                f"{self.mesh_axes!r} must pair up axis-for-axis")
 
 
 @dataclasses.dataclass
@@ -144,11 +158,14 @@ class PreparedRun:
         return self.scenario.analyze(self.solver, state, ctx)
 
 
-def _residual_norm(new: dict, old: dict, dt: float) -> torch.Tensor:
+def _residual_norm(new: dict, old: dict, dt: float,
+                   driver=None) -> torch.Tensor:
     """``||u_new - u_old||_inf / dt`` over the velocity fields, on the
-    device."""
+    device (over every rank's block when ``driver`` is decomposed)."""
     m = torch.stack([(new[f] - old[f]).abs().max()
                      for f in ("vx", "vy", "vz")]).max()
+    if driver is not None and driver.links:
+        m = driver.pmax(m)
     # divide by a float32 tensor on the device, as the farm does with its
     # per-slot dt (a Python divisor becomes a reciprocal multiply on the card)
     return m / torch.full((), max(dt, 1e-30), dtype=torch.float32,
@@ -160,13 +177,22 @@ class Runtime:
 
     With a job store, building the Runtime first runs :meth:`recover`:
     in-flight jobs whose process died resume before any queued work is
-    claimed."""
+    claimed.  ``mesh`` (a ``DeviceMesh``) wins over the config's
+    ``mesh_shape``, which is built here, on every rank."""
 
-    def __init__(self, config: RuntimeConfig | None = None):
+    def __init__(self, config: RuntimeConfig | None = None, mesh=None):
         from repro_torch.jobs import resolve_store
 
         self.config = config if config is not None else RuntimeConfig()
+        if self.config.store is not None and (
+                mesh is not None or self.config.mesh_shape):
+            raise not_ported("a job store on a mesh")
         self.device = resolve_device(self.config.device)
+        if mesh is None and self.config.mesh_shape:
+            from repro_torch.launch.mesh import make_mesh
+
+            mesh = make_mesh(self.config.mesh_shape, self.config.mesh_axes)
+        self.mesh = mesh
         # one telemetry handle per runtime, shared by its farms; NULL when
         # disabled, which makes every hook a no-op
         self.telemetry = obs.resolve(self.config.telemetry)
@@ -197,7 +223,7 @@ class Runtime:
     def configure(self, scenario, n: int | None = None, **kw) -> CFDConfig:
         """The fully-resolved CFDConfig for ``scenario`` under this
         runtime: scenario builder -> static solver overrides -> backend
-        template."""
+        template -> decomposition."""
         sc = get_scenario(scenario)
         template, overlap = _resolve_backend(self.config.backend, self.device)
         builder_kw = dict(self.config.solver)
@@ -207,16 +233,31 @@ class Runtime:
         cfg = sc.config(self.config.n if n is None else n, **builder_kw)
         return dataclasses.replace(
             cfg, template=template,
-            overlap=cfg.overlap if overlap is None else overlap)
+            overlap=cfg.overlap if overlap is None else overlap,
+            decomposition=tuple(self.config.decomposition) or
+            cfg.decomposition)
+
+    def _slot_axis(self) -> str | None:
+        if self.mesh is None:
+            return None
+        names = self.mesh.mesh_dim_names
+        return self.config.slot_axis if self.config.slot_axis in names \
+            else None
 
     def prepare(self, scenario, n: int | None = None,
                 **params) -> PreparedRun:
-        """Resolve one serial run: solver, schedule, INITIAL state, EVOLVE
-        step."""
+        """Resolve one serial run: solver (+ decomposition over the mesh's
+        shard axes), schedule, INITIAL state, EVOLVE step.  On a mesh every
+        rank prepares its block; the slot axis, if any, holds copies."""
         sc = get_scenario(scenario)
         builder_kw, ic_kw = sc.split_kwargs(params)
         cfg = self.configure(sc, n=n, **builder_kw)
-        solver = NavierStokes3D(cfg, self.device)
+        # the farm's resolution rules: validate against the mesh, drop
+        # extent-1 axes, run meshless when nothing decomposes
+        solver_cfg, active = plan_decomposition(cfg, self.mesh,
+                                                slot_axis=self._slot_axis())
+        solver = NavierStokes3D(solver_cfg, self.device,
+                                self.mesh if active else None)
         sched = sc.schedule(solver, ic=ic_kw)
         tel = self.telemetry if self.telemetry.enabled else None
         state = sched.compile_bin("INITIAL", telemetry=tel)({})
@@ -241,6 +282,8 @@ class Runtime:
         ``RuntimeConfig.check_every`` steps, one host sync per check);
         ``steady_tol`` is the legacy kinetic-energy-drift heuristic.
         Convergence checks read snapshots; they never perturb the state.
+        On a decomposed grid the checks reduce over the ranks, and the
+        result holds the gathered global fields on every rank.
         """
         pr = self.prepare(scenario, n=n, **params)
         cfg = pr.config
@@ -264,7 +307,8 @@ class Runtime:
                           f"t={done * cfg.dt:8.3f} "
                           f"KE={pr.solver.kinetic_energy(state):.6f}")
                 if residual_tol is not None and done % check == 0:
-                    resid = float(_residual_norm(state, prev, cfg.dt))
+                    resid = float(_residual_norm(state, prev, cfg.dt,
+                                                 pr.solver.driver))
                     if resid <= residual_tol:
                         terminated = "residual"
                         break
@@ -277,9 +321,17 @@ class Runtime:
                     ke_prev = ke
         if self.telemetry.enabled:
             self.telemetry.metrics.inc("sim.steps_total", done)
-        diagnostics = pr.analyze(state, done)
-        return RunResult(scenario=pr.scenario.name,
-                         state={k: v.cpu() for k, v in state.items()},
+        if pr.solver.driver.links:
+            whole = {k: pr.solver.driver.gather(v) for k, v in state.items()}
+            whole_solver = NavierStokes3D(
+                dataclasses.replace(cfg, decomposition=()), self.device)
+            diagnostics = pr.scenario.analyze(
+                whole_solver, {k: v.to(self.device) for k, v in whole.items()},
+                {"t": done * cfg.dt, "steps": done})
+        else:
+            whole = {k: v.cpu() for k, v in state.items()}
+            diagnostics = pr.analyze(state, done)
+        return RunResult(scenario=pr.scenario.name, state=whole,
                          steps_done=done, terminated=terminated, config=cfg,
                          diagnostics=diagnostics)
 
@@ -299,7 +351,8 @@ class Runtime:
             svc = SimulationService(
                 cfg, n_slots=self.config.n_slots,
                 check_steady_every=self.config.check_every,
-                device=self.device, ckpt_dir=ckpt,
+                device=self.device, ckpt_dir=ckpt, mesh=self.mesh,
+                slot_axis=self.config.slot_axis,
                 telemetry=self.telemetry, health=self.health,
                 farm_id=f"{cfg.case}/sig{len(self._services):03d}",
                 store=self.store)
@@ -611,7 +664,8 @@ class Runtime:
             sc = get_scenario(result.scenario)
         else:
             sc = get_scenario(self._scenario_of[result.sid])
-        solver = NavierStokes3D(result.config, self.device)
+        solver = NavierStokes3D(
+            dataclasses.replace(result.config, decomposition=()), self.device)
         state = {k: v.to(self.device) for k, v in result.state.items()}
         ctx = {"t": result.steps_done * result.config.dt,
                "steps": result.steps_done}
@@ -622,6 +676,7 @@ def runtime(n: int = 32, *, backend: str = "auto", device: str | None = None,
             n_slots: int = 4, check_every: int = 16, nz: int | None = None,
             ckpt_dir: str | None = None, telemetry: Any = False,
             health: Any = False, store: Any = None, mesh_shape: tuple = (),
+            mesh_axes: tuple = (), slot_axis: str = "slot",
             decomposition: tuple = (), mesh=None, **solver) -> Runtime:
     """Build a :class:`Runtime` — the one-call front door.
 
@@ -634,13 +689,19 @@ def runtime(n: int = 32, *, backend: str = "auto", device: str | None = None,
     ...                              store=True, health=True, telemetry=True)
     >>> print(rt.report())        # Cactus-style timers + farm metrics
     >>> print(rt.watch())         # per-slot health dashboard
+
+    In each rank of ``repro_torch.launch.mesh.spawn(fn, 4)``:
+
+    >>> rt = repro_torch.api.runtime(
+    ...     n=16, device="cpu", mesh_shape=(2, 2),
+    ...     mesh_axes=("slot", "shard"), decomposition=((0, "shard"),))
+    >>> rt.run("cavity", steps=10)           # each rank steps its block
     """
-    if mesh is not None:
-        raise not_ported("mesh")
     cfg = RuntimeConfig(n=n, nz=nz, backend=backend, device=device,
                         n_slots=n_slots, check_every=check_every,
                         solver=dict(solver), ckpt_dir=ckpt_dir,
                         telemetry=telemetry, health=health, store=store,
                         mesh_shape=tuple(mesh_shape),
+                        mesh_axes=tuple(mesh_axes), slot_axis=slot_axis,
                         decomposition=tuple(decomposition))
-    return Runtime(cfg)
+    return Runtime(cfg, mesh=mesh)

@@ -130,10 +130,14 @@ def ghia_errors(solver: NavierStokes3D, state) -> dict:
     }
 
 
-def run(n: int = 64, t_end: float = 20.0, device=None, progress=None, **kw):
-    """Run the cavity to (near) steady state; return solver, state, errors."""
-    cfg = config(n, **kw)
-    solver = NavierStokes3D(cfg, device)
+def run(n: int = 64, t_end: float = 20.0, device=None, progress=None,
+        mesh=None, decomposition=(), **kw):
+    """Run the cavity to (near) steady state; return solver, state, errors.
+    With a mesh and a ``decomposition`` every rank of the mesh steps its
+    block; ``state`` is the rank's block, the errors are the global
+    grid's (its fields gathered)."""
+    cfg = config(n, decomposition=tuple(decomposition), **kw)
+    solver = NavierStokes3D(cfg, device, mesh)
     state = solver.init_state()
     step = solver.make_step()
     steps = int(round(t_end / cfg.dt))
@@ -142,4 +146,6 @@ def run(n: int = 64, t_end: float = 20.0, device=None, progress=None, **kw):
         if progress and i % progress == 0:
             ke = solver.kinetic_energy(state)
             print(f"  step {i:6d}/{steps} t={i*cfg.dt:7.3f} KE={ke:.6f}")
-    return solver, state, ghia_errors(solver, state)
+    whole = ({f: solver.driver.gather(state[f]) for f in ("vx", "vy")}
+             if solver.driver.links else state)
+    return solver, state, ghia_errors(solver, whole)

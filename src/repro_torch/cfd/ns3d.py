@@ -15,13 +15,18 @@ cell i; the hi wall face is vx[N-1].  Cases: ``cavity`` (lid-driven, lid at
 y-hi moving in +x; z periodic so the Ghia 2D profile is recovered),
 ``taylor_green`` and ``kelvin_helmholtz`` (fully periodic).
 
-The step runs on one device, undecomposed, on one grid ``(X, Y, Z)`` with
-0-d per-simulation scalars, or on a slot batch ``(S, X, Y, Z)`` with
-``(S,)`` scalars (the farm's ensemble step, which the reference gets from
-``vmap``): per slot the two compute the same arithmetic, so a farm slot
-equals a serial run bitwise.  Nothing in it synchronises with the host: the
-per-simulation scalars are float32 tensors on the device, and on the CUDA
-template every parameter table is built there.
+The step runs on one grid ``(X, Y, Z)`` with 0-d per-simulation scalars,
+or on a slot batch ``(S, X, Y, Z)`` with ``(S,)`` scalars (the farm's
+ensemble step, which the reference gets from ``vmap``): per slot the two
+compute the same arithmetic, so a farm slot equals a serial run bitwise.
+With ``config.decomposition`` and a mesh, the grid is split over ranks and
+every rank steps its own block, its ghosts exchanged with its neighbours
+(``core.halo``); the one reduction of the step, the pressure's mean, is
+taken in a fixed order over the ranks, so a decomposed farm slot still
+equals the serial decomposed run bitwise.  Without a decomposition nothing
+in the step synchronises with the host: the per-simulation scalars are
+float32 tensors on the device, and on the CUDA template every parameter
+table is built there.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ import torch
 
 from repro_torch.core.driver import Domain, GridDriver
 from repro_torch.core.halo import (
-    AxisSpec, bc_dirichlet, bc_neumann, exchange_pad, stencil_step_overlap,
+    AxisSpec, bc_dirichlet, bc_neumann, exchange_pad,
+    exchange_pad_start, stencil_step_overlap, tensor_axis,
 )
 from repro_torch.device import resolve_device, true_divide
 from repro_torch.kernels import ops
@@ -67,6 +73,7 @@ class CFDConfig:
     fused_sweeps: int = 1                    # >1: communication-avoiding smoother
     template: str | None = None              # None -> TORCH; or CUDA
     overlap: bool = True                     # interior/boundary split
+    decomposition: tuple = ()                # e.g. ((0,"data"), (1,"model"))
 
     @property
     def h(self) -> float:
@@ -111,17 +118,25 @@ class NavierStokes3D:
 
     FIELDS = ("vx", "vy", "vz", "p")
 
-    def __init__(self, config: CFDConfig, device=None):
+    def __init__(self, config: CFDConfig, device=None, mesh=None):
         self.config = config
         self.device = resolve_device(device)
         periodic = config.case in PERIODIC_CASES
         self.domain = Domain(
             shape=config.shape,
             spacing=(config.h,) * 3,
+            decomposition=dict(config.decomposition),
             periodic=(periodic, periodic, True),
         )
-        self.driver = GridDriver(self.domain, self.device)
+        self.driver = GridDriver(self.domain, self.device, mesh)
         self._build_bcs()
+
+    @property
+    def field_pspec(self) -> tuple:
+        """Placement of one field under this solver's decomposition: the
+        mesh axis of each grid axis, or None (``dist.sharding``'s
+        convention).  The farm puts a slot axis in front."""
+        return tuple(self.domain.decomposition.get(a) for a in range(3))
 
     # ------------------------------------------------------------------ BCs
     def _bcs_for(self, lid_velocity) -> dict:
@@ -168,13 +183,17 @@ class NavierStokes3D:
         return state
 
     def _masks(self):
-        """Zero the wall-normal boundary faces (vx[N-1] on x, etc.)."""
+        """Zero the wall-normal boundary faces (vx[N-1] on x, etc.) of this
+        rank's block: only the block that ends the grid on an axis holds
+        that wall's face."""
         c = self.config
-        ones = np.ones(c.shape, np.float32)
+        ones = np.ones(self.driver.local_shape, np.float32)
         mx, my, mz = ones.copy(), ones.copy(), ones.copy()
         if c.case not in PERIODIC_CASES:
-            mx[-1, :, :] = 0.0
-            my[:, -1, :] = 0.0
+            if self.driver.is_last(0):
+                mx[-1, :, :] = 0.0
+            if self.driver.is_last(1):
+                my[:, -1, :] = 0.0
             # z periodic: no vz mask
         return [torch.from_numpy(m).to(self.device) for m in (mx, my, mz)]
 
@@ -186,9 +205,16 @@ class NavierStokes3D:
         A slot batch reduces each slot's grid with exactly the calls of the
         unbatched path: a batched reduction may be split differently on the
         card (its launch shape depends on the number of outputs), and the
-        farm's contract is slot == serial bitwise."""
+        farm's contract is slot == serial bitwise.  On a decomposed grid the
+        blocks' means are then combined in rank order
+        (``GridDriver.pmean``), once for the whole slot vector."""
+        if self.driver.links:
+            return self.driver.pmean(self._block_mean(x))
+        return self._block_mean(x)
+
+    def _block_mean(self, x):
         if x.dim() == 4:
-            return torch.stack([self._global_mean(x[s])
+            return torch.stack([self._block_mean(x[s])
                                 for s in range(x.shape[0])])
         m = x
         for _ in range(3):
@@ -241,10 +267,9 @@ class NavierStokes3D:
             # without any ghost dependency, shells are computed from the
             # padded pack
             def pad_packed(pack):
-                return torch.stack([
-                    exchange_pad(pack[i], (1, 1, 1), specs(f))
-                    for i, f in enumerate(("vx", "vy", "vz"))
-                ])
+                started = [exchange_pad_start(pack[i], (1, 1, 1), specs(f))
+                           for i, f in enumerate(("vx", "vy", "vz"))]
+                return lambda: torch.stack([wait() for wait in started])
 
             packed = torch.stack([vx, vy, vz])
             # width 0 on the pack axis and on the slot axis, if any
@@ -300,11 +325,16 @@ class NavierStokes3D:
         twin a cost trace runs (``repro_torch.launch.op_cost``).  Its
         stencil wrappers book their declared cost and launch nothing; its
         fields and parameters must be given as ``meta`` tensors (it makes
-        none itself)."""
+        none itself).  A decomposed solver's twin sits at this rank's place
+        on virtual links whose :class:`~repro_torch.core.halo.CountTransport`
+        (``twin.driver.transport``) books the exchanges."""
         twin = copy.copy(self)
         twin.config = dataclasses.replace(self.config, template="CUDA")
         twin.device = torch.device("meta")
-        twin.driver = GridDriver(self.domain, twin.device)
+        virtual = ({lk.name: (lk.size, lk.index)
+                    for lk in self.driver.links.values()}
+                   if self.driver.links else None)
+        twin.driver = GridDriver(self.domain, twin.device, virtual)
         twin._build_bcs()
         return twin
 
@@ -317,6 +347,7 @@ class NavierStokes3D:
 
     # ------------------------------------------------------------ analysis
     def divergence_of(self, state: dict) -> torch.Tensor:
+        """The divergence of this rank's block (ghosts exchanged)."""
         pads = [exchange_pad(state[f], ((1, 0),) * 3, self._specs(f))
                 for f in ("vx", "vy", "vz")]
         return ops.divergence(*pads, h=self.config.h, template="TORCH")
@@ -324,10 +355,22 @@ class NavierStokes3D:
     def kinetic_energy(self, state: dict) -> float:
         return float(self.kinetic_energy_device(state))
 
-    @staticmethod
-    def kinetic_energy_device(state: dict) -> torch.Tensor:
+    def kinetic_energy_device(self, state: dict) -> torch.Tensor:
         """0.5 * sum of the velocity components' mean squares, on the
-        device, without a host sync (0-d; per slot, use one slot's view)."""
+        device: 0-d for one grid, ``(S,)`` for a slot batch, each slot
+        reduced by the unbatched calls on its own grid.  On a decomposed
+        grid the blocks' values are averaged over the ranks in rank
+        order."""
+        if state["vx"].dim() == 4:
+            ke = torch.stack([
+                self._block_ke({f: state[f][s] for f in ("vx", "vy", "vz")})
+                for s in range(state["vx"].shape[0])])
+        else:
+            ke = self._block_ke(state)
+        return self.driver.pmean(ke) if self.driver.links else ke
+
+    @staticmethod
+    def _block_ke(state: dict) -> torch.Tensor:
         return 0.5 * sum(torch.mean(state[f] ** 2) for f in ("vx", "vy", "vz"))
 
     def health_diagnostics(self, state: dict,
@@ -337,7 +380,10 @@ class NavierStokes3D:
         and a finite-fields sentinel (1.0 = no NaN/Inf in any dynamic
         field — the velocities and the pressure).  Computed on the device;
         read-only.  On a slot batch ``(S, X, Y, Z)`` with ``(S,)``
-        parameters each diagnostic is per slot: an ``(S, 5)`` tensor."""
+        parameters each diagnostic is per slot: an ``(S, 5)`` tensor.  On a
+        decomposed grid the blocks' values are reduced over the ranks
+        (``pmax``/``pmin``, and ``pmean`` in rank order): max, min and the
+        sentinel equal the serial grid's exactly, the energy to rounding."""
         c = self.config
         if params is None:
             params = params_from_config(c, self.device)
@@ -350,9 +396,25 @@ class NavierStokes3D:
         # interior one-sided divergence: identical to the ghost-padded
         # stencil on every cell that has real (non-BC) neighbours
         vx, vy, vz = state["vx"], state["vy"], state["vz"]
-        div = true_divide((vx[..., 1:, 1:, 1:] - vx[..., :-1, 1:, 1:])
-                          + (vy[..., 1:, 1:, 1:] - vy[..., 1:, :-1, 1:])
-                          + (vz[..., 1:, 1:, 1:] - vz[..., 1:, 1:, :-1]), c.h)
+        links = self.driver.links
+        if links:
+            # a block's first plane on a decomposed axis has its neighbour's
+            # last plane as the lower neighbour: exchange that one plane, so
+            # the blocks together cover exactly the serial grid's cells
+            specs = self.driver.axis_specs()
+            widths = tuple((1, 0) if a in links else 0 for a in range(3))
+            gx, gy, gz = (exchange_pad(v, widths, specs)
+                          for v in (vx, vy, vz))
+        else:
+            gx, gy, gz = vx, vy, vz
+        div = true_divide((gx[..., 1:, 1:, 1:] - gx[..., :-1, 1:, 1:])
+                          + (gy[..., 1:, 1:, 1:] - gy[..., 1:, :-1, 1:])
+                          + (gz[..., 1:, 1:, 1:] - gz[..., 1:, 1:, :-1]), c.h)
+        for a, link in links.items():
+            if link.index == 0:     # the grid's first plane has no ghost
+                ax = tensor_axis(a)
+                div = div.narrow(ax, 1, div.shape[ax] - 1)
+        drv = self.driver
         div_linf = seqmax(div.abs())
         umax = seqmax(torch.maximum(torch.maximum(vx.abs(), vy.abs()),
                                     vz.abs()))
@@ -361,11 +423,14 @@ class NavierStokes3D:
             ke2 = ke2.sum(dim=-1)
         ke = true_divide(0.5 * ke2, float(np.prod(np.asarray(vx.shape[-3:],
                                                              np.float32))))
-        cfl = true_divide(umax * params["dt"], c.h)
         psum = state["p"]
         for _ in range(3):
             psum = psum.sum(dim=-1)
         finite = torch.isfinite(div_linf + ke + umax + psum).to(torch.float32)
+        if links:
+            div_linf, umax = drv.pmax(div_linf), drv.pmax(umax)
+            ke, finite = drv.pmean(ke), drv.pmin(finite)
+        cfl = true_divide(umax * params["dt"], c.h)
         return torch.stack([div_linf, ke, umax, cfl, finite],
                            dim=-1).to(torch.float32)
 

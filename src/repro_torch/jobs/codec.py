@@ -12,11 +12,11 @@ blob, so a queued job survives a process crash byte for byte:
 ``decode_request(*encode_request(req))`` rebuilds a request whose config
 compares equal and whose initial fields are bitwise the originals.
 
-The port's config has no ``interpret`` or ``decomposition`` field (the
-Pallas interpret mode has no torch meaning; decomposition is ROADMAP queue
-1, item 9).  Its payload carries both at their defaults, so the
-reference's decoder reads it, and it reads a reference payload whose two
-fields are at their defaults; any other value raises.
+The port's config has no ``interpret`` field (the Pallas interpret mode
+has no torch meaning).  Its payload carries it at its default, so the
+reference's decoder reads it, and it reads a reference payload whose
+``interpret`` is false; true raises.  ``decomposition`` travels both ways
+in the reference's layout (a list of ``[array axis, mesh axis]`` pairs).
 
 ``sid`` is deliberately NOT part of the payload: it is per-process farm
 bookkeeping, reassigned on every (re)admission, while the durable identity
@@ -36,13 +36,13 @@ from repro_torch.cfd.ns3d import CFDConfig
 
 PAYLOAD_VERSION = 1
 
-# the reference's config fields the port's config lacks, at their defaults
-_REFERENCE_ONLY = {"interpret": False, "decomposition": []}
+# the reference's config field the port's config lacks, at its default
+_REFERENCE_ONLY = {"interpret": False}
 
 
 def config_to_dict(cfg: CFDConfig) -> dict:
     """JSON-ready dict of a CFDConfig (tuples become lists), with the
-    reference's ``interpret`` and ``decomposition`` at their defaults."""
+    reference's ``interpret`` at its default."""
     return {**dataclasses.asdict(cfg), **_REFERENCE_ONLY}
 
 
@@ -55,12 +55,10 @@ def config_from_dict(d: dict) -> CFDConfig:
     if d.pop("interpret", False):
         raise ValueError("config asks for the Pallas interpret mode, which "
                          "the port does not have")
-    if d.pop("decomposition", ()):
-        from repro_torch.sim.farm import not_ported
-
-        raise not_ported("decomposition")
     d["shape"] = tuple(int(x) for x in d["shape"])
     d["forcing"] = tuple(float(x) for x in d["forcing"])
+    d["decomposition"] = tuple(
+        (int(axis), str(name)) for axis, name in d.get("decomposition", ()))
     return CFDConfig(**d)
 
 

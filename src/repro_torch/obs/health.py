@@ -320,6 +320,10 @@ class FlightRecorder:
         self.directory = directory
         self._ckpt = Checkpointer(directory, keep_last=0)
 
+    def path_of(self, sid: int) -> str:
+        """The directory of ``sid``'s record."""
+        return os.path.join(self.directory, f"step_{sid:08d}")
+
     def record(self, sid: int, *, frames: np.ndarray, state: dict,
                meta: dict | None = None) -> str:
         fields = sorted(state)
@@ -331,7 +335,7 @@ class FlightRecorder:
         tree = {"frames": np.asarray(frames, np.float32),
                 "state": {k: to_numpy(state[k]) for k in fields}}
         self._ckpt.save(sid, tree, blocking=True)
-        path = os.path.join(self.directory, f"step_{sid:08d}")
+        path = self.path_of(sid)
         doc = {"sid": sid, "columns": list(DIAG_COLUMNS),
                "state_fields": fields}
         doc.update(meta or {})

@@ -13,8 +13,10 @@ bottleneck (compute / memory / collective) per row, with the bytes split by
 op class.
 
 The analytic ghost-zone model (:func:`halo_bytes_per_step`) is kept equal
-to the reference's; the port runs undecomposed (ROADMAP queue 1, item 9),
-so no row carries collective bytes and :func:`decomposed_step_hlo` raises.
+to the reference's.  The traced count of a decomposed step's exchanges
+comes from the same trace, run with the halo's count transport
+(:func:`decomposed_step_hlo`, and ``halo_bytes_predicted`` on a decomposed
+farm's row): the two must agree to the byte.
 
 A step the trace cannot follow lands as a ``status="unparsed"`` row: the
 accounting never raises into a drive loop.
@@ -160,12 +162,51 @@ def halo_bytes_per_step(config, active: dict, mesh_extents: dict, *,
 
 
 def decomposed_step_hlo(config, *, n_slots: int, mesh_axes,
-                        slot_axis: str = "slot"):
-    """The reference lowers the slots × shards ensemble step over an
-    abstract mesh; the port has no decomposition yet."""
-    from repro_torch.sim.farm import not_ported
+                        slot_axis: str = "slot") -> tuple[dict, dict]:
+    """``(counts, active)`` of one step of the slots × shards ensemble,
+    per rank — the port's stand-in for the reference's lowering over an
+    abstract mesh, which needs no process either.
 
-    raise not_ported("mesh")
+    The rank's local step (its resident slots, its block) is traced on
+    ``meta`` tensors through the CUDA template's glue
+    (:mod:`repro_torch.launch.op_cost`), its ghost strips booked by the
+    halo's :class:`~repro_torch.core.halo.CountTransport`.  ``counts`` holds
+    ``permute_operand_bytes`` (the strips' bytes as the HLO's
+    ``collective-permute`` operands hold them, an edge rank's strip
+    without a receiver included: equal to :func:`halo_bytes_per_step` by
+    construction) and ``permute_ops`` (one per strip, the
+    ``collective-permute`` count); ``sent_bytes`` and ``sent_ops`` (only
+    the strips with a receiver, for the rank at index 0 of each
+    decomposed axis); and the trace's ``flops`` and ``hbm_bytes``.  ``mesh_axes`` is an ordered tuple
+    of ``(name, extent)`` pairs, e.g. ``(("slot", 2), ("shard", 2))``;
+    ``active`` is ``plan_decomposition``'s."""
+    import types
+
+    import torch
+
+    from repro_torch.cfd.ns3d import PARAM_KEYS, NavierStokes3D
+    from repro_torch.launch import op_cost
+    from repro_torch.sim.ensemble import counted_step, plan_decomposition
+
+    extents = {str(n): int(e) for n, e in mesh_axes}
+    shape_of = types.SimpleNamespace(axis_names=tuple(extents), shape=extents)
+    solver_cfg, active = plan_decomposition(config, shape_of,
+                                            slot_axis=slot_axis)
+    virtual = {name: (extents[name], 0) for name in active.values()}
+    solver = NavierStokes3D(solver_cfg, "cpu", virtual or None).cost_twin()
+    slots = _slots_local(n_slots, extents.get(slot_axis, 1))
+    local = solver.driver.local_shape
+    fields = (*NavierStokes3D.FIELDS, "mask_vx", "mask_vy", "mask_vz")
+    state = {f: torch.empty((slots, *local), device="meta") for f in fields}
+    params = {k: torch.empty((slots,), device="meta") for k in PARAM_KEYS}
+    step = counted_step(solver)
+    counter = op_cost.count(step, state, params, 1)
+    transport = step.transport
+    booked = ("permute_operand_bytes", "permute_ops", "sent_bytes",
+              "sent_ops")
+    return {**{k: getattr(transport, k) if transport else 0 for k in booked},
+            "flops": float(counter.flops),
+            "hbm_bytes": float(counter.hbm_bytes)}, active
 
 
 # -- runtime extraction -------------------------------------------------------
@@ -214,6 +255,19 @@ def farm_cost_row(service, *, signature: str = "-",
                               signature=signature)
     row.invocations = int(farm.device_steps)
     row.measured_s = measured_s
+    decomposed = getattr(ex, "decomposition", None)
+    if decomposed and not ex.health_window:
+        # the count transport's bytes for the traced step; with health on
+        # the trace also holds the diagnostics' one-plane exchanges
+        row.halo_bytes_predicted = float(fn.transport.permute_operand_bytes)
+    if decomposed:
+        from repro_torch.launch.mesh import mesh_extents
+
+        extents = mesh_extents(ex.mesh)
+        row.n_devices = math.prod(extents.values())
+        row.halo_bytes_analytic = float(halo_bytes_per_step(
+            ex.solver.config, dict(ex.decomposition), extents,
+            slots_local=len(ex.local_slots)))
     if ex.health_window:
         row.health_drains = int(service.tel.metrics.get("health.drains")
                                 or 0)

@@ -20,8 +20,16 @@ and per-simulation physics rides in their parameter tables.
 Telemetry (timers, metrics, lifecycle traces) and in-situ health
 (a device ring drained at harvest boundaries, NaN/divergence quarantine
 with a flight record) are the reference's; off, the farm launches exactly
-what it launched without them.  Not ported: the farm mesh (ROADMAP queue
-1, item 9); asking for it raises.
+what it launched without them.
+
+On a mesh (slots × shards, ``repro_torch.sim.ensemble``) every rank builds
+the same farm and runs the same host scheduling: every decision that reads
+the fields reads a per-slot vector that all ranks hold alike, so all take
+the same branch.  A finished slot is gathered to global rank 0: a
+:class:`SimResult` carries the same metadata on every rank and its fields
+on rank 0 only (``state == {}`` elsewhere).  An eviction gathers the slot
+to the first rank of its shard group (``EnsembleExecutor.slot_root``),
+which holds or spills it, and readmission sends it back from there.
 """
 from __future__ import annotations
 
@@ -34,18 +42,18 @@ from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.device import resolve_device
 from repro_torch.serve.slots import SlotTable
 from repro_torch.sim.ensemble import (
-    EnsembleExecutor, host_params, make_ensemble_step,
+    EnsembleExecutor, host_params, make_ensemble_step, plan_decomposition,
 )
 
-_ITEM_OF = {"mesh": 9, "decomposition": 9}
+_ITEM_OF = {"a job store on a mesh": "9c: the durable job store on a "
+                                      "slots x shards farm"}
 
 
 def not_ported(what: str) -> NotImplementedError:
     """The error for a posture the port does not take yet, naming its
     ROADMAP item."""
     return NotImplementedError(
-        f"{what!r} is not ported yet (ROADMAP queue 1, item {_ITEM_OF[what]}:"
-        " slots x shards over torch.distributed)")
+        f"{what!r} is not ported yet (ROADMAP queue 1, item {_ITEM_OF[what]})")
 
 
 # -- step cache --------------------------------------------------------------
@@ -64,20 +72,29 @@ def static_key(config: CFDConfig, n_slots: int) -> tuple:
     return (
         config.case, config.shape, config.extent, config.jacobi_iters,
         config.jacobi_omega, config.fused_sweeps, config.template,
-        config.overlap, n_slots,
+        config.overlap, config.decomposition, n_slots,
     )
 
 
 def compiled_ensemble_step(config: CFDConfig, n_slots: int, device=None,
-                           metrics=None, health_window: int = 0):
+                           mesh=None, slot_axis: str = "data", metrics=None,
+                           health_window: int = 0):
     """(solver, batched chunk step) for the static signature on ``device``.
+
+    ``mesh`` extends the key: a farm on a mesh caches apart from a
+    one-process farm of the same shape.  With ``config.decomposition`` the
+    solver is built against the mesh, so each slot's grid is split over
+    the named axes; a mesh whose decomposed axes all have extent 1
+    degrades to the plain slot-parallel step (``plan_decomposition``).
 
     ``health_window`` extends the cache key (the step then also writes the
     health ring) but not ``static_key``: requests match a farm on physics
     alone, so the same requests run on farms with health on and off.
     ``metrics`` (a telemetry registry) also counts the hit or miss."""
     dev = resolve_device(device)
-    key = static_key(config, n_slots) + (str(dev), health_window)
+    key = static_key(config, n_slots) + (
+        str(dev), mesh, slot_axis if mesh is not None else None,
+        health_window)
     hit = _STEP_CACHE.get(key)
     result = "hit" if hit is not None else "miss"
     _CACHE_STATS["hits" if hit is not None else "misses"] += 1
@@ -85,7 +102,9 @@ def compiled_ensemble_step(config: CFDConfig, n_slots: int, device=None,
         metrics.inc(CACHE_METRIC, result=result)
     if hit is not None:
         return hit
-    solver = NavierStokes3D(config, dev)
+    solver_cfg, active = plan_decomposition(
+        config, mesh, slot_axis=slot_axis if mesh is not None else None)
+    solver = NavierStokes3D(solver_cfg, dev, mesh if active else None)
     _STEP_CACHE[key] = (solver, make_ensemble_step(solver, health_window))
     return _STEP_CACHE[key]
 
@@ -117,7 +136,10 @@ class SimRequest:
     and match exactly.  ``priority`` orders admission: higher levels leave
     the queue first, FIFO within a level.  ``init_state``/``step0`` readmit
     an evicted simulation mid-flight (``init_state`` also carries a
-    scenario's initial fields): a dict of tensors.
+    scenario's initial fields): a dict of tensors of the global grid.  On
+    a mesh, ``init_rank`` names the one global rank that holds
+    ``init_state`` (an eviction's gather; None elsewhere); None means every
+    rank holds it.
     """
 
     config: CFDConfig
@@ -129,6 +151,7 @@ class SimRequest:
     init_state: dict | None = None
     step0: int = 0
     sid: int | None = None   # assigned by the farm
+    init_rank: int | None = None
 
 
 @dataclasses.dataclass
@@ -137,7 +160,8 @@ class SimResult:
     tag: str
     steps_done: int
     terminated: str    # "steps" | "steady" | "residual" | "failed" | "diverged"
-    state: dict        # CPU tensors: vx, vy, vz, p (+ masks)
+    state: dict        # CPU tensors: vx, vy, vz, p (+ masks); on a mesh,
+                       # global rank 0's only ({} on the other ranks)
     config: CFDConfig
     error: str | None = None   # set iff terminated is "failed"/"diverged"
 
@@ -176,13 +200,12 @@ class SimulationFarm:
 
     def __init__(self, base_config: CFDConfig, n_slots: int = 8,
                  check_steady_every: int = 16, device=None, mesh=None,
-                 telemetry=None, farm_id: str | None = None, health=None):
+                 slot_axis: str = "data", telemetry=None,
+                 farm_id: str | None = None, health=None):
         from repro_torch.obs.health import (
             FlightRecorder, HealthMonitor, resolve_health,
         )
 
-        if mesh:
-            raise not_ported("mesh")
         self.base_config = base_config
         self.n_slots = n_slots
         self.check_steady_every = check_steady_every
@@ -191,10 +214,11 @@ class SimulationFarm:
         self.health = resolve_health(health)
         hw = self.health.window if self.health is not None else 0
         solver, run_k = compiled_ensemble_step(
-            base_config, n_slots, device, metrics=self.tel.metrics,
-            health_window=hw)
+            base_config, n_slots, device, mesh=mesh, slot_axis=slot_axis,
+            metrics=self.tel.metrics, health_window=hw)
         self.exec = EnsembleExecutor(base_config, n_slots, solver=solver,
-                                     run_k=run_k, telemetry=self.tel,
+                                     run_k=run_k, mesh=mesh,
+                                     slot_axis=slot_axis, telemetry=self.tel,
                                      health_window=hw)
         self.monitor = (HealthMonitor(self.health, telemetry=self.tel,
                                       farm_id=self.farm_id)
@@ -275,7 +299,8 @@ class SimulationFarm:
                                        last_step=self.device_steps - 1)
                 try:
                     self.exec.write_slot(slot, host_params(req.config),
-                                         state=req.init_state)
+                                         state=req.init_state,
+                                         src=req.init_rank)
                 except Exception as e:
                     # a request whose admission raises (bad readmission
                     # state, mis-shaped fields, ...) fails alone, as a
@@ -399,9 +424,12 @@ class SimulationFarm:
         if the bad sim had never been admitted."""
         req = entry.req
         with self.tel.section("farm.quarantine"):
-            state = self.exec.read_slot(slot)
+            state = self.exec.read_slot(slot) or {}
         flight_path = None
-        if self.flight is not None:
+        if self.flight is not None and not state:
+            # a mesh's other ranks: the record is global rank 0's
+            flight_path = self.flight.path_of(req.sid)
+        elif self.flight is not None:
             flight_path = self.flight.record(
                 req.sid, frames=rec.frames_array(), state=state,
                 meta={"tag": req.tag, "farm": self.farm_id, "slot": slot,
@@ -462,7 +490,7 @@ class SimulationFarm:
     def _finish(self, slot: int, entry: _SlotEntry, reason: str):
         req = entry.req
         with self.tel.section("farm.harvest"):
-            state = self.exec.read_slot(slot)
+            state = self.exec.read_slot(slot) or {}
         self._release(slot, entry, SimResult(
             sid=req.sid, tag=req.tag, steps_done=entry.steps_done,
             terminated=reason, state=state, config=req.config))
@@ -528,12 +556,21 @@ class SimulationFarm:
 
         Returns ``(request, host_state, steps_done)`` and frees the slot;
         None if ``sid`` is not currently resident.  Readmission goes through
-        ``submit`` with ``init_state``/``step0`` set (see the service).
+        ``submit`` with ``init_state``/``step0`` set (see the service).  On
+        a mesh the fields land on the slot's root rank alone: the request
+        comes back with ``init_rank`` naming it, and ``host_state`` is
+        None on every other rank.
         """
         for slot, entry in self.table.occupied():
             if entry.req.sid == sid:
+                req = entry.req
                 with self.tel.section("farm.evict"):
-                    state = self.exec.read_slot(slot)
+                    if self.exec.mesh is None:
+                        state = self.exec.read_slot(slot)
+                    else:
+                        root = self.exec.slot_root(slot)
+                        state = self.exec.read_slot(slot, dst=root)
+                        req = dataclasses.replace(req, init_rank=root)
                 self._live.discard(sid)
                 self.table.release(slot)
                 self.exec.clear_slot(slot)
@@ -545,7 +582,7 @@ class SimulationFarm:
                                         slot=slot,
                                         steps_done=entry.steps_done)
                     self._gauge_load()
-                return entry.req, state, entry.steps_done
+                return req, state, entry.steps_done
         return None
 
     def known(self, sid: int) -> bool:

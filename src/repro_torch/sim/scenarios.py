@@ -158,7 +158,10 @@ class Scenario:
             steps = int(round(t_end / cfg.dt))
         init_state = None
         if self.init_fields is not None:
-            solver = NavierStokes3D(cfg, device)
+            # the global grid's fields: a decomposed farm cuts each
+            # rank's block from them
+            solver = NavierStokes3D(
+                dataclasses.replace(cfg, decomposition=()), device)
             state = self.init_fields(solver, solver.init_state(), **ic_kw)
             init_state = {k: v.cpu() for k, v in state.items()}
         return SimRequest(config=cfg, steps=steps,

@@ -19,7 +19,10 @@ deadline counts a ``service.watchdog_stalls`` metric and trace event; and a
 flags slow or hung chunks (``service.watchdog_events{kind}``).  On a
 health-monitored farm either marks the resident sims ``warning``.
 
-Not ported: the farm mesh (ROADMAP queue 1, item 9); asking for it raises.
+On a mesh every rank runs its own service over the same farm; an evicted
+slot's fields are held, or spilled to the checkpoint directory, by the
+slot's root rank alone (``EnsembleExecutor.slot_root``).  Not ported: a job
+store on a mesh (ROADMAP queue 1, item 9c); asking for it raises.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.cfd.ns3d import CFDConfig
 from repro_torch.ckpt.checkpointer import Checkpointer
 from repro_torch.ft.watchdog import Heartbeat, StepWatchdog
 from repro_torch.sim.farm import (
-    SimRequest, SimResult, SimulationFarm, static_key,
+    SimRequest, SimResult, SimulationFarm, not_ported, static_key,
 )
 
 
@@ -39,7 +42,9 @@ from repro_torch.sim.farm import (
 class _Evicted:
     req: SimRequest
     steps_done: int
-    state: dict | None       # CPU tensors, or None when spilled to disk
+    state: dict | None       # CPU tensors; None when spilled to disk or
+                             # held by another rank of the mesh
+    spilled: bool = False    # this rank wrote the fields to disk
 
 
 class SimulationService:
@@ -48,13 +53,16 @@ class SimulationService:
     def __init__(self, base_config: CFDConfig, n_slots: int = 8,
                  check_steady_every: int = 16, device=None,
                  ckpt_dir: str | None = None, store=None, mesh=None,
-                 telemetry=None, farm_id: str | None = None, health=None):
+                 slot_axis: str = "data", telemetry=None,
+                 farm_id: str | None = None, health=None):
+        if mesh is not None and store is not None:
+            raise not_ported("a job store on a mesh")
         self.tel = obs.resolve(telemetry)
         self.farm = SimulationFarm(base_config, n_slots,
                                    check_steady_every=check_steady_every,
                                    device=device, mesh=mesh,
-                                   telemetry=self.tel, farm_id=farm_id,
-                                   health=health)
+                                   slot_axis=slot_axis, telemetry=self.tel,
+                                   farm_id=farm_id, health=health)
         self._evicted: dict[int, _Evicted] = {}
         self._requeued_progress: dict[int, int] = {}  # readmitted, waiting
         self._ckpt = Checkpointer(ckpt_dir, keep_last=0) if ckpt_dir else None
@@ -268,19 +276,20 @@ class SimulationService:
             return False
         req, state, steps_done = pulled
         job_id = self._job_of.get(sid)
+        spilled = False
         if self.store is not None and job_id is not None:
             from repro_torch import jobs
 
             with self.tel.section("service.evict_spill"):
                 self.store.save_snapshot(job_id, state, steps_done,
                                          kind="evict", status=jobs.EVICTED)
-            state = None
-        elif self._ckpt is not None:
+            state, spilled = None, True
+        elif self._ckpt is not None and state is not None:
             with self.tel.section("service.evict_spill"):
                 self._ckpt.save(sid, state, blocking=True)
-            state = None
+            state, spilled = None, True
         self._evicted[sid] = _Evicted(req=req, steps_done=steps_done,
-                                      state=state)
+                                      state=state, spilled=spilled)
         return True
 
     def readmit(self, sid: int) -> bool:
@@ -292,10 +301,10 @@ class SimulationService:
             return False
         state = ev.state
         job_id = self._job_of.get(sid)
-        if state is None and self.store is not None and job_id is not None:
+        if ev.spilled and self.store is not None and job_id is not None:
             with self.tel.section("service.readmit_restore"):
                 _, state = self.store.load_snapshot(job_id, kind="evict")
-        elif state is None:
+        elif ev.spilled:
             with self.tel.section("service.readmit_restore"):
                 state = self._ckpt.restore(sid,
                                            self.farm.exec.state_template())

@@ -99,10 +99,30 @@ def test_exchange_pad_random_sweep_bitwise(seed):
     np.testing.assert_array_equal(got, want)
 
 
-def test_decomposed_axis_is_not_ported_yet():
+def test_decomposed_axis_needs_a_link_and_a_virtual_one_counts():
+    """A decomposed spec without its link raises; on a virtual link the
+    count transport books one strip a side as the reference's
+    collective-permute operands — the edge rank's hi strip too — sends
+    only the one with a receiver, and the pad comes out
+    on ``meta`` at the padded shape (the multi-rank exchange is
+    ``tests/test_torch_dist.py``'s)."""
     spec = halo.AxisSpec(array_axis=0, mesh_axis="shard")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(ValueError, match="carries no link"):
         halo.exchange_pad(torch.zeros(4, 4, 4), (1,), [spec])
+    count = halo.CountTransport()
+    link = halo.AxisLink(name="shard", size=2, index=1, transport=count)
+    specs = [halo.AxisSpec(array_axis=0, mesh_axis="shard", link=link,
+                           bc_hi=halo.bc_neumann()),
+             halo.AxisSpec(array_axis=1, periodic=True)]
+    u = torch.empty(2, 4, 5, 6, device="meta")
+    out = halo.exchange_pad(u, (1, (2, 0)), specs)
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 6, 7, 6)
+    strip = (2 * 1 * 5 * 6) * 4
+    assert (count.permute_operand_bytes, count.permute_ops) == (2 * strip, 2)
+    # the last rank's hi strip has no receiver: only the lo one is sent
+    assert (count.sent_bytes, count.sent_ops) == (strip, 1)
+    assert link.peer(-1, False) == 0 and link.peer(+1, False) is None
+    assert link.peer(+1, True) == 0
 
 
 def test_width_larger_than_extent_raises():

@@ -57,6 +57,9 @@ DURABLE_SLICE = ("repro_torch.obs", "repro_torch.obs.metrics",
 # the performance-accounting slice
 PERF_SLICE = ("repro_torch.core.rooflinemodel", "repro_torch.core.autotune",
               "repro_torch.launch.op_cost", "repro_torch.obs.perf")
+# the decomposed CFD slice (slots x shards over torch.distributed)
+DIST_SLICE = ("repro_torch.launch.mesh", "repro_torch.dist",
+              "repro_torch.dist.sharding")
 CUDA_SOURCES = ("stencil3d.cu", "jacobi.cu", "attention.cu", "ssd.cu")
 
 
@@ -78,6 +81,11 @@ def test_the_checks_cover_the_durable_slice():
 def test_the_checks_cover_the_perf_slice():
     modules = {_module_name(p) for p in _port_files()}
     assert set(PERF_SLICE) <= modules, set(PERF_SLICE) - modules
+
+
+def test_the_checks_cover_the_dist_slice():
+    modules = {_module_name(p) for p in _port_files()}
+    assert set(DIST_SLICE) <= modules, set(DIST_SLICE) - modules
 
 
 def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
@@ -191,7 +199,7 @@ print(json.dumps({{
     "has_main": callable(smoke.main),
     "slices": all(m in sys.modules
                   for m in {FARM_SLICE + LM_SLICE + DURABLE_SLICE
-                            + PERF_SLICE!r}),
+                            + PERF_SLICE + DIST_SLICE!r}),
 }}))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

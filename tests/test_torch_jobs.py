@@ -67,9 +67,34 @@ def test_config_round_trip_restores_tuples():
     assert back == cfg
     assert isinstance(back.shape, tuple) and isinstance(back.forcing, tuple)
     hash(back)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        jobs.config_from_dict(dict(jobs.config_to_dict(cfg),
-                                   decomposition=[[0, "shard"]]))
+
+
+@pytest.mark.parametrize("decomposition", [
+    ((0, "shard"),), ((0, "data"), (1, "model"))])
+def test_decomposition_round_trips_in_the_reference_payload(decomposition):
+    """A decomposed request's payload is the reference's, key for key (the
+    decomposition as ``[[array axis, mesh axis], ...]``), and either
+    package decodes the other's to a config with the same tuples."""
+    import json
+
+    cfg = get_scenario("cavity").config(N, re=80.0, **KW,
+                                        decomposition=decomposition)
+    ref_cfg = ref_scenario("cavity").config(N, re=80.0, **KW,
+                                            decomposition=decomposition)
+    req = dataclasses.replace(_request(re=80.0), config=cfg)
+    ref_req = ref_scenario("cavity").request(N, steps=8, re=80.0,
+                                             config=ref_cfg)
+    ours, theirs = (json.loads(jobs.encode_request(req)[0]),
+                    json.loads(ref_jobs.encode_request(ref_req)[0]))
+    ref_doc = dict(theirs["config"], template=None)
+    assert ours["config"] == ref_doc
+    assert ours["config"]["decomposition"] == [list(p) for p in decomposition]
+    back = jobs.config_from_dict(jobs.config_to_dict(cfg))
+    assert back == cfg and back.decomposition == decomposition
+    assert jobs.decode_request(*ref_jobs.encode_request(ref_req)
+                               ).config.decomposition == decomposition
+    assert ref_jobs.decode_request(*jobs.encode_request(req)
+                                   ).config.decomposition == decomposition
 
 
 def _init_state(seed=0):

@@ -209,10 +209,45 @@ def test_a_service_that_cannot_be_traced_gives_an_unparsed_row():
     assert row.status == "unparsed" and "no signature" in row.error
 
 
-def test_decomposed_step_hlo_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        perf.decomposed_step_hlo(CFDConfig(), n_slots=2,
-                                 mesh_axes=(("slot", 2),))
+@pytest.mark.parametrize("n, k, mesh_axes, n_slots", [
+    (16, 1, (("slot", 2), ("shard", 2)), 4),   # 2 resident slots a rank
+    (16, 2, (("slot", 1), ("shard", 2)), 2),   # the fused smoother's k-pads
+    (16, 1, (("sx", 2), ("sy", 2), ("slot", 1)), 1),   # two grid axes
+])
+def test_decomposed_step_counts_the_analytic_halo_bytes(n, k, mesh_axes,
+                                                        n_slots):
+    """The count transport's permute operand bytes for one traced step of
+    the decomposed ensemble equal ``halo_bytes_per_step`` exactly (the
+    same accounting, not a measure of traffic), and its operands
+    the reference's collective-permute inventory (velocity two-sided,
+    divergence and projection one-sided, the Jacobi loop two-sided a
+    sweep, each per decomposed axis)."""
+    names = [m for m, _ in mesh_axes if m != "slot"]
+    decomposition = tuple(enumerate(names))
+    cfg = CFDConfig(shape=(n, n, 4), case="cavity", fused_sweeps=k,
+                    decomposition=decomposition)
+    counts, active = perf.decomposed_step_hlo(cfg, n_slots=n_slots,
+                                              mesh_axes=mesh_axes)
+    assert active == dict(decomposition)
+    extents = dict(mesh_axes)
+    analytic = perf.halo_bytes_per_step(
+        cfg, active, extents,
+        slots_local=perf._slots_local(n_slots, extents["slot"]))
+    assert counts["permute_operand_bytes"] == analytic > 0
+    iters = max(cfg.jacobi_iters // k, 1)
+    per_axis = 2 * 3 + 3 + 2 * iters * (2 if k > 1 else 1) + 1
+    assert counts["permute_ops"] == per_axis * len(names)
+    # the rank at index 0 of a wall-bounded axis has no lo neighbour: its
+    # lo strips are operands that are never sent
+    assert 0 < counts["sent_bytes"] < counts["permute_operand_bytes"]
+    assert 0 < counts["sent_ops"] < counts["permute_ops"]
+    assert counts["hbm_bytes"] > 0 and counts["flops"] > 0
+    # the reference's cost model counts the same bytes for its HLO
+    assert analytic == ref_perf.halo_bytes_per_step(
+        RefCFDConfig(shape=cfg.shape, case="cavity", fused_sweeps=k,
+                     decomposition=decomposition),
+        active, extents, slots_local=ref_perf._slots_local(
+            n_slots, extents["slot"]))
 
 
 # ---------------------------------------------------------------------------
