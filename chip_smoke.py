@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase sharded    # card, build, that phase only
 
 Phases, each printed as JSON lines; any failure exits non-zero:
 
@@ -90,6 +91,30 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              two NCCL ranks on the one card, and the error that ends them
              (recorded); step, exchange and busy times and peak memory
              per rank;
+   sharded   the LM trained over a mesh of 4 ranks that share the card
+             (gloo, collectives through pinned host buffers): zamba2-1.2b
+             at its published widths and 8 of 38 layers, seq 2,048,
+             global batch 4, ``fsdp_tp`` over (data 2, model 2) (each rank
+             16 of 32 heads, its blocks of the parameters and moments,
+             its data index's 2 rows) against the single-process CUDA step
+             on the same weights and batch (loss within 2e-2, every
+             gathered gradient leaf within 5e-2 relative norm error and
+             0.99 cosine), each of two planted faults rejected (one
+             ``wo`` without its reduce over ``tp``; data-axis gradients
+             not divided by |dp|), exactly 8 FLASH_ATTENTION and 16
+             SSD_INTRA launches a rank a step; xlstm-125m's ``dp`` step
+             over (pod 2, data 2), a row a rank, against the
+             single-process step with a microbatch a row, and its int8
+             error-feedback twin within 1e-4 (loss) and 5e-3 (params) of
+             it, its gradient mean within 5e-2 relative norm error of the
+             exact one, its residual carried over 2 steps and error
+             feedback's identity at the second step within 1e-4 (the
+             step given the residual against the step given none); GPipe
+             over pod 4
+             at D 2,048 against the sequential stack; the (1, 1) step
+             under NCCL bitwise the local step; step, busy, collective
+             calls, bytes and host ms, parameter and moment bytes and peak
+             memory per rank; at most 180 s;
 7. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
              launches a step and no JACOBI_PRESSURE;
 8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
@@ -479,7 +504,8 @@ TRAIN_DEPTH = {"qwen3-moe-235b-a22b": 1}
 # small tensors the trace does not see, e.g. the data pipeline's)
 DRYRUN_MEMORY_RTOL = 0.25
 # the moe family's other config, reckoned and not run: kimi-k2 train_4k at
-# one of 61 layers does not fit one card (its training is ROADMAP item 9)
+# one of 61 layers does not fit one card (sharded training over a mesh of
+# cards waits for a machine with several)
 KIMI_DRYRUN = ("kimi-k2-1t-a32b", 1)
 
 
@@ -900,12 +926,17 @@ ATTN_CASES = [
     # tokens, 64 query heads over 4 kv heads of 128
     ("train_qwen3_gqa16", 1, TRAIN_SEQ, TRAIN_SEQ, 64, 4, 128, "bfloat16",
      "bfloat16", (True, 0, 0), None),
+    # the sharded phase's forward on one rank: zamba2's 16 of 32 heads (a
+    # model rank's half), its data rank's 2 rows of 2,048 tokens
+    ("train_rank_tp2", 2, 2048, 2048, 16, 16, 64, "bfloat16", "bfloat16",
+     (True, 0, 0), None),
 ]
 # the cases whose times the kernels line gives side by side
 ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k",
                  "prefill_gqa_qwen3moe", "decode_gqa_qwen3moe",
                  "prefill_kimi_d112", "decode_kimi_d112", "cuda_core_d112",
-                 "train_paligemma_d256", "train_qwen3_gqa16")
+                 "train_paligemma_d256", "train_qwen3_gqa16",
+                 "train_rank_tp2")
 
 
 def attention_diff(got, want, dtype: str):
@@ -2180,6 +2211,529 @@ def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sharded: the LM trained over a mesh of ranks that share the card
+# ---------------------------------------------------------------------------
+# fsdp_tp: zamba2-1.2b at its published widths, 8 of 38 layers (4
+# applications of the shared block), seq 2048, global batch 4 over
+# (data 2, model 2): two rows a data rank, 16 of 32 heads a model rank
+SHARD_ARCH, SHARD_LAYERS, SHARD_SEQ, SHARD_BATCH = "zamba2-1.2b", 8, 2048, 4
+SHARD_MESH = ((2, 2), ("data", "model"))
+# a rank's launches a step: remat "block" runs each group's forward twice
+SHARD_PER_STEP = {"FLASH_ATTENTION": 2 * 4, "SSD_INTRA": 2 * 8}
+# dp: xlstm-125m whole, one 512-token sequence a rank, over (pod 2, data 2);
+# compressed across pods at the reference's bounds
+# (tests/test_dist_equivalence.py)
+DP_ARCH, DP_SEQ, DP_MESH = "xlstm-125m", 512, ((2, 2), ("pod", "data"))
+EF_LOSS, EF_PARAMS = 1e-4, 5e-3
+# the compressed gradient mean against the exact one, relative norm over the
+# model: int8 rounds an element within half of max|g| / 127 (about 1% of a
+# gradient's norm); a missing scale or a sum for the mean is off by 50% or
+# more.  Error feedback's identity (a step given the residual e against the
+# same step given none): mean(c) + mean(e_new) - mean(e) = mean(g) =
+# mean(c') + mean(e'_new), to rounding and the backward's nondeterminism
+# on the card; a residual not added or not returned is off by about the
+# quantization error
+EF_GRAD_REL, EF_IDENTITY = 5e-2, 1e-4
+# GPipe over pod 4: the reference test's toy stack tanh(h @ w) at D 2048,
+# at its 2e-4 / 2e-5
+GPIPE_L, GPIPE_B, GPIPE_S, GPIPE_D, GPIPE_MB = 8, 8, 16, 2048, 4
+GPIPE_RTOL, GPIPE_ATOL = 2e-4, 2e-5
+SHARD_DIR = os.path.join(ROOT, "build", "sharded")
+SHARD_TIMEOUT_S = 600.0
+SHARDED_BUDGET_S = 180.0
+
+
+def shard_cfg(layers: int = SHARD_LAYERS):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(SHARD_ARCH), num_layers=layers)
+
+
+def param_bytes(lm) -> int:
+    return sum(p.numel() * p.element_size() for p in lm.parameters())
+
+
+class planted:
+    """Inside the context one fault of the sharded step: ``wo``: the first
+    ``wo`` of each forward (the first application of zamba2's shared block)
+    keeps its partial sums, no all-reduce over ``tp``; ``divide``: the
+    data-axis gradients are summed but not divided by |dp|."""
+
+    def __init__(self, fault: str):
+        self.fault = fault
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        from repro_torch.train import step as step_lib
+
+        self.saved = (blocks.wo_reduce, step_lib.data_mean)
+        if self.fault == "wo":
+            calls = []
+
+            def faulty(y, shard):
+                calls.append(1)
+                return y if len(calls) % (2 * 4) == 1 else \
+                    self.saved[0](y, shard)
+
+            blocks.wo_reduce = faulty
+        else:
+            step_lib.data_mean = lambda grads, shard: None
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        from repro_torch.train import step as step_lib
+
+        blocks.wo_reduce, step_lib.data_mean = self.saved
+
+
+def _gathered_grads(lm, mesh) -> dict:
+    from repro_torch.dist import sharding
+
+    return {n: sharding.full_tensor(p.grad, lm.placement[n], mesh)
+            for n, p in lm.named_parameters()}
+
+
+def _fsdp_model(cfg, shard, dev):
+    from repro_torch.dist import sharding
+    from repro_torch.models import model
+
+    return sharding.shard_params(model.init_params(cfg, SEED, device=dev),
+                                 cfg, shard)
+
+
+def sharded_fsdp(ref_path: str, dev) -> dict:
+    """zamba2's fsdp_tp step on (data 2, model 2) from ``init_params``'
+    weights: rank 0 holds the gathered gradient against the single-process
+    CUDA step's (saved at ``ref_path``), then the same step with each
+    planted fault; launch counts, collective calls and bytes, step and
+    busy times, peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import step as step_lib
+
+    rank = dist.get_rank()
+    cfg = shard_cfg()
+    mesh = make_mesh(*SHARD_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, SHARD_BATCH)
+    batch = sharding.local_batch(
+        train_batch(cfg, SHARD_SEQ, SHARD_BATCH, dev), mesh, shard)
+    ref = torch.load(ref_path, map_location=dev) if rank == 0 else None
+    out = {"rank": rank, "coord": collectives.coordinate(mesh)}
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_step(fault=None):
+        lm = _fsdp_model(cfg, shard, dev)
+        opt = AdamW(lr=TRAIN_LR)
+        state = opt.init(lm)
+        step = step_lib.make_train_step(cfg, shard, opt)
+        reset_counts()
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fault is None:
+            lm, state, met = step(lm, state, batch)
+        else:
+            with planted(fault):
+                lm, state, met = step(lm, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, stats = read_counts(), dict(collectives.STATS)
+        grads = _gathered_grads(lm, mesh)
+        parity = None
+        if rank == 0:
+            parity = grad_parity(grads, ref["grads"])
+            parity["loss"], parity["ref_loss"] = float(met["loss"]), ref["loss"]
+        del grads
+        return lm, opt, state, step, ms, counts, stats, parity
+
+    lm, opt, state, step, ms, counts, stats, parity = one_step()
+    out.update(first_step_ms=ms, launches=counts, parity=parity,
+               collective={"calls": stats["calls"], "bytes": stats["bytes"],
+                           "ms": stats["seconds"] * 1e3},
+               param_bytes=param_bytes(lm),
+               moment_bytes=sum(t.numel() * t.element_size()
+                                for d in (state.m, state.v)
+                                for t in d.values()))
+    # a second step (warm), timed, and a third under the profiler
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm, state, _ = step(lm, state, batch)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["collective_warm"] = {"calls": collectives.STATS["calls"],
+                              "bytes": collectives.STATS["bytes"],
+                              "ms": collectives.STATS["seconds"] * 1e3}
+    busy = device_busy(lambda: step(lm, state, batch), cpu_ops=False)
+    out["busy"] = {k: busy[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                        "flash_attention_ms", "ssd_intra_ms")}
+    del lm, opt, state, step
+    torch.cuda.empty_cache()
+    out["faults"] = {}
+    for fault in ("wo", "divide"):
+        *_, f_parity = one_step(fault)
+        out["faults"][fault] = f_parity
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def rel_norm_error(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every tensor of ``want`` together."""
+    import torch
+
+    num = sum(float(torch.sum((got[n].double() - w.double()) ** 2))
+              for n, w in want.items())
+    den = sum(float(torch.sum(w.double() ** 2)) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def step_gradient(opt, m_now: dict, m_before: dict, clip_scale) -> dict:
+    """The gradient an AdamW step took, read back from its first moments:
+    m_t = b1 · m_(t-1) + (1 - b1) · s_t · g_t, s_t the step's clip scale
+    (the compressed mean stays float32, beside the parameters' bf16
+    ``.grad``)."""
+    return {n: (m.float() - opt.b1 * m_before[n].float())
+            / ((1 - opt.b1) * float(clip_scale)) for n, m in m_now.items()}
+
+
+def sharded_dp(ref_path: str, dev) -> dict:
+    """xlstm-125m's dp step on (pod 2, data 2), a row a rank: exact
+    (rank 0 holds its gradient against the single-process step on the
+    4-row batch, a microbatch a row: ``row_mean_grads``), then compressed
+    across pods, two steps, the second also given no residual; the
+    compressed gradient mean against the exact one, and error feedback's
+    identity at the second step."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import step as step_lib
+
+    rank = dist.get_rank()
+    cfg = get_config(DP_ARCH)
+    mesh = make_mesh(*DP_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, 4, mode="dp")
+    batch = sharding.local_batch(train_batch(cfg, DP_SEQ, 4, dev), mesh,
+                                 shard)
+    out = {"rank": rank}
+    runs = {}
+    for compress in (False, True):
+        lm = model.init_params(cfg, SEED, device=dev)
+        opt = AdamW(lr=TRAIN_LR)
+        state = opt.init(lm)
+        step = step_lib._make_dp_train_step(cfg, shard, opt,
+                                            compress_pod_grads=compress)
+        zeros = {n: torch.zeros_like(m) for n, m in state.m.items()}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm, state, met = step(lm, state, batch, None) if compress else \
+            step(lm, state, batch)
+        torch.cuda.synchronize()
+        run = {"ms": (time.perf_counter() - t0) * 1e3,
+               "launches": read_counts(), "loss": float(met["loss"]),
+               "params": {n: p.detach().clone()
+                          for n, p in lm.named_parameters()},
+               "took": step_gradient(opt, state.m, zeros, met["clip_scale"])}
+        del zeros
+        if not compress and rank == 0:
+            ref = torch.load(ref_path, map_location=dev)
+            run["parity"] = grad_parity(
+                {n: p.grad for n, p in lm.named_parameters()}, ref["grads"],
+                zero=zero_grad_leaves(cfg))
+            run["parity"]["ref_loss"] = ref["loss"]
+        if compress:
+            err = met["ef_err"]
+            m1 = {n: m.clone() for n, m in state.m.items()}
+            twin = copy.deepcopy((lm, state))
+            tlm, tstate, tmet = step(*twin, batch, None)
+            lm, state, met2 = step(lm, state, batch, err)
+            run["ef_norms"] = [
+                float(sum(torch.linalg.vector_norm(e) for e in err.values())),
+                float(sum(torch.linalg.vector_norm(e)
+                          for e in met2["ef_err"].values()))]
+            run["carried_differs"] = any(
+                not torch.equal(p, q) for p, q in zip(tlm.parameters(),
+                                                      lm.parameters()))
+            # the identity: both sides are the pods' mean of the second
+            # step's gradient (the residuals averaged over the pods)
+            flat = lambda ts: torch.cat([t.float().reshape(-1) for t in ts])
+            pods = lambda t: collectives.all_reduce(t, mesh, "pod") / 2
+            names = list(m1)
+            took = step_gradient(opt, state.m, m1, met2["clip_scale"])
+            carried = flat(took[n] for n in names) + pods(
+                flat(met2["ef_err"][n] - err[n] for n in names))
+            del took
+            took = step_gradient(opt, tstate.m, m1, tmet["clip_scale"])
+            fresh = flat(took[n] for n in names) + pods(
+                flat(tmet["ef_err"][n] for n in names))
+            run["ef_identity_rel"] = rel_norm_error({"all": carried},
+                                                    {"all": fresh})
+            del twin, tlm, tstate, m1, took, carried, fresh
+        runs["compressed" if compress else "exact"] = run
+        del lm, opt, state
+    exact, comp = runs["exact"], runs["compressed"]
+    out["exact"] = {k: v for k, v in exact.items()
+                    if k not in ("params", "took")}
+    out["compressed"] = {k: v for k, v in comp.items()
+                         if k not in ("params", "took")}
+    out["compressed"]["grad_rel_err"] = rel_norm_error(comp["took"],
+                                                       exact["took"])
+    out["compressed"]["loss_diff"] = abs(comp["loss"] - exact["loss"])
+    out["compressed"]["param_max_abs_diff"] = max(
+        float((comp["params"][n].float() - p.float()).abs().max())
+        for n, p in exact["params"].items())
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_gpipe(dev) -> dict:
+    """``gpipe_forward`` over pod 4 against the sequential stack."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.pipeline_parallel import gpipe_forward, stage_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ModelConfig
+
+    mesh = make_mesh((4,), ("pod",))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ws = torch.randn((GPIPE_L, GPIPE_D, GPIPE_D), generator=gen,
+                     device=dev) / GPIPE_D ** 0.5
+    x = torch.randn((GPIPE_B, GPIPE_S, GPIPE_D), generator=gen, device=dev)
+    cfg = ModelConfig(name="toy", family="dense", num_layers=GPIPE_L,
+                      d_model=GPIPE_D, num_heads=16, num_kv_heads=16,
+                      d_ff=4 * GPIPE_D, vocab_size=128)
+    layer = lambda w, h: torch.tanh(h @ w)
+    out = gpipe_forward(cfg, mesh, layer,
+                        sharding.block(ws, stage_params(ws, mesh), mesh), x,
+                        n_microbatch=GPIPE_MB)
+    ref = x
+    for i in range(GPIPE_L):
+        ref = layer(ws[i], ref)
+    err = (out - ref).abs()
+    tol = GPIPE_ATOL + GPIPE_RTOL * ref.abs()
+    return {"max_abs_err": float(err.max()),
+            "within": bool((err <= tol).all())}
+
+
+def sharded_rank(ref_path: str, dp_ref_path: str) -> dict:
+    """One of 4 gloo ranks on the card: the fsdp_tp, dp and GPipe drives."""
+    dev = _rank_device()
+    t0 = time.perf_counter()
+    out = {"fsdp": sharded_fsdp(ref_path, dev)}
+    out["fsdp_s"] = time.perf_counter() - t0
+    out["dp"] = sharded_dp(dp_ref_path, dev)
+    out["gpipe"] = sharded_gpipe(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_nccl_rank() -> dict:
+    """World size 1 under NCCL: the (1, 1) fsdp_tp step of zamba2 at its
+    widths and 2 layers against the LOCAL step, bitwise (parameters,
+    gradients, metrics)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.models.config import LOCAL
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import step as step_lib
+
+    dev = _rank_device()
+    cfg = shard_cfg(2)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    shard = sharding.make_shard_cfg(mesh, cfg, 1)
+    batch = train_batch(cfg, SHARD_SEQ, 1, dev)
+    opt = AdamW(lr=TRAIN_LR)
+    a = model.init_params(cfg, SEED, device=dev)
+    a, _, ma = step_lib.make_train_step(cfg, LOCAL, opt)(a, opt.init(a),
+                                                         batch)
+    b = _fsdp_model(cfg, shard, dev)
+    b, _, mb = step_lib.make_train_step(cfg, shard, opt)(
+        b, opt.init(b), sharding.local_batch(batch, mesh, shard))
+    torch.cuda.synchronize()
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    return {"backend": dist.get_backend(),
+            "params_bitwise": all(torch.equal(pa[n], pb[n]) for n in pa),
+            "grads_bitwise": all(torch.equal(pa[n].grad, pb[n].grad)
+                                 for n in pa),
+            "metrics_bitwise": all(torch.equal(ma[k], mb[k]) for k in ma)}
+
+
+def row_mean_grads(cfg, lm, batch) -> tuple:
+    """The dp step's gradient on one process: the mean over the batch's
+    rows of each row's loss and gradient (summed in float32), as the dp
+    ranks, a row each, average theirs — the single-process step with one
+    microbatch a row."""
+    import torch
+
+    n = batch["targets"].shape[0]
+    loss, acc = 0.0, None
+    for i in range(n):
+        l, g = train_grads(cfg, lm, {k: v[i:i + 1] for k, v in
+                                     batch.items()}, "CUDA")
+        loss += l / n
+        if acc is None:
+            acc = {k: torch.zeros(t.shape, dtype=torch.float32,
+                                  device=t.device) for k, t in g.items()}
+        for k, t in g.items():
+            acc[k].add_(t.float())
+    return loss, {k: t / n for k, t in acc.items()}
+
+
+def phase_sharded(dev, smi: str) -> dict:
+    """The LM trained over a mesh of 4 ranks that share the card (gloo:
+    collectives through pinned host buffers): zamba2's fsdp_tp step
+    against the single-process CUDA step, with two planted faults; the dp
+    step of xlstm-125m, exact and compressed; GPipe; and NCCL at world
+    size 1."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    cfg = shard_cfg()
+    refs = {}
+    for label, c, seq, gb in (("fsdp", cfg, SHARD_SEQ, SHARD_BATCH),
+                              ("dp", get_config(DP_ARCH), DP_SEQ, 4)):
+        lm = model.init_params(c, SEED, device=dev).requires_grad_(True)
+        batch = train_batch(c, seq, gb, dev)
+        if label == "fsdp":
+            loss, grads = train_grads(c, lm, batch, "CUDA")
+        else:
+            loss, grads = row_mean_grads(c, lm, batch)
+        refs[label] = {"loss": loss, "param_bytes": param_bytes(lm),
+                       "moment_bytes": 2 * sum(
+                           p.numel() * 4 for p in lm.parameters()),
+                       "path": os.path.join(SHARD_DIR, f"{label}_ref.pt")}
+        torch.save({"loss": loss, "grads": grads}, refs[label]["path"])
+        del lm, grads
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    device = f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, 4, backend="gloo", device=device,
+                  args=(refs["fsdp"]["path"], refs["dp"]["path"]),
+                  timeout_s=SHARD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = spawn(sharded_nccl_rank, 1, backend="nccl", device=device,
+                 timeout_s=SHARD_TIMEOUT_S)[0]
+    nccl_s = time.perf_counter() - t0
+
+    head = ranks[0]
+    fs = head["fsdp"]
+    par = fs["parity"]
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "sharded", "card": smi,
+          "fsdp_tp": {
+              "arch": SHARD_ARCH, "layers": SHARD_LAYERS, "seq": SHARD_SEQ,
+              "global_batch": SHARD_BATCH, "mesh": SHARD_MESH,
+              "backend": "gloo (4 ranks share cuda:0; collectives via "
+                         "pinned host)",
+              "loss": par["loss"], "single_process_loss": par["ref_loss"],
+              "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad_rel": TRAIN_GRAD_REL,
+                            "grad_cos": TRAIN_GRAD_COS},
+              "worst_rel_norm_err": par["worst_rel_norm_err"],
+              "worst_cosine": par["worst_cosine"],
+              "worst_leaves": par["worst_leaves"],
+              "faults_rejected": {k: len(v["failing_leaves"])
+                                  for k, v in fs["faults"].items()},
+              "launches_per_rank_step": [r["fsdp"]["launches"]
+                                         for r in ranks],
+              "first_step_ms": [r["fsdp"]["first_step_ms"] for r in ranks],
+              "step_ms": [r["fsdp"]["step_ms"] for r in ranks],
+              "busy": [r["fsdp"]["busy"] for r in ranks],
+              "collective_first_step": [r["fsdp"]["collective"]
+                                        for r in ranks],
+              "collective_step": [r["fsdp"]["collective_warm"]
+                                  for r in ranks],
+              "param_bytes_per_rank": [r["fsdp"]["param_bytes"]
+                                       for r in ranks],
+              "moment_bytes_per_rank": [r["fsdp"]["moment_bytes"]
+                                        for r in ranks],
+              "single_process_param_bytes": refs["fsdp"]["param_bytes"],
+              "single_process_moment_bytes": refs["fsdp"]["moment_bytes"],
+              "max_memory_allocated": [r["fsdp"]["max_memory_allocated"]
+                                       for r in ranks]},
+          "dp": {"arch": DP_ARCH, "seq": DP_SEQ, "mesh": DP_MESH,
+                 "exact": head["dp"]["exact"],
+                 "compressed": head["dp"]["compressed"],
+                 "bounds": {"loss": EF_LOSS, "params": EF_PARAMS,
+                            "grad_rel": EF_GRAD_REL,
+                            "identity_rel": EF_IDENTITY}},
+          "gpipe": {"stack": [GPIPE_L, GPIPE_B, GPIPE_S, GPIPE_D],
+                    "microbatches": GPIPE_MB,
+                    "max_abs_err": max(r["gpipe"]["max_abs_err"]
+                                       for r in ranks),
+                    "rtol": GPIPE_RTOL, "atol": GPIPE_ATOL},
+          "nccl_world_size_1": nccl,
+          "seconds": {"single_process_refs": ref_s, "spawn_4": spawn_s,
+                      "rank_work": [r["seconds"] for r in ranks],
+                      "spawn_nccl_1": nccl_s, "phase": seconds}})
+    require(abs(par["loss"] - par["ref_loss"]) <=
+            TRAIN_LOSS_RTOL * abs(par["ref_loss"]),
+            f"sharded: loss {par['loss']} vs the single-process "
+            f"{par['ref_loss']}")
+    require(not par["failing_leaves"],
+            f"sharded: gradients off the single-process step: "
+            f"{par['failing_leaves'][:5]}")
+    for fault, fp in fs["faults"].items():
+        require(bool(fp["failing_leaves"]),
+                f"sharded: the planted fault {fault!r} passed the gradient "
+                "check")
+    for r in ranks:
+        got = {k: r["fsdp"]["launches"][k] for k in SHARD_PER_STEP}
+        require(got == SHARD_PER_STEP,
+                f"sharded rank {r['fsdp']['rank']}: launches {got} != "
+                f"{SHARD_PER_STEP}")
+        require(r["fsdp"]["launches"] == head["fsdp"]["launches"],
+                "sharded: ranks launched differently")
+        require(r["gpipe"]["within"], f"gpipe: {r['gpipe']}")
+        comp = r["dp"]["compressed"]
+        require(comp["loss_diff"] < EF_LOSS and
+                comp["param_max_abs_diff"] < EF_PARAMS,
+                f"dp compressed vs exact: {comp['loss_diff']}, "
+                f"{comp['param_max_abs_diff']}")
+        require(comp["grad_rel_err"] < EF_GRAD_REL,
+                f"dp compressed gradient mean vs exact: "
+                f"{comp['grad_rel_err']}")
+        require(all(n > 0 for n in comp["ef_norms"])
+                and comp["carried_differs"],
+                f"dp: the EF residual {comp['ef_norms']} not carried")
+        require(comp["ef_identity_rel"] < EF_IDENTITY,
+                f"dp: error feedback's identity off by "
+                f"{comp['ef_identity_rel']}")
+    ex = head["dp"]["exact"]
+    require(abs(ex["loss"] - ex["parity"]["ref_loss"]) <=
+            TRAIN_LOSS_RTOL * abs(ex["parity"]["ref_loss"])
+            and not ex["parity"]["failing_leaves"],
+            f"dp exact vs the single-process step: {ex['parity']}")
+    require(nccl["backend"] == "nccl" and nccl["params_bitwise"]
+            and nccl["grads_bitwise"] and nccl["metrics_bitwise"],
+            f"NCCL (1, 1) vs LOCAL: {nccl}")
+    require(seconds <= SHARDED_BUDGET_S,
+            f"sharded: {seconds:.1f} s > {SHARDED_BUDGET_S} s")
+    return dict(head["fsdp"]["launches"])
+
+
+# ---------------------------------------------------------------------------
 def phase_physics(dev):
     import torch
     from repro_torch import api
@@ -3039,7 +3593,8 @@ def kimi_dryrun() -> None:
     art = dryrun.run_cell(arch, "train_4k", verbose=False,
                           cfg_overrides={"num_layers": layers})
     emit({"phase": "dryrun", "reason": "kimi-k2's training reckoned on one "
-          "card, not run (ROADMAP queue 1, item 9)", "layers": layers,
+          "card, not run (one layer does not fit one card; the fsdp_tp step "
+          "over a mesh needs several cards)", "layers": layers,
           **{k: art.get(k) for k in (
               "arch", "shape", "status", "error", "plan", "seq_len",
               "global_batch", "traced_microbatches", "n_params",
@@ -3081,10 +3636,10 @@ def forced_routing(chosen: list):
 
     route, taken = moe._route, []
 
-    def forced(params, cfg, x2d):
+    def forced(params, cfg, x2d, **kw):
         ids = chosen[len(taken)]
         taken.append(ids)
-        return route(params, cfg, x2d, ids=ids)
+        return route(params, cfg, x2d, ids=ids, **kw)
 
     moe._route = forced
     try:
@@ -3995,9 +4550,15 @@ def phase_multimodal(dev, smi: str, kernel_results: dict):
 
 
 # ---------------------------------------------------------------------------
-def main() -> int:
+def main(argv: list) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("sharded",), default=None,
+                    help="run the card and build phases and this one only")
+    only = ap.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -4008,6 +4569,11 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     dev = torch.device("cuda")
+    if only == "sharded":
+        phase_sharded(dev, smi)
+        emit({"phase": "done", "only": only,
+              "seconds": time.perf_counter() - t_start, "card": smi})
+        return 0
     kernel_results = phase_kernels(dev)
     paths = {}
     paths["serial"], serial_state = phase_main(kernel_results, dev)
@@ -4017,6 +4583,7 @@ def main() -> int:
     paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
                             farm_results, health))
     paths["decomposed"] = phase_decomposed(dev, smi, serial_state)
+    paths["sharded"] = phase_sharded(dev, smi)
     del farm_results, serial_state
     paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
                                         fused_sweeps=FUSED_K)
@@ -4057,4 +4624,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -17,6 +17,13 @@ either package reads the other's snapshots:
 * retention — ``keep_last`` prunes old steps after a successful save.
 * restore — ``restore`` rebuilds a target tree's structure with tensors on
   the device asked for (or the target's own).
+* sharded trees — over a mesh of ranks (``launch.mesh``) ``save`` takes
+  ``shardings``, a tree of ``dist.sharding.NamedPlacement``s beside the
+  tree of this rank's blocks: every rank gathers the whole tensors and
+  rank 0 alone writes them, so a snapshot is the same file whatever the
+  mesh.  ``restore(..., shardings=...)`` cuts each whole tensor to the
+  block this rank holds under the *target's* placements: a snapshot
+  saved at one mesh restores at another (elastic N -> M).
 
 A tree is a tensor, a numpy array or a scalar (a leaf), or a dict, list,
 tuple or ``NamedTuple`` (an optimizer state) of trees; ``None`` holds no
@@ -130,12 +137,24 @@ class Checkpointer:
         return s[-1] if s else None
 
     # -- save ----------------------------------------------------------------
-    def save(self, step: int, tree, *, blocking: bool = True):
+    def save(self, step: int, tree, *, blocking: bool = True,
+             shardings=None):
         """Copy ``tree`` to host memory now; write it, in the background
         unless ``blocking``.  A failed write raises (here, or at the next
-        ``save``/``wait`` for a background one)."""
+        ``save``/``wait`` for a background one).  With ``shardings`` (a
+        tree of ``NamedPlacement``s mirroring ``tree``), every rank must
+        call it: the blocks are gathered and rank 0 writes."""
         self.wait()  # one outstanding save at a time
         leaves, structure = flatten(tree)
+        if shardings is not None:
+            import torch.distributed as dist
+
+            places, _ = flatten(shardings)
+            _check_count(places, leaves)
+            leaves = [pl.full(x) if torch.is_tensor(x) else x
+                      for x, pl in zip(leaves, places)]
+            if dist.get_rank() != 0:
+                return
         host = [to_numpy(x) for x in leaves]
 
         def write():
@@ -151,8 +170,8 @@ class Checkpointer:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
-    def save_async(self, step: int, tree):
-        self.save(step, tree, blocking=False)
+    def save_async(self, step: int, tree, shardings=None):
+        self.save(step, tree, blocking=False, shardings=shardings)
 
     def _write(self, step: int, leaves: list[np.ndarray], structure):
         nonce = secrets.token_hex(4)
@@ -226,16 +245,29 @@ class Checkpointer:
             leaves = [data[f"leaf_{i}"] for i in range(manifest["n_leaves"])]
         return manifest, leaves
 
-    def restore(self, step: int, target_tree, device=None):
+    def restore(self, step: int, target_tree, device=None, shardings=None):
         """Restore into the structure of ``target_tree`` (leaf shapes
         checked, dtypes cast to the target's), as tensors on ``device`` —
-        by default each target tensor's own device, else the CPU."""
+        by default each target tensor's own device, else the CPU.
+
+        ``shardings``: a tree of ``NamedPlacement``s mirroring the target
+        (whose leaves are this rank's blocks), or one that every leaf
+        takes: each saved whole tensor is cut to this rank's block under
+        it (elastic N -> M)."""
         manifest, arrays = self.read_arrays(step)
         leaves, structure = flatten(target_tree)
         if manifest["n_leaves"] != len(leaves):
             raise ValueError(
                 f"checkpoint has {manifest['n_leaves']} leaves; target has "
                 f"{len(leaves)} — incompatible trees")
+        if shardings is not None:
+            from repro_torch.dist.sharding import NamedPlacement
+
+            places = ([shardings] * len(leaves)
+                      if isinstance(shardings, NamedPlacement)
+                      else flatten(shardings)[0])
+            _check_count(places, leaves)
+            arrays = [_block_of(arr, pl) for arr, pl in zip(arrays, places)]
         out = []
         for i, (ref, arr) in enumerate(zip(leaves, arrays)):
             shape = tuple(ref.shape) if hasattr(ref, "shape") else np.shape(ref)
@@ -258,3 +290,16 @@ class Checkpointer:
         if step is None:
             return None, None
         return step, self.restore(step, target_tree, device)
+
+
+def _check_count(places: list, leaves: list) -> None:
+    if len(places) != len(leaves):
+        raise ValueError(
+            f"shardings has {len(places)} leaves; target has {len(leaves)} "
+            "— pass one NamedPlacement to broadcast")
+
+
+def _block_of(arr: np.ndarray, placement) -> np.ndarray:
+    """This rank's block of a saved whole array."""
+    t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
+    return placement.block(t).contiguous().numpy()

@@ -112,7 +112,9 @@ def reference_path(name: str, stacked: bool = True) -> str:
     of a port parameter name: ``stack.layers.<i>.<path>`` is the stacked
     leaf ``stack/layers/<path>`` (``stacked``), or the per-layer leaf
     ``stack/layers/<i>/<path>`` (the ``ssm`` family's stack,
-    ``LayerStack.stacked`` False); every other name keeps its parts."""
+    ``LayerStack.stacked`` False); every other name keeps its parts.  It
+    keys the placement rules (``dist.sharding``) and AdamW's decay
+    filter."""
     parts = name.split(".")
     if stacked and parts[:2] == ["stack", "layers"]:
         del parts[2]

@@ -35,7 +35,7 @@ two or more (``traced_microbatches`` in the artifact says which ran).
 
 ``--mesh single`` is one device with no mesh.  ``--mesh multi|both`` (the
 reference's production mesh, ``launch/mesh.py``) and ``--moe-mode a2a``
-are ROADMAP queue 1, item 9; ``--moe-mode tp`` on one device computes
+are ROADMAP queue 1, item 9b; ``--moe-mode tp`` on one device computes
 every expert locally.
 """
 from __future__ import annotations
@@ -74,7 +74,7 @@ def train_plan(cfg: ModelConfig) -> dict:
     """The reference's plan: 16 microbatches and bf16 AdamW moments for a
     big model (d_model >= 4096 or >= 128 experts), else 4 and float32.
     The layout posture is ``local``: one device (the reference's
-    ``fsdp_tp`` is ROADMAP queue 1, item 9)."""
+    ``fsdp_tp`` is ROADMAP queue 1, item 9b)."""
     big = cfg.d_model >= 4096 or cfg.num_experts >= 128
     return {
         "grad_accum": 16 if big else 4,
@@ -136,12 +136,12 @@ class Cell:
 
 
 def check_mesh(mesh: str, moe_mode: str) -> None:
-    """Raise for a posture that needs more than one device (item 9)."""
+    """Raise for a posture that needs more than one device (item 9b)."""
     if mesh != "single":
         raise not_ported(f"--mesh {mesh} (the production mesh, "
-                         "launch/mesh.py)", 9)
+                         "launch/mesh.py)", "9b")
     if moe_mode != "tp":
-        raise not_ported(f"--moe-mode {moe_mode} (_a2a_moe)", 9)
+        raise not_ported(f"--moe-mode {moe_mode} (_a2a_moe)", "9b")
 
 
 def build_cell(arch: str, shape_name: str, *, cfg_overrides=None,

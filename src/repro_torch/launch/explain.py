@@ -12,7 +12,7 @@ aten ops on ``meta`` tensors (``launch.dryrun.trace_cell``), where no HLO
 computation exists, so ``--drill`` has no torch meaning and raises.  Its
 op classes are ``launch.op_cost``'s: each hand-written kernel by name,
 ``cat``, ``flip``, ``fill`` and ``other``.  ``--ssm-sp``, ``--moe-mode
-a2a`` and ``--mesh multi`` are ROADMAP queue 1, item 9.
+a2a`` and ``--mesh multi`` are ROADMAP queue 1, item 9b.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ def explain(arch, shape, mesh_kind="single", *, moe_mode="tp",
                          "trace does not have: the port's dry run counts "
                          "aten ops (see the costliest ops below without it)")
     if ssm_sp:
-        raise not_ported("--ssm-sp (sequence-parallel Mamba2)", 9)
+        raise not_ported("--ssm-sp (sequence-parallel Mamba2)", "9b")
     cell, tr = dryrun.trace_cell(arch, shape, cfg_overrides=cfg_overrides,
                                  plan_overrides=plan_overrides,
                                  mesh=mesh_kind, moe_mode=moe_mode)

@@ -5,7 +5,7 @@ or ``skipped`` is reused unless ``--force``).
     PYTHONPATH=src python -m repro_torch.launch.sweep --mesh single
 
 The port's copy of ``repro.launch.sweep`` over ``launch.dryrun``'s cells.
-``--mesh multi|both`` and ``--moe-mode a2a`` are ROADMAP queue 1, item 9.
+``--mesh multi|both`` and ``--moe-mode a2a`` are ROADMAP queue 1, item 9b.
 Exits 1 if any cell errs.
 """
 from __future__ import annotations

@@ -5,6 +5,20 @@ The port's copy of ``repro.models.blocks``.  The cache is written in place
 (the reference returns updated copies): prefill writes positions [0, S),
 decode writes one position per batch row with an index write, and the
 function returns the same ``KVCache`` it was given.
+
+Over a mesh of ranks (a ``ShardCfg`` with ``tp``) the block is
+tensor-parallel over heads when its placement splits them
+(``dist.sharding``): ``wq``/``wk``/``wv`` are column-parallel, ``wo``
+row-parallel with one all-reduce over ``tp`` (:func:`wo_reduce`).  The
+split products stay in float32 and round once to the compute dtype, after
+the all-reduce, so that a split adds no rounding the single product does
+not have (forward: the row-parallel partial sums; backward: the
+column-parallel input gradients, summed over ``tp`` by ``tp_copy``); on
+the card they run on TF32 tensor cores (``layers.split_product``).  Where
+``num_kv_heads`` does not divide over ``tp`` but ``num_heads`` does, the
+kv projections are whole on every rank and a rank takes its q heads' kv
+groups; where neither divides, every ``tp`` rank computes the whole
+attention.
 """
 from __future__ import annotations
 
@@ -14,8 +28,10 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.dist.collectives import tp_copy, tp_reduce
 from repro_torch.models import layers
 from repro_torch.models.attention import MaskSpec, chunked_mha, decode_mha
+from repro_torch.models.config import LOCAL, ShardCfg
 
 
 class KVCache(NamedTuple):
@@ -45,16 +61,39 @@ class Attention(nn.Module):
             self.bv = zeros(num_kv_heads, head_dim)
 
 
-def _proj(x, w, dt):
+def _matmul(x, w, dt):
+    return x @ w.to(dt)
+
+
+def _proj(x, w, dt, product=_matmul):
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.to(dt).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return product(x, w.reshape(d, h * k), dt).reshape(*x.shape[:-1], h, k)
 
 
-def _out(o, wo, dt):
+def _out(o, wo, dt, product=_matmul):
     """einsum("bshk,hkd->bsd")."""
     h, k, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * k) @ wo.to(dt).reshape(h * k, d)
+    return product(o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d), dt)
+
+
+def wo_reduce(y, shard: ShardCfg):
+    """The row-parallel ``wo``'s partial sums added over ``tp``."""
+    return tp_reduce(y, shard)
+
+
+def _kv_groups(rank: int, hl: int, rep: int, device) -> torch.Tensor:
+    """Indices of the kv heads that q heads [rank·hl, (rank+1)·hl) read
+    (q head h reads kv head h // rep), laid out so that local q head j
+    reads local kv head j // (local rep): one a group where hl is a
+    multiple of rep, one for all where rep is a multiple of hl, else one
+    a q head."""
+    kv = (rank * hl + torch.arange(hl, device=device)) // rep
+    if hl % rep == 0:
+        return kv[::rep]
+    if rep % hl == 0:
+        return kv[:1]
+    return kv
 
 
 def attention(
@@ -69,19 +108,41 @@ def attention(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
     template=None,
+    shard: ShardCfg = LOCAL,
+    num_heads: int | None = None,
+    num_kv_heads: int | None = None,
 ):
     """Returns (y, cache).  Modes:
       train:    cache=None                    -> causal self-attention
       prefill:  cache empty, cache_len=None   -> fill cache[0:S]
       decode:   cache filled, cache_len=t     -> write at t, attend to [0:t]
                 (t an int or a (B,) tensor: per-slot positions)
-    """
+    ``num_heads``/``num_kv_heads`` are the config's (a sharded ``p`` holds
+    fewer)."""
     dt = x.dtype
-    q, k, v = (_proj(x, w, dt) for w in (p.wq, p.wk, p.wv))
-    if hasattr(p, "bq"):
-        q = q + p.bq.to(dt)
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
+    wq, wk, wv = p.wq, p.wk, p.wv
+    bias = [getattr(p, n) for n in ("bq", "bk", "bv")] \
+        if hasattr(p, "bq") else None
+    split = (shard.tp_size() > 1 and num_heads is not None
+             and wq.shape[1] < num_heads)
+    if split:
+        x = tp_copy(x, shard)
+        if wk.shape[1] == num_kv_heads:     # kv whole: take the q heads' groups
+            idx = _kv_groups(shard.tp_rank(), wq.shape[1],
+                             num_heads // num_kv_heads, x.device)
+            wk, wv = (tp_copy(w, shard)[:, idx] for w in (wk, wv))
+            if bias is not None:
+                bias[1:] = [tp_copy(b, shard)[idx] for b in bias[1:]]
+        # partial sums in float32, one rounding: as one product rounds
+        xf = x.float()
+        q, k, v = (_proj(xf, w, dt, layers.split_product).to(dt)
+                   for w in (wq, wk, wv))
+    else:
+        q, k, v = (_proj(x, w, dt) for w in (wq, wk, wv))
+    if bias is not None:
+        q = q + bias[0].to(dt)
+        k = k + bias[1].to(dt)
+        v = v + bias[2].to(dt)
     q = layers.apply_rope(q, positions, rope_theta)
     k = layers.apply_rope(k, positions, rope_theta)
 
@@ -104,4 +165,7 @@ def attention(
 
     out = chunked_mha(q, k, v, mask, q_chunk=q_chunk, kv_chunk=kv_chunk,
                       template=template)
+    if split:
+        return wo_reduce(_out(out, p.wo, dt, layers.split_product),
+                         shard).to(dt), cache
     return _out(out, p.wo, dt), cache

@@ -5,15 +5,16 @@ dimensions, with ``param_dtype``/``compute_dtype`` as ``torch.dtype``.
 ``param_count`` counts the port's own parameters (a model built on the
 ``meta`` device, which allocates nothing).
 
-``ShardCfg`` keeps only the single-device posture, ``LOCAL``: every
-constraint is the identity and a MoE layer computes every expert
-(``moe_mode="local"``).  A mesh, sequence-parallel Mamba2 or the mesh
-postures ``moe_mode="tp"``/``"a2a"`` raise ``NotImplementedError`` (ROADMAP
-queue 1, item 9).
+``ShardCfg`` holds the distribution posture: ``LOCAL`` (one device), or a
+mesh of ranks (``dist.sharding.make_shard_cfg``: FSDP×TP or pure data
+parallelism) with ``moe_mode`` ``local`` or ``tp``.  Sequence-parallel
+Mamba2 and ``moe_mode="a2a"`` raise ``NotImplementedError`` (ROADMAP queue
+1, item 9b).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -122,27 +123,88 @@ def not_ported(what: str, item: int | str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class ShardCfg:
-    """Distribution decisions; the port takes only the single-device one."""
+    """Distribution decisions, threaded through the model code.
+
+    ``mesh=None`` is the single-device path: every constraint is the
+    identity and no collective runs.  With a mesh of ranks
+    (``launch.mesh.make_mesh``) ``dp``/``tp`` name its axes (``dp`` may be a
+    tuple, e.g. ``("pod", "data")``), as in the reference; each rank holds
+    its block of every tensor, so a constraint is the identity here too and
+    the layers that are tensor-parallel call the collectives of
+    :mod:`repro_torch.dist.collectives` themselves.  ``moe_mode``:
+
+      local — every rank computes every expert (the experts' leaves are
+              gathered for their use)
+      tp    — the experts sharded over ``tp``; activations replicated on
+              ``tp``; the combine is one all-reduce a layer
+
+    ``moe_mode="a2a"`` and ``ssm_sp=True`` raise (ROADMAP queue 1, item 9b).
+    """
 
     mesh: Any = None
+    dp: Any = "data"
+    tp: str | None = "model"
     moe_mode: str = "local"
     ssm_sp: bool = False
+    batch_sharded: bool = True     # False when global batch < |dp|
+    replicate_params: bool = False # pure data parallelism, one grad mean
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise not_ported("a device mesh", 9)
         if self.ssm_sp:
             raise not_ported("sequence-parallel Mamba2 (ssm_sp, "
-                             "_mamba2_seq_sp)", 9)
-        if self.moe_mode != "local":
-            raise not_ported(f"moe_mode={self.moe_mode!r} (expert parallelism "
-                             "over a mesh)", 9)
+                             "_mamba2_seq_sp)", "9b")
+        if self.moe_mode == "a2a":
+            raise not_ported("moe_mode='a2a' (_a2a_moe, the tokens' "
+                             "all_to_all dispatch)", "9b")
+        if self.moe_mode not in ("local", "tp"):
+            raise ValueError(f"unknown moe_mode {self.moe_mode!r}")
+
+    @property
+    def dp_axes(self) -> tuple:
+        return self.dp if isinstance(self.dp, tuple) else (self.dp,)
+
+    def act_spec(self, *trailing):
+        """Placement of a (B, ...) activation: the batch over ``dp``."""
+        if self.mesh is None:
+            return None
+        batch = self.dp if self.batch_sharded else None
+        return (batch, *trailing)
 
     def constrain(self, x, spec=None):
         return x
 
     def constrain_act(self, x, *trailing):
-        return x
+        return self.constrain(x, self.act_spec(*trailing))
+
+    # -- the tensor-parallel axis of this rank ---------------------------------
+    def tp_size(self) -> int:
+        """|tp| of a sharded posture (1 without a mesh, a ``tp`` axis, or
+        with replicated parameters)."""
+        if self.mesh is None or self.tp is None or self.replicate_params:
+            return 1
+        from repro_torch.launch.mesh import mesh_extents
+
+        return mesh_extents(self.mesh)[self.tp]
+
+    def tp_rank(self) -> int:
+        from repro_torch.dist.collectives import coordinate
+
+        return coordinate(self.mesh)[self.tp] if self.tp_size() > 1 else 0
+
+    def dp_size(self) -> int:
+        """|dp| of a sharded posture (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        from repro_torch.launch.mesh import mesh_extents
+
+        ext = mesh_extents(self.mesh)
+        return math.prod(ext[a] for a in self.dp_axes)
+
+    def data_parallel(self) -> bool:
+        """Whether the model's own code sees more than one data rank (the
+        ``fsdp_tp`` posture; ``dp`` runs the model under ``LOCAL``)."""
+        return (self.mesh is not None and not self.replicate_params
+                and self.dp_size() > 1)
 
 
-LOCAL = ShardCfg()
+LOCAL = ShardCfg(mesh=None, moe_mode="local")

@@ -92,6 +92,60 @@ def dense(p: Dense, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return x.to(dt) @ p.w.to(dt)
 
 
+class _TF32:
+    """Inside the context float32 products on the card may use TF32 tensor
+    cores; the setting before it is put back after."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32
+        if self.on:
+            torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+class _SplitProduct(torch.autograd.Function):
+    """(..., k) @ (k, n) in float32 of the operands rounded to ``dt``; see
+    :func:`split_product`.  The rounded operands are what the backward
+    keeps; the gradients come back in the operands' own dtypes."""
+
+    @staticmethod
+    def forward(ctx, a, b, dt):
+        a16, b16 = a.to(dt), b.to(dt)
+        ctx.save_for_backward(a16, b16)
+        ctx.dtypes = (a.dtype, b.dtype, dt)
+        with _TF32(dt in (torch.bfloat16, torch.float16)):
+            return a16.float() @ b16.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        a_dt, b_dt, dt = ctx.dtypes
+        k, n = b16.shape
+        with _TF32(dt in (torch.bfloat16, torch.float16)):
+            ga = g @ b16.float().t()
+            gb = a16.reshape(-1, k).float().t() @ g.reshape(-1, n)
+        return ga.to(a_dt), gb.to(b_dt), None
+
+
+def split_product(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
+    """``x @ w`` for one rank's part of a tensor-parallel product, kept in
+    float32: both operands rounded to the compute dtype ``dt`` (as the
+    single product rounds them), the products summed in float32, and the
+    result left unrounded, so that its sum over ``tp`` rounds once, as the
+    single product does; the backward's products and the gradients it
+    returns stay in float32 where the operands were (a float32 ``x``).
+    With a 16-bit ``dt`` every operand of the forward and of the backward
+    holds a 16-bit value (the incoming gradient is that of a rounding to
+    ``dt``), which TF32 holds exactly, so the products run on the card's
+    tensor cores at float32 accumulation."""
+    return _SplitProduct.apply(x, w, dt)
+
+
 class Embedding(nn.Module):
     def __init__(self, gen, vocab: int, d: int, dtype, device=None):
         super().__init__()
@@ -115,7 +169,23 @@ class MLP(nn.Module):
                           stddev=1.0 / math.sqrt(d_ff))
 
 
-def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    g = dense(p.gate, x)
-    u = dense(p.up, x)
-    return dense(p.down, F.silu(g) * u)
+def mlp(p: MLP, x: torch.Tensor, shard=None, d_ff: int | None = None):
+    """SwiGLU.  Over a mesh whose placement splits the hidden width
+    (``p`` then holds ``d_ff / |tp|`` of it; ``d_ff`` is the whole), gate
+    and up are column-parallel and down row-parallel: one all-reduce over
+    ``tp``.  The split products stay in float32 and round once, after the
+    all-reduce (:func:`split_product`)."""
+    split = (shard is not None and d_ff is not None and shard.tp_size() > 1
+             and p.gate.w.shape[1] < d_ff)
+    if not split:
+        g = dense(p.gate, x)
+        u = dense(p.up, x)
+        return dense(p.down, F.silu(g) * u)
+    from repro_torch.dist.collectives import tp_copy, tp_reduce
+
+    dt = x.dtype
+    x = tp_copy(x, shard).float()
+    g = split_product(x, p.gate.w, dt).to(dt)
+    u = split_product(x, p.up.w, dt).to(dt)
+    y = split_product(F.silu(g) * u, p.down.w, dt)
+    return tp_reduce(y, shard).to(dt)

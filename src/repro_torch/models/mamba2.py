@@ -12,7 +12,7 @@ plain PyTorch (a loop over chunks, the reference's ``lax.scan``).
 
 Layout: x (B, S, G, R, P) with H = G·R heads (G = ``ssm_groups`` share one
 (B̄, C̄) pair).  All SSD math runs in float32.  Sequence parallelism
-(the reference's ``_mamba2_seq_sp``) is ROADMAP queue 1, item 9:
+(the reference's ``_mamba2_seq_sp``) is ROADMAP queue 1, item 9b:
 ``ShardCfg(ssm_sp=True)`` raises.
 """
 from __future__ import annotations

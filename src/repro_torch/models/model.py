@@ -31,15 +31,25 @@ remat in training, as the reference's.
 The loss is computed **chunked over the sequence** (``LOSS_CHUNK``
 positions at a time, each chunk recomputed in the backward): the (B, S, V)
 logits never exist in full, only (B, chunk, V) transients.
+
+Over a mesh whose placement splits the vocabulary over ``tp``
+(``dist.sharding``), the embedding is vocab-parallel (each rank looks up
+the ids in its rows, the others' give zeros, one all-reduce) and so is the
+cross entropy: the (B, chunk, V/|tp|) logits stay on their rank, and the
+row max, the sum of exponentials and the target logit are all-reduced over
+``tp``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, true_divide
+from repro_torch.dist.collectives import all_reduce, tp_copy, tp_reduce
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
@@ -79,12 +89,28 @@ def _unembed_w(model: LM, cfg: ModelConfig):
     return model.unembed.w
 
 
+def _vocab_split(shard: ShardCfg, local: int, vocab: int) -> bool:
+    return shard.tp_size() > 1 and local < vocab
+
+
+def _embed_tokens(model: LM, cfg: ModelConfig, ids, shard: ShardCfg):
+    """The ids' rows of the table; vocab-parallel where it is split."""
+    table = model.embed.table
+    vl = table.shape[0]
+    if not _vocab_split(shard, vl, cfg.vocab_size):
+        return layers.embed(model.embed, ids, cfg.compute_dtype)
+    local = ids.long() - shard.tp_rank() * vl
+    mine = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)] * mine[..., None].to(table.dtype)
+    return tp_reduce(rows, shard).to(cfg.compute_dtype)
+
+
 def embed_inputs(model: LM, cfg: ModelConfig, batch: dict, shard: ShardCfg):
     """Returns (x (B, S_total, d), prefix_len)."""
     if "embeds" in batch:                       # musicgen stub frontend
         x = batch["embeds"].to(cfg.compute_dtype)
     else:
-        x = layers.embed(model.embed, batch["tokens"], cfg.compute_dtype)
+        x = _embed_tokens(model, cfg, batch["tokens"], shard)
     prefix_len = 0
     if "prefix_embeds" in batch:                # paligemma stub frontend
         pre = batch["prefix_embeds"].to(cfg.compute_dtype)
@@ -108,14 +134,51 @@ def _xent_chunk(w, hx, tgt):
     return loss, correct, torch.sum(valid)
 
 
+def _xent_chunk_tp(w, hx, tgt, shard: ShardCfg, start: int):
+    """``_xent_chunk`` on this rank's vocabulary ids [start, start + V_l):
+    the row max, the sum of exponentials and the target logit all-reduced
+    over ``tp``; the argmax is the lowest id holding the global max."""
+    mesh, tp = shard.mesh, shard.tp
+    # the product rounded once to the compute dtype, as the whole product
+    # is: the backward's input gradient stays float32 until its sum over tp
+    logits = layers.split_product(hx.float(), w, w.dtype).to(
+        w.dtype).float()                                       # (B,c,V_l)
+    vl = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(dim=-1, keepdim=True), mesh, tp,
+                   "max")
+    sumexp = tp_reduce(torch.sum(torch.exp(logits - m), dim=-1), shard)
+    lse = torch.log(sumexp) + m[..., 0]
+    valid = (tgt >= 0).float()
+    local = tgt - start
+    mine = (local >= 0) & (local < vl)
+    tl = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    tgt_logit = tp_reduce(tl * mine.float(), shard)
+    loss = torch.sum((lse - tgt_logit) * valid)
+    with torch.no_grad():
+        lmax, lidx = logits.max(dim=-1)
+        gmax = all_reduce(lmax, mesh, tp, "max")
+        cand = torch.where(lmax == gmax, lidx + start,
+                           torch.full_like(lidx, torch.iinfo(lidx.dtype).max))
+        first = all_reduce(cand, mesh, tp, "min")
+        correct = torch.sum((first == tgt).float() * valid)
+    return loss, correct, torch.sum(valid)
+
+
 def chunked_xent(model: LM, cfg: ModelConfig, hidden, targets,
                  shard: ShardCfg = LOCAL, chunk: int = LOSS_CHUNK):
     """(mean next-token CE, accuracy) over (B,S,d) hidden vs (B,S) targets.
 
     Targets < 0 are masked out.  Chunked over S, each chunk recomputed in
-    the backward, so the full-vocab logits never materialise."""
+    the backward, so the full-vocab logits never materialise.  Over data
+    ranks the sums are divided by the ranks' mean count of valid targets
+    (the mean over the ranks is then the global batch's mean)."""
     b, s, d = hidden.shape
     w = _unembed_w(model, cfg).to(cfg.compute_dtype)
+    fn = _xent_chunk
+    if _vocab_split(shard, w.shape[1], cfg.vocab_size):
+        hidden = tp_copy(hidden, shard)
+        fn = functools.partial(_xent_chunk_tp, shard=shard,
+                               start=shard.tp_rank() * w.shape[1])
     chunk = min(chunk, s)
     pad = (-s) % chunk
     targets = targets.long()
@@ -129,11 +192,18 @@ def chunked_xent(model: LM, cfg: ModelConfig, hidden, targets,
     loss, correct, count = z, z, z
     for i in range(hc.shape[1]):
         args = (w, hc[:, i], tc[:, i])
-        part = (checkpoint.checkpoint(_xent_chunk, *args, use_reentrant=False)
-                if recompute else _xent_chunk(*args))
+        part = (checkpoint.checkpoint(fn, *args, use_reentrant=False)
+                if recompute else fn(*args))
         loss, correct, count = (loss + part[0], correct + part[1],
                                 count + part[2])
-    count = torch.clamp(count, min=1.0)
+    if shard.data_parallel():
+        # over data ranks: divide by the mean count of the ranks, so that
+        # the step's mean over them is the global batch's mean
+        n = shard.dp_size()
+        count = true_divide(torch.clamp(
+            all_reduce(count, shard.mesh, shard.dp), min=1.0), float(n))
+    else:
+        count = torch.clamp(count, min=1.0)
     return loss / count, correct / count
 
 

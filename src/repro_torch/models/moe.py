@@ -1,9 +1,15 @@
 """Mixture-of-Experts layer: top-k router + capacity-bucketed sort dispatch.
 
-The port's copy of ``repro.models.moe``, in its ``local`` mode: the device
-holds and computes every expert.  The reference's mesh modes (``tp``: the
-experts sharded over the ``tp`` axis with one ``psum`` a layer; ``a2a``:
-dispatch buffers through ``all_to_all``) are ROADMAP queue 1, item 9.
+The port's copy of ``repro.models.moe``.  ``moe_mode="local"``: the device
+holds and computes every expert.  ``moe_mode="tp"`` over a mesh of ranks
+(:func:`_tp_moe`): the experts are sharded E/|tp| a rank, the tokens are
+replicated on ``tp``; each rank dispatches the assignments to its own
+experts (the others' ids dropped to a masked slot), with a capacity from
+its local tokens, and the combine is one all-reduce over ``tp``.  Over
+data-parallel ranks the load-balance loss takes the global batch's
+assignment fractions (all-reduced), as the reference's loss over the
+whole batch does.  ``a2a`` (dispatch buffers through ``all_to_all``) is
+ROADMAP queue 1, item 9b.
 
 Dispatch is the reference's sort-based capacity bucket: the (T·k,)
 assignments are sorted by expert id (a *stable* sort, as ``jnp.argsort``
@@ -31,7 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
-from repro_torch.models.config import ModelConfig, ShardCfg, not_ported
+from repro_torch.device import true_divide
+from repro_torch.dist.collectives import all_reduce, tp_copy, tp_reduce
+from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
 
 
 class MoEMetrics(NamedTuple):
@@ -112,7 +120,8 @@ def _expert_ffn(experts: Experts, xin: torch.Tensor,
     return torch.bmm(F.silu(g) * u, experts.down.to(dt))
 
 
-def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor, ids=None):
+def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor, ids=None,
+           shard: ShardCfg = LOCAL):
     """Router: returns (top-k ids (T,k) int32, renormalized gates (T,k)
     float32, aux loss, z loss).  ``ids`` (T, k), when given, replaces the
     top k: the gates are then the router's own probabilities at those
@@ -133,6 +142,12 @@ def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor, ids=None):
     fe = torch.zeros_like(pe).index_add(
         0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
                             dtype=pe.dtype, device=pe.device))
+    if shard.data_parallel():
+        # the global batch's fractions: this rank's probabilities carry its
+        # share of the gradient (the step averages over the data axes)
+        n = shard.dp_size()
+        fe = true_divide(all_reduce(fe.detach(), shard.mesh, shard.dp),
+                         float(n))
     aux = cfg.num_experts * torch.sum(fe * pe) * cfg.router_aux_coef
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_coef
     return ids.to(torch.int32), gates.float(), aux, z
@@ -178,21 +193,49 @@ def _local_moe(params: MoE, cfg: ModelConfig, x2d, ids, gates,
     return out, dropped
 
 
+def _tp_moe(params: MoE, cfg: ModelConfig, x2d, ids, gates,
+            shard: ShardCfg):
+    """This rank's E/|tp| experts on the (replicated) local tokens; the
+    combine is one all-reduce over ``tp``, ``dropped`` the ``tp`` mean."""
+    ep = shard.tp_size()
+    e_local = params.experts.gate.shape[0]
+    assert e_local * ep == cfg.num_experts, (cfg.num_experts, ep)
+    k = cfg.num_experts_per_tok
+    d = x2d.shape[1]
+    cap = _capacity(x2d.shape[0], cfg)
+    x2d, gates = tp_copy(x2d, shard), tp_copy(gates, shard)
+    lids = ids.long() - shard.tp_rank() * e_local
+    lids = torch.where((lids >= 0) & (lids < e_local), lids, e_local)
+    assign, valid, dropped = _dispatch_indices(lids.reshape(-1), e_local, cap)
+    tok = assign // k
+    xin = x2d[tok] * valid[:, None].to(x2d.dtype)
+    y = _expert_ffn(params.experts, xin.reshape(e_local, cap, d),
+                    cfg.compute_dtype).reshape(e_local * cap, d)
+    w = gates.reshape(-1)[assign] * valid
+    out = _combine(y * w[:, None].to(y.dtype), assign, valid, lids)
+    dropped = true_divide(all_reduce(dropped.detach(), shard.mesh, shard.tp),
+                          float(ep))
+    return tp_reduce(out, shard), dropped
+
+
 def moe_apply(params: MoE, cfg: ModelConfig, x: torch.Tensor,
               shard: ShardCfg) -> tuple[torch.Tensor, MoEMetrics]:
     """x: (B, S, d) -> (B, S, d).  Shared experts (if any) are always on.
-    The capacity follows the B x S tokens of the call, pads included."""
-    if shard.moe_mode != "local":
-        raise not_ported(f"moe_mode={shard.moe_mode!r} (_tp_moe, _a2a_moe)",
-                         9)
+    The capacity follows the B x S tokens of the call (this rank's under a
+    mesh), pads included."""
     b, s, d = x.shape
     cdt = cfg.compute_dtype
     x2d = x.reshape(b * s, d)
-    ids, gates, aux, z = _route(params, cfg, x2d)
-    out, dropped = _local_moe(params, cfg, x2d, ids, gates,
-                              _capacity(b * s, cfg), cdt)
+    ids, gates, aux, z = _route(params, cfg, x2d, shard=shard)
+    if (shard.moe_mode == "tp" and shard.tp_size() > 1
+            and params.experts.gate.shape[0] < cfg.num_experts):
+        out, dropped = _tp_moe(params, cfg, x2d, ids, gates, shard)
+    else:
+        out, dropped = _local_moe(params, cfg, x2d, ids, gates,
+                                  _capacity(b * s, cfg), cdt)
     if hasattr(params, "shared"):
-        out = out + layers.mlp(params.shared, x2d.to(cdt))
+        out = out + layers.mlp(params.shared, x2d.to(cdt), shard,
+                               cfg.d_ff * cfg.num_shared_experts)
     return out.reshape(b, s, d).to(x.dtype), MoEMetrics(aux, z, dropped)
 
 

@@ -28,9 +28,16 @@ shared block of a hybrid stack is one set of parameters, so its gradient
 sums over all its applications, as in the reference.  The ``ssm`` stack
 trains with no rematerialisation whatever ``cfg.remat`` says, as the
 reference's ``_seq_xlstm_stack`` does.
+
+Each layer reads its parameters inside :func:`_in_use`: as they are, or,
+in the sharded train step (``LayerStack.layer_use`` set), gathered over
+the ranks for that use; the gather then runs inside the layer's
+rematerialised region, again in its recomputation, so that one layer's
+(a hybrid group's) gathered leaves live at a time.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, NamedTuple
 
@@ -134,12 +141,15 @@ class LayerStack(nn.Module):
 
     ``stacked`` says whether the reference stacks the layers' parameters
     along a leading axis (every family but ``ssm``, whose layers are a
-    tuple of per-layer trees): ``convert.py`` lays the tree out by it."""
+    tuple of per-layer trees): ``convert.py`` lays the tree out by it.
+    ``layer_use``, None but in the sharded train step, maps a layer index
+    to the context its parameters are used in (:func:`_in_use`)."""
 
     def __init__(self, gen, cfg: ModelConfig, device=None):
         super().__init__()
         _check_family(cfg)
         self.stacked = cfg.family != "ssm"
+        self.layer_use = None
         if cfg.family == "ssm":
             block = lambda i: (xlstm.SLSTMBlock if i in cfg.slstm_indices
                                else xlstm.MLSTMBlock)
@@ -205,6 +215,14 @@ def _copy_state(dst, src) -> None:
         d.copy_(s)
 
 
+def _in_use(stack: LayerStack, i: int):
+    """The context layer ``i`` runs in: its parameters as they are, or as
+    ``stack.layer_use`` gives them."""
+    if stack.layer_use is None:
+        return contextlib.nullcontext()
+    return stack.layer_use(i)
+
+
 def _layer_kv(caches: KVCache | None, i: int) -> KVCache | None:
     return None if caches is None else KVCache(caches.k[i], caches.v[i])
 
@@ -220,14 +238,15 @@ def _attn_block(p: AttnBlock, cfg: ModelConfig, x, shard: ShardCfg, *,
         p.attn, layers.rmsnorm(p.ln1, x, cfg.norm_eps),
         rope_theta=cfg.rope_theta, positions=positions, mask=mask,
         cache=cache, cache_len=cache_len,
-        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, template=template)
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, template=template,
+        shard=shard, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
     x = shard.constrain_act(x + h, None, None)
     y = layers.rmsnorm(p.ln2, x, cfg.norm_eps)
     if cfg.family == "moe":
         y, met = moe.moe_apply(p.ffn, cfg, y, shard)
         metrics = StackMetrics(met.aux_loss, met.z_loss, met.dropped_frac)
     else:
-        y = layers.mlp(p.ffn, y)
+        y = layers.mlp(p.ffn, y, shard, cfg.d_ff)
         metrics = StackMetrics.zero(x.device)
     x = shard.constrain_act(x + y.to(x.dtype), None, None)
     return x, new_cache, metrics
@@ -266,15 +285,17 @@ def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
 def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches, train,
                     template):
     """(x, StackMetrics summed over the layers)."""
-    def body(x, lp, cache):
-        x, _, met = _attn_block(lp, cfg, x, shard, positions=positions,
-                                mask=mask, cache=cache, template=template)
+    def body(x, i, cache):
+        with _in_use(stack, i):
+            x, _, met = _attn_block(stack.layers[i], cfg, x, shard,
+                                    positions=positions, mask=mask,
+                                    cache=cache, template=template)
         return (x, *met)
 
     body = _remat(body, cfg) if train else body
     mets = []
-    for i, lp in enumerate(stack.layers):
-        x, *met = body(x, lp, _layer_kv(caches, i))
+    for i in range(len(stack.layers)):
+        x, *met = body(x, i, _layer_kv(caches, i))
         mets.append(met)
     return x, StackMetrics(*(torch.stack(m).sum() for m in zip(*mets)))
 
@@ -295,9 +316,11 @@ def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
             lp = stack.layers[i]
             ms = (mamba2.Mamba2State(*(t[i] for t in caches["mamba"]))
                   if with_caches else None)
-            h, nm = mamba2.mamba2_seq(
-                lp.mamba, cfg, layers.rmsnorm(lp.ln, x, cfg.norm_eps), shard,
-                state=ms, return_state=with_caches, template=template)
+            with _in_use(stack, i):
+                h, nm = mamba2.mamba2_seq(
+                    lp.mamba, cfg, layers.rmsnorm(lp.ln, x, cfg.norm_eps),
+                    shard, state=ms, return_state=with_caches,
+                    template=template)
             x = shard.constrain_act(x + h.to(x.dtype), None, None)
             if with_caches:
                 _copy_state(ms, nm)
@@ -316,8 +339,9 @@ def _seq_xlstm_stack(stack, cfg, x, *, caches, template):
     for i, lp in enumerate(stack.layers):
         st = caches[i] if caches is not None else None
         fn = xlstm.slstm_seq if i in cfg.slstm_indices else xlstm.mlstm_seq
-        x, ns = fn(lp, cfg, x, state=st, return_state=caches is not None,
-                   template=template)
+        with _in_use(stack, i):
+            x, ns = fn(lp, cfg, x, state=st, return_state=caches is not None,
+                       template=template)
         if caches is not None:
             _copy_state(st, ns)
     return x

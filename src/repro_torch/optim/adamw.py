@@ -24,6 +24,11 @@ elementwise, so the result is bitwise that of the whole leaf at once.
 kept for the ``ssm`` family's per-layer stack), so it masks exactly the
 reference's leaves — including the reference's
 quirk that ``"/b"`` does not match ``mamba/conv_b``, which is decayed.
+
+Sharded over a mesh (the ``fsdp_tp`` train step), each rank holds its
+blocks of the parameters and of both moments and updates them alone; the
+one collective is the global norm of the gradient
+(:func:`sharded_global_norm`).
 """
 from __future__ import annotations
 
@@ -96,11 +101,18 @@ class AdamW:
         return torch.full((), self.lr, dtype=torch.float32, device=step.device)
 
     @torch.no_grad()
-    def update(self, grads: dict, state: AdamWState, model):
+    def update(self, grads: dict, state: AdamWState, model, shard=None):
         """One step: ``grads`` by parameter name.  Returns (model, state,
-        stats), the model's parameters and the moments updated in place."""
+        stats), the model's parameters and the moments updated in place.
+
+        With a sharded ``model`` (``dist.sharding.shard_params``) and its
+        ``shard``, each rank updates its blocks; the clip scale is
+        :func:`global_norm` over the shards, the same on every rank."""
         step = state.step + 1
-        gnorm = global_norm(grads.values())
+        if shard is not None and getattr(model, "placement", None):
+            gnorm = sharded_global_norm(grads, model.placement, shard.mesh)
+        else:
+            gnorm = global_norm(grads.values())
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
         if self.clip_norm is not None:
             scale = torch.clamp(true_divide(
@@ -128,6 +140,31 @@ class AdamW:
                 v.copy_(vf.to(self.v_dtype))
         return (model, AdamWState(step=step, m=state.m, v=state.v),
                 {"grad_norm": gnorm, "lr": lr, "clip_scale": scale})
+
+
+    def state_spec_tree(self, param_specs: dict) -> AdamWState:
+        """Optimizer-state placements mirror the parameters'."""
+        return AdamWState(step=(), m=param_specs, v=param_specs)
+
+
+def sharded_global_norm(grads: dict, placement: dict, mesh) -> torch.Tensor:
+    """The global norm of a gradient held in blocks: each distinct block's
+    sum of squares counted exactly once — on the rank at index 0 of every
+    mesh axis its leaf is not split over (its copies on the other ranks of
+    those axes are left out) — summed over all ranks."""
+    from repro_torch.dist import collectives
+
+    coord = collectives.coordinate(mesh)
+    names = tuple(coord)
+    dev = next(iter(grads.values())).device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for name, g in grads.items():
+        split = set()
+        for axes in placement[name]:
+            split.update(collectives.axes_of(axes))
+        if all(coord[a] == 0 for a in names if a not in split):
+            total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(collectives.all_reduce(total, mesh, names))
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.models import model
-from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
+from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg, not_ported
 from repro_torch.serve.slots import SlotTable
 
 
@@ -91,6 +91,9 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_seq: int = 512, shard: ShardCfg = LOCAL,
                  device=None, backend: str = "auto"):
+        if shard.mesh is not None:
+            raise not_ported("serving over a mesh (sharded prefill and "
+                             "decode, cache_spec_tree in use)", "9b")
         self.device = resolve_device(device)
         self.template = resolve_backend(backend, self.device)
         where = next(params.parameters()).device

@@ -18,7 +18,7 @@ from tests import test_torch_harness  # noqa: F401  (installs the shim first)
 from repro.data import pipeline as rpipe  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
-from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models.config import ShardCfg  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -73,7 +73,8 @@ def test_stub_embedding_families_are_not_ported():
     """The audio and vlm families' batches, once item 11, carry their stub
     embeddings as the reference's do (audio: ``embeds`` in place of
     ``tokens``; vlm: ``prefix_embeds`` beside them), with the same targets;
-    a mesh still raises (item 9)."""
+    ``moe_mode="a2a"`` still raises (item 9b; the launcher's ``--mesh`` is
+    ``tests/test_torch_sharded.py``'s)."""
     kw = dict(seed=5, vocab_size=512, seq_len=48, global_batch=4,
               doc_len_mean=40)
     want = rpipe.PackedLMDataset(rpipe.DataConfig(**kw)).batch(2, 1, 2)
@@ -90,7 +91,7 @@ def test_stub_embedding_families_are_not_ported():
         assert got[stub].shape == (2, rows, cfg.d_model)
         assert got[stub].dtype == np.float32
     with pytest.raises(NotImplementedError, match="item 9"):
-        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
+        ShardCfg(moe_mode="a2a")
 
 
 def _run(args, timeout=600, arch="llama3-8b"):

@@ -59,7 +59,9 @@ PERF_SLICE = ("repro_torch.core.rooflinemodel", "repro_torch.core.autotune",
               "repro_torch.launch.op_cost", "repro_torch.obs.perf")
 # the decomposed CFD slice (slots x shards over torch.distributed)
 DIST_SLICE = ("repro_torch.launch.mesh", "repro_torch.dist",
-              "repro_torch.dist.sharding")
+              "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+              "repro_torch.dist.compression",
+              "repro_torch.dist.pipeline_parallel")
 CUDA_SOURCES = ("stencil3d.cu", "jacobi.cu", "attention.cu", "ssd.cu")
 
 

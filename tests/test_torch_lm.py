@@ -82,13 +82,17 @@ def test_param_count_matches_the_reference(arch):
 
 def test_other_architectures_and_postures_are_not_ported():
     """Every arch of the reference is ported (the audio and vlm families
-    last); the mesh postures still raise (item 9)."""
+    last); sequence-parallel Mamba2, ``moe_mode="a2a"`` and serving over a
+    mesh still raise (item 9b; the mesh training postures are
+    ``tests/test_torch_sharded.py``'s)."""
     assert registry.list_archs() == rreg.list_archs()
     assert set(registry.list_archs()) == set(ARCHS)
     with pytest.raises(KeyError):
         registry.get_config("gpt-2")
+    small = registry.smoke(registry.get_config("llama3-8b"))
     with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(mesh=object())
+        engine.ServingEngine(small, model.init_params(small, 0, device="cpu"),
+                             shard=ShardCfg(mesh=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(ssm_sp=True)
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -693,19 +693,17 @@ def test_model_flops_and_shapes_match_the_reference(arch):
 
 
 def test_what_is_not_ported_raises(pairs):
-    """The mesh postures raise (item 9); the modality inputs, once item 11,
+    """What stays of the mesh postures raises (item 9b: sequence-parallel
+    Mamba2, ``moe_mode="a2a"``); the modality inputs, once item 11,
     now run: ``embeds`` that are the tokens' own embeddings give the
     tokens' loss bitwise, and an ``audio`` config counts the FLOPs of its
     dense stack."""
     _, cfg, rp = pairs["llama3-8b"]
 
-    class Meshed:
-        mesh = object()
-
     with pytest.raises(NotImplementedError, match="item 9"):
-        step_lib.make_train_step(cfg, Meshed(), AdamW())
+        ShardCfg(moe_mode="a2a")
     with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(mesh=object())
+        ShardCfg(ssm_sp=True)
     lm = _port_model(cfg, rp)
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=(1, 12)))

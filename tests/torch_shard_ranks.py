@@ -1,0 +1,302 @@
+"""Rank-side jobs of ``tests/test_torch_sharded.py``, run by
+``repro_torch.launch.mesh.spawn`` in gloo ranks on the CPU.
+
+One launch runs every job (:func:`all_jobs`) in 4 ranks and returns numpy
+data, pickled back to the test process, where the reference is loaded and
+the comparisons run.  This module imports the port only: the ranks start
+fast and never load JAX.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.dist import collectives, sharding
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.optim.adamw import AdamW, AdamWState
+
+FSDP_MESH = ((2, 2), ("data", "model"))
+DP_MESH = ((2, 2), ("pod", "data"))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _full(tensors: dict, placement: dict, mesh) -> dict:
+    return {n: _np(sharding.full_tensor(t, placement[n], mesh))
+            for n, t in tensors.items()}
+
+
+def sharded_model(cfg, params_np, shard):
+    """The port's model from the reference's numpy tree, cut to this
+    rank's blocks."""
+    lm = convert.lm_params_from_numpy(cfg, params_np, device="cpu")
+    return sharding.shard_params(lm, cfg, shard)
+
+
+@contextlib.contextmanager
+def planted(fault: str | None):
+    """``wo_without_reduce``: the first ``wo`` of each forward (one layer,
+    or the hybrid's first shared-block application) skips its all-reduce
+    over ``tp``; ``grad_not_divided``: the data-axis gradients are summed
+    but not divided by |dp|."""
+    from repro_torch.models import blocks
+    from repro_torch.train import step as step_lib
+
+    saved = (blocks.wo_reduce, step_lib.data_mean)
+    if fault == "wo_without_reduce":
+        calls = []
+
+        def faulty(y, shard):
+            calls.append(1)
+            return y if len(calls) == 1 else saved[0](y, shard)
+
+        blocks.wo_reduce = faulty
+    elif fault == "grad_not_divided":
+        step_lib.data_mean = lambda grads, shard: None
+    try:
+        yield
+    finally:
+        blocks.wo_reduce, step_lib.data_mean = saved
+
+
+def fsdp_case(case: dict) -> dict:
+    """fsdp_tp steps on (data 2, model 2): the metrics of each step, and
+    after the last the gathered gradients, parameters and first moments,
+    and this rank's stored shapes beside its placement's."""
+    from repro_torch.models import model
+    from repro_torch.train import step as step_lib
+
+    cfg = case["cfg"]
+    mesh = make_mesh(*FSDP_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg,
+                                    global_batch=len(case["batch"]["targets"]))
+    lm = sharded_model(cfg, case["params"], shard)
+    opt = AdamW(**case["opt"])
+    state = opt.init(lm)
+    accum = case.get("grad_accum", 1)
+    batch = sharding.local_batch(
+        {k: torch.from_numpy(v) for k, v in case["batch"].items()}, mesh,
+        shard, accum)
+    mets = []
+    with planted(case.get("fault")):
+        step = step_lib.make_train_step(cfg, shard, opt, grad_accum=accum)
+        for _ in range(case.get("steps", 1)):
+            lm, state, met = step(lm, state, batch)
+            mets.append({k: float(v) for k, v in met.items()})
+    full = dict(model.init_params(cfg, device="meta").named_parameters())
+    want = {n: tuple(sharding.block(full[n], pl, mesh).shape)
+            for n, pl in lm.placement.items()}
+    got = {n: tuple(p.shape) for n, p in lm.named_parameters()}
+    out = {"metrics": mets, "shapes": (got, want),
+           "local_bytes": sum(p.numel() * p.element_size()
+                              for p in lm.parameters()),
+           "grads": _full({n: p.grad for n, p in lm.named_parameters()},
+                          lm.placement, mesh),
+           "params": _full(dict(lm.named_parameters()), lm.placement, mesh),
+           "m": _full(state.m, lm.placement, mesh)}
+    if case.get("ckpt"):
+        from repro_torch.ckpt.checkpointer import Checkpointer
+
+        tree = {"params": dict(lm.named_parameters()), "opt": state}
+        Checkpointer(case["ckpt"]).save(1, tree, shardings=sharding.named(
+            {"params": lm.placement, "opt": AdamWState(
+                step=(), m=lm.placement, v=lm.placement)}, mesh))
+        torch.distributed.barrier()
+        out["elastic"] = elastic_restore(cfg, case["ckpt"])
+    return out
+
+
+def elastic_restore(cfg, directory: str) -> dict:
+    """The (data 2, model 2) snapshot restored at (data 4, model 1): this
+    rank's blocks, its coordinate, and the tensors gathered back."""
+    from repro_torch.ckpt.checkpointer import Checkpointer
+    from repro_torch.models import model
+
+    mesh = make_mesh((4, 1), ("data", "model"))
+    shard = sharding.make_shard_cfg(mesh, cfg, global_batch=4)
+    lm = sharding.shard_params(model.init_params(cfg, 1, device="cpu"), cfg,
+                               shard)
+    opt = AdamW()
+    target = {"params": dict(lm.named_parameters()), "opt": opt.init(lm)}
+    specs = {"params": lm.placement,
+             "opt": AdamWState(step=(), m=lm.placement, v=lm.placement)}
+    got = Checkpointer(directory).restore(
+        1, target, shardings=sharding.named(specs, mesh))
+    return {"coord": collectives.coordinate(mesh),
+            "placement": lm.placement,
+            "blocks": {n: _np(t) for n, t in got["params"].items()},
+            "m_blocks": {n: _np(t) for n, t in got["opt"].m.items()},
+            "full": _full(got["params"], lm.placement, mesh)}
+
+
+def moe_tp_case(case: dict) -> dict:
+    """``moe_apply`` of layer 0 under ``moe_mode="tp"`` on this rank's rows
+    of x; the output gathered over the data axis."""
+    from repro_torch.models import moe
+    from repro_torch.train.step import _using
+
+    cfg = case["cfg"]
+    mesh = make_mesh(*FSDP_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, global_batch=len(case["x"]))
+    assert shard.moe_mode == "tp"
+    lm = sharded_model(cfg, case["params"], shard)
+    x = sharding.block(torch.from_numpy(case["x"]), ("data", None, None),
+                       mesh)
+    with torch.no_grad(), _using(lm, sharding.gather_params(lm, shard)):
+        out, met = moe.moe_apply(lm.stack.layers[0].ffn, cfg, x, shard)
+    return {"out": _np(collectives.all_gather(out, mesh, "data", 0)),
+            "dropped": float(met.dropped_frac)}
+
+
+def step_gradient(opt, m_now: dict, m_before: dict, clip_scale) -> dict:
+    """The gradient an AdamW step took, read back from its first moments:
+    m_t = b1 · m_(t-1) + (1 - b1) · s_t · g_t, s_t the step's clip scale."""
+    return {n: _np((m - opt.b1 * m_before[n])
+                   / ((1 - opt.b1) * float(clip_scale)))
+            for n, m in m_now.items()}
+
+
+def dp_case(case: dict) -> dict:
+    """The dp step on (pod 2, data 2), exact and with int8 error feedback
+    across pods, ``steps`` steps each from the same start; each rank takes
+    its row of the 4-row batch.  After each step: the metrics, the
+    parameters, the parameters' ``.grad``, the gradient the update took
+    (:func:`step_gradient`) and (compressed) this rank's residual; and the
+    compressed second step given no residual (its parameters, the gradient
+    it took and its residual)."""
+    from repro_torch.train import step as step_lib
+
+    cfg = case["cfg"]
+    mesh = make_mesh(*DP_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, global_batch=4, mode="dp")
+    batch = sharding.local_batch(
+        {k: torch.from_numpy(v) for k, v in case["batch"].items()}, mesh,
+        shard)
+    out = {}
+    for compress in (False, True):
+        lm = convert.lm_params_from_numpy(cfg, case["params"], device="cpu")
+        opt = AdamW(**case["opt"])
+        state = opt.init(lm)
+        step = step_lib._make_dp_train_step(cfg, shard, opt,
+                                            compress_pod_grads=compress)
+        mets, params, grads, took, ef, err = [], [], [], [], [], None
+        for i in range(case["steps"]):
+            m_before = {n: m.clone() for n, m in state.m.items()}
+            if compress and i == 1:     # the same step given no residual
+                twin = copy.deepcopy((lm, state))
+                tlm, tstate, tmet = step(*twin, batch, None)
+                out["uncarried"] = {
+                    "params": {n: _np(p) for n, p in tlm.named_parameters()},
+                    "took": step_gradient(opt, tstate.m, m_before,
+                                          tmet["clip_scale"]),
+                    "ef": {n: _np(e) for n, e in tmet["ef_err"].items()}}
+            if compress:
+                lm, state, met = step(lm, state, batch, err)
+                err = met.pop("ef_err")
+                ef.append({n: _np(e) for n, e in err.items()})
+            else:
+                lm, state, met = step(lm, state, batch)
+            mets.append({k: float(v) for k, v in met.items()})
+            params.append({n: _np(p) for n, p in lm.named_parameters()})
+            grads.append({n: _np(p.grad) for n, p in lm.named_parameters()})
+            took.append(step_gradient(opt, state.m, m_before,
+                                      met["clip_scale"]))
+        out["compressed" if compress else "exact"] = {
+            "metrics": mets, "params": params, "grads": grads,
+            "took": took, "ef": ef}
+    return out
+
+
+def ef_case(cases: list) -> dict:
+    """``ef_allreduce_mean`` over the ``pod`` axis of (pod 2, data 2):
+    each rank's pod index picks its (g, err) of every case."""
+    from repro_torch.dist.compression import ef_allreduce_mean
+
+    mesh = make_mesh(*DP_MESH)
+    pod = collectives.coordinate(mesh)["pod"]
+    res = []
+    for g, e in cases:
+        gm, ne = ef_allreduce_mean(torch.from_numpy(g[pod]),
+                                   torch.from_numpy(e[pod]), mesh, "pod")
+        res.append((_np(gm), _np(ne)))
+    return {"pod": pod, "results": res}
+
+
+def gpipe_case(case: dict) -> np.ndarray:
+    """``gpipe_forward`` over ``pod`` 4 of the toy stack tanh(h @ w)."""
+    from repro_torch.dist.pipeline_parallel import gpipe_forward, stage_params
+
+    mesh = make_mesh((4,), ("pod",))
+    ws = torch.from_numpy(case["ws"])
+    ws = sharding.block(ws, stage_params(ws, mesh), mesh)
+    out = gpipe_forward(case["cfg"], mesh, lambda w, h: torch.tanh(h @ w),
+                        ws, torch.from_numpy(case["x"]),
+                        n_microbatch=case["microbatches"])
+    return _np(out)
+
+
+def bf16_case(seed: int) -> dict:
+    """The collectives on bfloat16 blocks over ``data`` (gloo takes no
+    16-bit integers: a gather moves the bytes): this rank's seeded block,
+    the gather, and the gather's backward (the reduce-scatter of a seeded
+    gradient, summed in float32 and rounded once)."""
+    mesh = make_mesh(*FSDP_MESH)
+    me = collectives.coordinate(mesh)["data"]
+    gen = torch.Generator().manual_seed(seed)
+    blocks = torch.randn((2, 3, 5), generator=gen).to(torch.bfloat16)
+    grad = torch.randn((3, 10), generator=gen).to(torch.bfloat16)
+    x = blocks[me].clone().requires_grad_(True)
+    y = collectives.gather(x, mesh, "data", 1)
+    y.backward(grad * (me + 1))
+    return {"data": me, "gathered": _np(y), "grad": _np(x.grad),
+            "dtypes": (str(y.dtype), str(x.grad.dtype))}
+
+
+def gather_many_case(seed: int) -> dict:
+    """Two float32 blocks over ``data`` in one collective, along dims 0 and
+    1: the gathers and, with the gradient summed back and with this rank's
+    block kept, the blocks' gradients of seeded whole gradients scaled by
+    (data index + 1)."""
+    mesh = make_mesh(*FSDP_MESH)
+    me = collectives.coordinate(mesh)["data"]
+    gen = torch.Generator().manual_seed(seed)
+    a, b = (torch.randn(s, generator=gen) for s in ((2, 2, 3), (2, 3, 4)))
+    ga, gb = (torch.randn(s, generator=gen) for s in ((4, 3), (3, 8)))
+    out = {"data": me}
+    for back in (True, False):
+        x, y = (t[me].clone().requires_grad_(True) for t in (a, b))
+        wx, wy = collectives.gather_many([x, y], mesh, "data", [0, 1],
+                                         reduce_back=back)
+        torch.autograd.backward([wx, wy], [ga * (me + 1), gb * (me + 1)])
+        out[back] = {"x": _np(wx), "y": _np(wy), "gx": _np(x.grad),
+                     "gy": _np(y.grad)}
+    return out
+
+
+def launcher_case(argv: list) -> list:
+    """``launch.train``'s run over a (2, 2) mesh in these ranks (the ranks
+    ``--mesh 2x2`` would start)."""
+    from repro_torch.launch import train
+
+    args = train.parser().parse_args(argv)
+    return train.train(args, train.mesh_shape(args.mesh,
+                                              torch.device("cpu")))
+
+
+def all_jobs(jobs: dict) -> dict:
+    """Every job of the test file, in one launch."""
+    out = {}
+    for name, case in jobs.items():
+        kind = case["kind"]
+        out[name] = {"fsdp": fsdp_case, "moe_tp": moe_tp_case,
+                     "dp": dp_case, "ef": ef_case, "gpipe": gpipe_case,
+                     "launcher": launcher_case, "bf16": bf16_case,
+                     "gather_many": gather_many_case}[kind](case["case"])
+    return out
