@@ -30,6 +30,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              time is read, not its wrapper's host time) beside the least
              time the card could take (bytes over 3.35 TB/s or operations
              over the peak rate of their type, H100 SXM data-sheet peaks);
+             FLASH_ATTENTION also with its log-sum-exp on each half of a
+             4,096-row cache (``decode_lse_rank_slice``: a model rank's
+             block of the sharded serving decode), each half's (out, lse)
+             against the plain pair, the halves merged against the whole
+             cache's decode, an lse off by log 2 rejected;
 4. main      ``api.runtime(n=256, nz=256).run("cavity", steps=20)`` on the
              ``cuda`` backend with the launch counters reset just before,
              then on the ``torch`` backend; the two must agree, and the
@@ -114,7 +119,21 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              at D 2,048 against the sequential stack; the (1, 1) step
              under NCCL bitwise the local step; step, busy, collective
              calls, bytes and host ms, parameter and moment bytes and peak
-             memory per rank; at most 180 s;
+             memory per rank; at most 180 s.  Then the same ranks serve
+             the same zamba2 through ``ServingEngine(slots=4,
+             max_seq=4096, shard=make_shard_cfg(mesh, cfg, 4))`` (a rank:
+             2 slots and 2,048 positions of each KV cache): prompts of
+             400, 1,500, 2,400 and 3,800 tokens, 8 new each,
+             teacher-forced on the single-process CUDA engine run before
+             the spawn (prefill and decode logits and every cache leaf's
+             block within 5e-2 of its scale), the free run's token
+             agreement, two planted faults rejected (partials averaged
+             without their log-sum-exp weights; the new token written on
+             every model rank), exactly 4 FLASH_ATTENTION a prefill
+             (tensor-core route) and a decode step (split-K route with its
+             log-sum-exp) and 8 SSD_INTRA a prefill, 268,435,456 KV bytes
+             a rank; prefill and decode-step ms, collectives a decode
+             step, busy share, peak memory; at most 60 s of its own;
 7. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
              launches a step and no JACOBI_PRESSURE;
 8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
@@ -782,6 +801,11 @@ def phase_kernels(dev):
         plain_card_vs_cpu(name, dev)
     results["JACOBI_FUSED"] = jacobi_fused_cases(gen, dev)
     results["FLASH_ATTENTION"] = attention_cases(gen, dev)
+    lse = attention_lse_case(torch.Generator(device=dev).manual_seed(SEED + 5),
+                             dev)
+    attn = results["FLASH_ATTENTION"]
+    attn["cases"][LSE_CASE] = lse["case"]
+    attn["max_abs_err"] = max(attn["max_abs_err"], lse["err"])
     results["SSD_INTRA"] = ssd_cases(gen, dev)
     torch.cuda.empty_cache()
     return results
@@ -939,12 +963,15 @@ ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k",
                  "train_rank_tp2")
 
 
-def attention_diff(got, want, dtype: str):
+def attention_diff(got, want, dtype: str, roundings: int = 1):
     """max|got - want| and its largest share of the per-row tolerance
-    ATTN_RTOL * max|want row| + ATTN_ATOL (a row: one query, one head)."""
+    roundings * ATTN_RTOL * max|want row| + ATTN_ATOL (a row: one query,
+    one head); ``roundings``: the bf16 roundings ``got`` went through that
+    ``want`` did not take (2 for attention merged from parts, each part's
+    output rounded to bf16 before the merge rounds again)."""
     diff = (got.float() - want.float()).abs()
-    tol = (ATTN_RTOL[dtype] * want.float().abs().amax(dim=-1, keepdim=True)
-           + ATTN_ATOL)
+    tol = (roundings * ATTN_RTOL[dtype]
+           * want.float().abs().amax(dim=-1, keepdim=True) + ATTN_ATOL)
     return float(diff.max()), float((diff / tol).max())
 
 
@@ -1039,6 +1066,118 @@ def attention_cases(gen, dev, cases=ATTN_CASES, headline=ATTN_HEADLINE):
              for c in cases} == set(ac.ROUTES),
             "FLASH_ATTENTION: a route has no case")
     return res
+
+
+# the sharded serving decode on one tp rank: zamba2's 32 query heads over
+# 32 kv heads of 64, 4 slots, a 2,048-row half of the 4,096-row float32
+# cache (model rank 1's block, positions 2,048..4,095), with each row's
+# log-sum-exp; the valid lengths over the whole cache leave rows 0 and 1 no
+# key in this half
+LSE_CASE = "decode_lse_rank_slice"
+LSE_SHAPE = (4, LM_MAX_SEQ, 32, 32, 64)          # B, Sk whole, H, KH, D
+LSE_VALID = (37, 1024, 2500, 4000)
+
+
+def attention_lse_case(gen, dev) -> dict:
+    """FLASH_ATTENTION's decode with its log-sum-exp on each half of a
+    cache, as the two ``tp`` ranks of the sharded serving decode take it
+    (``models.attention.decode_mha_partial``): each half's (out, lse)
+    against the plain pair per query row, the halves merged
+    (``kernels.ref.merge_partials``) against the whole cache's plain
+    decode, a log-sum-exp off by log 2 in one half rejected; the second
+    half timed beside the same launch without the log-sum-exp, its bound
+    and SDPA on the same half and mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.kernels.attention import block_valid_len
+    from repro_torch.kernels.ref import merge_partials
+    from repro_torch.launch import op_cost
+    from repro_torch.models.attention import MaskSpec, decode_mha_partial
+
+    b, sk, h, kh, d = LSE_SHAPE
+    half = sk // 2
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, sk, kh, d, generator=gen, device=dev)
+            for _ in range(2))
+    lens = torch.tensor(LSE_VALID, device=dev)
+    spec = MaskSpec(causal=False)
+    parts, shares, err = [], [], 0.0
+    for j in range(2):
+        kj, vj = k[:, j * half:(j + 1) * half], v[:, j * half:(j + 1) * half]
+        by_route = dict(ac.ROUTE_LAUNCHES)
+        got = decode_mha_partial(q, kj, vj, lens, j * half, template="CUDA")
+        took = {r: n - by_route[r] for r, n in ac.ROUTE_LAUNCHES.items()}
+        want = decode_mha_partial(q, kj, vj, lens, j * half,
+                                  template="TORCH")
+        torch.cuda.synchronize()
+        require(took == {r: int(r == "split_k_decode") for r in ac.ROUTES},
+                f"FLASH_ATTENTION ({LSE_CASE}): launched {took}")
+        out_err, out_share = attention_diff(got[0], want[0], "bfloat16")
+        lse_diff = (got[1] - want[1]).abs()
+        lse_share = float((lse_diff / (ATTN_RTOL["bfloat16"]
+                                       * want[1].abs() + ATTN_ATOL)).max())
+        empty = block_valid_len(lens, j * half, half) == 0
+        require(bool((got[1][empty] == -1e30).all())
+                and bool(torch.isfinite(got[0]).all()),
+                f"FLASH_ATTENTION ({LSE_CASE}): half {j}'s rows with no key "
+                "do not report an lse of -1e30, or are not finite")
+        shares.append({"out": out_share, "lse": lse_share,
+                       "lse_max_abs_diff": float(lse_diff.max()),
+                       "rows_with_no_key": int(empty.sum())})
+        err = max(err, out_err)
+        parts.append(got)
+    outs, lses = (torch.stack(t) for t in zip(*parts))
+    whole = ac.flash_attention_plain(q, k, v, spec, lens)
+    merge_err, merge_share = attention_diff(merge_partials(outs, lses), whole,
+                                            "bfloat16", roundings=2)
+    off = lses.clone()
+    off[0] += math.log(2.0)
+    _, fault_share = attention_diff(merge_partials(outs, off), whole,
+                                    "bfloat16", roundings=2)
+    # the second half, timed: the launch with and without its lse
+    kj, vj = k[:, half:], v[:, half:]
+    valid = block_valid_len(lens, half, half)
+    mask = op_cost.attention_mask(b, 1, half, False, 0, 0, valid, dev)
+    nbytes, ops = op_cost.flash_attention_cost(q, kj, mask, valid, lse=True)
+    qs, ks, vs = (t.to(torch.bfloat16).transpose(1, 2) for t in (q, kj, vj))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask[:, None])
+    line = {"phase": "kernel", "kernel": "FLASH_ATTENTION", "case": LSE_CASE,
+            "route": "split_k_decode",
+            "shape": {"B": b, "Sq": 1, "Sk": half, "H": h, "KH": kh, "D": d,
+                      "of_cache_rows": sk, "start": half},
+            "valid_whole_cache": list(LSE_VALID),
+            "valid_in_half": valid.tolist(), "halves": shares,
+            "max_abs_diff": err, "merged_vs_whole_max_abs_diff": merge_err,
+            "merged_share_of_row_tolerance": merge_share,
+            "planted_fault": "lse + log 2 in the first half",
+            "planted_fault_share_of_row_tolerance": fault_share,
+            "kernel_ms": cuda_ms(lambda: ac.flash_attention(
+                q, kj, vj, spec, valid, return_lse=True), reps=20,
+                head_start=True),
+            "kernel_ms_without_lse": cuda_ms(lambda: ac.flash_attention(
+                q, kj, vj, spec, valid), reps=20, head_start=True),
+            "plain_ms": cuda_ms(lambda: ac.flash_attention_plain(
+                q, kj, vj, spec, valid, return_lse=True), reps=3, warmup=1),
+            "library_ms": cuda_ms(sdpa, reps=20, head_start=True),
+            **bound(nbytes, ops, BF16_OPS_PER_S)}
+    emit(line)
+    for j, sh in enumerate(shares):
+        require(sh["out"] <= 1.0 and sh["lse"] <= 1.0,
+                f"FLASH_ATTENTION ({LSE_CASE}): half {j} off its plain pair "
+                f"({sh})")
+    require(merge_share <= 1.0, f"FLASH_ATTENTION ({LSE_CASE}): the merged "
+                                f"halves are {merge_share} of the tolerance "
+                                "off the whole cache's decode")
+    require(fault_share > 1.0, f"FLASH_ATTENTION ({LSE_CASE}): the check "
+                               "passed an lse off by log 2")
+    del q, k, v, kj, vj, outs, lses, whole, mask
+    return {"err": max(err, merge_err),
+            "case": {key: line[key] for key in
+                     ("route", "kernel_ms", "kernel_ms_without_lse",
+                      "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "max_abs_diff")}}
 
 
 # B nc L G R P N: the zamba2-1.2b prefills of 1024 (the headline), 512 and
@@ -2527,14 +2666,315 @@ def sharded_gpipe(dev) -> dict:
             "within": bool((err <= tol).all())}
 
 
-def sharded_rank(ref_path: str, dp_ref_path: str) -> dict:
-    """One of 4 gloo ranks on the card: the fsdp_tp, dp and GPipe drives."""
+# ---------------------------------------------------------------------------
+# sharded serving: the same ranks serve zamba2 over (data 2, model 2)
+# ---------------------------------------------------------------------------
+# zamba2-1.2b at its published widths and SHARD_LAYERS layers (4
+# applications of the shared block), bf16, 4 slots of 4,096 positions: a
+# rank holds its data index's 2 slots and its model index's 2,048
+# positions of every KV cache; prompts of about 400 and 1,500 tokens (in
+# model rank 0's half only) and 2,400 and 3,800 (across both halves)
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_NEW = 4, LM_MAX_SEQ, 8
+SERVE_PROMPTS = (400, 1500, 2400, 3800)
+SERVE_FAULTS = ("unweighted", "every_rank")
+SERVE_FAULT_STEPS = 2
+SERVE_BUDGET_S = 60.0
+# the KV caches a rank holds: 4 applications x (k, v) x 4 slots x 4,096
+# positions x 32 heads x 64 x 4 bytes (1,073,741,824 on one process), a
+# quarter
+SERVE_KV_BYTES = 268_435_456
+SERVE_DIR_FILES = ("serve_ref.pt", "serve_caches.pt")
+
+
+def serve_requests(cfg, new: int | None = None) -> list:
+    """The sharded serving requests: SERVE_PROMPTS seeded prompts, ``new``
+    (default SERVE_NEW) new tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(SEED + 7)
+    return [Request(i, rng.integers(0, cfg.vocab_size, size=n),
+                    max_new_tokens=new or SERVE_NEW)
+            for i, n in enumerate(SERVE_PROMPTS)]
+
+
+@contextlib.contextmanager
+def served(forced=None):
+    """Inside the context the engine's ``model.prefill`` and
+    ``model.decode_step`` record their logits (float32, on the card) and
+    the device-synchronised ms of each prefill; given ``forced`` (a (slots,)
+    tensor of tokens a decode step), decode step n's logits come back with
+    each slot's forced token on top, so that the engine takes it (teacher
+    forcing).  Yields {"prefill": [...], "prefill_ms": [...], "decode":
+    [...]}."""
+    import torch
+    from repro_torch.models import model
+
+    prefill, decode = model.prefill, model.decode_step
+    rec = {"prefill": [], "prefill_ms": [], "decode": []}
+
+    def timed_prefill(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(*args, **kw)
+        torch.cuda.synchronize()
+        rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["prefill"].append(logits[:, -1].float())
+        return logits, caches
+
+    def forced_decode(*args, **kw):
+        logits, caches = decode(*args, **kw)
+        rec["decode"].append(logits[:, -1].float())
+        if forced is not None:
+            tok = forced[len(rec["decode"]) - 1].to(logits.device)
+            logits = logits.clone()
+            logits[torch.arange(logits.shape[0]), -1, tok] = float("inf")
+        return logits, caches
+
+    model.prefill, model.decode_step = timed_prefill, forced_decode
+    try:
+        yield rec
+    finally:
+        model.prefill, model.decode_step = prefill, decode
+
+
+@contextlib.contextmanager
+def serve_fault(fault: str):
+    """Inside the context one fault of the meshed decode: ``unweighted``:
+    the ranks' partials averaged without their log-sum-exp weights;
+    ``every_rank``: the new token's k and v written on every ``tp`` rank
+    (a rank that does not hold the position writes the nearest one of its
+    block)."""
+    import torch
+    from repro_torch.models import blocks
+
+    saved = (blocks.merge_partials, blocks.kv_owner)
+    if fault == "unweighted":
+        blocks.merge_partials = lambda outs, lses: outs.float().mean(0).to(
+            outs.dtype)
+    else:
+        blocks.kv_owner = lambda pos, kv_block, size: (
+            torch.ones_like(pos, dtype=torch.bool) if torch.is_tensor(pos)
+            else True)
+    try:
+        yield
+    finally:
+        blocks.merge_partials, blocks.kv_owner = saved
+
+
+def serving_reference(dev) -> dict:
+    """The single-process CUDA engine on the sharded serving requests: its
+    prefill and decode-step logits, its tokens (a (slots,) tensor a step),
+    its outputs, and its final caches (saved apart: 1 GB)."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = shard_cfg()
+    lm = model.init_params(cfg, SEED, device=dev)
+    eng = ServingEngine(cfg, lm, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                        device=dev, backend="cuda")
+    for r in serve_requests(cfg):
+        eng.submit(r)
+    with served() as rec:
+        while eng.step():
+            pass
+    torch.cuda.synchronize()
+    ref = {"prefill": [t.cpu() for t in rec["prefill"]],
+           "decode": [t.cpu() for t in rec["decode"]],
+           "tokens": [t.argmax(dim=-1).cpu() for t in rec["decode"]],
+           "outputs": {r.rid: r.output for r in eng.finished},
+           "kv_bytes": sum(t.numel() * t.element_size()
+                           for t in sharding.tree_leaves(eng.caches["attn"]))}
+    paths = [os.path.join(SHARD_DIR, f) for f in SERVE_DIR_FILES]
+    torch.save(ref, paths[0])
+    torch.save([t.cpu() for t in sharding.tree_leaves(eng.caches)],
+               paths[1])
+    del eng, lm
+    torch.cuda.empty_cache()
+    return {"paths": paths, "kv_bytes": ref["kv_bytes"],
+            "outputs": ref["outputs"]}
+
+
+def serve_cache_errors(caches, ref_leaves, cfg, shard, upto=None) -> list:
+    """Each cache leaf of this rank against the matching block of the
+    single-process engine's: max|diff| over LM_PARITY_RTOL * max|block|.
+    ``upto`` (a run cut short): only the KV caches, at each slot's
+    positions below ``upto[slot]``."""
+    import torch
+    from repro_torch.dist import sharding
+
+    shares = []
+    rows = sharding.local_rows(SERVE_SLOTS, shard)
+    for j, (mine, whole) in enumerate(zip(sharding.tree_leaves(caches),
+                                          ref_leaves)):
+        kv = whole.dim() == 5
+        if upto is not None and not kv:
+            continue
+        spec = sharding.cache_spec_tree(whole, cfg, shard.mesh, shard)
+        want = sharding.block(whole, spec, shard.mesh).to(mine.device)
+        diff = (mine.float() - want.float()).abs()
+        if upto is not None:
+            pos = torch.arange(mine.shape[2], device=mine.device)
+            start = 0 if spec[2] is None else \
+                sharding.kv_block(cfg, SERVE_MAX_SEQ, shard).start
+            lim = torch.tensor(upto[rows], device=mine.device)
+            keep = (pos[None] + start) < lim[:, None]           # (rows, S)
+            diff = diff * keep[None, :, :, None, None]
+        # a block nothing was written to holds zeros on both sides
+        scale = max(float(want.float().abs().max()), 1e-30)
+        shares.append(float(diff.max()) / (LM_PARITY_RTOL * scale))
+        del want, diff
+    return shares
+
+
+def serve_logit_shares(rec, ref, rows) -> dict:
+    """The recorded logits against the single-process engine's: each
+    row's max|diff| over LM_PARITY_RTOL * max|row|, the worst of the
+    prefills (this rank's slots) and of the decode steps (every slot)."""
+    def share(got, want):
+        want = want.to(got.device)
+        tol = LM_PARITY_RTOL * want.abs().amax(dim=-1)
+        return float(((got - want).abs().amax(dim=-1) / tol).max())
+
+    pre = [share(g, w) for g, w in zip(rec["prefill"],
+                                       ref["prefill"][rows])]
+    dec = [share(g, w) for g, w in zip(rec["decode"], ref["decode"])]
+    return {"prefill": max(pre, default=0.0), "decode": max(dec),
+            "decode_by_step": dec}
+
+
+def fault_share(res: dict) -> float:
+    """A faulty run's largest share of its tolerance: the decode logits'
+    or a KV cache block's (above 1: the check rejects it)."""
+    return max([res["logit_shares"], *res["cache_shares"]])
+
+
+def sharded_serve(ref_paths: list, dev) -> dict:
+    """zamba2 through ``ServingEngine(shard=make_shard_cfg(mesh, cfg, 4))``
+    over (data 2, model 2) on this rank: teacher-forced on the
+    single-process engine's tokens, its logits and its cache blocks held
+    against that engine's; launch counts, prefill and decode-step times,
+    collectives a decode step, busy share, KV bytes held and peak memory;
+    then a free run (its tokens against the single process's), and each
+    planted fault, teacher-forced for SERVE_FAULT_STEPS steps."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.kernels import attention_cuda as ac
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServingEngine, _bucket
+
+    t_job = time.perf_counter()
+    cfg = shard_cfg()
+    mesh = make_mesh(*SHARD_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, SERVE_SLOTS)
+    ref = torch.load(ref_paths[0])
+    ref_leaves = torch.load(ref_paths[1], mmap=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = model.init_params(cfg, SEED, device=dev)
+
+    def engine(new=None):
+        eng = ServingEngine(cfg, lm, slots=SERVE_SLOTS,
+                            max_seq=SERVE_MAX_SEQ, shard=shard, device=dev,
+                            backend="cuda")
+        for r in serve_requests(cfg, new):
+            eng.submit(r)
+        return eng
+
+    eng = engine()
+    rows = eng.rows
+    reset_counts()
+    steps, stats = [], []
+    with served(ref["tokens"]) as rec:
+        while True:
+            collectives.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admitting = eng.table.n_queued
+            if not eng.step():
+                break
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, admitting))
+            stats.append(dict(collectives.STATS))
+    launches, routes = read_counts(), dict(ac.ROUTE_LAUNCHES)
+    n_pre, n_dec = len(rec["prefill"]), eng.steps
+    logit = serve_logit_shares(rec, ref, slice(rows.start, rows.stop))
+    cache = serve_cache_errors(eng.caches, ref_leaves, cfg, shard)
+    kv_bytes = sum(t.numel() * t.element_size() for t in
+                   sharding.tree_leaves(eng.caches["attn"]))
+    decode_ms = sorted(ms for ms, adm in steps if not adm)
+    quiet = [st for (ms, adm), st in zip(steps, stats) if not adm]
+    buckets = [_bucket(n) for n in SERVE_PROMPTS[rows.start:rows.stop]]
+    out = {"rank": torch.distributed.get_rank(),
+           "coord": collectives.coordinate(mesh),
+           "rows": [rows.start, rows.stop], "kv_block": list(eng.kv_block),
+           "launches": launches, "routes": routes, "prefills": n_pre,
+           "decode_steps": n_dec,
+           "expected": {"FLASH_ATTENTION": 4 * (n_pre + n_dec),
+                        "SSD_INTRA": SHARD_LAYERS * n_pre,
+                        "tensor_core_prefill": 4 * n_pre,
+                        "split_k_decode": 4 * n_dec, "cuda_core": 0},
+           "logit_shares": logit, "cache_shares": cache,
+           "prefill_ms_by_bucket": dict(zip(buckets, rec["prefill_ms"])),
+           "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+           "decode_step_ms": decode_ms,
+           "collective_decode_step": {
+               "calls": quiet[-1]["calls"], "bytes": quiet[-1]["bytes"],
+               "ms": quiet[-1]["seconds"] * 1e3},
+           "kv_bytes": kv_bytes}
+    del eng
+    torch.cuda.empty_cache()
+    # the free run, one decode step of it under the profiler
+    eng = engine()
+    eng.step()
+    for _ in range(3):
+        eng.step()
+    busy = device_busy(eng.step, cpu_ops=False)
+    eng.run_until_drained()
+    got = {r.rid: r.output for r in eng.finished}
+    pairs = [(a, b) for rid, want in ref["outputs"].items()
+             for a, b in zip(got[rid], want)]
+    out["free_run_token_agreement"] = sum(a == b for a, b in pairs) / len(
+        pairs)
+    out["busy"] = {k: busy[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                        "flash_attention_ms")}
+    del eng
+    torch.cuda.empty_cache()
+    # each planted fault, teacher-forced for its first steps
+    upto = np.array(SERVE_PROMPTS) + SERVE_FAULT_STEPS - 1
+    out["faults"] = {}
+    for fault in SERVE_FAULTS:
+        eng = engine(SERVE_FAULT_STEPS)
+        with serve_fault(fault), served(ref["tokens"]) as frec:
+            eng.run_until_drained()
+        out["faults"][fault] = {
+            "logit_shares": serve_logit_shares(
+                frec, ref, slice(rows.start, rows.stop))["decode"],
+            "cache_shares": serve_cache_errors(eng.caches, ref_leaves, cfg,
+                                               shard, upto)}
+        del eng
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_job
+    return out
+
+
+def sharded_rank(ref_path: str, dp_ref_path: str,
+                 serve_paths: list) -> dict:
+    """One of 4 gloo ranks on the card: the fsdp_tp, dp and GPipe drives,
+    then the serving job."""
     dev = _rank_device()
     t0 = time.perf_counter()
     out = {"fsdp": sharded_fsdp(ref_path, dev)}
     out["fsdp_s"] = time.perf_counter() - t0
     out["dp"] = sharded_dp(dp_ref_path, dev)
     out["gpipe"] = sharded_gpipe(dev)
+    out["train_seconds"] = time.perf_counter() - t0
+    out["serve"] = sharded_serve(serve_paths, dev)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2594,12 +3034,78 @@ def row_mean_grads(cfg, lm, batch) -> tuple:
     return loss, {k: t / n for k, t in acc.items()}
 
 
+def serving_line(sv: list, serve_ref: dict, ref_s: float,
+                 serve_s: float) -> dict:
+    """The ``sharded`` line's ``serving`` section from the ranks' serving
+    jobs ``sv``."""
+    each = lambda key: [v[key] for v in sv]
+    return {
+        "arch": SHARD_ARCH, "layers": SHARD_LAYERS, "slots": SERVE_SLOTS,
+        "max_seq": SERVE_MAX_SEQ, "mesh": SHARD_MESH,
+        "prompt_lens": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
+        "engine": "ServingEngine(shard=make_shard_cfg(mesh, cfg, 4)), "
+                  "teacher-forced on the single-process CUDA engine",
+        "tolerance": {"logits_rtol": LM_PARITY_RTOL,
+                      "cache_rtol": LM_PARITY_RTOL},
+        "rows": each("rows"), "kv_block": each("kv_block"),
+        "logit_shares": each("logit_shares"),
+        "cache_shares": each("cache_shares"),
+        "free_run_token_agreement": each("free_run_token_agreement"),
+        "faults_rejected": {f: [fault_share(v["faults"][f]) for v in sv]
+                            for f in SERVE_FAULTS},
+        "launches_per_rank": each("launches"),
+        "routes_per_rank": each("routes"),
+        "prefills_per_rank": each("prefills"),
+        "decode_steps": sv[0]["decode_steps"],
+        "prefill_ms_by_bucket": each("prefill_ms_by_bucket"),
+        "decode_step_ms_median": each("decode_step_ms_median"),
+        "decode_step_ms": each("decode_step_ms"), "busy": each("busy"),
+        "collective_decode_step": each("collective_decode_step"),
+        "kv_bytes_per_rank": each("kv_bytes"),
+        "single_process_kv_bytes": serve_ref["kv_bytes"],
+        "max_memory_allocated": each("max_memory_allocated"),
+        "seconds": {"single_process_ref": ref_s,
+                    "rank_job": each("seconds"), "serving": serve_s,
+                    "budget": SERVE_BUDGET_S}}
+
+
+def check_serving(sv: list, serve_ref: dict) -> None:
+    """The serving job's checks: parity, launches, KV bytes, the faults
+    rejected."""
+    for v in sv:
+        who = f"sharded serving rank {v['rank']}"
+        lg = v["logit_shares"]
+        require(lg["prefill"] <= 1.0 and lg["decode"] <= 1.0,
+                f"{who}: logits off the single-process engine's ({lg})")
+        require(max(v["cache_shares"]) <= 1.0,
+                f"{who}: cache blocks off the single-process engine's "
+                f"({v['cache_shares']})")
+        want = v["expected"]
+        got = {**{k: v["launches"][k] for k in ("FLASH_ATTENTION",
+                                                  "SSD_INTRA")},
+               **v["routes"]}
+        require(got == want, f"{who}: launches {got} != {want}")
+        require(v["prefills"] == 2 and v["decode_steps"] == SERVE_NEW,
+                f"{who}: {v['prefills']} prefills, {v['decode_steps']} "
+                "decode steps")
+        require(v["kv_bytes"] == SERVE_KV_BYTES and serve_ref["kv_bytes"]
+                == 4 * SERVE_KV_BYTES,
+                f"{who}: KV bytes {v['kv_bytes']} of "
+                f"{serve_ref['kv_bytes']}")
+    for f in SERVE_FAULTS:
+        require(any(fault_share(v["faults"][f]) > 1.0 for v in sv),
+                f"sharded serving: the planted fault {f!r} passed the check "
+                "on every rank")
+
+
 def phase_sharded(dev, smi: str) -> dict:
     """The LM trained over a mesh of 4 ranks that share the card (gloo:
     collectives through pinned host buffers): zamba2's fsdp_tp step
     against the single-process CUDA step, with two planted faults; the dp
     step of xlstm-125m, exact and compressed; GPipe; and NCCL at world
-    size 1."""
+    size 1.  Then the same ranks serve zamba2 over (data 2, model 2)
+    through the meshed ``ServingEngine``, held teacher-forced against the
+    single-process CUDA engine, with two planted faults."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import spawn
@@ -2625,10 +3131,14 @@ def phase_sharded(dev, smi: str) -> dict:
         del lm, grads
         torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    serve_ref = serving_reference(dev)
+    serve_ref_s = time.perf_counter() - t0
     device = f"cuda:{dev.index or 0}"
     t0 = time.perf_counter()
     ranks = spawn(sharded_rank, 4, backend="gloo", device=device,
-                  args=(refs["fsdp"]["path"], refs["dp"]["path"]),
+                  args=(refs["fsdp"]["path"], refs["dp"]["path"],
+                        serve_ref["paths"]),
                   timeout_s=SHARD_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2640,6 +3150,9 @@ def phase_sharded(dev, smi: str) -> dict:
     fs = head["fsdp"]
     par = fs["parity"]
     seconds = time.perf_counter() - t_phase
+    sv = [r["serve"] for r in ranks]
+    serve_s = serve_ref_s + max(v["seconds"] for v in sv)
+    train_s = seconds - serve_s
     emit({"phase": "sharded", "card": smi,
           "fsdp_tp": {
               "arch": SHARD_ARCH, "layers": SHARD_LAYERS, "seq": SHARD_SEQ,
@@ -2683,10 +3196,15 @@ def phase_sharded(dev, smi: str) -> dict:
                     "max_abs_err": max(r["gpipe"]["max_abs_err"]
                                        for r in ranks),
                     "rtol": GPIPE_RTOL, "atol": GPIPE_ATOL},
+          "serving": serving_line(sv, serve_ref, serve_ref_s, serve_s),
           "nccl_world_size_1": nccl,
           "seconds": {"single_process_refs": ref_s, "spawn_4": spawn_s,
                       "rank_work": [r["seconds"] for r in ranks],
-                      "spawn_nccl_1": nccl_s, "phase": seconds}})
+                      "rank_train_work": [r["train_seconds"] for r in ranks],
+                      "spawn_nccl_1": nccl_s, "phase": seconds,
+                      "training": train_s, "training_budget":
+                      SHARDED_BUDGET_S, "serving": serve_s,
+                      "serving_budget": SERVE_BUDGET_S}})
     require(abs(par["loss"] - par["ref_loss"]) <=
             TRAIN_LOSS_RTOL * abs(par["ref_loss"]),
             f"sharded: loss {par['loss']} vs the single-process "
@@ -2728,9 +3246,12 @@ def phase_sharded(dev, smi: str) -> dict:
     require(nccl["backend"] == "nccl" and nccl["params_bitwise"]
             and nccl["grads_bitwise"] and nccl["metrics_bitwise"],
             f"NCCL (1, 1) vs LOCAL: {nccl}")
-    require(seconds <= SHARDED_BUDGET_S,
-            f"sharded: {seconds:.1f} s > {SHARDED_BUDGET_S} s")
-    return dict(head["fsdp"]["launches"])
+    check_serving(sv, serve_ref)
+    require(train_s <= SHARDED_BUDGET_S,
+            f"sharded training: {train_s:.1f} s > {SHARDED_BUDGET_S} s")
+    require(serve_s <= SERVE_BUDGET_S,
+            f"sharded serving: {serve_s:.1f} s > {SERVE_BUDGET_S} s")
+    return dict(head["fsdp"]["launches"]), dict(sv[0]["launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -3671,13 +4192,13 @@ def planted_short_attention():
 
     launch = ac._launch
 
-    def short(q, k, v, spec, valid, scale):
+    def short(q, k, v, spec, valid, scale, return_lse=False):
         sk = k.shape[1]
         valid = (sk - ATTN_FAULT_KEYS if valid is None
                  else (valid - ATTN_FAULT_KEYS).clamp(min=1)
                  if torch.is_tensor(valid)
                  else max(1, valid - ATTN_FAULT_KEYS))
-        return launch(q, k, v, spec, valid, scale)
+        return launch(q, k, v, spec, valid, scale, return_lse)
 
     ac._launch = short
     try:
@@ -4583,7 +5104,7 @@ def main(argv: list) -> int:
     paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
                             farm_results, health))
     paths["decomposed"] = phase_decomposed(dev, smi, serial_state)
-    paths["sharded"] = phase_sharded(dev, smi)
+    paths["sharded"], paths["sharded_serving"] = phase_sharded(dev, smi)
     del farm_results, serial_state
     paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
                                         fused_sweeps=FUSED_K)

@@ -106,6 +106,16 @@ def line(mesh, axes) -> tuple:
     return _LINES[key][1][axes]
 
 
+def prepare(mesh) -> None:
+    """Make this rank's group of every line of ``mesh`` now, where a
+    process group is up (every rank must call it: the groups are made
+    together), so that a collective over one line that only some ranks run
+    does not wait for the others to make theirs; a mesh without a process
+    group (a stub) has none to make."""
+    if dist.is_available() and dist.is_initialized():
+        line(mesh, tuple(mesh.mesh_dim_names)[:1])
+
+
 def size(mesh, axes) -> int:
     ext = mesh_extents(mesh)
     out = 1
@@ -159,6 +169,28 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     dist.all_gather(parts, buf, group=group)
     _book(buf, t0)
     return _from_wire(torch.cat(parts, dim), t)
+
+
+def all_to_all(t: torch.Tensor, mesh, axes, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``t``'s ``split_dim`` cut into one equal block a rank of ``axes``
+    (block j to the rank at index j of the line), and the blocks this rank
+    receives concatenated along ``cat_dim`` in the line's order: one
+    ``all_to_all_single``."""
+    t0 = time.perf_counter()
+    group, n, _, _ = line(mesh, axes)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not "
+                         f"divide over {n} ranks")
+    blocks = t.movedim(split_dim, 0)
+    blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:])
+    buf = _to_wire(blocks)
+    got = torch.empty_like(buf)
+    dist.all_to_all_single(got, buf, group=group)
+    _book(buf, t0)
+    got = _from_wire(got, t)                       # (n, block, ...)
+    return torch.cat([b.movedim(0, split_dim) for b in got.unbind(0)],
+                     cat_dim)
 
 
 def own_block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:

@@ -31,9 +31,17 @@ the MLP's hidden width, the experts under ``moe_mode="tp"``, the
 vocabulary).  A mesh here is a ``DeviceMesh`` or any object with the
 reference mesh's ``axis_names`` and ``shape`` mapping
 (:func:`repro_torch.launch.mesh.mesh_extents`).
+
+Serving over a mesh: :func:`local_caches` gives a rank its block of every
+decode cache as ``cache_spec_tree`` places it, and the ``KVBlock`` (the
+positions its block of the KV caches' sequence holds);
+:func:`serving_params` puts a model's parameters in the form their use
+takes once, so that a decode step gathers no parameter; :func:`gathered`
+is the context the sharded forward reads its parameters in.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Mapping
@@ -42,7 +50,7 @@ import torch
 
 from repro_torch.convert import reference_path
 from repro_torch.launch.mesh import mesh_extents
-from repro_torch.models.config import ModelConfig, ShardCfg
+from repro_torch.models.config import KVBlock, ModelConfig, ShardCfg
 
 
 def _axes_prod(mesh, axes) -> int:
@@ -482,3 +490,146 @@ def gather_params(lm, shard: ShardCfg, within: str = "",
                               [d for _, d in members], reduce_back=over_dp)
             out.update(zip((n for n, _ in members), got))
     return out
+
+
+@contextlib.contextmanager
+def using(model, use: dict):
+    """Inside the context each parameter of ``model`` reads as its tensor
+    in ``use`` (the backward's recomputation of a rematerialised block
+    reads them too); the parameters are put back after."""
+    saved = {}
+    for name, t in use.items():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        saved[name] = (mod, leaf, mod._parameters[leaf])
+        mod._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for mod, leaf, p in saved.values():
+            mod._parameters[leaf] = p
+
+
+@contextlib.contextmanager
+def gathered(model, shard: ShardCfg):
+    """Inside the context ``model`` (this rank's blocks, its placements on
+    ``model.placement``) reads each parameter as its use takes it
+    (:func:`gather_params`): the leaves outside the layer stack gathered
+    once, a layer's when it runs (``LayerStack.layer_use``), so that under
+    ``remat="block"`` a layer's gathered leaves live only while it runs
+    and while its recomputation in the backward does."""
+    if getattr(model, "placement", None) is None:
+        raise ValueError("over a mesh the model holds this rank's blocks: "
+                         "dist.sharding.shard_params or serving_params")
+    stack = model.stack
+
+    def layer(i):
+        return using(model, gather_params(model, shard,
+                                          within=f"stack.layers.{i}."))
+
+    with using(model, gather_params(model, shard, skip="stack.layers.")):
+        stack.layer_use = layer
+        try:
+            yield
+        finally:
+            stack.layer_use = None
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh
+# ---------------------------------------------------------------------------
+def use_placements(lm, cfg: ModelConfig, shard: ShardCfg) -> dict:
+    """{parameter name: the placement of the tensor its use takes}: the
+    ``tp`` entries of the tensor-parallel layers' leaves
+    (:func:`tp_compute`), nothing else split."""
+    from repro_torch.dist.collectives import axes_of
+
+    stacked = getattr(lm.stack, "stacked", True)
+    tp = axes_of(shard.tp)
+    return {n: tuple(a if tp and axes_of(a) == tp and tp_compute(
+                n, shard, stacked) else None for a in pl)
+            for n, pl in param_placements(lm, cfg, shard.mesh,
+                                          shard).items()}
+
+
+def serving_params(lm, cfg: ModelConfig, shard: ShardCfg):
+    """``lm``'s parameters replaced in place by the tensors their use
+    takes, once (:func:`use_placements`): taken from the whole model where
+    ``lm`` is whole, gathered (collectives on every rank) where it holds
+    this rank's blocks (:func:`shard_params`).  The model then serves with
+    no parameter gathered at a step.  Returns ``lm``."""
+    from repro_torch.models.layers import param
+
+    use = use_placements(lm, cfg, shard)
+    if getattr(lm, "placement", None) is None:
+        tensors = {n: block(p.data, use[n], shard.mesh).clone()
+                   for n, p in lm.named_parameters()}
+    else:
+        with torch.no_grad():
+            tensors = gather_params(lm, shard)
+    for name, t in tensors.items():
+        mod_name, _, leaf = name.rpartition(".")
+        lm.get_submodule(mod_name)._parameters[leaf] = param(t.detach())
+    lm.placement = use
+    return lm
+
+
+def kv_block(cfg: ModelConfig, max_seq: int, shard: ShardCfg,
+             coord: dict | None = None):
+    """The ``KVBlock`` of this rank's (or ``coord``'s) attention caches at
+    ``max_seq`` positions: None without a ``tp`` axis of more than one
+    rank (the cache's sequence is then whole, as on one process), or
+    without attention caches (the ``ssm`` family)."""
+    if shard.mesh is None or shard.tp is None or shard.replicate_params \
+            or mesh_extents(shard.mesh)[shard.tp] == 1 or cfg.family == "ssm":
+        return None
+    if _guard(shard.mesh, shard.tp, max_seq) is None:
+        return KVBlock(start=0, split=False)
+    coord = _coordinate(shard.mesh) if coord is None else coord
+    n, i = _split(shard.mesh, shard.tp, coord)
+    return KVBlock(start=i * (max_seq // n), split=True)
+
+
+def local_rows(batch: int, shard: ShardCfg, coord: dict | None = None):
+    """The slice of a global batch's rows this rank (or ``coord``) holds:
+    its block over ``dp`` where the batch is split there, else all."""
+    coord = _coordinate(shard.mesh) if coord is None else coord
+    dp = shard.dp if shard.batch_sharded else None
+    n, i = _split(shard.mesh, _guard(shard.mesh, dp, batch), coord)
+    return slice(i * (batch // n), (i + 1) * (batch // n))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts, tuples and ``NamedTuple``s, in the
+    reference's order (a dict's keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def local_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                 shard: ShardCfg, cache_dtype=torch.bfloat16, device=None,
+                 coord: dict | None = None):
+    """(this rank's block of every decode cache for ``batch`` rows at
+    ``max_seq`` positions, as :func:`cache_spec_tree` places them, and its
+    ``KVBlock``).  The blocks hold ``init_caches``' starting values;
+    ``coord`` names the rank on a mesh with no process group."""
+    from repro_torch.models import model
+
+    coord = _coordinate(shard.mesh) if coord is None else coord
+    whole = model.init_caches(cfg, batch, max_seq, cache_dtype, "meta")
+    want = [tuple(block(t, cache_spec_tree(t, cfg, shard.mesh, shard),
+                        shard.mesh, coord).shape) for t in tree_leaves(whole)]
+    rows = local_rows(batch, shard, coord)
+    kvb = kv_block(cfg, max_seq, shard, coord)
+    seq = max_seq // shard.tp_size() if kvb is not None and kvb.split \
+        else max_seq
+    local = model.init_caches(cfg, rows.stop - rows.start, seq, cache_dtype,
+                              device)
+    got = [tuple(t.shape) for t in tree_leaves(local)]
+    if got != want:
+        raise AssertionError(f"cache blocks {got} are not the placement's "
+                             f"{want}")
+    return local, kvb

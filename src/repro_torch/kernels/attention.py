@@ -80,6 +80,15 @@ def chunked_attention(q, k, v, spec: MaskSpec = MaskSpec(), *,
     return torch.cat(outs, dim=1)[:, :sq]
 
 
+def block_valid_len(kv_valid_len, start: int, size: int):
+    """The valid length of a block of the keys, positions [start, start +
+    size), from the valid length over the whole sequence (an int or one per
+    batch row): clamp(kv_valid_len - start, 0, size)."""
+    if torch.is_tensor(kv_valid_len):
+        return torch.clamp(kv_valid_len - start, 0, size)
+    return min(max(int(kv_valid_len) - start, 0), size)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                     q_offset: int = 0, block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K):

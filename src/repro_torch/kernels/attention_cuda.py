@@ -25,6 +25,16 @@ dtype and Sq (``csrc/attention.cu`` explains each design):
     bfloat16  float32          > 8    cuda_core            (float32 FMAs)
     float32   any              any    cuda_core
 
+``return_lse=True`` also returns each query row's log-sum-exp of its
+masked logits, float32 (B, Sq, H) in natural logs of the logits as scaled
+(-1e30 for a row that sees no key), from the same launch: the pair a
+caller needs to merge attention over parts of the keys
+(``kernels.ref.merge_partials``), as the sequence-split KV cache of a
+tensor-parallel decode does.  The split-K decode and the CUDA-core route
+write it; the tensor-core prefill has no such output and raises.  The
+``out`` of a launch with it is bitwise the ``out`` of the same launch
+without it.
+
 The two new routes load 16 bytes at a time, so they need k and v (and, for
 the prefill, q) with 16-byte aligned rows; the wrapper raises otherwise.
 The split-K decode writes per-split partials into a ``torch.empty``
@@ -37,11 +47,13 @@ stream has counters of its own.
 On a CUDA tensor the wrapper launches the kernel on the current stream
 without synchronising and adds one to ``LAUNCHES["FLASH_ATTENTION"]`` and to
 ``ROUTE_LAUNCHES[route]``.  On a CPU tensor it runs the plain version,
-``kernels.ref.full_mha_reference``, which is also what the kernel is
-checked against on the card (:func:`flash_attention_plain`).  On a
+``kernels.ref.full_mha_reference`` (with ``return_lse``,
+``kernels.ref.attention_lse_reference``), which is also what the kernel
+is checked against on the card (:func:`flash_attention_plain`).  On a
 ``meta`` tensor (a cost trace) it books its declared cost
-(``op_cost.flash_attention_spec_cost``, every key valid) and returns an empty
-output, launching nothing.
+(``op_cost.flash_attention_spec_cost``, every key valid, and the
+log-sum-exp's bytes where it is asked for) and returns empty outputs,
+launching nothing.
 """
 from __future__ import annotations
 
@@ -51,7 +63,7 @@ import numbers
 
 import torch
 
-from repro_torch.kernels.ref import full_mha_reference
+from repro_torch.kernels.ref import attention_lse_reference, full_mha_reference
 
 HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -105,11 +117,12 @@ def _lib() -> ctypes.CDLL:
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     common = ([ptr] * 4 + [ctypes.c_int] * 2 + [i64] * 5 + [ctypes.c_int]
               + [i64] * 9 + [ctypes.c_float, ctypes.c_int, i64, i64, ptr, i64])
+    lib.flash_attention.argtypes = common + [ptr, ptr]       # lse, stream
+    lib.flash_attention_prefill.argtypes = common + [ptr]
     for fn in (lib.flash_attention, lib.flash_attention_prefill):
-        fn.argtypes = common + [ptr]
         fn.restype = ctypes.c_int
     lib.flash_attention_decode.argtypes = (
-        common + [ctypes.c_int] * 2 + [ptr] * 4)
+        common + [ctypes.c_int] * 2 + [ptr] * 5)
     lib.flash_attention_decode.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
@@ -170,7 +183,7 @@ def _check(q, k, v, kv_valid_len) -> None:
                         "or an integer tensor")
 
 
-def _launch(q, k, v, spec, kv_valid_len, scale):
+def _launch(q, k, v, spec, kv_valid_len, scale, return_lse=False):
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     if d not in HEAD_DIMS:
@@ -196,6 +209,9 @@ def _launch(q, k, v, spec, kv_valid_len, scale):
         check_rows_aligned(k, "k", path)
         check_rows_aligned(v, "v", path)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -215,53 +231,70 @@ def _launch(q, k, v, spec, kv_valid_len, scale):
             tickets = _tickets(q.device, stream, b * kh * groups)
             err = lib.flash_attention_decode(
                 *args, per_block, groups, acc.data_ptr(), ml.data_ptr(),
-                tickets.data_ptr(), stream)
+                tickets.data_ptr(), lse_ptr, stream)
         elif path == "tensor_core_prefill":
             err = lib.flash_attention_prefill(*args, stream)
         else:
-            err = lib.flash_attention(*args, stream)
+            err = lib.flash_attention(*args, lse_ptr, stream)
     if err != 0:
         raise RuntimeError(f"FLASH_ATTENTION kernel launch failed ({path}): "
                            f"CUDA error {err} "
                            f"({lib.attention_error_string(err).decode()})")
     LAUNCHES["FLASH_ATTENTION"] += 1
     ROUTE_LAUNCHES[path] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def _run(q, k, v, spec, kv_valid_len, scale, plain: bool):
+def _run(q, k, v, spec, kv_valid_len, scale, plain: bool, return_lse=False):
     _check(q, k, v, kv_valid_len)
     if plain or q.device.type == "cpu":
+        if return_lse:
+            return attention_lse_reference(q, k, v, spec, kv_valid_len,
+                                           scale)
         return full_mha_reference(q, k, v, spec, kv_valid_len, scale)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"FLASH_ATTENTION: unsupported device {q.device}")
     if k.dtype != v.dtype:
         raise TypeError(f"FLASH_ATTENTION: k is {k.dtype}, v is {v.dtype}")
+    if return_lse and route(q.dtype, k.dtype,
+                            q.shape[1]) == "tensor_core_prefill":
+        raise ValueError("FLASH_ATTENTION: the tensor_core_prefill route "
+                         "(bf16 q and k/v, Sq > 8) cannot return the "
+                         "log-sum-exp")
     if q.device.type == "meta":
-        return _book(q, k, spec, kv_valid_len)
-    return _launch(q, k, v, spec, kv_valid_len, scale)
+        return _book(q, k, spec, kv_valid_len, return_lse)
+    return _launch(q, k, v, spec, kv_valid_len, scale, return_lse)
 
 
-def _book(q, k, spec, kv_valid_len):
-    """A cost trace's call: the declared cost booked, an empty output.  The
+def _book(q, k, spec, kv_valid_len, return_lse=False):
+    """A cost trace's call: the declared cost booked, empty outputs.  The
     valid lengths of a ``meta`` call are not known, so every key counts as
     valid (the most the call could need)."""
     from repro_torch.launch import op_cost
 
     b, sq, h, d = q.shape
     nbytes, ops = op_cost.flash_attention_spec_cost(
-        q, k, spec.causal, spec.q_offset, spec.prefix_len)
+        q, k, spec.causal, spec.q_offset, spec.prefix_len, lse=return_lse)
     if torch.is_tensor(kv_valid_len):
         nbytes += b * 8
     op_cost.book("FLASH_ATTENTION", nbytes, ops)
-    return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if return_lse:
+        return out, torch.empty((b, sq, h), dtype=torch.float32,
+                                device=q.device)
+    return out
 
 
-def flash_attention(q, k, v, spec, kv_valid_len=None, scale=None):
-    """One launch of the kernel on the card; the plain version on the CPU."""
-    return _run(q, k, v, spec, kv_valid_len, scale, plain=False)
+def flash_attention(q, k, v, spec, kv_valid_len=None, scale=None,
+                    return_lse=False):
+    """One launch of the kernel on the card; the plain version on the CPU.
+    ``return_lse``: (out, lse) from the same launch."""
+    return _run(q, k, v, spec, kv_valid_len, scale, plain=False,
+                return_lse=return_lse)
 
 
-def flash_attention_plain(q, k, v, spec, kv_valid_len=None, scale=None):
+def flash_attention_plain(q, k, v, spec, kv_valid_len=None, scale=None,
+                          return_lse=False):
     """The plain version, on any device, with the wrapper's checks."""
-    return _run(q, k, v, spec, kv_valid_len, scale, plain=True)
+    return _run(q, k, v, spec, kv_valid_len, scale, plain=True,
+                return_lse=return_lse)

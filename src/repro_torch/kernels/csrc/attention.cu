@@ -116,6 +116,19 @@
 //      TPR = 32, so that a single query row keeps a whole warp busy (D 112,
 //      not a multiple of 32: BQ = 16 and TPR = 16, half a warp a row).
 //
+// Routes B and C also give each query row's log-sum-exp of its masked
+// logits, when the caller passes an lse output (float32 (B, Sq, H); null
+// leaves the launch as it was, bit for bit): lse = log sum_k exp(logit_k)
+// in natural logs of the logits as scaled, so that a caller who split the
+// keys over ranks can merge their partial outputs with weights
+// exp(lse_r - max_r lse_r) (a sequence-split KV cache over tensor-parallel
+// ranks: models/blocks.py).  Route B scores in base 2 (m and l of 2^x), so
+// its merge block turns (M + log2 L) into natural logs; route C keeps
+// natural logs.  A row that sees no key has every logit at -1e30 and
+// reports -1e30, as the plain version's logsumexp of those logits rounds
+// to: its weight beside a rank whose row sees a key is exactly 0.
+// Route A has no lse output (a prefill does not need one).
+//
 // Each extern "C" launcher enqueues its kernel on the given stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() so the
 // caller can raise.
@@ -131,6 +144,7 @@ namespace {
 
 constexpr float kMasked = -1e30f;     // the reference's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -146,7 +160,15 @@ struct Params {
   int64_t q_offset, prefix_len;
   const int64_t* valid;               // (B,) or null
   int64_t valid_all;                  // used when valid is null
+  float* lse;                         // (B, Sq, H) float32, or null
 };
+
+// a row's log-sum-exp in natural logs from its running max m and its sum
+// l of exp(logit - m); a row that sees no key (m at the masked -1e30)
+// reports -1e30
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m <= kMasked ? kMasked : m + logf(l);
+}
 
 // The keys rows q_first..q_last of batch row b can see: [0, end); kv_valid
 // is min(valid[b], Sk).  A row that sees no key walks all Sk of them.
@@ -325,6 +347,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     Tq* o = (Tq*)p.out + ((b * p.Sq + qpos) * p.H + h) * D;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) o[t + i * TPR] = from_f32<Tq>(acc[i] / denom);
+    if (p.lse != nullptr && t == 0)
+      p.lse[(b * p.Sq + qpos) * p.H + h] = row_lse(m, l);
   }
 }
 
@@ -976,6 +1000,25 @@ __global__ void __launch_bounds__(kThreads,
     ((__nv_bfloat16*)p.out)[((b * p.Sq + qi) * p.H + h) * D + d] =
         __float2bfloat16(num / fmaxf(den, 1e-30f));
   }
+  if (p.lse == nullptr) return;
+  // each row's log-sum-exp: (M + log2 L) in the base-2 units the splits
+  // scored in, turned into natural logs
+  for (int r = tid; r < RB; r += kThreads) {
+    const int64_t g = g0 + r;
+    if (g >= rows) continue;
+    float mx = -INFINITY;
+    for (int s = 0; s < n_split; ++s)
+      mx = fmaxf(mx, __ldcg(&part_ml[first + (int64_t)s * RB + r]).x);
+    float den = 0.0f;
+    for (int s = 0; s < n_split; ++s) {
+      const float2 ml = __ldcg(&part_ml[first + (int64_t)s * RB + r]);
+      if (ml.x == -INFINITY) continue;
+      den = fmaf(ml.y, exp2f(ml.x - mx), den);
+    }
+    const int64_t qi = g / rep, h = kvh * rep + g % rep;
+    p.lse[(b * p.Sq + qi) * p.H + h] =
+        mx <= kMasked ? kMasked : (mx + log2f(den)) * kLn2;
+  }
 }
 
 template <typename Tkv, int D, int RB>
@@ -1042,20 +1085,20 @@ extern "C" {
 // dtype codes: 0 = float32, 1 = bfloat16.  q/k/v: BSHD with the strides
 // given (elements; the last dimension contiguous); out: contiguous
 // (B, Sq, H, D) in q's dtype.  valid: (B,) int64 on the device, or null to
-// use valid_all for every row.  Route C: float32 q, or bf16 q with a float32
-// k/v at Sq > 8.
+// use valid_all for every row.  lse: (B, Sq, H) float32 on the device, or
+// null.  Route C: float32 q, or bf16 q with a float32 k/v at Sq > 8.
 cudaError_t flash_attention(
     const void* q, const void* k, const void* v, void* out, int q_dtype,
     int kv_dtype, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KH,
     int D, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, int causal, int64_t q_offset, int64_t prefix_len,
-    const int64_t* valid, int64_t valid_all, void* stream) {
+    const int64_t* valid, int64_t valid_all, float* lse, void* stream) {
   if (bad_shape(B, Sq, Sk, H, KH)) return cudaErrorInvalidValue;
   const Params p{q,    k,    v,    out,  B,     Sq,     Sk,
                  H,    KH,   q_sb, q_ss, q_sh,  k_sb,   k_ss,
                  k_sh, v_sb, v_ss, v_sh, scale, causal, q_offset,
-                 prefix_len, valid, valid_all};
+                 prefix_len, valid, valid_all, lse};
   const cudaStream_t s = (cudaStream_t)stream;
   using cores::by_dim;
   if (q_dtype == 1 && kv_dtype == 0 && Sq > 8)
@@ -1080,7 +1123,7 @@ cudaError_t flash_attention_prefill(
   const Params p{q,    k,    v,    out,  B,     Sq,     Sk,
                  H,    KH,   q_sb, q_ss, q_sh,  k_sb,   k_ss,
                  k_sh, v_sb, v_ss, v_sh, scale, causal, q_offset,
-                 prefix_len, valid, valid_all};
+                 prefix_len, valid, valid_all, nullptr};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 32: return tc::launch<32>(p, s);
@@ -1097,7 +1140,7 @@ cudaError_t flash_attention_prefill(
 // Workspace: part_acc (B*KH*groups*n_split*rows_per_block*D float32),
 // part_ml (the same without D, as float2), tickets (B*KH*groups int32, all
 // 0; the kernel leaves them 0), n_split = ceil(Sk / split), split 256
-// keys, 128 for 4 or more rows a block.
+// keys, 128 for 4 or more rows a block.  lse: (B, Sq, H) float32, or null.
 cudaError_t flash_attention_decode(
     const void* q, const void* k, const void* v, void* out, int q_dtype,
     int kv_dtype, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KH,
@@ -1105,14 +1148,14 @@ cudaError_t flash_attention_decode(
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, int causal, int64_t q_offset, int64_t prefix_len,
     const int64_t* valid, int64_t valid_all, int rows_per_block, int groups,
-    void* part_acc, void* part_ml, void* tickets, void* stream) {
+    void* part_acc, void* part_ml, void* tickets, float* lse, void* stream) {
   if (bad_shape(B, Sq, Sk, H, KH) || q_dtype != 1 || Sq > 8 || groups < 1 ||
       groups > 65535 || (int64_t)rows_per_block * groups < Sq * (H / KH))
     return cudaErrorInvalidValue;
   const Params p{q,    k,    v,    out,  B,     Sq,     Sk,
                  H,    KH,   q_sb, q_ss, q_sh,  k_sb,   k_ss,
                  k_sh, v_sb, v_ss, v_sh, scale, causal, q_offset,
-                 prefix_len, valid, valid_all};
+                 prefix_len, valid, valid_all, lse};
   const cudaStream_t s = (cudaStream_t)stream;
   float* acc = (float*)part_acc;
   float2* ml = (float2*)part_ml;

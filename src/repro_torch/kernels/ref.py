@@ -135,6 +135,38 @@ def full_mha_reference(q, k, v, spec: MaskSpec = MaskSpec(),
     ``models.attention.full_mha`` and the FLASH_ATTENTION kernel's plain
     version.  q (B, Sq, H, D), k/v (B, Sk, KH, D) read in q's dtype;
     ``kv_valid_len`` None, a scalar or one per batch row."""
+    return _masked_attention(q, k, v, spec, kv_valid_len, scale)[0]
+
+
+def attention_lse_reference(q, k, v, spec: MaskSpec = MaskSpec(),
+                            kv_valid_len=None, scale=None):
+    """:func:`full_mha_reference` and each query row's log-sum-exp of its
+    masked logits: (out (B, Sq, H, D) in q's dtype, lse (B, Sq, H) float32),
+    natural logs of the logits as scaled.  A row that sees no key has every
+    logit at -1e30, and so an lse of -1e30: beside any real row of another
+    part of the keys its weight ``exp(lse - max)`` in
+    :func:`merge_partials` is exactly 0.  The plain version of the
+    kernel's ``return_lse`` form."""
+    out, logits = _masked_attention(q, k, v, spec, kv_valid_len, scale)
+    b, sq, h = q.shape[:3]
+    lse = torch.logsumexp(logits, dim=-1)                   # (B, KH, R, Sq)
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, h)
+
+
+def merge_partials(outs, lses):
+    """Attention over keys split into parts, from each part's result:
+    ``outs`` (P, B, Sq, H, D) and their log-sum-exps ``lses``
+    (P, B, Sq, H) -> (B, Sq, H, D) in ``outs``' dtype.  Each part is
+    weighted by exp(lse_p - max_p lse_p), in float32; a part whose row saw
+    no key (lse -1e30 beside a real one) weighs exactly 0."""
+    lse = lses.float()
+    w = torch.exp(lse - lse.amax(dim=0, keepdim=True))
+    num = (outs.float() * w[..., None]).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(outs.dtype)
+
+
+def _masked_attention(q, k, v, spec, kv_valid_len, scale):
+    """(out, masked float32 logits (B, KH, R, Sq, Sk))."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     rep = h // kh
@@ -151,7 +183,7 @@ def full_mha_reference(q, k, v, spec: MaskSpec = MaskSpec(),
         logits = torch.where(kmask[:, None, None, None, :], logits, _NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w, v.to(q.dtype).float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return out.reshape(b, sq, h, d).to(q.dtype), logits
 
 
 def split_k_decode_reference(q, k, v, spec: MaskSpec = MaskSpec(),

@@ -195,27 +195,36 @@ def _flash_cost(q, k, kv_rows: int, pairs: int) -> tuple[int, int]:
     return nbytes, 4 * h * d * pairs
 
 
-def flash_attention_cost(q, k, mask, valid=None) -> tuple[int, int]:
+def lse_bytes(q) -> int:
+    """The log-sum-exp output of a ``return_lse`` call: float32 (B, Sq, H)."""
+    return q.shape[0] * q.shape[1] * q.shape[2] * 4
+
+
+def flash_attention_cost(q, k, mask, valid=None,
+                         lse: bool = False) -> tuple[int, int]:
     """FLASH_ATTENTION on q (B, Sq, H, D) and k/v (B, Sk, KH, D): q and the
     output once, the k/v rows some query row sees (``mask`` from
-    :func:`attention_mask`), the valid lengths; 4·D operations per (head,
-    query, key) pair the mask keeps: what this call's data needs."""
+    :func:`attention_mask`), the valid lengths and, with ``lse``, the
+    log-sum-exp output; 4·D operations per (head, query, key) pair the
+    mask keeps: what this call's data needs."""
     nbytes, ops = _flash_cost(q, k, int(mask.any(dim=1).sum()),
                               int(mask.sum()))
     if valid is not None:
         nbytes += valid.numel() * 8
-    return nbytes, ops
+    return nbytes + (lse_bytes(q) if lse else 0), ops
 
 
 def flash_attention_spec_cost(q, k, causal: bool, q_offset: int,
-                              prefix_len: int) -> tuple[int, int]:
+                              prefix_len: int,
+                              lse: bool = False) -> tuple[int, int]:
     """:func:`flash_attention_cost` with every key valid, from the mask's
     parameters (:func:`attention_counts`): a cost trace's call, whose
     (B, Sq, Sk) mask could take gigabytes at 32k positions."""
     b, sq = q.shape[:2]
     pairs, rows = attention_counts(sq, k.shape[1], causal, q_offset,
                                    prefix_len)
-    return _flash_cost(q, k, b * rows, b * pairs)
+    nbytes, ops = _flash_cost(q, k, b * rows, b * pairs)
+    return nbytes + (lse_bytes(q) if lse else 0), ops
 
 
 def ssd_intra_cost(args, out) -> tuple[int, int]:

@@ -28,8 +28,10 @@ import functools
 
 from repro_torch.device import resolve_template
 from repro_torch.kernels import attention_cuda, autograd
-from repro_torch.kernels.attention import chunked_attention
-from repro_torch.kernels.ref import MaskSpec, _per_batch, full_mha_reference
+from repro_torch.kernels.attention import block_valid_len, chunked_attention
+from repro_torch.kernels.ref import (MaskSpec, _per_batch,
+                                     attention_lse_reference,
+                                     full_mha_reference)
 
 
 def full_mha(q, k, v, spec: MaskSpec = MaskSpec(), kv_valid_len=None,
@@ -76,3 +78,26 @@ def decode_mha(q, k_cache, v_cache, cache_len, scale=None, template=None):
     Positions >= cache_len (a scalar or one per batch row) are masked."""
     return full_mha(q, k_cache, v_cache, MaskSpec(causal=False),
                     kv_valid_len=cache_len, scale=scale, template=template)
+
+
+def decode_mha_partial(q, k_block, v_block, cache_len, start: int,
+                       scale=None, template=None):
+    """:func:`decode_mha` on one block of a cache whose sequence is split
+    into blocks: q (B, 1, H, D) against the (B, Sl, KH, D) block that holds
+    positions [start, start + Sl); positions >= cache_len (over the whole
+    sequence: a scalar or one per batch row) are masked.  Returns (out,
+    lse): the block's attention and each query row's log-sum-exp, which
+    ``kernels.ref.merge_partials`` merges over the blocks.  A row that sees
+    no key of the block averages its v and reports an lse of -1e30, a
+    weight of 0 beside any block where the row sees a key (the block that
+    holds position 0 always does).  On the ``CUDA`` template this is one
+    FLASH_ATTENTION launch with ``return_lse`` (serving only: it has no
+    backward)."""
+    valid = block_valid_len(cache_len, start, k_block.shape[1])
+    spec = MaskSpec(causal=False)
+    if resolve_template(template, q.device) == "CUDA":
+        if autograd.wants_grad(q, k_block, v_block):
+            raise ValueError("decode_mha_partial has no backward")
+        return attention_cuda.flash_attention(q, k_block, v_block, spec,
+                                              valid, scale, return_lse=True)
+    return attention_lse_reference(q, k_block, v_block, spec, valid, scale)

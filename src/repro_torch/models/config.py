@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -201,10 +201,23 @@ class ShardCfg:
         return math.prod(ext[a] for a in self.dp_axes)
 
     def data_parallel(self) -> bool:
-        """Whether the model's own code sees more than one data rank (the
-        ``fsdp_tp`` posture; ``dp`` runs the model under ``LOCAL``)."""
+        """Whether the model's own code sees more than one data rank's rows
+        (the ``fsdp_tp`` posture with the batch split over ``dp``; ``dp``
+        runs the model under ``LOCAL``)."""
         return (self.mesh is not None and not self.replicate_params
-                and self.dp_size() > 1)
+                and self.batch_sharded and self.dp_size() > 1)
 
 
 LOCAL = ShardCfg(mesh=None, moe_mode="local")
+
+
+class KVBlock(NamedTuple):
+    """The part of the attention KV caches' sequence a rank holds when the
+    model serves over a mesh whose tensor-parallel axis is larger than 1
+    (``dist.sharding.local_caches``): positions [start, start + the block's
+    length).  ``split``: the sequence is split over ``tp``, one block a
+    rank (``cache_spec_tree``'s rule); else every ``tp`` rank holds it all
+    (start 0), as the rule's guard leaves a length that does not divide."""
+
+    start: int
+    split: bool

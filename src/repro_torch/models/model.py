@@ -38,9 +38,20 @@ the ids in its rows, the others' give zeros, one all-reduce) and so is the
 cross entropy: the (B, chunk, V/|tp|) logits stay on their rank, and the
 row max, the sum of exponentials and the target logit are all-reduced over
 ``tp``.
+
+Serving over a mesh (``prefill`` and ``decode_step`` given a meshed
+``ShardCfg``), the model holds this rank's blocks of its parameters
+(``dist.sharding.shard_params``, or ``serving_params``: the form their use
+takes) and reads them inside ``dist.sharding.gathered``; ``batch``,
+``token`` and ``cache_len`` are this rank's rows, ``caches`` its blocks
+and ``kv_block`` the part of the KV caches' sequence they hold
+(``dist.sharding.local_caches``).  The vocab-parallel logits are gathered
+over ``tp``, and over ``dp`` where the batch is split there, so that every
+rank returns every row's logits.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -49,10 +60,11 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.device import resolve_device, true_divide
-from repro_torch.dist.collectives import all_reduce, tp_copy, tp_reduce
+from repro_torch.dist.collectives import (all_gather, all_reduce, tp_copy,
+                                          tp_reduce)
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import MaskSpec
-from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
+from repro_torch.models.config import LOCAL, KVBlock, ModelConfig, ShardCfg
 
 LOSS_CHUNK = 512
 
@@ -230,35 +242,64 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict,
                    "moe_z": met.moe_z, "moe_dropped": met.moe_dropped}
 
 
+def _served(model: LM, cfg: ModelConfig, shard: ShardCfg, kv_block):
+    """The context a prefill or decode step reads the parameters in: as
+    they are on one process, gathered for their use over a mesh."""
+    if shard.mesh is None:
+        return contextlib.nullcontext()
+    if kv_block is None and shard.tp_size() > 1 and cfg.family != "ssm":
+        raise ValueError("serving over a mesh with tp > 1 takes the KV "
+                         "caches' KVBlock (dist.sharding.local_caches)")
+    from repro_torch.dist.sharding import gathered
+
+    return gathered(model, shard)
+
+
+def _logits(model: LM, cfg: ModelConfig, x, shard: ShardCfg):
+    """(B, S, V) logits of the final hidden states: the vocab-parallel
+    blocks gathered over ``tp``, and the rows over ``dp`` where the batch
+    is split there."""
+    w = _unembed_w(model, cfg)
+    logits = x @ w.to(x.dtype)
+    if _vocab_split(shard, w.shape[1], cfg.vocab_size):
+        logits = all_gather(logits, shard.mesh, shard.tp, logits.dim() - 1)
+    if shard.mesh is not None and shard.batch_sharded and \
+            shard.dp_size() > 1:
+        logits = all_gather(logits, shard.mesh, shard.dp, 0)
+    return logits
+
+
 def prefill(model: LM, cfg: ModelConfig, batch: dict, caches,
-            shard: ShardCfg = LOCAL, template=None):
+            shard: ShardCfg = LOCAL, template=None,
+            kv_block: KVBlock | None = None):
     """Fill caches from a prompt (``tokens`` or ``embeds``, after
     ``prefix_embeds`` where given, attended bidirectionally); returns
-    (last-position logits, caches)."""
-    x, prefix_len = embed_inputs(model, cfg, batch, shard)
-    positions = torch.arange(x.shape[1], device=x.device)
-    mask = MaskSpec(causal=True, prefix_len=prefix_len)
-    x, caches, _ = transformer.stack_seq(model.stack, cfg, x, shard,
-                                         positions=positions, mask=mask,
-                                         caches=caches, mode="prefill",
-                                         template=template)
-    x = layers.rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps)
-    logits = x @ _unembed_w(model, cfg).to(x.dtype)
-    return logits, caches
+    (last-position logits, caches).  Over a mesh: the module's text."""
+    with _served(model, cfg, shard, kv_block):
+        x, prefix_len = embed_inputs(model, cfg, batch, shard)
+        positions = torch.arange(x.shape[1], device=x.device)
+        mask = MaskSpec(causal=True, prefix_len=prefix_len)
+        x, caches, _ = transformer.stack_seq(
+            model.stack, cfg, x, shard, positions=positions, mask=mask,
+            caches=caches, mode="prefill", template=template,
+            kv_block=kv_block)
+        x = layers.rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps)
+        return _logits(model, cfg, x, shard), caches
 
 
 def decode_step(model: LM, cfg: ModelConfig, token, caches, cache_len,
-                shard: ShardCfg = LOCAL, template=None):
+                shard: ShardCfg = LOCAL, template=None,
+                kv_block: KVBlock | None = None):
     """One decode step.  token (B, 1) int; cache_len: filled length (an int
-    or a (B,) tensor)."""
-    x = layers.embed(model.embed, token, cfg.compute_dtype)
-    x = shard.constrain_act(x, None, None)
-    x, caches = transformer.stack_step(model.stack, cfg, x, shard,
-                                       caches=caches, cache_len=cache_len,
-                                       template=template)
-    x = layers.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    logits = x @ _unembed_w(model, cfg).to(x.dtype)
-    return logits, caches
+    or a (B,) tensor).  Over a mesh: the module's text."""
+    with _served(model, cfg, shard, kv_block):
+        x = _embed_tokens(model, cfg, token, shard)
+        x = shard.constrain_act(x, None, None)
+        x, caches = transformer.stack_step(
+            model.stack, cfg, x, shard, caches=caches, cache_len=cache_len,
+            template=template, kv_block=kv_block)
+        x = layers.rmsnorm(model.final_norm, x, cfg.norm_eps)
+        return _logits(model, cfg, x, shard), caches
 
 
 init_caches = transformer.init_caches

@@ -34,6 +34,11 @@ in the sharded train step (``LayerStack.layer_use`` set), gathered over
 the ranks for that use; the gather then runs inside the layer's
 rematerialised region, again in its recomputation, so that one layer's
 (a hybrid group's) gathered leaves live at a time.
+
+Serving over a mesh, the caches are this rank's blocks
+(``dist.sharding.local_caches``): its data rows of every state, and of the
+attention KV caches its block of the sequence, which ``kv_block`` names
+(``models.blocks``); Mamba2 and xLSTM states are split by rows only.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from torch.utils import checkpoint
 from repro_torch.models import layers, mamba2, moe, xlstm
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.blocks import Attention, KVCache, attention
-from repro_torch.models.config import ModelConfig, ShardCfg
+from repro_torch.models.config import KVBlock, ModelConfig, ShardCfg
 
 FAMILIES = ("dense", "audio", "vlm", "moe", "hybrid", "ssm")
 MODES = ("train", "prefill")
@@ -232,14 +237,15 @@ def _layer_kv(caches: KVCache | None, i: int) -> KVCache | None:
 # ---------------------------------------------------------------------------
 def _attn_block(p: AttnBlock, cfg: ModelConfig, x, shard: ShardCfg, *,
                 positions, mask: MaskSpec, cache=None, cache_len=None,
-                template=None):
+                template=None, kv_block: KVBlock | None = None):
     """Returns (x, cache, StackMetrics): the MoE layer's, or zeros."""
     h, new_cache = attention(
         p.attn, layers.rmsnorm(p.ln1, x, cfg.norm_eps),
         rope_theta=cfg.rope_theta, positions=positions, mask=mask,
         cache=cache, cache_len=cache_len,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, template=template,
-        shard=shard, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+        shard=shard, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        kv_block=kv_block)
     x = shard.constrain_act(x + h, None, None)
     y = layers.rmsnorm(p.ln2, x, cfg.norm_eps)
     if cfg.family == "moe":
@@ -257,12 +263,13 @@ def _attn_block(p: AttnBlock, cfg: ModelConfig, x, shard: ShardCfg, *,
 # ---------------------------------------------------------------------------
 def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
               positions, mask: MaskSpec, caches=None, mode: str = "train",
-              template=None):
+              template=None, kv_block: KVBlock | None = None):
     """x (B,S,d) -> (x, caches, metrics).  mode: train (no caches; each
     layer or group under :func:`_remat`, but the ``ssm`` family's) | prefill (caches filled in
     place).  ``metrics`` are ``StackMetrics``: the MoE layers' summed over
     the layers (the reference's ``jax.tree.map(jnp.sum, mets)``), zero for
-    the other families."""
+    the other families.  ``kv_block``: the part of the sequence the KV
+    caches hold, serving over a mesh (the module's text)."""
     _check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} ({' or '.join(MODES)})")
@@ -271,25 +278,28 @@ def stack_seq(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
     if cfg.family == "hybrid":
         x = _seq_hybrid_stack(stack, cfg, x, shard, positions=positions,
                               mask=mask, caches=caches,
-                              train=mode == "train", template=template)
+                              train=mode == "train", template=template,
+                              kv_block=kv_block)
         return x, caches, StackMetrics.zero(x.device)
     if cfg.family == "ssm":
         x = _seq_xlstm_stack(stack, cfg, x, caches=caches, template=template)
         return x, caches, StackMetrics.zero(x.device)
     x, metrics = _seq_attn_stack(stack, cfg, x, shard, positions=positions,
                                  mask=mask, caches=caches,
-                                 train=mode == "train", template=template)
+                                 train=mode == "train", template=template,
+                                 kv_block=kv_block)
     return x, caches, metrics
 
 
 def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches, train,
-                    template):
+                    template, kv_block=None):
     """(x, StackMetrics summed over the layers)."""
     def body(x, i, cache):
         with _in_use(stack, i):
             x, _, met = _attn_block(stack.layers[i], cfg, x, shard,
                                     positions=positions, mask=mask,
-                                    cache=cache, template=template)
+                                    cache=cache, template=template,
+                                    kv_block=kv_block)
         return (x, *met)
 
     body = _remat(body, cfg) if train else body
@@ -301,7 +311,7 @@ def _seq_attn_stack(stack, cfg, x, shard, *, positions, mask, caches, train,
 
 
 def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
-                      train, template):
+                      train, template, kv_block=None):
     """Each group: the shared attention block (its own KV cache), then
     ``attn_every`` Mamba2 layers (their states at layers g·E .. g·E+E-1)."""
     with_caches = caches is not None
@@ -310,7 +320,7 @@ def _seq_hybrid_stack(stack, cfg, x, shard, *, positions, mask, caches,
         acache = _layer_kv(caches["attn"], g) if with_caches else None
         x, _, _ = _attn_block(stack.shared_attn, cfg, x, shard,
                               positions=positions, mask=mask, cache=acache,
-                              template=template)
+                              template=template, kv_block=kv_block)
         for e in range(cfg.attn_every):
             i = g * cfg.attn_every + e
             lp = stack.layers[i]
@@ -351,11 +361,13 @@ def _seq_xlstm_stack(stack, cfg, x, *, caches, template):
 # step mode (single-token decode)
 # ---------------------------------------------------------------------------
 def stack_step(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
-               caches, cache_len, template=None):
+               caches, cache_len, template=None,
+               kv_block: KVBlock | None = None):
     """x (B,1,d), caches filled to cache_len -> (x, caches).
 
     ``cache_len`` is an int (uniform batch) or a (B,) tensor (continuous
-    batching: per-slot fill levels and rope positions)."""
+    batching: per-slot fill levels and rope positions).  Each layer runs
+    inside :func:`_in_use`; ``kv_block`` as in :func:`stack_seq`."""
     _check_family(cfg)
     if torch.is_tensor(cache_len) and cache_len.dim() >= 1:
         positions = cache_len.reshape(-1, 1)     # (B, 1) per-slot rope
@@ -364,29 +376,32 @@ def stack_step(stack: LayerStack, cfg: ModelConfig, x, shard: ShardCfg, *,
     mask = MaskSpec(causal=True, q_offset=0)
     block = lambda p, x, cache: _attn_block(
         p, cfg, x, shard, positions=positions, mask=mask, cache=cache,
-        cache_len=cache_len, template=template)[0]
+        cache_len=cache_len, template=template, kv_block=kv_block)[0]
     if cfg.family == "ssm":
         xt = x[:, 0]
-        for i, lp in enumerate(stack.layers):
+        for i in range(len(stack.layers)):
             fn = (xlstm.slstm_step if i in cfg.slstm_indices
                   else xlstm.mlstm_step)
-            xt, ns = fn(lp, cfg, xt, caches[i])
+            with _in_use(stack, i):
+                xt, ns = fn(stack.layers[i], cfg, xt, caches[i])
             _copy_state(caches[i], ns)
         return xt[:, None], caches
     if cfg.family != "hybrid":
-        for i, lp in enumerate(stack.layers):
-            x = block(lp, x, _layer_kv(caches, i))
+        for i in range(len(stack.layers)):
+            with _in_use(stack, i):
+                x = block(stack.layers[i], x, _layer_kv(caches, i))
         return x, caches
 
     for g in range(n_attn_layers(cfg)):
         x = block(stack.shared_attn, x, _layer_kv(caches["attn"], g))
         for e in range(cfg.attn_every):
             i = g * cfg.attn_every + e
-            lp = stack.layers[i]
             ms = mamba2.Mamba2State(*(t[i] for t in caches["mamba"]))
-            h, nm = mamba2.mamba2_step(
-                lp.mamba, cfg, layers.rmsnorm(lp.ln, x[:, 0], cfg.norm_eps),
-                ms)
+            with _in_use(stack, i):
+                lp = stack.layers[i]
+                h, nm = mamba2.mamba2_step(
+                    lp.mamba, cfg,
+                    layers.rmsnorm(lp.ln, x[:, 0], cfg.norm_eps), ms)
             x = x + h[:, None].to(x.dtype)
             _copy_state(ms, nm)
     return x, caches

@@ -23,6 +23,19 @@ slot axis is found as the reference finds it, as the axis whose extent
 follows the number of slots (1 under a stacked layer axis, 0 for the
 ``ssm`` family's per-layer states).
 
+Over a mesh of ranks (``shard=make_shard_cfg(mesh, cfg, slots)``, every
+rank building its engine with the same arguments), each rank holds its
+block of the caches as ``cache_spec_tree`` places them
+(``dist.sharding.local_caches``): the slots of its ``dp`` index and, of the
+attention KV caches, its ``tp`` rank's block of the sequence; the model's
+parameters are taken once in the form their use takes
+(``dist.sharding.serving_params``).  A request's prefill runs on the ranks
+that hold its slot (its data index's ``tp`` line); the decode step runs on
+every rank, and its logits come back gathered, so that every rank makes
+the same host decisions (the same ``SlotTable`` admissions, tokens and
+finished requests).  ``moe_mode="a2a"`` and ``ssm_sp`` raise in
+``ShardCfg`` (ROADMAP queue 1, item 9b).
+
 ``device`` and ``backend`` mean what they mean in ``repro_torch.api``:
 ``device`` None is ``cuda``; ``backend`` ``torch`` runs the plain versions,
 ``cuda`` the hand-written kernels (a card only), ``auto`` the kernels on the
@@ -36,8 +49,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_backend, resolve_device
+from repro_torch.dist import collectives, sharding
 from repro_torch.models import model
-from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg, not_ported
+from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
 from repro_torch.serve.slots import SlotTable
 
 
@@ -91,9 +105,6 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_seq: int = 512, shard: ShardCfg = LOCAL,
                  device=None, backend: str = "auto"):
-        if shard.mesh is not None:
-            raise not_ported("serving over a mesh (sharded prefill and "
-                             "decode, cache_spec_tree in use)", "9b")
         self.device = resolve_device(device)
         self.template = resolve_backend(backend, self.device)
         where = next(params.parameters()).device
@@ -109,8 +120,21 @@ class ServingEngine:
         self.finished: list[Request] = []
         self.lengths = np.zeros((slots,), np.int64)   # filled tokens per slot
         self.budgets = np.zeros((slots,), np.int64)
-        self.caches = model.init_caches(cfg, slots, max_seq, torch.float32,
-                                        self.device)
+        self.kv_block = None
+        self.rows = slice(0, slots)          # the slots this rank holds
+        self._prefill_shard = shard
+        if shard.mesh is None:
+            self.caches = model.init_caches(cfg, slots, max_seq,
+                                            torch.float32, self.device)
+        else:
+            collectives.prepare(shard.mesh)
+            self.params = sharding.serving_params(params, cfg, shard)
+            self.caches, self.kv_block = sharding.local_caches(
+                cfg, slots, max_seq, shard, torch.float32, self.device)
+            self.rows = sharding.local_rows(slots, shard)
+            # one slot's prefill: its rows only, on its data index's ranks
+            self._prefill_shard = dataclasses.replace(shard,
+                                                      batch_sharded=False)
         self._batch_axes = _batch_axes(cfg, slots, max_seq)
         self.last_token = np.zeros((slots, 1), np.int64)
         self.steps = 0
@@ -130,13 +154,17 @@ class ServingEngine:
                 return
             s, req = admitted
             plen = len(req.prompt)
-            toks = np.zeros((1, _bucket(plen)), np.int64)
-            toks[0, :plen] = req.prompt
-            one_cache = _slot_view(self.caches, self._batch_axes, s)
-            model.reset_caches(self.cfg, one_cache)
-            model.prefill(self.params, self.cfg,
-                          {"tokens": torch.from_numpy(toks).to(self.device)},
-                          one_cache, self.shard, template=self.template)
+            if self.rows.start <= s < self.rows.stop:
+                toks = np.zeros((1, _bucket(plen)), np.int64)
+                toks[0, :plen] = req.prompt
+                one_cache = _slot_view(self.caches, self._batch_axes,
+                                       s - self.rows.start)
+                model.reset_caches(self.cfg, one_cache)
+                model.prefill(
+                    self.params, self.cfg,
+                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                    one_cache, self._prefill_shard, template=self.template,
+                    kv_block=self.kv_block)
             # re-decode the last real prompt token at position plen-1: it
             # yields the first new token (bucketed pads beyond plen are
             # masked by the per-slot valid length)
@@ -149,11 +177,11 @@ class ServingEngine:
         self._admit()
         if self.table.n_active == 0:
             return False
-        cache_len = torch.from_numpy(self.lengths).to(self.device)
-        token = torch.from_numpy(self.last_token).to(self.device)
+        cache_len = torch.from_numpy(self.lengths[self.rows]).to(self.device)
+        token = torch.from_numpy(self.last_token[self.rows]).to(self.device)
         logits, self.caches = model.decode_step(
             self.params, self.cfg, token, self.caches, cache_len, self.shard,
-            template=self.template)
+            template=self.template, kv_block=self.kv_block)
         toks = logits[:, -1].argmax(dim=-1).cpu().numpy()
         self.steps += 1
         for s, req in list(self.table.occupied()):

@@ -23,7 +23,7 @@ the reference's two postures:
   (``dist.sharding.local_batch``; the ``tp`` ranks of one data index take
   the same rows).  The forward uses each parameter gathered for its use
   (``dist.sharding.gather_params``; a layer's leaves when the layer runs,
-  :func:`_gathered`) with the tensor-parallel layers split over
+  ``dist.sharding.gathered``) with the tensor-parallel layers split over
   ``model``; the data-axis gradients are summed (by the
   gathers' reduce-scatter, or one all-reduce for leaves the data axes do
   not split) and divided by |dp| (:func:`data_mean`), so that a step is
@@ -136,46 +136,6 @@ def make_train_step(cfg: ModelConfig, shard: ShardCfg, opt: AdamW,
 # ---------------------------------------------------------------------------
 # fsdp_tp over a mesh of ranks
 # ---------------------------------------------------------------------------
-@contextlib.contextmanager
-def _using(model, use: dict):
-    """Inside the context each parameter of ``model`` reads as its tensor
-    in ``use`` (the backward's recomputation of a rematerialised block
-    reads them too); the parameters are put back after."""
-    saved = {}
-    for name, t in use.items():
-        mod_name, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(mod_name)
-        saved[name] = (mod, leaf, mod._parameters[leaf])
-        mod._parameters[leaf] = t
-    try:
-        yield
-    finally:
-        for mod, leaf, p in saved.values():
-            mod._parameters[leaf] = p
-
-
-@contextlib.contextmanager
-def _gathered(model, shard: ShardCfg):
-    """Inside the context ``model`` reads each parameter as its use takes
-    it (``dist.sharding.gather_params``): the leaves outside the layer
-    stack gathered once, a layer's when it runs (``LayerStack.layer_use``),
-    so that under ``remat="block"`` a layer's gathered leaves live only
-    while it runs and while its recomputation in the backward does."""
-    stack = model.stack
-
-    def layer(i):
-        return _using(model, sharding.gather_params(
-            model, shard, within=f"stack.layers.{i}."))
-
-    with _using(model, sharding.gather_params(model, shard,
-                                              skip="stack.layers.")):
-        stack.layer_use = layer
-        try:
-            yield
-        finally:
-            stack.layer_use = None
-
-
 def _mean_over(tree: dict, mesh, axes) -> dict:
     """Each 0-d tensor of ``tree`` averaged over the ranks of ``axes``
     (one all-reduce)."""
@@ -220,7 +180,8 @@ def _make_sharded_train_step(cfg: ModelConfig, shard: ShardCfg, opt: AdamW,
 
     def train_step(model, opt_state: AdamWState, batch):
         loss, met, grads = _loss_and_grads(
-            lfn, model, batch, grad_accum, lambda: _gathered(model, shard))
+            lfn, model, batch, grad_accum,
+            lambda: sharding.gathered(model, shard))
         whole = [n for n, pl in model.placement.items()
                  if not any(collectives.axes_of(a) == dp for a in pl)]
         with torch.no_grad():

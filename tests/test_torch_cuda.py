@@ -441,15 +441,17 @@ ATTN_CASES = {
 }
 
 
-def _share_of_tolerance(got, want, dtype) -> float:
+def _share_of_tolerance(got, want, dtype, roundings: int = 1) -> float:
     """The largest share of the per-row tolerance |kernel - plain|
-    <= rtol * max|plain row| + 1e-5 (a row: one query, one head).  bf16
-    outputs: one bf16 ulp of the row's largest value (2^-7 relative), as
-    kernel and plain version may round a float32 result differently;
+    <= roundings * rtol * max|plain row| + 1e-5 (a row: one query, one
+    head).  bf16 outputs: one bf16 ulp of the row's largest value (2^-7
+    relative) a rounding ``got`` took that ``want`` did not (1: kernel and
+    plain version may round a float32 result differently; 2: attention
+    merged from parts, each part rounded before the merge rounds again);
     float32: 2e-5 relative.  The floor covers the float32 summation error.
     Held per row, since long causal rows are ten times smaller than short
     ones."""
-    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-5
+    rtol = roundings * (2.0 ** -7 if dtype == torch.bfloat16 else 2e-5)
     diff = (got.float() - want.float()).abs()
     tol = rtol * want.float().abs().amax(dim=-1, keepdim=True) + 1e-5
     return float((diff / tol).max())
@@ -607,6 +609,98 @@ def test_flash_attention_check_rejects_a_dropped_key_tile(card, case):
     got = attention_cuda.flash_attention(q, k, v, spec, short)
     want = attention_cuda.flash_attention_plain(q, k, v, spec, valid)
     assert _share_of_tolerance(got, want, q.dtype) > 1.0
+
+
+# the cases whose route writes the log-sum-exp (the split-K decode and the
+# CUDA-core route; the tensor-core prefill has no such output)
+LSE_CASES = [c for c, a in ATTN_CASES.items()
+             if attention_cuda.route(a[6], a[7] or a[6], a[1])
+             != "tensor_core_prefill"]
+
+
+def _lse_share(got, want, dtype) -> float:
+    """The largest share of the per-row tolerance of a log-sum-exp:
+    |kernel - plain| <= rtol * |plain| + 1e-5, rtol as for the output."""
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-5
+    return float(((got - want).abs() / (rtol * want.abs() + 1e-5)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_lse_launch_gives_the_plain_pair_and_the_same_out_bitwise(card, case):
+    """``return_lse``: one launch of the route, its ``out`` bitwise the
+    ``out`` of the same launch without it, the log-sum-exp per row against
+    the plain version's (-1e30 for a row that sees no key), the split-K
+    tickets left at 0."""
+    q, k, v, spec, valid = _attn_inputs(case, card)
+    path = attention_cuda.route(q.dtype, k.dtype, q.shape[1])
+    plain = attention_cuda.flash_attention(q, k, v, spec, valid)
+    by_route = attention_cuda.ROUTE_LAUNCHES[path]
+    got, lse = attention_cuda.flash_attention(q, k, v, spec, valid,
+                                              return_lse=True)
+    want, want_lse = attention_cuda.flash_attention_plain(
+        q, k, v, spec, valid, return_lse=True)
+    torch.cuda.synchronize()
+    assert attention_cuda.ROUTE_LAUNCHES[path] == by_route + 1
+    assert torch.equal(got, plain)
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    assert _share_of_tolerance(got, want, q.dtype) <= 1.0
+    assert _lse_share(lse, want_lse, q.dtype) <= 1.0
+    if path == "split_k_decode":
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        assert int(attention_cuda._TICKETS[q.device, stream].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_the_tensor_core_prefill_has_no_lse_and_launches_nothing(card):
+    q, k, v, spec, valid = _attn_inputs("prefill_causal", card)
+    before = attention_cuda.LAUNCHES["FLASH_ATTENTION"]
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        attention_cuda.flash_attention(q, k, v, spec, valid, return_lse=True)
+    assert attention_cuda.LAUNCHES["FLASH_ATTENTION"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [112, 128, 256])
+def test_rank_slice_decode_merges_to_the_whole_decode(card, d):
+    """A 4-slot bf16 decode over each half of a 2,048-row float32 cache, as
+    a ``tp`` rank takes it (``models.attention.decode_mha_partial``): each
+    half's (out, lse) against the plain pair per row, rows that see no key
+    of the second half (lse -1e30) included; the halves merged
+    (``kernels.ref.merge_partials``) against the whole cache's decode; a
+    log-sum-exp off by log 2 in one half rejected."""
+    from repro_torch.kernels.ref import merge_partials
+    from repro_torch.models.attention import decode_mha_partial
+
+    b, sk, h, kh = 4, 2048, 16, 2 if d != 256 else 1
+    gen = torch.Generator(device=card).manual_seed(d)
+    q = torch.randn(b, 1, h, d, generator=gen, device=card).to(
+        torch.bfloat16)
+    k, v = (torch.randn(b, sk, kh, d, generator=gen, device=card)
+            for _ in range(2))
+    lens = torch.tensor([1, 700, 1025, 2048], device=card)
+    half = sk // 2
+    parts = []
+    for j in range(2):
+        kj, vj = k[:, j * half:(j + 1) * half], v[:, j * half:(j + 1) * half]
+        got = decode_mha_partial(q, kj, vj, lens, j * half, template="CUDA")
+        want = decode_mha_partial(q, kj, vj, lens, j * half,
+                                  template="TORCH")
+        assert _share_of_tolerance(got[0], want[0], q.dtype) <= 1.0
+        assert _lse_share(got[1], want[1], q.dtype) <= 1.0
+        empty = lens <= j * half
+        assert bool((got[1][empty] == -1e30).all())
+        assert bool(torch.isfinite(got[0]).all())
+        parts.append(got)
+    outs, lses = (torch.stack(t) for t in zip(*parts))
+    whole = attention_cuda.flash_attention_plain(
+        q, k, v, MaskSpec(causal=False), lens)
+    assert _share_of_tolerance(merge_partials(outs, lses), whole,
+                               q.dtype, roundings=2) <= 1.0
+    off = lses.clone()
+    off[0] += float(np.log(2.0))
+    assert _share_of_tolerance(merge_partials(outs, off), whole,
+                               q.dtype, roundings=2) > 1.0
 
 
 # SSD_INTRA cases: (B, nc, L, G, R, P, N)

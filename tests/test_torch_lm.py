@@ -11,6 +11,7 @@ states absorb the pads and the re-decoded token, as zamba2's do.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -82,17 +83,23 @@ def test_param_count_matches_the_reference(arch):
 
 def test_other_architectures_and_postures_are_not_ported():
     """Every arch of the reference is ported (the audio and vlm families
-    last); sequence-parallel Mamba2, ``moe_mode="a2a"`` and serving over a
-    mesh still raise (item 9b; the mesh training postures are
-    ``tests/test_torch_sharded.py``'s)."""
+    last); sequence-parallel Mamba2 and ``moe_mode="a2a"`` still raise
+    (item 9b); serving over a mesh builds its engine (on a stub mesh here;
+    the mesh postures are ``tests/test_torch_sharded.py``'s and
+    ``tests/test_torch_sharded_serve.py``'s)."""
     assert registry.list_archs() == rreg.list_archs()
     assert set(registry.list_archs()) == set(ARCHS)
     with pytest.raises(KeyError):
         registry.get_config("gpt-2")
     small = registry.smoke(registry.get_config("llama3-8b"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        engine.ServingEngine(small, model.init_params(small, 0, device="cpu"),
-                             shard=ShardCfg(mesh=object()), device="cpu")
+    at = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                               shape=(2, 2), get_coordinate=lambda: [0, 1])
+    eng = engine.ServingEngine(small, model.init_params(small, 0,
+                                                        device="cpu"),
+                               shard=ShardCfg(mesh=at, moe_mode="local"),
+                               slots=4, max_seq=32, device="cpu")
+    assert tuple(eng.caches.k.shape[1:3]) == (2, 16)
+    assert tuple(eng.kv_block) == (16, True)
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardCfg(ssm_sp=True)
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -39,7 +39,8 @@ loaded:
 * a checkpoint saved at (2, 2) restores at (4, 1) bitwise;
 * the launcher trains over ``--mesh 2x2`` and resumes a killed run
   bitwise;
-* ``a2a``, ``ssm_sp`` and a meshed ``ServingEngine`` still raise (item 9b).
+* ``a2a`` and ``ssm_sp`` still raise (item 9b); a meshed ``ServingEngine``
+  builds on a stub mesh.
 """
 from __future__ import annotations
 
@@ -757,6 +758,10 @@ def test_launcher_trains_over_a_mesh_and_resumes_a_killed_run(launch,
 
 # -- what stays unported ------------------------------------------------------------------
 def test_a2a_ssm_sp_and_meshed_serving_still_raise():
+    """``a2a`` and ``ssm_sp`` still raise (item 9b); a meshed
+    ``ServingEngine`` now builds (``tests/test_torch_sharded_serve.py``
+    serves with it): on a stub mesh at coordinate (data 1, model 1) it
+    holds that rank's blocks of the caches and the parameters' use."""
     with pytest.raises(NotImplementedError, match="item 9b"):
         ShardCfg(moe_mode="a2a")
     with pytest.raises(NotImplementedError, match="item 9b"):
@@ -765,7 +770,15 @@ def test_a2a_ssm_sp_and_meshed_serving_still_raise():
     stub = _stub(data=2, model=2)
     with pytest.raises(NotImplementedError, match="item 9b"):
         sharding.make_shard_cfg(stub, cfg, 4, ssm_sp=True)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ServingEngine(cfg, model.init_params(cfg, 0, device="cpu"),
-                      shard=sharding.make_shard_cfg(stub, cfg, 4),
-                      device="cpu")
+    at = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                               shape=(2, 2), get_coordinate=lambda: [1, 1])
+    eng = ServingEngine(cfg, model.init_params(cfg, 0, device="cpu"),
+                        shard=sharding.make_shard_cfg(at, cfg, 4),
+                        max_seq=32, device="cpu")
+    assert (eng.rows.start, eng.rows.stop) == (2, 4)
+    assert tuple(eng.kv_block) == (16, True)
+    assert tuple(eng.caches.k.shape) == (cfg.num_layers, 2, 16,
+                                         cfg.num_kv_heads, cfg.head_dim)
+    assert tuple(eng.params.stack.layers[0].attn.wq.shape) == (
+        cfg.d_model, cfg.num_heads // 2, cfg.head_dim)
+    assert tuple(eng.params.final_norm.scale.shape) == (cfg.d_model,)

@@ -1,4 +1,5 @@
-"""Rank-side jobs of ``tests/test_torch_sharded.py``, run by
+"""Rank-side jobs of ``tests/test_torch_sharded.py`` and
+``tests/test_torch_sharded_serve.py``, run by
 ``repro_torch.launch.mesh.spawn`` in gloo ranks on the CPU.
 
 One launch runs every job (:func:`all_jobs`) in 4 ranks and returns numpy
@@ -140,7 +141,6 @@ def moe_tp_case(case: dict) -> dict:
     """``moe_apply`` of layer 0 under ``moe_mode="tp"`` on this rank's rows
     of x; the output gathered over the data axis."""
     from repro_torch.models import moe
-    from repro_torch.train.step import _using
 
     cfg = case["cfg"]
     mesh = make_mesh(*FSDP_MESH)
@@ -149,7 +149,8 @@ def moe_tp_case(case: dict) -> dict:
     lm = sharded_model(cfg, case["params"], shard)
     x = sharding.block(torch.from_numpy(case["x"]), ("data", None, None),
                        mesh)
-    with torch.no_grad(), _using(lm, sharding.gather_params(lm, shard)):
+    with torch.no_grad(), sharding.using(lm,
+                                         sharding.gather_params(lm, shard)):
         out, met = moe.moe_apply(lm.stack.layers[0].ffn, cfg, x, shard)
     return {"out": _np(collectives.all_gather(out, mesh, "data", 0)),
             "dropped": float(met.dropped_frac)}
@@ -290,6 +291,110 @@ def launcher_case(argv: list) -> list:
                                               torch.device("cpu")))
 
 
+@contextlib.contextmanager
+def serve_planted(fault: str | None):
+    """A fault of the meshed decode: ``unweighted``: the ranks' partials
+    averaged without their log-sum-exp weights; ``every_rank``: the new
+    token's k and v written on every ``tp`` rank (at the nearest position
+    of a block that does not hold it); ``nan_empty``: a block that holds
+    no valid key of a row reports NaN and an lse of -inf there, as a
+    decode dividing by its empty sum would."""
+    from repro_torch.kernels.attention import block_valid_len
+    from repro_torch.models import blocks
+
+    saved = (blocks.merge_partials, blocks.kv_owner,
+             blocks.decode_mha_partial)
+    if fault == "unweighted":
+        blocks.merge_partials = lambda outs, lses: outs.float().mean(0).to(
+            outs.dtype)
+    elif fault == "every_rank":
+        blocks.kv_owner = lambda pos, kv_block, size: (
+            torch.ones_like(pos, dtype=torch.bool) if torch.is_tensor(pos)
+            else True)
+    elif fault == "nan_empty":
+        def partial(q, k, v, cache_len, start, **kw):
+            out, lse = saved[2](q, k, v, cache_len, start, **kw)
+            empty = (block_valid_len(cache_len, start, k.shape[1])
+                     == 0).reshape(-1, 1, 1)
+            return (torch.where(empty[..., None], float("nan"), out),
+                    torch.where(empty, -float("inf"), lse))
+
+        blocks.decode_mha_partial = partial
+    try:
+        yield
+    finally:
+        (blocks.merge_partials, blocks.kv_owner,
+         blocks.decode_mha_partial) = saved
+
+
+def a2a_case(seed: int) -> dict:
+    """``collectives.all_to_all`` over ``model`` of this rank's seeded
+    bfloat16 block (gloo moves its bytes): split along dim 1, the received
+    blocks concatenated along dim 2."""
+    mesh = make_mesh(*FSDP_MESH)
+    me = torch.distributed.get_rank()
+    gen = torch.Generator().manual_seed(seed + me)
+    x = torch.randn((3, 4, 5), generator=gen).to(torch.bfloat16)
+    y = collectives.all_to_all(x, mesh, "model", 1, 2)
+    return {"x": _np(x), "y": _np(y), "dtype": str(y.dtype),
+            "coord": collectives.coordinate(mesh)}
+
+
+def serve_case(case: dict) -> dict:
+    """The meshed prefill and decode steps on (data 2, model 2): the
+    model's blocks from the numpy tree (``shard_params``), the caches'
+    blocks (``local_caches``); this rank's rows of the batch, of each
+    step's tokens and per-row lengths.  Returns the gathered logits of the
+    prefill and of each step, this rank's cache blocks (numpy leaves in
+    order) and its coordinate."""
+    from repro_torch.models import model
+
+    cfg = case["cfg"]
+    mesh = make_mesh(*FSDP_MESH)
+    b = len(case["lens"])
+    shard = sharding.make_shard_cfg(mesh, cfg, global_batch=b)
+    lm = sharded_model(cfg, case["params"], shard)
+    caches, kvb = sharding.local_caches(cfg, b, case["max_seq"], shard,
+                                        torch.float32, "cpu")
+    rows = sharding.local_rows(b, shard)
+    batch = {k: torch.from_numpy(v)[rows] for k, v in case["batch"].items()}
+    lens = torch.from_numpy(case["lens"])[rows]
+    with serve_planted(case.get("fault")):
+        logits, caches = model.prefill(lm, cfg, batch, caches, shard,
+                                       kv_block=kvb)
+        out = [_np(logits)]
+        for i, tok in enumerate(case["tokens"]):
+            logits, caches = model.decode_step(
+                lm, cfg, torch.from_numpy(tok)[rows], caches, lens + i,
+                shard, kv_block=kvb)
+            out.append(_np(logits))
+    return {"logits": out, "coord": collectives.coordinate(mesh),
+            "kv_block": kvb,
+            "caches": [_np(t) for t in sharding.tree_leaves(caches)]}
+
+
+def engine_case(case: dict) -> dict:
+    """``ServingEngine(shard=make_shard_cfg(mesh, cfg, slots))`` over
+    (data 2, model 2) on the whole model: the requests' tokens, the steps
+    and this rank's cache shapes."""
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = case["cfg"]
+    mesh = make_mesh(*FSDP_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, case["slots"])
+    lm = convert.lm_params_from_numpy(cfg, case["params"], device="cpu")
+    eng = ServingEngine(cfg, lm, slots=case["slots"],
+                        max_seq=case["max_seq"], shard=shard, device="cpu")
+    for i, p in enumerate(case["prompts"]):
+        eng.submit(Request(i, p, max_new_tokens=case["new"]))
+    done = {r.rid: r.output for r in eng.run_until_drained()}
+    return {"tokens": done, "steps": eng.steps, "idle": eng.table.idle,
+            "rows": (eng.rows.start, eng.rows.stop),
+            "kv_block": eng.kv_block,
+            "cache_shapes": [tuple(t.shape) for t in
+                             sharding.tree_leaves(eng.caches)]}
+
+
 def all_jobs(jobs: dict) -> dict:
     """Every job of the test file, in one launch."""
     out = {}
@@ -298,5 +403,7 @@ def all_jobs(jobs: dict) -> dict:
         out[name] = {"fsdp": fsdp_case, "moe_tp": moe_tp_case,
                      "dp": dp_case, "ef": ef_case, "gpipe": gpipe_case,
                      "launcher": launcher_case, "bf16": bf16_case,
-                     "gather_many": gather_many_case}[kind](case["case"])
+                     "gather_many": gather_many_case, "serve": serve_case,
+                     "a2a": a2a_case,
+                     "engine": engine_case}[kind](case["case"])
     return out
