@@ -133,7 +133,21 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              (tensor-core route) and a decode step (split-K route with its
              log-sum-exp) and 8 SSD_INTRA a prefill, 268,435,456 KV bytes
              a rank; prefill and decode-step ms, collectives a decode
-             step, busy share, peak memory; at most 60 s of its own;
+             step, busy share, peak memory; at most 60 s of its own.
+             Then, in the same ranks, the sequence-parallel postures: the
+             same zamba2 step with ``ssm_sp`` (a rank's Mamba2 blocks on
+             its 2 rows x 1,024 tokens) against the same single-process
+             step at the same bounds, ``no_halo`` and ``no_relay``
+             rejected, 8 / 16 launches a rank a step; and qwen3-moe-235b-
+             a22b at its published widths and 1 layer under ``a2a``
+             (capacity factor 16: no drops), its drive the first the
+             meshed dry run fits four ranks into (the step at seq 2,048 or
+             1,024, else the MoE layer alone), held block by block against
+             the same run under ``tp`` (and its MoE output rows, and its
+             loss against the single-process one), ``return_order``
+             rejected, the reckoning beside each rank's measured peak;
+             ms, busy, collectives by kind, peak memory; at most 90 s of
+             their own;
 7. fused     the same farm with ``fused_sweeps=2``: 20 JACOBI_FUSED
              launches a step and no JACOBI_PRESSURE;
 8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
@@ -954,13 +968,20 @@ ATTN_CASES = [
     # model rank's half), its data rank's 2 rows of 2,048 tokens
     ("train_rank_tp2", 2, 2048, 2048, 16, 16, 64, "bfloat16", "bfloat16",
      (True, 0, 0), None),
+    # qwen3-moe's training forward on one rank of (data 2, model 2) under
+    # a2a: 32 of 64 query heads over 2 of 4 kv heads of 128 (a model
+    # rank's half), its data rank's 2 rows of 1,024 tokens (the sharded
+    # phase's a2a drive runs the MoE layer alone: the meshed dry run
+    # reckons the 1-layer step beyond the card with four ranks on it)
+    ("train_rank_a2a", 2, 1024, 1024, 32, 2, 128, "bfloat16", "bfloat16",
+     (True, 0, 0), None),
 ]
 # the cases whose times the kernels line gives side by side
 ATTN_HEADLINE = ("prefill", "decode", "gqa_llama3", "train_4k",
                  "prefill_gqa_qwen3moe", "decode_gqa_qwen3moe",
                  "prefill_kimi_d112", "decode_kimi_d112", "cuda_core_d112",
                  "train_paligemma_d256", "train_qwen3_gqa16",
-                 "train_rank_tp2")
+                 "train_rank_tp2", "train_rank_a2a")
 
 
 def attention_diff(got, want, dtype: str, roundings: int = 1):
@@ -1197,7 +1218,10 @@ SSD_CASES = [("prefill", (1, 8, 128, 1, 64, 64, 64)),
              ("prefill_xlstm_2048", (1, 16, 128, 4, 1, 385, 384)),
              ("train_xlstm_4096", (1, TRAIN_SEQ // 128, 128, 4, 1, 385, 384)),
              ("odd_n200_p129_l48", (2, 3, 48, 2, 3, 129, 200)),
-             ("odd_n129_p385", (1, 2, 128, 1, 2, 385, 129))]
+             ("odd_n129_p385", (1, 2, 128, 1, 2, 385, 129)),
+             # an ssm_sp rank's block in the sharded phase: zamba2's 2 rows
+             # x 1,024 of 2,048 tokens, the relayed state in s_in
+             ("train_rank_ssm_sp", (2, 1024 // 128, 128, 1, 64, 64, 64))]
 
 
 def mlstm_ssd_inputs(shape, gen, dev):
@@ -2963,10 +2987,344 @@ def sharded_serve(ref_paths: list, dev) -> dict:
     return out
 
 
-def sharded_rank(ref_path: str, dp_ref_path: str,
-                 serve_paths: list) -> dict:
+# ---------------------------------------------------------------------------
+# the sequence-parallel postures in the same ranks
+# ---------------------------------------------------------------------------
+# ssm_sp: the fsdp job's drive (zamba2-1.2b, 8 layers, seq 2,048, global
+# batch 4 over (data 2, model 2)) with each Mamba2 block sequence-parallel
+# over model: a rank's Mamba2 layers see its 2 rows x 1,024 tokens; held
+# against the fsdp job's single-process reference at the same bounds
+SSM_SP_FAULTS = ("no_halo", "no_relay")
+# a2a: qwen3-moe-235b-a22b at its published widths, 1 of 94 layers, no
+# load-balance term (its gradient is the per-block mean under a2a, the
+# batch's under tp), and the capacity factor E/k = 16: each expert's
+# capacity then holds every token, so no assignment drops whatever the
+# routing, and a2a and tp compute one function (at the reference's 8 the
+# a2a blocks dropped 0.125% of their assignments at random init: a token
+# repeated through a block sends its k rows to the same experts).  The
+# drive is layer 0's MoE alone (router and experts under the fsdp_tp
+# placements, forward and backward through moe_apply) at seq 1,024 and
+# global batch 4, reckoned first on a (2, 2) counting mesh: the meshed
+# dry run reckons the 1-layer fsdp_tp step at seq 2,048 and 1,024
+# beyond the card with four ranks on it
+A2A_ARCH = "qwen3-moe-235b-a22b"
+A2A_CF = 16.0
+A2A_SEQ, A2A_BATCH = 1024, 4
+A2A_FAULTS = ("return_order",)
+# each rank's CUDA context beside its tensors, and the spare kept
+A2A_CONTEXT_BYTES, A2A_SPARE = 0.6e9, 1.1
+# the MoE alone launches no kernel of the port
+A2A_LAUNCHES = {"FLASH_ATTENTION": 0, "SSD_INTRA": 0}
+SP_BUDGET_S = 90.0
+
+
+def a2a_cfg(**kw):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(A2A_ARCH), num_layers=1,
+                               capacity_factor=A2A_CF, router_aux_coef=0.0,
+                               **kw)
+
+
+class planted_sp:
+    """Inside the context one fault of a sequence-parallel posture:
+    ``no_halo``: model rank 1's conv prefix zeroed; ``no_relay``: every
+    rank's incoming state zero; ``return_order``: the return all_to_all's
+    blocks concatenated in the reverse source order."""
+
+    def __init__(self, fault):
+        self.fault = fault
+
+    def __enter__(self):
+        from repro_torch.models import mamba2, moe
+
+        self.saved = (mamba2._conv_halo, mamba2._relay, moe._a2a_return)
+        halo, relay, ret = self.saved
+        if self.fault == "no_halo":
+            mamba2._conv_halo = lambda xbc, shard, w: (
+                halo(xbc, shard, w) * (shard.tp_rank() != 1))
+        elif self.fault == "no_relay":
+            mamba2._relay = lambda *a: relay(*a) * 0
+        elif self.fault == "return_order":
+            moe._a2a_return = lambda y, shard: ret(y, shard).flip(0)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba2, moe
+
+        mamba2._conv_halo, mamba2._relay, moe._a2a_return = self.saved
+
+
+def collective_line(stats: dict) -> dict:
+    """Calls, operand bytes and host ms of a step's collectives, and their
+    calls, bytes and wire bytes by kind."""
+    return {"calls": stats["calls"], "bytes": stats["bytes"],
+            "ms": stats["seconds"] * 1e3,
+            "by_kind": {k: dict(v) for k, v in stats["by_kind"].items()}}
+
+
+def sp_step(step, lm, state, batch, fault=None, measure=False):
+    """One train step (inside ``planted_sp(fault)``): (lm, state, metrics,
+    launches, collectives, busy or None); ``measure`` runs it under the
+    profiler (its wall time is the step's ms)."""
+    import torch
+    from repro_torch.dist import collectives
+
+    box = {}
+
+    def run():
+        with planted_sp(fault):
+            box["out"] = step(lm, state, batch)
+
+    reset_counts()
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy = device_busy(run, cpu_ops=False) if measure else None
+    if not measure:
+        run()
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = collective_line(collectives.STATS)
+    lm, state, met = box["out"]
+    return lm, state, met, read_counts(), stats, ms, busy
+
+
+def sharded_ssm_sp(ref_path: str, dev) -> dict:
+    """The fsdp job's zamba2 step with ``ssm_sp``: rank 0 holds the gathered
+    gradient against the same single-process CUDA step (``ref_path``),
+    then each planted fault; launches, collectives, step ms (under the
+    profiler), busy share and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import step as step_lib
+
+    t_job = time.perf_counter()
+    rank = dist.get_rank()
+    cfg = shard_cfg()
+    mesh = make_mesh(*SHARD_MESH)
+    shard = sharding.make_shard_cfg(mesh, cfg, SHARD_BATCH, ssm_sp=True)
+    batch = sharding.local_batch(
+        train_batch(cfg, SHARD_SEQ, SHARD_BATCH, dev), mesh, shard)
+    ref = torch.load(ref_path, map_location=dev) if rank == 0 else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": rank, "coord": collectives.coordinate(mesh),
+           "faults": {}}
+    for fault in (None, *SSM_SP_FAULTS):
+        lm = _fsdp_model(cfg, shard, dev)
+        opt = AdamW(lr=TRAIN_LR)
+        step = step_lib.make_train_step(cfg, shard, opt)
+        lm, state, met, counts, stats, ms, busy = sp_step(
+            step, lm, opt.init(lm), batch, fault, measure=fault is None)
+        grads = _gathered_grads(lm, mesh)
+        parity = None
+        if rank == 0:
+            parity = grad_parity(grads, ref["grads"])
+            parity["loss"], parity["ref_loss"] = float(met["loss"]), \
+                ref["loss"]
+        if fault is None:
+            out.update(parity=parity, launches=counts, collective=stats,
+                       step_ms=ms, busy={k: busy[k] for k in (
+                           "wall_ms", "device_ms", "busy_share",
+                           "flash_attention_ms", "ssd_intra_ms")})
+        else:
+            out["faults"][fault] = parity
+        del lm, state, step, grads
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_job
+    return out
+
+
+def moe_layer_run(lm, cfg, shard, x, cot, fault=None, backward=True):
+    """The a2a drive's MoE alone: layer 0's router and experts gathered as
+    their use takes them under the fsdp_tp placements, ``moe_apply`` on
+    ``x`` (this rank's rows) and, with ``backward``, the gradient of
+    sum(out · cot).  Returns (out, the dropped fraction)."""
+    from repro_torch.dist import sharding
+    from repro_torch.models import moe
+
+    with planted_sp(fault), sharding.using(lm, sharding.gather_params(
+            lm, shard, within="stack.layers.0.ffn.")):
+        out, met = moe.moe_apply(lm.stack.layers[0].ffn, cfg, x, shard)
+        if backward:
+            (out.float() * cot).sum().backward()
+    return out.detach(), met.dropped_frac
+
+
+def layer_inputs(cfg, seq: int, gb: int, dev):
+    """The MoE-alone drive's seeded x (gb, seq, d) in the compute dtype and
+    its cotangent."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (gb, seq, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(cfg.compute_dtype)
+    return x, torch.randn(shape, generator=gen, device=dev)
+
+
+def sharded_a2a(dev) -> dict:
+    """qwen3-moe's MoE layer alone (:func:`moe_layer_run`) under
+    ``moe_mode="tp"`` (this rank's gradient blocks and output rows kept on
+    the host), then under ``a2a`` from the same weights and inputs (held
+    block by block and row by row against tp's), then ``a2a`` with each
+    planted fault (its forward, held row by row against tp's).  Launches,
+    collectives, ms (under the profiler), busy share and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.launch.mesh import make_mesh
+
+    t_job = time.perf_counter()
+    cfg = a2a_cfg()
+    mesh = make_mesh(*SHARD_MESH)
+    shards = {m: sharding.make_shard_cfg(mesh, cfg, A2A_BATCH, moe_mode=m)
+              for m in ("tp", "a2a")}
+    rows = sharding.local_rows(A2A_BATCH, shards["a2a"])
+    x, cot = (t[rows].clone()
+              for t in layer_inputs(cfg, A2A_SEQ, A2A_BATCH, dev))
+    lm = _fsdp_model(cfg, shards["a2a"], dev)
+    start = {n: p.detach().to("cpu", copy=True)
+             for n, p in lm.named_parameters()}
+    # the peak of the runs, beside what the dry run reckons for them (the
+    # whole model drawn on the card before it is cut is not part of it)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": dist.get_rank(), "coord": collectives.coordinate(mesh),
+           "faults": {}}
+    tp = None
+    for mode, fault in (("tp", None), ("a2a", None),
+                        *(("a2a", f) for f in A2A_FAULTS)):
+        with torch.no_grad():
+            for n, p in lm.named_parameters():
+                p.copy_(start[n])
+        lm.requires_grad_(True)
+        for p in lm.parameters():
+            p.grad = None
+        xi = x.detach().requires_grad_(fault is None)
+        box = {}
+
+        def run():
+            box["r"] = moe_layer_run(lm, cfg, shards[mode], xi, cot, fault,
+                                     backward=fault is None)
+
+        measure = mode == "a2a" and fault is None
+        reset_counts()
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        busy = device_busy(run, cpu_ops=False) if measure else None
+        if not measure:
+            run()
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, stats = read_counts(), collective_line(collectives.STATS)
+        y, dropped = box["r"]
+        grads = {n: p.grad for n, p in lm.named_parameters()
+                 if p.grad is not None}
+        if xi.grad is not None:
+            grads["x"] = xi.grad
+        if mode == "tp":
+            tp = {"y": y, "grads": {n: g.to("cpu", copy=True)
+                                    for n, g in grads.items()}}
+            out["tp"] = {"ms": ms, "collective": stats}
+            continue
+        res = {"dropped": float(dropped),
+               "out_row_share": row_rel(y, tp["y"]) / LM_PARITY_RTOL}
+        if fault is None:
+            res.update(grad_parity(grads, {n: tp["grads"][n].to(dev)
+                                           for n in grads}))
+            out.update(parity=res, launches=counts, collective=stats, ms=ms,
+                       busy={k: busy[k] for k in (
+                           "wall_ms", "device_ms", "busy_share")})
+        else:
+            out["faults"][fault] = res
+        del grads
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_job
+    return out
+
+
+def fault_rejected(res: dict) -> bool:
+    """Whether the a2a check rejects a run: an output row past its bound,
+    or (the sound run's backward) a failing gradient block."""
+    return res["out_row_share"] > 1.0 or bool(res.get("failing_leaves"))
+
+
+def moe_layer_reckoning(cfg, mesh) -> dict:
+    """(arguments, peak) bytes and collectives of :func:`moe_layer_run`,
+    forward and backward, on one rank of ``mesh`` (a ``CountingMesh``)
+    at A2A_SEQ × A2A_BATCH, traced on ``meta``: the rank holds its blocks
+    of the whole 1-layer model, its rows of x and the cotangent."""
+    import torch
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.launch import op_cost
+    from repro_torch.models import model
+
+    shard = sharding.make_shard_cfg(mesh, cfg, A2A_BATCH, moe_mode="a2a")
+    lm = sharding.shard_params(model.init_params(cfg, device="meta"), cfg,
+                               shard)
+    rows = sharding.local_rows(A2A_BATCH, shard)
+    x, cot = (torch.empty((rows.stop - rows.start, A2A_SEQ, cfg.d_model),
+                          dtype=dt, device="meta")
+              for dt in (cfg.compute_dtype, torch.float32))
+    args = sum(t.numel() * t.element_size()
+               for t in (*lm.parameters(), x, cot))
+    lm.requires_grad_(True)
+    x.requires_grad_(True)
+    collectives.reset_stats()
+    with op_cost.OpCounter() as c:
+        moe_layer_run(lm, cfg, shard, x, cot)
+    booked = {k: dict(v) for k, v in collectives.STATS["by_kind"].items()}
+    collectives.reset_stats()
+    return {"argument_bytes": args, "peak_bytes": c.peak_bytes,
+            "collectives": booked,
+            "wire_bytes": sum(r["wire_bytes"] for r in booked.values())}
+
+
+def a2a_sizing() -> dict:
+    """The a2a drive's reckoning by the meshed dry run: the MoE layer alone
+    on one rank of a (2, 2) counting mesh (:func:`moe_layer_reckoning`),
+    which must fit the card with all four ranks on it (four ranks' bytes
+    and contexts, with A2A_SPARE to spare)."""
+    from repro_torch.core.rooflinemodel import resolve_chip
+    from repro_torch.launch.mesh import CountingMesh
+
+    hbm = resolve_chip("h100-sxm").hbm_bytes
+    m = moe_layer_reckoning(a2a_cfg(), CountingMesh(*SHARD_MESH))
+    rank_bytes = m["argument_bytes"] + m["peak_bytes"]
+    need = 4 * (rank_bytes + A2A_CONTEXT_BYTES) * A2A_SPARE
+    drive = {"seq": A2A_SEQ, "global_batch": A2A_BATCH,
+             "rank_argument_bytes": m["argument_bytes"],
+             "rank_peak_bytes": m["peak_bytes"], "rank_bytes": rank_bytes,
+             "card_need_bytes": need, "card_bytes": hbm,
+             "wire_bytes": m["wire_bytes"], "collectives": m["collectives"]}
+    require(need <= hbm, f"a2a: the MoE layer alone does not fit four "
+                         f"ranks on the card: {drive}")
+    return drive
+
+
+def a2a_memory(drive: dict, ranks: list) -> list:
+    """Each rank's reckoned bytes (arguments + peak) beside its measured
+    ``max_memory_allocated``."""
+    return [{"rank": r["a2a"]["rank"], "reckoned": drive["rank_bytes"],
+             "measured": r["a2a"]["max_memory_allocated"],
+             "reckoned_over_measured": drive["rank_bytes"]
+             / r["a2a"]["max_memory_allocated"]} for r in ranks]
+
+
+def sharded_rank(ref_path: str, dp_ref_path: str, serve_paths: list
+                 ) -> dict:
     """One of 4 gloo ranks on the card: the fsdp_tp, dp and GPipe drives,
-    then the serving job."""
+    the serving job, then the sequence-parallel jobs (``ssm_sp``,
+    ``a2a``)."""
     dev = _rank_device()
     t0 = time.perf_counter()
     out = {"fsdp": sharded_fsdp(ref_path, dev)}
@@ -2975,6 +3333,10 @@ def sharded_rank(ref_path: str, dp_ref_path: str,
     out["gpipe"] = sharded_gpipe(dev)
     out["train_seconds"] = time.perf_counter() - t0
     out["serve"] = sharded_serve(serve_paths, dev)
+    t1 = time.perf_counter()
+    out["ssm_sp"] = sharded_ssm_sp(ref_path, dev)
+    out["a2a"] = sharded_a2a(dev)
+    out["sp_seconds"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3105,7 +3467,12 @@ def phase_sharded(dev, smi: str) -> dict:
     step of xlstm-125m, exact and compressed; GPipe; and NCCL at world
     size 1.  Then the same ranks serve zamba2 over (data 2, model 2)
     through the meshed ``ServingEngine``, held teacher-forced against the
-    single-process CUDA engine, with two planted faults."""
+    single-process CUDA engine, with two planted faults.  Then the
+    sequence-parallel postures in the same ranks: zamba2's step with
+    ``ssm_sp`` against the same single-process step (faults ``no_halo``,
+    ``no_relay``), and qwen3-moe's MoE layer under ``a2a``, reckoned first
+    by the meshed dry run (:func:`a2a_sizing`), against the same layer
+    under ``tp`` block by block (fault ``return_order``)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import spawn
@@ -3134,6 +3501,9 @@ def phase_sharded(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     serve_ref = serving_reference(dev)
     serve_ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drive = a2a_sizing()
+    sizing_s = time.perf_counter() - t0
     device = f"cuda:{dev.index or 0}"
     t0 = time.perf_counter()
     ranks = spawn(sharded_rank, 4, backend="gloo", device=device,
@@ -3152,7 +3522,8 @@ def phase_sharded(dev, smi: str) -> dict:
     seconds = time.perf_counter() - t_phase
     sv = [r["serve"] for r in ranks]
     serve_s = serve_ref_s + max(v["seconds"] for v in sv)
-    train_s = seconds - serve_s
+    sp_s = sizing_s + max(r["sp_seconds"] for r in ranks)
+    train_s = seconds - serve_s - sp_s
     emit({"phase": "sharded", "card": smi,
           "fsdp_tp": {
               "arch": SHARD_ARCH, "layers": SHARD_LAYERS, "seq": SHARD_SEQ,
@@ -3197,6 +3568,8 @@ def phase_sharded(dev, smi: str) -> dict:
                                        for r in ranks),
                     "rtol": GPIPE_RTOL, "atol": GPIPE_ATOL},
           "serving": serving_line(sv, serve_ref, serve_ref_s, serve_s),
+          "ssm_sp": ssm_sp_line(ranks, par),
+          "a2a": a2a_line(ranks, drive),
           "nccl_world_size_1": nccl,
           "seconds": {"single_process_refs": ref_s, "spawn_4": spawn_s,
                       "rank_work": [r["seconds"] for r in ranks],
@@ -3204,7 +3577,10 @@ def phase_sharded(dev, smi: str) -> dict:
                       "spawn_nccl_1": nccl_s, "phase": seconds,
                       "training": train_s, "training_budget":
                       SHARDED_BUDGET_S, "serving": serve_s,
-                      "serving_budget": SERVE_BUDGET_S}})
+                      "serving_budget": SERVE_BUDGET_S,
+                      "a2a_sizing": sizing_s,
+                      "sequence_parallel": sp_s,
+                      "sequence_parallel_budget": SP_BUDGET_S}})
     require(abs(par["loss"] - par["ref_loss"]) <=
             TRAIN_LOSS_RTOL * abs(par["ref_loss"]),
             f"sharded: loss {par['loss']} vs the single-process "
@@ -3247,11 +3623,97 @@ def phase_sharded(dev, smi: str) -> dict:
             and nccl["grads_bitwise"] and nccl["metrics_bitwise"],
             f"NCCL (1, 1) vs LOCAL: {nccl}")
     check_serving(sv, serve_ref)
+    check_sequence_parallel(ranks)
+    require(sp_s <= SP_BUDGET_S,
+            f"sharded ssm_sp + a2a: {sp_s:.1f} s > {SP_BUDGET_S} s")
     require(train_s <= SHARDED_BUDGET_S,
             f"sharded training: {train_s:.1f} s > {SHARDED_BUDGET_S} s")
     require(serve_s <= SERVE_BUDGET_S,
             f"sharded serving: {serve_s:.1f} s > {SERVE_BUDGET_S} s")
-    return dict(head["fsdp"]["launches"]), dict(sv[0]["launches"])
+    return (dict(head["fsdp"]["launches"]), dict(sv[0]["launches"]),
+            dict(head["ssm_sp"]["launches"]), dict(head["a2a"]["launches"]))
+
+
+def ssm_sp_line(ranks: list, fsdp_parity: dict) -> dict:
+    """The ``sharded`` line's ``ssm_sp`` section."""
+    each = lambda key: [r["ssm_sp"][key] for r in ranks]
+    par = ranks[0]["ssm_sp"]["parity"]
+    return {"arch": SHARD_ARCH, "layers": SHARD_LAYERS, "seq": SHARD_SEQ,
+            "global_batch": SHARD_BATCH, "mesh": SHARD_MESH,
+            "rank_block": [SHARD_BATCH // 2, SHARD_SEQ // 2],
+            "loss": par["loss"], "single_process_loss": par["ref_loss"],
+            "fsdp_job_loss": fsdp_parity["loss"],
+            "worst_rel_norm_err": par["worst_rel_norm_err"],
+            "worst_cosine": par["worst_cosine"],
+            "worst_leaves": par["worst_leaves"],
+            "faults_rejected": {f: len(p["failing_leaves"]) for f, p in
+                                ranks[0]["ssm_sp"]["faults"].items()},
+            "launches_per_rank_step": each("launches"),
+            "step_ms": each("step_ms"), "busy": each("busy"),
+            "collective_step": each("collective"),
+            "max_memory_allocated": each("max_memory_allocated"),
+            "seconds": each("seconds")}
+
+
+def a2a_line(ranks: list, drive: dict) -> dict:
+    """The ``sharded`` line's ``a2a`` section."""
+    each = lambda key: [r["a2a"][key] for r in ranks]
+    return {"arch": A2A_ARCH, "layers": 1, "capacity_factor": A2A_CF,
+            "router_aux_coef": 0.0, "mesh": SHARD_MESH,
+            "drive": "moe_layer", "seq": A2A_SEQ,
+            "global_batch": A2A_BATCH, "sizing": drive,
+            "parity_vs_tp_per_rank": [
+                {k: r["a2a"]["parity"].get(k) for k in (
+                    "worst_rel_norm_err", "worst_cosine", "worst_leaves",
+                    "out_row_share", "dropped")} for r in ranks],
+            "faults": {f: [r["a2a"]["faults"][f]["out_row_share"]
+                           for r in ranks] for f in A2A_FAULTS},
+            "launches_per_rank": each("launches"),
+            "ms": each("ms"), "busy": each("busy"),
+            "tp_ms": [r["a2a"]["tp"]["ms"] for r in ranks],
+            "collective": each("collective"),
+            "tp_collective": [r["a2a"]["tp"]["collective"] for r in ranks],
+            "dryrun_memory": a2a_memory(drive, ranks),
+            "seconds": each("seconds")}
+
+
+def check_sequence_parallel(ranks: list) -> None:
+    """The ssm_sp and a2a jobs' checks: parity, exact launches, faults."""
+    sp = ranks[0]["ssm_sp"]
+    par = sp["parity"]
+    require(abs(par["loss"] - par["ref_loss"]) <=
+            TRAIN_LOSS_RTOL * abs(par["ref_loss"]),
+            f"ssm_sp: loss {par['loss']} vs the single-process "
+            f"{par['ref_loss']}")
+    require(not par["failing_leaves"],
+            f"ssm_sp: gradients off the single-process step: "
+            f"{par['failing_leaves'][:5]}")
+    for fault, fp in sp["faults"].items():
+        require(bool(fp["failing_leaves"]),
+                f"ssm_sp: the planted fault {fault!r} passed the gradient "
+                "check")
+    for r in ranks:
+        got = {k: r["ssm_sp"]["launches"][k] for k in SHARD_PER_STEP}
+        require(got == SHARD_PER_STEP, f"ssm_sp rank {r['ssm_sp']['rank']}: "
+                f"launches {got} != {SHARD_PER_STEP}")
+        a = r["a2a"]
+        got = {k: a["launches"][k] for k in A2A_LAUNCHES}
+        require(got == A2A_LAUNCHES, f"a2a rank {a['rank']}: launches {got}"
+                                     f" != {A2A_LAUNCHES}")
+        require(a["collective"]["by_kind"].get("all_to_all", {}).get(
+            "calls", 0) > 0, f"a2a rank {a['rank']}: no all_to_all")
+        par = a["parity"]
+        require(par["dropped"] == 0.0, f"a2a rank {a['rank']}: "
+                f"{par['dropped']} of the assignments dropped")
+        require(not fault_rejected(par),
+                f"a2a rank {a['rank']}: off the tp run's: "
+                f"{par['failing_leaves'][:5]}, output rows "
+                f"{par['out_row_share']}")
+    for fault in A2A_FAULTS:
+        require(any(fault_rejected(r["a2a"]["faults"][fault])
+                    for r in ranks),
+                f"a2a: the planted fault {fault!r} passed the check on "
+                "every rank")
 
 
 # ---------------------------------------------------------------------------
@@ -5104,7 +5566,8 @@ def main(argv: list) -> int:
     paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
                             farm_results, health))
     paths["decomposed"] = phase_decomposed(dev, smi, serial_state)
-    paths["sharded"], paths["sharded_serving"] = phase_sharded(dev, smi)
+    (paths["sharded"], paths["sharded_serving"], paths["sharded_ssm_sp"],
+     paths["sharded_a2a"]) = phase_sharded(dev, smi)
     del farm_results, serial_state
     paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
                                         fused_sweeps=FUSED_K)

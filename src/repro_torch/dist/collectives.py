@@ -16,7 +16,17 @@ explicit ``torch.autograd.Function``s:
 * :func:`tp_reduce` — all-reduce (sum) over the tensor-parallel axis, the
   backward the identity (the rows after it are replicated on ``tp``);
 * :func:`tp_copy` — the identity, the backward an all-reduce over ``tp``
-  (a replicated tensor entering a tensor-parallel region).
+  (a replicated tensor entering a tensor-parallel region);
+  :func:`sum_back` is the same for many tensors, one all-reduce of their
+  gradients in float32 (parameters used on a sequence block, whose
+  gradients are parts);
+* :func:`exchange` — :func:`all_to_all` that trains: the backward is the
+  same exchange of the gradient with the split and concatenation dims
+  swapped;
+* :func:`seq_split` — this rank's block of a tensor replicated on the
+  axes; the backward all-gathers the blocks' gradients (every rank of
+  the line holds the whole tensor, and each block's gradient is that of
+  the rank that used it).
 
 Groups: one process group a line of every subset of the mesh's axes, made
 on all ranks, in one order, the first time a mesh is used; a line's group
@@ -31,7 +41,26 @@ does).  Gathers and point-to-point copies move bfloat16 as its bytes
 (gloo takes no 16-bit integers); reductions run in float32 and round back
 once.  Only names that
 torch 2.11 and 2.13 both have are used.  :data:`STATS` books the calls,
-the operand bytes and the host seconds spent in them.
+the operand bytes and the host seconds spent in them, and under
+``by_kind`` the calls, operand bytes and wire bytes of each kind of
+collective (``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``all_to_all``, ``broadcast``, and ``permute`` for a point-to-point
+send, ``recv`` for its receive).  The bytes are booked as the operation
+means them: gloo's reduce-scatter, an all_to_all whose rows each rank
+sums on its device, is booked as a reduce-scatter of its float32 operand.  The wire bytes take
+the reference's ring factors on the line's N ranks
+(``repro.launch.hlo_analysis``): all-reduce 2(N-1)/N, all-gather N-1
+(the operand is the block), reduce-scatter and all-to-all (N-1)/N, a
+send 1; a broadcast 1 (each rank receives the operand once) and a receive
+0 (its bytes are a peer's send).
+
+**Counting mode.**  On a mesh with a true ``counting`` attribute
+(:class:`repro_torch.launch.mesh.CountingMesh`: extents, axis names and
+one rank's coordinate, no process group) every collective books what the
+live call books and returns an empty tensor of the live result's shape
+and dtype on the input's device (``meta`` in the dry run), running
+nothing; the model code is the same in both modes, so a rank's step is
+reckoned, collectives included, before any rank is started.
 """
 from __future__ import annotations
 
@@ -43,20 +72,56 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import mesh_extents
 
-STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "by_kind": {}}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 _LINES: dict = {}
+# the most elements a rank's float32 slice of a gloo reduce-scatter holds
+# (256 MB)
+GLOO_SLICE = 1 << 26
+# wire bytes per operand byte of a collective over N ranks
+RING = {"all_reduce": lambda n: 2.0 * (n - 1) / n,
+        "all_gather": lambda n: float(n - 1),
+        "reduce_scatter": lambda n: (n - 1) / n,
+        "all_to_all": lambda n: (n - 1) / n,
+        "broadcast": lambda n: 1.0,
+        "permute": lambda n: 1.0,
+        "recv": lambda n: 0.0}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, bytes=0, seconds=0.0)
+    STATS.update(calls=0, bytes=0, seconds=0.0, by_kind={})
 
 
-def _book(t: torch.Tensor, t0: float) -> None:
+def _book(kind: str, nbytes: int, n: int, t0: float) -> None:
     STATS["calls"] += 1
-    STATS["bytes"] += t.numel() * t.element_size()
+    STATS["bytes"] += nbytes
     STATS["seconds"] += time.perf_counter() - t0
+    row = STATS["by_kind"].setdefault(
+        kind, {"calls": 0, "bytes": 0, "wire_bytes": 0.0})
+    row["calls"] += 1
+    row["bytes"] += nbytes
+    row["wire_bytes"] += nbytes * RING[kind](n)
+
+
+def counting(mesh) -> bool:
+    """Whether ``mesh`` is a counting mesh (the module's text)."""
+    return bool(getattr(mesh, "counting", False))
+
+
+def _nbytes(t: torch.Tensor, dtype=None) -> int:
+    return t.numel() * (dtype.itemsize if dtype is not None
+                        else t.element_size())
+
+
+def _reduced_dtype(t: torch.Tensor):
+    """The dtype a reduction runs in: float32 for a 16-bit float."""
+    return torch.float32 if t.dtype in (torch.bfloat16, torch.float16) \
+        else t.dtype
+
+
+def _empty(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=like.dtype, device=like.device)
 
 
 def axes_of(axes) -> tuple:
@@ -92,14 +157,39 @@ def _build(mesh) -> dict:
     return mine
 
 
+def _counted_line(mesh, axes: tuple) -> tuple:
+    """A counting mesh's line: (None, size, index, global ranks), the
+    ranks row-major over the mesh as ``_build`` lays them out."""
+    names = tuple(mesh.mesh_dim_names)
+    ext = mesh_extents(mesh)
+    coord = coordinate(mesh)
+    n, i = 1, 0
+    for a in axes:
+        n *= ext[a]
+        i = i * ext[a] + coord[a]
+    ranks = []
+    for j in range(n):
+        at, rest = dict(coord), j
+        for a in reversed(axes):
+            at[a], rest = rest % ext[a], rest // ext[a]
+        r = 0
+        for a in names:
+            r = r * ext[a] + at[a]
+        ranks.append(r)
+    return None, n, i, sorted(ranks)
+
+
 def line(mesh, axes) -> tuple:
     """(group, size, this rank's index, the line's global ranks) over
-    ``axes`` (named in the mesh's order)."""
+    ``axes`` (named in the mesh's order); a counting mesh's group is
+    None."""
     axes = axes_of(axes)
     names = tuple(mesh.mesh_dim_names)
     if tuple(a for a in names if a in axes) != axes:
         raise ValueError(f"axes {axes} must be axes of the mesh {names}, "
                          "in its order")
+    if counting(mesh):
+        return _counted_line(mesh, axes)
     key = id(mesh)
     if key not in _LINES:
         _LINES[key] = (mesh, _build(mesh))
@@ -111,7 +201,9 @@ def prepare(mesh) -> None:
     process group is up (every rank must call it: the groups are made
     together), so that a collective over one line that only some ranks run
     does not wait for the others to make theirs; a mesh without a process
-    group (a stub) has none to make."""
+    group (a stub, a counting mesh) has none to make."""
+    if counting(mesh):
+        return
     if dist.is_available() and dist.is_initialized():
         line(mesh, tuple(mesh.mesh_dim_names)[:1])
 
@@ -149,14 +241,18 @@ def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``op`` over the ranks of ``axes``, in float32 for a
     16-bit ``t``, rounded back once."""
     t0 = time.perf_counter()
-    group = line(mesh, axes)[0]
+    group, n, _, _ = line(mesh, axes)
+    nbytes = _nbytes(t, _reduced_dtype(t))
+    if counting(mesh):
+        _book("all_reduce", nbytes, n, t0)
+        return _empty(t.shape, t)
     work = t.float() if t.dtype in (torch.bfloat16, torch.float16) \
         else t.clone()
     buf = _to_wire(work)
     if buf is work:
         buf = work.contiguous()
     dist.all_reduce(buf, op=_OPS[op], group=group)
-    _book(buf, t0)
+    _book("all_reduce", nbytes, n, t0)
     return buf.to(t.device).to(t.dtype)
 
 
@@ -164,11 +260,17 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """The ranks' blocks of ``axes`` concatenated along ``dim``."""
     t0 = time.perf_counter()
     group, n, _, _ = line(mesh, axes)
+    if counting(mesh):
+        _book("all_gather", _nbytes(t), n, t0)
+        shape = list(t.shape)
+        shape[dim] *= n
+        return _empty(shape, t)
     buf = _to_wire(t)
-    parts = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(parts, buf, group=group)
-    _book(buf, t0)
-    return _from_wire(torch.cat(parts, dim), t)
+    got = torch.empty((n, *buf.shape), dtype=buf.dtype,
+                      pin_memory=_staged(t))
+    dist.all_gather(list(got.unbind(0)), buf, group=group)
+    _book("all_gather", _nbytes(t), n, t0)
+    return torch.cat(_from_wire(got, t).unbind(0), dim)
 
 
 def all_to_all(t: torch.Tensor, mesh, axes, split_dim: int,
@@ -182,12 +284,18 @@ def all_to_all(t: torch.Tensor, mesh, axes, split_dim: int,
     if t.shape[split_dim] % n:
         raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not "
                          f"divide over {n} ranks")
+    if counting(mesh):
+        _book("all_to_all", _nbytes(t), n, t0)
+        shape = list(t.shape)
+        shape[split_dim] //= n
+        shape[cat_dim] *= n
+        return _empty(shape, t)
     blocks = t.movedim(split_dim, 0)
     blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:])
     buf = _to_wire(blocks)
     got = torch.empty_like(buf)
     dist.all_to_all_single(got, buf, group=group)
-    _book(buf, t0)
+    _book("all_to_all", _nbytes(t), n, t0)
     got = _from_wire(got, t)                       # (n, block, ...)
     return torch.cat([b.movedim(0, split_dim) for b in got.unbind(0)],
                      cat_dim)
@@ -202,17 +310,44 @@ def own_block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
 
 def reduce_scatter(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum over the ranks of
-    ``axes``.  NCCL reduce-scatters; gloo all-reduces and keeps the
-    block."""
-    if dist.get_backend() != "nccl":
-        return own_block(all_reduce(t, mesh, axes), mesh, axes, dim)
+    ``axes``, summed in float32 and rounded back once.  NCCL
+    reduce-scatters; gloo has no reduce-scatter, so each float32 slice of
+    at most :data:`GLOO_SLICE` elements a rank goes through one
+    all_to_all (row j to rank j) and the rows this rank receives are
+    summed on its device in the line's order (booked as the one
+    reduce-scatter it stands for).  That moves (N-1)/N of the operand a
+    rank where an all-reduce would move twice that and sum on the host,
+    and the card holds one slice's rows at a time beside the block."""
     t0 = time.perf_counter()
     group, n, _, _ = line(mesh, axes)
+    nbytes = _nbytes(t, torch.float32)
+    shape = list(t.shape)
+    shape[dim] //= n
+    if counting(mesh):
+        _book("reduce_scatter", nbytes, n, t0)
+        return _empty(shape, t)
+    if dist.get_backend() != "nccl":
+        rows = t.movedim(dim, 0).reshape(n, -1)
+        out = torch.empty(rows.shape[1], dtype=t.dtype, device=t.device)
+        for a in range(0, rows.shape[1], GLOO_SLICE):
+            buf = _to_wire(rows[:, a:a + GLOO_SLICE].to(torch.float32,
+                                                         copy=True))
+            got = torch.empty_like(buf, pin_memory=_staged(t))
+            dist.all_to_all_single(got, buf, group=group)
+            got = got.to(t.device)
+            acc = got[0].clone()
+            for k in range(1, n):
+                acc += got[k]
+            out[a:a + GLOO_SLICE].copy_(acc)
+            del buf, got, acc
+        _book("reduce_scatter", nbytes, n, t0)
+        block = (shape[dim], *(s for d, s in enumerate(shape) if d != dim))
+        return out.reshape(block).movedim(0, dim).contiguous()
     work = t.float().movedim(dim, 0).contiguous()
     out = torch.empty((work.shape[0] // n, *work.shape[1:]),
                       dtype=work.dtype, device=work.device)
     dist.reduce_scatter_tensor(out, work, group=group)
-    _book(work, t0)
+    _book("reduce_scatter", nbytes, n, t0)
     return out.movedim(0, dim).contiguous().to(t.dtype)
 
 
@@ -220,10 +355,13 @@ def broadcast(t: torch.Tensor, mesh, axes, src_index: int) -> torch.Tensor:
     """``t`` of the rank at index ``src_index`` of the line, on every
     rank of it."""
     t0 = time.perf_counter()
-    group, _, _, ranks = line(mesh, axes)
+    group, n, _, ranks = line(mesh, axes)
+    if counting(mesh):
+        _book("broadcast", _nbytes(t), n, t0)
+        return _empty(t.shape, t)
     buf = _to_wire(t.clone())
     dist.broadcast(buf, src=ranks[src_index], group=group)
-    _book(buf, t0)
+    _book("broadcast", _nbytes(t), n, t0)
     return _from_wire(buf, t)
 
 
@@ -232,7 +370,7 @@ def send(t: torch.Tensor, peer: int) -> None:
     t0 = time.perf_counter()
     buf = _to_wire(t)
     dist.send(buf, dst=peer)
-    _book(buf, t0)
+    _book("permute", _nbytes(t), 2, t0)
 
 
 def recv(like: torch.Tensor, peer: int) -> torch.Tensor:
@@ -240,7 +378,7 @@ def recv(like: torch.Tensor, peer: int) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = _to_wire(torch.empty_like(like))
     dist.recv(buf, src=peer)
-    _book(buf, t0)
+    _book("recv", _nbytes(like), 2, t0)
     return _from_wire(buf, like)
 
 
@@ -303,6 +441,52 @@ class _Copy(torch.autograd.Function):
         return all_reduce(g, *ctx.args), None, None
 
 
+class _SumBack(torch.autograd.Function):
+    """The identity on each tensor of ``ts``; the backward sums their
+    gradients over ``axes`` in one all-reduce of their float32
+    concatenation, each rounded back to its dtype once."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *ts):
+        ctx.args = (mesh, axes)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = all_reduce(torch.cat([g.float().reshape(-1) for g in gs]),
+                          *ctx.args)
+        out, at = [], 0
+        for g in gs:
+            out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+            at += g.numel()
+        return (None, None, *out)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, split_dim, cat_dim):
+        ctx.args = (mesh, axes, split_dim, cat_dim)
+        return all_to_all(t, mesh, axes, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_dim, cat_dim = ctx.args
+        return all_to_all(g, mesh, axes, cat_dim, split_dim), None, None, \
+            None, None
+
+
+class _SeqSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return own_block(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return all_gather(g.contiguous(), mesh, axes, dim), None, None, None
+
+
 def gather_many(ts: list, mesh, axes, dims: list,
                 reduce_back: bool = True) -> tuple:
     """Each block of ``ts`` (one dtype) all-gathered over ``axes`` along its
@@ -327,3 +511,23 @@ def tp_copy(t, shard):
     """The identity; backward sums the gradient over the tensor-parallel
     axis."""
     return _Copy.apply(t, shard.mesh, axes_of(shard.tp))
+
+
+def sum_back(ts: list, mesh, axes) -> tuple:
+    """The tensors ``ts`` as they are; the backward sums each one's
+    gradient over ``axes`` (one all-reduce for all of them)."""
+    return _SumBack.apply(mesh, axes_of(axes), *ts)
+
+
+def exchange(t, mesh, axes, split_dim: int, cat_dim: int):
+    """:func:`all_to_all` under autograd: the backward sends each block
+    of the gradient back to the rank it came from (the same exchange with
+    ``split_dim`` and ``cat_dim`` swapped)."""
+    return _Exchange.apply(t, mesh, axes_of(axes), split_dim, cat_dim)
+
+
+def seq_split(t, mesh, axes, dim: int):
+    """This rank's block along ``dim`` over ``axes`` of a tensor every rank
+    of the line holds whole; the backward all-gathers the blocks'
+    gradients."""
+    return _SeqSplit.apply(t, mesh, axes_of(axes), dim)

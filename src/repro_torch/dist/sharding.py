@@ -27,9 +27,12 @@ A rank holds the block of every tensor its placement names
 whole tensor back, and :func:`gather_params` gives the sharded train step
 each parameter in the form its use takes: gathered over the data axes, and
 over ``model`` too unless the layer is tensor-parallel (attention heads,
-the MLP's hidden width, the experts under ``moe_mode="tp"``, the
-vocabulary).  A mesh here is a ``DeviceMesh`` or any object with the
-reference mesh's ``axis_names`` and ``shape`` mapping
+the MLP's hidden width, the experts under ``moe_mode`` ``tp`` or ``a2a``,
+the vocabulary).  A leaf a rank uses on its block of the sequence (a
+Mamba2 block's under ``ssm_sp``, the router's under ``a2a``:
+:func:`seq_use`) has a gradient that is a part, summed over ``model``.
+A mesh here is a ``DeviceMesh`` or any object with the reference mesh's
+``axis_names`` and ``shape`` mapping
 (:func:`repro_torch.launch.mesh.mesh_extents`).
 
 Serving over a mesh: :func:`local_caches` gives a rank its block of every
@@ -284,8 +287,8 @@ def _map_tensors(fn, tree):
 
 
 def cache_spec_tree(caches, cfg: ModelConfig, mesh, shard: ShardCfg):
-    """Decode-cache placements (the rule only: sharded serving is ROADMAP
-    queue 1, item 9b).  Batch over the data axes; attention KV caches
+    """Decode-cache placements (the reference's rule; a rank's blocks are
+    :func:`local_caches`).  Batch over the data axes; attention KV caches
     also shard the sequence over ``tp``; recurrent states batch-sharded
     only."""
     dp = shard.dp if shard.batch_sharded else None
@@ -443,14 +446,15 @@ def tp_compute(name: str, shard: ShardCfg, stacked: bool = True) -> bool:
     """Whether the layer that uses parameter ``name`` is tensor-parallel
     (its ``model`` axis is kept for the use): attention projections, the
     SwiGLU MLP's (dense and shared-expert) weights, the experts under
-    ``moe_mode="tp"``, the embedding table and the unembedding."""
+    ``moe_mode`` ``tp`` or ``a2a`` (each rank computes its E/|tp|), the
+    embedding table and the unembedding."""
     parts = tuple(reference_path(name, stacked).split("/"))
     leaf = parts[-1]
     parent = parts[-2] if len(parts) >= 2 else ""
     if parent == "attn":
         return leaf in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
     if parent == "experts":
-        return shard.moe_mode == "tp"
+        return shard.moe_mode in ("tp", "a2a")
     if (parent, leaf) in (("embed", "table"), ("unembed", "w")):
         return True
     if leaf == "w" and parent in ("gate", "up", "down") and len(parts) >= 3:
@@ -458,6 +462,19 @@ def tp_compute(name: str, shard: ShardCfg, stacked: bool = True) -> bool:
                                       and len(parts) >= 4
                                       and parts[-4] == "ffn")
     return False
+
+
+def seq_use(name: str, shard: ShardCfg, stacked: bool = True) -> bool:
+    """Whether each ``tp`` rank uses parameter ``name`` on its own block of
+    the sequence, so that its gradient there is a part, to be summed over
+    ``tp``: every leaf of a Mamba2 block under ``ssm_sp``, the router under
+    ``moe_mode="a2a"``."""
+    if shard.mesh is None or shard.tp is None or shard.replicate_params:
+        return False
+    parts = tuple(reference_path(name, stacked).split("/"))
+    if shard.moe_mode == "a2a" and parts[-1] == "router":
+        return True
+    return shard.ssm_sp and "mamba" in parts[:-1]
 
 
 def gather_params(lm, shard: ShardCfg, within: str = "",
@@ -468,13 +485,17 @@ def gather_params(lm, shard: ShardCfg, within: str = "",
     over ``model`` unless its layer is tensor-parallel (every ``tp`` rank
     then uses the same whole leaf; the backward keeps this rank's block).
     Each of the two gathers is one collective a dtype
-    (``collectives.gather_many``)."""
-    from repro_torch.dist.collectives import axes_of, gather_many
+    (``collectives.gather_many``).  A leaf of :func:`seq_use` has its
+    gradient summed over ``model`` instead: by its gather's reduce-scatter,
+    or, where ``model`` splits none of its dims, by one all-reduce of all
+    such leaves (``collectives.sum_back``)."""
+    from repro_torch.dist.collectives import axes_of, gather_many, sum_back
 
     stacked = getattr(lm.stack, "stacked", True)
-    dp = shard.dp_axes
+    dp, tp = shard.dp_axes, axes_of(shard.tp)
     out = {n: p for n, p in lm.named_parameters()
            if n.startswith(within) and not (skip and n.startswith(skip))}
+    parts = {n for n in out if seq_use(n, shard, stacked)}
     for over_dp in (True, False):
         groups: dict = {}
         for name in out:
@@ -483,12 +504,18 @@ def gather_params(lm, shard: ShardCfg, within: str = "",
                 if axes is None or (axes_of(axes) == dp) != over_dp:
                     continue
                 if over_dp or not keep_tp:
-                    key = (axes_of(axes), out[name].dtype)
+                    back = over_dp or name in parts
+                    key = (axes_of(axes), out[name].dtype, back)
                     groups.setdefault(key, []).append((name, dim))
-        for (axes, _), members in groups.items():
+        for (axes, _, back), members in groups.items():
             got = gather_many([out[n] for n, _ in members], shard.mesh, axes,
-                              [d for _, d in members], reduce_back=over_dp)
+                              [d for _, d in members], reduce_back=back)
             out.update(zip((n for n, _ in members), got))
+    whole = sorted(n for n in parts if not any(
+        a is not None and axes_of(a) == tp for a in lm.placement[n]))
+    if whole:
+        out.update(zip(whole, sum_back([out[n] for n in whole], shard.mesh,
+                                       tp)))
     return out
 
 

@@ -9,6 +9,11 @@ one MPI rank per grid block): one process per rank, joined by
 * :func:`make_mesh` lays the ranks of the initialised process group out
   as ``shape`` with named axes.  It never degrades to one process: no
   process group, or a world size that is not ``prod(shape)``, raises.
+* :class:`CountingMesh` stands in for a ``DeviceMesh`` where no ranks
+  run: the extents and axis names of one, and one rank's coordinate.
+  The collectives of :mod:`repro_torch.dist.collectives` on it book
+  what they would move and run nothing (the dry run over a mesh,
+  ``launch.dryrun``).
 * :func:`spawn` starts ``world_size`` rank processes (``spawn`` start
   method, a ``file://`` rendezvous in a fresh temporary directory, so
   concurrent launches never race for a port), runs ``fn(*args)`` in each
@@ -90,6 +95,45 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
         raise RuntimeError(f"need {n} ranks for mesh {shape}, have {have} — "
                            "start them with repro_torch.launch.mesh.spawn")
     return make_mesh(shape, axes, device)
+
+
+class CountingMesh:
+    """A mesh with no process group: its ``shape`` and ``mesh_dim_names``
+    as ``make_mesh`` would lay them out, and ``coordinate`` ({axis:
+    index}; default the first rank's, all zeros), which
+    ``get_coordinate`` returns as a ``DeviceMesh`` does.  On it every
+    collective books its call and bytes and returns an empty tensor of
+    its result's shape (``dist.collectives``' counting mode)."""
+
+    counting = True
+
+    def __init__(self, shape, axes, coordinate: dict | None = None):
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh_dim_names = tuple(axes)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.mesh_dim_names} must pair up")
+        coordinate = dict(coordinate or {})
+        self.coordinate = {a: int(coordinate.pop(a, 0))
+                           for a in self.mesh_dim_names}
+        if coordinate:
+            raise ValueError(f"axes {sorted(coordinate)} are not axes of "
+                             f"the mesh {self.mesh_dim_names}")
+        for a, n in zip(self.mesh_dim_names, self.shape):
+            if not 0 <= self.coordinate[a] < n:
+                raise ValueError(f"coordinate {self.coordinate[a]} on axis "
+                                 f"{a!r} of extent {n}")
+
+    def get_coordinate(self) -> list:
+        return [self.coordinate[a] for a in self.mesh_dim_names]
+
+
+def production_counting_mesh(*, multi_pod: bool = False) -> CountingMesh:
+    """:func:`make_production_mesh`'s layout as a :class:`CountingMesh` at
+    the first rank."""
+    shape = MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE
+    axes = MULTI_POD_AXES if multi_pod else PRODUCTION_AXES
+    return CountingMesh(shape, axes)
 
 
 def mesh_extents(mesh) -> dict[str, int]:

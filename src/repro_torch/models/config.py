@@ -7,9 +7,8 @@ dimensions, with ``param_dtype``/``compute_dtype`` as ``torch.dtype``.
 
 ``ShardCfg`` holds the distribution posture: ``LOCAL`` (one device), or a
 mesh of ranks (``dist.sharding.make_shard_cfg``: FSDP×TP or pure data
-parallelism) with ``moe_mode`` ``local`` or ``tp``.  Sequence-parallel
-Mamba2 and ``moe_mode="a2a"`` raise ``NotImplementedError`` (ROADMAP queue
-1, item 9b).
+parallelism) with ``moe_mode`` ``local``, ``tp`` or ``a2a``, and
+sequence-parallel Mamba2 (``ssm_sp``).
 """
 from __future__ import annotations
 
@@ -115,12 +114,6 @@ class ModelConfig:
         return total - expert_total + int(expert_total * active_frac)
 
 
-def not_ported(what: str, item: int | str) -> NotImplementedError:
-    """The error for a part of the LM stack the port does not take yet."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class ShardCfg:
     """Distribution decisions, threaded through the model code.
@@ -137,8 +130,16 @@ class ShardCfg:
               gathered for their use)
       tp    — the experts sharded over ``tp``; activations replicated on
               ``tp``; the combine is one all-reduce a layer
+      a2a   — the experts sharded over ``tp``; each ``tp`` rank routes its
+              block of the sequence, and the dispatch buffers go to their
+              experts' ranks and back in two all_to_alls a layer
+              (``models.moe._a2a_moe``)
 
-    ``moe_mode="a2a"`` and ``ssm_sp=True`` raise (ROADMAP queue 1, item 9b).
+    ``ssm_sp``: each Mamba2 block runs on the ``tp`` rank's block of the
+    sequence, with the conv halo and the chunk state relayed from the
+    ranks before it (``models.mamba2._mamba2_seq_sp``).  On a mesh,
+    ``moe_mode`` ``tp`` or ``a2a`` and ``ssm_sp`` need a ``tp`` axis: they
+    raise without one rather than run as something else.
     """
 
     mesh: Any = None
@@ -150,14 +151,17 @@ class ShardCfg:
     replicate_params: bool = False # pure data parallelism, one grad mean
 
     def __post_init__(self):
-        if self.ssm_sp:
-            raise not_ported("sequence-parallel Mamba2 (ssm_sp, "
-                             "_mamba2_seq_sp)", "9b")
-        if self.moe_mode == "a2a":
-            raise not_ported("moe_mode='a2a' (_a2a_moe, the tokens' "
-                             "all_to_all dispatch)", "9b")
-        if self.moe_mode not in ("local", "tp"):
+        if self.moe_mode not in ("local", "tp", "a2a"):
             raise ValueError(f"unknown moe_mode {self.moe_mode!r}")
+        if self.mesh is not None and self.tp is None:
+            if self.moe_mode in ("tp", "a2a"):
+                raise ValueError(f"moe_mode={self.moe_mode!r} shards the "
+                                 "experts over a tensor-parallel axis; this "
+                                 "posture has none (tp=None)")
+            if self.ssm_sp:
+                raise ValueError("ssm_sp splits the sequence over a "
+                                 "tensor-parallel axis; this posture has "
+                                 "none (tp=None)")
 
     @property
     def dp_axes(self) -> tuple:

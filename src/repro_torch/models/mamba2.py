@@ -11,9 +11,31 @@ gradient, ``kernels.autograd.SSDIntraFn``); the inter-chunk relay stays
 plain PyTorch (a loop over chunks, the reference's ``lax.scan``).
 
 Layout: x (B, S, G, R, P) with H = G·R heads (G = ``ssm_groups`` share one
-(B̄, C̄) pair).  All SSD math runs in float32.  Sequence parallelism
-(the reference's ``_mamba2_seq_sp``) is ROADMAP queue 1, item 9b:
-``ShardCfg(ssm_sp=True)`` raises.
+(B̄, C̄) pair).  All SSD math runs in float32.
+
+Sequence parallelism (``ShardCfg(ssm_sp=True)``, :func:`_mamba2_seq_sp`,
+the reference's ``_mamba2_seq_sp``) is the paper's ghost zone on the
+sequence axis: each ``tp`` rank runs the block on its block of the
+sequence, with
+
+* the conv halo: the W-1 pre-activation rows before its block, the tail
+  of the previous rank's block (zeros on rank 0, the causal start).  The
+  tails are all-gathered over ``tp`` (``collectives.gather`` with the
+  gradient summed back, so the rows a rank sent get the gradient of the
+  rank that used them), and each rank keeps its predecessor's.  One
+  all-gather of (B, W-1, conv_dim) a layer costs about what one send
+  would, and, unlike a send and a receive that must pair up across ranks,
+  it has the same collective on every rank in the forward and in the
+  backward, where the gradient flows back through it;
+* the chunk state relay, in two passes: a ``states_only`` pass (no
+  SSD_INTRA) gives the block's final state and its total decay, one
+  all-gather over ``tp`` brings every rank's, and the prefix product over
+  the ranks before it is this rank's incoming state, which the exact
+  pass (SSD_INTRA on the card, the state in ``s_in``) starts from.
+
+The output is gathered back over ``tp``.  Each rank's parameters see only
+its block's tokens, so their gradients are parts, summed over ``tp``
+where they are gathered (``dist.sharding.gather_params``).
 """
 from __future__ import annotations
 
@@ -24,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.collectives import gather, gather_many, seq_split
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig, ShardCfg
@@ -87,22 +110,24 @@ def _gr(cfg: ModelConfig):
 
 
 def ssd_chunked(x, dt, a, b_, c_, chunk: int, init_state=None,
-                template=None):
+                states_only: bool = False, template=None):
     """Chunked SSD.  x (B,S,G,R,P) fp32, dt (B,S,G,R) fp32 (post-softplus),
     a (G,R) fp32 (negative), b_/c_ (B,S,G,N) fp32.  Returns
-    (y (B,S,G,R,P), final_state (B,G,R,N,P))."""
-    return ssd_core(x, dt * a, dt, b_, c_, chunk, init_state,
+    (y (B,S,G,R,P), final_state (B,G,R,N,P)); with ``states_only``
+    (None, final_state), no SSD_INTRA run."""
+    return ssd_core(x, dt * a, dt, b_, c_, chunk, init_state, states_only,
                     template=template)
 
 
 def ssd_core(x, log_decay, in_scale, b_, c_, chunk: int, init_state=None,
-             template=None):
+             states_only: bool = False, template=None):
     """Chunked linear-recurrence core.
 
     State recursion  S_t = exp(log_decay_t) S_{t-1} + in_scale_t B_t (x) x_t
     with output      y_t = C_t^T S_t.
     Shapes: x (B,S,G,R,P), log_decay/in_scale (B,S,G,R), b_/c_ (B,S,G,N).
-    """
+    ``states_only``: only the final state (the first pass of the
+    sequence-parallel block), (None, final)."""
     bsz, s, g, r, p = x.shape
     n = b_.shape[-1]
     l = min(chunk, s)
@@ -133,6 +158,8 @@ def ssd_core(x, log_decay, in_scale, b_, c_, chunk: int, init_state=None,
     for c in range(nc):                    # emit the incoming state
         s_in.append(carry)
         carry = carry * chunk_decay[:, c][..., None, None] + sc[:, c]
+    if states_only:
+        return None, carry
     s_in = torch.stack(s_in, dim=1)                                # (B,nc,G,R,N,P)
 
     # intra-chunk quadratic + inter-chunk contribution: the SSD_INTRA kernel
@@ -168,7 +195,17 @@ def _finish(p: Mamba2, cfg: ModelConfig, y, xs, z):
 def mamba2_seq(p: Mamba2, cfg: ModelConfig, x, shard: ShardCfg,
                state: Mamba2State | None = None, return_state: bool = False,
                template=None):
-    """Full-sequence Mamba2: train / prefill.  x (B, S, d_model)."""
+    """Full-sequence Mamba2: train / prefill.  x (B, S, d_model).  Under
+    ``shard.ssm_sp`` over a mesh: :func:`_mamba2_seq_sp`."""
+    if shard.ssm_sp and shard.mesh is not None:
+        if state is not None or return_state:
+            # the reference's _mamba2_seq_sp returns no state, and its
+            # hybrid prefill then fails stacking it
+            raise ValueError("ssm_sp runs a sequence from its start and "
+                             "returns no state: a prefill that takes or "
+                             "fills the Mamba2 caches is not sequence-"
+                             "parallel (serve with ssm_sp=False)")
+        return _mamba2_seq_sp(p, cfg, x, shard, template), None
     zxbcdt = layers.dense(p.in_proj, x.to(cfg.compute_dtype))
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
     conv_prefix = state.conv if state is not None else None
@@ -184,6 +221,59 @@ def mamba2_seq(p: Mamba2, cfg: ModelConfig, x, shard: ShardCfg,
     w = cfg.conv_width
     tail = _split_proj(cfg, zxbcdt)[1][:, -(w - 1):, :]
     return out, Mamba2State(conv=tail.float(), ssm=final)
+
+
+def _conv_halo(xbc, shard: ShardCfg, width: int):
+    """(B, W-1, C): the previous ``tp`` rank's last W-1 rows of ``xbc``
+    (pre-activation), zeros on the first rank (a planted fault's hook)."""
+    tails = gather(xbc[None, :, xbc.shape[1] - (width - 1):], shard.mesh,
+                   shard.tp, 0)                          # (|tp|, B, W-1, C)
+    # rank i keeps tails[i - 1]: the same ops on every rank, so that each
+    # rank's gather is reached by the backward (its reduce-scatter is a
+    # collective of the whole line)
+    shifted = torch.cat([torch.zeros_like(tails[:1]), tails[:-1]])
+    return shifted[shard.tp_rank()]
+
+
+def _relay(final, decay, shard: ShardCfg):
+    """This ``tp`` rank's incoming state: every rank's block-final state
+    ``final`` (B,G,R,N,P) and total decay ``decay`` (B,G,R) gathered in one
+    collective, and the prefix product over the ranks before it (zeros on
+    the first; a planted fault's hook)."""
+    finals, decays = gather_many([final[None], decay[None]], shard.mesh,
+                                 shard.tp, [0, 0])
+    acc, s_in = torch.zeros_like(final), []
+    for j in range(finals.shape[0]):       # every rank's, as the reference
+        s_in.append(acc)
+        acc = acc * decays[j][..., None, None] + finals[j]
+    return torch.stack(s_in)[shard.tp_rank()]
+
+
+def _mamba2_seq_sp(p: Mamba2, cfg: ModelConfig, x, shard: ShardCfg,
+                   template=None):
+    """Sequence-parallel Mamba2 over ``tp`` (the module's text): x
+    (B, S, d_model) replicated on ``tp`` -> the block's output, gathered
+    back over ``tp``."""
+    n, s, w = shard.tp_size(), x.shape[1], cfg.conv_width
+    if s % n:
+        raise ValueError(f"ssm_sp splits the sequence over |tp| = {n} "
+                         f"ranks: S = {s} does not divide")
+    if s // n < w - 1:
+        raise ValueError(f"ssm_sp: a rank's block of {s // n} tokens is "
+                         f"shorter than the conv halo's W-1 = {w - 1}")
+    x = seq_split(x, shard.mesh, shard.tp, 1)
+    zxbcdt = layers.dense(p.in_proj, x.to(cfg.compute_dtype))
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    prefix = _conv_halo(xbc, shard, w)
+    xbc = _causal_conv(xbc, p.conv_w, p.conv_b, prefix)
+    xs, b_, c_, dt, a = _prep_ssm_inputs(p, cfg, xbc, dt_raw)
+    _, final = ssd_chunked(xs, dt, a, b_, c_, cfg.ssm_chunk,
+                           states_only=True)
+    s0 = _relay(final, torch.exp(torch.sum(dt * a, dim=1)), shard)
+    y, _ = ssd_chunked(xs, dt, a, b_, c_, cfg.ssm_chunk, s0,
+                       template=template)
+    out = _finish(p, cfg, y, xs, z)
+    return gather(out, shard.mesh, shard.tp, 1, reduce_back=False)
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, device=None) -> Mamba2State:

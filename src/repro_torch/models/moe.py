@@ -8,8 +8,23 @@ experts (the others' ids dropped to a masked slot), with a capacity from
 its local tokens, and the combine is one all-reduce over ``tp``.  Over
 data-parallel ranks the load-balance loss takes the global batch's
 assignment fractions (all-reduced), as the reference's loss over the
-whole batch does.  ``a2a`` (dispatch buffers through ``all_to_all``) is
-ROADMAP queue 1, item 9b.
+whole batch does.
+
+``moe_mode="a2a"`` (:func:`_a2a_moe`): each ``tp`` rank takes its block of
+the sequence (the tokens are replicated on ``tp`` before it), routes its
+own tokens, caps each expert at the capacity of its own tokens, and sends
+the (E·C, d) dispatch buffer, grouped by the experts' ranks, through one
+all_to_all; its E/|tp| experts run over the |tp|·C rows each received,
+and a second all_to_all sends the rows back, where the combine is the one
+above.  The output is gathered back over ``tp``.  Capacity follows each
+source block's tokens, so at a capacity factor that drops assignments
+``a2a`` computes another function than ``local`` or ``tp``; at one under
+which nothing drops (E/k always) the same.  The load-balance and z
+losses and the dropped fraction are the mean over the (data, tp) blocks
+of each block's own values: the reference's ``_a2a_moe`` returns the mean
+over ``tp`` of its blocks' values and leaves the mean over ``dp``
+undefined (its ``out_specs`` claim them replicated there); with one data
+rank the two agree.
 
 Dispatch is the reference's sort-based capacity bucket: the (T·k,)
 assignments are sorted by expert id (a *stable* sort, as ``jnp.argsort``
@@ -38,7 +53,8 @@ from torch import nn
 
 from repro_torch.models import layers
 from repro_torch.device import true_divide
-from repro_torch.dist.collectives import all_reduce, tp_copy, tp_reduce
+from repro_torch.dist.collectives import (all_reduce, exchange, gather,
+                                          seq_split, tp_copy, tp_reduce)
 from repro_torch.models.config import LOCAL, ModelConfig, ShardCfg
 
 
@@ -218,21 +234,70 @@ def _tp_moe(params: MoE, cfg: ModelConfig, x2d, ids, gates,
     return tp_reduce(out, shard), dropped
 
 
+def _a2a_return(y: torch.Tensor, shard: ShardCfg) -> torch.Tensor:
+    """The second all_to_all of :func:`_a2a_moe`: the expert outputs, in
+    blocks by their source rank, back to it (a planted fault's hook)."""
+    return exchange(y, shard.mesh, shard.tp, 0, 0)
+
+
+def _a2a_moe(params: MoE, cfg: ModelConfig, x, shard: ShardCfg):
+    """x (B, S, d), replicated on ``tp`` -> (out (B·S, d), aux, z,
+    dropped): the module's ``a2a`` dispatch."""
+    b, s, d = x.shape
+    ep = shard.tp_size()
+    e_local = params.experts.gate.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    if s % ep:
+        raise ValueError(f"moe_mode='a2a' splits the sequence over |tp| = "
+                         f"{ep} ranks: S = {s} does not divide (a decode "
+                         "step's one token cannot split)")
+    if e_local * ep != e:
+        raise ValueError(f"moe_mode='a2a' needs the {e} experts split over "
+                         f"|tp| = {ep} ranks; this rank holds {e_local}")
+    mesh, tp = shard.mesh, shard.tp
+    sl = s // ep
+    x2d = seq_split(x, mesh, tp, 1).reshape(b * sl, d)
+    ids, gates, aux, z = _route(params, cfg, x2d)     # this block's own
+    cap = _capacity(b * sl, cfg)
+    assign, valid, dropped = _dispatch_indices(ids.reshape(-1), e, cap)
+    tok = assign // k
+    xin = x2d[tok] * valid[:, None].to(x2d.dtype)              # (E·C, d)
+    # expert-major: block j holds the experts of rank j
+    xin = exchange(xin.reshape(ep, e_local * cap, d), mesh, tp, 0, 0)
+    xin = xin.reshape(ep, e_local, cap, d).transpose(0, 1)      # source-major
+    y = _expert_ffn(params.experts, xin.reshape(e_local, ep * cap, d),
+                    cfg.compute_dtype)
+    y = y.reshape(e_local, ep, cap, d).transpose(0, 1)
+    y = _a2a_return(y.reshape(ep, e_local * cap, d), shard)
+    y = y.reshape(e * cap, d)
+    w = gates.reshape(-1)[assign] * valid
+    out = _combine(y * w[:, None].to(y.dtype), assign, valid, ids)
+    out = gather(out.reshape(b, sl, d), mesh, tp, 1, reduce_back=False)
+    # each block's aux, z and dropped: their mean over tp (one all-reduce;
+    # the backward's identity gives each rank 1/|tp| of its block's loss)
+    met = torch.stack([aux.float(), z.float(), dropped.float()])
+    aux, z, dropped = true_divide(tp_reduce(met, shard), float(ep)).unbind()
+    return out.reshape(b * s, d), aux, z, dropped.detach()
+
+
 def moe_apply(params: MoE, cfg: ModelConfig, x: torch.Tensor,
               shard: ShardCfg) -> tuple[torch.Tensor, MoEMetrics]:
     """x: (B, S, d) -> (B, S, d).  Shared experts (if any) are always on.
     The capacity follows the B x S tokens of the call (this rank's under a
-    mesh), pads included."""
+    mesh, pads included; under ``a2a`` its block of the sequence)."""
     b, s, d = x.shape
     cdt = cfg.compute_dtype
     x2d = x.reshape(b * s, d)
-    ids, gates, aux, z = _route(params, cfg, x2d, shard=shard)
-    if (shard.moe_mode == "tp" and shard.tp_size() > 1
-            and params.experts.gate.shape[0] < cfg.num_experts):
-        out, dropped = _tp_moe(params, cfg, x2d, ids, gates, shard)
+    if shard.mesh is not None and shard.moe_mode == "a2a":
+        out, aux, z, dropped = _a2a_moe(params, cfg, x, shard)
     else:
-        out, dropped = _local_moe(params, cfg, x2d, ids, gates,
-                                  _capacity(b * s, cfg), cdt)
+        ids, gates, aux, z = _route(params, cfg, x2d, shard=shard)
+        if (shard.moe_mode == "tp" and shard.tp_size() > 1
+                and params.experts.gate.shape[0] < cfg.num_experts):
+            out, dropped = _tp_moe(params, cfg, x2d, ids, gates, shard)
+        else:
+            out, dropped = _local_moe(params, cfg, x2d, ids, gates,
+                                      _capacity(b * s, cfg), cdt)
     if hasattr(params, "shared"):
         out = out + layers.mlp(params.shared, x2d.to(cdt), shard,
                                cfg.d_ff * cfg.num_shared_experts)

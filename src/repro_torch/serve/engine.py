@@ -33,8 +33,10 @@ parameters are taken once in the form their use takes
 that hold its slot (its data index's ``tp`` line); the decode step runs on
 every rank, and its logits come back gathered, so that every rank makes
 the same host decisions (the same ``SlotTable`` admissions, tokens and
-finished requests).  ``moe_mode="a2a"`` and ``ssm_sp`` raise in
-``ShardCfg`` (ROADMAP queue 1, item 9b).
+finished requests).  The training postures serve as the reference's
+do: under ``moe_mode="a2a"`` a decode step raises ``ValueError`` (its one
+token does not split over ``tp``), and under ``ssm_sp`` a prefill does
+(the sequence-parallel Mamba2 block returns no state to cache).
 
 ``device`` and ``backend`` mean what they mean in ``repro_torch.api``:
 ``device`` None is ``cuda``; ``backend`` ``torch`` runs the plain versions,

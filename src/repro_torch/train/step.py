@@ -17,7 +17,8 @@ state in place.  ``batch`` holds tensors on the model's device.
 Over a mesh of ranks (one process a rank, ``launch.mesh``) the step takes
 the reference's two postures:
 
-* ``fsdp_tp`` (:func:`_make_sharded_train_step`): each rank holds its
+* ``fsdp_tp`` (:func:`_make_sharded_train_step`; ``moe_mode`` ``tp`` or
+  ``a2a`` and ``ssm_sp`` as the ``ShardCfg`` says): each rank holds its
   blocks of the parameters and of both moments
   (``dist.sharding.shard_params``) and its rows of the global batch
   (``dist.sharding.local_batch``; the ``tp`` ranks of one data index take
@@ -252,21 +253,26 @@ def _make_dp_train_step(cfg: ModelConfig, shard: ShardCfg, opt: AdamW,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, shard: ShardCfg):
+def make_prefill_step(cfg: ModelConfig, shard: ShardCfg, kv_block=None):
+    """The prefill; over a mesh ``kv_block`` is the KV caches' block
+    (``dist.sharding.local_caches``)."""
     def prefill_step(model, batch, caches):
-        return model_lib.prefill(model, cfg, batch, caches, shard)
+        return model_lib.prefill(model, cfg, batch, caches, shard,
+                                 kv_block=kv_block)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, shard: ShardCfg, *, greedy: bool = True,
-                    temperature: float = 1.0):
+                    temperature: float = 1.0, kv_block=None):
     """One decode step: token -> (next_token, logits, caches).  Sampling
-    draws from ``rng`` (a ``torch.Generator``), not the reference's bits."""
+    draws from ``rng`` (a ``torch.Generator``), not the reference's bits.
+    ``kv_block`` as in :func:`make_prefill_step`."""
 
     def serve_step(model, token, caches, cache_len, rng=None):
         logits, caches = model_lib.decode_step(model, cfg, token, caches,
-                                               cache_len, shard)
+                                               cache_len, shard,
+                                               kv_block=kv_block)
         lg = logits[:, -1].float()
         if greedy or rng is None:
             nxt = lg.argmax(dim=-1)

@@ -73,8 +73,8 @@ def test_stub_embedding_families_are_not_ported():
     """The audio and vlm families' batches, once item 11, carry their stub
     embeddings as the reference's do (audio: ``embeds`` in place of
     ``tokens``; vlm: ``prefix_embeds`` beside them), with the same targets;
-    ``moe_mode="a2a"`` still raises (item 9b; the launcher's ``--mesh`` is
-    ``tests/test_torch_sharded.py``'s)."""
+    an unknown ``moe_mode`` raises (``a2a`` builds now; the launcher's
+    ``--mesh`` is ``tests/test_torch_sharded.py``'s)."""
     kw = dict(seed=5, vocab_size=512, seq_len=48, global_batch=4,
               doc_len_mean=40)
     want = rpipe.PackedLMDataset(rpipe.DataConfig(**kw)).batch(2, 1, 2)
@@ -90,8 +90,9 @@ def test_stub_embedding_families_are_not_ported():
         rows = 48 if stub == "embeds" else cfg.num_prefix_tokens
         assert got[stub].shape == (2, rows, cfg.d_model)
         assert got[stub].dtype == np.float32
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(moe_mode="a2a")
+    assert ShardCfg(moe_mode="a2a").moe_mode == "a2a"
+    with pytest.raises(ValueError, match="unknown moe_mode"):
+        ShardCfg(moe_mode="ep")
 
 
 def _run(args, timeout=600, arch="llama3-8b"):

@@ -22,6 +22,7 @@ import dataclasses
 import json
 import math
 import os
+import types
 
 import numpy as np
 import pytest
@@ -108,7 +109,7 @@ def test_train_plan_equals_the_reference(rdry, arch):
     assert got["grad_accum"] == want["grad_accum"]
     for k in ("m_dtype", "v_dtype"):
         assert _dtype_name(got[k]) == _dtype_name(want[k]), k
-    # one device: the reference's fsdp_tp layout is ROADMAP item 9
+    # one device; fsdp_tp is the meshed cells' plan (train_plan(..., meshed=True))
     assert got["shard_mode"] == "local" and want["shard_mode"] == "fsdp_tp"
 
 
@@ -289,15 +290,145 @@ def test_the_moe_drives_at_published_widths_are_reckoned():
 # the command lines
 # ---------------------------------------------------------------------------
 def test_mesh_multi_and_a2a_raise_naming_item_9():
-    for kw in (dict(mesh_kind="multi"), dict(moe_mode="a2a")):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    """``--mesh multi|both``, ``--moe-mode a2a`` and ``--ssm-sp`` run now
+    (the meshed tests below); what raises is a mesh kind or an MoE mode
+    the dry run does not know, and a live mesh, whose collectives would
+    run on ``meta`` tensors (``ValueError``); the command lines refuse
+    them by their choices."""
+    for kw, match in ((dict(mesh_kind="pods"), "unknown mesh"),
+                      (dict(moe_mode="ep"), "unknown moe mode"),
+                      (dict(mesh=object()), "CountingMesh"),
+                      (dict(moe_mode="a2a"), "'a2a'.*needs a mesh"),
+                      (dict(ssm_sp=True), "ssm_sp.*needs a mesh")):
+        with pytest.raises(ValueError, match=match):
             dryrun.run_cell("llama3-8b", "train_4k", **kw)
-    for argv in (["--mesh", "multi"], ["--mesh", "both"],
-                 ["--moe-mode", "a2a"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="needs a mesh"):
+        dryrun.build_cell("zamba2-1.2b", "train_4k", ssm_sp=True)
+    for argv in (["--mesh", "pods"], ["--moe-mode", "ep"],
+                 ["--moe-mode", "a2a"], ["--mesh", "both", "--moe-mode",
+                                         "a2a"]):
+        with pytest.raises(SystemExit) as bad:
             dryrun.main(argv)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        assert bad.value.code == 2
+        with pytest.raises(SystemExit) as bad:
             sweep.main(argv)
+        assert bad.value.code == 2
+    # one device splits no sequence: --ssm-sp needs --mesh multi, and the
+    # sweep has no such flag
+    for main, argv in ((dryrun.main, ["--mesh", "both", "--ssm-sp"]),
+                       (explain.main, ["--arch", "zamba2-1.2b", "--shape",
+                                       "train_4k", "--ssm-sp"]),
+                       (sweep.main, ["--mesh", "multi", "--ssm-sp"])):
+        with pytest.raises(SystemExit) as bad:
+            main(argv)
+        assert bad.value.code == 2
+
+
+# (arch, posture, config fields replaced): qwen3-moe with 32 experts, so
+# that they split over model 16
+MESHED = {"llama3-8b": ("tp", False, {}),
+          "qwen3-moe-235b-a22b": ("a2a", False, {"num_experts": 32}),
+          "zamba2-1.2b": ("tp", True, {})}
+MESHED_SHAPES = {"train_4k": dict(seq_len=64, global_batch=64),
+                 "prefill_32k": dict(seq_len=64, global_batch=32),
+                 "decode_32k": dict(seq_len=64, global_batch=32)}
+
+
+@pytest.mark.parametrize("arch", list(MESHED))
+def test_meshed_cells_at_smoke_width(arch):
+    """One rank of (pod 2, data 16, model 16) at smoke width: train,
+    prefill and decode ``ok`` with the rank's collectives counted, but
+    the cells the posture cannot run, which end ``error`` with the
+    reason: ``a2a`` at decode (one token over model 16), ``ssm_sp`` at
+    prefill (no Mamba2 state to cache)."""
+    moe_mode, ssm_sp, over = MESHED[arch]
+    over = dict(_smoke_overrides(arch), **over)
+    for shape, so in MESHED_SHAPES.items():
+        art = dryrun.run_cell(arch, shape, "multi", moe_mode=moe_mode,
+                              ssm_sp=ssm_sp, cfg_overrides=over,
+                              shape_overrides=so, verbose=False)
+        assert art["mesh"] == "multi" and art["devices"] == 512
+        assert art["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+        if (moe_mode, shape) == ("a2a", "decode_32k"):
+            assert art["status"] == "error"
+            assert "one token cannot split" in art["error"]
+            continue
+        if ssm_sp and shape == "prefill_32k":
+            assert art["status"] == "error"
+            assert "returns no state" in art["error"]
+            continue
+        assert art["status"] == "ok", art.get("traceback")
+        assert art["collective_wire_bytes_per_device"] > 0
+        assert art["roofline"]["collective_s"] > 0
+        assert art["fits_hbm"] is True
+        kinds = art["collectives"]
+        assert set(art["collective_counts"]) == set(kinds)
+        if moe_mode == "a2a":
+            assert kinds["all_to_all"]["calls"] == 2 * over["num_layers"] \
+                * (2 if shape == "train_4k" else 1) * int(
+                    art["plan"].get("grad_accum", 1))
+        if shape == "train_4k":
+            # 64 rows over data 32: two a rank, in two microbatches of the
+            # plan's four
+            assert art["plan"]["grad_accum"] == "2"
+            assert art["plan"]["grad_accum_plan"] == "4"
+
+
+def _block_bytes(shapes, specs, extents: dict, itemsize=None) -> int:
+    """Bytes of one rank's blocks of the reference's leaves ``shapes``
+    under its ``PartitionSpec`` tree ``specs``."""
+    from jax.sharding import PartitionSpec as P
+
+    leaves = jax.tree_util.tree_leaves(shapes)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, P))
+    assert len(leaves) == len(spec_leaves)
+    total = 0
+    for x, spec in zip(leaves, spec_leaves):
+        n = 1
+        for i, dim in enumerate(x.shape):
+            axes = spec[i] if i < len(spec) else None
+            axes = () if axes is None else (
+                (axes,) if isinstance(axes, str) else axes)
+            n *= dim // math.prod(extents[a] for a in axes)
+        total += n * (itemsize or np.dtype(x.dtype).itemsize)
+    return total
+
+
+@pytest.mark.parametrize("arch", list(MESHED))
+def test_meshed_argument_bytes_equal_the_reference_spec_blocks(rdry, arch):
+    """At published widths (two layers), a rank of (2, 16, 16) is given
+    exactly the bytes of its blocks of the reference's spec trees: the
+    parameters (``param_spec_tree``), the AdamW moments under the plan
+    (``state_spec_tree``) and its rows of the batch (``batch_spec_tree``)."""
+    from repro.dist import sharding as rshd
+    from repro.optim.adamw import AdamW as RAdamW
+
+    moe_mode, ssm_sp, _ = MESHED[arch]
+    extents = {"pod": 2, "data": 16, "model": 16}
+    rcfg = dataclasses.replace(rreg.get_config(arch), num_layers=2)
+    stub = types.SimpleNamespace(shape=extents, axis_names=tuple(extents))
+    shape = rshapes.SHAPES["train_4k"]
+    rshard = rshd.make_shard_cfg(stub, rcfg, shape.global_batch,
+                                 moe_mode=moe_mode, ssm_sp=ssm_sp)
+    params = jax.eval_shape(
+        lambda: rmodel.init_params(rcfg, jax.random.PRNGKey(0)))
+    pspecs = rshd.param_spec_tree(params, rcfg, stub, rshard)
+    plan = rdry.train_plan(rcfg)
+    mom = _block_bytes(params, pspecs, extents,
+                       np.dtype(plan["m_dtype"]).itemsize)
+    batch = rdry.input_specs(rcfg, shape)
+    cell = dryrun.build_cell(arch, "train_4k", mesh="multi",
+                             moe_mode=moe_mode, ssm_sp=ssm_sp,
+                             cfg_overrides={"num_layers": 2})
+    assert cell.memory == {
+        "params": _block_bytes(params, pspecs, extents),
+        "optimizer": 2 * mom + 4,                 # m, v and the step
+        "batch": _block_bytes(batch, rshd.batch_spec_tree(batch, stub,
+                                                          rshard), extents)}
+    assert cell.shard.moe_mode == (moe_mode if rcfg.num_experts else
+                                   "local")
+    assert cell.shard.ssm_sp == ssm_sp
 
 
 def test_sweep_reuses_a_cached_artifact_and_fails_on_an_error(
@@ -313,7 +444,8 @@ def test_sweep_reuses_a_cached_artifact_and_fails_on_an_error(
         ran.append((arch, shape))
         status = "error" if shape == "decode_32k" else "ok"
         return {"arch": arch, "shape": shape, "mesh": mesh_kind,
-                "status": status, "error": "planted"}
+                "moe_mode": kw["moe_mode"], "status": status,
+                "error": "planted"}
 
     monkeypatch.setattr(dryrun, "run_cell", fake_run_cell)
     argv = ["--archs", "llama3-8b", "--out", str(tmp_path)]
@@ -328,6 +460,19 @@ def test_sweep_reuses_a_cached_artifact_and_fails_on_an_error(
         sweep.main(argv + ["--shapes", "train_4k,decode_32k", "--force"])
     assert bad.value.code == 1
     assert ran[1:] == [("llama3-8b", "train_4k"), ("llama3-8b", "decode_32k")]
+    # a posture's cells are not the tp cells': an a2a sweep after a tp
+    # sweep of the same mesh runs its cells, beside the tp artifacts
+    del ran[:]
+    argv += ["--mesh", "multi", "--shapes", "train_4k"]
+    for extra in ([], ["--moe-mode", "a2a"], ["--moe-mode", "a2a"]):
+        with pytest.raises(SystemExit) as ok:
+            sweep.main(argv + extra)
+        assert ok.value.code == 0
+    assert ran == [("llama3-8b", "train_4k")] * 2
+    assert "cached multi llama3-8b train_4k" in capsys.readouterr().out
+    for d, mode in (("multi", "tp"), ("multi-a2a", "a2a")):
+        with open(tmp_path / d / "llama3-8b__train_4k.json") as f:
+            assert json.load(f)["moe_mode"] == mode
 
 
 def test_explain_prints_its_sections(smoke_shapes, capsys):
@@ -346,7 +491,12 @@ def test_explain_prints_its_sections(smoke_shapes, capsys):
         {"a": 1, "b": 0.5, "c": True, "d": "x"}
     with pytest.raises(ValueError, match="HLO computation"):
         explain.explain("llama3-8b", "train_4k", drill="fusion")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        explain.explain("zamba2-1.2b", "train_4k", ssm_sp=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        explain.explain("llama3-8b", "train_4k", moe_mode="a2a")
+    # one rank of the multi-pod mesh under ssm_sp: its collectives by kind
+    explain.explain("zamba2-1.2b", "train_4k", "multi", ssm_sp=True,
+                    cfg_overrides=_smoke_overrides("zamba2-1.2b"),
+                    plan_overrides={"grad_accum": 1})
+    out = capsys.readouterr().out
+    assert "(multi; moe=local, ssm_sp=True" in out
+    assert "collectives: {'all_gather': " in out and "reduce_scatter" in out
+    with pytest.raises(ValueError, match="unknown moe mode"):
+        explain.explain("llama3-8b", "train_4k", moe_mode="ep")

@@ -27,7 +27,7 @@ from repro.models import model as rmodel  # noqa: E402
 from repro.serve import engine as rengine  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.models import model  # noqa: E402
+from repro_torch.models import mamba2, model, moe  # noqa: E402
 from repro_torch.models.config import ShardCfg  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
@@ -83,10 +83,13 @@ def test_param_count_matches_the_reference(arch):
 
 def test_other_architectures_and_postures_are_not_ported():
     """Every arch of the reference is ported (the audio and vlm families
-    last); sequence-parallel Mamba2 and ``moe_mode="a2a"`` still raise
-    (item 9b); serving over a mesh builds its engine (on a stub mesh here;
+    last); serving over a mesh builds its engine (on a stub mesh here;
     the mesh postures are ``tests/test_torch_sharded.py``'s and
-    ``tests/test_torch_sharded_serve.py``'s)."""
+    ``tests/test_torch_sharded_serve.py``'s).  Sequence-parallel Mamba2
+    and ``moe_mode="a2a"`` serve as the reference's do, so what raises is
+    what the reference cannot run either: a prefill that fills the Mamba2
+    caches under ``ssm_sp``, and a decode step's one token under ``a2a``
+    (``ValueError``, on a counting mesh: no ranks)."""
     assert registry.list_archs() == rreg.list_archs()
     assert set(registry.list_archs()) == set(ARCHS)
     with pytest.raises(KeyError):
@@ -100,10 +103,21 @@ def test_other_architectures_and_postures_are_not_ported():
                                slots=4, max_seq=32, device="cpu")
     assert tuple(eng.caches.k.shape[1:3]) == (2, 16)
     assert tuple(eng.kv_block) == (16, True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(ssm_sp=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(moe_mode="a2a")
+    from repro_torch.launch.mesh import CountingMesh
+
+    mesh = CountingMesh((2, 2), ("data", "model"))
+    zamba = registry.smoke(registry.get_config("zamba2-1.2b"))
+    with pytest.raises(ValueError, match="returns no state"):
+        mamba2.mamba2_seq(model.init_params(zamba, 0, device="cpu")
+                          .stack.layers[0].mamba, zamba,
+                          torch.zeros((2, 32, zamba.d_model)),
+                          ShardCfg(mesh=mesh, ssm_sp=True), return_state=True)
+    qwen = registry.smoke(registry.get_config("qwen3-moe-235b-a22b"))
+    with pytest.raises(ValueError, match="one token cannot split"):
+        moe.moe_apply(model.init_params(qwen, 0, device="cpu")
+                      .stack.layers[0].ffn, qwen,
+                      torch.zeros((2, 1, qwen.d_model)),
+                      ShardCfg(mesh=mesh, moe_mode="a2a"))
     # a dense config relabelled audio builds the dense stack, as the
     # reference's does
     audio = dataclasses.replace(

@@ -39,8 +39,8 @@ loaded:
 * a checkpoint saved at (2, 2) restores at (4, 1) bitwise;
 * the launcher trains over ``--mesh 2x2`` and resumes a killed run
   bitwise;
-* ``a2a`` and ``ssm_sp`` still raise (item 9b); a meshed ``ServingEngine``
-  builds on a stub mesh.
+* ``a2a`` and ``ssm_sp`` build, and a posture with no ``model`` axis for
+  them raises; a meshed ``ServingEngine`` builds on a stub mesh.
 """
 from __future__ import annotations
 
@@ -758,18 +758,23 @@ def test_launcher_trains_over_a_mesh_and_resumes_a_killed_run(launch,
 
 # -- what stays unported ------------------------------------------------------------------
 def test_a2a_ssm_sp_and_meshed_serving_still_raise():
-    """``a2a`` and ``ssm_sp`` still raise (item 9b); a meshed
-    ``ServingEngine`` now builds (``tests/test_torch_sharded_serve.py``
-    serves with it): on a stub mesh at coordinate (data 1, model 1) it
-    holds that rank's blocks of the caches and the parameters' use."""
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ShardCfg(moe_mode="a2a")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ShardCfg(ssm_sp=True)
+    """``a2a`` and ``ssm_sp`` build now (``tests/test_torch_sharded_sp.py``
+    trains with them); what still raises is a posture with no tensor-
+    parallel axis to split over and an unknown MoE mode (``ValueError``,
+    never a quiet fall back to ``local``).  A meshed ``ServingEngine``
+    builds (``tests/test_torch_sharded_serve.py`` serves with it): on a
+    stub mesh at coordinate (data 1, model 1) it holds that rank's blocks
+    of the caches and the parameters' use."""
     cfg = registry.smoke(registry.get_config("llama3-8b"))
     stub = _stub(data=2, model=2)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        sharding.make_shard_cfg(stub, cfg, 4, ssm_sp=True)
+    for kw in (dict(moe_mode="a2a"), dict(ssm_sp=True)):
+        shard = sharding.make_shard_cfg(stub, cfg, 4, **kw)
+        assert (shard.moe_mode, shard.ssm_sp, shard.tp) == (
+            kw.get("moe_mode", "local"), kw.get("ssm_sp", False), "model")
+        with pytest.raises(ValueError, match="tensor-parallel axis"):
+            sharding.make_shard_cfg(stub, cfg, 4, mode="dp", **kw)
+    with pytest.raises(ValueError, match="unknown moe_mode"):
+        ShardCfg(moe_mode="ep")
     at = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                shape=(2, 2), get_coordinate=lambda: [1, 1])
     eng = ServingEngine(cfg, model.init_params(cfg, 0, device="cpu"),

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -693,17 +694,20 @@ def test_model_flops_and_shapes_match_the_reference(arch):
 
 
 def test_what_is_not_ported_raises(pairs):
-    """What stays of the mesh postures raises (item 9b: sequence-parallel
-    Mamba2, ``moe_mode="a2a"``); the modality inputs, once item 11,
+    """What stays of the mesh postures raises: ``moe_mode="a2a"`` and
+    ``ssm_sp`` on a posture with no tensor-parallel axis (``ValueError``,
+    no fall back to ``local``); the modality inputs, once item 11,
     now run: ``embeds`` that are the tokens' own embeddings give the
     tokens' loss bitwise, and an ``audio`` config counts the FLOPs of its
     dense stack."""
     _, cfg, rp = pairs["llama3-8b"]
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(moe_mode="a2a")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardCfg(ssm_sp=True)
+    stub = types.SimpleNamespace(mesh_dim_names=("data",), shape=(4,),
+                                 get_coordinate=lambda: [0])
+    with pytest.raises(ValueError, match="tensor-parallel axis"):
+        ShardCfg(mesh=stub, tp=None, moe_mode="a2a")
+    with pytest.raises(ValueError, match="tensor-parallel axis"):
+        ShardCfg(mesh=stub, tp=None, ssm_sp=True)
     lm = _port_model(cfg, rp)
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=(1, 12)))

@@ -1,5 +1,6 @@
-"""Rank-side jobs of ``tests/test_torch_sharded.py`` and
-``tests/test_torch_sharded_serve.py``, run by
+"""Rank-side jobs of ``tests/test_torch_sharded.py``,
+``tests/test_torch_sharded_serve.py`` and ``tests/test_torch_sharded_sp.py``,
+run by
 ``repro_torch.launch.mesh.spawn`` in gloo ranks on the CPU.
 
 One launch runs every job (:func:`all_jobs`) in 4 ranks and returns numpy
@@ -46,11 +47,18 @@ def planted(fault: str | None):
     """``wo_without_reduce``: the first ``wo`` of each forward (one layer,
     or the hybrid's first shared-block application) skips its all-reduce
     over ``tp``; ``grad_not_divided``: the data-axis gradients are summed
-    but not divided by |dp|."""
-    from repro_torch.models import blocks
+    but not divided by |dp|.  Under the sequence-parallel postures:
+    ``no_halo``: ``tp`` rank 1's conv prefix zeroed; ``no_relay``: every
+    rank's incoming state zero; ``tp_grad_kept``: a Mamba2 leaf
+    (``dt_bias``) used on a rank's block without its gradient summed over
+    ``tp``; ``router_grad_kept``: the same for the router under ``a2a``;
+    ``return_order``: the return all_to_all's blocks concatenated in the
+    reverse source order."""
+    from repro_torch.models import blocks, mamba2, moe
     from repro_torch.train import step as step_lib
 
-    saved = (blocks.wo_reduce, step_lib.data_mean)
+    saved = (blocks.wo_reduce, step_lib.data_mean, mamba2._conv_halo,
+             mamba2._relay, sharding.seq_use, moe._a2a_return)
     if fault == "wo_without_reduce":
         calls = []
 
@@ -61,10 +69,27 @@ def planted(fault: str | None):
         blocks.wo_reduce = faulty
     elif fault == "grad_not_divided":
         step_lib.data_mean = lambda grads, shard: None
+    elif fault == "no_halo":
+        def halo(xbc, shard, width):
+            prefix = saved[2](xbc, shard, width)
+            return prefix * 0 if shard.tp_rank() == 1 else prefix
+
+        mamba2._conv_halo = halo
+    elif fault == "no_relay":
+        mamba2._relay = lambda final, decay, shard: \
+            saved[3](final, decay, shard) * 0
+    elif fault in ("tp_grad_kept", "router_grad_kept"):
+        leaf = "dt_bias" if fault == "tp_grad_kept" else "router"
+        sharding.seq_use = lambda name, shard, stacked=True: (
+            not name.endswith(leaf) and saved[4](name, shard, stacked))
+    elif fault == "return_order":
+        ret = saved[5]
+        moe._a2a_return = lambda y, shard: ret(y, shard).flip(0)
     try:
         yield
     finally:
-        blocks.wo_reduce, step_lib.data_mean = saved
+        (blocks.wo_reduce, step_lib.data_mean, mamba2._conv_halo,
+         mamba2._relay, sharding.seq_use, moe._a2a_return) = saved
 
 
 def fsdp_case(case: dict) -> dict:
@@ -77,7 +102,8 @@ def fsdp_case(case: dict) -> dict:
     cfg = case["cfg"]
     mesh = make_mesh(*FSDP_MESH)
     shard = sharding.make_shard_cfg(mesh, cfg,
-                                    global_batch=len(case["batch"]["targets"]))
+                                    global_batch=len(case["batch"]["targets"]),
+                                    **case.get("posture", {}))
     lm = sharded_model(cfg, case["params"], shard)
     opt = AdamW(**case["opt"])
     state = opt.init(lm)
@@ -85,17 +111,20 @@ def fsdp_case(case: dict) -> dict:
     batch = sharding.local_batch(
         {k: torch.from_numpy(v) for k, v in case["batch"].items()}, mesh,
         shard, accum)
-    mets = []
+    mets, booked = [], None
     with planted(case.get("fault")):
         step = step_lib.make_train_step(cfg, shard, opt, grad_accum=accum)
         for _ in range(case.get("steps", 1)):
+            collectives.reset_stats()
             lm, state, met = step(lm, state, batch)
+            booked = booked or {k: dict(v) for k, v in
+                                collectives.STATS["by_kind"].items()}
             mets.append({k: float(v) for k, v in met.items()})
     full = dict(model.init_params(cfg, device="meta").named_parameters())
     want = {n: tuple(sharding.block(full[n], pl, mesh).shape)
             for n, pl in lm.placement.items()}
     got = {n: tuple(p.shape) for n, p in lm.named_parameters()}
-    out = {"metrics": mets, "shapes": (got, want),
+    out = {"metrics": mets, "shapes": (got, want), "collectives": booked,
            "local_bytes": sum(p.numel() * p.element_size()
                               for p in lm.parameters()),
            "grads": _full({n: p.grad for n, p in lm.named_parameters()},
@@ -154,6 +183,43 @@ def moe_tp_case(case: dict) -> dict:
         out, met = moe.moe_apply(lm.stack.layers[0].ffn, cfg, x, shard)
     return {"out": _np(collectives.all_gather(out, mesh, "data", 0)),
             "dropped": float(met.dropped_frac)}
+
+
+def sp_forward_case(case: dict) -> dict:
+    """The sequence-parallel forwards on (data 2, model 2) from the numpy
+    tree, on this rank's rows of each seeded x (gathered back over
+    ``data``): ``mamba2_seq`` of layer 0 under ``ssm_sp`` at each S of
+    ``case["ssm"]``, and ``moe_apply`` of layer 0 under ``a2a`` at each
+    capacity factor of ``case["moe"]`` with its metrics."""
+    import dataclasses
+
+    from repro_torch.models import mamba2, moe
+
+    mesh = make_mesh(*FSDP_MESH)
+    out = {"coord": collectives.coordinate(mesh), "ssm": {}, "moe": {}}
+    cfg = case["ssm_cfg"]
+    shard = sharding.make_shard_cfg(mesh, cfg, 4, ssm_sp=True)
+    lm = sharded_model(cfg, case["ssm_params"], shard)
+    for s, x in case["ssm"].items():
+        x = sharding.block(torch.from_numpy(x), ("data", None, None), mesh)
+        with torch.no_grad(), sharding.using(
+                lm, sharding.gather_params(lm, shard,
+                                           within="stack.layers.0.")):
+            y, _ = mamba2.mamba2_seq(lm.stack.layers[0].mamba, cfg, x, shard)
+        out["ssm"][s] = _np(collectives.all_gather(y, mesh, "data", 0))
+    for cf, x in case["moe"].items():
+        cfg = dataclasses.replace(case["moe_cfg"], capacity_factor=cf)
+        shard = sharding.make_shard_cfg(mesh, cfg, 4, moe_mode="a2a")
+        lm = sharded_model(cfg, case["moe_params"], shard)
+        x = sharding.block(torch.from_numpy(x), ("data", None, None), mesh)
+        with torch.no_grad(), sharding.using(
+                lm, sharding.gather_params(lm, shard,
+                                           within="stack.layers.0.")):
+            y, met = moe.moe_apply(lm.stack.layers[0].ffn, cfg, x, shard)
+        out["moe"][cf] = {
+            "out": _np(collectives.all_gather(y, mesh, "data", 0)),
+            **{k: float(v) for k, v in met._asdict().items()}}
+    return out
 
 
 def step_gradient(opt, m_now: dict, m_before: dict, clip_scale) -> dict:
@@ -404,6 +470,6 @@ def all_jobs(jobs: dict) -> dict:
                      "dp": dp_case, "ef": ef_case, "gpipe": gpipe_case,
                      "launcher": launcher_case, "bf16": bf16_case,
                      "gather_many": gather_many_case, "serve": serve_case,
-                     "a2a": a2a_case,
+                     "a2a": a2a_case, "sp_forward": sp_forward_case,
                      "engine": engine_case}[kind](case["case"])
     return out
