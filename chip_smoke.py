@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase sharded    # card, build, that phase only
+    python3 chip_smoke.py --phase decomposed # card, build, the 256^3 serial
+                                             # cuda run, that phase only
 
 Phases, each printed as JSON lines; any failure exits non-zero:
 
@@ -95,7 +97,22 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              exchanged with itself under NCCL at world size 1, bitwise;
              two NCCL ranks on the one card, and the error that ends them
              (recorded); step, exchange and busy times and peak memory
-             per rank;
+             per rank.  Then the job store on that mesh (its
+             ``durable_mesh`` section): a store-backed (slot 2, shard 2)
+             farm of 2 slots takes the durable phase's crash requests,
+             evicts one once it has stepped (global rank 0, the store's
+             one writer, writes its snapshot) and rank 0 SIGKILLs itself;
+             the farm launch's ranks first recover those jobs through a
+             meshed ``api.runtime(store=...)`` and drain them, each bitwise
+             the uninterrupted meshed run with one ``result`` event, while
+             the evicted job rerun from its payload with only its step0
+             must differ; after the store-less drive they drive the five
+             requests again through a store-backed mesh with telemetry,
+             health and ``ckpt_dir`` on, the eviction a store snapshot:
+             bitwise the store-less results with equal launch counts a
+             rank, 5 ``done`` rows, ``load_result`` bitwise, one spill and
+             one restore, the same job ids and statuses on every rank, and
+             no store file open off rank 0;
    sharded   the LM trained over a mesh of 4 ranks that share the card
              (gloo, collectives through pinned host buffers): zamba2-1.2b
              at its published widths and 8 of 38 layers, seq 2,048,
@@ -1957,10 +1974,58 @@ DECOMP_BYTES = {"serial": 23_592_960, "fused": 44_564_480,
                 "farm": 47_185_920}
 
 
+# the job store on the mesh: the durable phase's crash requests through a
+# (slot 2, shard 2) farm of 2 slots; the evicted one sits in slot 1, whose
+# shard group's root is global rank 2, so the store gathers it to rank 0
+CRASH_EVICT = 1
+STORE_DIR = os.path.join(DECOMP_DIR, "store")
+
+
 def _rank_device():
     import torch
 
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _open_files_under(root: str) -> list:
+    """The files under ``root`` that this process holds open."""
+    names = []
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            names.append(os.readlink(os.path.join("/proc/self/fd", fd)))
+        except OSError:              # the listing's own descriptor
+            pass
+    return sorted(n for n in names if n.startswith(root))
+
+
+def decomposed_crash_rank(store_path: str, marker: str) -> None:
+    """One of four ranks on (slot 2, shard 2): the crash requests at 256^3
+    through a store-backed farm of 2 slots; one is evicted once it has
+    stepped (rank 0 writes its snapshot), the queued one takes its slot,
+    and global rank 0 then SIGKILLs itself; the survivors wait in a
+    barrier it never reaches."""
+    import torch
+    import torch.distributed as dist
+
+    rt = _decomposed_runtime(_rank_device(), (2, 2), ("slot", "shard"),
+                             n_slots=2,
+                             store={"path": store_path, "ttl_s": 1.0})
+    sids = [rt.submit("cavity", re=re, steps=CRASH_STEPS, tag=f"crash{i}")
+            for i, re in enumerate(CRASH_RES)]
+    svc = rt.services()[0]
+    svc.run(2)
+    require(rt.evict(sids[CRASH_EVICT]), "crash: evict refused")
+    svc.run(2)
+    if dist.get_rank() == 0:
+        torch.cuda.synchronize()
+        loaded = sorted(m for m in sys.modules if m in ("jax", "repro")
+                        or m.startswith(("jax.", "jaxlib", "repro.")))
+        with open(marker, "w") as f:
+            json.dump({"loaded": loaded,
+                       "polls": {f"crash{i}": rt.poll(s)
+                                 for i, s in enumerate(sids)}}, f)
+        os.kill(os.getpid(), signal.SIGKILL)
+    dist.barrier()
 
 
 def _decomposed_runtime(dev, mesh_shape, mesh_axes, **kw):
@@ -2092,18 +2157,142 @@ def decomposed_serial_rank(serial_path: str) -> dict:
     return out
 
 
-def decomposed_farm_rank(serial_path: str) -> dict:
-    """One of four ranks on (slot 2, shard 2): the farm phase's five
-    requests at 256^3 through four slots, one evicted and readmitted;
-    then the first shard group runs each request serially, decomposed the
-    same way, and global rank 0 holds the farm's result to it."""
+def _mesh_recovery(dev, crash_path: str) -> dict:
+    """The crash's jobs recovered by a meshed runtime on the crash store
+    and drained; then the uninterrupted meshed run of the same requests
+    beside the planted fault (the evicted job rerun from its payload, its
+    snapshot ignored but its step0 kept).  Fields on global rank 0."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    crt = _decomposed_runtime(dev, (2, 2), ("slot", "shard"), n_slots=2,
+                              store={"path": crash_path, "ttl_s": 30.0})
+    out["recovered_rows"] = [(j.job_id, j.tag, j.status)
+                             for j in crt.jobs()]
+    crt.drain()
+    torch.cuda.synchronize()
+    out["recover_and_drain_s"] = time.perf_counter() - t0
+    out["recover_launches"] = read_counts()
+    out["recover_device_steps"] = crt.device_steps()
+    out["crash_rows"] = [(j.job_id, j.tag, j.status, j.steps_done)
+                         for j in crt.jobs()]
+    job_of = {tag: jid for jid, tag, _ in out["recovered_rows"]}
+    recovered = {tag: crt.load_result(jid) for tag, jid in job_of.items()}
+    victim = job_of[f"crash{CRASH_EVICT}"]
+    snap = crt.store.latest_snapshot(victim, "evict")
+    payload = crt.store.get(victim).request()
+    out["snapshot_step0"] = snap["steps_done"]
+    del crt
+
+    urt = _decomposed_runtime(dev, (2, 2), ("slot", "shard"), n_slots=2)
+    usids = {f"crash{i}": urt.submit("cavity", re=re, steps=CRASH_STEPS)
+             for i, re in enumerate(CRASH_RES)}
+    usvc = urt.services()[0]
+    fault = usvc.submit(dataclasses.replace(payload,
+                                            step0=snap["steps_done"]))
+    reset_counts()
+    uout = urt.drain()
+    torch.cuda.synchronize()
+    out["uninterrupted_launches"] = read_counts()
+    out["uninterrupted_device_steps"] = urt.device_steps()
+    out["recovered_bitwise"], out["fault"] = {}, {}
+    if rank == 0:
+        for tag, sid in usids.items():
+            out["recovered_bitwise"][tag] = all(
+                torch.equal(recovered[tag][f], uout[sid].state[f])
+                for f in DECOMP_FIELDS)
+        good = uout[usids[f"crash{CRASH_EVICT}"]].state
+        bad = usvc.farm.results[fault].state
+        out["fault"] = {
+            "rejected": any(not torch.equal(bad[f], good[f])
+                            for f in DECOMP_FIELDS),
+            "max_abs_diff": max(float((bad[f] - good[f]).abs().max())
+                                for f in DECOMP_FIELDS)}
+    del urt, uout, recovered
+    return out
+
+
+def _mesh_store_farm(dev, results: dict, sids: list) -> dict:
+    """The five requests again through a store-backed mesh with
+    telemetry, health and ``ckpt_dir`` on, the same eviction a store
+    snapshot: held to the store-less drive's ``results`` on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {}
+    part = os.path.join(STORE_DIR, "farm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srt = _decomposed_runtime(dev, (2, 2), ("slot", "shard"),
+                              n_slots=FARM_SLOTS, telemetry=True,
+                              health=True, ckpt_dir=part, store=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    ssids = [srt.submit("cavity", steps=steps, re=re)
+             for re, steps in zip(FARM_RES, FARM_STEPS)]
+    svc = srt.services()[0]
+    svc.run(EVICT_AT)
+    require(srt.evict(ssids[EVICT]), "store farm: evict refused")
+    out["evicted_poll"] = srt.poll(ssids[EVICT])
+    require(srt.readmit(ssids[EVICT]), "store farm: readmit refused")
+    sres = srt.drain()
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["device_steps"] = srt.device_steps()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["meta"] = {sid: (sres[sid].steps_done, sres[sid].terminated)
+                   for sid in ssids}
+    out["job_ids"] = [srt.job_id(sid) for sid in ssids]
+    out["rows"] = [(j.job_id, j.status, j.steps_done) for j in srt.jobs()]
+    out["polls"] = [srt.poll(sid) for sid in ssids]
+    timers = srt.telemetry.timers.snapshot()
+    for key, name in (("spill", "service.evict_spill"),
+                      ("restore", "service.readmit_restore")):
+        node = timers.get(name, {})
+        out[f"{key}_ms"] = node.get("total_s", 0.0) * 1e3
+        out[f"{key}s"] = node.get("count", 0)
+    out["bitwise"] = out["load_result_bitwise"] = None
+    loaded = {sid: srt.load_result(jid)
+              for sid, jid in zip(ssids, out["job_ids"])}
+    if rank == 0:
+        out["bitwise"] = all(
+            torch.equal(sres[a].state[f], results[b].state[f])
+            for a, b in zip(ssids, sids) for f in DECOMP_FIELDS)
+        out["load_result_bitwise"] = all(
+            torch.equal(loaded[sid][f], sres[sid].state[f])
+            for sid in ssids for f in DECOMP_FIELDS)
+    out["holds_store"] = srt.store.local is not None
+    out["owner"] = srt.store.owner
+    out["open_store_files"] = _open_files_under(STORE_DIR)
+    del srt, sres, loaded
+    return out
+
+
+def decomposed_farm_rank(serial_path: str, crash_path: str) -> dict:
+    """One of four ranks on (slot 2, shard 2): first the crash's jobs
+    recovered from its store and drained (``_mesh_recovery``); then the
+    farm phase's five requests at 256^3 through four slots, one evicted
+    and readmitted; the first shard group runs each request serially,
+    decomposed the same way, and global rank 0 holds the farm's result
+    to it; then the five again through a store-backed mesh
+    (``_mesh_store_farm``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.cfd.ns3d import NavierStokes3D
 
     dev = _rank_device()
     rank = dist.get_rank()
-    out = {"rank": rank}
+    out = {"rank": rank, "durable_mesh": _mesh_recovery(dev, crash_path)}
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rt = _decomposed_runtime(dev, (2, 2), ("slot", "shard"),
@@ -2146,6 +2335,7 @@ def decomposed_farm_rank(serial_path: str) -> dict:
                     out["bitwise_vs_serial"][f"{sid}/{f}"] = (
                         bool(torch.equal(got, whole)),
                         float((got - whole).abs().max()))
+    out["durable_mesh"]["store_farm"] = _mesh_store_farm(dev, results, sids)
     return out
 
 
@@ -2205,6 +2395,147 @@ def nccl_two_ranks_on_one_card(device: str) -> dict:
                  if any(k in ln for k in keep)]
         return {"refused": True, "message": lines[:6]}
     return {"refused": False, "sums": sums}
+
+
+def durable_mesh_crash(device: str) -> dict:
+    """The crash launch: ``decomposed_crash_rank`` in 4 gloo ranks on
+    ``device``, which must end in ``RankFailed`` with rank 0's kill; the
+    store's rows and leases as a restart finds them, once the leases
+    have lapsed."""
+    from repro_torch.jobs import JobStore
+    from repro_torch.launch.mesh import RankFailed, spawn
+
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    crash_path = os.path.join(STORE_DIR, "crash", "jobs.sqlite")
+    marker = os.path.join(STORE_DIR, "crash", "killed.json")
+    t0 = time.perf_counter()
+    try:
+        spawn(decomposed_crash_rank, 4, backend="gloo", device=device,
+              args=(crash_path, marker), timeout_s=DECOMP_TIMEOUT_S)
+        crash_end = None
+    except RankFailed as e:
+        crash_end = str(e).splitlines()[0]
+    crash_s = time.perf_counter() - t0
+    require(crash_end is not None and os.path.exists(marker),
+            f"the crash launch ended {crash_end!r} without rank 0's kill")
+    with open(marker) as f:
+        killed = json.load(f)
+    require(killed["loaded"] == [],
+            f"the crash ranks loaded {killed['loaded']}")
+    probe = JobStore(crash_path)
+    at_restart = {j.tag: (j.status, probe.lease_of(j.job_id))
+                  for j in probe.jobs()}
+    crash_seq = probe.last_seq()
+    probe.close()
+    statuses = {tag: st for tag, (st, _) in at_restart.items()}
+    require(statuses.get(f"crash{CRASH_EVICT}") == "evicted"
+            and set(statuses.values()) <= {"running", "evicted"}
+            and len(statuses) == len(CRASH_RES)
+            and all(lease is not None for _, lease in at_restart.values()),
+            f"the crash store at restart: {at_restart}")
+    lapse = max(lease["expires_at"] for _, lease in at_restart.values())
+    time.sleep(max(lapse - time.time(), 0.0) + 0.1)
+    return {"path": crash_path, "seq": crash_seq, "launch_s": crash_s,
+            "ended": crash_end, "polls_at_kill": killed["polls"],
+            "statuses_at_restart": statuses}
+
+
+def durable_mesh_checks(farm: list, crash: dict, smi: str) -> dict:
+    """Hold the farm launch's ``durable_mesh`` reports to their contract
+    (every drive's launches ``device_steps x PER_STEP``; the store-backed
+    drive's equal to the store-less one's; the same rows, ids, polls and
+    owner on every rank; the store open on rank 0 alone; recovery bitwise
+    with one ``result`` event and one admission a job; the planted fault
+    rejected) and return the phase line's ``durable_mesh`` section."""
+    from repro_torch.jobs import JobStore
+
+    head = farm[0]
+    for r in farm:
+        steps = r["device_steps"]
+        dm = r["durable_mesh"]
+        for drive in ("recover", "uninterrupted"):
+            n = dm[f"{drive}_device_steps"]
+            got = {k: v for k, v in dm[f"{drive}_launches"].items() if v}
+            require(got == {k: n * v for k, v in PER_STEP.items() if v},
+                    f"farm rank {r['rank']}: {drive} launches {got} over "
+                    f"{n} steps")
+        sf = dm["store_farm"]
+        require(sf["launches"] == r["launches"]
+                and sf["device_steps"] == steps,
+                f"farm rank {r['rank']}: store-backed launches "
+                f"{sf['launches']} != the store-less {r['launches']}")
+        require(sf["meta"] == r["meta"], f"rank {r['rank']} store metadata")
+        require(sf["spills"] == 1 and sf["restores"] == 1,
+                f"rank {r['rank']}: {sf['spills']} spills, "
+                f"{sf['restores']} restores")
+        for key in ("job_ids", "rows", "polls", "evicted_poll", "owner"):
+            require(sf[key] == head["durable_mesh"]["store_farm"][key],
+                    f"rank {r['rank']}: store {key} {sf[key]}")
+        for key in ("recovered_rows", "crash_rows", "snapshot_step0"):
+            require(dm[key] == head["durable_mesh"][key],
+                    f"rank {r['rank']}: {key} {dm[key]}")
+        require(sf["holds_store"] == (r["rank"] == 0)
+                and bool(sf["open_store_files"]) == (r["rank"] == 0),
+                f"rank {r['rank']}: holds the store {sf['holds_store']}, "
+                f"open {sf['open_store_files']}")
+    dm, sf = head["durable_mesh"], head["durable_mesh"]["store_farm"]
+    require(sf["bitwise"] and sf["load_result_bitwise"],
+            f"store farm: bitwise {sf['bitwise']}, load_result "
+            f"{sf['load_result_bitwise']}")
+    require([row[1] for row in sf["rows"]] == ["done"] * len(FARM_RES)
+            and sf["evicted_poll"]["status"] == "evicted",
+            f"store farm rows {sf['rows']}")
+    require(len(dm["recovered_bitwise"]) == len(CRASH_RES)
+            and all(dm["recovered_bitwise"].values()),
+            f"recovery vs the uninterrupted run: {dm['recovered_bitwise']}")
+    require(dm["fault"]["rejected"],
+            f"a recovery ignoring the snapshot passed: {dm['fault']}")
+    require([row[2] for row in dm["crash_rows"]] == ["done"] * len(CRASH_RES),
+            f"crash rows after recovery {dm['crash_rows']}")
+    probe = JobStore(crash["path"])
+    result_events = {j.tag: len(probe.events(j.job_id, event="result"))
+                     for j in probe.jobs()}
+    admits = {j.tag: len([e for e in probe.events(j.job_id,
+                                                  after_seq=crash["seq"])
+                          if e["event"] == "admit"]) for j in probe.jobs()}
+    seq = crash["seq"]
+    owners = [{e["owner"] for e in probe.events() if keep(e["seq"])}
+              for keep in (lambda q: q <= seq, lambda q: q > seq)]
+    probe.close()
+    require(set(result_events.values()) == {1} and set(admits.values()) == {1}
+            and [len(o) for o in owners] == [1, 1],
+            f"crash store: result events {result_events}, admits after "
+            f"the crash {admits}, owners {owners}")
+    crash = {k: v for k, v in crash.items() if k not in ("path", "seq")}
+    stores = [r["durable_mesh"]["store_farm"] for r in farm]
+    return {
+        "card": smi, "mesh": {"slot": 2, "shard": 2},
+        "crash": dict(crash, ranks=4, slots=2, requests=len(CRASH_RES),
+                      steps=CRASH_STEPS, leases_lapsed=True),
+        "recovery": {
+            "recover_and_drain_s_per_rank": [
+                r["durable_mesh"]["recover_and_drain_s"] for r in farm],
+            "device_steps": dm["recover_device_steps"],
+            "snapshot_step0": dm["snapshot_step0"],
+            "bitwise_vs_uninterrupted": dm["recovered_bitwise"],
+            "result_events": result_events,
+            "admits_after_crash": admits,
+            "fault_ignoring_snapshot": dm["fault"]},
+        "store_farm": {
+            "telemetry": True, "health": True, "ckpt_dir": True,
+            "bitwise_vs_storeless": sf["bitwise"],
+            "load_result_bitwise": sf["load_result_bitwise"],
+            "launches_equal_per_rank": True,
+            "device_steps": sf["device_steps"], "rows": sf["rows"],
+            "wall_s_per_rank": [x["wall_s"] for x in stores],
+            "storeless_wall_s_per_rank": [r["wall_s"] for r in farm],
+            "evict_spill_ms_per_rank": [x["spill_ms"] for x in stores],
+            "readmit_restore_ms_per_rank": [x["restore_ms"]
+                                            for x in stores],
+            "store_open_on_rank_0_only": True,
+            "max_memory_allocated_per_rank": [
+                x["max_memory_allocated"] for x in stores]},
+    }
 
 
 def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
@@ -2285,9 +2616,14 @@ def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
         require(sum(sent) == DECOMP_BYTES[label] and min(sent) > 0,
                 f"{label}: the ranks sent {sent} B, not {DECOMP_BYTES[label]}")
 
+    # the job store on the mesh: a store-backed farm killed after its
+    # first snapshot; the farm launch recovers its jobs first
+    crash = durable_mesh_crash(device)
+
     t0 = time.perf_counter()
     farm = spawn(decomposed_farm_rank, 4, backend="gloo", device=device,
-                 args=(serial_path,), timeout_s=DECOMP_TIMEOUT_S)
+                 args=(serial_path, crash["path"]),
+                 timeout_s=DECOMP_TIMEOUT_S)
     farm_s = time.perf_counter() - t0
     head = farm[0]
     for r in farm:
@@ -2313,14 +2649,23 @@ def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
             and all(ok for ok, _ in head["bitwise_vs_serial"].values()),
             f"farm vs serial decomposed: {head['bitwise_vs_serial']}")
 
+    durable_mesh = durable_mesh_checks(farm, crash, smi)
+    durable_mesh["farm_launch_s"] = farm_s
+
     nccl = spawn(nccl_self_rank, 1, backend="nccl", device=device,
                  timeout_s=120.0)[0]
     require(nccl["bitwise"] and nccl["backend"] == "nccl",
             f"NCCL self exchange: {nccl}")
     nccl_shared = nccl_two_ranks_on_one_card(device)
 
+    def drives(r):
+        dm = r["durable_mesh"]
+        return (r["launches"], dm["recover_launches"],
+                dm["uninterrupted_launches"], dm["store_farm"]["launches"])
+
     launches = {k: sum(r["launches"][k] + r["fused_launches"][k]
-                       for r in serial) + sum(r["launches"][k] for r in farm)
+                       for r in serial)
+                + sum(d[k] for r in farm for d in drives(r))
                 for k in serial[0]["launches"]}
     emit({"phase": "decomposed", "card": smi, "grid": [N, N, N],
           "decomposition": [list(p) for p in DECOMP],
@@ -2368,7 +2713,9 @@ def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
               "farm": [r["farm_sent_bytes"] / r["device_steps"]
                        for r in farm]},
           "nccl_world_size_1": nccl,
-          "nccl_two_ranks_one_card": nccl_shared, "launches": launches,
+          "nccl_two_ranks_one_card": nccl_shared,
+          "durable_mesh": durable_mesh,
+          "launches": launches,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
@@ -5539,7 +5886,8 @@ def main(argv: list) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("sharded",), default=None,
+    ap.add_argument("--phase", choices=("sharded", "decomposed"),
+                    default=None,
                     help="run the card and build phases and this one only")
     only = ap.parse_args(argv).phase
     if not torch.cuda.is_available():
@@ -5552,8 +5900,16 @@ def main(argv: list) -> int:
     smi = phase_card()
     phase_build()
     dev = torch.device("cuda")
-    if only == "sharded":
-        phase_sharded(dev, smi)
+    if only is not None:
+        if only == "sharded":
+            phase_sharded(dev, smi)
+        else:
+            from repro_torch import api
+
+            serial_state = api.runtime(n=N, nz=N, backend="cuda",
+                                       device=dev).run(
+                "cavity", steps=STEPS, re=100.0).state
+            phase_decomposed(dev, smi, serial_state)
         emit({"phase": "done", "only": only,
               "seconds": time.perf_counter() - t_start, "card": smi})
         return 0

@@ -26,8 +26,13 @@ is; ``repro_torch.launch.mesh.spawn`` starts the ranks), and
 reference's front door does.  Every rank builds the same Runtime and makes
 the same calls.  A serial run returns the gathered global fields on every
 rank; a farm result carries its fields on global rank 0
-(``repro_torch.sim.farm``).  A job store on a mesh raises
-``NotImplementedError`` naming ROADMAP queue 1, item 9c.
+(``repro_torch.sim.farm``).  A job store on a mesh is global rank 0's
+alone (:class:`repro_torch.jobs.MeshStore`): rank 0 opens it, holds the
+leases and writes rows, events and snapshots, and every answer it gives
+(job ids, claimed rows, ``jobs()``, whether ``drain`` claims once more)
+reaches every rank, so ``job_id``, ``jobs`` and ``poll`` agree on every
+rank.  ``load_result`` and ``flight_record`` follow the farm's rule:
+metadata on every rank, fields on rank 0 (``{}`` elsewhere).
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from repro_torch.cfd.ns3d import CFDConfig, NavierStokes3D
 from repro_torch.core.schedule import Schedule
 from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.sim.ensemble import plan_decomposition
-from repro_torch.sim.farm import SimResult, not_ported, static_key
+from repro_torch.sim.farm import SimResult, static_key
 from repro_torch.sim.scenarios import (
     ParamSpec, Scenario, UnknownScenarioError, get_scenario,
     register_scenario, scenario_names, unregister_scenario,
@@ -178,15 +183,14 @@ class Runtime:
     With a job store, building the Runtime first runs :meth:`recover`:
     in-flight jobs whose process died resume before any queued work is
     claimed.  ``mesh`` (a ``DeviceMesh``) wins over the config's
-    ``mesh_shape``, which is built here, on every rank."""
+    ``mesh_shape``, which is built here, on every rank.  With both, the
+    store is opened on global rank 0 alone (``jobs.resolve_store``); a
+    ``JobStore`` handed in on another rank is closed there and ignored."""
 
     def __init__(self, config: RuntimeConfig | None = None, mesh=None):
         from repro_torch.jobs import resolve_store
 
         self.config = config if config is not None else RuntimeConfig()
-        if self.config.store is not None and (
-                mesh is not None or self.config.mesh_shape):
-            raise not_ported("a job store on a mesh")
         self.device = resolve_device(self.config.device)
         if mesh is None and self.config.mesh_shape:
             from repro_torch.launch.mesh import make_mesh
@@ -212,7 +216,8 @@ class Runtime:
         # pins no extra field state
         self._prepared: dict[str, PreparedRun] = {}
         self._next_sid = 0
-        self.store = resolve_store(self.config.store, self.config.ckpt_dir)
+        self.store = resolve_store(self.config.store, self.config.ckpt_dir,
+                                   mesh=self.mesh)
         # job_ids this process admitted itself: a claim never returns one
         # of them, even if its lease lapsed between two heartbeats
         self._jobs_local: set[int] = set()
@@ -453,7 +458,9 @@ class Runtime:
 
     def _admit_job(self, job, resumed: bool = False) -> int:
         """Admit one claimed store row into this process's farms, resuming
-        from its latest eviction snapshot when asked."""
+        from its latest eviction snapshot when asked (on a mesh the
+        snapshot is read on the store's writer, global rank 0, and
+        scattered from there)."""
         from repro_torch import jobs
 
         req = job.request()
@@ -462,8 +469,9 @@ class Runtime:
             if snap is not None and snap["fields"]:
                 steps_done, state = self.store.load_snapshot(job.job_id,
                                                              "evict")
-                req = dataclasses.replace(req, init_state=state,
-                                          step0=steps_done)
+                req = dataclasses.replace(
+                    req, init_state=state, step0=steps_done,
+                    init_rank=jobs.WRITER if self.mesh is not None else None)
             # no snapshot: the job never reached a spill point, so it
             # restarts from its payload (step0 intact)
         sid = self._next_sid
@@ -567,7 +575,7 @@ class Runtime:
 
     def load_result(self, job_id: int) -> dict:
         """A done job's persisted final fields (CPU tensors), from any
-        process."""
+        process; on a mesh, on global rank 0 (``{}`` on the others)."""
         if self.store is None:
             raise RuntimeError("load_result() needs a job store")
         return self.store.load_result(job_id)
@@ -575,13 +583,20 @@ class Runtime:
     def flight_record(self, job_id: int) -> dict:
         """The flight record of a diverged job, resolved through its store
         registration — also after a restart, when the farm that recorded
-        it is gone."""
+        it is gone.  On a mesh it is read on global rank 0: its ``meta``
+        and ``frames`` reach every rank, its ``state`` is ``{}`` on the
+        others."""
+        from repro_torch.jobs import MeshStore
         from repro_torch.obs.health import load_flight_record
 
         snap = (self.store.latest_snapshot(job_id, "flight")
                 if self.store is not None else None)
         if snap is None:
             raise KeyError(f"job {job_id} has no registered flight record")
+        if isinstance(self.store, MeshStore):
+            return self.store.on_writer(
+                load_flight_record, snap["dir"], snap["step_key"],
+                strip=lambda rec: dict(rec, state={}))
         return load_flight_record(snap["dir"], snap["step_key"])
 
     def drain(self, max_device_steps: int = 100_000) -> dict[int, SimResult]:

@@ -44,7 +44,8 @@ torch 2.11 and 2.13 both have are used.  :data:`STATS` books the calls,
 the operand bytes and the host seconds spent in them, and under
 ``by_kind`` the calls, operand bytes and wire bytes of each kind of
 collective (``all_reduce``, ``all_gather``, ``reduce_scatter``,
-``all_to_all``, ``broadcast``, and ``permute`` for a point-to-point
+``all_to_all``, ``broadcast`` (a tensor's, or a host object's pickle,
+:func:`broadcast_object`), and ``permute`` for a point-to-point
 send, ``recv`` for its receive).  The bytes are booked as the operation
 means them: gloo's reduce-scatter, an all_to_all whose rows each rank
 sums on its device, is booked as a reduce-scatter of its float32 operand.  The wire bytes take
@@ -65,6 +66,7 @@ reckoned, collectives included, before any rank is started.
 from __future__ import annotations
 
 import itertools
+import pickle
 import time
 
 import torch
@@ -363,6 +365,30 @@ def broadcast(t: torch.Tensor, mesh, axes, src_index: int) -> torch.Tensor:
     dist.broadcast(buf, src=ranks[src_index], group=group)
     _book("broadcast", _nbytes(t), n, t0)
     return _from_wire(buf, t)
+
+
+def broadcast_object(obj, src: int = 0):
+    """A picklable host object of global rank ``src`` on every rank of the
+    world group: its pickle's length, then its bytes (two broadcasts, on
+    this rank's card under NCCL).  ``src`` returns ``obj`` itself, the
+    others an unpickled copy; ``obj`` is read on ``src`` alone.  Without
+    a process group, or in a world of one, it is ``obj``."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    t0 = time.perf_counter()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    me = dist.get_rank()
+    data = (torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+            if me == src else None)
+    n = torch.tensor([data.numel() if me == src else 0], dtype=torch.int64,
+                     device=dev)
+    dist.broadcast(n, src=src)
+    buf = (data.to(dev) if me == src
+           else torch.empty(int(n.item()), dtype=torch.uint8, device=dev))
+    dist.broadcast(buf, src=src)
+    _book("broadcast", buf.numel(), dist.get_world_size(), t0)
+    return obj if me == src else pickle.loads(buf.cpu().numpy().tobytes())
 
 
 def send(t: torch.Tensor, peer: int) -> None:

@@ -41,8 +41,10 @@ decomposition and all-gathered over the slot axis, so every rank reads the
 same numbers.  A slot's fields reach the host through
 :meth:`EnsembleExecutor.read_slot`, gathered to one rank
 (:meth:`EnsembleExecutor.slot_root` for an eviction, global rank 0 for a
-result), and return through :meth:`EnsembleExecutor.write_slot` from one
-rank (``src``) or from every rank (a request's initial fields).
+result, and for an eviction too when a job store, which rank 0 writes,
+holds it), and return through :meth:`EnsembleExecutor.write_slot` from one rank
+(``src``: an eviction's gather, or a snapshot rank 0 read from the store)
+or from every rank (a request's initial fields).
 """
 from __future__ import annotations
 

@@ -29,7 +29,10 @@ the same branch.  A finished slot is gathered to global rank 0: a
 :class:`SimResult` carries the same metadata on every rank and its fields
 on rank 0 only (``state == {}`` elsewhere).  An eviction gathers the slot
 to the first rank of its shard group (``EnsembleExecutor.slot_root``),
-which holds or spills it, and readmission sends it back from there.
+which holds or spills it, or — with a job store, whose writer is global
+rank 0 (``repro_torch.jobs.MeshStore``) — to rank 0; readmission sends it
+back from there.  The service's store hook (``on_transition``) fires on
+every rank alike, and the store writes on rank 0 alone.
 """
 from __future__ import annotations
 
@@ -44,17 +47,6 @@ from repro_torch.serve.slots import SlotTable
 from repro_torch.sim.ensemble import (
     EnsembleExecutor, host_params, make_ensemble_step, plan_decomposition,
 )
-
-_ITEM_OF = {"a job store on a mesh": "9c: the durable job store on a "
-                                      "slots x shards farm"}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a posture the port does not take yet, naming its
-    ROADMAP item."""
-    return NotImplementedError(
-        f"{what!r} is not ported yet (ROADMAP queue 1, item {_ITEM_OF[what]})")
-
 
 # -- step cache --------------------------------------------------------------
 _STEP_CACHE: dict[tuple, tuple[NavierStokes3D, Any]] = {}
@@ -551,15 +543,16 @@ class SimulationFarm:
         return self.results
 
     # -- eviction (service hook) ---------------------------------------------
-    def evict(self, sid: int) -> tuple[SimRequest, dict, int] | None:
+    def evict(self, sid: int, dst: int | None = None
+              ) -> tuple[SimRequest, dict, int] | None:
         """Pull a *running* simulation off the device mid-flight.
 
         Returns ``(request, host_state, steps_done)`` and frees the slot;
         None if ``sid`` is not currently resident.  Readmission goes through
         ``submit`` with ``init_state``/``step0`` set (see the service).  On
-        a mesh the fields land on the slot's root rank alone: the request
-        comes back with ``init_rank`` naming it, and ``host_state`` is
-        None on every other rank.
+        a mesh the fields land on global rank ``dst`` alone (None: the
+        slot's root rank): the request comes back with ``init_rank``
+        naming it, and ``host_state`` is None on every other rank.
         """
         for slot, entry in self.table.occupied():
             if entry.req.sid == sid:
@@ -568,7 +561,8 @@ class SimulationFarm:
                     if self.exec.mesh is None:
                         state = self.exec.read_slot(slot)
                     else:
-                        root = self.exec.slot_root(slot)
+                        root = (dst if dst is not None
+                                else self.exec.slot_root(slot))
                         state = self.exec.read_slot(slot, dst=root)
                         req = dataclasses.replace(req, init_rank=root)
                 self._live.discard(sid)

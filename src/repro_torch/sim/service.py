@@ -19,10 +19,15 @@ deadline counts a ``service.watchdog_stalls`` metric and trace event; and a
 flags slow or hung chunks (``service.watchdog_events{kind}``).  On a
 health-monitored farm either marks the resident sims ``warning``.
 
-On a mesh every rank runs its own service over the same farm; an evicted
-slot's fields are held, or spilled to the checkpoint directory, by the
-slot's root rank alone (``EnsembleExecutor.slot_root``).  Not ported: a job
-store on a mesh (ROADMAP queue 1, item 9c); asking for it raises.
+On a mesh every rank runs its own service over the same farm.  Without a
+job store an evicted slot's fields are held, or spilled to the checkpoint
+directory, by the slot's root rank alone (``EnsembleExecutor.slot_root``).
+With one, the store is global rank 0's alone
+(:class:`repro_torch.jobs.MeshStore`): an eviction gathers the slot to
+rank 0, which writes the ``evict`` snapshot and the ``evicted`` status in
+one transaction, and readmission scatters it from there; results (already
+gathered to rank 0) and flight records are rank 0's to write; every store
+answer reaches every rank, so all take the same branch.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch.cfd.ns3d import CFDConfig
 from repro_torch.ckpt.checkpointer import Checkpointer
 from repro_torch.ft.watchdog import Heartbeat, StepWatchdog
 from repro_torch.sim.farm import (
-    SimRequest, SimResult, SimulationFarm, not_ported, static_key,
+    SimRequest, SimResult, SimulationFarm, static_key,
 )
 
 
@@ -48,15 +53,19 @@ class _Evicted:
 
 
 class SimulationService:
-    """submit/poll/result over a SimulationFarm, with eviction hooks."""
+    """submit/poll/result over a SimulationFarm, with eviction hooks.
+
+    ``store`` (a :class:`repro_torch.jobs.JobStore` or ``MeshStore``) makes
+    the service durable.  On a ``mesh`` of more than one rank every rank
+    builds the service at the same point and a JobStore handed in on
+    every rank becomes a ``MeshStore``: global rank 0's is written
+    through, the other ranks' are closed and ignored."""
 
     def __init__(self, base_config: CFDConfig, n_slots: int = 8,
                  check_steady_every: int = 16, device=None,
                  ckpt_dir: str | None = None, store=None, mesh=None,
                  slot_axis: str = "data", telemetry=None,
                  farm_id: str | None = None, health=None):
-        if mesh is not None and store is not None:
-            raise not_ported("a job store on a mesh")
         self.tel = obs.resolve(telemetry)
         self.farm = SimulationFarm(base_config, n_slots,
                                    check_steady_every=check_steady_every,
@@ -66,7 +75,10 @@ class SimulationService:
         self._evicted: dict[int, _Evicted] = {}
         self._requeued_progress: dict[int, int] = {}  # readmitted, waiting
         self._ckpt = Checkpointer(ckpt_dir, keep_last=0) if ckpt_dir else None
-        self.store = store               # repro_torch.jobs.JobStore or None
+        from repro_torch.jobs import on_mesh
+
+        # repro_torch.jobs.JobStore, MeshStore on a mesh of ranks, or None
+        self.store = on_mesh(store, mesh)
         self._job_of: dict[int, int] = {}  # farm sid -> durable job_id
         self._last_renew = 0.0
         self._last_beat: float | None = None
@@ -267,11 +279,15 @@ class SimulationService:
 
         With a job store the fields spill to the store's ``evict`` snapshot
         and the row turns ``evicted`` in the same transaction, so a
-        restarted process resumes it from here; else, with a checkpoint
-        directory, they spill there (the sid is the step key); else they
-        stay in host memory.  A failed write raises.
+        restarted process resumes it from here (on a mesh the slot is
+        gathered to the store's writer, global rank 0, which writes it);
+        else, with a checkpoint directory, they spill there (the sid is the
+        step key); else they stay in host memory.  A failed write raises.
         """
-        pulled = self.farm.evict(sid)
+        from repro_torch.jobs import WRITER
+
+        pulled = self.farm.evict(
+            sid, dst=WRITER if self.store is not None else None)
         if pulled is None:
             return False
         req, state, steps_done = pulled
@@ -295,7 +311,8 @@ class SimulationService:
     def readmit(self, sid: int) -> bool:
         """Re-queue an evicted simulation; it resumes at its exact step.
         Its fields (read back from disk when spilled) wait in host memory
-        until a slot admits it."""
+        until a slot admits it; on a mesh with a store they are read on
+        rank 0 alone, which the request's ``init_rank`` names."""
         ev = self._evicted.get(sid)
         if ev is None:
             return False

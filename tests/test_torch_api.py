@@ -308,19 +308,38 @@ def test_a_failed_signature_resolves_to_failed(monkeypatch):
     assert rt.drain()[ok].terminated == "steps"
 
 
-# the ids of the cases that were here before the item 8 postures were
-# ported; since the meshes were, what stays unported is a job store on one
-@pytest.mark.parametrize("posture, item", [
-    pytest.param(dict(mesh_shape=(2,), mesh_axes=("shard",)), "9c",
-                 id="posture4-9"),
+# a job store on a mesh is global rank 0's (tests/test_torch_durable_mesh.py
+# runs it in 4 ranks); here, where no process group is up, a store changes
+# nothing about how a mesh posture fails
+@pytest.mark.parametrize("posture", [
+    pytest.param(dict(mesh_shape=(2,), mesh_axes=("shard",)),
+                 id="mesh_shape"),
     pytest.param(dict(mesh_shape=(2,), mesh_axes=("shard",),
-                      decomposition=((0, "shard"),)), "9c", id="posture5-9"),
-    pytest.param(dict(mesh=object()), "9c", id="posture6-9")])
-def test_postures_not_ported_raise_naming_their_roadmap_item(posture, item,
+                      decomposition=((0, "shard"),)), id="decomposition"),
+    pytest.param(dict(mesh=object()), id="stub_mesh")])
+def test_a_store_changes_nothing_of_how_a_mesh_posture_fails(posture,
                                                              tmp_path):
-    with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
-        api.runtime(n=8, device="cpu", store=str(tmp_path / "j.sqlite"),
-                    **posture)
+    """Without a process group ``mesh_shape`` raises the same error with a
+    store as without one; a stub mesh builds, and its farm fails the
+    request the same way, the store recording the failed row."""
+    def outcome(**kw):
+        try:
+            rt = api.runtime(n=8, device="cpu", **posture, **kw)
+        except Exception as e:
+            return type(e).__name__, str(e), None
+        sid = rt.submit("cavity", steps=1)
+        return "built", rt.poll(sid), rt
+
+    plain = outcome()
+    stored = outcome(store=str(tmp_path / "j.sqlite"))
+    assert stored[:2] == plain[:2]
+    if "mesh" in posture:
+        assert plain[1]["status"] == "failed"
+        rows = stored[2].jobs()
+        assert [(j.status, j.error) for j in rows] == [
+            ("failed", plain[1]["error"])]
+    else:
+        assert plain[0] == "RuntimeError" and "process group" in plain[1]
 
 
 @pytest.mark.parametrize("posture", ["telemetry", "health", "ckpt_dir",
@@ -358,10 +377,11 @@ def test_item8_postures_resolve_as_the_reference_resolves_them(posture,
     assert rt.drain()[0].terminated == "steps"
 
 
-def test_durable_verbs_and_service_postures_not_ported_raise(tmp_path):
+def test_durable_verbs_and_a_service_on_a_stub_mesh_with_a_store(tmp_path):
     """The verbs of item 8 work (their own tests are in
-    ``tests/test_torch_jobs.py``); a job store on a mesh (item 9c) still
-    raises (the mesh itself: ``tests/test_torch_dist.py``)."""
+    ``tests/test_torch_jobs.py``); a service on a mesh with a store fails
+    as it fails without one where no process group is up (the store on a
+    mesh of ranks: ``tests/test_torch_durable_mesh.py``)."""
     from repro_torch import jobs
     from repro_torch.cfd import cavity
     from repro_torch.sim import SimulationFarm, SimulationService
@@ -373,9 +393,12 @@ def test_durable_verbs_and_service_postures_not_ported_raise(tmp_path):
     cfg = cavity.config(8)
     SimulationService(cfg, ckpt_dir=str(tmp_path), device="cpu")
     assert SimulationFarm(cfg, telemetry=True, device="cpu").tel.enabled
-    with pytest.raises(NotImplementedError, match="queue 1, item 9c"):
-        SimulationService(cfg, mesh=object(), device="cpu",
-                          store=jobs.JobStore(str(tmp_path / "j.sqlite")))
+    errors = []
+    for store in (None, jobs.JobStore(str(tmp_path / "j.sqlite"))):
+        with pytest.raises(AttributeError) as e:
+            SimulationService(cfg, mesh=object(), device="cpu", store=store)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def test_enqueue_claim_recover_through_one_store(tmp_path):

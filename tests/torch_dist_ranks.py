@@ -240,3 +240,187 @@ def failing_job():
     buf = torch.empty(4)
     dist.recv(buf, 1)
     return os.getpid()
+
+
+# -- the job store on a mesh ---------------------------------------------------------
+DURABLE_RES = (50.0, 100.0, 200.0, 400.0, 80.0)
+DURABLE_STEPS = (8, 12, 6, 10, 14)
+# the evicted requests sit in a slot of the second slot rank, whose shard
+# group's root is global rank 2: a store gathers them to rank 0 instead
+DURABLE_EVICT, DURABLE_EVICT_AT = 3, 4
+CRASH_RES, CRASH_STEPS, CRASH_EVICT = (80.0, 160.0, 240.0), 6, 1
+QUEUE_RES = (70.0, 140.0, 210.0)
+POISON_DT = 50.0
+
+
+def store_files(path: str) -> list:
+    """The files of the store at ``path`` (the database, its WAL and
+    shared memory) that this process holds open."""
+    names = []
+    fd_dir = "/proc/self/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            names.append(os.readlink(os.path.join(fd_dir, fd)))
+        except OSError:              # the listing's own descriptor
+            pass
+    return sorted(n for n in names if n.startswith(path))
+
+
+def mesh_runtime(n: int, **kw):
+    """``api.runtime`` on a (2, 2) ("slot", "shard") mesh, x decomposed."""
+    from repro_torch import api
+
+    return api.runtime(n=n, device="cpu", mesh_shape=(2, 2),
+                       mesh_axes=("slot", "shard"),
+                       decomposition=((0, "shard"),), jacobi_iters=20, **kw)
+
+
+def evicting_drive(rt) -> tuple:
+    """The five requests, one evicted at ``DURABLE_EVICT_AT`` and
+    readmitted; returns (sids, its poll when evicted, the results)."""
+    sids = [rt.submit("cavity", steps=s, re=re, tag=f"r{i}")
+            for i, (re, s) in enumerate(zip(DURABLE_RES, DURABLE_STEPS))]
+    rt.services()[0].run(DURABLE_EVICT_AT)
+    assert rt.evict(sids[DURABLE_EVICT])
+    evicted = rt.poll(sids[DURABLE_EVICT])
+    assert rt.readmit(sids[DURABLE_EVICT])
+    return sids, evicted, rt.drain()
+
+
+def _rows(rt) -> list:
+    return [(j.job_id, j.tag, j.status, j.steps_done, j.terminated)
+            for j in rt.jobs()]
+
+
+def crash_job(n: int, path: str, marker: str):
+    """A store-backed (2, 2) farm of 2 slots takes the crash requests;
+    one is evicted once it has stepped (rank 0 writes its snapshot), the
+    queued one takes its slot, and global rank 0 then SIGKILLs itself,
+    leaving the survivors in a barrier it never reaches."""
+    import json
+    import signal
+    import sys
+
+    rt = mesh_runtime(n, n_slots=2, store={"path": path, "ttl_s": 1.0})
+    sids = [rt.submit("cavity", re=re, steps=CRASH_STEPS, tag=f"crash{i}")
+            for i, re in enumerate(CRASH_RES)]
+    svc = rt.services()[0]
+    svc.run(2)
+    assert rt.evict(sids[CRASH_EVICT])  # the first snapshot: the eviction's
+    svc.run(2)
+    if dist.get_rank() == 0:
+        loaded = sorted(m for m in sys.modules if m in ("jax", "repro")
+                        or m.startswith(("jax.", "repro.")))
+        with open(marker, "w") as f:
+            json.dump({"jobs": {rt.job_id(s): rt.poll(s) for s in sids},
+                       "loaded": loaded}, f)
+        os.kill(os.getpid(), signal.SIGKILL)
+    dist.barrier()
+
+
+def durable_mesh_job(n: int, crash_path: str, paths: dict):
+    """Every contract of a job store on a mesh, in one launch: recovery of
+    the crash store (against an uninterrupted run, and a recovery that
+    ignores the snapshot), the evicting drive with and without a store, a
+    queue enqueued by one process drained by the mesh (the store handed
+    in as a JobStore on every rank), a poisoned request quarantined, and
+    a service built directly.  Fields come back from global rank 0."""
+    import dataclasses
+    import sqlite3
+
+    from repro_torch import jobs
+    from repro_torch.cfd import cavity
+    from repro_torch.sim import SimulationService
+
+    rank = dist.get_rank()
+    out = {"rank": rank}
+
+    # recovery: the crash's orphans are claimed when the Runtime is built
+    crt = mesh_runtime(n, n_slots=2, store={"path": crash_path,
+                                            "ttl_s": 30.0})
+    out["recovered_rows"] = _rows(crt)
+    job_of = {j.tag: j.job_id for j in crt.jobs()}
+    crt.drain()
+    out["crash_rows"] = _rows(crt)
+    out["crash_results"] = {tag: _np(crt.load_result(jid))
+                            for tag, jid in job_of.items()}
+    victim = job_of[f"crash{CRASH_EVICT}"]
+    snap = crt.store.latest_snapshot(victim, "evict")
+    payload = crt.store.get(victim).request()
+    # the uninterrupted run, and the planted fault: the evicted job from
+    # its payload, its snapshot ignored but its step0 kept
+    ref = mesh_runtime(n, n_slots=2)
+    ref_sids = {f"crash{i}": ref.submit("cavity", re=re, steps=CRASH_STEPS)
+                for i, re in enumerate(CRASH_RES)}
+    svc = ref.services()[0]
+    fault = svc.submit(dataclasses.replace(payload,
+                                           step0=snap["steps_done"]))
+    ref_out = ref.drain()
+    out["uninterrupted"] = {tag: _np(ref_out[sid].state)
+                            for tag, sid in ref_sids.items()}
+    out["fault"] = _np(svc.farm.results[fault].state)
+    out["fault_step0"] = snap["steps_done"]
+
+    # the evicting drive through a store-backed farm, then without one
+    srt = mesh_runtime(n, n_slots=4, store=paths["farm"])
+    sids, out["evicted_poll"], res = evicting_drive(srt)
+    out["job_ids"] = [srt.job_id(s) for s in sids]
+    out["rows"] = _rows(srt)
+    out["polls"] = [srt.poll(s) for s in sids]
+    out["meta"] = {s: (r.steps_done, r.terminated) for s, r in res.items()}
+    out["store_fields"] = {s: _np(res[s].state) for s in sids}
+    out["load_result"] = {s: _np(srt.load_result(srt.job_id(s)))
+                          for s in sids}
+    out["owner"] = srt.store.owner
+    out["holds_store"] = srt.store.local is not None
+    prt = mesh_runtime(n, n_slots=4)
+    psids, _, pres = evicting_drive(prt)
+    out["plain_fields"] = {s: _np(pres[s].state) for s in psids}
+
+    # a queue enqueued by one process, drained by the mesh; the store is
+    # handed in on every rank, and only rank 0's is used
+    handed = jobs.JobStore(paths["queue"])
+    qrt = mesh_runtime(n, n_slots=2, store=handed)
+    first = qrt.claim()
+    qout = qrt.drain()
+    out["queue_first_claim"] = [qrt.job_id(s) for s in first]
+    out["queue_admitted"] = [(s, qrt.job_id(s)) for s in qrt._routes]
+    out["queue_meta"] = {s: (r.steps_done, r.terminated)
+                         for s, r in qout.items()}
+    out["queue_depth"] = qrt.store.queue_depth()
+    out["queue_counts"] = qrt.store.counts()
+    try:
+        handed._conn.execute("SELECT 1")
+        out["handed_open"] = True
+    except sqlite3.ProgrammingError:
+        out["handed_open"] = False
+
+    # quarantine: a request poisoned with dt far past the CFL limit
+    hrt = mesh_runtime(n, n_slots=2, check_every=8, health=True,
+                       ckpt_dir=paths["health"], store=True)
+    bad = hrt.submit("cavity", steps=16, re=100.0, dt=POISON_DT,
+                     tag="poison")
+    ok = hrt.submit("cavity", steps=16, re=100.0, tag="ok")
+    hrt.drain()
+    out["poison"] = (hrt.job_id(bad), hrt.poll(bad)["status"],
+                     hrt.poll(ok)["status"])
+    rec = hrt.flight_record(hrt.job_id(bad))
+    out["flight"] = {"tag": rec["meta"]["tag"],
+                     "frames": tuple(rec["frames"].shape),
+                     "state": sorted(rec["state"])}
+
+    # a service built directly on the mesh with a JobStore on every rank
+    mesh = srt.mesh
+    direct = SimulationService(
+        cavity.config(n, jacobi_iters=20, decomposition=((0, "shard"),)),
+        n_slots=4, mesh=mesh, slot_axis="slot", device="cpu",
+        store=jobs.JobStore(paths["service"]))
+    dsid = direct.submit(cavity.sim_request(
+        n, re=90.0, steps=3, jacobi_iters=20, decomposition=((0, "shard"),)))
+    direct.drain()
+    out["service"] = (type(direct.store).__name__, direct.job_of(dsid),
+                      direct.poll(dsid))
+    out["open_store_files"] = sorted(
+        f for p in paths.values() for f in store_files(p)) + store_files(
+        crash_path)
+    return out
