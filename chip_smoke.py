@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase sharded    # card, build, that phase only
     python3 chip_smoke.py --phase decomposed # card, build, the 256^3 serial
                                              # cuda run, that phase only
+    python3 chip_smoke.py --phase examples   # card, build, that phase only
 
 Phases, each printed as JSON lines; any failure exits non-zero:
 
@@ -170,7 +171,34 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 8. throughput  n=48 (Ghia's grid), 8 slots, 20 steps: the farm's
              sims x steps/s against eight serial runs;
 9. physics   Taylor-Green, cavity divergence and Ghia bounds with the
-             kernels, as the reference's tests hold its solver to them;
+             kernels, as the reference's tests hold its solver to them:
+             the Ghia case is the cavity at n = 32 run to steady state (t =
+             12, 1,024 steps, one more step moving the velocity by less
+             than 1e-3 a unit time), held to the reference's bound at this
+             grid (0.06, benchmarks/bench_cavity.py), as
+             tests/test_torch_solver.py holds both packages on the CPU;
+   examples  each twin of the examples (``examples/*_torch.py``:
+             quickstart, cavity_flow, ensemble_sweep, custom_kernel,
+             serve_lm) run as a user runs it, ``python3 examples/<name>
+             _torch.py`` in a child process at its default size on the
+             card, all five at once (a twin's wall time is taken beside
+             the other four), with ``REPRO_TORCH_LAUNCHES`` set so that
+             each reports its launch counts when it exits (the build phase
+             has built the kernel the custom twin generates, beside the
+             four sources): each must exit 0 and print numbers
+             that meet its reference example's own checks (the Taylor-Green
+             error below 5e-3; at n = 48 the Ghia deviations below 0.035
+             and the divergence below 0.05; the eight sweep runs; the
+             templates within 1e-5; 8 requests and 96 tokens on the CUDA
+             template), and its launches must be its path's: a step's
+             worth of each stencil a cavity step or batched farm step, the
+             kernel generated from the custom twin's body once, and
+             FLASH_ATTENTION and SSD_INTRA for zamba2-1.2b at its published
+             widths; each twin's wall time.  Then that generated kernel
+             (GRADIENT_MAG, the 3DBLOCK template of csrc/stencil3d.cu
+             around its traced body) at the twin's 24^3 grid and at 256^3
+             against its plain version (bitwise), a zeroed x-low plane
+             rejected, timed beside its bytes bound;
 10. lm       zamba2-1.2b at its published widths (bf16 weights from
              ``init_params`` at seed 0, float32 caches) through
              ``ServingEngine(slots=4, max_seq=4096, backend="cuda")``: eight
@@ -306,8 +334,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              zamba2 drive is reckoned the same way), the device's busy
              share of a profiled step, the plain backward's time a region
              at these shapes, and for xlstm the forward sLSTM loops' wall
-             time within one more step.  Last a ``dryrun`` line: kimi-k2
-             train_4k at 1 of 61 layers reckoned, which must not fit.
+             time within its warm-up step.  Last a ``dryrun`` line: kimi-k2
+             train_4k at 1 of 61 layers reckoned, which must not fit.  The
+             dry runs of phases 11 and 15 run in one background process
+             started after the build, each read back before its drive, all
+             finished before the ``decomposed`` phase starts its ranks.
 
 The kernel phase also holds FLASH_ATTENTION (the zamba2 prefill and decode
 shapes and its 4096-token training forward, llama3-8b's GQA widths at
@@ -329,25 +360,30 @@ against their plain versions, beside ``scaled_dot_product_attention``'s
 time on the same inputs (``is_causal`` for a plain causal mask, else the
 boolean mask; a yardstick only, the port never calls it).
 
-The line before the last is the ``{"kernels": [...]}`` summary
+Before the summary a ``phase_times`` line gives each phase's wall
+seconds.  The line before the last is the ``{"kernels": [...]}`` summary
 (FLASH_ATTENTION's entry carries its prefill, decode, llama3 GQA,
 training, moe and multimodal (head dim 256) cases side by side under
 ``cases`` and its head dims under ``head_dims``, the stencils and
 JACOBI_FUSED their serial and farm calls, SSD_INTRA its three zamba2 and
 three xlstm prefill lengths and both training shapes; ``launches_by_path``
 includes the train, moe, ssm and multimodal phases' and each training
-drive of phase 15); the last line is
+drive of phase 15, and the examples phase's, the twins' launches summed;
+the kernel generated from the custom twin's body has an entry of its own,
+its launches that twin's); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import gc
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -407,6 +443,34 @@ SOURCE = {name: "src/repro_torch/kernels/csrc/stencil3d.cu" for name in STENCILS
 SOURCE["JACOBI_FUSED"] = "src/repro_torch/kernels/csrc/jacobi.cu"
 SOURCE["FLASH_ATTENTION"] = "src/repro_torch/kernels/csrc/attention.cu"
 SOURCE["SSD_INTRA"] = "src/repro_torch/kernels/csrc/ssd.cu"
+
+# the physics phase's Ghia case: the cavity at n = 32 run to steady state
+# (t = 12: 1,024 steps; one more step must move the velocity by less than
+# GHIA_STEADY a unit time), held to the reference's bound for n < 48
+# (benchmarks/bench_cavity.py), as tests/test_torch_solver.py holds both
+# packages on the CPU
+GHIA_N, GHIA_T_END = 32, 12.0
+GHIA_BOUND, GHIA_STEADY = 0.06, 1e-3
+# the examples phase: each twin of examples/ run as a user runs it at its
+# default size, held to its reference example's own checks
+EXAMPLES = ("quickstart", "cavity_flow", "ensemble_sweep", "custom_kernel",
+            "serve_lm")
+EXAMPLES_DIR = os.path.join(ROOT, "build", "examples")
+EXAMPLE_TIMEOUT_S = 300.0
+QUICKSTART_TG_STEPS = 40      # examples/quickstart.py's Taylor-Green run
+CAVITY_FLOW_GHIA = 0.035      # examples/cavity_flow.py's bound at n = 48
+CAVITY_DIV = 0.05             # tests/test_cfd.py's cavity divergence bound
+TG_ERR = 5e-3                 # examples/quickstart.py's Taylor-Green bound
+CUSTOM_ERR = 1e-5             # examples/custom_kernel.py's templates' bound
+SERVE_EXAMPLE_REQUESTS = 8    # examples/serve_lm.py: 8 requests, 12 tokens
+EXAMPLE_N = 24                # examples/custom_kernel.py's grid
+# the kernel the custom-kernel twin's CCL declares, generated from its body
+# by the 3DBLOCK template of csrc/stencil3d.cu
+GENERATED = "GRADIENT_MAG"
+REPLACES[GENERATED] = "src/repro/core/generator.py:213"
+INSTANCE[GENERATED] = ("examples/custom_kernel.py:40 (a kernel declared in "
+                       "CCL text, its body generated)")
+SOURCE[GENERATED] = "src/repro_torch/kernels/csrc/stencil3d.cu"
 
 # the farm phases: five requests through four slots, one evicted after
 # EVICT_AT steps and readmitted
@@ -641,11 +705,34 @@ def phase_card():
     return smi
 
 
+def generated_kernel():
+    """The kernel ``examples/custom_kernel_torch.py`` generates from its
+    CCL text and body (the module loaded, its ``main()`` not run)."""
+    import importlib.util
+
+    from repro_torch.core import parse_ccl
+    from repro_torch.kernels import stencil3d_cuda as sc
+
+    spec = importlib.util.spec_from_file_location(
+        "custom_kernel_torch",
+        os.path.join(ROOT, "examples", "custom_kernel_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    return sc.generated(parse_ccl(twin.CCL)[0], twin.body)
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all()          # one nvcc per source, all at once
+    # one nvcc per source, all at once, and one more for the template
+    # around the custom-kernel twin's body (which then finds it built)
+    with ThreadPoolExecutor(1) as pool:
+        generated = pool.submit(generated_kernel().library)
+        _build.build_all()
+        generated.result()
     for w in _wrappers():
         w._lib()
     libs = {}
@@ -4066,7 +4153,6 @@ def check_sequence_parallel(ranks: list) -> None:
 # ---------------------------------------------------------------------------
 def phase_physics(dev):
     import torch
-    from repro_torch import api
     from repro_torch.cfd import cavity, taylor_green
     from repro_torch.kernels import stencil3d_cuda as sc
 
@@ -4093,17 +4179,207 @@ def phase_physics(dev):
     require(walls == 0.0, f"cavity wall faces not zero: {walls}")
     require(div < 0.05, f"cavity divergence {div} >= 0.05")
 
+    # the paper's validation case run to steady state as
+    # tests/test_torch_solver.py runs it on the CPU beside the reference
     sc.reset_launches()
     t0 = time.perf_counter()
-    res = api.runtime(n=48, device=dev).run("cavity", t_end=12.0, re=100.0)
-    ghia = res.diagnostics["ghia"]
-    emit({"phase": "physics", "case": "cavity_ghia_n48", "steps":
-          res.steps_done, "seconds": time.perf_counter() - t0, **ghia,
-          "launches": dict(sc.LAUNCHES)})
-    require(ghia["u_rms"] < 0.035 and ghia["v_rms"] < 0.035,
-            f"Ghia deviation too large: {ghia}")
-    require(sc.LAUNCHES["JACOBI_PRESSURE"] == 40 * res.steps_done,
-            "Ghia run did not go through the kernels")
+    solver, state, ghia = cavity.run(n=GHIA_N, t_end=GHIA_T_END,
+                                     overlap=False, template="CUDA",
+                                     device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(sc.LAUNCHES)
+    steps = int(round(GHIA_T_END / solver.config.dt))
+    nxt = solver.make_step()(state)
+    moved = max(float((nxt[f] - state[f]).abs().max())
+                for f in ("vx", "vy", "vz")) / solver.config.dt
+    emit({"phase": "physics", "case": f"cavity_ghia_n{GHIA_N}_steady",
+          "steps": steps, "t_end": GHIA_T_END, "seconds": seconds, **ghia,
+          "bound": GHIA_BOUND, "steady_residual": moved,
+          "steady_bound": GHIA_STEADY, "launches": launches})
+    require(ghia["u_rms"] < GHIA_BOUND and ghia["v_rms"] < GHIA_BOUND,
+            f"Ghia deviation too large at n = {GHIA_N}: {ghia}")
+    require(moved < GHIA_STEADY, f"cavity n = {GHIA_N} not steady at t = "
+                                 f"{GHIA_T_END}: {moved}")
+    require(launches["JACOBI_PRESSURE"] == 40 * steps
+            and launches["UPDATE_VELOCITY"] == steps,
+            f"Ghia run did not go through the kernels: {launches}")
+
+
+# ---------------------------------------------------------------------------
+def run_example(name: str) -> dict:
+    """``python3 examples/<name>_torch.py`` as a user runs it, from the
+    repository's root on the card, with ``REPRO_TORCH_LAUNCHES`` naming the
+    file its launch counts go to when it exits: exit code, wall time,
+    output and those counts."""
+    os.makedirs(EXAMPLES_DIR, exist_ok=True)
+    report = os.path.join(EXAMPLES_DIR, f"{name}_launches.json")
+    if os.path.exists(report):
+        os.unlink(report)
+    path = os.pathsep.join(p for p in (os.path.join(ROOT, "src"),
+                                       os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, PYTHONPATH=path, REPRO_TORCH_LAUNCHES=report)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join("examples",
+                                                     f"{name}_torch.py")],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = None
+    if os.path.exists(report):
+        with open(report) as f:
+            launches = json.load(f)
+    return {"rc": p.returncode, "wall_s": wall, "stdout": p.stdout,
+            "stderr": p.stderr, "launches": launches}
+
+
+def _match(pattern: str, text: str, what: str):
+    m = re.search(pattern, text)
+    require(m is not None, f"{what}: no line matches {pattern!r}")
+    return m
+
+
+def example_checks(name: str, out: str, launches: dict) -> tuple:
+    """The numbers ``name``'s twin printed, and what is wrong with them
+    against its reference example's own checks and with the launches its
+    run must show."""
+    per = {k: v for k, v in PER_STEP.items() if v}      # the four stencils
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    wrong = []
+    if name == "quickstart":
+        steps = int(_match(r"cavity Re=100, (\d+) steps", out, name)[1])
+        ghia = ast.literal_eval(
+            _match(r"Ghia centerline deviation: (\{.*\})", out, name)[1])
+        tg = float(_match(r"max \|v - analytic\| = (\S+) at", out, name)[1])
+        nums = {"cavity_steps": steps, "ghia": ghia, "taylor_green_err": tg}
+        if tg >= TG_ERR:
+            wrong.append(f"Taylor-Green error {tg} >= {TG_ERR}")
+        runs = steps + QUICKSTART_TG_STEPS         # one launch a step each
+        if any(launches[k] != runs for k in per if k != "JACOBI_PRESSURE"):
+            wrong.append(f"launches {launches}, not {runs} a stencil")
+    elif name == "cavity_flow":
+        steps = int(_match(r"steps: (\d+)", out, name)[1])
+        m = _match(r"u_rms=(\S+) v_rms=(\S+)", out, name)
+        div = float(_match(r"max \|div u\|: (\S+)", out, name)[1])
+        nums = {"steps": steps, "u_rms": float(m[1]), "v_rms": float(m[2]),
+                "bound": CAVITY_FLOW_GHIA, "div_max": div}
+        if max(nums["u_rms"], nums["v_rms"]) >= CAVITY_FLOW_GHIA:
+            wrong.append(f"Ghia deviation {nums}")
+        if div >= CAVITY_DIV:
+            wrong.append(f"divergence {div} >= {CAVITY_DIV}")
+        if any(launches[k] != v * steps for k, v in per.items()):
+            wrong.append(f"launches {launches}, not {steps} steps' worth")
+    elif name == "ensemble_sweep":
+        m = _match(r"(\d+) sim-steps in (\S+)s \((\d+) steps/s\), (\d+) "
+                   r"device dispatch rounds", out, name)
+        rounds = int(m[4])
+        nums = {"sim_steps": int(m[1]), "seconds": float(m[2]),
+                "sims_steps_per_s": int(m[3]), "device_steps": rounds,
+                "runs": len(re.findall(r"\(\d+ steps, \w+\)", out))}
+        if nums["runs"] != 8:
+            wrong.append(f"{nums['runs']} runs reported, not 8")
+        if any(launches[k] != v * rounds for k, v in per.items()):
+            wrong.append(f"launches {launches}, not {rounds} batched steps'")
+    elif name == "custom_kernel":
+        err = float(_match(r"max err: (\S+)", out, name)[1])
+        nums = {"max_err": err, "mean_deviation": float(
+            _match(r"analytic gradient: (\S+)", out, name)[1])}
+        if err >= CUSTOM_ERR:
+            wrong.append(f"templates apart by {err} >= {CUSTOM_ERR}")
+        if launches.get(GENERATED) != 1 or any(launches[k] for k in per):
+            wrong.append(f"launches {launches}: not the generated kernel once")
+    else:
+        m = _match(r"\[serve\] (\d+) requests, (\d+) tokens, (\d+) engine "
+                   r"steps, (\S+)s \((\S+) tok/s\) on (\S+) \((\w+)\)",
+                   out, name)
+        nums = {"requests": int(m[1]), "tokens": int(m[2]),
+                "engine_steps": int(m[3]), "seconds": float(m[4]),
+                "tokens_per_s": float(m[5]), "device": m[6],
+                "template": m[7]}
+        if ((nums["requests"], nums["tokens"], nums["template"]) !=
+                (SERVE_EXAMPLE_REQUESTS, SERVE_EXAMPLE_REQUESTS * 12, "CUDA")):
+            wrong.append(f"served {nums}")
+        if not (launches["FLASH_ATTENTION"] and launches["SSD_INTRA"]):
+            wrong.append(f"launches {launches}: a kernel never ran")
+        last = "OK"                  # the launcher prints no verdict
+    if not last.startswith(("OK", "VALIDATION PASSED")):
+        wrong.append(f"last line {last!r}")
+    return nums, wrong
+
+
+def generated_kernel_case(dev, n: int, case: str) -> dict:
+    """The kernel ``custom_kernel_torch.py`` generates, at an ``n``^3
+    interior: against its plain version (bitwise expected), a zeroed
+    x-low plane rejected, timed beside its bytes bound."""
+    import torch
+
+    gen = generated_kernel()
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    phi = torch.randn((n + 2,) * 3, generator=g, device=dev)
+    table = torch.tensor([1.0 / (n + 1)], device=dev)
+    got, want = gen(phi, table), gen.plain(phi, table)
+    bad = phi.clone()
+    bad[:1] = 0.0
+    fault = float((gen(bad, table) - want).abs().max())
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = KERNEL_RTOL * max(1.0, float(want.abs().max()))
+    nbytes = 4 * (phi.numel() + got.numel() + table.numel())
+    line = {"phase": "kernel", "kernel": GENERATED, "case": case,
+            "interior": [n] * 3, "max_abs_diff": err, "tolerance": tol,
+            "bitwise": bool(torch.equal(got, want)),
+            "planted_fault_max_abs_diff": fault,
+            "ops_per_cell": gen.ops_per_cell,
+            "kernel_ms": cuda_ms(lambda: gen(phi, table), reps=50,
+                                 head_start=True),
+            "plain_ms": cuda_ms(lambda: gen.plain(phi, table), reps=5,
+                                warmup=1),
+            **bound(nbytes, gen.ops_per_cell * got.numel(), F32_OPS_PER_S),
+            "library_ms": None}
+    emit(line)
+    require(bool(torch.isfinite(got).all()) and line["bitwise"],
+            f"{GENERATED} ({case}): kernel and plain version differ ({err})")
+    require(fault > tol, f"{GENERATED} ({case}): the check passed a zeroed "
+                         f"x-low plane ({fault} <= {tol})")
+    return line
+
+
+def phase_examples(dev, smi: str) -> tuple:
+    """Each twin of the examples run as a user runs it, at its default size
+    on the card, all five at once (each its own process; a twin's wall
+    time is taken with the others running beside it): it must exit 0,
+    print numbers that meet its reference example's checks, and report the
+    launches of the kernels its path runs.  Then the kernel the
+    custom-kernel twin generates, against its plain version.  Returns (the
+    twins' launches summed, that kernel's summary)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    total = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        runs = list(pool.map(run_example, EXAMPLES))
+    emit({"phase": "examples", "concurrent": len(EXAMPLES),
+          "seconds": time.perf_counter() - t0})
+    for name, res in zip(EXAMPLES, runs):
+        require(res["rc"] == 0 and res["launches"] is not None,
+                f"examples/{name}_torch.py exited {res['rc']}: "
+                f"{res['stderr'][-2000:]}")
+        nums, wrong = example_checks(name, res["stdout"], res["launches"])
+        emit({"phase": "examples", "example": f"examples/{name}_torch.py",
+              "card": smi, "wall_s": res["wall_s"], **nums,
+              "launches": {k: v for k, v in res["launches"].items() if v}})
+        require(not wrong, f"examples/{name}_torch.py: {wrong}")
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+    main_case = generated_kernel_case(dev, EXAMPLE_N, "example")
+    big = generated_kernel_case(dev, N, f"n{N}")
+    keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    summary = {"max_abs_err": max(main_case["max_abs_diff"],
+                                  big["max_abs_diff"]),
+               **{k: main_case[k] for k in keys},
+               "cases": {c["case"]: {k: c[k] for k in keys}
+                         for c in (main_case, big)}}
+    return total, summary
 
 
 # ---------------------------------------------------------------------------
@@ -4615,10 +4891,12 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
     """``cfg`` at its published widths and depth (bf16 weights from
     ``init_params`` at seed 0) trained through ``make_train_step`` on
     ``PackedLMDataset(..., cfg)`` at ``seq`` positions, micro-batch
-    TRAIN_MICRO and ``accum`` microbatches a step: one warm-up step, then
-    ``steps`` timed with the launch counters reset just before, then one
-    under the profiler (the device's busy share), and for the ``ssm``
-    family one with each sLSTM layer's forward loop timed alone."""
+    TRAIN_MICRO and ``accum`` microbatches a step: one warm-up step (for
+    the ``ssm`` family with each sLSTM layer's forward loop timed alone in
+    it: a step there is ~20 s of host loop, so the first call's own costs
+    are a small part of it), then ``steps`` timed with the launch counters
+    reset just before, then one under the profiler (the device's busy
+    share)."""
     import torch
     from repro_torch.data.pipeline import DataConfig, PackedLMDataset, Prefetcher
     from repro_torch.kernels import attention_cuda as ac
@@ -4659,10 +4937,21 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
            "init_peak_memory": torch.cuda.max_memory_allocated(),
            "moments_dtype": str(plan["m_dtype"]),
            "plan_grad_accum": plan["grad_accum"]}
-    t0 = time.perf_counter()
-    met = one_step()                                   # warm-up
-    torch.cuda.synchronize()
-    out["warmup_step_s"] = time.perf_counter() - t0
+    # the warm-up, with the forward sLSTM loops (seq steps of eager ops
+    # each) timed alone in the ssm family, as the ssm phase times them in a
+    # prefill
+    spent = []
+    with (timing(xlstm, "slstm_seq", spent) if cfg.family == "ssm"
+          else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        met = one_step()
+        torch.cuda.synchronize()
+        out["warmup_step_s"] = time.perf_counter() - t0
+    if cfg.family == "ssm":
+        wall = out["warmup_step_s"] * 1e3
+        out["slstm_forward"] = {"step": "warm-up", "step_wall_ms": wall,
+                                "slstm_layers_ms": spent,
+                                "slstm_share": sum(spent) / wall}
     losses, step_ms = [float(met["loss"])], []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -4679,17 +4968,6 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
     out["step_busy"] = device_busy(
         lambda: losses.append(float(one_step()["loss"])), cpu_ops=False)
     out["profiled_step_s"] = time.perf_counter() - t0
-    if cfg.family == "ssm":
-        # the forward sLSTM loops (seq steps of eager ops each) timed alone
-        # inside one more step, as the ssm phase times them in a prefill
-        with timing(xlstm, "slstm_seq", []) as spent:
-            t0 = time.perf_counter()
-            losses.append(float(one_step()["loss"]))
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        out["slstm_forward"] = {"step_wall_ms": wall,
-                                "slstm_layers_ms": spent,
-                                "slstm_share": sum(spent) / wall}
     it.close()
     med = sorted(step_ms)[len(step_ms) // 2]
     positions = seq + (cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
@@ -4706,18 +4984,71 @@ def train_steps(dev, cfg, seq: int, accum: int, steps: int) -> dict:
     return out
 
 
+def _reckon(arch: str, layers: int, positions: int, accum: int) -> dict:
+    """``launch.dryrun`` of ``arch`` at ``layers``, ``positions`` a
+    sequence, micro-batch TRAIN_MICRO and ``accum`` microbatches (on
+    ``meta`` tensors: no card)."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(
+        arch, "train_4k", verbose=False,
+        cfg_overrides={"num_layers": layers},
+        plan_overrides={"grad_accum": accum},
+        shape_overrides={"seq_len": positions,
+                         "global_batch": TRAIN_MICRO * accum})
+
+
+def _reckon_kimi() -> dict:
+    from repro_torch.launch import dryrun
+
+    arch, layers = KIMI_DRYRUN
+    return dryrun.run_cell(arch, "train_4k", verbose=False,
+                           cfg_overrides={"num_layers": layers})
+
+
+# The training drives' dry runs (phases 11 and 15; ~75 s of host time, 62 s
+# of it xlstm-125m's per-token sLSTM loop traced) run in one background
+# process started after the build, beside the card's first phases; each
+# drive reads its own back before it runs, and all are done before the
+# first phase that starts ranks (whose budgets share the host's cores).
+_RECKONING: dict = {}
+
+
+def start_reckoning() -> None:
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs.registry import get_config
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    _RECKONING["pool"] = pool
+    drives = [(LM_ARCH, TRAIN_ACCUM)] + [(arch, accum) for arch, _, _, accum
+                                         in TRAIN_FAMILIES]
+    for arch, accum in drives:
+        cfg = get_config(arch)
+        prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+        key = (arch, TRAIN_DEPTH.get(arch, cfg.num_layers),
+               TRAIN_SEQ + prefix, accum)
+        _RECKONING[key] = pool.submit(_reckon, *key)
+    _RECKONING["kimi"] = pool.submit(_reckon_kimi)
+
+
+def finish_reckoning(cancel: bool = False) -> None:
+    """Wait for the background dry runs (``cancel``: for the one running
+    only) and stop their process."""
+    pool = _RECKONING.pop("pool", None)
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=cancel)
+
+
 def reckon_drive(cfg, positions: int, accum: int) -> dict:
     """``launch.dryrun`` at a training drive's exact configuration
     (``cfg``'s depth, ``positions`` a sequence, micro-batch TRAIN_MICRO,
     ``accum`` microbatches), before the drive: it must fit the card."""
-    from repro_torch.launch import dryrun
-
-    art = dryrun.run_cell(
-        cfg.name, "train_4k", verbose=False,
-        cfg_overrides={"num_layers": cfg.num_layers},
-        plan_overrides={"grad_accum": accum},
-        shape_overrides={"seq_len": positions,
-                         "global_batch": TRAIN_MICRO * accum})
+    key = (cfg.name, cfg.num_layers, positions, accum)
+    pending = _RECKONING.pop(key, None)
+    art = pending.result() if pending is not None else _reckon(*key)
     require(art["status"] == "ok",
             f"dry run {cfg.name}: {art.get('error')}")
     require(art["fits_hbm"], f"dry run {cfg.name}: {art['memory']} does "
@@ -4917,11 +5248,9 @@ def phase_train_families(dev, smi: str) -> dict:
 def kimi_dryrun() -> None:
     """kimi-k2 train_4k at KIMI_DRYRUN's depth, reckoned by the dry run
     and not run: it must not fit the card."""
-    from repro_torch.launch import dryrun
-
     arch, layers = KIMI_DRYRUN
-    art = dryrun.run_cell(arch, "train_4k", verbose=False,
-                          cfg_overrides={"num_layers": layers})
+    pending = _RECKONING.pop("kimi", None)
+    art = pending.result() if pending is not None else _reckon_kimi()
     emit({"phase": "dryrun", "reason": "kimi-k2's training reckoned on one "
           "card, not run (one layer does not fit one card; the fsdp_tp step "
           "over a mesh needs several cards)", "layers": layers,
@@ -5474,8 +5803,9 @@ def phase_ssm(dev, smi: str):
     decode_ms = sorted(ms for a, ms in steps if a == 0)
 
     # prefill time per bucket (one slot's cache rows), the sLSTM loop's
-    # host time inside one prefill a bucket; the same prompt prefilled
-    # twice must give the same logits bit for bit
+    # host time inside one prefill a bucket (that prefill the timing's
+    # warm-up); the same prompt prefilled twice must give the same logits
+    # bit for bit
     buckets = sorted({_bucket(len(r.prompt)) for r in reqs})
     one = model.init_caches(cfg, 1, LM_MAX_SEQ, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5483,10 +5813,10 @@ def phase_ssm(dev, smi: str):
     for b in buckets:
         toks = torch.randint(0, cfg.vocab_size, (1, b), device=dev,
                              generator=gen)
+        slstm[b] = slstm_host_ms(cfg, lm, dev, b)
         prefill_ms[b] = cuda_ms(lambda: model.prefill(
             lm, cfg, {"tokens": toks}, one, template="CUDA"), reps=2,
-            warmup=1)
-        slstm[b] = slstm_host_ms(cfg, lm, dev, b)
+            warmup=0)
     prompt = torch.from_numpy(reqs[0].prompt).to(dev)[None]
     twice = []
     for _ in range(2):
@@ -5880,13 +6210,27 @@ def phase_multimodal(dev, smi: str, kernel_results: dict):
 
 
 # ---------------------------------------------------------------------------
+PHASE_TIMES: dict = {}
+
+
+@contextlib.contextmanager
+def timed_phase(name: str):
+    """Add the wall seconds inside to ``PHASE_TIMES[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_TIMES[name] = PHASE_TIMES.get(name, 0.0) + (
+            time.perf_counter() - t0)
+
+
 def main(argv: list) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("sharded", "decomposed"),
+    ap.add_argument("--phase", choices=("sharded", "decomposed", "examples"),
                     default=None,
                     help="run the card and build phases and this one only")
     only = ap.parse_args(argv).phase
@@ -5897,58 +6241,54 @@ def main(argv: list) -> int:
     import repro_torch  # noqa: F401  (fails outside the repository)
 
     t_start = time.perf_counter()
-    smi = phase_card()
-    phase_build()
+    with timed_phase("card"):
+        smi = phase_card()
     dev = torch.device("cuda")
-    if only is not None:
-        if only == "sharded":
-            phase_sharded(dev, smi)
-        else:
-            from repro_torch import api
+    if only is None:
+        start_reckoning()         # beside the build: no card, other cores
+        try:
+            with timed_phase("build"):
+                phase_build()
+            paths = run_phases(dev, smi)
+        except BaseException:
+            finish_reckoning(cancel=True)
+            raise
+    else:
+        with timed_phase("build"):
+            phase_build()
+        with timed_phase(only):
+            if only == "sharded":
+                phase_sharded(dev, smi)
+            elif only == "examples":
+                phase_examples(dev, smi)
+            else:
+                from repro_torch import api
 
-            serial_state = api.runtime(n=N, nz=N, backend="cuda",
-                                       device=dev).run(
-                "cavity", steps=STEPS, re=100.0).state
-            phase_decomposed(dev, smi, serial_state)
+                serial_state = api.runtime(n=N, nz=N, backend="cuda",
+                                           device=dev).run(
+                    "cavity", steps=STEPS, re=100.0).state
+                phase_decomposed(dev, smi, serial_state)
         emit({"phase": "done", "only": only,
               "seconds": time.perf_counter() - t_start, "card": smi})
+        emit({"phase_times": PHASE_TIMES, "card": smi})
         return 0
-    kernel_results = phase_kernels(dev)
-    paths = {}
-    paths["serial"], serial_state = phase_main(kernel_results, dev)
-    paths["farm"], farm_results = phase_farm(dev, "farm", PER_STEP)
-    paths["durable"], health = phase_durable(dev, paths["farm"],
-                                             farm_results, smi)
-    paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
-                            farm_results, health))
-    paths["decomposed"] = phase_decomposed(dev, smi, serial_state)
-    (paths["sharded"], paths["sharded_serving"], paths["sharded_ssm_sp"],
-     paths["sharded_a2a"]) = phase_sharded(dev, smi)
-    del farm_results, serial_state
-    paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
-                                        fused_sweeps=FUSED_K)
-    paths["throughput"] = phase_throughput(dev)
-    phase_physics(dev)
-    paths["lm"] = phase_lm(dev)
-    paths["train"] = phase_train(dev, smi)
-    paths["moe"] = phase_moe(dev, smi)
-    paths["ssm"] = phase_ssm(dev, smi)
-    paths["multimodal"] = phase_multimodal(dev, smi, kernel_results)
-    paths.update(phase_train_families(dev, smi))
+    kernel_results = paths.pop("kernel_results")
     # each kernel's launches on the path that carries it: the farm for the
     # four stencils, the fused-smoother farm for JACOBI_FUSED, the zamba2
-    # serving path for FLASH_ATTENTION and SSD_INTRA
+    # serving path for FLASH_ATTENTION and SSD_INTRA, the custom-kernel
+    # twin for the kernel generated from its body
     carrier = {name: "farm" for name in STENCILS}
     carrier["JACOBI_FUSED"] = "farm_fused"
     carrier.update(dict.fromkeys(LM_KERNELS, "lm"))
-    for name in KERNELS:
-        require(paths[carrier[name]][name] > 0,
+    carrier[GENERATED] = "examples"
+    for name in KERNELS + (GENERATED,):
+        require(paths[carrier[name]].get(name, 0) > 0,
                 f"{name} never launched on the {carrier[name]} path")
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCE[name],
         "replaces": REPLACES[name], "instance": INSTANCE[name],
         "launches": paths[carrier[name]][name],
-        "launches_by_path": {k: v[name] for k, v in paths.items()},
+        "launches_by_path": {k: v.get(name, 0) for k, v in paths.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
@@ -5956,11 +6296,64 @@ def main(argv: list) -> int:
     } for name, r in kernel_results.items()]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})
+    emit({"phase_times": PHASE_TIMES, "seconds":
+          time.perf_counter() - t_start, "card": smi})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def run_phases(dev, smi: str) -> dict:
+    """Every phase after the build, each timed into ``PHASE_TIMES``; the
+    launch counts of each path, and the kernel phase's results under
+    ``kernel_results``."""
+    paths = {}
+    with timed_phase("kernels"):
+        kernel_results = phase_kernels(dev)
+    with timed_phase("main"):
+        paths["serial"], serial_state = phase_main(kernel_results, dev)
+    with timed_phase("farm"):
+        paths["farm"], farm_results = phase_farm(dev, "farm", PER_STEP)
+    with timed_phase("durable"):
+        paths["durable"], health = phase_durable(dev, paths["farm"],
+                                                 farm_results, smi)
+    with timed_phase("perf"):
+        paths.update(phase_perf(dev, smi, serial_state, paths["farm"],
+                                farm_results, health))
+    with timed_phase("reckoning_wait"):
+        finish_reckoning()            # no dry run beside the ranks' phases
+    with timed_phase("decomposed"):
+        paths["decomposed"] = phase_decomposed(dev, smi, serial_state)
+    with timed_phase("sharded"):
+        (paths["sharded"], paths["sharded_serving"], paths["sharded_ssm_sp"],
+         paths["sharded_a2a"]) = phase_sharded(dev, smi)
+    del farm_results, serial_state
+    with timed_phase("farm_fused"):
+        paths["farm_fused"], _ = phase_farm(dev, "farm_fused", PER_STEP_FUSED,
+                                            fused_sweeps=FUSED_K)
+    with timed_phase("throughput"):
+        paths["throughput"] = phase_throughput(dev)
+    with timed_phase("physics"):
+        phase_physics(dev)
+    with timed_phase("examples"):
+        paths["examples"], kernel_results[GENERATED] = phase_examples(dev,
+                                                                      smi)
+    with timed_phase("lm"):
+        paths["lm"] = phase_lm(dev)
+    with timed_phase("train"):
+        paths["train"] = phase_train(dev, smi)
+    with timed_phase("moe"):
+        paths["moe"] = phase_moe(dev, smi)
+    with timed_phase("ssm"):
+        paths["ssm"] = phase_ssm(dev, smi)
+    with timed_phase("multimodal"):
+        paths["multimodal"] = phase_multimodal(dev, smi, kernel_results)
+    with timed_phase("train_families"):
+        paths.update(phase_train_families(dev, smi))
+    paths["kernel_results"] = kernel_results
+    return paths
 
 
 if __name__ == "__main__":

@@ -57,8 +57,8 @@ from repro_torch.sim.service import SimulationService
 __all__ = [
     "BACKENDS", "ParamSpec", "PreparedRun", "RunResult", "Runtime",
     "RuntimeConfig", "Scenario", "SimResult", "UnknownScenarioError",
-    "get_scenario", "register_scenario", "runtime", "scenario_names",
-    "unregister_scenario",
+    "compile_cache_stats", "get_scenario", "register_scenario", "runtime",
+    "scenario_names", "unregister_scenario",
 ]
 
 # backend name -> (CFDConfig.template, overlap override)
@@ -78,6 +78,13 @@ BACKENDS = {
 
 def _resolve_backend(name: str, device: torch.device) -> tuple:
     return BACKENDS[resolve_backend(name, device).lower()]
+
+
+def compile_cache_stats() -> dict:
+    """Process-wide ensemble-step cache stats (re-export)."""
+    from repro_torch.sim.farm import compile_cache_stats as _stats
+
+    return _stats()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,10 +10,14 @@ the port the same descriptor drives two templates:
   device, one row per slot, in the kernel's column order
   (``stencil3d.TABLES``: declared parameters and the terms ``DERIVED``
   from them) — the twin of the reference 3DBLOCK template's scalar table.
-  A descriptor with no kernel raises; the body is never run in its place.
-  The launch tile is the kernel's ``tile`` (``None``: the wrapper's
-  ``block_for``; ``kernels.ops.apply_kernel(tile="auto")`` gives the
-  autotuner's choice).
+  A descriptor with no hand-written kernel gets one generated from its
+  body (``stencil3d_cuda.generated``: the body traced into the 3DBLOCK
+  template of ``csrc/stencil3d.cu``, its table the declared parameters);
+  a body the trace cannot translate raises, and it is never run in the
+  kernel's place on the card.  The launch tile is the kernel's ``tile``
+  (``None``: the wrapper's ``block_for``;
+  ``kernels.ops.apply_kernel(tile="auto")`` gives the autotuner's
+  choice).
 * ``TORCH`` — the eager expansion of the body (shifted slices of the padded
   tensors), the twin of the reference JNP template: the oracle for kernel
   tests, the shape-polymorphic kernel, and the path on the CPU.
@@ -178,15 +182,14 @@ class GeneratedKernel:
 
     # ---- CUDA template ----------------------------------------------------
     def _cuda_kernel(self):
+        """(the launch, its table's columns)."""
         from repro_torch.kernels import stencil3d, stencil3d_cuda
 
         name = self.desc.name
         launch = stencil3d_cuda.KERNELS.get(name)
         if launch is None:
-            raise ValueError(
-                f"descriptor {name!r} has no hand-written CUDA kernel "
-                f"(have {sorted(stencil3d_cuda.KERNELS)}); use "
-                "template='TORCH' to expand its body eagerly")
+            gen = stencil3d_cuda.generated(self.desc, self.body)
+            return gen, gen.columns
         ref = stencil3d.DESCRIPTORS[name]
         same = (self.desc.stencil, self.desc.variables, self.desc.parameters
                 ) == (ref.stencil, ref.variables, ref.parameters)
@@ -195,17 +198,15 @@ class GeneratedKernel:
                 f"descriptor {name!r} differs from the one its CUDA kernel "
                 "implements (stencil, variables, parameters and body must "
                 "be those of repro_torch.kernels.stencil3d)")
-        return launch
+        return launch, stencil3d.TABLES[name]
 
     def _apply_cuda(self, arrays: dict[str, torch.Tensor],
                     params: dict[str, Any], *, batched: bool):
-        from repro_torch.kernels import stencil3d
-
-        launch = self._cuda_kernel()
+        launch, columns = self._cuda_kernel()
         first = arrays[self.desc.inputs[0]]
         table = param_table(self.desc, params,
                             first.shape[0] if batched else None, first.device,
-                            columns=stencil3d.TABLES[self.desc.name])
+                            columns=columns)
         if not batched:
             table = table[0]
         outs = launch(*(arrays[n] for n in self.desc.inputs), table,

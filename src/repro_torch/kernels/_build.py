@@ -10,6 +10,12 @@ source is never rebuilt, and an edited one never loads a stale library.
 Beside each library its build's output (the ptxas register and spill
 report) is kept, so a cached build still reports it.  A missing ``nvcc``
 or a failed build raises; nothing falls back.
+
+A kernel generated from a descriptor's body (the 3DBLOCK template of
+``csrc/stencil3d.cu`` built with ``-DSTENCIL3D_GENERATED`` around the
+body's header, :func:`load_generated`) is built the same way, when it is
+first launched, into a library named by a hash of the source, the header
+and the flags.
 """
 from __future__ import annotations
 
@@ -93,6 +99,49 @@ def build_all() -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
+
+
+GENERATED_FLAGS = ("-DSTENCIL3D_GENERATED",)
+GENERATED_HEADER = "stencil3d_generated_body.cuh"
+
+
+@functools.lru_cache(maxsize=None)
+def load_generated(tag: str, header: str) -> ctypes.CDLL:
+    """The 3DBLOCK template of ``csrc/stencil3d.cu`` built around
+    ``header`` (a generated ``gen_body``), loaded once per process; built
+    by one ``nvcc`` if its library is absent.  ``tag`` names the library
+    (the descriptor's name)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + GENERATED_FLAGS).encode())
+    h.update(SOURCES["stencil3d"].read_bytes())
+    h.update(header.encode())
+    lib = BUILD_DIR / f"libstencil3d-{tag}-{h.hexdigest()[:16]}.so"
+    key = f"stencil3d:{tag}"
+    if lib.is_file():
+        log = lib.with_suffix(".log")
+        build_info.setdefault(key, dict(
+            path=str(lib), seconds=0.0, cached=True,
+            log=log.read_text() if log.is_file() else ""))
+    else:
+        inc = lib.with_suffix("")          # the header's own directory
+        inc.mkdir(parents=True, exist_ok=True)
+        (inc / GENERATED_HEADER).write_text(header)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *GENERATED_FLAGS, "-I", str(inc),
+               "-o", tmp, str(SOURCES["stencil3d"])]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}")
+        lib.with_suffix(".log").write_text(proc.stdout)
+        os.replace(tmp, lib)
+        build_info[key] = dict(path=str(lib), cached=False,
+                               seconds=time.perf_counter() - t0,
+                               log=proc.stdout)
+    return ctypes.CDLL(str(lib))
 
 
 @functools.lru_cache(maxsize=None)

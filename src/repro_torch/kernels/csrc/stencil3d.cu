@@ -48,6 +48,14 @@
 //
 // Each extern "C" launcher enqueues its kernel on the given stream, does
 // not synchronise, and returns cudaGetLastError() so the caller can raise.
+//
+// Built with -DSTENCIL3D_GENERATED this file holds the template alone, for
+// any other descriptor: the generic 3DBLOCK kernel at the end, around a
+// body that repro_torch.kernels.stencil3d_cuda traces from the descriptor's
+// Python body (every field read, parameter, constant and operation one
+// line, rounded as written) and writes to stencil3d_generated_body.cuh,
+// which the build finds on its include path.  The four kernels above are
+// left out of that build.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,6 +113,7 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
+#ifndef STENCIL3D_GENERATED
 // ---------------------------------------------------------------------------
 // UPDATE_VELOCITY  (replaces the 3DBLOCK instance of descriptor
 // UPDATE_VELOCITY, src/repro/kernels/stencil3d.py, body update_velocity_body)
@@ -303,9 +312,48 @@ __global__ void __launch_bounds__(kThreads) project_velocity_kernel(
   }
 }
 
+#else  // STENCIL3D_GENERATED
+// ---------------------------------------------------------------------------
+// The generated 3DBLOCK template (replaces GeneratedKernel._apply_pallas for
+// a descriptor that has no hand-written kernel above): one thread a cell as
+// in the four kernels, the body gen_body(...) generated from the
+// descriptor's Python body.  It reads its inputs through pointers to cell
+// (s, i, j, k) of each padded field and the slot's row of the parameter
+// table, and writes each output at o, the cell's index in the
+// (S, nx, ny, nz) outputs.
+// ---------------------------------------------------------------------------
+constexpr int kGenMaxFields = 16;
+struct GenArgs {
+  const float* in[kGenMaxFields];
+  float* out[kGenMaxFields];
+};
+
+#include "stencil3d_generated_body.cuh"
+
+static_assert(kGenInputs <= kGenMaxFields && kGenOutputs <= kGenMaxFields,
+              "more fields than the template takes");
+
+template <bool kWalk>
+__global__ void __launch_bounds__(kThreads) generated_kernel(
+    const GenArgs a, const float* __restrict__ table, int64_t S, int64_t nx,
+    int64_t ny, int64_t nz, int tx) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= ny || k >= nz) return;
+  ROWS(r) {
+    int64_t s, i;
+    row_of(r, nx, s, i);
+    gen_body(a, table + s * kGenParams, s, i, j, k, nx, ny, nz,
+             (r * ny + j) * nz + k);
+  }
+}
+#endif  // STENCIL3D_GENERATED
+
 }  // namespace
 
 extern "C" {
+
+#ifndef STENCIL3D_GENERATED
 
 cudaError_t stencil3d_update_velocity(const float* vx, const float* vy,
                                       const float* vz, float* ox, float* oy,
@@ -380,6 +428,33 @@ cudaError_t stencil3d_project_velocity(const float* vx, const float* vy,
         vx, vy, vz, p, ox, oy, oz, table, S, nx, ny, nz, tx);
   return cudaGetLastError();
 }
+
+#else  // STENCIL3D_GENERATED
+// ins/outs: host arrays of the n_in padded inputs and n_out outputs in the
+// descriptor's order; table: the (S, n_params) parameter table
+cudaError_t stencil3d_generated(const float* const* ins, int n_in,
+                                float* const* outs, int n_out,
+                                const float* table, int n_params, int64_t S,
+                                int64_t nx, int64_t ny, int64_t nz, int tx,
+                                int ty, int tz, void* stream) {
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz) || n_in != kGenInputs ||
+      n_out != kGenOutputs || n_params != kGenParams)
+    return cudaErrorInvalidValue;
+  GenArgs a = {};
+  for (int m = 0; m < n_in; ++m) a.in[m] = ins[m];
+  for (int m = 0; m < n_out; ++m) a.out[m] = outs[m];
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tx == 1)
+    generated_kernel<false><<<grid, block, 0, st>>>(a, table, S, nx, ny, nz,
+                                                    tx);
+  else
+    generated_kernel<true><<<grid, block, 0, st>>>(a, table, S, nx, ny, nz,
+                                                   tx);
+  return cudaGetLastError();
+}
+#endif  // STENCIL3D_GENERATED
 
 const char* stencil3d_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -30,15 +30,29 @@ are checked against.  On a ``meta`` tensor (a cost trace,
 :mod:`repro_torch.launch.op_cost`) it books its declared bytes and
 operations with the active counter and returns ``torch.empty`` outputs:
 nothing is launched or counted in ``LAUNCHES``.
+
+Any other 3DBLOCK descriptor gets a kernel generated from its body
+(:func:`generated`, the CUDA template's route for a descriptor with no
+hand-written kernel): the body is traced once, each field read, parameter,
+Python number and operation becoming one line of a straight-line body
+(:class:`GeneratedStencil`), rounded as written as in the four kernels,
+and ``csrc/stencil3d.cu``'s template is built around it by nvcc when it is
+first launched.  It keeps the same rules (CUDA launch on a CUDA tensor,
+counted in ``GENERATED_LAUNCHES`` under the descriptor's name; the body
+expanded eagerly on a CPU tensor; booked on ``meta``).  A body the trace
+cannot translate raises on every device.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
+import struct
 
 import torch
 
-from repro_torch.core.generator import generate
+from repro_torch.core.generator import KernelContext, generate
 from repro_torch.kernels import stencil3d
 
 _C_NAMES = {
@@ -50,6 +64,8 @@ _C_NAMES = {
 
 # launches per kernel since the last reset (CUDA launches only)
 LAUNCHES = dict.fromkeys(_C_NAMES, 0)
+# the same for the kernels generated from a body, by descriptor name
+GENERATED_LAUNCHES: dict[str, int] = {}
 
 # the most threads a block may have: the kernels' __launch_bounds__
 # (kThreads in csrc/stencil3d.cu)
@@ -64,8 +80,9 @@ REGISTERS = {"UPDATE_VELOCITY": (40, 40), "DIVERGENCE": (32, 32),
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, GENERATED_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,8 +159,10 @@ def check_tile(tile, interior, name: str = "stencil") -> tuple[int, int, int]:
     return tx, ty, tz
 
 
-def _check(desc, inputs, table) -> tuple[int, tuple[int, int, int]]:
-    """Validate a batched call; return (S, interior)."""
+def _check(desc, inputs, table, columns=None
+           ) -> tuple[int, tuple[int, int, int]]:
+    """Validate a batched call whose table has ``columns`` (default: the
+    kernel's ``stencil3d.TABLES`` row); return (S, interior)."""
     dev = inputs[0].device
     for name, t in zip(desc.inputs, inputs):
         if t.dim() != 4:
@@ -159,7 +178,7 @@ def _check(desc, inputs, table) -> tuple[int, tuple[int, int, int]]:
     if any(t.shape[0] != S for t in inputs):
         raise ValueError(f"{desc.name}: slot counts differ: "
                          f"{[t.shape[0] for t in inputs]}")
-    columns = stencil3d.TABLES[desc.name]
+    columns = stencil3d.TABLES[desc.name] if columns is None else columns
     want = (S, len(columns))
     if tuple(table.shape) != want:
         raise ValueError(f"{desc.name}: parameter table must be {want} "
@@ -279,3 +298,314 @@ PLAIN = {
     "JACOBI_PRESSURE": jacobi_pressure_plain,
     "PROJECT_VELOCITY": project_velocity_plain,
 }
+
+
+# -- the generated 3DBLOCK template ------------------------------------------
+# The body is run once on symbolic views.  Each node of the trace is one
+# (op, args) pair, numbered in order; equal pairs are one node (a body's
+# repeated read or product is computed once, which changes no bit).  The
+# operations are those whose rounding the card and the CPU share: + - *
+# and true division, each rounded once (__fadd_rn, __fsub_rn, __fmul_rn,
+# __fdiv_rn), negation and absolute value (exact), square root
+# (__fsqrt_rn), and ``x ** 2`` as x * x; a Python number is rounded to
+# float32 where it meets the field, as PyTorch rounds it.  ``c / x`` is
+# PyTorch's ``x.reciprocal() * c``.  A division by a Python number is a true
+# division here and on the CPU; PyTorch on the card multiplies by the
+# reciprocal instead, so there the plain version may part from the kernel
+# by an ulp (``repro_torch.device.true_divide`` gives the true quotient).
+MAX_FIELDS = 16          # kGenMaxFields in csrc/stencil3d.cu
+_EXPR = {"add": "add({0}, {1})", "sub": "sub({0}, {1})",
+         "mul": "mul({0}, {1})", "div": "__fdiv_rn({0}, {1})",
+         "rcp": "__fdiv_rn(1.0f, {0})", "neg": "-{0}", "abs": "fabsf({0})",
+         "sqrt": "__fsqrt_rn({0})"}
+_TORCH_OPS = {torch.sqrt: "sqrt", torch.Tensor.sqrt: "sqrt",
+              torch.abs: "abs", torch.Tensor.abs: "abs",
+              torch.neg: "neg", torch.Tensor.neg: "neg",
+              torch.square: "square", torch.Tensor.square: "square"}
+
+
+class _Trace:
+    def __init__(self, name: str):
+        self.name = name
+        self.nodes: list[tuple] = []
+        self._index: dict[tuple, int] = {}
+
+    def node(self, op: str, *args) -> "_Sym":
+        key = (op, *args)
+        if key not in self._index:
+            self._index[key] = len(self.nodes)
+            self.nodes.append(key)
+        return _Sym(self, self._index[key])
+
+    def lift(self, v) -> int:
+        """The node of ``v``: a traced value, or a Python number."""
+        if isinstance(v, _Sym) and v.trace is self:
+            return v.index
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            f32 = struct.unpack("f", struct.pack("f", float(v)))[0]
+            return self.node("const", f32).index
+        self.refuse(f"{type(v).__name__} {v!r}")
+
+    def refuse(self, what: str):
+        raise ValueError(
+            f"{self.name}: the generated CUDA template cannot translate "
+            f"{what} in the body (field reads, parameters, Python numbers "
+            "and + - * / sqrt abs neg ** 2 only); use template='TORCH'")
+
+
+class _Sym:
+    """A value of the traced body (a node of its :class:`_Trace`)."""
+
+    __slots__ = ("trace", "index")
+
+    def __init__(self, trace: _Trace, index: int):
+        self.trace, self.index = trace, index
+
+    def _op(self, op, *others, first=None):
+        t = self.trace
+        args = [t.lift(o) for o in others]
+        if first is not None:
+            return t.node(op, t.lift(first), self.index, *args)
+        return t.node(op, self.index, *args)
+
+    def __add__(self, o): return self._op("add", o)
+    def __radd__(self, o): return self._op("add", first=o)
+    def __sub__(self, o): return self._op("sub", o)
+    def __rsub__(self, o): return self._op("sub", first=o)
+    def __mul__(self, o): return self._op("mul", o)
+    def __rmul__(self, o): return self._op("mul", first=o)
+    def __truediv__(self, o): return self._op("div", o)
+
+    def __rtruediv__(self, o):          # PyTorch: x.reciprocal() * o
+        return self._op("rcp")._op("mul", o)
+
+    def __neg__(self): return self._op("neg")
+    def __pos__(self): return self
+    def __abs__(self): return self._op("abs")
+
+    def __pow__(self, e):
+        if isinstance(e, (int, float)) and e == 2:
+            return self._op("mul", self)
+        self.trace.refuse(f"** {e!r}")
+
+    def _refuse(self, *_):
+        self.trace.refuse("a data-dependent value")
+
+    __bool__ = __float__ = __int__ = __index__ = _refuse
+    __eq__ = __ne__ = __lt__ = __le__ = __gt__ = __ge__ = _refuse
+    __rpow__ = __getitem__ = _refuse
+    __hash__ = None
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        op = _TORCH_OPS.get(func)
+        x = args[0] if args else None
+        if op is None or kwargs or len(args) != 1 or not isinstance(x, _Sym):
+            trace = next(a.trace for a in (*args, *(kwargs or {}).values())
+                         if isinstance(a, _Sym))
+            trace.refuse(f"torch.{getattr(func, '__name__', func)}")
+        return x._op("mul", x) if op == "square" else x._op(op)
+
+
+class _SymView:
+    """:class:`~repro_torch.core.generator.FieldView` on the trace."""
+
+    __slots__ = ("trace", "field", "halo_lo", "halo_hi")
+
+    def __init__(self, trace, field, halo_lo, halo_hi):
+        self.trace, self.field = trace, field
+        self.halo_lo, self.halo_hi = halo_lo, halo_hi
+
+    def at(self, dx: int = 0, dy: int = 0, dz: int = 0) -> _Sym:
+        off = (int(dx), int(dy), int(dz))
+        if any(not -lo <= o <= hi
+               for o, lo, hi in zip(off, self.halo_lo, self.halo_hi)):
+            raise ValueError(
+                f"stencil offset {off} exceeds declared radii "
+                f"(lo={self.halo_lo}, hi={self.halo_hi})")
+        return self.trace.node("load", self.field, off)
+
+    @property
+    def c(self) -> _Sym:
+        return self.at(0, 0, 0)
+
+
+def _halos(desc, name):
+    if name in desc.cached_inputs:
+        return desc.halo_lo, desc.halo_hi
+    return (0, 0, 0), (0, 0, 0)
+
+
+def _const(v: float) -> str:
+    if math.isfinite(v):
+        return f"({v.hex()}f)"
+    return f"__int_as_float(0x{struct.unpack('I', struct.pack('f', v))[0]:08x})"
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratedStencil:
+    """A descriptor's body as a kernel of the generated 3DBLOCK template.
+
+    ``nodes`` is the traced body (``(op, *args)``, args the numbers of
+    earlier nodes; leaves ``("load", field, (dx, dy, dz))``, ``("param",
+    column)``, ``("const", value)``), ``outputs`` the node each output takes
+    in the descriptor's order, ``header`` the C++ ``gen_body`` built into
+    ``csrc/stencil3d.cu``'s template.  Call it as a wrapper:
+    ``kernel(*inputs, table, tile=None)`` with the inputs padded as the
+    descriptor declares and the ``(S, len(columns))`` table
+    (``columns``: the declared parameters)."""
+
+    desc: object
+    body: object
+    nodes: tuple
+    outputs: tuple
+    header: str
+
+    @property
+    def columns(self) -> tuple:
+        return tuple(self.desc.parameters)
+
+    @property
+    def ops_per_cell(self) -> int:
+        return sum(op not in ("load", "param", "const")
+                   for op, *_ in self.nodes)
+
+    def __call__(self, *args, tile=None):
+        return self._run(list(args[:-1]), args[-1], tile=tile)
+
+    def plain(self, *args):
+        return self._run(list(args[:-1]), args[-1], plain=True)
+
+    def _plain(self, inputs, table):
+        params = {c: table[:, i].reshape(-1, 1, 1, 1)
+                  for i, c in enumerate(self.columns)}
+        kern = generate(self.desc, self.body, template="TORCH")
+        out = kern._apply_torch(dict(zip(self.desc.inputs, inputs)), params)
+        return tuple(out[n] for n in self.desc.outputs)
+
+    def _run(self, inputs, table, plain: bool = False, tile=None):
+        desc = self.desc
+        batched = inputs[0].dim() == 4
+        if not batched:
+            inputs = [t.unsqueeze(0) for t in inputs]
+            table = table.unsqueeze(0)
+        S, (nx, ny, nz) = _check(desc, inputs, table, self.columns)
+        tile = (block_for(ny, nz) if tile is None
+                else check_tile(tile, (nx, ny, nz), desc.name))
+        dev = inputs[0].device
+        if plain or dev.type == "cpu":
+            outs = self._plain(inputs, table)
+        elif dev.type in ("cuda", "meta"):
+            outs = tuple(torch.empty((S, nx, ny, nz), dtype=torch.float32,
+                                     device=dev) for _ in desc.outputs)
+            if dev.type == "meta":
+                from repro_torch.launch import op_cost
+
+                op_cost.book(desc.name, op_cost._nbytes(
+                    [*inputs, *outs, table]),
+                    self.ops_per_cell * outs[0].numel())
+            else:
+                self._launch(inputs, outs, table, tile)
+        else:
+            raise ValueError(f"{desc.name}: unsupported device {dev}")
+        if not batched:
+            outs = tuple(o[0] for o in outs)
+        return outs if len(outs) > 1 else outs[0]
+
+    def library(self) -> ctypes.CDLL:
+        """The template built around ``header`` (by nvcc, if its library
+        is absent), loaded."""
+        from repro_torch.kernels import _build
+
+        tag = "".join(ch if ch.isalnum() or ch == "_" else "_"
+                      for ch in self.desc.name)
+        lib = _build.load_generated(tag, self.header)
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        lib.stencil3d_generated.argtypes = (
+            [ptrs, ctypes.c_int, ptrs, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int] + [ctypes.c_int64] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.stencil3d_generated.restype = ctypes.c_int
+        lib.stencil3d_error_string.argtypes = [ctypes.c_int]
+        lib.stencil3d_error_string.restype = ctypes.c_char_p
+        return lib
+
+    def _launch(self, inputs, outs, table, tile) -> None:
+        lib = self.library()
+        S, nx, ny, nz = outs[0].shape
+        ins = (ctypes.c_void_p * len(inputs))(*(t.data_ptr() for t in inputs))
+        ous = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+        dev = outs[0].device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.stencil3d_generated(
+                ins, len(inputs), ous, len(outs), table.data_ptr(),
+                len(self.columns), S, nx, ny, nz, *tile, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.desc.name} (generated) kernel launch failed: CUDA "
+                f"error {err} ({lib.stencil3d_error_string(err).decode()})")
+        GENERATED_LAUNCHES[self.desc.name] = \
+            GENERATED_LAUNCHES.get(self.desc.name, 0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def generated(desc, body) -> GeneratedStencil:
+    """The kernel of the generated 3DBLOCK template for ``desc`` and
+    ``body``: the body traced (raising if it cannot be translated) and its
+    ``gen_body`` written; nothing is built until it is launched."""
+    if len(desc.inputs) > MAX_FIELDS or len(desc.outputs) > MAX_FIELDS:
+        raise ValueError(f"{desc.name}: the generated template takes at most "
+                         f"{MAX_FIELDS} inputs and {MAX_FIELDS} outputs")
+    trace = _Trace(desc.name)
+    views = {n: _SymView(trace, m, *_halos(desc, n))
+             for m, n in enumerate(desc.inputs)}
+    params = {c: trace.node("param", i) for i, c in enumerate(desc.parameters)}
+    out = body(KernelContext(views, params))
+    missing = set(desc.outputs) - set(out)
+    if missing:
+        raise ValueError(f"kernel body did not produce outputs: "
+                         f"{sorted(missing)}")
+    outputs = tuple(trace.lift(out[n]) for n in desc.outputs)
+    return GeneratedStencil(desc, body, tuple(trace.nodes), outputs,
+                            _render(desc, trace.nodes, outputs))
+
+
+def _render(desc, nodes, outputs) -> str:
+    """``gen_body``: the traced body as C++ for csrc/stencil3d.cu."""
+    lines = [f"// {desc.name}, generated from its body by "
+             "repro_torch.kernels.stencil3d_cuda",
+             f"constexpr int kGenInputs = {len(desc.inputs)};",
+             f"constexpr int kGenOutputs = {len(desc.outputs)};",
+             f"constexpr int kGenParams = {len(desc.parameters)};",
+             "__device__ __forceinline__ void gen_body(",
+             "    const GenArgs& a, const float* __restrict__ prm, int64_t s,",
+             "    int64_t i, int64_t j, int64_t k, int64_t nx, int64_t ny,",
+             "    int64_t nz, int64_t o) {"]
+    read = {args[0] for op, *args in nodes if op == "load"}
+    for m, name in enumerate(desc.inputs):
+        if m not in read:
+            continue
+        (lx, ly, lz), (hx, hy, hz) = _halos(desc, name)
+        lines += [
+            f"  // {name}: padded by {(lx, ly, lz)} below, {(hx, hy, hz)} above",
+            f"  const int64_t sy{m} = nz + {lz + hz}, "
+            f"sx{m} = (ny + {ly + hy}) * sy{m}, ss{m} = (nx + {lx + hx}) * sx{m};",
+            f"  const float* __restrict__ f{m} = a.in[{m}] + s * ss{m} + "
+            f"(i + {lx}) * sx{m} + (j + {ly}) * sy{m} + (k + {lz});"]
+    for t, (op, *args) in enumerate(nodes):
+        if op == "load":
+            m, off = args
+            terms = [f"{d} * {st}{m}" for d, st in zip(off[:2], ("sx", "sy"))
+                     if d] + ([str(off[2])] if off[2] else [])
+            expr = f"f{m}[{' + '.join(terms) or '0'}]"
+        elif op == "param":
+            expr = f"prm[{args[0]}]"
+        elif op == "const":
+            expr = _const(args[0])
+        else:
+            expr = _EXPR[op].format(*(f"t{a}" for a in args))
+        lines.append(f"  const float t{t} = {expr};")
+    lines += [f"  a.out[{q}][o] = t{t};  // {name}"
+              for q, (name, t) in enumerate(zip(desc.outputs, outputs))]
+    return "\n".join(lines + ["}", ""])

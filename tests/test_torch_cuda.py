@@ -84,6 +84,65 @@ def test_stencils_equal_their_plain_versions_bitwise_at_64(card, name, slots):
         assert torch.equal(g, w), float((g - w).abs().max())
 
 
+def _gradient_kernel():
+    """A descriptor with no hand-written kernel (``examples/
+    custom_kernel_torch.py``'s GRADIENT_MAG) and its generated kernel."""
+    from repro_torch.core import parse_ccl
+
+    desc = parse_ccl("""
+    CCTK_CUDA_KERNEL GRADIENT_MAG
+      TYPE=3DBLOCK
+      STENCIL="1,1,1,1,1,1"
+    {
+      CCTK_CUDA_KERNEL_VARIABLE CACHED=YES INTENT=IN
+      {
+        phi
+      } "SCALAR_FIELD"
+      CCTK_CUDA_KERNEL_VARIABLE INTENT=OUT
+      {
+        gmag
+      } "GRADIENT_MAGNITUDE"
+      CCTK_CUDA_KERNEL_PARAMETER
+      {
+        h
+      } "SPACING"
+    }
+    """)[0]
+
+    def body(ctx):
+        phi, h = ctx["phi"], ctx.param("h")
+        gx = (phi.at(1, 0, 0) - phi.at(-1, 0, 0)) / (2 * h)
+        gy = (phi.at(0, 1, 0) - phi.at(0, -1, 0)) / (2 * h)
+        gz = (phi.at(0, 0, 1) - phi.at(0, 0, -1)) / (2 * h)
+        return {"gmag": torch.sqrt(gx * gx + gy * gy + gz * gz)}
+
+    return stencil3d_cuda.generated(desc, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_generated_kernel_equals_its_plain_version_bitwise(card, shape):
+    """A kernel generated from a body rounds every operation as written,
+    so it equals the body's plain version on the card bit for bit; the
+    launch is counted under the descriptor's name."""
+    gen = _gradient_kernel()
+    slots, interior = SHAPES[shape]
+    rng = np.random.RandomState(3)
+    lead = () if slots is None else (slots,)
+    phi = torch.from_numpy(rng.randn(*lead, *(n + 2 for n in interior))
+                           .astype(np.float32)).to(card)
+    table = torch.tensor([[0.1 * (s + 1)] for s in range(slots or 1)],
+                         device=card)
+    table = table if slots else table[0]
+    before = stencil3d_cuda.GENERATED_LAUNCHES.get("GRADIENT_MAG", 0)
+    got = gen(phi, table)
+    want = gen.plain(phi, table)
+    torch.cuda.synchronize()
+    assert stencil3d_cuda.GENERATED_LAUNCHES["GRADIENT_MAG"] == before + 1
+    assert got.shape == want.shape == (*lead, *interior)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(stencil3d.DESCRIPTORS))
 def test_plain_stencils_on_the_card_equal_the_cpu_bitwise(card, name):

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the reference package ``repro``, and import nothing
-heavy (no kernel build, no CUDA) when they are imported."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+examples' twins (``examples/*_torch.py``) import neither ``jax`` nor the
+reference package ``repro``, and import nothing heavy (no kernel build, no
+CUDA) when they are imported."""
 from __future__ import annotations
 
 import ast
@@ -12,6 +13,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+EXAMPLES = os.path.join(ROOT, "examples")
 
 
 def _port_files():
@@ -19,6 +21,11 @@ def _port_files():
         for f in sorted(files):
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
+
+
+def _twins():
+    return [os.path.join(EXAMPLES, f) for f in sorted(os.listdir(EXAMPLES))
+            if f.endswith("_torch.py")]
 
 
 def _module_name(path):
@@ -109,9 +116,18 @@ def _forbidden(name: str) -> bool:
         name == "repro" or name.startswith("repro.")
 
 
+def test_every_example_has_its_torch_twin():
+    """Each example the README starts a user with has a twin on the port
+    beside it."""
+    refs = sorted(f[:-3] for f in os.listdir(EXAMPLES)
+                  if f.endswith(".py") and not f.endswith("_torch.py"))
+    twins = sorted(os.path.basename(p)[:-len("_torch.py")] for p in _twins())
+    assert twins == refs, (twins, refs)
+
+
 def test_no_jax_or_reference_import_in_the_source():
     offenders = []
-    for path in [*_port_files(), SMOKE]:
+    for path in [*_port_files(), SMOKE, *_twins()]:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
         for node in ast.walk(tree):
@@ -188,6 +204,11 @@ for name in {modules!r}:
 spec = importlib.util.spec_from_file_location("chip_smoke", {SMOKE!r})
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)          # defines main(); does not run it
+for i, path in enumerate({_twins()!r}):  # the twins define main() only
+    spec = importlib.util.spec_from_file_location(f"twin{{i}}", path)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    assert callable(twin.main), path
 from repro_torch.kernels import (
     _build, attention_cuda, jacobi_cuda, ssd_cuda, stencil3d_cuda)
 print(json.dumps({{

@@ -204,10 +204,16 @@ def test_ops_default_to_torch_template_on_cpu_and_match_reference_ops():
 
 # -- the CUDA template and the wrappers, on the CPU ---------------------------
 def test_cuda_template_rejects_a_descriptor_without_a_kernel():
+    """A descriptor with no hand-written kernel gets one generated from its
+    body; a body the generator cannot translate (here ``torch.exp``, whose
+    rounding the card and the CPU do not share) leaves it without a kernel,
+    and the CUDA template raises by name on any device rather than run the
+    body in the kernel's place."""
     desc = descriptor("SMOOTH", stencil=(1, 1, 0, 0, 0, 0), tile=(4, 4, 4),
                       u=dict(names=("u",), intent="SEPARATEINOUT"))
-    kern = generator.generate(desc, lambda ctx: {"u": ctx["u"].c}, template="CUDA")
-    with pytest.raises(ValueError, match="SMOOTH"):
+    kern = generator.generate(desc, lambda ctx: {"u": torch.exp(ctx["u"].c)},
+                              template="CUDA")
+    with pytest.raises(ValueError, match="SMOOTH.*torch.exp"):
         kern({"u": torch.zeros(6, 4, 4)})
     torch_kern = generator.generate(desc, lambda ctx: {"u": ctx["u"].at(1, 0, 0)},
                                     template="TORCH")
@@ -302,3 +308,175 @@ def test_h_terms_are_rounded_once_from_double_at_the_ghia_grid(name):
     for out, got in zip(desc.outputs, plain):
         np.testing.assert_array_equal(got.numpy(), eager[out].numpy())
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref[out]))
+
+
+# -- the generated 3DBLOCK template (a descriptor with no hand-written kernel)
+GRADIENT_CCL = """
+CCTK_CUDA_KERNEL GRADIENT_MAG
+  TYPE=3DBLOCK
+  STENCIL="1,1,1,1,1,1"
+  TILE="8,8,8"
+{
+  CCTK_CUDA_KERNEL_VARIABLE CACHED=YES INTENT=IN
+  {
+    phi
+  } "SCALAR_FIELD"
+  CCTK_CUDA_KERNEL_VARIABLE INTENT=OUT
+  {
+    gmag
+  } "GRADIENT_MAGNITUDE"
+  CCTK_CUDA_KERNEL_PARAMETER
+  {
+    h
+  } "SPACING"
+}
+"""
+
+
+def _gradient_body(sqrt):
+    def body(ctx):
+        phi, h = ctx["phi"], ctx.param("h")
+        gx = (phi.at(1, 0, 0) - phi.at(-1, 0, 0)) / (2 * h)
+        gy = (phi.at(0, 1, 0) - phi.at(0, -1, 0)) / (2 * h)
+        gz = (phi.at(0, 0, 1) - phi.at(0, 0, -1)) / (2 * h)
+        return {"gmag": sqrt(gx * gx + gy * gy + gz * gz)}
+    return body
+
+
+def _mixed_body(sqrt):
+    """Asymmetric radii, an uncached input, two outputs, Python numbers on
+    both sides, ``c / x``, ``** 2``, ``abs`` and negation."""
+    def body(ctx):
+        u, f = ctx["u"], ctx["f"]
+        dt, w = ctx.param("dt"), ctx.param("w")
+        lap = (u.at(1, 0, 0) + u.at(-1, 0, 0) + u.at(0, 0, 2) - 3.0 * u.c) / 6.0
+        return {"v": u.c + dt * (lap - f.c) - 1.0 / w,
+                "e": sqrt(abs(-u.at(0, 1, 0)) ** 2 + 0.5) * (2.0 - w)}
+    return body
+
+
+def _generated_cases(pkg):
+    """(descriptor, body maker) pairs, built with ``pkg``'s own
+    ``parse_ccl``/``descriptor``."""
+    mixed = pkg.descriptor(
+        "MIXED", stencil=(1, 1, 0, 1, 0, 2), tile=(4, 4, 4),
+        parameters=("dt", "w"),
+        field=dict(names=("u",), intent="IN"),
+        rhs=dict(names=("f",), intent="IN", cached=False),
+        out=dict(names=("v", "e"), intent="OUT"))
+    return {"gradient_mag": (pkg.parse_ccl(GRADIENT_CCL)[0], _gradient_body),
+            "mixed": (mixed, _mixed_body)}
+
+
+def _generated_inputs(desc, slots):
+    arrays = {k: torch.from_numpy(v) for k, v in
+              padded_inputs(desc, (5, 6, 7), seed=21, slots=slots).items()}
+    params = {"h": torch.tensor([0.1, 0.05, 0.2][:slots]),
+              "dt": torch.tensor([0.01, 0.02, 0.03][:slots]),
+              "w": torch.tensor([0.7, 1.3, 1.9][:slots])}
+    return arrays, {p: params[p] for p in desc.parameters}
+
+
+def _interpret(gen, inputs, table):
+    """Run the traced nodes in eager float32: what gen_body computes."""
+    vals = []
+    for op, *args in gen.nodes:
+        if op == "load":
+            m, off = args
+            name = gen.desc.inputs[m]
+            cached = name in gen.desc.cached_inputs
+            vals.append(generator.FieldView(
+                inputs[m], gen.desc.halo_lo if cached else (0, 0, 0),
+                gen.desc.halo_hi if cached else (0, 0, 0)).at(*off))
+        elif op == "param":
+            vals.append(table[:, args[0]].reshape(-1, 1, 1, 1))
+        elif op == "const":
+            vals.append(torch.tensor(args[0], dtype=torch.float32))
+        else:
+            a = [vals[i] for i in args]
+            vals.append({"add": lambda: a[0] + a[1], "sub": lambda: a[0] - a[1],
+                         "mul": lambda: a[0] * a[1], "div": lambda: a[0] / a[1],
+                         "rcp": lambda: torch.reciprocal(a[0]),
+                         "neg": lambda: -a[0], "abs": lambda: torch.abs(a[0]),
+                         "sqrt": lambda: torch.sqrt(a[0])}[op]())
+    return [vals[t] for t in gen.outputs]
+
+
+@pytest.mark.parametrize("case", ["gradient_mag", "mixed"])
+def test_generated_kernel_trace_is_the_body(case):
+    """The traced nodes (what the generated kernel computes, op for op)
+    evaluated eagerly equal the body's plain version bitwise, slot-batched
+    with distinct parameters per slot."""
+    from repro_torch import core
+
+    desc, make = _generated_cases(core)[case]
+    gen = stencil3d_cuda.generated(desc, make(torch.sqrt))
+    arrays, params = _generated_inputs(desc, 3)
+    table = generator.param_table(desc, params, 3, "cpu", columns=gen.columns)
+    inputs = [arrays[k] for k in desc.inputs]
+    want = gen.plain(*inputs, table)
+    want = want if isinstance(want, tuple) else (want,)
+    for got, w in zip(_interpret(gen, inputs, table), want):
+        assert torch.equal(got.expand_as(w), w)
+    assert gen.ops_per_cell == sum(op not in ("load", "param", "const")
+                                   for op, *_ in gen.nodes)
+
+
+@pytest.mark.parametrize("reference", ["pallas", "jnp"])
+@pytest.mark.parametrize("case", ["gradient_mag", "mixed"])
+def test_generated_kernel_matches_the_reference_3dblock_template(case,
+                                                                 reference):
+    """The port's CUDA template on a descriptor with no hand-written kernel
+    (on CPU tensors: the generated kernel's plain version) against the
+    reference's 3DBLOCK Pallas template in interpret mode and its JNP
+    template, slot-batched, parameters through the scalar table."""
+    from repro import core as ref_core
+    from repro_torch import core
+
+    desc, make = _generated_cases(core)[case]
+    rdesc, _ = _generated_cases(ref_core)[case]
+    arrays, params = _generated_inputs(desc, 3)
+    kern = generator.generate(desc, make(torch.sqrt))
+    assert kern.template == "CUDA"
+    got = kern.apply_batched(arrays, batched_params=tuple(params), **params)
+    if reference == "pallas":
+        rkern = ref_generator.generate(
+            dataclasses.replace(rdesc, tile=(5, 6, 7)), make(jnp.sqrt),
+            template="3DBLOCK", interpret=True)
+    else:
+        rkern = ref_generator.generate(rdesc, make(jnp.sqrt), template="JNP")
+    want = rkern.apply_batched({k: jnp.asarray(v.numpy())
+                                for k, v in arrays.items()},
+                               batched_params=tuple(params),
+                               **{k: jnp.asarray(v.numpy())
+                                  for k, v in params.items()})
+    for name in desc.outputs:
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_generated_kernel_header_and_cpu_launches():
+    """``gen_body`` declares the descriptor's counts, computes one line a
+    node (a repeated read or product once) and writes every output; a CPU
+    call launches nothing."""
+    from repro_torch import core
+
+    desc, make = _generated_cases(core)["mixed"]
+    gen = stencil3d_cuda.generated(desc, make(torch.sqrt))
+    head = gen.header
+    assert "constexpr int kGenInputs = 2;" in head
+    assert "constexpr int kGenOutputs = 2;" in head
+    assert "constexpr int kGenParams = 2;" in head
+    assert head.count("const float t") == len(gen.nodes)
+    assert "a.out[0][o] = " in head and "a.out[1][o] = " in head
+    assert "__fsqrt_rn(" in head and "__fdiv_rn(1.0f, " in head
+    # f is uncached: read at the cell only, interior-shaped
+    assert "const float* __restrict__ f1 = a.in[1] + s * ss1 + (i + 0)" in head
+    loads = [args for op, *args in gen.nodes if op == "load"]
+    assert len(loads) == len(set(map(tuple, loads))) == 6
+    arrays, params = _generated_inputs(desc, 1)
+    before = dict(stencil3d_cuda.GENERATED_LAUNCHES)
+    generator.generate(desc, make(torch.sqrt))(
+        {k: v[0] for k, v in arrays.items()},
+        **{k: v[0] for k, v in params.items()})
+    assert stencil3d_cuda.GENERATED_LAUNCHES == before

@@ -159,6 +159,38 @@ def test_ghia_errors_match_reference_on_the_same_state():
     assert got == ref_cavity.ghia_errors(rsolver, state)
 
 
+# the paper's validation case: the cavity at n = 32 run to steady state
+# (1,024 steps to t = 12: one more step moves the velocity by ~2e-4 per unit
+# time) in both packages from the same config, without the interior/shell
+# split, which changes no bit of the port's step and halves its CPU time
+GHIA_N, GHIA_T_END = 32, 12.0
+GHIA_STEADY = 1e-3       # ||u^{n+1} - u^n||_inf / dt at the end, both packages
+GHIA_TOL = 1e-4          # |port - reference| of each Ghia error (found ~1e-7)
+GHIA_BOUND = 0.06        # the reference's bound below n = 48 (benchmarks/bench_cavity.py)
+
+
+def test_ghia_errors_match_reference_at_steady_state_n32():
+    rsolver, rstate, rerr = ref_cavity.run(n=GHIA_N, t_end=GHIA_T_END,
+                                           overlap=False)
+    solver, state, err = cavity.run(n=GHIA_N, t_end=GHIA_T_END,
+                                    overlap=False, device="cpu")
+    assert solver.config.dt == pytest.approx(rsolver.config.dt, rel=1e-12)
+    rnext = rsolver.make_step()(rstate)
+    nxt = solver.make_step()(state)
+    for new, old, dt in ((rnext, rstate, rsolver.config.dt),
+                         ({k: v.numpy() for k, v in nxt.items()},
+                          {k: v.numpy() for k, v in state.items()},
+                          solver.config.dt)):
+        moved = max(float(np.abs(np.asarray(new[f]) - np.asarray(old[f])).max())
+                    for f in ("vx", "vy", "vz"))
+        assert moved / dt < GHIA_STEADY
+    assert list(err) == ["u_rms", "u_max", "v_rms", "v_max"] == list(rerr)
+    for k in err:
+        assert abs(err[k] - rerr[k]) <= GHIA_TOL, (k, err[k], rerr[k])
+    for e in (err, rerr):
+        assert e["u_rms"] < GHIA_BOUND and e["v_rms"] < GHIA_BOUND, e
+
+
 # -- the reference's own bounds (tests/test_cfd.py), on the port ----------
 class TestTaylorGreenBounds:
     @pytest.fixture(scope="class")
