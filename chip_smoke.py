@@ -26,7 +26,17 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              bit for bit at every timed shape (every
              operation of theirs is rounded as written), and each plain
              stencil body on the card must equal the same body on the CPU
-             bit for bit on a seeded 64^3 input;
+             bit for bit on a seeded 64^3 input; JACOBI_PRESSURE and
+             UPDATE_VELOCITY also in their ghosted load (the main path's:
+             unpadded fields, the cavity's faces, the lid one a slot) at
+             256^3, an odd shape, 3 slots, the farm's 4 slots, and the
+             decomposed block with random strips on both x faces, bitwise
+             their plain versions (pad by the same specs, the strips in
+             place, the body), each with a planted fault, a zeroed x-low
+             ghost face; timed with their bounds (the unpadded fields, the
+             strips and the face table) beside the padded route's time
+             (the pads and the padded load), the ghosted lines' times
+             standing for these kernels in the summary;
              CUDA-event times of kernel (under the autotuned tile the
              main path launches) and plain version (the kernel's
              with the stream given a head start, so that its own device
@@ -41,8 +51,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 4. main      ``api.runtime(n=256, nz=256).run("cavity", steps=20)`` on the
              ``cuda`` backend with the launch counters reset just before,
              then on the ``torch`` backend; the two must agree, and the
-             counts must be 20 x (1, 1, 40, 1); step wall time, the
-             profiler's device-time split of one step, and peak memory;
+             counts must be 20 x (1, 1, 40, 1), every JACOBI_PRESSURE and
+             UPDATE_VELOCITY launch ghosted (no pad of theirs left); step
+             wall time, the profiler's device-time split of one step (its
+             ``cat`` only DIVERGENCE's and PROJECT_VELOCITY's pads), and
+             peak memory;
 5. farm      the ensemble farm at 256^3 through the front door:
              ``api.runtime(n=256, nz=256, n_slots=4)`` takes five cavity
              requests (Re 50..800, 6..14 steps; the fifth enters a
@@ -83,9 +96,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              decomposition=((0, "shard"),))`` on 2 ranks, within 1e-5 of
              the main phase's serial state, 20 x (1, 1, 40, 1) launches on
              each rank and 20 x 20 JACOBI_FUSED with ``fused_sweeps=2``;
+             every JACOBI_PRESSURE and UPDATE_VELOCITY launch ghosted;
              each rank's padded blocks of the serial fields equal the
-             serial padded field cut into blocks, bitwise, and a transport
-             that swaps the sides' strips is rejected; the farm phase's
+             serial padded field cut into blocks, bitwise, its received
+             strips (``exchange_strips``) that field's ghost planes, and a
+             transport that swaps the sides' strips is rejected; the farm phase's
              five requests (one evicted and readmitted) through 4 slots on
              4 ranks, (slot 2, shard 2), each result bitwise the serial
              decomposed run of the first shard group; the bytes each rank
@@ -782,15 +797,19 @@ def param_rows(name, cfgs, dev):
     return torch.stack(rows)
 
 
-def compare(name, inputs, table, tile=None, want_inputs=None):
-    """The kernel on ``inputs`` (at ``tile``, else its default) against
-    the plain version on ``want_inputs`` (default: the same inputs)."""
+def compare(name, inputs, table, tile=None, want_inputs=None, ghosts=None,
+            want_ghosts=None):
+    """The kernel on ``inputs`` (at ``tile``, else its default; ghosted
+    with ``ghosts``) against the plain version on ``want_inputs`` and
+    ``want_ghosts`` (default: the same)."""
     import torch
     from repro_torch.kernels import stencil3d_cuda as sc
 
-    got = sc.KERNELS[name](*inputs, table, tile=tile)
+    gk = {} if ghosts is None else {"ghosts": ghosts}
+    wk = gk if want_ghosts is None else {"ghosts": want_ghosts}
+    got = sc.KERNELS[name](*inputs, table, tile=tile, **gk)
     want = sc.PLAIN[name](*(inputs if want_inputs is None else want_inputs),
-                          table)
+                          table, **wk)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -800,6 +819,156 @@ def compare(name, inputs, table, tile=None, want_inputs=None):
     tol = KERNEL_RTOL * max(1.0, scale)
     bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
     return err, tol, finite, bitwise, got
+
+
+def ghosted_inputs(name, S, interior, gen, dev, link=None):
+    """Random unpadded inputs of a streaming kernel with the cavity's faces
+    (``NavierStokes3D._bcs_for``; the lid speed 0.8, or one a slot), and,
+    where ``link`` decomposes x, random strips on the x faces that have a
+    neighbour: ``(inputs, ghosts)``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.cfd import cavity
+    from repro_torch.cfd.ns3d import NavierStokes3D
+    from repro_torch.core import halo
+    from repro_torch.kernels import stencil3d
+
+    desc = stencil3d.DESCRIPTORS[name]
+    batch = () if S is None else (S,)
+
+    def rand(*shape):
+        return torch.rand(batch + shape, generator=gen, device=dev) * 2 - 1
+
+    inputs = [rand(*interior) for _ in desc.inputs]
+    lid = (torch.full((), 0.8, device=dev) if S is None else
+           (0.5 + 0.25 * torch.arange(S, dtype=torch.float32, device=dev)
+            ).reshape(-1, 1, 1, 1))
+    bc = NavierStokes3D(cavity.config(8, nz=8), dev)._bcs_for(lid)
+    fields = ("p",) if name == "JACOBI_PRESSURE" else ("vx", "vy", "vz")
+    ghosts = []
+    for f in fields:
+        lo, hi = bc[f]
+        specs = [halo.AxisSpec(a, periodic=a == 2, bc_lo=lo[a], bc_hi=hi[a])
+                 for a in range(3)]
+        strips = [(None, None)] * 3
+        if link is not None:
+            specs[0] = dataclasses.replace(specs[0], mesh_axis=link.name,
+                                           link=link)
+            strips[0] = tuple(rand(1, *interior[1:])
+                              if link.peer(step, False) is not None else None
+                              for step in (-1, +1))
+        ghosts.append(halo.field_ghosts(specs, strips))
+    return inputs, ghosts if len(ghosts) > 1 else ghosts[0]
+
+
+def zeroed_face(ghosts):
+    """The planted fault: ``ghosts`` with the x-low face of the last field
+    zeroed (its strip, or its rule made the constant 0)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import halo
+
+    many = isinstance(ghosts, list)
+    gs = list(ghosts) if many else [ghosts]
+    face = gs[-1].faces[0]
+    zero = (torch.zeros_like(face) if torch.is_tensor(face)
+            else halo.GhostForm("const", b=0.0))
+    gs[-1] = dataclasses.replace(gs[-1], faces=(zero, *gs[-1].faces[1:]))
+    return gs if many else gs[0]
+
+
+def streaming_cases(name, gen, dev) -> dict:
+    """The ghosted load of a streaming kernel (its main path) against its
+    plain version: 256^3 and the farm's 4 slots, an odd shape and 3 slots,
+    and the decomposed phase's block (128, 256, 256) with random strips on
+    both x faces (a middle rank), serial and with 2 slots; each bitwise,
+    each with a planted fault (a zeroed x-low ghost face); the timed cases
+    with the bound of what the ghosted launch reads and writes and the
+    padded route's time (each cached field padded, with the strips in
+    hand, then the padded load)."""
+    import torch
+    from repro_torch.core import autotune, halo
+    from repro_torch.kernels import stencil3d, stencil3d_cuda as sc
+    from repro_torch.launch import op_cost
+    from repro_torch.cfd import cavity
+
+    desc = stencil3d.DESCRIPTORS[name]
+    link = halo.AxisLink(name="shard", size=3, index=1,
+                         transport=halo.CountTransport())
+    cases = [("ghosted", None, (N, N, N), None),
+             ("ghosted_odd", None, (5, 7, 3), None),
+             ("ghosted_batched", 3, (24, 20, 18), None),
+             ("ghosted_farm", FARM_SLOTS, (N, N, N), None),
+             ("ghosted_decomposed", None, DECOMP_LOCAL, link),
+             ("ghosted_decomposed_farm", DECOMP_FARM_SLOTS, DECOMP_LOCAL,
+              link)]
+    timed = ("ghosted", "ghosted_farm", "ghosted_decomposed",
+             "ghosted_decomposed_farm")
+    res = {"max_abs_err": 0.0, "cases": {}}
+    for case, S, interior, lk in cases:
+        inputs, ghosts = ghosted_inputs(name, S, interior, gen, dev, lk)
+        cfgs = [cavity.config(N, nz=N, re=re) for re in FARM_RES[:S or 1]]
+        table = param_rows(name, cfgs, dev)
+        table = table if S else table[0]
+        tile = autotune.tile_for(desc, interior).tile
+        before = sc.GHOSTED_LAUNCHES[name]
+        err, tol, finite, bitwise, outs = compare(name, inputs, table, tile,
+                                                  ghosts=ghosts)
+        ghosted = sc.GHOSTED_LAUNCHES[name] - before
+        fault, _, _, fault_bitwise, _ = compare(
+            name, inputs, table, tile, ghosts=zeroed_face(ghosts),
+            want_ghosts=ghosts)
+        line = {"phase": "kernel", "kernel": name, "case": case,
+                "slots": S or 1, "interior": list(interior),
+                "strips": lk is not None, "tile": list(tile),
+                "max_abs_diff": err, "tolerance": tol, "finite": finite,
+                "bitwise": bitwise, "ghosted_launches": ghosted,
+                "planted_fault_max_abs_diff": fault}
+        if case in timed:
+            gl = ghosts if isinstance(ghosts, list) else [ghosts]
+            faces = sc.face_table(gl, S or 1, dev)
+            nbytes, ops = op_cost.stencil_cost(
+                name, [t if t.dim() == 4 else t[None] for t in inputs],
+                [o if o.dim() == 4 else o[None] for o in outs],
+                table if table.dim() == 2 else table[None],
+                ghosts=(gl, faces))
+            kern, plain = sc.KERNELS[name], sc.PLAIN[name]
+            cached = [i for i, v in enumerate(desc.inputs)
+                      if v in desc.cached_inputs]
+
+            def padded_route():
+                ins = list(inputs)
+                for i, g in zip(cached, gl):
+                    ins[i] = halo.pad_with_strips(ins[i], (1, 1, 1),
+                                                  g.specs, g.strips)
+                return kern(*ins, table, tile=tile)
+
+            line.update(
+                kernel_ms=cuda_ms(lambda: kern(*inputs, table, tile=tile,
+                                               ghosts=ghosts),
+                                  reps=50, head_start=True),
+                padded_route_ms=cuda_ms(padded_route, reps=20,
+                                        head_start=True),
+                plain_ms=cuda_ms(lambda: plain(*inputs, table, ghosts=ghosts),
+                                 reps=5, warmup=1),
+                **bound(nbytes, ops, F32_OPS_PER_S), library_ms=None)
+            res["cases"][case] = {k: line[k] for k in
+                                  ("tile", "kernel_ms", "padded_route_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}
+        emit(line)
+        require(finite, f"{name} ({case}): non-finite output")
+        require(ghosted == 1, f"{name} ({case}): {ghosted} ghosted launches")
+        require(bitwise, f"{name} ({case}): the ghosted kernel and its plain "
+                         f"version differ (max {err}), not bitwise")
+        require(not fault_bitwise and fault > tol,
+                f"{name} ({case}): the check passed a zeroed x-low ghost "
+                f"face ({fault} <= {tol})")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        del inputs, outs, ghosts
+    return res
 
 
 def plain_card_vs_cpu(name, dev):
@@ -915,6 +1084,18 @@ def phase_kernels(dev):
                                  f"differ (max {err}), not bitwise")
             res["max_abs_err"] = max(res["max_abs_err"], err)
             del inputs, outs
+        if name in sc.STREAMING:
+            # the main path's ghosted load: its lines stand for the kernel
+            # in the summary, the padded load's stay under its cases
+            ghosted = streaming_cases(
+                name, torch.Generator(device=dev).manual_seed(SEED + 6), dev)
+            padded = res["cases"]
+            res["cases"] = {**{f"padded_{k}": v for k, v in padded.items()},
+                            **ghosted["cases"]}
+            res.update({k: v for k, v in ghosted["cases"]["ghosted"].items()
+                        if k != "tile"})
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     ghosted["max_abs_err"])
         results[name] = res
         plain_card_vs_cpu(name, dev)
     results["JACOBI_FUSED"] = jacobi_fused_cases(gen, dev)
@@ -1446,6 +1627,8 @@ def phase_main(kernel_results, dev):
     torch.cuda.synchronize()
     cuda_s = time.perf_counter() - t0
     launches = read_counts()
+    ghosted = dict(sc.GHOSTED_LAUNCHES)
+    padded_route = dict(sc.PADDED_ROUTE)
     peak = torch.cuda.max_memory_allocated()
 
     reset_counts()
@@ -1481,6 +1664,7 @@ def phase_main(kernel_results, dev):
     expected = {k: STEPS * v for k, v in PER_STEP.items()}
     emit({"phase": "main", "grid": [N, N, N], "steps": STEPS,
           "launches": launches, "expected": expected,
+          "ghosted_launches": ghosted, "padded_route": padded_route,
           "torch_backend_launches": torch_launches,
           "cuda_run_s": cuda_s, "torch_run_s": torch_s,
           "agree": agree, "step_ms": step_ms,
@@ -1489,6 +1673,10 @@ def phase_main(kernel_results, dev):
           "max_memory_allocated": peak,
           "ghia": res_cuda.diagnostics["ghia"]})
     require(launches == expected, f"launch counts {launches} != {expected}")
+    want_ghosted = {k: expected[k] for k in sc.STREAMING}
+    require(ghosted == want_ghosted and not any(padded_route.values()),
+            f"ghosted launches {ghosted} != {want_ghosted} (padded route "
+            f"{padded_route})")
     require(all(v == 0 for v in torch_launches.values()),
             f"torch backend launched CUDA kernels: {torch_launches}")
     return launches, res_cuda.state
@@ -1874,12 +2062,20 @@ def tiles_against_block_for(dev) -> dict:
         row = {"tile": list(tile), "block_for": list(sc.block_for(N, N))}
         for case, S in (("serial", None), ("farm", FARM_SLOTS)):
             gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-            inputs = kernel_inputs(name, S, (N,) * 3, gen, dev)
+            # the streaming kernels in their ghosted load (the main path's)
+            kw = {}
+            if name in sc.STREAMING:
+                inputs, kw["ghosts"] = ghosted_inputs(name, S, (N,) * 3, gen,
+                                                      dev)
+                row["load"] = "ghosted"
+            else:
+                inputs = kernel_inputs(name, S, (N,) * 3, gen, dev)
             cfgs = [cavity.config(N, nz=N, re=re)
                     for re in FARM_RES[:S or 1]]
             table = param_rows(name, cfgs, dev)
             table = table if S else table[0]
-            want, got = kern(*inputs, table), kern(*inputs, table, tile=tile)
+            want = kern(*inputs, table, **kw)
+            got = kern(*inputs, table, tile=tile, **kw)
             torch.cuda.synchronize()
             want = want if isinstance(want, tuple) else (want,)
             got = got if isinstance(got, tuple) else (got,)
@@ -1887,8 +2083,9 @@ def tiles_against_block_for(dev) -> dict:
             ms = {"tuned": [], "block_for": []}
             for which in ("tuned", "block_for", "block_for", "tuned"):
                 t = tile if which == "tuned" else None
-                ms[which].append(cuda_ms(lambda: kern(*inputs, table, tile=t),
-                                         reps=50, head_start=True))
+                ms[which].append(cuda_ms(
+                    lambda: kern(*inputs, table, tile=t, **kw), reps=50,
+                    head_start=True))
             tuned = sum(ms["tuned"]) / 2
             block_for = sum(ms["block_for"]) / 2
             row[case] = {"kernel_ms_tuned": ms["tuned"],
@@ -2151,7 +2348,7 @@ def decomposed_serial_rank(serial_path: str) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.cfd.ns3d import NavierStokes3D
-    from repro_torch.core.halo import exchange_pad
+    from repro_torch.core.halo import exchange_pad, exchange_strips
 
     dev = _rank_device()
     rank = dist.get_rank()
@@ -2166,6 +2363,7 @@ def decomposed_serial_rank(serial_path: str) -> dict:
     torch.cuda.synchronize()
     out["run_s"] = time.perf_counter() - t0
     out["launches"] = read_counts()
+    out["ghosted_launches"] = dict(_wrappers()[0].GHOSTED_LAUNCHES)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     out["max_abs_diff"] = {}
     for f in DECOMP_FIELDS:
@@ -2214,6 +2412,13 @@ def decomposed_serial_rank(serial_path: str) -> dict:
         exchange_pad(state["p"], (1, 1, 1), p_specs)
     torch.cuda.synchronize()
     out["exchange_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    # what the main path exchanges for a Jacobi sweep now: the strips alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        exchange_strips(state["p"], (1, 1, 1), p_specs)
+    torch.cuda.synchronize()
+    out["strips_ms"] = (time.perf_counter() - t0) / 20 * 1e3
     busy = device_busy(lambda: pr.step(state))
     out["busy"] = {k: busy[k] for k in ("wall_ms", "device_ms",
                                         "busy_share")}
@@ -2226,6 +2431,7 @@ def decomposed_serial_rank(serial_path: str) -> dict:
     drv = pr.solver.driver
     sl = drv.block_slices()[0]
     out["ghost_fill_bitwise"], out["planted_rejected"] = {}, {}
+    out["strips_bitwise"] = {}
     for f in DECOMP_FIELDS:
         glob = exchange_pad(serial[f].to(dev), (1, 1, 1), whole._specs(f))
         want = glob[sl.start:sl.stop + 2]
@@ -2233,6 +2439,12 @@ def decomposed_serial_rank(serial_path: str) -> dict:
         specs = pr.solver._specs(f)
         got = exchange_pad(block, (1, 1, 1), specs)
         out["ghost_fill_bitwise"][f] = bool(torch.equal(got, want))
+        # the strip received on the face with a neighbour: that ghost plane
+        # of the serial field's, its y and z extent unpadded
+        lo, hi = exchange_strips(block, (1, 1, 1), specs)[0]
+        strip, plane = (lo, 0) if lo is not None else (hi, -1)
+        out["strips_bitwise"][f] = bool(torch.equal(
+            strip[0], want[plane, 1:-1, 1:-1]))
         link = specs[0].link
         bad_specs = (dataclasses.replace(specs[0], link=dataclasses.replace(
             link, transport=_swapped_transport())), *specs[1:])
@@ -2685,6 +2897,12 @@ def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
                     f"the serial cuda run by {d} > {DECOMP_RTOL}")
         require(all(r["ghost_fill_bitwise"].values()),
                 f"rank {r['rank']}: ghost fill {r['ghost_fill_bitwise']}")
+        require(all(r["strips_bitwise"].values()),
+                f"rank {r['rank']}: received strips {r['strips_bitwise']}")
+        want_ghosted = {k: expected[k] for k in r["ghosted_launches"]}
+        require(r["ghosted_launches"] == want_ghosted,
+                f"rank {r['rank']}: ghosted launches "
+                f"{r['ghosted_launches']} != {want_ghosted}")
         require(r["planted_rejected"] and all(r["planted_rejected"].values()),
                 f"rank {r['rank']}: swapped strips passed the check "
                 f"{r['planted_rejected']}")
@@ -2768,11 +2986,15 @@ def phase_decomposed(dev, smi: str, serial_state: dict) -> dict:
                                           for r in serial],
               "step_ms_per_rank": [r["step_ms"] for r in serial],
               "exchange_ms_per_rank": [r["exchange_ms"] for r in serial],
+              "strips_ms_per_rank": [r["strips_ms"] for r in serial],
+              "ghosted_launches_per_rank": [r["ghosted_launches"]
+                                            for r in serial],
               "busy_per_rank": [r["busy"] for r in serial],
               "run_s_per_rank": [r["run_s"] for r in serial],
               "max_memory_allocated_per_rank": [
                   r["max_memory_allocated"] for r in serial],
               "ghost_fill_bitwise": serial[0]["ghost_fill_bitwise"],
+              "strips_bitwise": serial[0]["strips_bitwise"],
               "planted_swap_rejected": serial[0]["planted_rejected"]},
           "farm": {
               "ranks": 4, "mesh": {"slot": 2, "shard": 2},

@@ -5,6 +5,7 @@ NVIDIA card.
 
     python3 kernel_study.py [--parent DIR]
                             [--only jacobi,ssd,stencil,tiles,farm]
+                            [--kernels JACOBI_PRESSURE,UPDATE_VELOCITY]
 
 1. jacobi: the committed source and variants of it made by replacing one
    design constant, each built with nvcc beside the committed library:
@@ -50,7 +51,14 @@ NVIDIA card.
    and the farm's 4-slot call: device time, taken in turn forward and then
    backward, and whether the output equals block_for's bit for bit.  The
    tiles that walk also run on ``walk_unroll2`` and ``walk_unroll4``, the
-   source with the walk's loop unrolled by 2 or 4.
+   source with the walk's loop unrolled by 2 or 4 (DIVERGENCE and
+   PROJECT_VELOCITY; the streaming kernels, JACOBI_PRESSURE and
+   UPDATE_VELOCITY, have no such loop).  The streaming kernels run in
+   their ghosted load too (the main path's: unpadded fields with the
+   cavity's faces, ``chip_smoke.ghosted_inputs``), as variant
+   ``ghosted:<library>``: on the committed source and on
+   ``stream_bufs4`` and ``stream_bufs6`` (a ring of 4 or 6 planes: 1 or 3
+   in flight instead of 2).
 5. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
    4-slot farm's batched step, unfused and with ``fused_sweeps=2``, on
    DIR's tree and on this one in turns (parent, this, this, parent), each
@@ -103,19 +111,23 @@ VARIANTS = [
         ("{ return __fadd_rn(a, b); }", "{ return a + b; }"),
         ("{ return __fsub_rn(a, b); }", "{ return a - b; }"),
         ("{ return __fmul_rn(a, b); }", "{ return a * b; }"),
-        ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
-         "sub(nbr, mul(h2, rhs[o])) / 6.0f"),
+        ("__fdiv_rn(sub(nbr, mul(h2, r)), 6.0f)",
+         "sub(nbr, mul(h2, r)) / 6.0f"),
         ("__fdiv_rn(table[s * 2], table[s * 2 + 1])",
          "table[s * 2] / table[s * 2 + 1]")]),
     ("stencil3d", "div_op", [
-        ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
-         "sub(nbr, mul(h2, rhs[o])) / 6.0f")]),
+        ("__fdiv_rn(sub(nbr, mul(h2, r)), 6.0f)",
+         "sub(nbr, mul(h2, r)) / 6.0f")]),
     ("stencil3d", "walk_unroll2", [
         ("""    for (int64_t r = r##0,  """,
          """    _Pragma("unroll 2") for (int64_t r = r##0,  """)]),
     ("stencil3d", "walk_unroll4", [
         ("""    for (int64_t r = r##0,  """,
          """    _Pragma("unroll 4") for (int64_t r = r##0,  """)]),
+    ("stencil3d", "stream_bufs4", [
+        ("constexpr int kBufs = 5;", "constexpr int kBufs = 4;")]),
+    ("stencil3d", "stream_bufs6", [
+        ("constexpr int kBufs = 5;", "constexpr int kBufs = 6;")]),
     ("stencil3d", "div64", [
         ("""  const unsigned q = (unsigned)r / (unsigned)nx;
   s = q;
@@ -125,7 +137,8 @@ VARIANTS = [
 SECTIONS = ("jacobi", "ssd", "stencil", "tiles", "farm")
 # launch tiles (tx, ty, tz) of the tiles section, block_for's first
 TILES = [(1, 8, 32), (2, 8, 32), (4, 8, 32), (8, 8, 32), (16, 8, 32),
-         (32, 8, 32), (1, 4, 64), (4, 4, 64), (1, 2, 128), (1, 1, 256)]
+         (32, 8, 32), (64, 8, 32), (1, 4, 64), (4, 4, 64), (16, 4, 64),
+         (1, 2, 128), (1, 1, 256), (16, 16, 16), (32, 16, 16)]
 TILE_WAVES = (1, 2, 4, 8)
 REPS = 30
 
@@ -344,8 +357,13 @@ def study_tiles(libs):
             tuned = {w: autotune.choose_tile(desc, (cs.N,) * 3, waves=w).tile
                      for w in TILE_WAVES}
             tiles = list(dict.fromkeys(TILES + list(tuned.values())))
-            runs = [("design", t) for t in tiles] + [
-                (v, t) for v in walks for t in tiles if t[0] > 1]
+            runs = [("design", t) for t in tiles]
+            if kname in st.STREAMING:
+                streams = ["design"] + [v for v in libs
+                                        if v.startswith("stream_")]
+                runs += [(f"ghosted:{v}", t) for v in streams for t in tiles]
+            else:
+                runs += [(v, t) for v in walks for t in tiles if t[0] > 1]
             gen = torch.Generator(device=dev).manual_seed(cs.SEED)
             times = {r: {} for r in runs}
             same = {r: {} for r in runs}
@@ -358,8 +376,28 @@ def study_tiles(libs):
                 st._lib = lambda: libs["design"]
                 want = st.KERNELS[kname](*inputs, table)
                 want = want if isinstance(want, tuple) else (want,)
+                unpadded = ghosts = None
+                if kname in st.STREAMING:
+                    unpadded, ghosts = cs.ghosted_inputs(
+                        kname, slots, (cs.N,) * 3, gen, dev)
+                    gwant = st.KERNELS[kname](*unpadded, table, ghosts=ghosts)
+                    gwant = gwant if isinstance(gwant, tuple) else (gwant,)
                 for run in turns(runs):
                     variant, tile = run
+                    if variant.startswith("ghosted"):
+                        lib_name = variant.split(":")[1]
+                        st._lib = lambda lib_name=lib_name: libs[lib_name]
+                        fn = lambda: st.KERNELS[kname](
+                            *unpadded, table, tile=tile, ghosts=ghosts)
+                        got = fn()
+                        torch.cuda.synchronize()
+                        got = got if isinstance(got, tuple) else (got,)
+                        same[run][case] = all(torch.equal(g, w)
+                                              for g, w in zip(got, gwant))
+                        times[run].setdefault(case, []).append(
+                            cs.cuda_ms(fn, REPS, head_start=True))
+                        del got
+                        continue
                     st._lib = lambda variant=variant: libs[variant]
                     fn = lambda: st.KERNELS[kname](*inputs, table, tile=tile)
                     got = fn()
@@ -370,7 +408,7 @@ def study_tiles(libs):
                     times[run].setdefault(case, []).append(
                         cs.cuda_ms(fn, REPS, head_start=True))
                     del got
-                del inputs, want
+                del inputs, want, unpadded, ghosts
                 torch.cuda.empty_cache()
             for variant, tile in runs:
                 emit({"phase": "tiles", "kernel": kname, "variant": variant,
@@ -416,7 +454,14 @@ def main() -> int:
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="comma-separated sections to run "
                          f"(default: {','.join(SECTIONS)})")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated stencils of the stencil and tiles "
+                         "sections (default: all four)")
     args = ap.parse_args()
+    if args.kernels:
+        import chip_smoke as cs
+
+        cs.STENCILS = tuple(args.kernels.split(","))
     only = set(args.only.split(","))
     if only - set(SECTIONS):
         ap.error(f"unknown sections {sorted(only - set(SECTIONS))}")
@@ -438,10 +483,10 @@ def main() -> int:
         study_ssd_parent(os.path.abspath(args.parent))
     if "stencil" in only:
         study_stencil({k: v for k, v in libs["stencil3d"].items()
-                       if not k.startswith("walk_")})
+                       if not k.startswith(("walk_", "stream_"))})
     if "tiles" in only:
         study_tiles({k: v for k, v in libs["stencil3d"].items()
-                     if k == "design" or k.startswith("walk_")})
+                     if k == "design" or k.startswith(("walk_", "stream_"))})
     if args.parent and "farm" in only:
         study_farm(os.path.abspath(args.parent))
     return 0

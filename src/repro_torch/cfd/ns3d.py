@@ -10,6 +10,13 @@ framework's descriptor-generated kernels + driver-managed halo padding:
                        (optionally the fused communication-avoiding smoother)
   5. PROJECT_VELOCITY  u = u* - dt grad p                      [stencil kernel]
 
+On the CUDA template JACOBI_PRESSURE and UPDATE_VELOCITY (without the
+interior/shell split) take the unpadded fields and fill their own ghost
+zones from the BC rules' declared forms, only the decomposed faces' strips
+travelling (``kernels.ops.ghosted_inputs``); the TORCH template pads every
+input (``exchange_pad``) and expands the body, as the other two kernels do
+on both templates.
+
 Grid convention (see kernels/stencil3d.py): vx[i] at the right x-face of
 cell i; the hi wall face is vx[N-1].  Cases: ``cavity`` (lid-driven, lid at
 y-hi moving in +x; z periodic so the Ghia 2D profile is recovered),
@@ -40,8 +47,9 @@ import torch
 
 from repro_torch.core.driver import Domain, GridDriver
 from repro_torch.core.halo import (
-    AxisSpec, bc_dirichlet, bc_neumann, exchange_pad,
-    exchange_pad_start, stencil_step_overlap, tensor_axis,
+    AxisSpec, GhostForm, bc_dirichlet, bc_neumann, exchange_pad,
+    exchange_pad_start, exchange_strips, field_ghosts, stencil_step_overlap,
+    tensor_axis, with_form,
 )
 from repro_torch.device import resolve_device, true_divide
 from repro_torch.kernels import ops
@@ -51,12 +59,14 @@ def bc_moving_wall(u_wall):
     """Tangential-velocity ghost across a wall moving at ``u_wall``:
     ghost = 2 u_wall - mirrored interior (wall value is the face average).
     ``u_wall`` may be a float, a 0-d tensor on the fields' device, or a
-    per-slot ``(S, 1, 1, 1)`` tensor for a slot batch."""
+    per-slot ``(S, 1, 1, 1)`` tensor for a slot batch.  Its declared form
+    (``core.halo.GhostForm``) is a = -1, b = 2 u_wall."""
+    b = 2.0 * u_wall
 
     def rule(strip, side, axis):
-        return 2.0 * u_wall - torch.flip(strip, dims=(axis,))
+        return b - torch.flip(strip, dims=(axis,))
 
-    return rule
+    return with_form(rule, GhostForm("affine", a=-1.0, b=b))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,7 +249,8 @@ class NavierStokes3D:
         # the stencils' launch tile: the chip-aware choice, resolved per
         # local interior and memoized (autotune.tile_for), so serial and
         # farm runs of one grid launch the same tiles
-        skw = dict(kw, tile="auto") if kw["template"] == "CUDA" else kw
+        cuda = kw["template"] == "CUDA"
+        skw = dict(kw, tile="auto") if cuda else kw
         h = c.h
         batched = state["vx"].dim() == 4
 
@@ -278,6 +289,13 @@ class NavierStokes3D:
                 packed, widths, specs=None, kernel=upd_packed,
                 pad_fn=pad_packed)
             vx_s, vy_s, vz_s = out[0], out[1], out[2]
+        elif cuda:
+            # the kernel fills its own ghost zones: only the strips travel
+            ins, ghosts = ops.ghosted_inputs(
+                "UPDATE_VELOCITY", (vx, vy, vz),
+                [specs(f) for f in ("vx", "vy", "vz")])
+            vx_s, vy_s, vz_s = ops.update_velocity(*ins, **vel_params,
+                                                   ghosts=ghosts, **skw)
         else:
             pads = [exchange_pad(v, (1, 1, 1), specs(f))
                     for f, v in (("vx", vx), ("vy", vy), ("vz", vz))]
@@ -296,6 +314,11 @@ class NavierStokes3D:
         k = c.fused_sweeps
 
         def jacobi_body(pcur):
+            if k <= 1 and cuda:
+                (pp,), ghosts = ops.ghosted_inputs("JACOBI_PRESSURE", (pcur,),
+                                                   [p_specs])
+                return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega,
+                                           ghosts=ghosts, **skw)
             if k <= 1:
                 pp = exchange_pad(pcur, (1, 1, 1), p_specs)
                 return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega,

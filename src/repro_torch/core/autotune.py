@@ -37,6 +37,16 @@ walks the other three kernels take (4-8 planes) read 6-11% faster than
 ``block_for``, every walk of PROJECT_VELOCITY 0.2-4% slower, and with 4
 waves or fewer the walks grow long enough to lose the tail.
 
+The streaming kernels (``stencil3d_cuda.STREAMING``: JACOBI_PRESSURE and
+UPDATE_VELOCITY) are modelled as they are built: a block marches its
+segment of tx planes through ``STREAM_PLANES`` planes of (ty + 2) x
+(tz + 2) cells a cached field in shared memory
+(``stencil3d_cuda.stream_smem_bytes``), whatever tx, so the working set
+is that and not the descriptor's halo-expanded block; resident blocks are
+limited by that shared memory too; the walk is the design, so no
+``WALK_GAIN`` test applies; and a segment re-reads two planes for every
+tx it computes, so a longer one is worth fewer waves: ``STREAM_WAVES``.
+
 Deterministic: no search on the device.  :func:`tile_for` is the memoized
 entry point the solver's hot path reaches (``ops.apply_kernel(tile="auto")``
 on the CUDA template): one choice per (kernel, stencil, local interior,
@@ -54,6 +64,14 @@ from repro_torch.core.rooflinemodel import Chip, resolve_chip, \
 
 # full waves of resident blocks a tile's grid must give (one slot's grid)
 WAVES = 8
+# the same for the streaming kernels: a longer segment re-reads fewer
+# planes, fewer waves lose more to the tail (kernel_study.py's tiles
+# section times both sides)
+STREAM_WAVES = 4
+# shared memory an SM of sm_90 holds for its blocks, and what the runtime
+# reserves a block of it
+_SMEM_SM = 228 * 1024
+_SMEM_RESERVED = 1024
 # the least share of block_for's staged bytes a cell that a tile walking x
 # planes must save, to pay for the walk's loop
 WALK_GAIN = 1 / 3
@@ -76,15 +94,25 @@ class TileChoice:
     waves: float = 0.0           # the grid's blocks over the card's resident
 
 
-def blocks_per_sm(threads: int, registers: int, chip: Chip) -> int:
-    """Resident blocks of ``threads`` threads using ``registers`` each on
-    one SM of ``chip``: the least of its block, thread and register
-    limits."""
+def blocks_per_sm(threads: int, registers: int, chip: Chip,
+                  smem: int = 0) -> int:
+    """Resident blocks of ``threads`` threads using ``registers`` each
+    (and ``smem`` bytes of shared memory a block) on one SM of ``chip``:
+    the least of its block, thread, register and shared-memory limits."""
     warps = math.ceil(threads / chip.warp)
     regs_warp = math.ceil(registers * chip.warp / _REG_UNIT) * _REG_UNIT
-    return min(chip.max_blocks_sm,
-               chip.max_threads_sm // (warps * chip.warp),
-               chip.regs_sm // (warps * regs_warp))
+    limits = [chip.max_blocks_sm, chip.max_threads_sm // (warps * chip.warp),
+              chip.regs_sm // (warps * regs_warp)]
+    if smem:
+        limits.append(int(min(chip.vmem_bytes, _SMEM_SM)
+                          // (smem + _SMEM_RESERVED)))
+    return min(limits)
+
+
+def _streaming(desc: StencilDescriptor) -> bool:
+    from repro_torch.kernels import stencil3d_cuda
+
+    return desc.name in stencil3d_cuda.STREAMING
 
 
 def _kernel_limits(desc: StencilDescriptor, chip: Chip):
@@ -122,7 +150,7 @@ def choose_tile(
     flops_per_cell: float = 10.0,
     chip: Chip | str | None = "auto",
     vmem_fraction: float = 0.5,
-    waves: float = WAVES,
+    waves: float | None = None,
 ) -> TileChoice:
     """Best launch tile ``(tx, ty, tz)`` of ``desc``'s CUDA kernel for one
     slot's interior ``local_shape`` (see the module docstring).
@@ -137,6 +165,11 @@ def choose_tile(
     nwrite = len(desc.outputs)
     halo = desc.halo_width
     registers, _, block_for = _kernel_limits(desc, chip)
+    streaming = _streaming(desc)
+    if streaming:
+        from repro_torch.kernels.stencil3d_cuda import stream_smem_bytes
+    if waves is None:
+        waves = STREAM_WAVES if streaming else WAVES
     best, best_key = None, None
     def staged(tile):      # bytes a cell the descriptor stages for ``tile``
         return (dataclasses.replace(desc, tile=tile).vmem_block_bytes(itemsize)
@@ -144,13 +177,17 @@ def choose_tile(
 
     walk_limit = (1 - WALK_GAIN) * staged(block_for(ny, nz))
     for tx, ty, tz in candidates(desc, (nx, ny, nz), chip):
-        vmem = dataclasses.replace(desc, tile=(tx, ty, tz)).vmem_block_bytes(
-            itemsize)
+        if streaming:
+            vmem = stream_smem_bytes(desc.name, (tx, ty, tz))
+        else:
+            vmem = dataclasses.replace(desc, tile=(tx, ty, tz)
+                                       ).vmem_block_bytes(itemsize)
         if vmem > budget:
             continue
-        if tx > 1 and staged((tx, ty, tz)) > walk_limit:
+        if tx > 1 and not streaming and staged((tx, ty, tz)) > walk_limit:
             continue
-        bps = blocks_per_sm(ty * tz, registers[tx > 1], chip)
+        bps = blocks_per_sm(ty * tz, registers[tx > 1], chip,
+                            vmem if streaming else 0)
         if bps < 1:
             continue
         blocks = math.ceil(nx / tx) * math.ceil(ny / ty) * math.ceil(nz / tz)

@@ -201,7 +201,7 @@ class GeneratedKernel:
         return launch, stencil3d.TABLES[name]
 
     def _apply_cuda(self, arrays: dict[str, torch.Tensor],
-                    params: dict[str, Any], *, batched: bool):
+                    params: dict[str, Any], *, batched: bool, ghosts=None):
         launch, columns = self._cuda_kernel()
         first = arrays[self.desc.inputs[0]]
         table = param_table(self.desc, params,
@@ -209,8 +209,9 @@ class GeneratedKernel:
                             columns=columns)
         if not batched:
             table = table[0]
+        extra = {} if ghosts is None else {"ghosts": ghosts}
         outs = launch(*(arrays[n] for n in self.desc.inputs), table,
-                      tile=self.tile)
+                      tile=self.tile, **extra)
         if torch.is_tensor(outs):
             outs = (outs,)
         return dict(zip(self.desc.outputs, outs))
@@ -221,32 +222,46 @@ class GeneratedKernel:
             if p not in params:
                 raise ValueError(f"missing runtime parameter {p!r}")
 
+    def _check_ghosts(self, ghosts):
+        if ghosts is not None and self.template != "CUDA":
+            raise ValueError(
+                f"{self.desc.name}: the {self.template} template reads "
+                "padded fields; only the CUDA template takes ghosts")
+
     def apply_batched(self, arrays: dict[str, torch.Tensor],
-                      batched_params: frozenset | tuple = (), **params):
+                      batched_params: frozenset | tuple = (), *,
+                      ghosts=None, **params):
         """Apply the kernel over a leading slot axis of every array.
 
         ``batched_params`` names runtime parameters that carry the slot axis
         (tensors of shape ``(S,)``, e.g. per-simulation viscosity); the rest
         are shared.  The TORCH template broadcasts them as ``(S, 1, 1, 1)``;
         the CUDA template gives each slot its own table row, so one launch
-        advances slots with different physics.
+        advances slots with different physics.  ``ghosts`` (CUDA template,
+        the streaming kernels): the cached fields arrive unpadded with
+        their faces (``stencil3d_cuda``'s ghosted load).
         """
         self._check_params(params)
+        self._check_ghosts(ghosts)
         for k in batched_params:
             if not torch.is_tensor(params.get(k)):
                 raise ValueError(
                     f"batched parameter {k!r} must be a tensor with a "
                     "leading slot axis")
         if self.template == "CUDA":
-            return self._apply_cuda(arrays, params, batched=True)
+            return self._apply_cuda(arrays, params, batched=True,
+                                    ghosts=ghosts)
         params = {k: v.reshape(-1, 1, 1, 1) if k in batched_params else v
                   for k, v in params.items()}
         return self._apply_torch(arrays, params)
 
-    def __call__(self, arrays: dict[str, torch.Tensor], **params):
+    def __call__(self, arrays: dict[str, torch.Tensor], *, ghosts=None,
+                 **params):
         self._check_params(params)
+        self._check_ghosts(ghosts)
         if self.template == "CUDA":
-            return self._apply_cuda(arrays, params, batched=False)
+            return self._apply_cuda(arrays, params, batched=False,
+                                    ghosts=ghosts)
         return self._apply_torch(arrays, params)
 
 

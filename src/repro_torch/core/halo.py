@@ -31,12 +31,20 @@ books the bytes and returns ``meta`` strips for a cost trace.
 
 A BC rule is ``rule(strip, side, axis) -> ghost strip``: the axis is passed
 explicitly, as that negative tensor axis (the reference injects it through
-a function attribute).
+a function attribute).  The rules of this module (and ``cfd.ns3d``'s moving
+wall) also declare their *form* as data (:class:`GhostForm`, in the rule's
+``ghost_form`` attribute): ghost = a * (mirrored interior cell) + b.  A
+kernel that fills its own ghost zones (the CUDA stencils' ghosted load)
+reads the six faces of a field as such forms (:func:`field_ghosts`), a
+decomposed face as the strip its neighbour sent (:func:`exchange_strips`:
+the strips alone, no padded copy of the field); a rule without a form
+(a caller's own closure) leaves the field on the padded route.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
 from typing import Any, Callable, Sequence
 
 import torch
@@ -58,11 +66,51 @@ def tensor_axis(array_axis: int) -> int:
     return array_axis - GRID_DIMS
 
 
+@dataclasses.dataclass(frozen=True)
+class GhostForm:
+    """A face's ghost cells as data: ghost = a * m + b, where m is the
+    mirrored interior cell, with only the terms ``kind`` names, each
+    rounded once in float32 as the rule's call rounds it:
+
+    * ``"const"``: b (Dirichlet; ``"none"``, a face without a rule, is
+      b = 0, the zeros the padding fills it with);
+    * ``"linear"``: a * m (Neumann is a = 1, a mirror a = its sign);
+    * ``"affine"``: a * m + b (a moving wall: a = -1, b = 2 u_wall);
+    * ``"wrap"``: the far side of the same block (a periodic axis that
+      is not decomposed).
+
+    ``b`` is a Python float, a 0-d tensor or one value a slot (a tensor
+    of S elements, such as the ``(S, 1, 1, 1)`` lid speed of a slot
+    batch)."""
+
+    kind: str
+    a: float = 0.0
+    b: Any = 0.0
+
+
+NONE_FORM = GhostForm("const")
+WRAP_FORM = GhostForm("wrap")
+
+
+def form_of(rule: BCRule | None) -> GhostForm | None:
+    """The declared form of ``rule`` (``None``, no rule: zeros), or None
+    where the rule declares none."""
+    if rule is None:
+        return NONE_FORM
+    return getattr(rule, "ghost_form", None)
+
+
+def with_form(rule: BCRule, form: GhostForm) -> BCRule:
+    """``rule`` with its declared ``form``."""
+    rule.ghost_form = form
+    return rule
+
+
 def bc_dirichlet(value: float) -> BCRule:
     def rule(strip: torch.Tensor, side: str, axis: int) -> torch.Tensor:
         return torch.full_like(strip, value)
 
-    return rule
+    return with_form(rule, GhostForm("const", b=float(value)))
 
 
 def bc_neumann() -> BCRule:
@@ -71,7 +119,7 @@ def bc_neumann() -> BCRule:
     def rule(strip: torch.Tensor, side: str, axis: int) -> torch.Tensor:
         return torch.flip(strip, dims=(axis,))
 
-    return rule
+    return with_form(rule, GhostForm("linear", a=1.0))
 
 
 def bc_mirror(sign: float = -1.0) -> BCRule:
@@ -80,7 +128,7 @@ def bc_mirror(sign: float = -1.0) -> BCRule:
     def rule(strip: torch.Tensor, side: str, axis: int) -> torch.Tensor:
         return sign * torch.flip(strip, dims=(axis,))
 
-    return rule
+    return with_form(rule, GhostForm("linear", a=float(sign)))
 
 
 # -- transports ----------------------------------------------------------------
@@ -323,55 +371,82 @@ def _norm_width(w) -> tuple[int, int]:
     return (int(lo), int(hi))
 
 
-def _start_axis(u: torch.Tensor, width, spec: AxisSpec) -> Callable:
-    """Start filling the ghosts along one axis; the returned callable
-    finishes (waits for the neighbours' strips) and returns ``u`` padded.
-    A decomposed axis posts its strips now; an undecomposed one pads at
-    once."""
-    wlo, whi = _norm_width(width)
-    if wlo == 0 and whi == 0:
-        return lambda: u
-    ax = tensor_axis(spec.array_axis)
-    size = u.shape[ax]
+def _check_extent(size: int, wlo: int, whi: int, spec: AxisSpec) -> None:
     if size < max(wlo, whi):
         raise ValueError(
             f"local extent {size} on axis {spec.array_axis} smaller than "
             f"halo width {(wlo, whi)}"
         )
 
+
+def _post(edge: Callable, size: int, wlo: int, whi: int, spec: AxisSpec,
+          received=None) -> Callable:
+    """Post one axis's exchange.  ``edge(start, n)`` is the ``n``-wide
+    slab of the field (padded on the axes before this one) from ``start``
+    along the axis.  Returns ``wait() -> (from_lo, from_hi)``: the far
+    side's cells on a periodic axis that is not decomposed, the
+    neighbours' strips on a decomposed one (``received``: strips already
+    in hand, posted by :func:`exchange_strips`), None where the face's
+    rule fills it."""
+    if spec.mesh_axis is None:
+        from_lo = edge(size - wlo, wlo) if wlo and spec.periodic else None
+        from_hi = edge(0, whi) if whi and spec.periodic else None
+        return lambda: (from_lo, from_hi)
+    if received is not None:
+        return lambda: tuple(received)
+    if spec.link is None:
+        raise ValueError(
+            f"axis {spec.array_axis} is decomposed over mesh axis "
+            f"{spec.mesh_axis!r} but its spec carries no link to it "
+            "(build the specs with GridDriver(domain, device, mesh))")
+    # this rank's hi strip becomes the hi neighbour's lo ghost
+    return spec.link.transport.start(
+        spec.link, spec.periodic,
+        edge(size - wlo, wlo) if wlo else None,
+        edge(0, whi) if whi else None)
+
+
+def _ghost_slabs(edge: Callable, size: int, wlo: int, whi: int,
+                 spec: AxisSpec, ax: int, from_lo, from_hi) -> tuple:
+    """The (lo, hi) ghost slabs of one axis (None where the width is 0):
+    what arrived, else the face's rule applied to the edge cells."""
+
     def apply_bc(rule: BCRule | None, strip: torch.Tensor, side: str):
         if rule is None:
             return torch.zeros_like(strip)
         return rule(strip, side, ax)
 
-    if spec.mesh_axis is None:
-        from_lo = u.narrow(ax, size - wlo, wlo) if wlo and spec.periodic \
-            else None
-        from_hi = u.narrow(ax, 0, whi) if whi and spec.periodic else None
-        wait = lambda: (from_lo, from_hi)   # noqa: E731
-    else:
-        if spec.link is None:
-            raise ValueError(
-                f"axis {spec.array_axis} is decomposed over mesh axis "
-                f"{spec.mesh_axis!r} but its spec carries no link to it "
-                "(build the specs with GridDriver(domain, device, mesh))")
-        # this rank's hi strip becomes the hi neighbour's lo ghost
-        wait = spec.link.transport.start(
-            spec.link, spec.periodic,
-            u.narrow(ax, size - wlo, wlo) if wlo else None,
-            u.narrow(ax, 0, whi) if whi else None)
+    lo = hi = None
+    if wlo:
+        lo = from_lo if from_lo is not None else \
+            apply_bc(spec.bc_lo, edge(0, wlo), "lo")
+    if whi:
+        hi = from_hi if from_hi is not None else \
+            apply_bc(spec.bc_hi, edge(size - whi, whi), "hi")
+    return lo, hi
+
+
+def _start_axis(u: torch.Tensor, width, spec: AxisSpec,
+                received=None) -> Callable:
+    """Start filling the ghosts along one axis; the returned callable
+    finishes (waits for the neighbours' strips) and returns ``u`` padded.
+    A decomposed axis posts its strips now (or takes the ``received``
+    pair); an undecomposed one pads at once."""
+    wlo, whi = _norm_width(width)
+    if wlo == 0 and whi == 0:
+        return lambda: u
+    ax = tensor_axis(spec.array_axis)
+    size = u.shape[ax]
+    _check_extent(size, wlo, whi, spec)
+
+    def edge(start, n):
+        return u.narrow(ax, start, n)
+
+    wait = _post(edge, size, wlo, whi, spec, received)
 
     def finish() -> torch.Tensor:
-        from_lo, from_hi = wait()
-        parts = [u]
-        if wlo:
-            parts.insert(0, from_lo if from_lo is not None else
-                         apply_bc(spec.bc_lo, u.narrow(ax, 0, wlo), "lo"))
-        if whi:
-            parts.append(from_hi if from_hi is not None else
-                         apply_bc(spec.bc_hi, u.narrow(ax, size - whi, whi),
-                                  "hi"))
-        return torch.cat(parts, dim=ax)
+        lo, hi = _ghost_slabs(edge, size, wlo, whi, spec, ax, *wait())
+        return torch.cat([t for t in (lo, u, hi) if t is not None], dim=ax)
 
     return finish
 
@@ -398,6 +473,127 @@ def exchange_pad(
     for w, spec in zip(widths, specs):
         u = _pad_axis(u, w, spec)
     return u
+
+
+def pad_with_strips(
+    u: torch.Tensor, widths: Sequence, specs: Sequence[AxisSpec], strips
+) -> torch.Tensor:
+    """:func:`exchange_pad` with the decomposed axes' strips already in
+    hand (``strips``: :func:`exchange_strips`'s pairs): nothing is sent,
+    every other face is filled as ``exchange_pad`` fills it."""
+    if not len(widths) == len(specs) == len(strips):
+        raise ValueError("widths, specs and strips length mismatch")
+    for w, spec, got in zip(widths, specs, strips):
+        u = _start_axis(u, w, spec,
+                        received=got if spec.mesh_axis is not None
+                        else None)()
+    return u
+
+
+def _padded_edge(u: torch.Tensor, ghosts: tuple, ax: int, start: int,
+                 n: int) -> torch.Tensor:
+    """``narrow(ax, start, n)`` of ``u`` padded on the axes of ``ghosts``
+    (``(axis, lo slab, hi slab)`` in padding order), built from the narrowed
+    slabs alone: a strip's ghost ends, never a padded copy of ``u``."""
+    slab = u.narrow(ax, start, n)
+    for gax, lo, hi in ghosts:
+        parts = [slab]
+        if lo is not None:
+            parts.insert(0, lo.narrow(ax, start, n))
+        if hi is not None:
+            parts.append(hi.narrow(ax, start, n))
+        slab = torch.cat(parts, dim=gax)
+    return slab
+
+
+def exchange_strips(
+    u: torch.Tensor, widths: Sequence, specs: Sequence[AxisSpec]
+) -> tuple:
+    """The strips :func:`exchange_pad` would receive, without padding:
+    for each spec ``(from_lo, from_hi)``, the neighbours' strips on a
+    decomposed axis (None on a face without a neighbour, and on every face
+    of an axis that is not decomposed).
+
+    The strips travel through the axes' transports as ``exchange_pad``
+    sends them (the same posts, so the same bytes are booked and sent):
+    one axis after another, a later axis's strip carrying the ghost ends of
+    the axes before it, which are built from the small edge slabs
+    (:func:`_padded_edge`).  Every rank of a decomposed axis must call it
+    with the same widths."""
+    if len(widths) != len(specs):
+        raise ValueError("widths and specs length mismatch")
+    norm = [_norm_width(w) for w in widths]
+    active = [i for i, (spec, w) in enumerate(zip(specs, norm))
+              if spec.mesh_axis is not None and w != (0, 0)]
+    out = [(None, None)] * len(specs)
+    ghosts = []
+    for i, ((wlo, whi), spec) in enumerate(zip(norm, specs)):
+        if not active or i > active[-1]:
+            break
+        if wlo == 0 and whi == 0:
+            continue
+        ax = tensor_axis(spec.array_axis)
+        size = u.shape[ax]
+        _check_extent(size, wlo, whi, spec)
+        edge = functools.partial(_padded_edge, u, tuple(ghosts), ax)
+        got = _post(edge, size, wlo, whi, spec)()
+        if spec.mesh_axis is not None:
+            out[i] = got
+        if i < active[-1]:      # a later strip carries this axis's ghosts
+            ghosts.append((ax, *_ghost_slabs(edge, size, wlo, whi, spec, ax,
+                                             *got)))
+    return tuple(out)
+
+
+# -- the faces of a kernel that fills its own ghosts --------------------------
+@dataclasses.dataclass(frozen=True)
+class FieldGhosts:
+    """One field's ghost zone as a kernel reads it: its three specs, the
+    strips received on its decomposed faces (:func:`exchange_strips`) and
+    ``faces``, the six faces in the order x lo, x hi, y lo, y hi, z lo,
+    z hi: each a :class:`GhostForm`, or the received strip (a tensor)."""
+
+    specs: tuple
+    strips: tuple
+    faces: tuple
+
+
+def field_ghosts(specs: Sequence[AxisSpec], strips=None
+                 ) -> FieldGhosts | None:
+    """The table of six faces of a field with these specs at width 1, or
+    None where a face's rule declares no form (that field keeps the
+    padded route).  A decomposed face with a neighbour takes its strip
+    (``strips``, :func:`exchange_strips`'s pairs); an edge rank's face of
+    a decomposed axis, and every face of one that is not, its rule or the
+    periodic wrap, as :func:`exchange_pad` fills them."""
+    specs = tuple(specs)
+    strips = tuple(strips) if strips is not None else ((None, None),) * 3
+    if len(specs) != GRID_DIMS or len(strips) != GRID_DIMS:
+        raise ValueError("a field has three specs and three strip pairs")
+    faces = []
+    for spec, pair in zip(specs, strips):
+        for step, rule, got in ((-1, spec.bc_lo, pair[0]),
+                                (+1, spec.bc_hi, pair[1])):
+            if spec.mesh_axis is not None:
+                if spec.link is None:
+                    raise ValueError(
+                        f"axis {spec.array_axis} is decomposed but its spec "
+                        "carries no link to it")
+                if spec.link.peer(step, spec.periodic) is not None:
+                    if got is None:
+                        raise ValueError(
+                            f"axis {spec.array_axis}: a decomposed face "
+                            "with a neighbour needs its received strip")
+                    faces.append(got)
+                    continue
+            elif spec.periodic:
+                faces.append(WRAP_FORM)
+                continue
+            form = form_of(rule)
+            if form is None:
+                return None
+            faces.append(form)
+    return FieldGhosts(specs, strips, tuple(faces))
 
 
 def exchange_pad_start(

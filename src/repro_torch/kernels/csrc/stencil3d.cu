@@ -4,39 +4,46 @@
 // Each kernel computes what one instance of the reference's descriptor-
 // generated 3DBLOCK Pallas template computes (src/repro/core/generator.py,
 // GeneratedKernel._apply_pallas, with the bodies of
-// src/repro/kernels/stencil3d.py).  The TPU template staged halo-expanded
-// tiles in VMEM and read per-slot scalars through scalar prefetch; here:
-//
-//   * one thread per output cell, threadIdx.x along the contiguous z axis
-//     so that every load and store of a warp is coalesced (fields are
-//     C-order (S, X, Y, Z) float32, S the slot axis);
-//   * a block of (tz, ty) threads covers tz cells along z and ty rows along
-//     y, and walks tx consecutive (slot, x) rows; blockIdx.z strides over
-//     the groups of tx rows, so any interior shape and any slot count
-//     launch, with bounds checks and no tile divisibility.  The launcher
-//     takes the tile (tx, ty, tz) from its caller: the wrapper's block_for
-//     default (tx = 1) or the autotuner's choice
-//     (repro_torch.core.autotune.tile_for).  Which thread computes a cell
-//     changes nothing in its arithmetic, so every tile gives the same bits;
-//   * per-slot parameters come from an (S, n_params) float32 table on the
-//     device, one row per slot (the twin of the generator's scalar table),
-//     in the column order of repro_torch.kernels.stencil3d.TABLES: the
-//     terms the reference bakes as literals from h and omega (1/h, 1/h^2,
-//     h^2, 1 - omega) arrive computed in double and rounded once, never
-//     recomputed here in float32.  Admitting another parameter set never
-//     rebuilds anything, and no scalar crosses from the host.
+// src/repro/kernels/stencil3d.py: UPDATE_VELOCITY :74, DIVERGENCE :148,
+// JACOBI_PRESSURE :159, PROJECT_VELOCITY :171).  The TPU template staged
+// halo-expanded tiles in VMEM, which its caller had padded, and read
+// per-slot scalars through scalar prefetch.  Here per-slot parameters come
+// from an (S, n_params) float32 table on the device, one row per slot (the
+// twin of the generator's scalar table), in the column order of
+// repro_torch.kernels.stencil3d.TABLES: the terms the reference bakes as
+// literals from h and omega (1/h, 1/h^2, h^2, 1 - omega) arrive computed in
+// double and rounded once.  Admitting another parameter set never rebuilds
+// anything, and no scalar crosses from the host.
 //
 // All four are memory-bound on an H100 (3.35 TB/s against 67 TFLOP/s of
 // float32): the bytes per interior cell, counting each input byte read once
 // and each output byte written once, are UPDATE_VELOCITY 24,
 // DIVERGENCE ~16 (12 read, 4 written), JACOBI_PRESSURE 12,
-// PROJECT_VELOCITY 28.  Against that, the arithmetic per cell (about 150,
-// 6, 13 and 10 float operations) is far below the card's balance point.
-// The design relies on L1/L2 for the reuse of neighbour values between
-// adjacent threads; a block that walks x planes (tx > 1) finds the planes
-// it read for the previous row in its SM's L1 rather than in L2.
-// Shared-memory tiles and TMA staging of the halo-expanded block are later
-// work.
+// PROJECT_VELOCITY 28, against about 150, 6, 13 and 10 float operations.
+//
+// JACOBI_PRESSURE and UPDATE_VELOCITY stream (see "The streaming kernels"
+// below): a block marches along x through a ring of planes in shared
+// memory, and in their ghosted load they read the fields unpadded and fill
+// the ghost zone themselves from the faces' rules as data and the strips
+// the neighbour ranks sent.  The padded copy of a whole field that their
+// callers made before every launch (three volume copies a pad; 43 pads a
+// step for these two) is gone from their path; the padded load stays as a
+// mode of the same loader, for the thin shells of the interior/shell split
+// and for rules that declare no form.  Bounds: JACOBI_PRESSURE reads p and
+// rhs and writes p, UPDATE_VELOCITY reads and writes three fields, each
+// once, plus the strips and the faces' table of b.
+//
+// DIVERGENCE and PROJECT_VELOCITY (and the generated template at the end)
+// still read padded fields, one thread per output cell, threadIdx.x along
+// the contiguous z axis so that every load and store of a warp is
+// coalesced; a block of (tz, ty) threads walks tx consecutive (slot, x)
+// rows, blockIdx.z striding over the groups of rows, relying on L1/L2 for
+// the reuse of neighbour values.
+//
+// The launch tile (tx, ty, tz) comes from the caller: the wrapper's
+// block_for default or the autotuner's choice
+// (repro_torch.core.autotune.tile_for).  Which thread computes a cell
+// changes nothing in its arithmetic, so every tile gives the same bits.
 //
 // Every float operation is rounded as written, in the order of the plain
 // body (repro_torch/kernels/stencil3d.py, whose order the reference's
@@ -95,11 +102,12 @@ __device__ __forceinline__ void row_of(int64_t r, int64_t nx, int64_t& s,
 }
 
 // The rows a block computes: groups of tx consecutive (slot, x) rows, the
-// group index striding over blockIdx.z.  Each kernel comes in two
-// instantiations: kWalk = false is for tx = 1, where the walk reduces to the
-// one-row loop r = blockIdx.z, blockIdx.z + gridDim.z, ... with nothing
-// around it (a loop with a bound known only at run time around the body
-// cost the three small kernels 2-42% at tx = 1, whose blocks then walk
+// group index striding over blockIdx.z.  Each kernel that walks rows
+// (DIVERGENCE, PROJECT_VELOCITY, the generated template) comes in two
+// instantiations: kWalk = false is for tx = 1, where the walk reduces to
+// the one-row loop r = blockIdx.z, blockIdx.z + gridDim.z, ... with
+// nothing around it (a loop with a bound known only at run time around the
+// body cost the small kernels 2-42% at tx = 1, whose blocks then walk
 // nothing); kWalk = true walks tx rows.
 #define ROWS(r)                                                            \
   for (int64_t r##0 = (int64_t)blockIdx.z * (kWalk ? tx : 1); r##0 < S * nx; \
@@ -115,33 +123,477 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 
 #ifndef STENCIL3D_GENERATED
 // ---------------------------------------------------------------------------
+// The streaming kernels, JACOBI_PRESSURE and UPDATE_VELOCITY: the 2.5D
+// march of csrc/jacobi.cu for one sweep.  A block of (tz, ty) threads owns a
+// (ty, tz) column of the yz-plane of one slot and marches along x over tx
+// planes (its segment); blockIdx.z strides over the (slot, segment) pairs.
+// Each cached field keeps a ring of kBufs planes in shared memory, each the
+// block's (ty + 2) x (tz + 2) cells: its own and the one-cell ring about
+// them.  At step t (output plane x0 + t) planes t, t+1, t+2 of the padded x
+// range x0-1 .. x1 are read while planes t+3 and t+4 are in flight:
+// cp.async copies, one commit group a plane, so one __syncthreads() a step
+// suffices (the plane a step overwrites was last read the step before).  An
+// input without a halo (JACOBI_PRESSURE's rhs) rides in the same groups,
+// the block's own cells of its plane only.
+//
+// Two load modes of one loader (kGhost):
+//   * padded (kGhost = false): the field arrives padded by 1 on every side,
+//     (S, nx+2, ny+2, nz+2), and every cell of the ring is a copy;
+//   * ghosted (kGhost = true): the field arrives unpadded, (S, nx, ny, nz),
+//     and the block fills the ring's ghost cells itself from the field's
+//     six faces (struct Ghosts): a rule as data, ghost = a m + b of the
+//     mirrored interior cell m (its kind says which terms it has, so that
+//     each is rounded as the rule's call rounds it), the periodic wrap, or
+//     the strip the neighbour rank sent.  The value at a padded position is
+//     the one exchange_pad's array holds there: the axes are resolved z, y,
+//     x and their rules applied x, then y, then z, as the padding pads x
+//     first and each later axis over the earlier ones (an edge cell
+//     composes the rules; a strip of a later axis carries the ghost ends of
+//     the earlier ones).  The ghost planes x = -1 and x = nx are made the
+//     same way, by rule from plane 0 or nx - 1, or from the x strip.
+//     A ghost cell is copied asynchronously like any other, from the cell
+//     its position folds to (the mirrored edge cell across a rule, the far
+//     side's across a wrap, the strip's cell; a ghost plane's cells from
+//     plane 0 or nx - 1, the far plane or the x strip), found out of line
+//     (ghost_copy), so a block on the grid's faces moves what an inner one
+//     moves.  Once a thread's copies of a plane have landed it applies the
+//     rules to the ghost cells it copied, before the step's barrier
+//     (fix_cells): no second barrier.  A block whose cells of a plane all
+//     lie in the grid (most of them) takes the padded load's plain copies,
+//     with no test per cell.
+// ---------------------------------------------------------------------------
+enum : int { kConst = 0, kLinear = 1, kAffine = 2, kWrap = 3, kStrip = 4 };
+constexpr int kFaces = 6;   // x lo, x hi, y lo, y hi, z lo, z hi
+constexpr int kMaxFields = 3;
+constexpr int kBufs = 5;    // planes a field keeps: 3 read, 2 in flight
+
+// one face of one field (repro_torch.kernels.stencil3d_cuda._Face)
+struct Face {
+  const float* strip;   // kStrip: the received strip, C-order
+  float a;              // kLinear, kAffine
+  int kind;
+};
+struct Ghosts {
+  Face f[kMaxFields][kFaces];
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the face's rule on the mirrored cell m, b the slot's value of its b
+__device__ __forceinline__ float rule(const Face& f, float b, float m) {
+  if (f.kind == kConst) return b;
+  if (f.kind == kLinear) return mul(f.a, m);
+  return add(mul(f.a, m), b);
+}
+
+// A field's six face kinds, 3 bits a face (face q at bit 3 q): one register
+// that the march keeps instead of the faces.
+__device__ __forceinline__ int pack_kinds(const Face* f) {
+  int kinds = 0;
+#pragma unroll
+  for (int q = 0; q < kFaces; ++q) kinds |= f[q].kind << (3 * q);
+  return kinds;
+}
+__device__ __forceinline__ int kind_of(int kinds, int q) {
+  return (kinds >> (3 * q)) & 7;
+}
+
+// The index, j < 0 or j >= n, of the cell whose value a ghost cell takes
+// across a face of this kind (a rule: the mirrored edge cell; a wrap: the
+// far side's).
+__device__ __forceinline__ int fold(int j, int n, int kind) {
+  return (j < 0) != (kind == kWrap) ? 0 : n - 1;
+}
+
+// The rules that make padded cell (i, j, k)'s value from the value its
+// position folds to, applied to v: x, then y, then z, each where its axis
+// is crossed across a rule.  A strip carries the ghost ends of the axes
+// before it: past a z strip no rule applies, past a y strip only z's.
+__device__ __forceinline__ float apply_rules(float v, const Face* f,
+                                             int kinds,
+                                             const float* __restrict__ b,
+                                             int i, int j, int k, int nx,
+                                             int ny, int nz) {
+  int fx = -1, fy = -1, fz = -1;
+  if (k < 0 || k >= nz) {
+    const int q = 4 + (k >= 0), kd = kind_of(kinds, q);
+    if (kd == kStrip) return v;
+    if (kd <= kAffine) fz = q;
+  }
+  bool ystrip = false;
+  if (j < 0 || j >= ny) {
+    const int q = 2 + (j >= 0), kd = kind_of(kinds, q);
+    ystrip = kd == kStrip;
+    if (kd <= kAffine) fy = q;
+  }
+  if (!ystrip && (i < 0 || i >= nx)) {
+    const int q = i >= 0, kd = kind_of(kinds, q);
+    if (kd <= kAffine) fx = q;
+  }
+  if (fx >= 0) v = rule(f[fx], b[fx], v);
+  if (fy >= 0) v = rule(f[fy], b[fy], v);
+  if (fz >= 0) v = rule(f[fz], b[fz], v);
+  return v;
+}
+
+// Start copying to dst the value padded cell (i, j, k), -1 <= i <= nx etc.,
+// of slot s folds to: the cell of src, the plane load_plane copies from,
+// at the folded (j, k), or where a y or z strip is crossed the strip's
+// cell.  Out of line: only the blocks that meet a rule or a strip, or
+// overhang the grid, call it, and inline it cost JACOBI_PRESSURE spills.
+__device__ __noinline__ void ghost_copy(float* dst, const float* src,
+                                        const float* __restrict__ u,
+                                        const Face* f, int kinds, int64_t s,
+                                        int i, int j, int k, int nx, int ny,
+                                        int nz) {
+  const bool kz = k < 0 || k >= nz, ky = j < 0 || j >= ny;
+  if (kz) {
+    const int q = 4 + (k >= 0), kd = kind_of(kinds, q);
+    if (kd == kStrip) {   // (S, nx+2, ny+2, 1)
+      cp_async4(dst, f[q].strip + (s * (nx + 2) + i + 1) * (int64_t)(ny + 2) +
+                         j + 1);
+      return;
+    }
+    k = fold(k, nz, kd);
+  }
+  if (ky) {
+    const int q = 2 + (j >= 0), kd = kind_of(kinds, q);
+    if (kd == kStrip) {   // (S, nx+2, 1, nz)
+      cp_async4(dst, f[q].strip + (s * (nx + 2) + i + 1) * (int64_t)nz + k);
+      return;
+    }
+    j = fold(j, ny, kd);
+  }
+  cp_async4(dst, src + (int64_t)j * nz + k);
+}
+
+// The block's geometry and its place in the grid.  A plane of a field in
+// shared memory is (ty + 2) rows of tz + 2 floats: the block's own cells
+// and the ring about them.
+struct Tile {
+  int ty, tz, ez, plane;  // ez: a row in shared memory
+  int y0, z0;             // the block's first output cell in y and z
+  int tid, nthreads;
+  int nx, ny, nz;
+  int vj, vk;  // this thread's 16-byte copy of four own cells of an input
+               // without a halo: row and first column (vj < 0: none)
+  bool over;   // some own cell lies past the grid
+  __device__ Tile(int nx_, int ny_, int nz_)
+      : ty(blockDim.y), tz(blockDim.x), ez(blockDim.x + 2),
+        plane((blockDim.y + 2) * (blockDim.x + 2)),
+        y0(blockIdx.y * blockDim.y), z0(blockIdx.x * blockDim.x),
+        tid(threadIdx.y * blockDim.x + threadIdx.x),
+        nthreads(blockDim.x * blockDim.y), nx(nx_), ny(ny_), nz(nz_) {
+    const int per_row = tz / 4;
+    vj = tz % 4 == 0 && tid < ty * per_row ? tid / per_row : -1;
+    vk = vj >= 0 ? (tid - vj * per_row) * 4 : 0;
+    over = y0 + ty > ny || z0 + tz > nz;
+  }
+  // shared-memory index of ring cell (jj, kk): jj, kk = 0 the ring's low
+  // row and column, 1 .. ty and 1 .. tz the block's own cells
+  __device__ __forceinline__ int at(int jj, int kk) const {
+    return jj * ez + kk;
+  }
+  // the ring cell (jj, kk) of this thread's r-th turn over the ring
+  __device__ __forceinline__ void ring_cell(int r, int& jj, int& kk) const {
+    if (r < 2 * (tz + 2)) {
+      const bool top = r < tz + 2;
+      jj = top ? 0 : ty + 1;
+      kk = top ? r : r - (tz + 2);
+    } else {
+      const int q = r - 2 * (tz + 2);
+      jj = 1 + (q >> 1);
+      kk = (q & 1) ? tz + 1 : 0;
+    }
+  }
+  __device__ __forceinline__ int ring() const { return 2 * (tz + 2) + 2 * ty; }
+};
+
+// Does this block meet a face of a field (kinds: pack_kinds) whose ghost
+// cells are not plain copies across the wrap: a rule or a strip?  (The
+// same for every thread of the block.)
+__device__ __forceinline__ bool meets_rules(int kinds, const Tile& t) {
+  return (t.y0 == 0 && kind_of(kinds, 2) != kWrap) ||
+         (t.y0 + t.ty >= t.ny && kind_of(kinds, 3) != kWrap) ||
+         (t.z0 == 0 && kind_of(kinds, 4) != kWrap) ||
+         (t.z0 + t.tz >= t.nz && kind_of(kinds, 5) != kWrap);
+}
+
+// Start loading padded plane i of one field of slot s into dst: the
+// block's own cells and the ring (spread over the threads).  A cell past
+// the padded field (a block that overhangs the grid) is skipped: only
+// threads without an output cell read it.  In the ghosted load (kinds: the
+// faces' kinds, pack_kinds) a block that meets no rule or strip (rules:
+// meets_rules) copies every cell from the plane it folds to, a ring cell
+// across a wrap from the far side; the others, and a block that
+// overhangs, copy the cells past the grid through ghost_copy.
+template <bool kGhost>
+__device__ __forceinline__ void load_plane(float* dst,
+                                           const float* __restrict__ u,
+                                           const Face* f, int kinds,
+                                           bool rules, int64_t s, int i,
+                                           const Tile& t) {
+  // the plane the cells come from, its cell (j, k) at src + j rz + k
+  // (-1 <= j, k in the padded load): u's plane i, or for a ghost plane the
+  // plane its position folds to or the x strip, which is laid out alike
+  const int64_t rz = kGhost ? t.nz : t.nz + 2;
+  const float* src;
+  if (!kGhost) {
+    src = u + ((s * (t.nx + 2) + i + 1) * (t.ny + 2) + 1) * rz + 1;
+  } else if (i >= 0 && i < t.nx) {
+    src = u + (s * t.nx + i) * (int64_t)t.ny * t.nz;
+  } else {
+    const int q = i >= 0, kd = kind_of(kinds, q);
+    src = kd == kStrip
+              ? f[q].strip + s * (int64_t)t.ny * t.nz
+              : u + (s * t.nx + fold(i, t.nx, kd)) * (int64_t)t.ny * t.nz;
+  }
+  auto copy = [&](int jj, int kk, int j, int k) {
+    cp_async4(dst + t.at(jj, kk), src + j * rz + k);
+  };
+  auto any = [&](int jj, int kk) {
+    const int j = t.y0 - 1 + jj, k = t.z0 - 1 + kk;
+    if (j > t.ny || k > t.nz) return;   // past the padded field
+    if (kGhost && (j < 0 || j >= t.ny || k < 0 || k >= t.nz))
+      ghost_copy(dst + t.at(jj, kk), src, u, f, kinds, s, i, j, k, t.nx,
+                 t.ny, t.nz);
+    else
+      copy(jj, kk, j, k);
+  };
+  if (!t.over)
+    copy(threadIdx.y + 1, threadIdx.x + 1, t.y0 + threadIdx.y,
+         t.z0 + threadIdx.x);
+  else
+    any(threadIdx.y + 1, threadIdx.x + 1);
+  const bool plain = !t.over && !(kGhost && rules);
+  for (int r = t.tid; r < t.ring(); r += t.nthreads) {
+    int jj, kk;
+    t.ring_cell(r, jj, kk);
+    if (plain) {
+      int j = t.y0 - 1 + jj, k = t.z0 - 1 + kk;
+      if (kGhost) {   // across a wrap: the far side
+        j = j < 0 ? j + t.ny : j >= t.ny ? j - t.ny : j;
+        k = k < 0 ? k + t.nz : k >= t.nz ? k - t.nz : k;
+      }
+      copy(jj, kk, j, k);
+    } else {
+      any(jj, kk);
+    }
+  }
+}
+
+// Apply the rules to the ghost cells of padded plane i of one field that
+// this thread copied, once they have landed; b: the slot's six values of
+// b.  Called where the plane has any: a ghost plane across an x rule, or a
+// block that meets a rule (rules) or overhangs.
+__device__ __forceinline__ void fix_cells(float* dst, const Face* f,
+                                          int kinds,
+                                          const float* __restrict__ b, int i,
+                                          const Tile& t) {
+  const bool inner = i >= 0 && i < t.nx;
+  auto fix = [&](int jj, int kk) {
+    const int j = t.y0 - 1 + jj, k = t.z0 - 1 + kk;
+    if (j > t.ny || k > t.nz) return;
+    if (inner && j >= 0 && j < t.ny && k >= 0 && k < t.nz) return;
+    float* d = dst + t.at(jj, kk);
+    *d = apply_rules(*d, f, kinds, b, i, j, k, t.nx, t.ny, t.nz);
+  };
+  if (!inner || t.over) fix(threadIdx.y + 1, threadIdx.x + 1);
+  for (int r = t.tid; r < t.ring(); r += t.nthreads) {
+    int jj, kk;
+    t.ring_cell(r, jj, kk);
+    fix(jj, kk);
+  }
+}
+
+// Start loading plane x of an input without a halo (unpadded) into dst,
+// the block's own cells, a row tz floats.
+__device__ __forceinline__ void load_flat(float* dst,
+                                          const float* __restrict__ v,
+                                          int64_t s, int x, bool vec,
+                                          const Tile& t) {
+  const int64_t px = (s * t.nx + x) * (int64_t)t.ny * t.nz;
+  if (vec) {
+    const int j = t.y0 + t.vj, k = t.z0 + t.vk;
+    if (t.vj >= 0 && j < t.ny && k < t.nz)
+      cp_async16(dst + t.vj * t.tz + t.vk, v + px + (int64_t)j * t.nz + k);
+  } else {
+    const int j = t.y0 + threadIdx.y, k = t.z0 + threadIdx.x;
+    if (j < t.ny && k < t.nz)
+      cp_async4(dst + threadIdx.y * t.tz + threadIdx.x,
+                v + px + (int64_t)j * t.nz + k);
+  }
+}
+
+// Where an input without a halo starts in shared memory: at the first
+// 16-byte boundary past the F fields' planes (four of its cells are one
+// 16-byte copy).
+__device__ __forceinline__ int flat_offset(int F, const Tile& t) {
+  return (F * kBufs * t.plane + 3) & ~3;
+}
+
+// The march of one block over its (slot, segment) pairs: body(s, x, t)
+// computes output plane x (step t of the segment) from the ring planes
+// t, t+1, t+2 of each field, and flat's plane x at flat ring slot t+1
+// (flat: an input without a halo, or null); fields: the F cached inputs.
+template <int F, bool kGhost, typename Body>
+__device__ __forceinline__ void march(const float* const (&fields)[F],
+                                      const float* __restrict__ flat,
+                                      const Ghosts& g,
+                                      const float* __restrict__ btab,
+                                      float* smem, int64_t S, int tx,
+                                      const Tile& t, Body body) {
+  const int segs = (t.nx + tx - 1) / tx;
+  float* const fsmem = smem + flat_offset(F, t);
+  int kinds[F];
+  bool rules[F];
+#pragma unroll
+  for (int m = 0; m < F; ++m) {
+    kinds[m] = kGhost ? pack_kinds(g.f[m]) : 0;
+    rules[m] = kGhost && meets_rules(kinds[m], t);
+  }
+  const bool fvec =
+      t.tz % 4 == 0 && t.nz % 4 == 0 && ((uintptr_t)flat & 15) == 0;
+  for (int64_t row = blockIdx.z; row < S * segs; row += gridDim.z) {
+    const int64_t s = row / segs;
+    const int x0 = (int)(row - s * segs) * tx;
+    const int steps = min(x0 + tx, t.nx) - x0;
+    const int loads = steps + 2;              // padded planes x0-1 .. x0+steps
+    auto load = [&](int q) {
+#pragma unroll
+      for (int m = 0; m < F; ++m)
+        load_plane<kGhost>(smem + (m * kBufs + q % kBufs) * t.plane,
+                           fields[m], g.f[m], kinds[m], rules[m], s,
+                           x0 - 1 + q, t);
+      if (flat != nullptr && q >= 1 && q <= steps)
+        load_flat(fsmem + (q % kBufs) * t.ty * t.tz, flat, s, x0 - 1 + q,
+                  fvec, t);
+    };
+    // the rules on this thread's ghost cells of plane q, landed
+    auto fix = [&](int q) {
+      const int i = x0 - 1 + q;
+      const bool inner = i >= 0 && i < t.nx;
+#pragma unroll
+      for (int m = 0; m < F; ++m)
+        if (rules[m] || t.over ||
+            (!inner && kind_of(kinds[m], i >= 0) <= kAffine))
+          fix_cells(smem + (m * kBufs + q % kBufs) * t.plane, g.f[m],
+                    kinds[m], btab + (s * F + m) * kFaces, i, t);
+    };
+    __syncthreads();   // the previous segment's readers are done
+#pragma unroll 1
+    for (int q = 0; q < kBufs - 1; ++q) {   // one copy group a plane
+      if (q < loads) load(q);
+      cp_async_commit();
+    }
+    for (int st = 0; st < steps; ++st) {
+      cp_async_wait<kBufs - 4>();   // planes st .. st+2 have landed ...
+      if (kGhost) {                 // ... their ghost cells take the rules
+#pragma unroll 1
+        for (int q = st == 0 ? 0 : st + 2; q <= st + 2; ++q) fix(q);
+      }
+      __syncthreads();              // ... for every thread
+      if (st + kBufs - 1 < loads) load(st + kBufs - 1);
+      cp_async_commit();
+      body(s, x0 + st, st);
+    }
+    cp_async_wait<0>();
+  }
+}
+
+// The streaming kernels' launch: the grid is (z tiles, y tiles, slot x
+// segment pairs), blockIdx.z striding past 65535; a padded plane is
+// indexed in 32 bits and the extents are ints.
+int64_t segments(int64_t nx, int tx) { return (nx + tx - 1) / tx; }
+
+dim3 grid_stream(dim3 block, int tx, int64_t S, int64_t nx, int64_t ny,
+                 int64_t nz) {
+  const int64_t rows = S * segments(nx, tx);
+  return dim3((unsigned)((nz + block.x - 1) / block.x),
+              (unsigned)((ny + block.y - 1) / block.y),
+              (unsigned)(rows < kMaxGridZ ? rows : kMaxGridZ));
+}
+
+bool bad_stream(int64_t S, int64_t nx, int64_t ny, int64_t nz, int tx,
+                int ty, int tz) {
+  return bad_launch(S, nx, ny, nz, tx, ty, tz) ||
+         (ny + 2) * (nz + 2) >= ((int64_t)1 << 31) ||
+         nx + 2 >= ((int64_t)1 << 31);
+}
+
+// a block's shared memory: kBufs planes of (ty + 2) x (tz + 2) a cached
+// field, then from a 16-byte boundary kBufs of ty x tz an input without a
+// halo (at most 46,448 bytes, UPDATE_VELOCITY at tz = 1, ty = 256; a
+// launch that needs more than the 48 KB a block takes without opting in
+// opts in)
+constexpr size_t kSmemDefault = 48 * 1024;
+size_t stream_smem(int fields, int flat, int ty, int tz) {
+  const size_t planes = (size_t)fields * kBufs * (ty + 2) * (tz + 2);
+  return sizeof(float) * (((planes + 3) & ~(size_t)3) +
+                          (size_t)flat * kBufs * ty * tz);
+}
+// ---------------------------------------------------------------------------
 // UPDATE_VELOCITY  (replaces the 3DBLOCK instance of descriptor
 // UPDATE_VELOCITY, src/repro/kernels/stencil3d.py, body update_velocity_body)
 // u* = u + dt (-(MAC central flux-form advection) + nu lap(u) + f)
-// in: vx, vy, vz padded by 1 on every side, (S, nx+2, ny+2, nz+2)
-// out: three (S, nx, ny, nz); table dt, 1/h, 1/h^2, nu, fx, fy, fz
+// in: vx, vy, vz, unpadded (S, nx, ny, nz) with their faces (ghosted), or
+// padded by 1 on every side (padded); out: three (S, nx, ny, nz); table dt,
+// 1/h, 1/h^2, nu, fx, fy, fz
 // ---------------------------------------------------------------------------
-template <bool kWalk>
-__global__ void __launch_bounds__(kThreads) update_velocity_kernel(
+// (4 blocks an SM: the ghosted load at most 64 registers, where it took
+// more and ran slower; the padded load fits 5 as it is)
+template <bool kGhost>
+__global__ void __launch_bounds__(kThreads, kGhost ? 4 : 5)
+    update_velocity_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ oz,
-    const float* __restrict__ table, int64_t S, int64_t nx, int64_t ny,
-    int64_t nz, int tx) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= ny || k >= nz) return;
-  const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
-  ROWS(r) {
-    int64_t s, i;
-    row_of(r, nx, s, i);
+    const float* __restrict__ table, const __grid_constant__ Ghosts g,
+    const float* __restrict__ btab, int64_t S, int nx, int ny, int nz,
+    int tx) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile t(nx, ny, nz);
+  const int j = t.y0 + threadIdx.y, k = t.z0 + threadIdx.x;
+  const bool mine = j < ny && k < nz;
+  const int c = t.at(threadIdx.y + 1, threadIdx.x + 1);
+  const int ez = t.ez;
+  const float* const fields[3] = {vx, vy, vz};
+  march<3, kGhost>(fields, nullptr, g, btab, smem, S, tx, t,
+                   [&](int64_t s, int x, int st) {
+    if (!mine) return;
     const float* prm = table + s * 7;
     const float dt = prm[0], ih = prm[1], ih2 = prm[2], nu = prm[3];
     const float fx = prm[4], fy = prm[5], fz = prm[6];
-    const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
-#define U(a, b, d) vx[c + (a) * sx + (b) * sy + (d)]
-#define V(a, b, d) vy[c + (a) * sx + (b) * sy + (d)]
-#define W(a, b, d) vz[c + (a) * sx + (b) * sy + (d)]
+    // planes x-1, x, x+1 of each field
+    const float* pu[3];
+    const float* pv[3];
+    const float* pw[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int q = (st + a) % kBufs;
+      pu[a] = smem + (0 * kBufs + q) * t.plane + c;
+      pv[a] = smem + (1 * kBufs + q) * t.plane + c;
+      pw[a] = smem + (2 * kBufs + q) * t.plane + c;
+    }
+#define U(a, b, d) pu[(a) + 1][(b) * ez + (d)]
+#define V(a, b, d) pv[(a) + 1][(b) * ez + (d)]
+#define W(a, b, d) pw[(a) + 1][(b) * ez + (d)]
 // the body's lap(f): ((((((f+x + f-x) + f+y) + f-y) + f+z) + f-z) - 6 f) / h^2
 #define LAP(F)                                                          \
   mul(sub(add(add(add(add(add(F(1, 0, 0), F(-1, 0, 0)), F(0, 1, 0)),    \
@@ -214,11 +666,11 @@ __global__ void __launch_bounds__(kThreads) update_velocity_kernel(
 #undef V
 #undef U
 
-    const int64_t o = (r * ny + j) * nz + k;
+    const int64_t o = ((s * nx + x) * ny + j) * (int64_t)nz + k;
     ox[o] = new_vx;
     oy[o] = new_vy;
     oz[o] = new_vz;
-  }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -253,32 +705,48 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
 // JACOBI_PRESSURE  (replaces the 3DBLOCK instance of descriptor
 // JACOBI_PRESSURE, body jacobi_pressure_body), launched jacobi_iters times
 // per step: p' = (1 - omega) p + omega (sum of 6 neighbours - h^2 rhs) / 6
-// in: p padded by 1 on every side (S, nx+2, ny+2, nz+2), rhs (S, nx, ny, nz)
-// out: (S, nx, ny, nz); table h^2, omega, 1 - omega
+// in: p unpadded (S, nx, ny, nz) with its faces (ghosted), or padded by 1
+// on every side (padded); rhs (S, nx, ny, nz); out: (S, nx, ny, nz); table
+// h^2, omega, 1 - omega.  rhs rides the ring's copy groups (the block's
+// own cells); a thread carries its cell's p of planes x-1 and x from one
+// step to the next in registers, reading plane x+1's from the ring.
 // ---------------------------------------------------------------------------
-template <bool kWalk>
+template <bool kGhost>
 __global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
     const float* __restrict__ p, const float* __restrict__ rhs,
-    float* __restrict__ out, const float* __restrict__ table, int64_t S,
-    int64_t nx, int64_t ny, int64_t nz, int tx) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= ny || k >= nz) return;
-  const int64_t sy = nz + 2, sx = (ny + 2) * sy, ss = (nx + 2) * sx;
-  ROWS(r) {
-    int64_t s, i;
-    row_of(r, nx, s, i);
+    float* __restrict__ out, const float* __restrict__ table,
+    const __grid_constant__ Ghosts g, const float* __restrict__ btab,
+    int64_t S, int nx, int ny, int nz, int tx) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile t(nx, ny, nz);
+  const int j = t.y0 + threadIdx.y, k = t.z0 + threadIdx.x;
+  const bool mine = j < ny && k < nz;
+  const int c = t.at(threadIdx.y + 1, threadIdx.x + 1);
+  const float* const rsm =
+      smem + flat_offset(1, t) + threadIdx.y * t.tz + threadIdx.x;
+  const int64_t oplane = (int64_t)ny * nz, ocell = (int64_t)j * nz + k;
+  const float* const fields[1] = {p};
+  float lo = 0.0f, pc = 0.0f;   // this cell's p on planes x-1 and x
+  march<1, kGhost>(fields, rhs, g, btab, smem, S, tx, t,
+                   [&](int64_t s, int x, int st) {
+    if (!mine) return;
+    const float* mid = smem + ((st + 1) % kBufs) * t.plane + c;
+    if (st == 0) {   // a segment's first step: x-1 and x from the ring
+      lo = smem[(st % kBufs) * t.plane + c];
+      pc = mid[0];
+    }
+    const float hi = smem[((st + 2) % kBufs) * t.plane + c];
+    const float r = rsm[((st + 1) % kBufs) * t.ty * t.tz];
     const float h2 = table[s * 3], omega = table[s * 3 + 1],
                 omc = table[s * 3 + 2];
-    const int64_t c = s * ss + (i + 1) * sx + (j + 1) * sy + (k + 1);
-    const int64_t o = (r * ny + j) * nz + k;
-    const float nbr = add(add(add(add(add(p[c + sx], p[c - sx]), p[c + sy]),
-                                      p[c - sy]),
-                                  p[c + 1]),
-                              p[c - 1]);
-    const float jac = __fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f);
-    out[o] = add(mul(omc, p[c]), mul(omega, jac));
-  }
+    const float nbr = add(add(add(add(add(hi, lo), mid[t.ez]), mid[-t.ez]),
+                              mid[1]),
+                          mid[-1]);
+    const float jac = __fdiv_rn(sub(nbr, mul(h2, r)), 6.0f);
+    out[(s * nx + x) * oplane + ocell] = add(mul(omc, pc), mul(omega, jac));
+    lo = pc;
+    pc = hi;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -355,22 +823,37 @@ extern "C" {
 
 #ifndef STENCIL3D_GENERATED
 
+// ghosts: the fields' faces (struct Ghosts) for the ghosted load (vx, vy,
+// vz unpadded), with btab, the (S, 3 * 6) table of their values of b; null
+// for the padded load.  (A pointer to a type of the unnamed namespace
+// would give the function internal linkage: it takes void.)
 cudaError_t stencil3d_update_velocity(const float* vx, const float* vy,
                                       const float* vz, float* ox, float* oy,
                                       float* oz, const float* table,
+                                      const void* ghosts, const float* btab,
                                       int64_t S, int64_t nx, int64_t ny,
                                       int64_t nz, int tx, int ty, int tz,
                                       void* stream) {
-  if (bad_launch(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
+  if (bad_stream(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
   const dim3 block(tz, ty, 1);
-  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const dim3 grid = grid_stream(block, tx, S, nx, ny, nz);
+  const size_t smem = stream_smem(3, 0, ty, tz);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (tx == 1)
-    update_velocity_kernel<false><<<grid, block, 0, st>>>(
-        vx, vy, vz, ox, oy, oz, table, S, nx, ny, nz, tx);
+  const Ghosts* g = static_cast<const Ghosts*>(ghosts);
+  const Ghosts none = {};
+  if (smem > kSmemDefault)
+    cudaFuncSetAttribute(g ? update_velocity_kernel<true>
+                           : update_velocity_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  if (g)
+    update_velocity_kernel<true><<<grid, block, smem, st>>>(
+        vx, vy, vz, ox, oy, oz, table, *g, btab, S, (int)nx, (int)ny,
+        (int)nz, tx);
   else
-    update_velocity_kernel<true><<<grid, block, 0, st>>>(
-        vx, vy, vz, ox, oy, oz, table, S, nx, ny, nz, tx);
+    update_velocity_kernel<false><<<grid, block, smem, st>>>(
+        vx, vy, vz, ox, oy, oz, table, none, nullptr, S, (int)nx, (int)ny,
+        (int)nz, tx);
   return cudaGetLastError();
 }
 
@@ -392,22 +875,41 @@ cudaError_t stencil3d_divergence(const float* vx, const float* vy,
   return cudaGetLastError();
 }
 
+// ghosts: p's faces (struct Ghosts) for the ghosted load (p unpadded),
+// with btab, the (S, 6) table of their values of b; null for the padded
+// load
 cudaError_t stencil3d_jacobi_pressure(const float* p, const float* rhs,
                                       float* out, const float* table,
+                                      const void* ghosts, const float* btab,
                                       int64_t S, int64_t nx, int64_t ny,
                                       int64_t nz, int tx, int ty, int tz,
                                       void* stream) {
-  if (bad_launch(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
+  if (bad_stream(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
   const dim3 block(tz, ty, 1);
-  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const dim3 grid = grid_stream(block, tx, S, nx, ny, nz);
+  const size_t smem = stream_smem(1, 1, ty, tz);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (tx == 1)
-    jacobi_pressure_kernel<false><<<grid, block, 0, st>>>(
-        p, rhs, out, table, S, nx, ny, nz, tx);
+  const Ghosts* g = static_cast<const Ghosts*>(ghosts);
+  const Ghosts none = {};
+  if (smem > kSmemDefault)
+    cudaFuncSetAttribute(g ? jacobi_pressure_kernel<true>
+                           : jacobi_pressure_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  if (g)
+    jacobi_pressure_kernel<true><<<grid, block, smem, st>>>(
+        p, rhs, out, table, *g, btab, S, (int)nx, (int)ny, (int)nz, tx);
   else
-    jacobi_pressure_kernel<true><<<grid, block, 0, st>>>(
-        p, rhs, out, table, S, nx, ny, nz, tx);
+    jacobi_pressure_kernel<false><<<grid, block, smem, st>>>(
+        p, rhs, out, table, none, nullptr, S, (int)nx, (int)ny, (int)nz,
+        tx);
   return cudaGetLastError();
+}
+
+// shared memory a block of the streaming kernels takes (the study and the
+// autotuner's model read it)
+int stencil3d_stream_smem(int fields, int flat, int ty, int tz) {
+  return (int)stream_smem(fields, flat, ty, tz);
 }
 
 cudaError_t stencil3d_project_velocity(const float* vx, const float* vy,

@@ -18,7 +18,7 @@ from repro_torch.core.generator import generate
 from repro_torch.device import default_template, resolve_template
 from repro_torch.kernels import (
     attention as attention_plain, attention_cuda, autograd, jacobi_cuda,
-    ssd_cuda, stencil3d,
+    ssd_cuda, stencil3d, stencil3d_cuda,
 )
 from repro_torch.kernels.jacobi import jacobi_fused_ref
 from repro_torch.kernels.ref import MaskSpec
@@ -31,7 +31,7 @@ def _kernel(name: str, template: str, tile: tuple | None):
                     template=template, tile=tile)
 
 
-def _auto_tile(name: str, arrays: dict) -> tuple:
+def _auto_tile(name: str, arrays: dict, padded: bool = True) -> tuple:
     """The autotuned launch tile for this kernel's local interior.
 
     Resolved from one slot's interior (the slot axis is no part of it), so
@@ -42,31 +42,57 @@ def _auto_tile(name: str, arrays: dict) -> tuple:
     desc = stencil3d.DESCRIPTORS[name]
     first = arrays[desc.inputs[0]]
     space = tuple(first.shape[-3:])
-    if desc.inputs[0] in desc.cached_inputs:
+    if padded and desc.inputs[0] in desc.cached_inputs:
         space = tuple(s - lo - hi for s, lo, hi in
                       zip(space, desc.halo_lo, desc.halo_hi))
     return autotune.tile_for(desc, space, itemsize=first.element_size()).tile
 
 
 def apply_kernel(name: str, arrays: dict, *, template: str | None = None,
-                 tile: tuple | str | None = None, **params):
+                 tile: tuple | str | None = None, ghosts=None, **params):
     """Run one descriptor kernel.  ``tile`` is the CUDA template's launch
     tile: a concrete ``(tx, ty, tz)``, ``"auto"`` for the autotuner's
     chip-aware choice (:func:`repro_torch.core.autotune.tile_for`), or
     ``None`` for the wrapper's ``block_for``; the TORCH template has no
-    tiles and ignores it, as the reference's JNP template does."""
+    tiles and ignores it, as the reference's JNP template does.
+    ``ghosts`` (CUDA template, ``stencil3d_cuda.STREAMING`` kernels): the
+    cached fields are unpadded and the kernel fills their ghost zones from
+    these faces (:func:`ghosted_inputs`)."""
     first = arrays[stencil3d.DESCRIPTORS[name].inputs[0]]
     tmpl = template or default_template(first.device)
     if tmpl != "CUDA":
         tile = None
     elif tile == "auto":
-        tile = _auto_tile(name, arrays)
+        tile = _auto_tile(name, arrays, padded=ghosts is None)
     kern = _kernel(name, tmpl, None if tile is None else tuple(tile))
     if first.dim() == 3:
-        return kern(arrays, **params)
+        return kern(arrays, ghosts=ghosts, **params)
     per_slot = tuple(k for k, v in params.items()
                      if torch.is_tensor(v) and v.dim() == 1)
-    return kern.apply_batched(arrays, batched_params=per_slot, **params)
+    return kern.apply_batched(arrays, batched_params=per_slot, ghosts=ghosts,
+                              **params)
+
+
+def ghosted_inputs(name: str, fields, specs) -> tuple:
+    """The CUDA template's inputs for a streaming kernel's cached
+    ``fields`` (each with its three :class:`~repro_torch.core.halo.AxisSpec`
+    in ``specs``): their strips are exchanged
+    (:func:`~repro_torch.core.halo.exchange_strips`, nothing padded) and
+    ``(fields, ghosts)`` returned, the fields unpadded beside their faces.
+    Where a face's rule declares no form, ``(padded fields, None)``: each
+    field padded with the strips in hand, the kernel's padded load, counted
+    in ``stencil3d_cuda.PADDED_ROUTE[name]``."""
+    from repro_torch.core import halo
+
+    widths = (1, 1, 1)
+    strips = [halo.exchange_strips(u, widths, sp)
+              for u, sp in zip(fields, specs)]
+    ghosts = [halo.field_ghosts(sp, st) for sp, st in zip(specs, strips)]
+    if all(g is not None for g in ghosts):
+        return list(fields), ghosts
+    stencil3d_cuda.PADDED_ROUTE[name] += 1
+    return [halo.pad_with_strips(u, widths, sp, st)
+            for u, sp, st in zip(fields, specs, strips)], None
 
 
 # -- convenience wrappers (the public op surface) ---------------------------

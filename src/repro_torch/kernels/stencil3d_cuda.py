@@ -4,9 +4,11 @@ One wrapper per kernel of ``csrc/stencil3d.cu``, each replacing one
 instance of the reference's 3DBLOCK Pallas template
 (``repro.core.generator.GeneratedKernel._apply_pallas``):
 
-  update_velocity(vx, vy, vz, table, tile=None)      UPDATE_VELOCITY
+  update_velocity(vx, vy, vz, table, tile=None, ghosts=None)
+                                                     UPDATE_VELOCITY
   divergence(vx, vy, vz, table, tile=None)           DIVERGENCE
-  jacobi_pressure(p, rhs, table, tile=None)          JACOBI_PRESSURE
+  jacobi_pressure(p, rhs, table, tile=None, ghosts=None)
+                                                     JACOBI_PRESSURE
   project_velocity(vx, vy, vz, p, table, tile=None)  PROJECT_VELOCITY
 
 Inputs are float32, C-contiguous, padded as the descriptor declares
@@ -20,6 +22,17 @@ consecutive (slot, x) rows; ``None`` takes :func:`block_for`, the
 autotuner's choice comes from ``repro_torch.core.autotune.tile_for``.  Every
 tile gives the same bits.  A wrapper checks all of that
 (:func:`check_tile` for the tile) and raises on anything else.
+
+JACOBI_PRESSURE and UPDATE_VELOCITY (``STREAMING``) also take their cached
+fields unpadded, ``(S, X, Y, Z)``, with ``ghosts``: each field's
+:class:`~repro_torch.core.halo.FieldGhosts` (its six faces as rules and
+received strips, :func:`repro_torch.core.halo.field_ghosts`), one for p,
+three for vx, vy, vz.  The kernel then fills the ghost zone itself (the
+*ghosted* load); without ``ghosts`` it reads the fields padded (the
+*padded* load of the same kernel).  A ghosted launch also counts in
+``GHOSTED_LAUNCHES``; the plain version pads by the same specs, the
+received strips on the decomposed faces
+(:func:`repro_torch.core.halo.pad_with_strips`), and runs the body.
 
 On a CUDA tensor the wrapper allocates its outputs with ``torch.empty``,
 launches the kernel on the current stream without synchronising, and adds
@@ -62,8 +75,16 @@ _C_NAMES = {
     "PROJECT_VELOCITY": "stencil3d_project_velocity",
 }
 
+# the kernels that stream along x and fill their own ghost zones
+STREAMING = ("UPDATE_VELOCITY", "JACOBI_PRESSURE")
+
 # launches per kernel since the last reset (CUDA launches only)
 LAUNCHES = dict.fromkeys(_C_NAMES, 0)
+# of those, the launches of the streaming kernels that took the ghosted load
+GHOSTED_LAUNCHES = dict.fromkeys(STREAMING, 0)
+# calls of the CUDA template that gave a streaming kernel padded fields
+# because a face's rule declares no form (kernels.ops.ghosted_inputs)
+PADDED_ROUTE = dict.fromkeys(STREAMING, 0)
 # the same for the kernels generated from a body, by descriptor name
 GENERATED_LAUNCHES: dict[str, int] = {}
 
@@ -75,14 +96,47 @@ MAX_THREADS = 256
 # (build/kernels/libstencil3d-*.log; chip_smoke.py's build phase prints
 # it).  The autotuner's occupancy model reads these constants, never the
 # build, so the CPU and the card tune alike.
-REGISTERS = {"UPDATE_VELOCITY": (40, 40), "DIVERGENCE": (32, 32),
-             "JACOBI_PRESSURE": (32, 40), "PROJECT_VELOCITY": (32, 32)}
+# The streaming kernels have no such pair: their entries are the
+# ghosted instantiation's, the main path's, at both places.
+REGISTERS = {"UPDATE_VELOCITY": (64, 64), "DIVERGENCE": (32, 32),
+             "JACOBI_PRESSURE": (64, 64), "PROJECT_VELOCITY": (32, 32)}
+# planes of each cached field a block of a streaming kernel keeps in shared
+# memory (kBufs in csrc/stencil3d.cu)
+STREAM_PLANES = 5
+# face kinds of the ghosted load (the enum in csrc/stencil3d.cu)
+FACE_KINDS = {"const": 0, "linear": 1, "affine": 2, "wrap": 3, "strip": 4}
+
+
+def stream_smem_bytes(name: str, tile) -> int:
+    """Shared memory a block of streaming kernel ``name`` takes at
+    ``tile``: ``STREAM_PLANES`` planes of (ty + 2) x (tz + 2) for each
+    cached field, then from a 16-byte boundary ``STREAM_PLANES`` of
+    ty x tz for each input without a halo (``stencil3d_stream_smem`` in
+    the source)."""
+    _, ty, tz = tile
+    desc = stencil3d.DESCRIPTORS[name]
+    fields = len(desc.cached_inputs)
+    flat = len(desc.inputs) - fields
+    planes = -(-fields * STREAM_PLANES * (ty + 2) * (tz + 2) // 4) * 4
+    return 4 * (planes + flat * STREAM_PLANES * ty * tz)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GENERATED_LAUNCHES):
+    for counts in (LAUNCHES, GENERATED_LAUNCHES, GHOSTED_LAUNCHES,
+                   PADDED_ROUTE):
         for name in counts:
             counts[name] = 0
+
+
+class _Face(ctypes.Structure):
+    """struct Face of csrc/stencil3d.cu."""
+    _fields_ = [("strip", ctypes.c_void_p), ("a", ctypes.c_float),
+                ("kind", ctypes.c_int)]
+
+
+class _Ghosts(ctypes.Structure):
+    """struct Ghosts of csrc/stencil3d.cu: three fields of six faces."""
+    _fields_ = [("f", _Face * 18)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,20 +147,25 @@ def _lib() -> ctypes.CDLL:
     for name, cname in _C_NAMES.items():
         desc = stencil3d.DESCRIPTORS[name]
         n_ptr = len(desc.inputs) + len(desc.outputs) + 1      # + the table
+        if name in STREAMING:
+            n_ptr += 2                          # + the faces and their b
         fn = getattr(lib, cname)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 4
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.stencil3d_stream_smem.argtypes = [ctypes.c_int] * 4
+    lib.stencil3d_stream_smem.restype = ctypes.c_int
     lib.stencil3d_error_string.argtypes = [ctypes.c_int]
     lib.stencil3d_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _interior(desc, inputs) -> tuple[int, int, int]:
-    """The interior shape every input agrees on, or raise."""
+def _interior(desc, inputs, padded: bool = True) -> tuple[int, int, int]:
+    """The interior shape every input agrees on, or raise (``padded``:
+    the cached inputs carry the stencil's halo)."""
     interior = None
     for name, t in zip(desc.inputs, inputs):
-        cached = name in desc.cached_inputs
+        cached = padded and name in desc.cached_inputs
         lo = desc.halo_lo if cached else (0, 0, 0)
         hi = desc.halo_hi if cached else (0, 0, 0)
         got = tuple(s - l - h for s, l, h in zip(t.shape[-3:], lo, hi))
@@ -159,7 +218,7 @@ def check_tile(tile, interior, name: str = "stencil") -> tuple[int, int, int]:
     return tx, ty, tz
 
 
-def _check(desc, inputs, table, columns=None
+def _check(desc, inputs, table, columns=None, padded: bool = True
            ) -> tuple[int, tuple[int, int, int]]:
     """Validate a batched call whose table has ``columns`` (default: the
     kernel's ``stencil3d.TABLES`` row); return (S, interior)."""
@@ -187,7 +246,7 @@ def _check(desc, inputs, table, columns=None
             or not table.is_contiguous()):
         raise ValueError(f"{desc.name}: parameter table must be contiguous "
                          f"float32 on {dev}")
-    return S, _interior(desc, inputs)
+    return S, _interior(desc, inputs, padded)
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,28 +266,129 @@ def _plain(name: str, inputs, table) -> tuple[torch.Tensor, ...]:
     return tuple(out[n] for n in desc.outputs)
 
 
-def _run(name: str, inputs, table, plain: bool = False, tile=None):
+def _lead(g):
+    """``g`` (a FieldGhosts) with a slot axis in front of its strips."""
+    from repro_torch.core import halo
+
+    def up(t):
+        return t.unsqueeze(0) if torch.is_tensor(t) else t
+
+    strips = tuple(tuple(up(t) for t in pair) for pair in g.strips)
+    return halo.FieldGhosts(g.specs, strips, tuple(up(f) for f in g.faces))
+
+
+def _check_ghosts(name: str, ghosts, S: int, interior, dev) -> tuple:
+    """``ghosts`` as a tuple of one FieldGhosts a cached input, its strips
+    checked against the shapes the kernel reads, or raise."""
+    from repro_torch.core import halo
+
+    if name not in STREAMING:
+        raise ValueError(f"{name}: only {STREAMING} take ghosts")
+    if isinstance(ghosts, halo.FieldGhosts):
+        ghosts = (ghosts,)
+    ghosts = tuple(ghosts)
+    n = len(stencil3d.DESCRIPTORS[name].cached_inputs)
+    if len(ghosts) != n or not all(isinstance(g, halo.FieldGhosts)
+                                   for g in ghosts):
+        raise ValueError(f"{name}: ghosts must be {n} FieldGhosts "
+                         "(core.halo.field_ghosts), one a cached input")
+    for g in ghosts:
+        for q, face in enumerate(g.faces):
+            if torch.is_tensor(face):
+                a = q // 2
+                want = (S, *(n + 2 for n in interior[:a]), 1,
+                        *interior[a + 1:])
+                if (tuple(face.shape) != want or face.dtype != torch.float32
+                        or face.device != dev or not face.is_contiguous()):
+                    raise ValueError(
+                        f"{name}: the strip of face {q} must be contiguous "
+                        f"float32 {want} on {dev}, got "
+                        f"{tuple(face.shape)} {face.dtype} on {face.device}")
+            elif face.kind not in FACE_KINDS:
+                raise ValueError(f"{name}: face {q} of kind {face.kind!r}")
+    return ghosts
+
+
+def face_table(ghosts, S: int, device) -> torch.Tensor:
+    """The ``(S, 6 x fields)`` float32 table of each face's b, one row a
+    slot, on ``device`` (0 where a face has none): Python numbers make a
+    constant table, built once; tensors (0-d, or one value a slot) are
+    stacked on the device, with no host sync."""
+    from repro_torch.core.generator import _constant_table
+
+    vals = [f.b if not torch.is_tensor(f) and f.kind in ("const", "affine")
+            else 0.0 for g in ghosts for f in g.faces]
+    table = _constant_table(tuple(0.0 if torch.is_tensor(v) else float(v)
+                                  for v in vals), S, torch.device(device))
+    if not any(torch.is_tensor(v) for v in vals):
+        return table
+    # one stack of the constant columns and the tensors: nothing crosses
+    # from the host (an index list would, and wait for the stream)
+    return torch.stack(
+        [v.to(device=device, dtype=torch.float32).reshape(-1).expand(S)
+         if torch.is_tensor(v) else table[:, c] for c, v in enumerate(vals)],
+        dim=-1)
+
+
+def _ghost_struct(ghosts) -> _Ghosts:
+    g = _Ghosts()
+    for m, fg in enumerate(ghosts):
+        for q, face in enumerate(fg.faces):
+            slot = g.f[m * 6 + q]
+            if torch.is_tensor(face):
+                slot.kind, slot.strip = FACE_KINDS["strip"], face.data_ptr()
+            else:
+                slot.kind, slot.a = FACE_KINDS[face.kind], float(face.a)
+    return g
+
+
+def _plain_ghosted(name: str, inputs, table, ghosts):
+    """The plain version on unpadded cached fields: each padded by its
+    specs with its received strips inserted, then the body."""
+    from repro_torch.core import halo
+
+    desc = stencil3d.DESCRIPTORS[name]
+    it = iter(ghosts)
+    padded = []
+    for var, t in zip(desc.inputs, inputs):
+        if var in desc.cached_inputs:
+            g = next(it)
+            t = halo.pad_with_strips(t, (1, 1, 1), g.specs, g.strips)
+        padded.append(t)
+    return _plain(name, padded, table)
+
+
+def _run(name: str, inputs, table, plain: bool = False, tile=None,
+         ghosts=None):
     desc = stencil3d.DESCRIPTORS[name]
     batched = inputs[0].dim() == 4
     if not batched:
         inputs = [t.unsqueeze(0) for t in inputs]
         table = table.unsqueeze(0)
-    S, (nx, ny, nz) = _check(desc, inputs, table)
+        if ghosts is not None:
+            ghosts = ([_lead(ghosts)] if not isinstance(ghosts, (list, tuple))
+                      else [_lead(g) for g in ghosts])
+    S, (nx, ny, nz) = _check(desc, inputs, table, padded=ghosts is None)
     tx, ty, tz = (block_for(ny, nz) if tile is None
                   else check_tile(tile, (nx, ny, nz), name))
     dev = inputs[0].device
+    if ghosts is not None:
+        ghosts = _check_ghosts(name, ghosts, S, (nx, ny, nz), dev)
     if plain or dev.type == "cpu":
-        outs = _plain(name, inputs, table)
+        outs = (_plain(name, inputs, table) if ghosts is None
+                else _plain_ghosted(name, inputs, table, ghosts))
     elif dev.type in ("cuda", "meta"):
         outs = tuple(torch.empty((S, nx, ny, nz), dtype=torch.float32,
                                  device=dev) for _ in desc.outputs)
+        faces = None if ghosts is None else face_table(ghosts, S, dev)
         if dev.type == "meta":
             from repro_torch.launch import op_cost
 
-            op_cost.book(name, *op_cost.stencil_cost(name, inputs, outs,
-                                                     table))
+            op_cost.book(name, *op_cost.stencil_cost(
+                name, inputs, outs, table,
+                ghosts=None if ghosts is None else (ghosts, faces)))
         else:
-            _launch(name, inputs, outs, table, (tx, ty, tz))
+            _launch(name, inputs, outs, table, (tx, ty, tz), ghosts, faces)
     else:
         raise ValueError(f"{name}: unsupported device {dev}")
     if not batched:
@@ -236,33 +396,43 @@ def _run(name: str, inputs, table, plain: bool = False, tile=None):
     return outs if len(outs) > 1 else outs[0]
 
 
-def _launch(name: str, inputs, outs, table, tile) -> None:
+def _launch(name: str, inputs, outs, table, tile, ghosts=None,
+            faces=None) -> None:
     lib = _lib()
     S, nx, ny, nz = outs[0].shape
     dev = outs[0].device
+    extra = ()
+    if name in STREAMING:
+        g = None if ghosts is None else _ghost_struct(ghosts)
+        extra = (None if g is None else ctypes.addressof(g),
+                 None if faces is None else faces.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _C_NAMES[name])(
-            *(t.data_ptr() for t in (*inputs, *outs, table)),
+            *(t.data_ptr() for t in (*inputs, *outs, table)), *extra,
             S, nx, ny, nz, *tile, stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.stencil3d_error_string(err).decode()})")
     LAUNCHES[name] += 1
+    if ghosts is not None:
+        GHOSTED_LAUNCHES[name] += 1
 
 
 # -- the wrappers (CUDA kernel on the card, plain version on the CPU) -------
-def update_velocity(vx, vy, vz, table, tile=None):
-    return _run("UPDATE_VELOCITY", [vx, vy, vz], table, tile=tile)
+def update_velocity(vx, vy, vz, table, tile=None, ghosts=None):
+    return _run("UPDATE_VELOCITY", [vx, vy, vz], table, tile=tile,
+                ghosts=ghosts)
 
 
 def divergence(vx, vy, vz, table, tile=None):
     return _run("DIVERGENCE", [vx, vy, vz], table, tile=tile)
 
 
-def jacobi_pressure(p, rhs, table, tile=None):
-    return _run("JACOBI_PRESSURE", [p, rhs], table, tile=tile)
+def jacobi_pressure(p, rhs, table, tile=None, ghosts=None):
+    return _run("JACOBI_PRESSURE", [p, rhs], table, tile=tile,
+                ghosts=ghosts)
 
 
 def project_velocity(vx, vy, vz, p, table, tile=None):
@@ -270,16 +440,18 @@ def project_velocity(vx, vy, vz, p, table, tile=None):
 
 
 # -- the plain versions, on any device ---------------------------------------
-def update_velocity_plain(vx, vy, vz, table):
-    return _run("UPDATE_VELOCITY", [vx, vy, vz], table, plain=True)
+def update_velocity_plain(vx, vy, vz, table, ghosts=None):
+    return _run("UPDATE_VELOCITY", [vx, vy, vz], table, plain=True,
+                ghosts=ghosts)
 
 
 def divergence_plain(vx, vy, vz, table):
     return _run("DIVERGENCE", [vx, vy, vz], table, plain=True)
 
 
-def jacobi_pressure_plain(p, rhs, table):
-    return _run("JACOBI_PRESSURE", [p, rhs], table, plain=True)
+def jacobi_pressure_plain(p, rhs, table, ghosts=None):
+    return _run("JACOBI_PRESSURE", [p, rhs], table, plain=True,
+                ghosts=ghosts)
 
 
 def project_velocity_plain(vx, vy, vz, p, table):

@@ -144,10 +144,18 @@ def _nbytes(tree) -> int:
 
 
 # -- declared kernel costs: (bytes, operations) of one call ------------------
-def stencil_cost(name: str, inputs, outs, table) -> tuple[int, int]:
+def stencil_cost(name: str, inputs, outs, table, ghosts=None
+                 ) -> tuple[int, int]:
     """A stencil kernel: each input, output and the parameter table once;
-    ``OPS_PER_CELL[name]`` per output cell (slots included)."""
+    ``OPS_PER_CELL[name]`` per output cell (slots included).  A ghosted
+    launch (``ghosts``: the fields' ``FieldGhosts`` and their face table)
+    reads its cached fields unpadded, and besides them each received strip
+    and the face table once."""
     nbytes = _nbytes(list(inputs)) + _nbytes(list(outs)) + _nbytes(table)
+    if ghosts is not None:
+        fields, faces = ghosts
+        nbytes += _nbytes([f for g in fields for f in g.faces
+                           if torch.is_tensor(f)]) + _nbytes(faces)
     return nbytes, OPS_PER_CELL[name] * outs[0].numel()
 
 

@@ -337,6 +337,147 @@ def test_every_tile_equals_block_for_bitwise(card, name, case):
             assert torch.equal(g, w), (tile, float((g - w).abs().max()))
 
 
+# -- the streaming kernels' ghosted load ------------------------------------
+# interiors that are no multiple of any tile, and one that a block marches
+GHOST_INTERIORS = {"odd": (5, 7, 3), "ragged": (9, 20, 33),
+                   "deep": (70, 12, 40)}
+
+
+def _ghost_cases():
+    """``tests/torch_ghost_cases.py``, loaded from beside this file (on a
+    machine where another ``tests`` package comes first on the path)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).with_name("torch_ghost_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_ghost_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ghosted(name, case, slots, interior, dev, seed=0):
+    gc = _ghost_cases()
+    xs, table, ghosts, _, _ = gc.inputs(name, case, slots, interior, dev,
+                                        seed)
+    return xs, table, ghosts
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interior", list(GHOST_INTERIORS))
+@pytest.mark.parametrize("slots", [None, 1, 2, 4])
+@pytest.mark.parametrize("case", ["cavity", "pressure", "mixed", "periodic",
+                                  "strips_x", "strips_x_edge", "strips_xy",
+                                  "strips_yz"])
+@pytest.mark.parametrize("name", stencil3d_cuda.STREAMING)
+def test_ghosted_kernel_equals_its_plain_version_bitwise(card, name, case,
+                                                         slots, interior):
+    """Unpadded fields, every kind of face (rules as data, the periodic
+    wrap, received strips with their ghost ends): the kernel fills its
+    ghost zone as the plain version's padding does, bit for bit, under
+    block_for's tile and the autotuner's."""
+    shape = GHOST_INTERIORS[interior]
+    xs, table, ghosts = _ghosted(name, case, slots, shape, card)
+    want = _outs(stencil3d_cuda.PLAIN[name](*xs, table, ghosts=ghosts))
+    tuned = autotune.tile_for(stencil3d.DESCRIPTORS[name], shape).tile
+    for tile in (None, tuned):
+        before = dict(stencil3d_cuda.GHOSTED_LAUNCHES)
+        got = _outs(stencil3d_cuda.KERNELS[name](*xs, table, tile=tile,
+                                                 ghosts=ghosts))
+        torch.cuda.synchronize()
+        assert stencil3d_cuda.GHOSTED_LAUNCHES[name] == before[name] + 1
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert torch.equal(g, w), (tile, float((g - w).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cavity", "strips_xy"])
+@pytest.mark.parametrize("name", stencil3d_cuda.STREAMING)
+def test_ghosted_every_tile_equals_block_for_bitwise(card, name, case):
+    """Which block computes a cell, and how far it marches, changes
+    nothing: every tile gives block_for's bits in the ghosted load."""
+    shape = (63, 65, 33)
+    xs, table, ghosts = _ghosted(name, case, 2, shape, card, seed=3)
+    want = _outs(stencil3d_cuda.KERNELS[name](*xs, table, ghosts=ghosts))
+    tuned = autotune.tile_for(stencil3d.DESCRIPTORS[name], shape).tile
+    for tile in [tuned, *TILE_CASES["odd63"][2], (63, 8, 32), (5, 2, 3)]:
+        got = _outs(stencil3d_cuda.KERNELS[name](*xs, table, tile=tile,
+                                                 ghosts=ghosts))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (tile, float((g - w).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["walls", "strips_x"])
+@pytest.mark.parametrize("name", stencil3d_cuda.STREAMING)
+def test_ghosted_check_rejects_a_zeroed_ghost_face(card, name, case):
+    """A planted fault: the kernel alone is given the last field's x-low
+    face zeroed (its strip, or its rule made the constant 0: p's Neumann
+    wall, vz's no-slip one); the check against the plain version must
+    reject it."""
+    import dataclasses
+
+    from repro_torch.core import halo
+
+    if case == "walls":
+        case = "pressure" if name == "JACOBI_PRESSURE" else "cavity"
+    xs, table, ghosts = _ghosted(name, case, 2, (9, 20, 33), card, seed=4)
+    many = isinstance(ghosts, list)
+    gs = list(ghosts) if many else [ghosts]
+    face = gs[-1].faces[0]
+    zero = (torch.zeros_like(face) if torch.is_tensor(face)
+            else halo.GhostForm("const", b=0.0))
+    gs[-1] = dataclasses.replace(gs[-1], faces=(zero, *gs[-1].faces[1:]))
+    want = _outs(stencil3d_cuda.PLAIN[name](*xs, table, ghosts=ghosts))
+    got = _outs(stencil3d_cuda.KERNELS[name](*xs, table,
+                                             ghosts=gs if many else gs[0]))
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tol = RTOL * max(1.0, max(float(w.abs().max()) for w in want))
+    assert err > tol
+
+
+@pytest.mark.cuda
+def test_stream_smem_model_matches_the_source(card):
+    """The autotuner's shared-memory model of the streaming kernels
+    (stencil3d_cuda.stream_smem_bytes) is what the launcher asks for."""
+    lib = stencil3d_cuda._lib()
+    for name in stencil3d_cuda.STREAMING:
+        desc = stencil3d.DESCRIPTORS[name]
+        fields = len(desc.cached_inputs)
+        for tile in [(1, 8, 32), (2, 5, 8), (1, 3, 4), (1, 1, 256),
+                     (1, 256, 1), (1, 16, 16), (3, 7, 12)]:
+            assert stencil3d_cuda.stream_smem_bytes(name, tile) == \
+                lib.stencil3d_stream_smem(fields, len(desc.inputs) - fields,
+                                          tile[1], tile[2]), (name, tile)
+
+
+@pytest.mark.cuda
+def test_cuda_backend_ghosts_every_streaming_launch(card):
+    """On the cuda backend the step pads nothing for the streaming
+    kernels: every launch of theirs takes the ghosted load, on a serial
+    run and on a farm."""
+    stencil3d_cuda.reset_launches()
+    api.runtime(n=16, device=card).run("cavity", steps=2)
+    assert stencil3d_cuda.GHOSTED_LAUNCHES == {"UPDATE_VELOCITY": 2,
+                                               "JACOBI_PRESSURE": 80}
+    stencil3d_cuda.reset_launches()
+    rt = api.runtime(n=16, device=card, n_slots=2)
+    rt.submit("cavity", re=100.0, steps=3)
+    rt.submit("cavity", re=400.0, steps=3)
+    rt.drain()
+    assert stencil3d_cuda.GHOSTED_LAUNCHES == {
+        k: stencil3d_cuda.LAUNCHES[k] for k in stencil3d_cuda.STREAMING}
+    assert stencil3d_cuda.LAUNCHES["JACOBI_PRESSURE"] > 0
+    assert not any(stencil3d_cuda.PADDED_ROUTE.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [(0, 8, 32), (1, 16, 32), (17, 8, 32),
                                   (1, 8, 64), (1, 40, 4), (1.5, 8, 32)])
