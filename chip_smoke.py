@@ -822,7 +822,7 @@ def compare(name, inputs, table, tile=None, want_inputs=None, ghosts=None,
 
 
 def ghosted_inputs(name, S, interior, gen, dev, link=None):
-    """Random unpadded inputs of a streaming kernel with the cavity's faces
+    """Random unpadded inputs of a GHOSTED kernel with the cavity's faces
     (``NavierStokes3D._bcs_for``; the lid speed 0.8, or one a slot), and,
     where ``link`` decomposes x, random strips on the x faces that have a
     neighbour: ``(inputs, ghosts)``."""
@@ -879,8 +879,8 @@ def zeroed_face(ghosts):
     return gs if many else gs[0]
 
 
-def streaming_cases(name, gen, dev) -> dict:
-    """The ghosted load of a streaming kernel (its main path) against its
+def ghosted_cases(name, gen, dev) -> dict:
+    """The ghosted load of a GHOSTED kernel (its main path) against its
     plain version: 256^3 and the farm's 4 slots, an odd shape and 3 slots,
     and the decomposed phase's block (128, 256, 256) with random strips on
     both x faces (a middle rank), serial and with 2 slots; each bitwise,
@@ -1084,10 +1084,10 @@ def phase_kernels(dev):
                                  f"differ (max {err}), not bitwise")
             res["max_abs_err"] = max(res["max_abs_err"], err)
             del inputs, outs
-        if name in sc.STREAMING:
+        if name in sc.GHOSTED:
             # the main path's ghosted load: its lines stand for the kernel
             # in the summary, the padded load's stay under its cases
-            ghosted = streaming_cases(
+            ghosted = ghosted_cases(
                 name, torch.Generator(device=dev).manual_seed(SEED + 6), dev)
             padded = res["cases"]
             res["cases"] = {**{f"padded_{k}": v for k, v in padded.items()},
@@ -1673,7 +1673,7 @@ def phase_main(kernel_results, dev):
           "max_memory_allocated": peak,
           "ghia": res_cuda.diagnostics["ghia"]})
     require(launches == expected, f"launch counts {launches} != {expected}")
-    want_ghosted = {k: expected[k] for k in sc.STREAMING}
+    want_ghosted = {k: expected[k] for k in sc.GHOSTED}
     require(ghosted == want_ghosted and not any(padded_route.values()),
             f"ghosted launches {ghosted} != {want_ghosted} (padded route "
             f"{padded_route})")
@@ -2062,9 +2062,9 @@ def tiles_against_block_for(dev) -> dict:
         row = {"tile": list(tile), "block_for": list(sc.block_for(N, N))}
         for case, S in (("serial", None), ("farm", FARM_SLOTS)):
             gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-            # the streaming kernels in their ghosted load (the main path's)
+            # the GHOSTED kernels in their ghosted load (the main path's)
             kw = {}
-            if name in sc.STREAMING:
+            if name in sc.GHOSTED:
                 inputs, kw["ghosts"] = ghosted_inputs(name, S, (N,) * 3, gen,
                                                       dev)
                 row["load"] = "ghosted"

@@ -3,8 +3,8 @@
 (``csrc/ssd.cu``) and the four stencils (``csrc/stencil3d.cu``) on one
 NVIDIA card.
 
-    python3 kernel_study.py [--parent DIR]
-                            [--only jacobi,ssd,stencil,tiles,farm]
+    python3 kernel_study.py [--parent DIR] [--tree NAME=DIR ...]
+                            [--only jacobi,ssd,stencil,tiles,farm,routes]
                             [--kernels JACOBI_PRESSURE,UPDATE_VELOCITY]
 
 1. jacobi: the committed source and variants of it made by replacing one
@@ -51,18 +51,34 @@ NVIDIA card.
    and the farm's 4-slot call: device time, taken in turn forward and then
    backward, and whether the output equals block_for's bit for bit.  The
    tiles that walk also run on ``walk_unroll2`` and ``walk_unroll4``, the
-   source with the walk's loop unrolled by 2 or 4 (DIVERGENCE and
-   PROJECT_VELOCITY; the streaming kernels, JACOBI_PRESSURE and
-   UPDATE_VELOCITY, have no such loop).  The streaming kernels run in
-   their ghosted load too (the main path's: unpadded fields with the
-   cavity's faces, ``chip_smoke.ghosted_inputs``), as variant
-   ``ghosted:<library>``: on the committed source and on
-   ``stream_bufs4`` and ``stream_bufs6`` (a ring of 4 or 6 planes: 1 or 3
-   in flight instead of 2).
+   source with the walk's loop unrolled by 2 or 4.  The GHOSTED kernels,
+   JACOBI_PRESSURE and UPDATE_VELOCITY, run in their ghosted load too
+   (the main path's: unpadded fields with the cavity's faces,
+   ``chip_smoke.ghosted_inputs``), as variant ``ghosted:<library>``: the
+   committed source at every tile, and at block_for's and the tuned tiles
+   ``ghost_jacobi4``, ``ghost_update6`` and ``ghost_unbounded``, the
+   ghosted instantiations' launch bounds at 4 blocks an SM for
+   JACOBI_PRESSURE (design: 6), 6 for UPDATE_VELOCITY (design: 4), and 1
+   for both.
 5. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
    4-slot farm's batched step, unfused and with ``fused_sweeps=2``, on
    DIR's tree and on this one in turns (parent, this, this, parent), each
    in its own process (``chip_smoke.batched_step_ms`` of that tree).
+6. routes (with ``--tree NAME=DIR``, checkouts of other commits; the
+   ``--parent`` checkout is tree ``parent``): each tree's JACOBI_PRESSURE
+   and UPDATE_VELOCITY at the 256^3 serial call, the farm's 4 slots and a
+   decomposed rank's (128, 256, 256) block, and the cavity's steps, each
+   tree in its own process, in turns (the others, this, this, the others
+   backward).  Per kernel and call: ``pad_ms``, the cached fields padded
+   (``exchange_pad`` by the cavity's specs); ``padded_ms``, the padded
+   load on the padded fields; ``route_ms``, the two in turn (the main
+   path's route before the ghosted load); and, in a tree that has it,
+   ``ghosted_ms``, the ghosted load on the unpadded fields with the
+   cavity's faces (the block's x faces random strips); each at the tile
+   the tree's autotuner gives its main path.  Per tree: the serial 256^3
+   step (host clock, and its device split from the profiler), the farm's
+   4-slot batched step and the step of each of two ranks that split x
+   (gloo, the card shared), and the stencil build's ptxas register lines.
 
 Prints JSON lines; the card's name and power limit first.  Needs a CUDA
 card and the repository around it.
@@ -111,30 +127,37 @@ VARIANTS = [
         ("{ return __fadd_rn(a, b); }", "{ return a + b; }"),
         ("{ return __fsub_rn(a, b); }", "{ return a - b; }"),
         ("{ return __fmul_rn(a, b); }", "{ return a * b; }"),
-        ("__fdiv_rn(sub(nbr, mul(h2, r)), 6.0f)",
-         "sub(nbr, mul(h2, r)) / 6.0f"),
+        ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
+         "sub(nbr, mul(h2, rhs[o])) / 6.0f"),
         ("__fdiv_rn(table[s * 2], table[s * 2 + 1])",
          "table[s * 2] / table[s * 2 + 1]")]),
     ("stencil3d", "div_op", [
-        ("__fdiv_rn(sub(nbr, mul(h2, r)), 6.0f)",
-         "sub(nbr, mul(h2, r)) / 6.0f")]),
+        ("__fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f)",
+         "sub(nbr, mul(h2, rhs[o])) / 6.0f")]),
     ("stencil3d", "walk_unroll2", [
         ("""    for (int64_t r = r##0,  """,
          """    _Pragma("unroll 2") for (int64_t r = r##0,  """)]),
     ("stencil3d", "walk_unroll4", [
         ("""    for (int64_t r = r##0,  """,
          """    _Pragma("unroll 4") for (int64_t r = r##0,  """)]),
-    ("stencil3d", "stream_bufs4", [
-        ("constexpr int kBufs = 5;", "constexpr int kBufs = 4;")]),
-    ("stencil3d", "stream_bufs6", [
-        ("constexpr int kBufs = 5;", "constexpr int kBufs = 6;")]),
+    ("stencil3d", "ghost_jacobi4", [
+        ("constexpr int kJacobiGhostBlocks = 6;",
+         "constexpr int kJacobiGhostBlocks = 4;")]),
+    ("stencil3d", "ghost_update6", [
+        ("constexpr int kUpdateGhostBlocks = 4;",
+         "constexpr int kUpdateGhostBlocks = 6;")]),
+    ("stencil3d", "ghost_unbounded", [
+        ("constexpr int kJacobiGhostBlocks = 6;",
+         "constexpr int kJacobiGhostBlocks = 1;"),
+        ("constexpr int kUpdateGhostBlocks = 4;",
+         "constexpr int kUpdateGhostBlocks = 1;")]),
     ("stencil3d", "div64", [
         ("""  const unsigned q = (unsigned)r / (unsigned)nx;
   s = q;
   i = r - (int64_t)q * nx;""", """  s = r / nx;
   i = r - s * nx;""")]),
 ]
-SECTIONS = ("jacobi", "ssd", "stencil", "tiles", "farm")
+SECTIONS = ("jacobi", "ssd", "stencil", "tiles", "farm", "routes")
 # launch tiles (tx, ty, tz) of the tiles section, block_for's first
 TILES = [(1, 8, 32), (2, 8, 32), (4, 8, 32), (8, 8, 32), (16, 8, 32),
          (32, 8, 32), (64, 8, 32), (1, 4, 64), (4, 4, 64), (16, 4, 64),
@@ -175,6 +198,126 @@ for case, (bsz, nc, l, g, r, p, n) in (("prefill_512", (1, 4, 128, 1, 64, 64, 64
     out[case] = [cs.cuda_ms(lambda: sc.ssd_intra(*args), 30, head_start=True)
                  for _ in range(3)]
 print(json.dumps(out))
+'''
+
+
+# one tree's routes and steps (section 6), run as a file: its ranks
+# (spawn start method) import it by path
+ROUTES = r'''
+import json, os, sys, time
+
+
+def rank_step(reps):
+    import torch
+    import chip_smoke as cs
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pr = cs._decomposed_runtime(dev, (2,), ("shard",)).prepare("cavity",
+                                                              re=100.0)
+    state = pr.state
+    for _ in range(2):
+        state = pr.step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state = pr.step(state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def main(root):
+    import torch
+    import chip_smoke as cs
+    from repro_torch import api
+    from repro_torch.cfd import cavity
+    from repro_torch.core import autotune, halo
+    from repro_torch.core.halo import exchange_pad
+    from repro_torch.kernels import _build, stencil3d, stencil3d_cuda as sc
+    from repro_torch.launch.mesh import spawn
+
+    dev = torch.device("cuda")
+    sc._lib()
+    log = _build.build_info.get("stencil3d", {}).get("log") or ""
+    out = {"ptxas": [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "Compiling entry" in ln]}
+    ghosted = hasattr(cs, "ghosted_inputs")
+    pr = api.runtime(n=cs.N, nz=cs.N, backend="cuda",
+                     device=dev).prepare("cavity", re=100.0)
+    specs = {f: pr.solver._specs(f) for f in ("vx", "vy", "vz", "p")}
+    link = halo.AxisLink(name="shard", size=3, index=1,
+                         transport=halo.CountTransport()) if ghosted else None
+    kernels = {}
+    for name in ("JACOBI_PRESSURE", "UPDATE_VELOCITY"):
+        desc = stencil3d.DESCRIPTORS[name]
+        fields = ("p",) if name == "JACOBI_PRESSURE" else ("vx", "vy", "vz")
+        cached = [i for i, v in enumerate(desc.inputs)
+                  if v in desc.cached_inputs]
+        kern = sc.KERNELS[name]
+        for case, S, interior in (("serial", None, (cs.N,) * 3),
+                                  ("farm", cs.FARM_SLOTS, (cs.N,) * 3),
+                                  ("block", None, (cs.N // 2, cs.N, cs.N))):
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+            cfgs = [cavity.config(cs.N, nz=cs.N, re=re)
+                    for re in cs.FARM_RES[:S or 1]]
+            table = cs.param_rows(name, cfgs, dev)
+            table = table if S else table[0]
+            batch = () if S is None else (S,)
+            inputs = [torch.rand(batch + interior, generator=gen,
+                                 device=dev) * 2 - 1 for _ in desc.inputs]
+            tile = autotune.tile_for(desc, interior).tile
+
+            def pad():
+                ins = list(inputs)
+                for i, f in zip(cached, fields):
+                    ins[i] = exchange_pad(ins[i], (1, 1, 1), specs[f])
+                return ins
+
+            padded = pad()
+            row = {"tile": list(tile),
+                   "pad_ms": cs.cuda_ms(pad, 20, head_start=True),
+                   "padded_ms": cs.cuda_ms(
+                       lambda: kern(*padded, table, tile=tile), 30,
+                       head_start=True),
+                   "route_ms": cs.cuda_ms(
+                       lambda: kern(*pad(), table, tile=tile), 20,
+                       head_start=True)}
+            del padded
+            if ghosted:
+                unpadded, ghosts = cs.ghosted_inputs(
+                    name, S, interior, gen, dev,
+                    link if case == "block" else None)
+                row["ghosted_ms"] = cs.cuda_ms(
+                    lambda: kern(*unpadded, table, tile=tile, ghosts=ghosts),
+                    30, head_start=True)
+                del unpadded, ghosts
+            kernels[f"{name}/{case}"] = row
+            del inputs
+            torch.cuda.empty_cache()
+    out["kernels"] = kernels
+    state = pr.state
+    for _ in range(2):
+        state = pr.step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state = pr.step(state)
+    torch.cuda.synchronize()
+    out["serial_step_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    out["serial_split_ms"] = cs.profile_step(pr, state)
+    del pr, state
+    torch.cuda.empty_cache()
+    out["farm_step_ms"] = cs.batched_step_ms(dev)
+    torch.cuda.empty_cache()
+    out["decomposed_step_ms"] = spawn(rank_step, 2, backend="gloo",
+                                      device="cuda:0", args=(5,),
+                                      timeout_s=300.0)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    root = os.path.abspath(sys.argv[1])
+    sys.path[:0] = [root, os.path.join(root, "src")]
+    os.chdir(root)
+    main(root)
 '''
 
 
@@ -357,13 +500,13 @@ def study_tiles(libs):
             tuned = {w: autotune.choose_tile(desc, (cs.N,) * 3, waves=w).tile
                      for w in TILE_WAVES}
             tiles = list(dict.fromkeys(TILES + list(tuned.values())))
-            runs = [("design", t) for t in tiles]
-            if kname in st.STREAMING:
-                streams = ["design"] + [v for v in libs
-                                        if v.startswith("stream_")]
-                runs += [(f"ghosted:{v}", t) for v in streams for t in tiles]
-            else:
-                runs += [(v, t) for v in walks for t in tiles if t[0] > 1]
+            runs = [("design", t) for t in tiles] + [
+                (v, t) for v in walks for t in tiles if t[0] > 1]
+            if kname in st.GHOSTED:
+                runs += [("ghosted:design", t) for t in tiles] + [
+                    (f"ghosted:{v}", t) for v in libs
+                    if v.startswith("ghost_")
+                    for t in dict.fromkeys([TILES[0], *tuned.values()])]
             gen = torch.Generator(device=dev).manual_seed(cs.SEED)
             times = {r: {} for r in runs}
             same = {r: {} for r in runs}
@@ -377,14 +520,14 @@ def study_tiles(libs):
                 want = st.KERNELS[kname](*inputs, table)
                 want = want if isinstance(want, tuple) else (want,)
                 unpadded = ghosts = None
-                if kname in st.STREAMING:
+                if kname in st.GHOSTED:
                     unpadded, ghosts = cs.ghosted_inputs(
                         kname, slots, (cs.N,) * 3, gen, dev)
                     gwant = st.KERNELS[kname](*unpadded, table, ghosts=ghosts)
                     gwant = gwant if isinstance(gwant, tuple) else (gwant,)
                 for run in turns(runs):
                     variant, tile = run
-                    if variant.startswith("ghosted"):
+                    if variant.startswith("ghosted:"):
                         lib_name = variant.split(":")[1]
                         st._lib = lambda lib_name=lib_name: libs[lib_name]
                         fn = lambda: st.KERNELS[kname](
@@ -445,12 +588,36 @@ def study_farm(parent: str):
               "batched_step_ms": json.loads(out.stdout.strip().splitlines()[-1])})
 
 
+def study_routes(trees: dict):
+    """Section 6 on ``trees`` (name: checkout) and this tree, in turns."""
+    import pathlib
+
+    from repro_torch.kernels import _build
+
+    script = pathlib.Path(_build.BUILD_DIR) / "study" / "routes.py"
+    script.parent.mkdir(parents=True, exist_ok=True)
+    script.write_text(ROUTES)
+    names = list(trees)
+    for name in names + ["this", "this"] + names[::-1]:
+        tree = trees.get(name, ROOT)
+        out = subprocess.run([sys.executable, str(script), tree],
+                             capture_output=True, text=True, timeout=900,
+                             cwd=tree)
+        if out.returncode:
+            raise SystemExit(f"routes on {tree} failed:\n{out.stderr}")
+        emit({"phase": "routes", "tree": name, "root": tree,
+              **json.loads(out.stdout.strip().splitlines()[-1])})
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="a checkout of another commit, for the "
                                      "farm-step and SSD_INTRA comparisons")
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="NAME=DIR", help="another checkout for the "
+                    "routes section (repeatable)")
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="comma-separated sections to run "
                          f"(default: {','.join(SECTIONS)})")
@@ -483,12 +650,17 @@ def main() -> int:
         study_ssd_parent(os.path.abspath(args.parent))
     if "stencil" in only:
         study_stencil({k: v for k, v in libs["stencil3d"].items()
-                       if not k.startswith(("walk_", "stream_"))})
+                       if not k.startswith(("walk_", "ghost_"))})
     if "tiles" in only:
         study_tiles({k: v for k, v in libs["stencil3d"].items()
-                     if k == "design" or k.startswith(("walk_", "stream_"))})
+                     if k == "design" or k.startswith(("walk_", "ghost_"))})
     if args.parent and "farm" in only:
         study_farm(os.path.abspath(args.parent))
+    trees = dict(t.split("=", 1) for t in args.tree)
+    if args.parent:
+        trees = {"parent": args.parent, **trees}
+    if trees and "routes" in only:
+        study_routes({k: os.path.abspath(v) for k, v in trees.items()})
     return 0
 
 

@@ -11,11 +11,12 @@ framework's descriptor-generated kernels + driver-managed halo padding:
   5. PROJECT_VELOCITY  u = u* - dt grad p                      [stencil kernel]
 
 On the CUDA template JACOBI_PRESSURE and UPDATE_VELOCITY (without the
-interior/shell split) take the unpadded fields and fill their own ghost
-zones from the BC rules' declared forms, only the decomposed faces' strips
-travelling (``kernels.ops.ghosted_inputs``); the TORCH template pads every
-input (``exchange_pad``) and expands the body, as the other two kernels do
-on both templates.
+interior/shell split) take the unpadded fields and make their own ghost
+values from the BC rules' declared forms, only the decomposed faces' strips
+travelling (``kernels.ops.ghosted_inputs``; where none travels, p's faces
+are bound once a step, ``kernels.ops.bound_ghosts``); the TORCH template
+pads every input (``exchange_pad``) and expands the body, as the other two
+kernels do on both templates.
 
 Grid convention (see kernels/stencil3d.py): vx[i] at the right x-face of
 cell i; the hi wall face is vx[N-1].  Cases: ``cavity`` (lid-driven, lid at
@@ -312,8 +313,15 @@ class NavierStokes3D:
         # -- 3. pressure Poisson (warm start from previous p)
         p_specs = specs("p")
         k = c.fused_sweeps
+        # where no strip travels every sweep reads the same faces: bound once
+        p_bound = (ops.bound_ghosts("JACOBI_PRESSURE", (p,), [p_specs])
+                   if k <= 1 and cuda else None)
 
         def jacobi_body(pcur):
+            if p_bound is not None:
+                return ops.jacobi_pressure(pcur, rhs, h=h,
+                                           omega=c.jacobi_omega,
+                                           ghosts=p_bound, **skw)
             if k <= 1 and cuda:
                 (pp,), ghosts = ops.ghosted_inputs("JACOBI_PRESSURE", (pcur,),
                                                    [p_specs])
@@ -411,10 +419,9 @@ class NavierStokes3D:
         if params is None:
             params = params_from_config(c, self.device)
 
-        def seqmax(x):
-            for _ in range(3):
-                x = x.amax(dim=-1)
-            return x
+        def absmax(x):
+            return torch.linalg.vector_norm(x, ord=float("inf"),
+                                            dim=(-3, -2, -1))
 
         # interior one-sided divergence: identical to the ghost-padded
         # stencil on every cell that has real (non-BC) neighbours
@@ -438,9 +445,11 @@ class NavierStokes3D:
                 ax = tensor_axis(a)
                 div = div.narrow(ax, 1, div.shape[ax] - 1)
         drv = self.driver
-        div_linf = seqmax(div.abs())
-        umax = seqmax(torch.maximum(torch.maximum(vx.abs(), vy.abs()),
-                                    vz.abs()))
+        # max |x| in one read of x (exact, NaN propagates, -0 gives +0):
+        # the same bits as the max over |x| materialized first
+        div_linf = absmax(div)
+        umax = torch.maximum(torch.maximum(absmax(vx), absmax(vy)),
+                             absmax(vz))
         ke2 = vx * vx + vy * vy + vz * vz
         for _ in range(3):      # sequential per-axis sums like _global_mean
             ke2 = ke2.sum(dim=-1)

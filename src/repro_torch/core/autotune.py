@@ -25,7 +25,9 @@ is a block of ``tz x ty`` threads walking ``tx`` planes along x:
   bytes a cell (``vmem_block_bytes`` over its cells) than ``block_for``'s:
   the walk's loop costs more than the reuse of cached inputs' halo planes
   saves where there is little to reuse.  PROJECT_VELOCITY reads three of
-  its four inputs without a halo, so no walk of it saves even 30%.
+  its four inputs without a halo, so no walk of it saves even 30%.  A
+  kernel walks no more than its ``stencil3d_cuda.MAX_WALK`` rows
+  (UPDATE_VELOCITY: 1, for its ghosted load's face rows).
 * Among those it maximises ``stencil_arithmetic_intensity``, as the
   reference does (then the smaller working set, then the earlier
   candidate).  The wrapper's default, ``stencil3d_cuda.block_for``, is
@@ -36,16 +38,6 @@ is a block of ``tz x ty`` threads walking ``tx`` planes along x:
 walks the other three kernels take (4-8 planes) read 6-11% faster than
 ``block_for``, every walk of PROJECT_VELOCITY 0.2-4% slower, and with 4
 waves or fewer the walks grow long enough to lose the tail.
-
-The streaming kernels (``stencil3d_cuda.STREAMING``: JACOBI_PRESSURE and
-UPDATE_VELOCITY) are modelled as they are built: a block marches its
-segment of tx planes through ``STREAM_PLANES`` planes of (ty + 2) x
-(tz + 2) cells a cached field in shared memory
-(``stencil3d_cuda.stream_smem_bytes``), whatever tx, so the working set
-is that and not the descriptor's halo-expanded block; resident blocks are
-limited by that shared memory too; the walk is the design, so no
-``WALK_GAIN`` test applies; and a segment re-reads two planes for every
-tx it computes, so a longer one is worth fewer waves: ``STREAM_WAVES``.
 
 Deterministic: no search on the device.  :func:`tile_for` is the memoized
 entry point the solver's hot path reaches (``ops.apply_kernel(tile="auto")``
@@ -64,14 +56,6 @@ from repro_torch.core.rooflinemodel import Chip, resolve_chip, \
 
 # full waves of resident blocks a tile's grid must give (one slot's grid)
 WAVES = 8
-# the same for the streaming kernels: a longer segment re-reads fewer
-# planes, fewer waves lose more to the tail (kernel_study.py's tiles
-# section times both sides)
-STREAM_WAVES = 4
-# shared memory an SM of sm_90 holds for its blocks, and what the runtime
-# reserves a block of it
-_SMEM_SM = 228 * 1024
-_SMEM_RESERVED = 1024
 # the least share of block_for's staged bytes a cell that a tile walking x
 # planes must save, to pay for the walk's loop
 WALK_GAIN = 1 / 3
@@ -94,25 +78,15 @@ class TileChoice:
     waves: float = 0.0           # the grid's blocks over the card's resident
 
 
-def blocks_per_sm(threads: int, registers: int, chip: Chip,
-                  smem: int = 0) -> int:
-    """Resident blocks of ``threads`` threads using ``registers`` each
-    (and ``smem`` bytes of shared memory a block) on one SM of ``chip``:
-    the least of its block, thread, register and shared-memory limits."""
+def blocks_per_sm(threads: int, registers: int, chip: Chip) -> int:
+    """Resident blocks of ``threads`` threads using ``registers`` each on
+    one SM of ``chip``: the least of its block, thread and register
+    limits."""
     warps = math.ceil(threads / chip.warp)
     regs_warp = math.ceil(registers * chip.warp / _REG_UNIT) * _REG_UNIT
-    limits = [chip.max_blocks_sm, chip.max_threads_sm // (warps * chip.warp),
-              chip.regs_sm // (warps * regs_warp)]
-    if smem:
-        limits.append(int(min(chip.vmem_bytes, _SMEM_SM)
-                          // (smem + _SMEM_RESERVED)))
-    return min(limits)
-
-
-def _streaming(desc: StencilDescriptor) -> bool:
-    from repro_torch.kernels import stencil3d_cuda
-
-    return desc.name in stencil3d_cuda.STREAMING
+    return min(chip.max_blocks_sm,
+               chip.max_threads_sm // (warps * chip.warp),
+               chip.regs_sm // (warps * regs_warp))
 
 
 def _kernel_limits(desc: StencilDescriptor, chip: Chip):
@@ -123,6 +97,12 @@ def _kernel_limits(desc: StencilDescriptor, chip: Chip):
     regs = stencil3d_cuda.REGISTERS.get(desc.name, (_DEFAULT_REGISTERS,) * 2)
     return regs, min(chip.max_threads_block, stencil3d_cuda.MAX_THREADS), \
         stencil3d_cuda.block_for
+
+
+def _max_walk(desc: StencilDescriptor) -> int | None:
+    from repro_torch.kernels import stencil3d_cuda
+
+    return stencil3d_cuda.MAX_WALK.get(desc.name)
 
 
 def candidates(desc: StencilDescriptor, local_shape, chip: Chip
@@ -150,7 +130,7 @@ def choose_tile(
     flops_per_cell: float = 10.0,
     chip: Chip | str | None = "auto",
     vmem_fraction: float = 0.5,
-    waves: float | None = None,
+    waves: float = WAVES,
 ) -> TileChoice:
     """Best launch tile ``(tx, ty, tz)`` of ``desc``'s CUDA kernel for one
     slot's interior ``local_shape`` (see the module docstring).
@@ -165,29 +145,23 @@ def choose_tile(
     nwrite = len(desc.outputs)
     halo = desc.halo_width
     registers, _, block_for = _kernel_limits(desc, chip)
-    streaming = _streaming(desc)
-    if streaming:
-        from repro_torch.kernels.stencil3d_cuda import stream_smem_bytes
-    if waves is None:
-        waves = STREAM_WAVES if streaming else WAVES
     best, best_key = None, None
     def staged(tile):      # bytes a cell the descriptor stages for ``tile``
         return (dataclasses.replace(desc, tile=tile).vmem_block_bytes(itemsize)
                 / math.prod(tile))
 
     walk_limit = (1 - WALK_GAIN) * staged(block_for(ny, nz))
+    max_walk = _max_walk(desc)
     for tx, ty, tz in candidates(desc, (nx, ny, nz), chip):
-        if streaming:
-            vmem = stream_smem_bytes(desc.name, (tx, ty, tz))
-        else:
-            vmem = dataclasses.replace(desc, tile=(tx, ty, tz)
-                                       ).vmem_block_bytes(itemsize)
+        if max_walk is not None and tx > max_walk:
+            continue
+        vmem = dataclasses.replace(desc, tile=(tx, ty, tz)).vmem_block_bytes(
+            itemsize)
         if vmem > budget:
             continue
-        if tx > 1 and not streaming and staged((tx, ty, tz)) > walk_limit:
+        if tx > 1 and staged((tx, ty, tz)) > walk_limit:
             continue
-        bps = blocks_per_sm(ty * tz, registers[tx > 1], chip,
-                            vmem if streaming else 0)
+        bps = blocks_per_sm(ty * tz, registers[tx > 1], chip)
         if bps < 1:
             continue
         blocks = math.ceil(nx / tx) * math.ceil(ny / ty) * math.ceil(nz / tz)

@@ -238,7 +238,7 @@ class GeneratedKernel:
         are shared.  The TORCH template broadcasts them as ``(S, 1, 1, 1)``;
         the CUDA template gives each slot its own table row, so one launch
         advances slots with different physics.  ``ghosts`` (CUDA template,
-        the streaming kernels): the cached fields arrive unpadded with
+        the GHOSTED kernels): the cached fields arrive unpadded with
         their faces (``stencil3d_cuda``'s ghosted load).
         """
         self._check_params(params)

@@ -21,24 +21,24 @@
 // DIVERGENCE ~16 (12 read, 4 written), JACOBI_PRESSURE 12,
 // PROJECT_VELOCITY 28, against about 150, 6, 13 and 10 float operations.
 //
-// JACOBI_PRESSURE and UPDATE_VELOCITY stream (see "The streaming kernels"
-// below): a block marches along x through a ring of planes in shared
-// memory, and in their ghosted load they read the fields unpadded and fill
-// the ghost zone themselves from the faces' rules as data and the strips
-// the neighbour ranks sent.  The padded copy of a whole field that their
-// callers made before every launch (three volume copies a pad; 43 pads a
-// step for these two) is gone from their path; the padded load stays as a
-// mode of the same loader, for the thin shells of the interior/shell split
-// and for rules that declare no form.  Bounds: JACOBI_PRESSURE reads p and
-// rhs and writes p, UPDATE_VELOCITY reads and writes three fields, each
-// once, plus the strips and the faces' table of b.
+// Each kernel is one thread per output cell, threadIdx.x along the
+// contiguous z axis so that every load and store of a warp is coalesced; a
+// block of (tz, ty) threads walks tx consecutive (slot, x) rows, blockIdx.z
+// striding over the groups of rows, relying on L1/L2 for the reuse of
+// neighbour values.
 //
-// DIVERGENCE and PROJECT_VELOCITY (and the generated template at the end)
-// still read padded fields, one thread per output cell, threadIdx.x along
-// the contiguous z axis so that every load and store of a warp is
-// coalesced; a block of (tz, ty) threads walks tx consecutive (slot, x)
-// rows, blockIdx.z striding over the groups of rows, relying on L1/L2 for
-// the reuse of neighbour values.
+// JACOBI_PRESSURE and UPDATE_VELOCITY also have a ghosted load (see "The
+// ghosted load" below): they read their fields unpadded and make each
+// ghost value a face cell needs themselves, from the faces' rules as data
+// and the strips the neighbour ranks sent.  The padded copy of a whole
+// field that their callers made before every launch (three volume copies a
+// pad; 43 pads a step for these two) is gone from their path; the padded
+// load stays as the other mode of the same body, for the thin shells of
+// the interior/shell split and for rules that declare no form.  Bounds:
+// JACOBI_PRESSURE reads p and rhs and writes p, UPDATE_VELOCITY reads and
+// writes three fields, each once, plus the strips and the faces' table of
+// b.  DIVERGENCE and PROJECT_VELOCITY (and the generated template at the
+// end) still read padded fields.
 //
 // The launch tile (tx, ty, tz) comes from the caller: the wrapper's
 // block_for default or the autotuner's choice
@@ -102,12 +102,11 @@ __device__ __forceinline__ void row_of(int64_t r, int64_t nx, int64_t& s,
 }
 
 // The rows a block computes: groups of tx consecutive (slot, x) rows, the
-// group index striding over blockIdx.z.  Each kernel that walks rows
-// (DIVERGENCE, PROJECT_VELOCITY, the generated template) comes in two
-// instantiations: kWalk = false is for tx = 1, where the walk reduces to
-// the one-row loop r = blockIdx.z, blockIdx.z + gridDim.z, ... with
-// nothing around it (a loop with a bound known only at run time around the
-// body cost the small kernels 2-42% at tx = 1, whose blocks then walk
+// group index striding over blockIdx.z.  Each kernel comes in two
+// instantiations: kWalk = false is for tx = 1, where the walk reduces to the
+// one-row loop r = blockIdx.z, blockIdx.z + gridDim.z, ... with nothing
+// around it (a loop with a bound known only at run time around the body
+// cost the three small kernels 2-42% at tx = 1, whose blocks then walk
 // nothing); kWalk = true walks tx rows.
 #define ROWS(r)                                                            \
   for (int64_t r##0 = (int64_t)blockIdx.z * (kWalk ? tx : 1); r##0 < S * nx; \
@@ -123,49 +122,29 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 
 #ifndef STENCIL3D_GENERATED
 // ---------------------------------------------------------------------------
-// The streaming kernels, JACOBI_PRESSURE and UPDATE_VELOCITY: the 2.5D
-// march of csrc/jacobi.cu for one sweep.  A block of (tz, ty) threads owns a
-// (ty, tz) column of the yz-plane of one slot and marches along x over tx
-// planes (its segment); blockIdx.z strides over the (slot, segment) pairs.
-// Each cached field keeps a ring of kBufs planes in shared memory, each the
-// block's (ty + 2) x (tz + 2) cells: its own and the one-cell ring about
-// them.  At step t (output plane x0 + t) planes t, t+1, t+2 of the padded x
-// range x0-1 .. x1 are read while planes t+3 and t+4 are in flight:
-// cp.async copies, one commit group a plane, so one __syncthreads() a step
-// suffices (the plane a step overwrites was last read the step before).  An
-// input without a halo (JACOBI_PRESSURE's rhs) rides in the same groups,
-// the block's own cells of its plane only.
-//
-// Two load modes of one loader (kGhost):
-//   * padded (kGhost = false): the field arrives padded by 1 on every side,
-//     (S, nx+2, ny+2, nz+2), and every cell of the ring is a copy;
-//   * ghosted (kGhost = true): the field arrives unpadded, (S, nx, ny, nz),
-//     and the block fills the ring's ghost cells itself from the field's
-//     six faces (struct Ghosts): a rule as data, ghost = a m + b of the
-//     mirrored interior cell m (its kind says which terms it has, so that
-//     each is rounded as the rule's call rounds it), the periodic wrap, or
-//     the strip the neighbour rank sent.  The value at a padded position is
-//     the one exchange_pad's array holds there: the axes are resolved z, y,
-//     x and their rules applied x, then y, then z, as the padding pads x
-//     first and each later axis over the earlier ones (an edge cell
-//     composes the rules; a strip of a later axis carries the ghost ends of
-//     the earlier ones).  The ghost planes x = -1 and x = nx are made the
-//     same way, by rule from plane 0 or nx - 1, or from the x strip.
-//     A ghost cell is copied asynchronously like any other, from the cell
-//     its position folds to (the mirrored edge cell across a rule, the far
-//     side's across a wrap, the strip's cell; a ghost plane's cells from
-//     plane 0 or nx - 1, the far plane or the x strip), found out of line
-//     (ghost_copy), so a block on the grid's faces moves what an inner one
-//     moves.  Once a thread's copies of a plane have landed it applies the
-//     rules to the ghost cells it copied, before the step's barrier
-//     (fix_cells): no second barrier.  A block whose cells of a plane all
-//     lie in the grid (most of them) takes the padded load's plain copies,
-//     with no test per cell.
+// The ghosted load of JACOBI_PRESSURE and UPDATE_VELOCITY.  Each of the two
+// kernels comes in two load modes of one body (kGhost):
+//   * padded (kGhost = false): the cached fields arrive padded by 1 on every
+//     side, (S, nx+2, ny+2, nz+2), and every neighbour is a read at a fixed
+//     offset, as in the other kernels;
+//   * ghosted (kGhost = true): the cached fields arrive unpadded,
+//     (S, nx, ny, nz), with their six faces (struct Ghosts): a rule as data,
+//     ghost = a m + b of the mirrored interior cell m (its kind says which
+//     terms it has, so that each is rounded as the rule's call rounds it),
+//     the periodic wrap, or the strip the neighbour rank sent.  A cell whose
+//     neighbours all lie in the grid (all but the faces' cells) reads them
+//     at fixed offsets; a face cell reads a neighbour past the grid through
+//     ghost_value, out of line: the value exchange_pad's padded array holds
+//     there.  The axes are resolved z, y, x and their rules applied x, then
+//     y, then z, as the padding pads x first and each later axis over the
+//     earlier ones (an edge cell composes the rules; a strip of a later axis
+//     carries the ghost ends of the earlier ones).
+// No copy of a field is made: a ghost cell costs a face thread one more
+// read of a cell the block reads anyway, or of a strip.
 // ---------------------------------------------------------------------------
 enum : int { kConst = 0, kLinear = 1, kAffine = 2, kWrap = 3, kStrip = 4 };
 constexpr int kFaces = 6;   // x lo, x hi, y lo, y hi, z lo, z hi
 constexpr int kMaxFields = 3;
-constexpr int kBufs = 5;    // planes a field keeps: 3 read, 2 in flight
 
 // one face of one field (repro_torch.kernels.stencil3d_cuda._Face)
 struct Face {
@@ -177,24 +156,6 @@ struct Ghosts {
   Face f[kMaxFields][kFaces];
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // the face's rule on the mirrored cell m, b the slot's value of its b
 __device__ __forceinline__ float rule(const Face& f, float b, float m) {
   if (f.kind == kConst) return b;
@@ -203,7 +164,7 @@ __device__ __forceinline__ float rule(const Face& f, float b, float m) {
 }
 
 // A field's six face kinds, 3 bits a face (face q at bit 3 q): one register
-// that the march keeps instead of the faces.
+// that a thread keeps instead of the faces.
 __device__ __forceinline__ int pack_kinds(const Face* f) {
   int kinds = 0;
 #pragma unroll
@@ -252,348 +213,178 @@ __device__ __forceinline__ float apply_rules(float v, const Face* f,
   return v;
 }
 
-// Start copying to dst the value padded cell (i, j, k), -1 <= i <= nx etc.,
-// of slot s folds to: the cell of src, the plane load_plane copies from,
-// at the folded (j, k), or where a y or z strip is crossed the strip's
-// cell.  Out of line: only the blocks that meet a rule or a strip, or
-// overhang the grid, call it, and inline it cost JACOBI_PRESSURE spills.
-__device__ __noinline__ void ghost_copy(float* dst, const float* src,
-                                        const float* __restrict__ u,
-                                        const Face* f, int kinds, int64_t s,
-                                        int i, int j, int k, int nx, int ny,
-                                        int nz) {
-  const bool kz = k < 0 || k >= nz, ky = j < 0 || j >= ny;
-  if (kz) {
-    const int q = 4 + (k >= 0), kd = kind_of(kinds, q);
-    if (kd == kStrip) {   // (S, nx+2, ny+2, 1)
-      cp_async4(dst, f[q].strip + (s * (nx + 2) + i + 1) * (int64_t)(ny + 2) +
-                         j + 1);
-      return;
-    }
-    k = fold(k, nz, kd);
-  }
-  if (ky) {
-    const int q = 2 + (j >= 0), kd = kind_of(kinds, q);
-    if (kd == kStrip) {   // (S, nx+2, 1, nz)
-      cp_async4(dst, f[q].strip + (s * (nx + 2) + i + 1) * (int64_t)nz + k);
-      return;
-    }
-    j = fold(j, ny, kd);
-  }
-  cp_async4(dst, src + (int64_t)j * nz + k);
-}
-
-// The block's geometry and its place in the grid.  A plane of a field in
-// shared memory is (ty + 2) rows of tz + 2 floats: the block's own cells
-// and the ring about them.
-struct Tile {
-  int ty, tz, ez, plane;  // ez: a row in shared memory
-  int y0, z0;             // the block's first output cell in y and z
-  int tid, nthreads;
-  int nx, ny, nz;
-  int vj, vk;  // this thread's 16-byte copy of four own cells of an input
-               // without a halo: row and first column (vj < 0: none)
-  bool over;   // some own cell lies past the grid
-  __device__ Tile(int nx_, int ny_, int nz_)
-      : ty(blockDim.y), tz(blockDim.x), ez(blockDim.x + 2),
-        plane((blockDim.y + 2) * (blockDim.x + 2)),
-        y0(blockIdx.y * blockDim.y), z0(blockIdx.x * blockDim.x),
-        tid(threadIdx.y * blockDim.x + threadIdx.x),
-        nthreads(blockDim.x * blockDim.y), nx(nx_), ny(ny_), nz(nz_) {
-    const int per_row = tz / 4;
-    vj = tz % 4 == 0 && tid < ty * per_row ? tid / per_row : -1;
-    vk = vj >= 0 ? (tid - vj * per_row) * 4 : 0;
-    over = y0 + ty > ny || z0 + tz > nz;
-  }
-  // shared-memory index of ring cell (jj, kk): jj, kk = 0 the ring's low
-  // row and column, 1 .. ty and 1 .. tz the block's own cells
-  __device__ __forceinline__ int at(int jj, int kk) const {
-    return jj * ez + kk;
-  }
-  // the ring cell (jj, kk) of this thread's r-th turn over the ring
-  __device__ __forceinline__ void ring_cell(int r, int& jj, int& kk) const {
-    if (r < 2 * (tz + 2)) {
-      const bool top = r < tz + 2;
-      jj = top ? 0 : ty + 1;
-      kk = top ? r : r - (tz + 2);
-    } else {
-      const int q = r - 2 * (tz + 2);
-      jj = 1 + (q >> 1);
-      kk = (q & 1) ? tz + 1 : 0;
-    }
-  }
-  __device__ __forceinline__ int ring() const { return 2 * (tz + 2) + 2 * ty; }
-};
-
-// Does this block meet a face of a field (kinds: pack_kinds) whose ghost
-// cells are not plain copies across the wrap: a rule or a strip?  (The
-// same for every thread of the block.)
-__device__ __forceinline__ bool meets_rules(int kinds, const Tile& t) {
-  return (t.y0 == 0 && kind_of(kinds, 2) != kWrap) ||
-         (t.y0 + t.ty >= t.ny && kind_of(kinds, 3) != kWrap) ||
-         (t.z0 == 0 && kind_of(kinds, 4) != kWrap) ||
-         (t.z0 + t.tz >= t.nz && kind_of(kinds, 5) != kWrap);
-}
-
-// Start loading padded plane i of one field of slot s into dst: the
-// block's own cells and the ring (spread over the threads).  A cell past
-// the padded field (a block that overhangs the grid) is skipped: only
-// threads without an output cell read it.  In the ghosted load (kinds: the
-// faces' kinds, pack_kinds) a block that meets no rule or strip (rules:
-// meets_rules) copies every cell from the plane it folds to, a ring cell
-// across a wrap from the far side; the others, and a block that
-// overhangs, copy the cells past the grid through ghost_copy.
-template <bool kGhost>
-__device__ __forceinline__ void load_plane(float* dst,
-                                           const float* __restrict__ u,
-                                           const Face* f, int kinds,
-                                           bool rules, int64_t s, int i,
-                                           const Tile& t) {
-  // the plane the cells come from, its cell (j, k) at src + j rz + k
-  // (-1 <= j, k in the padded load): u's plane i, or for a ghost plane the
-  // plane its position folds to or the x strip, which is laid out alike
-  const int64_t rz = kGhost ? t.nz : t.nz + 2;
+// The value padded cell (i, j, k), -1 <= i <= nx etc., of slot s of field
+// u holds, one of i, j, k past the grid: the cell its position folds to
+// (the plane u's, or for a ghost plane the plane its position folds to or
+// the x strip, (S, 1, ny, nz), laid out alike), or where a y or z strip is
+// crossed the strip's cell, with the rules applied.  b: the slot's six
+// values of b.  Out of line: only the face cells call it.
+__device__ __noinline__ float ghost_value(const float* __restrict__ u,
+                                          const Face* f, int kinds,
+                                          const float* __restrict__ b,
+                                          int64_t s, int i, int j, int k,
+                                          int nx, int ny, int nz) {
+  const int64_t plane = (int64_t)ny * nz;
   const float* src;
-  if (!kGhost) {
-    src = u + ((s * (t.nx + 2) + i + 1) * (t.ny + 2) + 1) * rz + 1;
-  } else if (i >= 0 && i < t.nx) {
-    src = u + (s * t.nx + i) * (int64_t)t.ny * t.nz;
+  if (i >= 0 && i < nx) {
+    src = u + (s * nx + i) * plane;
   } else {
     const int q = i >= 0, kd = kind_of(kinds, q);
-    src = kd == kStrip
-              ? f[q].strip + s * (int64_t)t.ny * t.nz
-              : u + (s * t.nx + fold(i, t.nx, kd)) * (int64_t)t.ny * t.nz;
+    src = kd == kStrip ? f[q].strip + s * plane
+                       : u + (s * nx + fold(i, nx, kd)) * plane;
   }
-  auto copy = [&](int jj, int kk, int j, int k) {
-    cp_async4(dst + t.at(jj, kk), src + j * rz + k);
-  };
-  auto any = [&](int jj, int kk) {
-    const int j = t.y0 - 1 + jj, k = t.z0 - 1 + kk;
-    if (j > t.ny || k > t.nz) return;   // past the padded field
-    if (kGhost && (j < 0 || j >= t.ny || k < 0 || k >= t.nz))
-      ghost_copy(dst + t.at(jj, kk), src, u, f, kinds, s, i, j, k, t.nx,
-                 t.ny, t.nz);
-    else
-      copy(jj, kk, j, k);
-  };
-  if (!t.over)
-    copy(threadIdx.y + 1, threadIdx.x + 1, t.y0 + threadIdx.y,
-         t.z0 + threadIdx.x);
-  else
-    any(threadIdx.y + 1, threadIdx.x + 1);
-  const bool plain = !t.over && !(kGhost && rules);
-  for (int r = t.tid; r < t.ring(); r += t.nthreads) {
-    int jj, kk;
-    t.ring_cell(r, jj, kk);
-    if (plain) {
-      int j = t.y0 - 1 + jj, k = t.z0 - 1 + kk;
-      if (kGhost) {   // across a wrap: the far side
-        j = j < 0 ? j + t.ny : j >= t.ny ? j - t.ny : j;
-        k = k < 0 ? k + t.nz : k >= t.nz ? k - t.nz : k;
-      }
-      copy(jj, kk, j, k);
-    } else {
-      any(jj, kk);
+  int jj = j, kk = k;
+  float v;
+  if (k < 0 || k >= nz) {
+    const int q = 4 + (k >= 0), kd = kind_of(kinds, q);
+    if (kd == kStrip) {   // (S, nx+2, ny+2, 1)
+      v = f[q].strip[(s * (nx + 2) + i + 1) * (int64_t)(ny + 2) + j + 1];
+      return apply_rules(v, f, kinds, b, i, j, k, nx, ny, nz);
+    }
+    kk = fold(k, nz, kd);
+  }
+  if (j < 0 || j >= ny) {
+    const int q = 2 + (j >= 0), kd = kind_of(kinds, q);
+    if (kd == kStrip) {   // (S, nx+2, 1, nz)
+      v = f[q].strip[(s * (nx + 2) + i + 1) * (int64_t)nz + kk];
+      return apply_rules(v, f, kinds, b, i, j, k, nx, ny, nz);
+    }
+    jj = fold(j, ny, kd);
+  }
+  v = src[(int64_t)jj * nz + kk];
+  return apply_rules(v, f, kinds, b, i, j, k, nx, ny, nz);
+}
+
+// The reads of one field about the cell a thread computes, F(a, b, d) the
+// neighbour at offset (a, b, d), |a|, |b|, |d| <= 1.  Cells: at c plus each
+// axis's offset of a step down (xm, ym, zm) or up (xp, yp, zp), a Place's.
+// Ghosted: a cell of the ghosted load that some neighbour reaches across a
+// rule or a strip, through ghost_value past the grid.
+struct Cells {
+  const float* __restrict__ u;
+  int64_t c, xm, xp, ym, yp, zm, zp;
+  __device__ __forceinline__ float operator()(int a, int b, int d) const {
+    return u[c + (a < 0 ? xm : a > 0 ? xp : 0) + (b < 0 ? ym : b > 0 ? yp : 0) +
+             (d < 0 ? zm : d > 0 ? zp : 0)];
+  }
+};
+struct Ghosted {
+  const float* __restrict__ u;
+  const Face* f;
+  int kinds;
+  const float* __restrict__ b;
+  int64_t s;
+  int i, j, k, nx, ny, nz;
+  __device__ __forceinline__ float operator()(int a, int bb, int d) const {
+    const int x = i + a, y = j + bb, z = k + d;
+    if (x >= 0 && x < nx && y >= 0 && y < ny && z >= 0 && z < nz)
+      return u[((s * nx + x) * ny + y) * (int64_t)nz + z];
+    return ghost_value(u, f, kinds, b, s, x, y, z, nx, ny, nz);
+  }
+};
+
+// The faces that wrap in every field of F, one bit a face (face q at bit q).
+template <int F>
+__device__ __forceinline__ int wrapping(const Ghosts& g) {
+  int wraps = (1 << kFaces) - 1;
+#pragma unroll
+  for (int m = 0; m < F; ++m)
+#pragma unroll
+    for (int q = 0; q < kFaces; ++q)
+      if (g.f[m][q].kind != kWrap) wraps &= ~(1 << q);
+  return wraps;
+}
+
+// Cell (i, j, k) of slot s in a cached field: its index c, padded by 1 on
+// every side (kGhost = false) or unpadded, and the offsets of its
+// neighbours a step down or up each axis.  In the ghosted load a step past
+// a face that wraps (wraps: wrapping) lands on the far side, so the
+// neighbours are still reads at offsets from c, and folds says whether
+// every neighbour is such a read: false where a step crosses a rule or a
+// strip.  (A warp runs along z: in a grid whose z faces wrap, as the
+// cavity's do, only the warps of the x and y faces' rows take the Ghosted
+// reads.)
+template <bool kGhost>
+struct Place {
+  int64_t c, xm, xp, ym, yp, zm, zp;
+  bool folds;
+  __device__ __forceinline__ Place(int64_t s, int64_t i, int64_t j,
+                                   int64_t k, int64_t nx, int64_t ny,
+                                   int64_t nz, int wraps) {
+    const int64_t pad = kGhost ? 0 : 2, sy = nz + pad, sx = (ny + pad) * sy;
+    c = ((s * (nx + pad) + i) * (ny + pad) + j) * sy + k;
+    if (!kGhost) c += sx + sy + 1;
+    xm = -sx, xp = sx, ym = -sy, yp = sy, zm = -1, zp = 1;
+    folds = true;
+    if (kGhost) {
+      auto wrap = [&](int64_t at, int64_t n, int64_t st, int q,
+                      int64_t& down, int64_t& up) {
+        if (at == 0) {
+          down = (n - 1) * st;
+          folds = folds && (wraps >> q & 1);
+        }
+        if (at == n - 1) {
+          up = -(n - 1) * st;
+          folds = folds && (wraps >> (q + 1) & 1);
+        }
+      };
+      wrap(i, nx, sx, 0, xm, xp);
+      wrap(j, ny, sy, 2, ym, yp);
+      wrap(k, nz, 1, 4, zm, zp);
     }
   }
-}
+};
 
-// Apply the rules to the ghost cells of padded plane i of one field that
-// this thread copied, once they have landed; b: the slot's six values of
-// b.  Called where the plane has any: a ghost plane across an x rule, or a
-// block that meets a rule (rules) or overhangs.
-__device__ __forceinline__ void fix_cells(float* dst, const Face* f,
-                                          int kinds,
-                                          const float* __restrict__ b, int i,
-                                          const Tile& t) {
-  const bool inner = i >= 0 && i < t.nx;
-  auto fix = [&](int jj, int kk) {
-    const int j = t.y0 - 1 + jj, k = t.z0 - 1 + kk;
-    if (j > t.ny || k > t.nz) return;
-    if (inner && j >= 0 && j < t.ny && k >= 0 && k < t.nz) return;
-    float* d = dst + t.at(jj, kk);
-    *d = apply_rules(*d, f, kinds, b, i, j, k, t.nx, t.ny, t.nz);
-  };
-  if (!inner || t.over) fix(threadIdx.y + 1, threadIdx.x + 1);
-  for (int r = t.tid; r < t.ring(); r += t.nthreads) {
-    int jj, kk;
-    t.ring_cell(r, jj, kk);
-    fix(jj, kk);
-  }
-}
+// The blocks an SM must hold of each instantiation: the register limit of
+// its __launch_bounds__ (kernel_study.py's tiles section times the others).
+// JACOBI_PRESSURE's ghosted load at 6 (40 registers, a few spilled in the
+// face rows' Ghosted reads) ran 0.147 ms at 256^3 against 0.168 at 4 (64);
+// UPDATE_VELOCITY's at 4 (64 registers) 0.431 against 0.616 at 6, where
+// ~500 bytes spill.  The padded load at 6 holds the 32-40 registers it
+// took with no limit.
+constexpr int kJacobiGhostBlocks = 6;
+constexpr int kUpdateGhostBlocks = 4;
+constexpr int kPaddedBlocks = 6;
 
-// Start loading plane x of an input without a halo (unpadded) into dst,
-// the block's own cells, a row tz floats.
-__device__ __forceinline__ void load_flat(float* dst,
-                                          const float* __restrict__ v,
-                                          int64_t s, int x, bool vec,
-                                          const Tile& t) {
-  const int64_t px = (s * t.nx + x) * (int64_t)t.ny * t.nz;
-  if (vec) {
-    const int j = t.y0 + t.vj, k = t.z0 + t.vk;
-    if (t.vj >= 0 && j < t.ny && k < t.nz)
-      cp_async16(dst + t.vj * t.tz + t.vk, v + px + (int64_t)j * t.nz + k);
-  } else {
-    const int j = t.y0 + threadIdx.y, k = t.z0 + threadIdx.x;
-    if (j < t.ny && k < t.nz)
-      cp_async4(dst + threadIdx.y * t.tz + threadIdx.x,
-                v + px + (int64_t)j * t.nz + k);
-  }
-}
-
-// Where an input without a halo starts in shared memory: at the first
-// 16-byte boundary past the F fields' planes (four of its cells are one
-// 16-byte copy).
-__device__ __forceinline__ int flat_offset(int F, const Tile& t) {
-  return (F * kBufs * t.plane + 3) & ~3;
-}
-
-// The march of one block over its (slot, segment) pairs: body(s, x, t)
-// computes output plane x (step t of the segment) from the ring planes
-// t, t+1, t+2 of each field, and flat's plane x at flat ring slot t+1
-// (flat: an input without a halo, or null); fields: the F cached inputs.
-template <int F, bool kGhost, typename Body>
-__device__ __forceinline__ void march(const float* const (&fields)[F],
-                                      const float* __restrict__ flat,
-                                      const Ghosts& g,
-                                      const float* __restrict__ btab,
-                                      float* smem, int64_t S, int tx,
-                                      const Tile& t, Body body) {
-  const int segs = (t.nx + tx - 1) / tx;
-  float* const fsmem = smem + flat_offset(F, t);
-  int kinds[F];
-  bool rules[F];
-#pragma unroll
-  for (int m = 0; m < F; ++m) {
-    kinds[m] = kGhost ? pack_kinds(g.f[m]) : 0;
-    rules[m] = kGhost && meets_rules(kinds[m], t);
-  }
-  const bool fvec =
-      t.tz % 4 == 0 && t.nz % 4 == 0 && ((uintptr_t)flat & 15) == 0;
-  for (int64_t row = blockIdx.z; row < S * segs; row += gridDim.z) {
-    const int64_t s = row / segs;
-    const int x0 = (int)(row - s * segs) * tx;
-    const int steps = min(x0 + tx, t.nx) - x0;
-    const int loads = steps + 2;              // padded planes x0-1 .. x0+steps
-    auto load = [&](int q) {
-#pragma unroll
-      for (int m = 0; m < F; ++m)
-        load_plane<kGhost>(smem + (m * kBufs + q % kBufs) * t.plane,
-                           fields[m], g.f[m], kinds[m], rules[m], s,
-                           x0 - 1 + q, t);
-      if (flat != nullptr && q >= 1 && q <= steps)
-        load_flat(fsmem + (q % kBufs) * t.ty * t.tz, flat, s, x0 - 1 + q,
-                  fvec, t);
-    };
-    // the rules on this thread's ghost cells of plane q, landed
-    auto fix = [&](int q) {
-      const int i = x0 - 1 + q;
-      const bool inner = i >= 0 && i < t.nx;
-#pragma unroll
-      for (int m = 0; m < F; ++m)
-        if (rules[m] || t.over ||
-            (!inner && kind_of(kinds[m], i >= 0) <= kAffine))
-          fix_cells(smem + (m * kBufs + q % kBufs) * t.plane, g.f[m],
-                    kinds[m], btab + (s * F + m) * kFaces, i, t);
-    };
-    __syncthreads();   // the previous segment's readers are done
-#pragma unroll 1
-    for (int q = 0; q < kBufs - 1; ++q) {   // one copy group a plane
-      if (q < loads) load(q);
-      cp_async_commit();
-    }
-    for (int st = 0; st < steps; ++st) {
-      cp_async_wait<kBufs - 4>();   // planes st .. st+2 have landed ...
-      if (kGhost) {                 // ... their ghost cells take the rules
-#pragma unroll 1
-        for (int q = st == 0 ? 0 : st + 2; q <= st + 2; ++q) fix(q);
-      }
-      __syncthreads();              // ... for every thread
-      if (st + kBufs - 1 < loads) load(st + kBufs - 1);
-      cp_async_commit();
-      body(s, x0 + st, st);
-    }
-    cp_async_wait<0>();
-  }
-}
-
-// The streaming kernels' launch: the grid is (z tiles, y tiles, slot x
-// segment pairs), blockIdx.z striding past 65535; a padded plane is
-// indexed in 32 bits and the extents are ints.
-int64_t segments(int64_t nx, int tx) { return (nx + tx - 1) / tx; }
-
-dim3 grid_stream(dim3 block, int tx, int64_t S, int64_t nx, int64_t ny,
-                 int64_t nz) {
-  const int64_t rows = S * segments(nx, tx);
-  return dim3((unsigned)((nz + block.x - 1) / block.x),
-              (unsigned)((ny + block.y - 1) / block.y),
-              (unsigned)(rows < kMaxGridZ ? rows : kMaxGridZ));
-}
-
-bool bad_stream(int64_t S, int64_t nx, int64_t ny, int64_t nz, int tx,
-                int ty, int tz) {
-  return bad_launch(S, nx, ny, nz, tx, ty, tz) ||
-         (ny + 2) * (nz + 2) >= ((int64_t)1 << 31) ||
-         nx + 2 >= ((int64_t)1 << 31);
-}
-
-// a block's shared memory: kBufs planes of (ty + 2) x (tz + 2) a cached
-// field, then from a 16-byte boundary kBufs of ty x tz an input without a
-// halo (at most 46,448 bytes, UPDATE_VELOCITY at tz = 1, ty = 256; a
-// launch that needs more than the 48 KB a block takes without opting in
-// opts in)
-constexpr size_t kSmemDefault = 48 * 1024;
-size_t stream_smem(int fields, int flat, int ty, int tz) {
-  const size_t planes = (size_t)fields * kBufs * (ty + 2) * (tz + 2);
-  return sizeof(float) * (((planes + 3) & ~(size_t)3) +
-                          (size_t)flat * kBufs * ty * tz);
+// A launch of the ghosted load indexes a cell in 32 bits along each axis.
+bool bad_ghosted(int64_t nx, int64_t ny, int64_t nz) {
+  return nx + 2 >= ((int64_t)1 << 31) || ny + 2 >= ((int64_t)1 << 31) ||
+         nz + 2 >= ((int64_t)1 << 31);
 }
 // ---------------------------------------------------------------------------
 // UPDATE_VELOCITY  (replaces the 3DBLOCK instance of descriptor
 // UPDATE_VELOCITY, src/repro/kernels/stencil3d.py, body update_velocity_body)
 // u* = u + dt (-(MAC central flux-form advection) + nu lap(u) + f)
-// in: vx, vy, vz, unpadded (S, nx, ny, nz) with their faces (ghosted), or
+// in: vx, vy, vz unpadded (S, nx, ny, nz) with their faces (ghosted), or
 // padded by 1 on every side (padded); out: three (S, nx, ny, nz); table dt,
-// 1/h, 1/h^2, nu, fx, fy, fz
+// 1/h, 1/h^2, nu, fx, fy, fz; btab (ghosted): the (S, 3 x 6) values of b
 // ---------------------------------------------------------------------------
-// (4 blocks an SM: the ghosted load at most 64 registers, where it took
-// more and ran slower; the padded load fits 5 as it is)
-template <bool kGhost>
-__global__ void __launch_bounds__(kThreads, kGhost ? 4 : 5)
+template <bool kGhost, bool kWalk>
+__global__ void __launch_bounds__(kThreads,
+                                  kGhost ? kUpdateGhostBlocks : kPaddedBlocks)
     update_velocity_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ oz,
     const float* __restrict__ table, const __grid_constant__ Ghosts g,
-    const float* __restrict__ btab, int64_t S, int nx, int ny, int nz,
-    int tx) {
-  extern __shared__ __align__(16) float smem[];
-  const Tile t(nx, ny, nz);
-  const int j = t.y0 + threadIdx.y, k = t.z0 + threadIdx.x;
-  const bool mine = j < ny && k < nz;
-  const int c = t.at(threadIdx.y + 1, threadIdx.x + 1);
-  const int ez = t.ez;
-  const float* const fields[3] = {vx, vy, vz};
-  march<3, kGhost>(fields, nullptr, g, btab, smem, S, tx, t,
-                   [&](int64_t s, int x, int st) {
-    if (!mine) return;
+    const float* __restrict__ btab, int64_t S, int64_t nx, int64_t ny,
+    int64_t nz, int tx) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= ny || k >= nz) return;
+  const int wraps = kGhost ? wrapping<3>(g) : 0;
+  ROWS(r) {
+    int64_t s, i;
+    row_of(r, nx, s, i);
     const float* prm = table + s * 7;
     const float dt = prm[0], ih = prm[1], ih2 = prm[2], nu = prm[3];
     const float fx = prm[4], fy = prm[5], fz = prm[6];
-    // planes x-1, x, x+1 of each field
-    const float* pu[3];
-    const float* pv[3];
-    const float* pw[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int q = (st + a) % kBufs;
-      pu[a] = smem + (0 * kBufs + q) * t.plane + c;
-      pv[a] = smem + (1 * kBufs + q) * t.plane + c;
-      pw[a] = smem + (2 * kBufs + q) * t.plane + c;
-    }
-#define U(a, b, d) pu[(a) + 1][(b) * ez + (d)]
-#define V(a, b, d) pv[(a) + 1][(b) * ez + (d)]
-#define W(a, b, d) pw[(a) + 1][(b) * ez + (d)]
+    const int64_t o = (r * ny + j) * nz + k;
+    // the body on the three fields' reads (Cells or Ghosted)
+    auto body = [&](const auto& fu, const auto& fv, const auto& fw) {
+#define U(a, b, d) fu(a, b, d)
+#define V(a, b, d) fv(a, b, d)
+#define W(a, b, d) fw(a, b, d)
 // the body's lap(f): ((((((f+x + f-x) + f+y) + f-y) + f+z) + f-z) - 6 f) / h^2
 #define LAP(F)                                                          \
   mul(sub(add(add(add(add(add(F(1, 0, 0), F(-1, 0, 0)), F(0, 1, 0)),    \
@@ -611,53 +402,53 @@ __global__ void __launch_bounds__(kThreads, kGhost ? 4 : 5)
   add(F(0, 0, 0),                 \
       mul(dt, add(add(-add(add(d1, d2), d3), mul(nu, LAP(F))), f)))
 
-    // x-momentum at the x-face
-    const float uc_r = AVG(U, 0, 0, 0, 1, 0, 0);
-    const float uc_l = AVG(U, -1, 0, 0, 0, 0, 0);
-    const float duu = FLUX(uc_r, uc_r, uc_l, uc_l);
-    const float u_yh = AVG(U, 0, 0, 0, 0, 1, 0);
-    const float u_yl = AVG(U, 0, -1, 0, 0, 0, 0);
-    const float v_yh = AVG(V, 0, 0, 0, 1, 0, 0);
-    const float v_yl = AVG(V, 0, -1, 0, 1, -1, 0);
-    const float duv = FLUX(u_yh, v_yh, u_yl, v_yl);
-    const float u_zh = AVG(U, 0, 0, 0, 0, 0, 1);
-    const float u_zl = AVG(U, 0, 0, -1, 0, 0, 0);
-    const float w_zh = AVG(W, 0, 0, 0, 1, 0, 0);
-    const float w_zl = AVG(W, 0, 0, -1, 1, 0, -1);
-    const float duw = FLUX(u_zh, w_zh, u_zl, w_zl);
-    const float new_vx = ADVANCE(U, duu, duv, duw, fx);
+      // x-momentum at the x-face
+      const float uc_r = AVG(U, 0, 0, 0, 1, 0, 0);
+      const float uc_l = AVG(U, -1, 0, 0, 0, 0, 0);
+      const float duu = FLUX(uc_r, uc_r, uc_l, uc_l);
+      const float u_yh = AVG(U, 0, 0, 0, 0, 1, 0);
+      const float u_yl = AVG(U, 0, -1, 0, 0, 0, 0);
+      const float v_yh = AVG(V, 0, 0, 0, 1, 0, 0);
+      const float v_yl = AVG(V, 0, -1, 0, 1, -1, 0);
+      const float duv = FLUX(u_yh, v_yh, u_yl, v_yl);
+      const float u_zh = AVG(U, 0, 0, 0, 0, 0, 1);
+      const float u_zl = AVG(U, 0, 0, -1, 0, 0, 0);
+      const float w_zh = AVG(W, 0, 0, 0, 1, 0, 0);
+      const float w_zl = AVG(W, 0, 0, -1, 1, 0, -1);
+      const float duw = FLUX(u_zh, w_zh, u_zl, w_zl);
+      const float new_vx = ADVANCE(U, duu, duv, duw, fx);
 
-    // y-momentum at the y-face
-    const float vc_r = AVG(V, 0, 0, 0, 0, 1, 0);
-    const float vc_l = AVG(V, 0, -1, 0, 0, 0, 0);
-    const float dvv = FLUX(vc_r, vc_r, vc_l, vc_l);
-    const float v_xh = AVG(V, 0, 0, 0, 1, 0, 0);
-    const float v_xl = AVG(V, -1, 0, 0, 0, 0, 0);
-    const float u_xh = AVG(U, 0, 0, 0, 0, 1, 0);
-    const float u_xl = AVG(U, -1, 0, 0, -1, 1, 0);
-    const float dvu = FLUX(v_xh, u_xh, v_xl, u_xl);
-    const float v_zh = AVG(V, 0, 0, 0, 0, 0, 1);
-    const float v_zl = AVG(V, 0, 0, -1, 0, 0, 0);
-    const float w_zh_y = AVG(W, 0, 0, 0, 0, 1, 0);
-    const float w_zl_y = AVG(W, 0, 0, -1, 0, 1, -1);
-    const float dvw = FLUX(v_zh, w_zh_y, v_zl, w_zl_y);
-    const float new_vy = ADVANCE(V, dvu, dvv, dvw, fy);
+      // y-momentum at the y-face
+      const float vc_r = AVG(V, 0, 0, 0, 0, 1, 0);
+      const float vc_l = AVG(V, 0, -1, 0, 0, 0, 0);
+      const float dvv = FLUX(vc_r, vc_r, vc_l, vc_l);
+      const float v_xh = AVG(V, 0, 0, 0, 1, 0, 0);
+      const float v_xl = AVG(V, -1, 0, 0, 0, 0, 0);
+      const float u_xh = AVG(U, 0, 0, 0, 0, 1, 0);
+      const float u_xl = AVG(U, -1, 0, 0, -1, 1, 0);
+      const float dvu = FLUX(v_xh, u_xh, v_xl, u_xl);
+      const float v_zh = AVG(V, 0, 0, 0, 0, 0, 1);
+      const float v_zl = AVG(V, 0, 0, -1, 0, 0, 0);
+      const float w_zh_y = AVG(W, 0, 0, 0, 0, 1, 0);
+      const float w_zl_y = AVG(W, 0, 0, -1, 0, 1, -1);
+      const float dvw = FLUX(v_zh, w_zh_y, v_zl, w_zl_y);
+      const float new_vy = ADVANCE(V, dvu, dvv, dvw, fy);
 
-    // z-momentum at the z-face
-    const float wc_r = AVG(W, 0, 0, 0, 0, 0, 1);
-    const float wc_l = AVG(W, 0, 0, -1, 0, 0, 0);
-    const float dww = FLUX(wc_r, wc_r, wc_l, wc_l);
-    const float w_xh = AVG(W, 0, 0, 0, 1, 0, 0);
-    const float w_xl = AVG(W, -1, 0, 0, 0, 0, 0);
-    const float u_xh_z = AVG(U, 0, 0, 0, 0, 0, 1);
-    const float u_xl_z = AVG(U, -1, 0, 0, -1, 0, 1);
-    const float dwu = FLUX(w_xh, u_xh_z, w_xl, u_xl_z);
-    const float w_yh = AVG(W, 0, 0, 0, 0, 1, 0);
-    const float w_yl = AVG(W, 0, -1, 0, 0, 0, 0);
-    const float v_yh_z = AVG(V, 0, 0, 0, 0, 0, 1);
-    const float v_yl_z = AVG(V, 0, -1, 0, 0, -1, 1);
-    const float dwv = FLUX(w_yh, v_yh_z, w_yl, v_yl_z);
-    const float new_vz = ADVANCE(W, dwu, dwv, dww, fz);
+      // z-momentum at the z-face
+      const float wc_r = AVG(W, 0, 0, 0, 0, 0, 1);
+      const float wc_l = AVG(W, 0, 0, -1, 0, 0, 0);
+      const float dww = FLUX(wc_r, wc_r, wc_l, wc_l);
+      const float w_xh = AVG(W, 0, 0, 0, 1, 0, 0);
+      const float w_xl = AVG(W, -1, 0, 0, 0, 0, 0);
+      const float u_xh_z = AVG(U, 0, 0, 0, 0, 0, 1);
+      const float u_xl_z = AVG(U, -1, 0, 0, -1, 0, 1);
+      const float dwu = FLUX(w_xh, u_xh_z, w_xl, u_xl_z);
+      const float w_yh = AVG(W, 0, 0, 0, 0, 1, 0);
+      const float w_yl = AVG(W, 0, -1, 0, 0, 0, 0);
+      const float v_yh_z = AVG(V, 0, 0, 0, 0, 0, 1);
+      const float v_yl_z = AVG(V, 0, -1, 0, 0, -1, 1);
+      const float dwv = FLUX(w_yh, v_yh_z, w_yl, v_yl_z);
+      const float new_vz = ADVANCE(W, dwu, dwv, dww, fz);
 #undef ADVANCE
 #undef FLUX
 #undef AVG
@@ -665,14 +456,28 @@ __global__ void __launch_bounds__(kThreads, kGhost ? 4 : 5)
 #undef W
 #undef V
 #undef U
-
-    const int64_t o = ((s * nx + x) * ny + j) * (int64_t)nz + k;
-    ox[o] = new_vx;
-    oy[o] = new_vy;
-    oz[o] = new_vz;
-  });
+      ox[o] = new_vx;
+      oy[o] = new_vy;
+      oz[o] = new_vz;
+    };
+    const Place<kGhost> at(s, i, j, k, nx, ny, nz, wraps);
+    if (!kGhost || at.folds) {
+      body(Cells{vx, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp},
+           Cells{vy, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp},
+           Cells{vz, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp});
+    } else if constexpr (kGhost) {
+      const float* b = btab + s * 3 * kFaces;
+      const int ii = (int)i, jj = (int)j, kk = (int)k;
+      const int n0 = (int)nx, n1 = (int)ny, n2 = (int)nz;
+      body(Ghosted{vx, g.f[0], pack_kinds(g.f[0]), b, s, ii, jj, kk, n0, n1,
+                   n2},
+           Ghosted{vy, g.f[1], pack_kinds(g.f[1]), b + kFaces, s, ii, jj, kk,
+                   n0, n1, n2},
+           Ghosted{vz, g.f[2], pack_kinds(g.f[2]), b + 2 * kFaces, s, ii, jj,
+                   kk, n0, n1, n2});
+    }
+  }
 }
-
 // ---------------------------------------------------------------------------
 // DIVERGENCE  (replaces the 3DBLOCK instance of descriptor DIVERGENCE,
 // body divergence_body): backward-difference cell divergence / h
@@ -707,48 +512,44 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
 // per step: p' = (1 - omega) p + omega (sum of 6 neighbours - h^2 rhs) / 6
 // in: p unpadded (S, nx, ny, nz) with its faces (ghosted), or padded by 1
 // on every side (padded); rhs (S, nx, ny, nz); out: (S, nx, ny, nz); table
-// h^2, omega, 1 - omega.  rhs rides the ring's copy groups (the block's
-// own cells); a thread carries its cell's p of planes x-1 and x from one
-// step to the next in registers, reading plane x+1's from the ring.
+// h^2, omega, 1 - omega; btab (ghosted): the (S, 6) values of b
 // ---------------------------------------------------------------------------
-template <bool kGhost>
-__global__ void __launch_bounds__(kThreads) jacobi_pressure_kernel(
+template <bool kGhost, bool kWalk>
+__global__ void __launch_bounds__(kThreads,
+                                  kGhost ? kJacobiGhostBlocks : kPaddedBlocks)
+    jacobi_pressure_kernel(
     const float* __restrict__ p, const float* __restrict__ rhs,
     float* __restrict__ out, const float* __restrict__ table,
     const __grid_constant__ Ghosts g, const float* __restrict__ btab,
-    int64_t S, int nx, int ny, int nz, int tx) {
-  extern __shared__ __align__(16) float smem[];
-  const Tile t(nx, ny, nz);
-  const int j = t.y0 + threadIdx.y, k = t.z0 + threadIdx.x;
-  const bool mine = j < ny && k < nz;
-  const int c = t.at(threadIdx.y + 1, threadIdx.x + 1);
-  const float* const rsm =
-      smem + flat_offset(1, t) + threadIdx.y * t.tz + threadIdx.x;
-  const int64_t oplane = (int64_t)ny * nz, ocell = (int64_t)j * nz + k;
-  const float* const fields[1] = {p};
-  float lo = 0.0f, pc = 0.0f;   // this cell's p on planes x-1 and x
-  march<1, kGhost>(fields, rhs, g, btab, smem, S, tx, t,
-                   [&](int64_t s, int x, int st) {
-    if (!mine) return;
-    const float* mid = smem + ((st + 1) % kBufs) * t.plane + c;
-    if (st == 0) {   // a segment's first step: x-1 and x from the ring
-      lo = smem[(st % kBufs) * t.plane + c];
-      pc = mid[0];
-    }
-    const float hi = smem[((st + 2) % kBufs) * t.plane + c];
-    const float r = rsm[((st + 1) % kBufs) * t.ty * t.tz];
+    int64_t S, int64_t nx, int64_t ny, int64_t nz, int tx) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= ny || k >= nz) return;
+  const int wraps = kGhost ? wrapping<1>(g) : 0;
+  ROWS(r) {
+    int64_t s, i;
+    row_of(r, nx, s, i);
     const float h2 = table[s * 3], omega = table[s * 3 + 1],
                 omc = table[s * 3 + 2];
-    const float nbr = add(add(add(add(add(hi, lo), mid[t.ez]), mid[-t.ez]),
-                              mid[1]),
-                          mid[-1]);
-    const float jac = __fdiv_rn(sub(nbr, mul(h2, r)), 6.0f);
-    out[(s * nx + x) * oplane + ocell] = add(mul(omc, pc), mul(omega, jac));
-    lo = pc;
-    pc = hi;
-  });
+    const int64_t o = (r * ny + j) * nz + k;
+    auto body = [&](const auto& P) {
+      const float nbr = add(add(add(add(add(P(1, 0, 0), P(-1, 0, 0)),
+                                            P(0, 1, 0)),
+                                        P(0, -1, 0)),
+                                    P(0, 0, 1)),
+                                P(0, 0, -1));
+      const float jac = __fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f);
+      out[o] = add(mul(omc, P(0, 0, 0)), mul(omega, jac));
+    };
+    const Place<kGhost> at(s, i, j, k, nx, ny, nz, wraps);
+    if (!kGhost || at.folds) {
+      body(Cells{p, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp});
+    } else if constexpr (kGhost) {
+      body(Ghosted{p, g.f[0], pack_kinds(g.f[0]), btab + s * kFaces, s,
+                   (int)i, (int)j, (int)k, (int)nx, (int)ny, (int)nz});
+    }
+  }
 }
-
 // ---------------------------------------------------------------------------
 // PROJECT_VELOCITY  (replaces the 3DBLOCK instance of descriptor
 // PROJECT_VELOCITY, body project_velocity_body):
@@ -834,26 +635,19 @@ cudaError_t stencil3d_update_velocity(const float* vx, const float* vy,
                                       int64_t S, int64_t nx, int64_t ny,
                                       int64_t nz, int tx, int ty, int tz,
                                       void* stream) {
-  if (bad_stream(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
-  const dim3 block(tz, ty, 1);
-  const dim3 grid = grid_stream(block, tx, S, nx, ny, nz);
-  const size_t smem = stream_smem(3, 0, ty, tz);
-  const cudaStream_t st = (cudaStream_t)stream;
   const Ghosts* g = static_cast<const Ghosts*>(ghosts);
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz) || (g && bad_ghosted(nx, ny, nz)))
+    return cudaErrorInvalidValue;
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
   const Ghosts none = {};
-  if (smem > kSmemDefault)
-    cudaFuncSetAttribute(g ? update_velocity_kernel<true>
-                           : update_velocity_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  if (g)
-    update_velocity_kernel<true><<<grid, block, smem, st>>>(
-        vx, vy, vz, ox, oy, oz, table, *g, btab, S, (int)nx, (int)ny,
-        (int)nz, tx);
-  else
-    update_velocity_kernel<false><<<grid, block, smem, st>>>(
-        vx, vy, vz, ox, oy, oz, table, none, nullptr, S, (int)nx, (int)ny,
-        (int)nz, tx);
+  auto kernel = g ? (tx == 1 ? update_velocity_kernel<true, false>
+                             : update_velocity_kernel<true, true>)
+                  : (tx == 1 ? update_velocity_kernel<false, false>
+                             : update_velocity_kernel<false, true>);
+  kernel<<<grid, block, 0, st>>>(vx, vy, vz, ox, oy, oz, table,
+                                 g ? *g : none, btab, S, nx, ny, nz, tx);
   return cudaGetLastError();
 }
 
@@ -884,32 +678,20 @@ cudaError_t stencil3d_jacobi_pressure(const float* p, const float* rhs,
                                       int64_t S, int64_t nx, int64_t ny,
                                       int64_t nz, int tx, int ty, int tz,
                                       void* stream) {
-  if (bad_stream(S, nx, ny, nz, tx, ty, tz)) return cudaErrorInvalidValue;
-  const dim3 block(tz, ty, 1);
-  const dim3 grid = grid_stream(block, tx, S, nx, ny, nz);
-  const size_t smem = stream_smem(1, 1, ty, tz);
-  const cudaStream_t st = (cudaStream_t)stream;
   const Ghosts* g = static_cast<const Ghosts*>(ghosts);
+  if (bad_launch(S, nx, ny, nz, tx, ty, tz) || (g && bad_ghosted(nx, ny, nz)))
+    return cudaErrorInvalidValue;
+  const dim3 block(tz, ty, 1);
+  const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
+  const cudaStream_t st = (cudaStream_t)stream;
   const Ghosts none = {};
-  if (smem > kSmemDefault)
-    cudaFuncSetAttribute(g ? jacobi_pressure_kernel<true>
-                           : jacobi_pressure_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  if (g)
-    jacobi_pressure_kernel<true><<<grid, block, smem, st>>>(
-        p, rhs, out, table, *g, btab, S, (int)nx, (int)ny, (int)nz, tx);
-  else
-    jacobi_pressure_kernel<false><<<grid, block, smem, st>>>(
-        p, rhs, out, table, none, nullptr, S, (int)nx, (int)ny, (int)nz,
-        tx);
+  auto kernel = g ? (tx == 1 ? jacobi_pressure_kernel<true, false>
+                             : jacobi_pressure_kernel<true, true>)
+                  : (tx == 1 ? jacobi_pressure_kernel<false, false>
+                             : jacobi_pressure_kernel<false, true>);
+  kernel<<<grid, block, 0, st>>>(p, rhs, out, table, g ? *g : none, btab, S,
+                                 nx, ny, nz, tx);
   return cudaGetLastError();
-}
-
-// shared memory a block of the streaming kernels takes (the study and the
-// autotuner's model read it)
-int stencil3d_stream_smem(int fields, int flat, int ty, int tz) {
-  return (int)stream_smem(fields, flat, ty, tz);
 }
 
 cudaError_t stencil3d_project_velocity(const float* vx, const float* vy,

@@ -55,9 +55,9 @@ def apply_kernel(name: str, arrays: dict, *, template: str | None = None,
     chip-aware choice (:func:`repro_torch.core.autotune.tile_for`), or
     ``None`` for the wrapper's ``block_for``; the TORCH template has no
     tiles and ignores it, as the reference's JNP template does.
-    ``ghosts`` (CUDA template, ``stencil3d_cuda.STREAMING`` kernels): the
-    cached fields are unpadded and the kernel fills their ghost zones from
-    these faces (:func:`ghosted_inputs`)."""
+    ``ghosts`` (CUDA template, ``stencil3d_cuda.GHOSTED`` kernels): the
+    cached fields are unpadded and the kernel makes their ghost values from
+    these faces (:func:`ghosted_inputs`, :func:`bound_ghosts`)."""
     first = arrays[stencil3d.DESCRIPTORS[name].inputs[0]]
     tmpl = template or default_template(first.device)
     if tmpl != "CUDA":
@@ -74,7 +74,7 @@ def apply_kernel(name: str, arrays: dict, *, template: str | None = None,
 
 
 def ghosted_inputs(name: str, fields, specs) -> tuple:
-    """The CUDA template's inputs for a streaming kernel's cached
+    """The CUDA template's inputs for a GHOSTED kernel's cached
     ``fields`` (each with its three :class:`~repro_torch.core.halo.AxisSpec`
     in ``specs``): their strips are exchanged
     (:func:`~repro_torch.core.halo.exchange_strips`, nothing padded) and
@@ -93,6 +93,23 @@ def ghosted_inputs(name: str, fields, specs) -> tuple:
     stencil3d_cuda.PADDED_ROUTE[name] += 1
     return [halo.pad_with_strips(u, widths, sp, st)
             for u, sp, st in zip(fields, specs, strips)], None
+
+
+def bound_ghosts(name: str, fields, specs):
+    """The faces of a GHOSTED kernel's cached ``fields`` (each with its
+    three specs in ``specs``) bound once for every launch that shares them
+    (``stencil3d_cuda.bind_ghosts``): where no axis is decomposed, so no
+    strip travels and the faces stay the same for a whole step.  None
+    where an axis is decomposed or a rule declares no form: each launch
+    then takes :func:`ghosted_inputs`."""
+    from repro_torch.core import halo
+
+    if any(s.mesh_axis is not None for sp in specs for s in sp):
+        return None
+    ghosts = [halo.field_ghosts(sp) for sp in specs]
+    if any(g is None for g in ghosts):
+        return None
+    return stencil3d_cuda.bind_ghosts(name, ghosts, fields[0])
 
 
 # -- convenience wrappers (the public op surface) ---------------------------

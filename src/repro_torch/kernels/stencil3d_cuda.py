@@ -23,13 +23,14 @@ autotuner's choice comes from ``repro_torch.core.autotune.tile_for``.  Every
 tile gives the same bits.  A wrapper checks all of that
 (:func:`check_tile` for the tile) and raises on anything else.
 
-JACOBI_PRESSURE and UPDATE_VELOCITY (``STREAMING``) also take their cached
+JACOBI_PRESSURE and UPDATE_VELOCITY (``GHOSTED``) also take their cached
 fields unpadded, ``(S, X, Y, Z)``, with ``ghosts``: each field's
 :class:`~repro_torch.core.halo.FieldGhosts` (its six faces as rules and
 received strips, :func:`repro_torch.core.halo.field_ghosts`), one for p,
-three for vx, vy, vz.  The kernel then fills the ghost zone itself (the
-*ghosted* load); without ``ghosts`` it reads the fields padded (the
-*padded* load of the same kernel).  A ghosted launch also counts in
+three for vx, vy, vz, or those faces bound once for the launches that
+share them (:func:`bind_ghosts`).  The kernel then makes the ghost values
+itself (the *ghosted* load); without ``ghosts`` it reads the fields padded
+(the *padded* load of the same kernel).  A ghosted launch also counts in
 ``GHOSTED_LAUNCHES``; the plain version pads by the same specs, the
 received strips on the decomposed faces
 (:func:`repro_torch.core.halo.pad_with_strips`), and runs the body.
@@ -75,16 +76,16 @@ _C_NAMES = {
     "PROJECT_VELOCITY": "stencil3d_project_velocity",
 }
 
-# the kernels that stream along x and fill their own ghost zones
-STREAMING = ("UPDATE_VELOCITY", "JACOBI_PRESSURE")
+# the kernels that make their own ghost values (the ghosted load)
+GHOSTED = ("UPDATE_VELOCITY", "JACOBI_PRESSURE")
 
 # launches per kernel since the last reset (CUDA launches only)
 LAUNCHES = dict.fromkeys(_C_NAMES, 0)
-# of those, the launches of the streaming kernels that took the ghosted load
-GHOSTED_LAUNCHES = dict.fromkeys(STREAMING, 0)
-# calls of the CUDA template that gave a streaming kernel padded fields
+# of those, the launches of the GHOSTED kernels that took the ghosted load
+GHOSTED_LAUNCHES = dict.fromkeys(GHOSTED, 0)
+# calls of the CUDA template that gave a GHOSTED kernel padded fields
 # because a face's rule declares no form (kernels.ops.ghosted_inputs)
-PADDED_ROUTE = dict.fromkeys(STREAMING, 0)
+PADDED_ROUTE = dict.fromkeys(GHOSTED, 0)
 # the same for the kernels generated from a body, by descriptor name
 GENERATED_LAUNCHES: dict[str, int] = {}
 
@@ -96,29 +97,20 @@ MAX_THREADS = 256
 # (build/kernels/libstencil3d-*.log; chip_smoke.py's build phase prints
 # it).  The autotuner's occupancy model reads these constants, never the
 # build, so the CPU and the card tune alike.
-# The streaming kernels have no such pair: their entries are the
-# ghosted instantiation's, the main path's, at both places.
+# The GHOSTED kernels' entries are those of their ghosted instantiations,
+# the main path's.
 REGISTERS = {"UPDATE_VELOCITY": (64, 64), "DIVERGENCE": (32, 32),
-             "JACOBI_PRESSURE": (64, 64), "PROJECT_VELOCITY": (32, 32)}
-# planes of each cached field a block of a streaming kernel keeps in shared
-# memory (kBufs in csrc/stencil3d.cu)
-STREAM_PLANES = 5
+             "JACOBI_PRESSURE": (40, 40), "PROJECT_VELOCITY": (32, 32)}
+# the most (slot, x) rows a block of a kernel walks (a tile's tx), where
+# the autotuner must not walk further: UPDATE_VELOCITY's ghosted load, the
+# main path's, ran 0.4314 ms at 256^3 walking 8 rows against 0.3945 at
+# block_for (kernel_study.py's tiles section, PERF.md section 6): a block
+# that walks a face row waits on its Ghosted reads, two rules composed in
+# many of them, and the x faces' rows fall in the grid's first and last
+# blocks.  Its padded load (the overlap split's thin shells) gives up 9%.
+MAX_WALK = {"UPDATE_VELOCITY": 1}
 # face kinds of the ghosted load (the enum in csrc/stencil3d.cu)
 FACE_KINDS = {"const": 0, "linear": 1, "affine": 2, "wrap": 3, "strip": 4}
-
-
-def stream_smem_bytes(name: str, tile) -> int:
-    """Shared memory a block of streaming kernel ``name`` takes at
-    ``tile``: ``STREAM_PLANES`` planes of (ty + 2) x (tz + 2) for each
-    cached field, then from a 16-byte boundary ``STREAM_PLANES`` of
-    ty x tz for each input without a halo (``stencil3d_stream_smem`` in
-    the source)."""
-    _, ty, tz = tile
-    desc = stencil3d.DESCRIPTORS[name]
-    fields = len(desc.cached_inputs)
-    flat = len(desc.inputs) - fields
-    planes = -(-fields * STREAM_PLANES * (ty + 2) * (tz + 2) // 4) * 4
-    return 4 * (planes + flat * STREAM_PLANES * ty * tz)
 
 
 def reset_launches() -> None:
@@ -147,14 +139,12 @@ def _lib() -> ctypes.CDLL:
     for name, cname in _C_NAMES.items():
         desc = stencil3d.DESCRIPTORS[name]
         n_ptr = len(desc.inputs) + len(desc.outputs) + 1      # + the table
-        if name in STREAMING:
+        if name in GHOSTED:
             n_ptr += 2                          # + the faces and their b
         fn = getattr(lib, cname)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 4
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.stencil3d_stream_smem.argtypes = [ctypes.c_int] * 4
-    lib.stencil3d_stream_smem.restype = ctypes.c_int
     lib.stencil3d_error_string.argtypes = [ctypes.c_int]
     lib.stencil3d_error_string.restype = ctypes.c_char_p
     return lib
@@ -282,8 +272,8 @@ def _check_ghosts(name: str, ghosts, S: int, interior, dev) -> tuple:
     checked against the shapes the kernel reads, or raise."""
     from repro_torch.core import halo
 
-    if name not in STREAMING:
-        raise ValueError(f"{name}: only {STREAMING} take ghosts")
+    if name not in GHOSTED:
+        raise ValueError(f"{name}: only {GHOSTED} take ghosts")
     if isinstance(ghosts, halo.FieldGhosts):
         ghosts = (ghosts,)
     ghosts = tuple(ghosts)
@@ -342,6 +332,38 @@ def _ghost_struct(ghosts) -> _Ghosts:
     return g
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class BoundGhosts:
+    """A GHOSTED kernel's faces checked and laid out once, for the launches
+    that share them (the Jacobi sweeps of a step where no strip travels):
+    the fields' FieldGhosts with a slot axis, the table of their b on the
+    device and, on a card, the C struct a launch passes.  It serves
+    launches of kernel ``name`` on ``shape`` (slots first) on ``device``."""
+
+    name: str
+    shape: tuple
+    device: torch.device
+    ghosts: tuple
+    faces: torch.Tensor
+    struct: object = None
+
+
+def bind_ghosts(name: str, ghosts, field: torch.Tensor) -> BoundGhosts:
+    """``ghosts`` of kernel ``name`` (one FieldGhosts a cached input, or
+    one alone) for launches whose first cached input is shaped like
+    ``field``, unpadded (a slot axis in front, or none): checked, their
+    face table made and their struct built once."""
+    if field.dim() == 3:
+        ghosts = ([_lead(ghosts)] if not isinstance(ghosts, (list, tuple))
+                  else [_lead(g) for g in ghosts])
+    S = field.shape[0] if field.dim() == 4 else 1
+    interior, dev = tuple(field.shape[-3:]), field.device
+    checked = _check_ghosts(name, ghosts, S, interior, dev)
+    faces = face_table(checked, S, dev)
+    return BoundGhosts(name, (S, *interior), dev, checked, faces,
+                       _ghost_struct(checked) if dev.type == "cuda" else None)
+
+
 def _plain_ghosted(name: str, inputs, table, ghosts):
     """The plain version on unpadded cached fields: each padded by its
     specs with its received strips inserted, then the body."""
@@ -362,33 +384,35 @@ def _run(name: str, inputs, table, plain: bool = False, tile=None,
          ghosts=None):
     desc = stencil3d.DESCRIPTORS[name]
     batched = inputs[0].dim() == 4
+    if ghosts is not None and not isinstance(ghosts, BoundGhosts):
+        ghosts = bind_ghosts(name, ghosts, inputs[0])
     if not batched:
         inputs = [t.unsqueeze(0) for t in inputs]
         table = table.unsqueeze(0)
-        if ghosts is not None:
-            ghosts = ([_lead(ghosts)] if not isinstance(ghosts, (list, tuple))
-                      else [_lead(g) for g in ghosts])
     S, (nx, ny, nz) = _check(desc, inputs, table, padded=ghosts is None)
     tx, ty, tz = (block_for(ny, nz) if tile is None
                   else check_tile(tile, (nx, ny, nz), name))
     dev = inputs[0].device
-    if ghosts is not None:
-        ghosts = _check_ghosts(name, ghosts, S, (nx, ny, nz), dev)
+    if ghosts is not None and (ghosts.name, ghosts.shape, ghosts.device) != (
+            name, (S, nx, ny, nz), dev):
+        raise ValueError(
+            f"{name}: ghosts bound for {ghosts.name} on {ghosts.shape} on "
+            f"{ghosts.device}, launched on {(S, nx, ny, nz)} on {dev}")
     if plain or dev.type == "cpu":
         outs = (_plain(name, inputs, table) if ghosts is None
-                else _plain_ghosted(name, inputs, table, ghosts))
+                else _plain_ghosted(name, inputs, table, ghosts.ghosts))
     elif dev.type in ("cuda", "meta"):
         outs = tuple(torch.empty((S, nx, ny, nz), dtype=torch.float32,
                                  device=dev) for _ in desc.outputs)
-        faces = None if ghosts is None else face_table(ghosts, S, dev)
         if dev.type == "meta":
             from repro_torch.launch import op_cost
 
             op_cost.book(name, *op_cost.stencil_cost(
                 name, inputs, outs, table,
-                ghosts=None if ghosts is None else (ghosts, faces)))
+                ghosts=None if ghosts is None
+                else (ghosts.ghosts, ghosts.faces)))
         else:
-            _launch(name, inputs, outs, table, (tx, ty, tz), ghosts, faces)
+            _launch(name, inputs, outs, table, (tx, ty, tz), ghosts)
     else:
         raise ValueError(f"{name}: unsupported device {dev}")
     if not batched:
@@ -396,16 +420,16 @@ def _run(name: str, inputs, table, plain: bool = False, tile=None,
     return outs if len(outs) > 1 else outs[0]
 
 
-def _launch(name: str, inputs, outs, table, tile, ghosts=None,
-            faces=None) -> None:
+def _launch(name: str, inputs, outs, table, tile,
+            ghosts: BoundGhosts | None = None) -> None:
     lib = _lib()
     S, nx, ny, nz = outs[0].shape
     dev = outs[0].device
     extra = ()
-    if name in STREAMING:
-        g = None if ghosts is None else _ghost_struct(ghosts)
-        extra = (None if g is None else ctypes.addressof(g),
-                 None if faces is None else faces.data_ptr())
+    if name in GHOSTED:
+        extra = ((None, None) if ghosts is None
+                 else (ctypes.addressof(ghosts.struct),
+                       ghosts.faces.data_ptr()))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _C_NAMES[name])(

@@ -337,8 +337,8 @@ def test_every_tile_equals_block_for_bitwise(card, name, case):
             assert torch.equal(g, w), (tile, float((g - w).abs().max()))
 
 
-# -- the streaming kernels' ghosted load ------------------------------------
-# interiors that are no multiple of any tile, and one that a block marches
+# -- the GHOSTED kernels' ghosted load --------------------------------------
+# interiors that are no multiple of any tile, and a deep one
 GHOST_INTERIORS = {"odd": (5, 7, 3), "ragged": (9, 20, 33),
                    "deep": (70, 12, 40)}
 
@@ -373,7 +373,7 @@ def _outs(x):
 @pytest.mark.parametrize("case", ["cavity", "pressure", "mixed", "periodic",
                                   "strips_x", "strips_x_edge", "strips_xy",
                                   "strips_yz"])
-@pytest.mark.parametrize("name", stencil3d_cuda.STREAMING)
+@pytest.mark.parametrize("name", stencil3d_cuda.GHOSTED)
 def test_ghosted_kernel_equals_its_plain_version_bitwise(card, name, case,
                                                          slots, interior):
     """Unpadded fields, every kind of face (rules as data, the periodic
@@ -397,9 +397,9 @@ def test_ghosted_kernel_equals_its_plain_version_bitwise(card, name, case,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["cavity", "strips_xy"])
-@pytest.mark.parametrize("name", stencil3d_cuda.STREAMING)
+@pytest.mark.parametrize("name", stencil3d_cuda.GHOSTED)
 def test_ghosted_every_tile_equals_block_for_bitwise(card, name, case):
-    """Which block computes a cell, and how far it marches, changes
+    """Which block computes a cell, and how many rows it walks, changes
     nothing: every tile gives block_for's bits in the ghosted load."""
     shape = (63, 65, 33)
     xs, table, ghosts = _ghosted(name, case, 2, shape, card, seed=3)
@@ -415,7 +415,7 @@ def test_ghosted_every_tile_equals_block_for_bitwise(card, name, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["walls", "strips_x"])
-@pytest.mark.parametrize("name", stencil3d_cuda.STREAMING)
+@pytest.mark.parametrize("name", stencil3d_cuda.GHOSTED)
 def test_ghosted_check_rejects_a_zeroed_ghost_face(card, name, case):
     """A planted fault: the kernel alone is given the last field's x-low
     face zeroed (its strip, or its rule made the constant 0: p's Neumann
@@ -444,25 +444,30 @@ def test_ghosted_check_rejects_a_zeroed_ghost_face(card, name, case):
 
 
 @pytest.mark.cuda
-def test_stream_smem_model_matches_the_source(card):
-    """The autotuner's shared-memory model of the streaming kernels
-    (stencil3d_cuda.stream_smem_bytes) is what the launcher asks for."""
-    lib = stencil3d_cuda._lib()
-    for name in stencil3d_cuda.STREAMING:
-        desc = stencil3d.DESCRIPTORS[name]
-        fields = len(desc.cached_inputs)
-        for tile in [(1, 8, 32), (2, 5, 8), (1, 3, 4), (1, 1, 256),
-                     (1, 256, 1), (1, 16, 16), (3, 7, 12)]:
-            assert stencil3d_cuda.stream_smem_bytes(name, tile) == \
-                lib.stencil3d_stream_smem(fields, len(desc.inputs) - fields,
-                                          tile[1], tile[2]), (name, tile)
+@pytest.mark.parametrize("case", ["cavity", "strips_xy"])
+@pytest.mark.parametrize("name", stencil3d_cuda.GHOSTED)
+def test_bound_ghosts_launch_as_their_faces_do(card, name, case):
+    """Faces bound once (stencil3d_cuda.bind_ghosts), as the Jacobi sweeps
+    of a step share them, give the per-launch faces' bits, launch after
+    launch; a launch on another shape refuses them."""
+    xs, table, ghosts = _ghosted(name, case, 2, (9, 20, 33), card, seed=5)
+    want = _outs(stencil3d_cuda.KERNELS[name](*xs, table, ghosts=ghosts))
+    bound = stencil3d_cuda.bind_ghosts(name, ghosts, xs[0])
+    for _ in range(2):
+        got = _outs(stencil3d_cuda.KERNELS[name](*xs, table, ghosts=bound))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="bound for"):
+        stencil3d_cuda.KERNELS[name](*(x[:1] for x in xs), table[:1],
+                                     ghosts=bound)
 
 
 @pytest.mark.cuda
-def test_cuda_backend_ghosts_every_streaming_launch(card):
-    """On the cuda backend the step pads nothing for the streaming
-    kernels: every launch of theirs takes the ghosted load, on a serial
-    run and on a farm."""
+def test_cuda_backend_ghosts_every_ghosted_kernel_launch(card):
+    """On the cuda backend the step pads nothing for the GHOSTED kernels:
+    every launch of theirs takes the ghosted load, on a serial run and on
+    a farm."""
     stencil3d_cuda.reset_launches()
     api.runtime(n=16, device=card).run("cavity", steps=2)
     assert stencil3d_cuda.GHOSTED_LAUNCHES == {"UPDATE_VELOCITY": 2,
@@ -473,7 +478,7 @@ def test_cuda_backend_ghosts_every_streaming_launch(card):
     rt.submit("cavity", re=400.0, steps=3)
     rt.drain()
     assert stencil3d_cuda.GHOSTED_LAUNCHES == {
-        k: stencil3d_cuda.LAUNCHES[k] for k in stencil3d_cuda.STREAMING}
+        k: stencil3d_cuda.LAUNCHES[k] for k in stencil3d_cuda.GHOSTED}
     assert stencil3d_cuda.LAUNCHES["JACOBI_PRESSURE"] > 0
     assert not any(stencil3d_cuda.PADDED_ROUTE.values())
 

@@ -1,7 +1,7 @@
-"""The streaming stencils' ghost zone, on the CPU.
+"""The ghosted stencils' ghost zone, on the CPU.
 
 JACOBI_PRESSURE and UPDATE_VELOCITY take their fields unpadded on the CUDA
-template and fill the ghost zone themselves from each face's declared form
+template and make their ghost values themselves from each face's declared form
 or the strip its neighbour sent.  Here: every rule's form gives the rule's
 bits; the plain versions on unpadded fields equal the port's pad-then-body
 bitwise and the reference's pad-then-template within the stencil parity
@@ -119,7 +119,7 @@ def _kernel_args(name, case, slots, seed=0, interior=INTERIOR):
 
 @pytest.mark.parametrize("slots", SLOTS)
 @pytest.mark.parametrize("case", SERIAL_CASES)
-@pytest.mark.parametrize("name", gc.STREAMING)
+@pytest.mark.parametrize("name", gc.GHOSTED)
 def test_plain_on_unpadded_fields_equals_pad_then_body(name, case, slots):
     """The new plain version (and the CUDA template's wrapper, which runs
     it on the CPU) equals exchange_pad plus the padded plain body."""
@@ -167,7 +167,7 @@ PARAMS = dict(dt=0.01, h=0.1, nu=0.05, fx=0.1, fy=-0.2, fz=0.3, omega=0.8)
 
 @pytest.mark.parametrize("slots", (None, 2))
 @pytest.mark.parametrize("case", SERIAL_CASES)
-@pytest.mark.parametrize("name", gc.STREAMING)
+@pytest.mark.parametrize("name", gc.GHOSTED)
 def test_plain_on_unpadded_fields_matches_the_reference(name, case, slots):
     """The same seeded numpy inputs through the reference's exchange_pad
     and its JNP template, within RTOL/ATOL."""
@@ -261,7 +261,7 @@ def _block_strips(u, whole, bounds):
 
 @pytest.mark.parametrize("slots", (None, 2))
 @pytest.mark.parametrize("cut", ("x", "xy"))
-@pytest.mark.parametrize("name", gc.STREAMING)
+@pytest.mark.parametrize("name", gc.GHOSTED)
 def test_a_cut_field_with_strips_equals_the_whole_bitwise(name, cut, slots):
     """The whole field cut in two along x (and then in two along y), each
     block given its neighbours' strips (those of y with the x ghost ends):
@@ -411,3 +411,82 @@ def test_a_meta_trace_of_the_step_pads_nothing_for_the_streaming_kernels():
     assert jp["calls"] == iters
     assert jp["bytes"] == iters * 4 * (3 * cells + 3 + 6)
     assert counter.classes["cat"]["calls"] == 3 * (3 + 1) + 3
+
+
+@pytest.mark.parametrize("slots", (None, 2))
+@pytest.mark.parametrize("case", ("cavity", "mixed", "strips_xy"))
+@pytest.mark.parametrize("name", gc.GHOSTED)
+def test_bound_ghosts_give_the_per_launch_faces_bits(name, case, slots):
+    """Faces bound once (stencil3d_cuda.bind_ghosts), as the Jacobi sweeps
+    of a step share them, give what the same faces give launch by launch,
+    however often they are used."""
+    xs, table, ghosts, _, _ = _kernel_args(name, case, slots, seed=6)
+    want = _tuple(stencil3d_cuda.KERNELS[name](*xs, table, ghosts=ghosts))
+    bound = stencil3d_cuda.bind_ghosts(name, ghosts, xs[0])
+    assert bound.shape == (slots or 1, *INTERIOR) and bound.struct is None
+    for _ in range(2):
+        got = _tuple(stencil3d_cuda.KERNELS[name](*xs, table, ghosts=bound))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_bound_ghosts_refuse_another_kernel_or_shape():
+    xs, table, ghosts, _, _ = _kernel_args("JACOBI_PRESSURE", "pressure", 2)
+    bound = stencil3d_cuda.bind_ghosts("JACOBI_PRESSURE", ghosts, xs[0])
+    with pytest.raises(ValueError, match="bound for"):
+        stencil3d_cuda.jacobi_pressure(xs[0][:1], xs[1][:1], table[:1],
+                                       ghosts=bound)
+    vs, vtable, _, _, _ = _kernel_args("UPDATE_VELOCITY", "cavity", 2)
+    with pytest.raises(ValueError, match="bound for"):
+        stencil3d_cuda.update_velocity(*vs, vtable, ghosts=bound)
+
+
+def test_faces_are_bound_only_where_no_strip_travels():
+    """ops.bound_ghosts binds a field's faces where no axis is decomposed,
+    and leaves a decomposed field, or a rule without a form, to each
+    launch (ghosted_inputs)."""
+    p = torch.from_numpy(seeded((4, 5, 6), 7))
+    specs = gc.CASES["pressure"](0, gc.lid_for(None, "cpu"))
+    bound = ops.bound_ghosts("JACOBI_PRESSURE", (p,), [specs])
+    assert isinstance(bound, stencil3d_cuda.BoundGhosts)
+    assert bound.ghosts[0].faces == halo.field_ghosts(specs).faces
+    cut = gc.CASES["strips_x"](0, gc.lid_for(None, "cpu"))
+    assert any(s.mesh_axis is not None for s in cut)
+    assert ops.bound_ghosts("JACOBI_PRESSURE", (p,), [cut]) is None
+
+    def own(strip, side, axis):
+        return torch.flip(strip, dims=(axis,))
+
+    formless = (halo.AxisSpec(0, bc_lo=own, bc_hi=halo.bc_neumann()),
+                *specs[1:])
+    assert ops.bound_ghosts("JACOBI_PRESSURE", (p,), [formless]) is None
+
+
+def test_the_step_binds_p_faces_once_for_all_its_sweeps(monkeypatch):
+    """A serial step on the CUDA template (its meta twin) binds p's faces
+    once and hands the same binding to every Jacobi sweep."""
+    seen = []
+    real = stencil3d_cuda._run
+
+    def spy(name, inputs, table, plain=False, tile=None, ghosts=None):
+        if name == "JACOBI_PRESSURE":
+            seen.append(ghosts)
+        return real(name, inputs, table, plain=plain, tile=tile,
+                    ghosts=ghosts)
+
+    monkeypatch.setattr(stencil3d_cuda, "_run", spy)
+    n, iters = 8, 5
+    cfg = dataclasses.replace(cavity.config(n, nz=n), overlap=False,
+                              jacobi_iters=iters)
+    solver = NavierStokes3D(cfg, "cpu").cost_twin()
+    state = {f: torch.empty((n,) * 3, device="meta")
+             for f in (*NavierStokes3D.FIELDS, "mask_vx", "mask_vy",
+                       "mask_vz")}
+    params = {k: torch.empty((), device="meta") for k in PARAM_KEYS}
+    op_cost.count(lambda s: solver._step_local(s, params), state)
+    # (the count traces the step more than once: each trace binds anew)
+    assert seen and len(seen) % iters == 0
+    for step in range(len(seen) // iters):
+        sweeps = seen[step * iters:(step + 1) * iters]
+        assert isinstance(sweeps[0], stencil3d_cuda.BoundGhosts)
+        assert all(g is sweeps[0] for g in sweeps)

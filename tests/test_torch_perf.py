@@ -332,21 +332,18 @@ def test_choices_are_legal_deterministic_and_weigh_block_for(name, shape):
 def test_the_card_choice_at_256():
     """At the main path's 256^3 the (8, 32) block of block_for walks planes
     along x where the walk saves WALK_GAIN of the staged bytes, as far as
-    the occupancy limits let it; the streaming kernels march segments as
-    long as STREAM_WAVES full waves allow; PROJECT_VELOCITY, three of whose
-    inputs have no halo, keeps block_for.  The model's constants make this
-    the same on any host."""
+    the occupancy limits let it; PROJECT_VELOCITY, three of whose inputs
+    have no halo, and UPDATE_VELOCITY, whose walk MAX_WALK forbids, keep
+    block_for.  The model's constants make this the same on any host."""
     got = {name: autotune.choose_tile(d, (256,) * 3, chip="h100-sxm").tile
            for name, d in stencil3d.DESCRIPTORS.items()}
-    assert got == {"UPDATE_VELOCITY": (16, 8, 32), "DIVERGENCE": (4, 8, 32),
-                   "JACOBI_PRESSURE": (16, 8, 32),
+    assert got == {"UPDATE_VELOCITY": stencil3d_cuda.block_for(256, 256),
+                   "DIVERGENCE": (4, 8, 32), "JACOBI_PRESSURE": (8, 8, 32),
                    "PROJECT_VELOCITY": stencil3d_cuda.block_for(256, 256)}
     for name, tile in got.items():
         c = autotune.choose_tile(stencil3d.DESCRIPTORS[name], (256,) * 3,
                                  chip="h100-sxm")
-        assert c.waves >= (autotune.STREAM_WAVES
-                           if name in stencil3d_cuda.STREAMING
-                           else autotune.WAVES)
+        assert c.waves >= autotune.WAVES
 
 
 def test_tile_for_is_memoized_with_hits_and_misses():
@@ -410,7 +407,7 @@ def _table_floats(name):
 def test_step_count_books_each_kernel_at_its_declared_cost():
     """A serial n = 16 step traced on ``meta`` tensors: each stencil books
     exactly the declared formula (each input and output once, the table,
-    OPS_PER_CELL per cell; the two streaming kernels their unpadded fields
+    OPS_PER_CELL per cell; the two GHOSTED kernels their unpadded fields
     and their faces' table of b, 6 floats a field), as many times as the
     step launches it, and nothing is launched."""
     n, iters = N, KW["jacobi_iters"]
@@ -438,7 +435,7 @@ def test_step_count_books_each_kernel_at_its_declared_cost():
     assert set(counter.classes) - set(want) <= {"cat", "flip", "fill",
                                                 "other"}
     # the ghost-zone copies (3 divergence pads and the projection pad, each
-    # concatenating 3 axes: the streaming kernels fill their own), the two
+    # concatenating 3 axes: the GHOSTED kernels make their own), the two
     # parameter tables stacked from device scalars and UPDATE_VELOCITY's
     # face table (the lid's b)
     assert counter.classes["cat"]["calls"] == 3 * (3 + 1) + 3
@@ -560,10 +557,7 @@ def test_health_overhead_model_is_deterministic_and_small():
     b = perf.health_overhead_model(ex_off, ex_on, 8)
     assert a == b
     assert a["status"] == "ok"
-    # the streaming stencils read unpadded fields: the modeled step moves
-    # 30% fewer bytes than with their pads, and the same diagnostics are a
-    # larger share of it (0.0211 with the pads, 0.0301 without)
-    assert 0.0 < a["modeled_overhead"] <= 0.035
+    assert 0.0 < a["modeled_overhead"] <= 0.03
     assert a["hbm_bytes_diag_per_chunk"] > 0
     assert a["modeled_overhead"] == (a["hbm_bytes_diag_per_chunk"]
                                      / (8 * a["hbm_bytes_step"]))

@@ -72,4 +72,7 @@ def test_kernel_study_covers_both_kernels_and_every_design_axis():
                     ("ssd", "tf32_once"), ("ssd", "tail_mmas"),
                     ("stencil3d", "contract"),
                     ("stencil3d", "div_op"), ("stencil3d", "div"),
-                    ("stencil3d", "walk_unroll"), ("stencil3d", "stream_bufs")}
+                    ("stencil3d", "walk_unroll"),
+                    ("stencil3d", "ghost_jacobi"),
+                    ("stencil3d", "ghost_update"),
+                    ("stencil3d", "ghost_unbounded")}

@@ -1,4 +1,4 @@
-"""Ghost-zone cases of the streaming stencils (JACOBI_PRESSURE and
+"""Ghost-zone cases of the ghosted stencils (JACOBI_PRESSURE and
 UPDATE_VELOCITY), shared by the CPU tests and the card's.
 
 Each case gives a field's three :class:`~repro_torch.core.halo.AxisSpec`
@@ -18,7 +18,7 @@ from repro_torch.cfd.ns3d import bc_moving_wall
 from repro_torch.core import halo
 from repro_torch.kernels import stencil3d
 
-STREAMING = ("JACOBI_PRESSURE", "UPDATE_VELOCITY")
+GHOSTED = ("JACOBI_PRESSURE", "UPDATE_VELOCITY")
 
 
 def _link(index: int, size: int) -> halo.AxisLink:
@@ -134,7 +134,7 @@ def table_for(name: str, slots, dev) -> torch.Tensor:
 
 
 def inputs(name: str, case: str, slots, interior, dev, seed: int = 0):
-    """(unpadded inputs, table, ghosts, specs, strips) of a streaming
+    """(unpadded inputs, table, ghosts, specs, strips) of a GHOSTED
     kernel: its cached fields unpadded and random, the rest (rhs) too."""
     rng = np.random.RandomState(seed)
     lead = () if slots is None else (slots,)
