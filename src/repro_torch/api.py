@@ -306,7 +306,7 @@ class Runtime:
         check = max(int(self.config.check_every), 1)
         state, terminated, done = pr.state, "steps", 0
         ke_prev: float | None = None
-        with self.telemetry.section(f"run.{pr.scenario.name}"):
+        with self.telemetry.span(f"run.{pr.scenario.name}"):
             for i in range(steps):
                 # keep the previous state only when this step lands on a
                 # residual check boundary
@@ -664,7 +664,7 @@ class Runtime:
         """Cost-model-grounded accounting of every step this runtime ran:
         one :class:`repro_torch.obs.perf.PerfReport` row per farm signature
         and prepared serial scenario, with the predicted FLOPs and HBM bytes
-        (the op-cost trace) joined against the measured timer sections (see
+        (the op-cost trace) joined against the measured spans (see
         ``repro_torch.obs.perf``)."""
         from repro_torch.obs import perf
 

@@ -54,6 +54,7 @@ from repro_torch.core.halo import (
 )
 from repro_torch.device import resolve_device, true_divide
 from repro_torch.kernels import ops
+from repro_torch.obs.spans import span
 
 
 def bc_moving_wall(u_wall):
@@ -243,6 +244,11 @@ class NavierStokes3D:
         No host sync: every launch is enqueued and the loop never reads a
         device value.
         """
+        with span("ns3d.step"):
+            return self._step_phases(state, params)
+
+    def _step_phases(self, state: dict, params: dict | None) -> dict:
+        """:meth:`_step_local`'s body: its four phases, each in a span."""
         c = self.config
         if params is None:
             params = params_from_config(c, self.device)
@@ -266,88 +272,94 @@ class NavierStokes3D:
         mvx, mvy, mvz = state["mask_vx"], state["mask_vy"], state["mask_vz"]
 
         # -- 1. advection-diffusion (interior/shell split if enabled)
-        vel_params = dict(dt=dt, h=h, nu=nu, fx=params["fx"],
-                          fy=params["fy"], fz=params["fz"])
+        with span("ns3d.advect"):
+            vel_params = dict(dt=dt, h=h, nu=nu, fx=params["fx"],
+                              fy=params["fy"], fz=params["fz"])
 
-        def upd_packed(padded):
-            out = ops.update_velocity(padded[0], padded[1], padded[2],
-                                      **vel_params, **skw)
-            return torch.stack(out)
+            def upd_packed(padded):
+                out = ops.update_velocity(padded[0], padded[1], padded[2],
+                                          **vel_params, **skw)
+                return torch.stack(out)
 
-        if c.overlap:
-            # pack the components on a leading axis; the deep interior runs
-            # without any ghost dependency, shells are computed from the
-            # padded pack
-            def pad_packed(pack):
-                started = [exchange_pad_start(pack[i], (1, 1, 1), specs(f))
-                           for i, f in enumerate(("vx", "vy", "vz"))]
-                return lambda: torch.stack([wait() for wait in started])
+            if c.overlap:
+                # pack the components on a leading axis; the deep interior runs
+                # without any ghost dependency, shells are computed from the
+                # padded pack
+                def pad_packed(pack):
+                    started = [exchange_pad_start(pack[i], (1, 1, 1), specs(f))
+                               for i, f in enumerate(("vx", "vy", "vz"))]
+                    return lambda: torch.stack([wait() for wait in started])
 
-            packed = torch.stack([vx, vy, vz])
-            # width 0 on the pack axis and on the slot axis, if any
-            widths = (0,) * (packed.dim() - 3) + (1, 1, 1)
-            out = stencil_step_overlap(
-                packed, widths, specs=None, kernel=upd_packed,
-                pad_fn=pad_packed)
-            vx_s, vy_s, vz_s = out[0], out[1], out[2]
-        elif cuda:
-            # the kernel fills its own ghost zones: only the strips travel
-            ins, ghosts = ops.ghosted_inputs(
-                "UPDATE_VELOCITY", (vx, vy, vz),
-                [specs(f) for f in ("vx", "vy", "vz")])
-            vx_s, vy_s, vz_s = ops.update_velocity(*ins, **vel_params,
-                                                   ghosts=ghosts, **skw)
-        else:
-            pads = [exchange_pad(v, (1, 1, 1), specs(f))
-                    for f, v in (("vx", vx), ("vy", vy), ("vz", vz))]
-            vx_s, vy_s, vz_s = ops.update_velocity(*pads, **vel_params,
-                                                   **skw)
+                packed = torch.stack([vx, vy, vz])
+                # width 0 on the pack axis and on the slot axis, if any
+                widths = (0,) * (packed.dim() - 3) + (1, 1, 1)
+                out = stencil_step_overlap(
+                    packed, widths, specs=None, kernel=upd_packed,
+                    pad_fn=pad_packed)
+                vx_s, vy_s, vz_s = out[0], out[1], out[2]
+            elif cuda:
+                # the kernel fills its own ghost zones: only the strips travel
+                ins, ghosts = ops.ghosted_inputs(
+                    "UPDATE_VELOCITY", (vx, vy, vz),
+                    [specs(f) for f in ("vx", "vy", "vz")])
+                vx_s, vy_s, vz_s = ops.update_velocity(*ins, **vel_params,
+                                                       ghosts=ghosts, **skw)
+            else:
+                pads = [exchange_pad(v, (1, 1, 1), specs(f))
+                        for f, v in (("vx", vx), ("vy", vy), ("vz", vz))]
+                vx_s, vy_s, vz_s = ops.update_velocity(*pads, **vel_params,
+                                                       **skw)
 
-        vx_s, vy_s, vz_s = vx_s * mvx, vy_s * mvy, vz_s * mvz
+            vx_s, vy_s, vz_s = vx_s * mvx, vy_s * mvy, vz_s * mvz
 
         # -- 2. divergence rhs
-        pads = [exchange_pad(v, ((1, 0),) * 3, specs(f))
-                for f, v in (("vx", vx_s), ("vy", vy_s), ("vz", vz_s))]
-        rhs = ops.divergence(*pads, h=h, **skw) / grid(dt)
+        with span("ns3d.rhs"):
+            pads = [exchange_pad(v, ((1, 0),) * 3, specs(f))
+                    for f, v in (("vx", vx_s), ("vy", vy_s), ("vz", vz_s))]
+            rhs = ops.divergence(*pads, h=h, **skw) / grid(dt)
 
         # -- 3. pressure Poisson (warm start from previous p)
-        p_specs = specs("p")
-        k = c.fused_sweeps
-        # where no strip travels every sweep reads the same faces: bound once
-        p_bound = (ops.bound_ghosts("JACOBI_PRESSURE", (p,), [p_specs])
-                   if k <= 1 and cuda else None)
+        with span("ns3d.pressure"):
+            p_specs = specs("p")
+            k = c.fused_sweeps
+            # where no strip travels every sweep reads the same faces:
+            # bound once
+            p_bound = (ops.bound_ghosts("JACOBI_PRESSURE", (p,), [p_specs])
+                       if k <= 1 and cuda else None)
 
-        def jacobi_body(pcur):
-            if p_bound is not None:
-                return ops.jacobi_pressure(pcur, rhs, h=h,
-                                           omega=c.jacobi_omega,
-                                           ghosts=p_bound, **skw)
-            if k <= 1 and cuda:
-                (pp,), ghosts = ops.ghosted_inputs("JACOBI_PRESSURE", (pcur,),
-                                                   [p_specs])
-                return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega,
-                                           ghosts=ghosts, **skw)
-            if k <= 1:
-                pp = exchange_pad(pcur, (1, 1, 1), p_specs)
-                return ops.jacobi_pressure(pp, rhs, h=h, omega=c.jacobi_omega,
-                                           **skw)
-            pp = exchange_pad(pcur, (k, k, k), p_specs)
-            rr = exchange_pad(rhs, (k, k, k), p_specs)
-            return ops.jacobi_smooth(pp, rr, h=h, omega=c.jacobi_omega,
-                                     sweeps=k, **kw)
+            def jacobi_body(pcur):
+                if p_bound is not None:
+                    return ops.jacobi_pressure(pcur, rhs, h=h,
+                                               omega=c.jacobi_omega,
+                                               ghosts=p_bound, **skw)
+                if k <= 1 and cuda:
+                    (pp,), ghosts = ops.ghosted_inputs(
+                        "JACOBI_PRESSURE", (pcur,), [p_specs])
+                    return ops.jacobi_pressure(pp, rhs, h=h,
+                                               omega=c.jacobi_omega,
+                                               ghosts=ghosts, **skw)
+                if k <= 1:
+                    pp = exchange_pad(pcur, (1, 1, 1), p_specs)
+                    return ops.jacobi_pressure(pp, rhs, h=h,
+                                               omega=c.jacobi_omega, **skw)
+                pp = exchange_pad(pcur, (k, k, k), p_specs)
+                rr = exchange_pad(rhs, (k, k, k), p_specs)
+                return ops.jacobi_smooth(pp, rr, h=h, omega=c.jacobi_omega,
+                                         sweeps=k, **kw)
 
-        iters = max(c.jacobi_iters // max(k, 1), 1)
-        p_new = p
-        for _ in range(iters):
-            p_new = jacobi_body(p_new)
-        # pin the Neumann null space
-        p_new = p_new - grid(self._global_mean(p_new))
+            iters = max(c.jacobi_iters // max(k, 1), 1)
+            p_new = p
+            for _ in range(iters):
+                p_new = jacobi_body(p_new)
+            # pin the Neumann null space
+            p_new = p_new - grid(self._global_mean(p_new))
 
         # -- 4. projection
-        pp = exchange_pad(p_new, ((0, 1),) * 3, p_specs)
-        vx_n, vy_n, vz_n = ops.project_velocity(vx_s, vy_s, vz_s, pp,
-                                                dt=dt, h=h, **skw)
-        vx_n, vy_n, vz_n = vx_n * mvx, vy_n * mvy, vz_n * mvz
+        with span("ns3d.project"):
+            pp = exchange_pad(p_new, ((0, 1),) * 3, p_specs)
+            vx_n, vy_n, vz_n = ops.project_velocity(vx_s, vy_s, vz_s, pp,
+                                                    dt=dt, h=h, **skw)
+            vx_n, vy_n, vz_n = vx_n * mvx, vy_n * mvy, vz_n * mvz
 
         return dict(state, vx=vx_n, vy=vy_n, vz=vz_n, p=p_new)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from repro_torch import obs
+
 State = dict  # dict of fields
 
 BINS = ("INITIAL", "PRESTEP", "EVOL", "POSTSTEP", "ANALYSIS")
@@ -39,6 +41,15 @@ class _Entry:
 
 class ScheduleError(RuntimeError):
     pass
+
+
+def _device_of(state):
+    """The device of the state's first tensor (None for any other state)."""
+    if isinstance(state, dict):
+        for v in state.values():
+            if hasattr(v, "device"):
+                return v.device
+    return None
 
 
 class Schedule:
@@ -100,42 +111,25 @@ class Schedule:
                     telemetry=None) -> Callable[[State], State]:
         """Compose the bin's routines (topologically sorted) into one fn.
 
-        With an *enabled* :class:`repro_torch.obs.Telemetry`, the composed
-        runner is the Cactus-instrumented one: the bin and each routine get
-        hierarchical wall-clock timer sections (fenced with
-        ``torch.cuda.synchronize`` so asynchronous launches are charged to
-        the routine that issued them) plus profiler ranges.  Telemetry
-        ``None``/disabled returns exactly the uninstrumented composition —
-        no fences, no clocks, the same launches.
+        The bin runs in a ``schedule.<BIN>`` span and each routine in a
+        span of its name (:mod:`repro_torch.obs.spans`): ranges on a
+        running profiler's host timeline and, with an enabled
+        :class:`repro_torch.obs.Telemetry`, the Cactus timer tree's nodes
+        and the bin's device time where the state lives on a card.  No
+        span synchronises: the composition launches what the routines
+        launch, with telemetry or without.
         """
         entries = self._sorted(bin)
         bname = canonical_bin(bin)
-
-        if telemetry is None or not telemetry.enabled:
-            def run(state: State) -> State:
-                for e in entries:
-                    state = e.fn(state)
-                return state
-
-            run.__name__ = f"schedule_{bname}"
-            return run
-
-        tel = telemetry
-        # ANALYSIS routines may return device scalars still being computed
-        # (build on the device, fetch once at the end): a fence after every
-        # entry would serialise them, so that bin fences once
-        per_entry_fence = bname != "ANALYSIS"
+        tel = telemetry if telemetry is not None else obs.NULL
+        timed = tel.enabled
 
         def run(state: State) -> State:
-            with tel.section(f"schedule.{bname}"):
+            device = _device_of(state) if timed else None
+            with tel.span(f"schedule.{bname}", device=device):
                 for e in entries:
-                    with tel.section(e.name), \
-                            tel.named_scope(f"{bname}.{e.name}"):
+                    with tel.span(e.name):
                         state = e.fn(state)
-                        if per_entry_fence:
-                            tel.fence(state)
-                if not per_entry_fence:
-                    tel.fence(state)
             return state
 
         run.__name__ = f"schedule_{bname}"

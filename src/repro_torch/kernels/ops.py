@@ -23,6 +23,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels.jacobi import jacobi_fused_ref
 from repro_torch.kernels.ref import MaskSpec
 from repro_torch.kernels.ssd import ssd_intra_reference
+from repro_torch.obs.spans import span
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,15 +85,17 @@ def ghosted_inputs(name: str, fields, specs) -> tuple:
     in ``stencil3d_cuda.PADDED_ROUTE[name]``."""
     from repro_torch.core import halo
 
-    widths = (1, 1, 1)
-    strips = [halo.exchange_strips(u, widths, sp)
-              for u, sp in zip(fields, specs)]
-    ghosts = [halo.field_ghosts(sp, st) for sp, st in zip(specs, strips)]
-    if all(g is not None for g in ghosts):
-        return list(fields), ghosts
-    stencil3d_cuda.PADDED_ROUTE[name] += 1
-    return [halo.pad_with_strips(u, widths, sp, st)
-            for u, sp, st in zip(fields, specs, strips)], None
+    with span("ops.ghosted_inputs"):
+        widths = (1, 1, 1)
+        strips = [halo.exchange_strips(u, widths, sp)
+                  for u, sp in zip(fields, specs)]
+        ghosts = [halo.field_ghosts(sp, st)
+                  for sp, st in zip(specs, strips)]
+        if all(g is not None for g in ghosts):
+            return list(fields), ghosts
+        stencil3d_cuda.PADDED_ROUTE[name] += 1
+        return [halo.pad_with_strips(u, widths, sp, st)
+                for u, sp, st in zip(fields, specs, strips)], None
 
 
 def bound_ghosts(name: str, fields, specs):
@@ -106,10 +109,11 @@ def bound_ghosts(name: str, fields, specs):
 
     if any(s.mesh_axis is not None for sp in specs for s in sp):
         return None
-    ghosts = [halo.field_ghosts(sp) for sp in specs]
-    if any(g is None for g in ghosts):
-        return None
-    return stencil3d_cuda.bind_ghosts(name, ghosts, fields[0])
+    with span("ops.bound_ghosts"):
+        ghosts = [halo.field_ghosts(sp) for sp in specs]
+        if any(g is None for g in ghosts):
+            return None
+        return stencil3d_cuda.bind_ghosts(name, ghosts, fields[0])
 
 
 # -- convenience wrappers (the public op surface) ---------------------------

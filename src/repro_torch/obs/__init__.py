@@ -1,69 +1,78 @@
-"""repro_torch.obs — Cactus-style observability: timers, metrics, traces.
+"""repro_torch.obs — Cactus-style observability: spans, metrics, traces.
 
-The port of ``repro.obs``: three pillars behind one handle.
+The port of ``repro.obs``: three pillars behind one handle, and one hook
+that feeds them.
 
+* :func:`span` / :meth:`Telemetry.span` — the one hook around a layer's
+  host work (:mod:`repro_torch.obs.spans`): a FUNCTION-scope range on any
+  running ``torch.profiler``'s host timeline, and with telemetry on a
+  record on the epoch clock that the profiler's host events use, the
+  timer tree's node, and NVTX where torch sees a card.  No span
+  synchronises with the device.
 * :class:`~repro_torch.obs.metrics.Registry` — labeled counters / gauges /
   histograms (``farm.slot_occupancy``, ``farm.queue_depth{priority}``,
   ``farm.compile_cache{result}``, ``sim.steps_total``,
   ``service.submit_to_result_seconds``), snapshottable to a dict.
 * :class:`~repro_torch.obs.timers.TimerTree` — hierarchical wall-clock
-  timers around every schedule bin and every farm phase, rendered
-  Cactus-style by :func:`report`.
+  timers around every schedule bin and every farm phase, fed by the
+  spans, rendered Cactus-style by :func:`report`.
 * :class:`~repro_torch.obs.trace.TraceLog` — per-simulation lifecycle
   events (submit -> admit -> first_step -> evict/readmit -> steady ->
   result), streamed as JSON lines and exportable to the Chrome trace-event
-  format (Perfetto-loadable).
+  format (Perfetto-loadable); :meth:`Telemetry.save_chrome` writes them
+  with the spans.
 
 The contract that makes it safe to thread everywhere: **telemetry off is
 bitwise-invisible**.  A disabled :class:`Telemetry` (the :data:`NULL`
-singleton) makes every hook a no-op — no timers, no
-``torch.cuda.synchronize`` fences, no profiler ranges, no events — so the
-default path launches exactly what it launched before.  Enable it per
-runtime (``repro_torch.api.runtime(..., telemetry=True)``) or standalone::
+singleton) records nothing — no timers, no events — and its spans are
+profiler ranges only while a profiler records, so the default path
+launches exactly what it launched before.  Enable it per runtime
+(``repro_torch.api.runtime(..., telemetry=True)``) or standalone::
 
     tel = repro_torch.obs.telemetry(trace_path="events.jsonl")
-    with tel.section("my_phase"):
+    with tel.span("my_phase"):
         ...
     print(repro_torch.obs.report(tel))
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 
-from repro_torch.obs.bench import (
-    SCHEMA as BENCH_SCHEMA, host_info, load_bench, make_bench_doc,
-    validate_bench, write_bench,
-)
 from repro_torch.obs.health import (
     DIAG_COLUMNS, FlightRecorder, HealthConfig, HealthMonitor,
     load_flight_record, render_dashboard, resolve_health,
 )
 from repro_torch.obs.metrics import Histogram, Registry, series_key
+from repro_torch.obs.spans import (
+    DeviceClock, SpanRecord, TelemetrySpan, span,
+)
 from repro_torch.obs.timers import TimerNode, TimerTree
 from repro_torch.obs.trace import TraceLog, validate_chrome_trace
 
 __all__ = [
-    "BENCH_SCHEMA", "DIAG_COLUMNS", "FlightRecorder", "HealthConfig",
-    "HealthMonitor", "Histogram", "NULL", "Registry", "Telemetry",
-    "TelemetryConfig", "TimerNode", "TimerTree", "TraceLog", "host_info",
-    "load_bench", "load_flight_record", "make_bench_doc",
-    "render_dashboard", "report", "resolve", "resolve_health",
-    "series_key", "telemetry", "validate_bench", "validate_chrome_trace",
-    "write_bench",
+    "DIAG_COLUMNS", "FlightRecorder", "HealthConfig", "HealthMonitor",
+    "Histogram", "NULL", "Registry", "SpanRecord", "Telemetry",
+    "TelemetryConfig", "TimerNode", "TimerTree", "TraceLog",
+    "load_flight_record", "render_dashboard", "report",
+    "resolve", "resolve_health", "series_key", "span", "telemetry",
+    "validate_chrome_trace",
 ]
 
-_NULL_CM = contextlib.nullcontext()
+# the spans' process track in a Chrome document (the lifecycle events
+# take 1-3, see obs.trace)
+_SPANS_PID = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
     """How much to observe, and where the byproducts land.
 
-    ``named_scopes`` additionally wraps instrumented regions in
-    ``torch.profiler.record_function`` (and an NVTX range where torch sees
-    a card), so schedule bins and farm phases show up in profiler traces.
+    ``named_scopes`` additionally wraps each span in an NVTX range where
+    torch sees a card, for nsys; a running ``torch.profiler`` sees every
+    span whatever the handle.
     The heartbeat fields drive the service watchdog: a liveness file
     touched every ``heartbeat_interval_s`` (for an external orchestrator),
     and a stall recorded whenever consecutive beats are further apart than
@@ -72,66 +81,59 @@ class TelemetryConfig:
 
     enabled: bool = True
     trace_path: str | None = None        # stream events as JSON lines
-    named_scopes: bool = True            # annotate profiler traces
+    named_scopes: bool = True            # NVTX ranges around spans
     heartbeat_path: str | None = None    # liveness file (ft.watchdog)
     heartbeat_interval_s: float = 5.0
     heartbeat_deadline_s: float = 60.0
 
 
-def _cuda_devices(x) -> set:
-    """The CUDA devices of the tensors in a tree (dicts, lists, tuples)."""
-    import torch
-
-    if torch.is_tensor(x):
-        return {x.device} if x.device.type == "cuda" else set()
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        return set().union(*(_cuda_devices(v) for v in x))
-    return set()
-
-
 class Telemetry:
-    """The live handle: one registry + one timer tree + one trace log."""
+    """The live handle: one registry + one timer tree + one trace log,
+    and the last ``MAX_SPANS`` span records."""
 
     enabled = True
+    MAX_SPANS = 65_536
 
     def __init__(self, config: TelemetryConfig | None = None, **kw):
+        import torch
+
         self.config = config if config is not None else TelemetryConfig(**kw)
         self.metrics = Registry()
         self.timers = TimerTree()
         self.trace = TraceLog(path=self.config.trace_path)
+        self.spans: collections.deque[SpanRecord] = collections.deque(
+            maxlen=self.MAX_SPANS)
+        self.nvtx = self.config.named_scopes and torch.cuda.is_available()
+        self._device: dict[str, DeviceClock] = {}
         global _CURRENT
         _CURRENT = self
 
-    # -- hooks (every one a no-op on NULL) ------------------------------------
-    def section(self, name: str):
-        """Timer context manager for a nested wall-clock section."""
-        return self.timers.section(name)
+    # -- the hook -------------------------------------------------------------
+    def span(self, name: str, device=None, **attrs):
+        """Context manager around one layer's host work: the profiler range
+        of :func:`span`, a :class:`SpanRecord` (``attrs`` kept with it), the
+        timer tree's node from the same interval, and NVTX with
+        ``named_scopes`` on a card.  With a CUDA ``device`` it also books
+        the span's device time, a pair of timing events on the device's
+        current stream, to :meth:`device_seconds` (``steps`` in ``attrs``
+        counts the steps it covers).  It never synchronises."""
+        return TelemetrySpan(self, name, device, attrs)
 
-    def named_scope(self, name: str):
-        """Profiler annotation: ``torch.profiler.record_function`` on the
-        host timeline, plus an NVTX range where torch sees a card."""
-        if not self.config.named_scopes:
-            return _NULL_CM
-        import torch
+    def device_clock(self, name: str) -> DeviceClock:
+        clock = self._device.get(name)
+        if clock is None:
+            clock = self._device[name] = DeviceClock()
+        return clock
 
-        ctx = contextlib.ExitStack()
-        ctx.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            ctx.enter_context(torch.cuda.nvtx.range(name))
-        return ctx
-
-    def fence(self, x):
-        """``torch.cuda.synchronize`` on each card that holds a tensor of
-        ``x``, so a section's clock covers the device work it launched; a
-        no-op for CPU tensors.  Exists ONLY behind enabled telemetry: the
-        off path adds no synchronisation."""
-        import torch
-
-        for dev in _cuda_devices(x):
-            torch.cuda.synchronize(dev)
-        return x
+    def device_seconds(self, name: str) -> tuple[float, int] | None:
+        """``(seconds, steps)`` of device time booked by the spans named
+        ``name`` whose work the device has finished, read without a wait;
+        None where no such span ran on a card or none has finished."""
+        clock = self._device.get(name)
+        if clock is None:
+            return None
+        clock.fold()
+        return (clock.seconds, clock.steps) if clock.steps else None
 
     # -- views ----------------------------------------------------------------
     def snapshot(self) -> dict:
@@ -156,9 +158,39 @@ class Telemetry:
             parts.append(f"-- trace: {len(self.trace.events)} events --")
         return "\n".join(parts)
 
+    def to_chrome(self, base_ns: int = 0) -> dict:
+        """The lifecycle events and the spans in one Chrome trace-event
+        document, microseconds after ``base_ns`` on the epoch clock: give
+        a ``torch.profiler`` export's ``baseTimeNanoseconds`` and the two
+        documents line up in Perfetto."""
+        doc = self.trace.to_chrome()
+        shift = (self.trace.t0_ns - base_ns) / 1e3
+        for ev in doc["traceEvents"]:
+            if ev["ph"] != "M":
+                ev["ts"] += shift
+        doc["traceEvents"].append(
+            {"name": "process_name", "ph": "M", "pid": _SPANS_PID, "ts": 0,
+             "args": {"name": "spans"}})
+        for rec in list(self.spans):
+            doc["traceEvents"].append({
+                "name": rec.name, "ph": "X",
+                "ts": (rec.start_ns - base_ns) / 1e3,
+                "dur": (rec.end_ns - rec.start_ns) / 1e3,
+                "pid": _SPANS_PID, "tid": 0,
+                "args": dict(rec.attrs, parent=rec.parent)})
+        doc["baseTimeNanoseconds"] = base_ns
+        return doc
+
+    def save_chrome(self, path: str, base_ns: int = 0) -> str:
+        with open(path, "w") as f:
+            json.dump(self.to_chrome(base_ns), f)
+        return path
+
     def reset(self):
         self.metrics.reset()
         self.timers.reset()
+        self.spans.clear()
+        self._device.clear()
 
 
 class _NullTelemetry(Telemetry):
@@ -171,15 +203,12 @@ class _NullTelemetry(Telemetry):
         self.metrics = _NullRegistry()
         self.timers = _NullTimerTree()
         self.trace = _NullTraceLog()
+        self.spans = collections.deque(maxlen=0)
+        self.nvtx = False
+        self._device = {}
 
-    def section(self, name):
-        return _NULL_CM
-
-    def named_scope(self, name):
-        return _NULL_CM
-
-    def fence(self, x):
-        return x
+    def span(self, name, device=None, **attrs):
+        return span(name)
 
     def report(self):
         return "== repro.obs report ==\n(telemetry disabled)"
@@ -198,7 +227,7 @@ class _NullRegistry(Registry):
 
 class _NullTimerTree(TimerTree):
     def section(self, name):
-        return _NULL_CM
+        return contextlib.nullcontext()
 
 
 class _NullTraceLog(TraceLog):

@@ -8,9 +8,9 @@ op-cost trace of :mod:`repro_torch.launch.op_cost` (the stand-in for the
 reference's HLO cost model: the step run once on ``meta`` tensors under a
 counting dispatch mode, each hand-written kernel booked at its declared
 cost), and joins the predicted FLOPs and HBM bytes against the measured
-timer sections to report achieved-against-roofline utilization and a
-bottleneck (compute / memory / collective) per row, with the bytes split by
-op class.
+spans (their device time on a card, their host time on the CPU) to report
+achieved-against-roofline utilization and a bottleneck (compute / memory /
+collective) per row, with the bytes split by op class.
 
 The analytic ghost-zone model (:func:`halo_bytes_per_step`) is kept equal
 to the reference's.  The traced count of a decomposed step's exchanges
@@ -48,8 +48,8 @@ class CostRow:
     """Predicted cost of ONE step invocation, per device, plus the
     measured-time join.  ``flops``/``hbm_bytes`` come from
     :func:`repro_torch.launch.op_cost.safe_count`, ``op_classes`` is their
-    split by op class; ``measured_s``/``invocations`` from the timer
-    sections."""
+    split by op class; ``measured_s``/``invocations`` from the spans
+    (:func:`measured_seconds`)."""
 
     name: str
     kind: str                        # "farm-step" | "serial-bin"
@@ -227,6 +227,23 @@ def _find_sections(timers: dict, name: str) -> tuple[float, int]:
     return tot, cnt
 
 
+def measured_seconds(telemetry, name: str, invocations: int
+                     ) -> float | None:
+    """Seconds per invocation of the spans named ``name``: their device
+    time where they ran on a card (the timing events that
+    ``Telemetry.span`` books, over the steps they cover, read without a
+    wait), else their host time in the timer tree over ``invocations``
+    (their own count when None)."""
+    dev = telemetry.device_seconds(name) if telemetry.enabled else None
+    if dev is not None:
+        seconds, steps = dev
+        return seconds / steps
+    tot, cnt = _find_sections(
+        telemetry.timers.snapshot() if telemetry.enabled else {}, name)
+    n = cnt if invocations is None else invocations
+    return tot / n if tot and n else None
+
+
 def _slots_local(n_slots: int, slot_extent: int) -> int:
     """Resident slots per device: the slot axis divides when it can,
     replicates otherwise."""
@@ -319,11 +336,11 @@ def health_overhead_model(ex_off, ex_on, check_every: int) -> dict:
     return doc
 
 
-def serial_cost_row(prepared, *, label: str,
-                    timers: dict | None = None) -> CostRow:
+def serial_cost_row(prepared, *, label: str, telemetry=None) -> CostRow:
     """Cost row of one prepared serial run's EVOLVE bin: an uninstrumented
     twin of the bin on the solver's ``meta`` twin is traced, so telemetry
-    wrappers never enter the count."""
+    wrappers never enter the count.  The measured join is the bin's spans
+    in ``telemetry`` (:func:`measured_seconds`)."""
     import torch
 
     from repro_torch.cfd.ns3d import PARAM_KEYS
@@ -344,18 +361,21 @@ def serial_cost_row(prepared, *, label: str,
         return CostRow(name=name, kind="serial-bin", status="unparsed",
                        error=f"{type(e).__name__}: {e}")
     row = cost_row_from_trace(step, (state,), name=name, kind="serial-bin")
-    tot, cnt = _find_sections(timers or {}, f"schedule.{bname}")
-    if cnt:
-        row.invocations = cnt
-        row.measured_s = tot / cnt
+    if telemetry is not None and telemetry.enabled:
+        span = f"schedule.{bname}"
+        _, cnt = _find_sections(telemetry.timers.snapshot(), span)
+        if cnt:
+            row.invocations = cnt
+            row.measured_s = measured_seconds(telemetry, span, cnt)
     return row
 
 
 def report_for_runtime(rt, chip: Chip | str = "auto",
                        dtype: str = "f32") -> "PerfReport":
     """The runtime's full perf accounting: one row per farm signature
-    (``farm.step_chunk`` seconds / device steps as the measured join) and
-    one per prepared serial scenario (``schedule.EVOL`` sections).
+    (``farm.step_chunk`` seconds / device steps as the measured join: the
+    spans' device time on a card, their host time on the CPU) and one per
+    prepared serial scenario (``schedule.EVOL`` spans, alike).
 
     When several farms share one telemetry handle their step-chunk time
     cannot be told apart, so the per-device-step seconds are the
@@ -363,18 +383,16 @@ def report_for_runtime(rt, chip: Chip | str = "auto",
     and clearly labeled either way.  ``chip="auto"`` resolves from the
     runtime's device.
     """
-    timers = rt.telemetry.timers.snapshot() if rt.telemetry.enabled else {}
     rows: list[CostRow] = []
     services = getattr(rt, "_services", {})
     total_steps = sum(svc.farm.device_steps for svc in services.values())
-    chunk_tot, _ = _find_sections(timers, "farm.step_chunk")
-    per_step = (chunk_tot / total_steps
-                if total_steps and chunk_tot else None)
+    per_step = measured_seconds(rt.telemetry, "farm.step_chunk", total_steps)
     for key, svc in services.items():
         rows.append(farm_cost_row(svc, signature=str(key),
                                   measured_s=per_step))
     for label, pr in getattr(rt, "_prepared", {}).items():
-        rows.append(serial_cost_row(pr, label=label, timers=timers))
+        rows.append(serial_cost_row(pr, label=label,
+                                    telemetry=rt.telemetry))
     return PerfReport(rows, chip=resolve_chip(chip, rt.device), dtype=dtype)
 
 

@@ -10,11 +10,13 @@ current position (a per-thread stack), repeated sections accumulate into
 one node, and ``report()`` renders the tree with per-node totals, counts,
 and percent-of-parent.
 
-Timing device work meaningfully requires a fence (CUDA launches are asynchronous);
-the tree itself is clock-agnostic — callers fence before the section
-exits (see ``Telemetry.fence``), and tests inject a fake clock, which is
-also what keeps the nesting invariant (sum of child totals <= parent
-total once the parent is closed) exactly testable.
+The tree itself is clock-agnostic: ``section`` reads the tree's clock,
+and :meth:`TimerTree.enter` / :meth:`TimerTree.leave` take an interval
+measured elsewhere (``Telemetry.span`` feeds them the host interval it
+records, with no fence: CUDA launches are asynchronous, so a span over
+device work times its enqueue).  Tests inject a fake clock, which is also
+what keeps the nesting invariant (sum of child totals <= parent total
+once the parent is closed) exactly testable.
 """
 from __future__ import annotations
 
@@ -66,22 +68,34 @@ class TimerTree:
             st = self._tls.stack = [self._root]
         return st
 
-    @contextlib.contextmanager
-    def section(self, name: str):
-        """Time a nested section; re-entering a name accumulates."""
+    def enter(self, name: str) -> TimerNode:
+        """Open ``name`` under this thread's current node."""
         stack = self._stack()
         with self._lock:
             node = stack[-1].child(name)
         stack.append(node)
+        return node
+
+    def leave(self, node: TimerNode, seconds: float) -> str | None:
+        """Close ``node`` (the one this thread opened last), adding
+        ``seconds``; returns the name of the node it nests in (None at
+        the top)."""
+        stack = self._stack()
+        stack.pop()
+        with self._lock:
+            node.total += seconds
+            node.count += 1
+        return stack[-1].name if len(stack) > 1 else None
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        """Time a nested section; re-entering a name accumulates."""
+        node = self.enter(name)
         t0 = self._clock()
         try:
             yield node
         finally:
-            dt = self._clock() - t0
-            stack.pop()
-            with self._lock:
-                node.total += dt
-                node.count += 1
+            self.leave(node, self._clock() - t0)
 
     # -- views ----------------------------------------------------------------
     def snapshot(self) -> dict:

@@ -37,14 +37,16 @@ class TraceLog:
     """Append-only event log with monotonic timestamps and sequence ids.
 
     ``ts`` is seconds since the log was created (monotonic clock — safe
-    for ordering and durations); ``wall`` anchors the log's t=0 to the
-    epoch for cross-process correlation.
+    for ordering and durations); ``t0_ns`` anchors the log's t=0 to the
+    epoch in nanoseconds (``time.time_ns()``), the clock of the spans and
+    of the profiler's host events, so ``t0_ns + ts * 1e9`` places an
+    event beside them.
     """
 
     def __init__(self, path: str | None = None, clock=time.perf_counter):
         self._clock = clock
         self._t0 = clock()
-        self.wall0 = time.time()
+        self.t0_ns = time.time_ns()
         self.path = path
         self._file = None
         self._lock = threading.Lock()

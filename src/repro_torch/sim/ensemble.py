@@ -361,10 +361,9 @@ class EnsembleExecutor:
             blocks = state
         local = self._local(slot)
         if local is not None:
-            with self.tel.section("ensemble.write_slot"):
+            with self.tel.span("ensemble.write_slot", slot=slot):
                 for k, full in self.state.items():
                     full[local].copy_(blocks[k])
-                self.tel.fence(self.state)
         for k in PARAM_KEYS:
             self.params[k][slot] = np.float32(params[k])
         self._params_dev = None
@@ -374,7 +373,7 @@ class EnsembleExecutor:
         share no memory with the batch).  On a mesh the holders of the
         slot gather it and it lands on rank ``dst`` (global rank 0 by
         default): every rank must call this, and the others get None."""
-        with self.tel.section("ensemble.read_slot"):
+        with self.tel.span("ensemble.read_slot", slot=slot):
             if self.mesh is None:
                 return {k: v[slot].to("cpu", copy=True)
                         for k, v in self.state.items()}

@@ -174,10 +174,11 @@ class SimulationFarm:
     """Queue + slots + termination around one batched ensemble step.
 
     ``telemetry`` (any :func:`repro_torch.obs.resolve` spec) instruments the
-    farm: timers around the admit / step-chunk / harvest phases, ``farm.*``
-    and ``sim.*`` metrics, and per-sim lifecycle trace events.  Disabled
-    (the default) every hook is a no-op: the farm launches what an
-    uninstrumented farm launches, with no synchronisation added.
+    farm: spans (timers) around the admit / step-chunk / harvest phases,
+    ``farm.*`` and ``sim.*`` metrics, and per-sim lifecycle trace events.
+    Disabled (the default) every hook records nothing, and its spans are
+    profiler ranges only while a profiler records: the farm launches what
+    an uninstrumented farm launches.  No span synchronises, on or off.
     ``farm_id`` tags this farm's events when farms share one handle.
 
     ``health`` (any :func:`repro_torch.obs.health.resolve_health` spec)
@@ -274,7 +275,7 @@ class SimulationFarm:
         return req.sid
 
     def _admit(self):
-        with self.tel.section("farm.admit"):
+        with self.tel.span("farm.admit"):
             while True:
                 admitted = self.table.admit_next()
                 if admitted is None:
@@ -342,8 +343,10 @@ class SimulationFarm:
         want_wall = self.tel.enabled or self.heartbeat is not None
         t_chunk = time.perf_counter() if want_wall else 0.0
         try:
-            with self.tel.section("farm.step_chunk"), \
-                    self.tel.named_scope("farm.step_chunk"):
+            # with telemetry on a card, a pair of timing events books the
+            # chunk's device time (Telemetry.device_seconds); nothing waits
+            with self.tel.span("farm.step_chunk", device=self.exec.device,
+                               steps=chunk):
                 if watch_resid and at_boundary:
                     # land the chunk's last step alone: the residual
                     # compares consecutive states
@@ -351,12 +354,11 @@ class SimulationFarm:
                         self.exec.step_many(chunk - 1)
                     prev = self.exec.state
                     self.exec.step_many(1)
-                    resid = self.exec.residuals(prev)
+                    # the farm's one wait on the device in steady stepping
+                    with self.tel.span("farm.residuals"):
+                        resid = self.exec.residuals(prev)
                 else:
                     self.exec.step_many(chunk)
-                # only behind enabled telemetry: the section's clock (and
-                # the watchdog's) then covers the chunk's device work
-                self.tel.fence(self.exec.state)
         except Exception as e:
             # the batched step is shared by every resident sim, so all fail
             for slot, entry in list(self.table.occupied()):
@@ -397,7 +399,7 @@ class SimulationFarm:
         occupied = list(self.table.occupied())
         if not occupied:
             return
-        with self.tel.section("farm.health_drain"):
+        with self.tel.span("farm.health_drain"):
             rings = self.exec.read_health()
         self.tel.metrics.inc("health.drains")
         from repro_torch.obs.health import DIVERGED, NAN
@@ -415,7 +417,7 @@ class SimulationFarm:
         see any of this: slots never interact, so they step on bitwise as
         if the bad sim had never been admitted."""
         req = entry.req
-        with self.tel.section("farm.quarantine"):
+        with self.tel.span("farm.quarantine"):
             state = self.exec.read_slot(slot) or {}
         flight_path = None
         if self.flight is not None and not state:
@@ -481,7 +483,7 @@ class SimulationFarm:
 
     def _finish(self, slot: int, entry: _SlotEntry, reason: str):
         req = entry.req
-        with self.tel.section("farm.harvest"):
+        with self.tel.span("farm.harvest"):
             state = self.exec.read_slot(slot) or {}
         self._release(slot, entry, SimResult(
             sid=req.sid, tag=req.tag, steps_done=entry.steps_done,
@@ -557,7 +559,7 @@ class SimulationFarm:
         for slot, entry in self.table.occupied():
             if entry.req.sid == sid:
                 req = entry.req
-                with self.tel.section("farm.evict"):
+                with self.tel.span("farm.evict"):
                     if self.exec.mesh is None:
                         state = self.exec.read_slot(slot)
                     else:

@@ -196,7 +196,7 @@ class SimulationService:
                                   steps_done=req.step0, event="admit")
         elif kind == "done":
             if self.store.keep_results:
-                with self.tel.section("service.result_snapshot"):
+                with self.tel.span("service.result_snapshot"):
                     self.store.save_snapshot(job_id, result.state,
                                              result.steps_done, kind="result")
             self.store.transition(job_id, jobs.DONE,
@@ -296,12 +296,12 @@ class SimulationService:
         if self.store is not None and job_id is not None:
             from repro_torch import jobs
 
-            with self.tel.section("service.evict_spill"):
+            with self.tel.span("service.evict_spill"):
                 self.store.save_snapshot(job_id, state, steps_done,
                                          kind="evict", status=jobs.EVICTED)
             state, spilled = None, True
         elif self._ckpt is not None and state is not None:
-            with self.tel.section("service.evict_spill"):
+            with self.tel.span("service.evict_spill"):
                 self._ckpt.save(sid, state, blocking=True)
             state, spilled = None, True
         self._evicted[sid] = _Evicted(req=req, steps_done=steps_done,
@@ -319,10 +319,10 @@ class SimulationService:
         state = ev.state
         job_id = self._job_of.get(sid)
         if ev.spilled and self.store is not None and job_id is not None:
-            with self.tel.section("service.readmit_restore"):
+            with self.tel.span("service.readmit_restore"):
                 _, state = self.store.load_snapshot(job_id, kind="evict")
         elif ev.spilled:
-            with self.tel.section("service.readmit_restore"):
+            with self.tel.span("service.readmit_restore"):
                 state = self._ckpt.restore(sid,
                                            self.farm.exec.state_template())
         self.farm.submit(dataclasses.replace(
@@ -339,14 +339,13 @@ class SimulationService:
         accounting of the farm's batched step into ``repro_perf_*`` gauges
         (utilization, roofline seconds, predicted FLOPs and HBM bytes per
         invocation) so that a scraper sees prediction and measurement side
-        by side."""
+        by side; on a card the measurement is the step chunks' device time
+        (``Telemetry.device_seconds``), read without a wait."""
         if perf and self.tel.enabled:
             from repro_torch.obs import perf as _perf
 
-            chunk_s, _ = _perf._find_sections(self.tel.timers.snapshot(),
-                                              "farm.step_chunk")
-            per_step = (chunk_s / self.farm.device_steps
-                        if chunk_s and self.farm.device_steps else None)
+            per_step = _perf.measured_seconds(self.tel, "farm.step_chunk",
+                                              self.farm.device_steps)
             row = _perf.farm_cost_row(self, measured_s=per_step)
             chip = _perf.resolve_chip(chip, self.farm.exec.device)
             _perf.PerfReport([row], chip=chip).export_gauges(self.tel.metrics)

@@ -55,7 +55,7 @@ LM_SLICE = ("repro_torch.models.config", "repro_torch.configs.registry",
 # the observability and durability slice, and the leftovers ported with it
 DURABLE_SLICE = ("repro_torch.obs", "repro_torch.obs.metrics",
                  "repro_torch.obs.timers", "repro_torch.obs.trace",
-                 "repro_torch.obs.bench", "repro_torch.obs.health",
+                 "repro_torch.obs.spans", "repro_torch.obs.health",
                  "repro_torch.ckpt", "repro_torch.ckpt.checkpointer",
                  "repro_torch.jobs", "repro_torch.jobs.codec",
                  "repro_torch.jobs.store", "repro_torch.ft",

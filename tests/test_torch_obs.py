@@ -1,6 +1,6 @@
 """The port's observability layer against the reference's, on the CPU.
 
-``repro_torch.obs`` (metrics, timers, traces, bench records, health) and
+``repro_torch.obs`` (metrics, timers, traces, spans, health) and
 ``repro_torch.ckpt`` / ``repro_torch.ft``: the same call sequence gives the
 same snapshot and report text as ``repro.obs``; the port's trace passes the
 reference's Chrome-trace validator; ``classify_frame`` and the
@@ -10,7 +10,9 @@ by either package read back bitwise in the other.  On the port's farm
 (n = 8-12, cavity): the NaN-injection battery of ``tests/test_obs.py``
 (the poisoned slot is quarantined with a readable flight record, the
 survivors are bitwise those of a farm that never admitted it), and
-telemetry plus health on give bitwise the results of both off.
+telemetry plus health on give bitwise the results of both off.  Spans:
+the solver step's phases as FUNCTION-scope profiler ranges, telemetry's
+records on the profiler's clock, and a farm that never synchronises.
 """
 from __future__ import annotations
 
@@ -124,32 +126,180 @@ def test_trace_gives_the_reference_records_and_chrome_document(tmp_path):
             {"name": "x", "ph": "i", "pid": 1, "tid": 0}]})
 
 
-def test_bench_records_keep_the_envelope(tmp_path):
-    doc = obs.make_bench_doc("durable_smoke", {"ms": 1.5}, passed=True,
-                             wall_s=2.0)
-    assert doc["schema"] == ref_obs.BENCH_SCHEMA
-    assert set(doc) == set(ref_obs.make_bench_doc(
-        "x", {}, passed=True, wall_s=0.0, host={
-            "backend": "cpu", "device_count": 1, "python": "3",
-            "jax": "0"}))
-    assert doc["host"]["torch"] == torch.__version__
-    assert obs.load_bench(obs.write_bench(doc, str(tmp_path))) == \
-        json.loads(json.dumps(doc))
-    with pytest.raises(ValueError, match="host missing 'torch'"):
-        obs.validate_bench(dict(doc, host={"backend": "cpu"}))
-
-
 def test_fence_and_scopes_are_no_ops_on_the_cpu_and_off():
-    tel = obs.telemetry()
-    x = {"a": torch.ones(2), "b": [torch.zeros(1)]}
-    assert tel.fence(x) is x and obs.NULL.fence(x) is x
-    with tel.named_scope("farm.step_chunk"):
+    """The one hook left of the fence, the timer section and the profiler
+    scope: with no profiler and telemetry off a span records nothing."""
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert not hasattr(obs.Telemetry, "fence")
+    assert not hasattr(obs.Telemetry, "section")
+    assert not hasattr(obs.Telemetry, "named_scope")
+    with obs.span("ns3d.step"), obs.NULL.span("farm.step_chunk",
+                                              device="cpu", steps=4):
         pass
+    assert obs.NULL.timers.snapshot() == {} and not obs.NULL.spans
+    assert obs.NULL.device_seconds("farm.step_chunk") is None
     assert obs.resolve(False) is obs.NULL and obs.resolve(None) is obs.NULL
     assert obs.resolve({"enabled": False}) is obs.NULL
+    tel = obs.telemetry()
     assert obs.resolve(tel) is tel
     with pytest.raises(TypeError):
         obs.resolve(42)
+
+
+def _kineto_spans(prof, prefix):
+    return [ev for ev in prof.profiler.kineto_results.events()
+            if ev.name().startswith(prefix)]
+
+
+def test_a_cpu_solver_step_shows_its_four_phases_under_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = ns3d.NavierStokes3D(cavity.config(N, **KW), "cpu")
+    step = solver.make_step()
+    state = solver.init_state()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert torch.autograd.profiler._is_profiler_enabled
+        step(state)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    evs = _kineto_spans(prof, "ns3d.")
+    names = [ev.name() for ev in sorted(evs, key=lambda e: e.start_ns())]
+    assert names == ["ns3d.step", "ns3d.advect", "ns3d.rhs",
+                     "ns3d.pressure", "ns3d.project"]
+    outer = evs[names.index("ns3d.step")]
+    t0, t1 = outer.start_ns(), outer.start_ns() + outer.duration_ns()
+    for ev in evs:
+        assert t0 <= ev.start_ns() <= ev.start_ns() + ev.duration_ns() <= t1
+        # FUNCTION scope: an operator's range, never a user annotation
+        assert not ev.is_user_annotation() and ev.scope() == 0
+        assert ev.activity_type() == "cpu_op"
+        assert ev.device_type() == torch.autograd.DeviceType.CPU
+
+
+def test_telemetry_spans_lie_on_the_profilers_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    tel = obs.telemetry()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tel.span("farm.admit", slot=1):
+            with tel.span("ensemble.write_slot"):
+                torch.ones(64).sum()
+        with tel.span("farm.step_chunk", device="cpu", steps=3):
+            time.sleep(0.002)
+    recs = {r.name: r for r in tel.spans}
+    assert recs["ensemble.write_slot"].parent == "farm.admit"
+    assert recs["farm.admit"].parent is None
+    assert recs["farm.admit"].attrs == {"slot": 1}
+    ranges = {ev.name(): ev for ev in prof.profiler.kineto_results.events()
+              if ev.name() in recs}
+    assert set(ranges) == set(recs)
+    for name, rec in recs.items():
+        ev = ranges[name]
+        assert abs(rec.start_ns - ev.start_ns()) < 200_000, name
+        assert abs(rec.end_ns - (ev.start_ns() + ev.duration_ns())) \
+            < 200_000, name
+    timers = tel.timers.snapshot()
+    assert timers["farm.admit"]["children"]["ensemble.write_slot"][
+        "count"] == 1
+    chunk = recs["farm.step_chunk"]
+    assert timers["farm.step_chunk"]["total_s"] == pytest.approx(
+        (chunk.end_ns - chunk.start_ns) / 1e9)
+    # no card: no device clock, and the perf join takes the host time
+    assert tel.device_seconds("farm.step_chunk") is None
+    from repro_torch.obs import perf
+
+    assert perf.measured_seconds(tel, "farm.step_chunk", 3) == \
+        pytest.approx(timers["farm.step_chunk"]["total_s"] / 3)
+
+
+def test_span_records_are_bounded_and_the_lifecycle_shares_their_clock(
+        tmp_path, monkeypatch):
+    monkeypatch.setattr(obs.Telemetry, "MAX_SPANS", 4)
+    tel = obs.telemetry()
+    before = time.time_ns()
+    for i in range(6):
+        with tel.span("ops.ghosted_inputs", i=i):
+            pass
+    assert [r.attrs["i"] for r in tel.spans] == [2, 3, 4, 5]
+    assert tel.timers.snapshot()["ops.ghosted_inputs"]["count"] == 6
+    ev = tel.trace.emit("submit", sid=0)
+    at = tel.trace.t0_ns + ev["ts"] * 1e9
+    assert before - 50e6 < tel.trace.t0_ns <= before + 50e6
+    assert tel.spans[-1].end_ns - 50e6 < at < time.time_ns() + 50e6
+    path = tel.save_chrome(str(tmp_path / "spans.json"),
+                           base_ns=tel.trace.t0_ns)
+    doc = obs.validate_chrome_trace(json.loads(open(path).read()))
+    assert doc["baseTimeNanoseconds"] == tel.trace.t0_ns
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert [e["args"]["i"] for e in xs] == [2, 3, 4, 5]
+    assert all(e["name"] == "ops.ghosted_inputs" and e["pid"] == 4
+               for e in xs)
+    inst = [e for e in doc["traceEvents"] if e["name"] == "submit"]
+    assert inst[0]["ts"] == pytest.approx(ev["ts"] * 1e6)
+    ref_obs.validate_chrome_trace(doc)
+    tel.reset()
+    assert not tel.spans and tel.timers.snapshot() == {}
+
+
+class _Event:
+    """A stand-in CUDA timing event: a time in ms and whether the device
+    has reached it."""
+
+    def __init__(self, ms, done=True):
+        self.ms, self.done = ms, done
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done, "read before the device finished"
+        return end.ms - self.ms
+
+
+def test_device_clock_reads_finished_pairs_without_a_wait():
+    from repro_torch.obs import perf
+    from repro_torch.obs.spans import DeviceClock
+
+    clock = DeviceClock()
+    late = _Event(5.0, done=False)
+    clock.add(_Event(0.0), _Event(2.0), 4)
+    clock.add(_Event(2.0), late, 4)
+    # behind an unfinished pair of the same stream: waits its turn
+    clock.add(_Event(5.0), _Event(6.0), 1)
+    clock.fold()
+    assert (clock.seconds, clock.steps) == (pytest.approx(0.002), 4)
+    assert len(clock.pending) == 2
+    tel = obs.telemetry()
+    tel.device_clock("farm.step_chunk").pending[:] = clock.pending
+    assert tel.device_seconds("farm.step_chunk") is None
+    late.done = True
+    seconds, steps = tel.device_seconds("farm.step_chunk")
+    assert (seconds, steps) == (pytest.approx(0.004), 5)
+    with tel.span("farm.step_chunk"):
+        pass
+    # the device time wins over the span's host time in the perf join
+    assert perf.measured_seconds(tel, "farm.step_chunk", 100) == \
+        pytest.approx(0.004 / 5)
+
+
+def test_a_farm_drain_with_telemetry_on_never_synchronises(monkeypatch):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: calls.append(a))
+    rt = api.runtime(n=N, device="cpu", n_slots=2, check_every=4,
+                     telemetry=True, **KW)
+    sids = [rt.submit("cavity", re=re, steps=6, residual_tol=1e-12)
+            for re in (100.0, 200.0, 400.0)]
+    rt.run("cavity", steps=2)
+    res = rt.drain()
+    assert all(res[s].steps_done == 6 for s in sids)
+    assert calls == []
+    timers = rt.telemetry.timers.snapshot()
+    assert {"farm.admit", "farm.step_chunk", "farm.harvest",
+            "run.cavity"} <= set(timers)
+    assert "farm.residuals" in timers["farm.step_chunk"]["children"]
+    assert "ensemble.write_slot" in timers["farm.admit"]["children"]
+    names = {r.name for r in rt.telemetry.spans}
+    assert {"schedule.EVOL", "farm.residuals", "ensemble.read_slot"} <= names
 
 
 # -- health: the state machine against the reference's -----------------------
