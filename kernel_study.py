@@ -4,7 +4,8 @@
 NVIDIA card.
 
     python3 kernel_study.py [--parent DIR] [--tree NAME=DIR ...]
-                            [--only jacobi,ssd,stencil,tiles,farm,routes]
+                            [--only jacobi,ssd,stencil,tiles,farm,routes,
+                                    pressure]
                             [--kernels JACOBI_PRESSURE,UPDATE_VELOCITY]
 
 1. jacobi: the committed source and variants of it made by replacing one
@@ -56,10 +57,11 @@ NVIDIA card.
    (the main path's: unpadded fields with the cavity's faces,
    ``chip_smoke.ghosted_inputs``), as variant ``ghosted:<library>``: the
    committed source at every tile, and at block_for's and the tuned tiles
-   ``ghost_jacobi4``, ``ghost_update6`` and ``ghost_unbounded``, the
-   ghosted instantiations' launch bounds at 4 blocks an SM for
-   JACOBI_PRESSURE (design: 6), 6 for UPDATE_VELOCITY (design: 4), and 1
-   for both.
+   ``ghost_jacobi4``, ``ghost_jacobi2``, ``ghost_update6`` and
+   ``ghost_unbounded``, the ghosted instantiations' launch bounds at 4 and
+   2 blocks an SM for JACOBI_PRESSURE (design: 3), 6 for UPDATE_VELOCITY
+   (design: 4), and 1 for both.  (JACOBI_PRESSURE's ghosted load sets its
+   own launch: every tile runs the same grid there.)
 5. farm (with ``--parent DIR``, a checkout of another commit): the 256^3
    4-slot farm's batched step, unfused and with ``fused_sweeps=2``, on
    DIR's tree and on this one in turns (parent, this, this, parent), each
@@ -79,6 +81,17 @@ NVIDIA card.
    step (host clock, and its device split from the profiler), the farm's
    4-slot batched step and the step of each of two ranks that split x
    (gloo, the card shared), and the stencil build's ptxas register lines.
+7. pressure (``--parent DIR`` optional): JACOBI_PRESSURE's ghosted load at
+   the benchmark's shapes, one 512^3 run and 8 slots of 256^3, and a
+   decomposed rank's (128, 256, 256) block (both x faces received strips),
+   with the cavity's faces: this tree's kernel and its ``PRESSURE_VARIANTS``
+   (the march's launch bounds at 4 and 2 blocks an SM, 8 and 32 waves in
+   place of 16, streaming stores), DIR's kernel and ``PARENT_VARIANTS``
+   (its face cells' reads left out), each bitwise against the plain
+   version; both trees' padded loads on the same cells padded; and two
+   streaming probes that move the same three fields with no stencil
+   (scalar and float4 reads), the bandwidth a launch can reach.  In turns
+   forward and backward, beside the bound; the ptxas lines of each build.
 
 Prints JSON lines; the card's name and power limit first.  Needs a CUDA
 card and the repository around it.
@@ -141,23 +154,46 @@ VARIANTS = [
         ("""    for (int64_t r = r##0,  """,
          """    _Pragma("unroll 4") for (int64_t r = r##0,  """)]),
     ("stencil3d", "ghost_jacobi4", [
-        ("constexpr int kJacobiGhostBlocks = 6;",
+        ("constexpr int kJacobiGhostBlocks = 3;",
          "constexpr int kJacobiGhostBlocks = 4;")]),
+    ("stencil3d", "ghost_jacobi2", [
+        ("constexpr int kJacobiGhostBlocks = 3;",
+         "constexpr int kJacobiGhostBlocks = 2;")]),
     ("stencil3d", "ghost_update6", [
         ("constexpr int kUpdateGhostBlocks = 4;",
          "constexpr int kUpdateGhostBlocks = 6;")]),
     ("stencil3d", "ghost_unbounded", [
-        ("constexpr int kJacobiGhostBlocks = 6;",
+        ("constexpr int kJacobiGhostBlocks = 3;",
          "constexpr int kJacobiGhostBlocks = 1;"),
         ("constexpr int kUpdateGhostBlocks = 4;",
          "constexpr int kUpdateGhostBlocks = 1;")]),
+    ("stencil3d", "march_waves8", [
+        ("constexpr int kMarchWaves = 16;", "constexpr int kMarchWaves = 8;")]),
+    ("stencil3d", "march_waves32", [
+        ("constexpr int kMarchWaves = 16;", "constexpr int kMarchWaves = 32;")]),
+    ("stencil3d", "march_stcs", [
+        ("*reinterpret_cast<float4*>(oc) = make_float4(o[0], o[1], o[2], o[3]);",
+         "__stcs(reinterpret_cast<float4*>(oc), "
+         "make_float4(o[0], o[1], o[2], o[3]));")]),
     ("stencil3d", "div64", [
         ("""  const unsigned q = (unsigned)r / (unsigned)nx;
   s = q;
   i = r - (int64_t)q * nx;""", """  s = r / nx;
   i = r - s * nx;""")]),
 ]
-SECTIONS = ("jacobi", "ssd", "stencil", "tiles", "farm", "routes")
+# the pressure section's variants of the --parent checkout's stencil3d.cu
+PARENT_VARIANTS = [
+    # its ghosted JACOBI_PRESSURE with the face cells' Ghosted reads left
+    # out (face cells not written): what carrying that branch costs
+    ("parent_noghost", [
+        ("""      body(Cells{p, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp});
+    } else if constexpr (kGhost) {
+      body(Ghosted{p, g.f[0], pack_kinds(g.f[0]), btab + s * kFaces, s,
+                   (int)i, (int)j, (int)k, (int)nx, (int)ny, (int)nz});
+    }""", """      body(Cells{p, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp});
+    }""")]),
+]
+SECTIONS = ("jacobi", "ssd", "stencil", "tiles", "farm", "routes", "pressure")
 # launch tiles (tx, ty, tz) of the tiles section, block_for's first
 TILES = [(1, 8, 32), (2, 8, 32), (4, 8, 32), (8, 8, 32), (16, 8, 32),
          (32, 8, 32), (64, 8, 32), (1, 4, 64), (4, 4, 64), (16, 4, 64),
@@ -318,6 +354,59 @@ if __name__ == "__main__":
     sys.path[:0] = [root, os.path.join(root, "src")]
     os.chdir(root)
     main(root)
+'''
+
+
+# this tree's variants the pressure section times (names of VARIANTS)
+PRESSURE_VARIANTS = ("ghost_jacobi4", "ghost_jacobi2", "march_waves8",
+                     "march_waves32", "march_stcs")
+# the pressure section's shapes: (slots, interior, x decomposed)
+PRESSURE_SHAPES = {"512": (None, (512, 512, 512), False),
+                   "256x8": (8, (256, 256, 256), False),
+                   "block": (None, (128, 256, 256), True)}
+# the parent's model of JACOBI_PRESSURE's ghosted load, for the tile its
+# autotuner gives the parent's kernel (stencil3d_cuda.REGISTERS there)
+PARENT_REGISTERS = (40, 40)
+
+# streaming probes for the pressure section: out = p + rhs over the same
+# three fields JACOBI_PRESSURE moves, one float (scalar) or four (vec4) a
+# thread, a grid-stride loop over 8 waves of 256-thread blocks: the
+# bandwidth the card gives a launch that moves JACOBI_PRESSURE's bytes
+# with no stencil, no index arithmetic and no neighbour reads
+PROBE_CU = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256) probe_scalar(
+    const float* __restrict__ p, const float* __restrict__ rhs,
+    float* __restrict__ out, int64_t n) {
+  for (int64_t c = (int64_t)blockIdx.x * 256 + threadIdx.x; c < n;
+       c += (int64_t)gridDim.x * 256)
+    out[c] = __fadd_rn(p[c], rhs[c]);
+}
+__global__ void __launch_bounds__(256) probe_vec4(
+    const float4* __restrict__ p, const float4* __restrict__ rhs,
+    float4* __restrict__ out, int64_t n4) {
+  for (int64_t c = (int64_t)blockIdx.x * 256 + threadIdx.x; c < n4;
+       c += (int64_t)gridDim.x * 256) {
+    const float4 a = p[c], b = rhs[c];
+    out[c] = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                         __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+  }
+}
+extern "C" int probe_stream(const float* p, const float* rhs, float* out,
+                            int64_t n, int vec, void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned grid = (unsigned)(sms * 8 * 8);
+  if (vec)
+    probe_vec4<<<grid, 256, 0, st>>>((const float4*)p, (const float4*)rhs,
+                                     (float4*)out, n / 4);
+  else
+    probe_scalar<<<grid, 256, 0, st>>>(p, rhs, out, n);
+  return (int)cudaGetLastError();
+}
 '''
 
 
@@ -609,6 +698,179 @@ def study_routes(trees: dict):
               **json.loads(out.stdout.strip().splitlines()[-1])})
 
 
+def build_pressure_libs(parent: str | None) -> dict:
+    """The libraries of the pressure section, built at once: this tree's
+    PRESSURE_VARIANTS, the parent's stencil3d.cu and its PARENT_VARIANTS
+    (with ``parent``), and the streaming probes; returns {name: (ctypes
+    library, nvcc's output)}."""
+    import pathlib
+
+    from repro_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    texts = {"probe": PROBE_CU}
+    committed = _build.SOURCES["stencil3d"].read_text()
+    for source, name, edits in VARIANTS:
+        if source == "stencil3d" and name in PRESSURE_VARIANTS:
+            v = committed
+            for old, new in edits:
+                if v.count(old) != 1:
+                    raise SystemExit(f"{name}: {old!r} is not in the source "
+                                     "once")
+                v = v.replace(old, new)
+            texts[name] = v
+    if parent:
+        text = (pathlib.Path(parent) / "src/repro_torch/kernels/csrc/"
+                "stencil3d.cu").read_text()
+        texts["parent"] = text
+        for name, edits in PARENT_VARIANTS:
+            if any(text.count(old) != 1 for old, _ in edits):
+                emit({"phase": "pressure_build", "lib": name,
+                      "skipped": "its edit is not in the parent's source once"})
+                continue
+            v = text
+            for old, new in edits:
+                v = v.replace(old, new)
+            texts[name] = v
+    procs = {}
+    for name, text in texts.items():
+        cu, so = out_dir / f"pressure_{name}.cu", out_dir / f"pressure_{name}.so"
+        cu.write_text(text)
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{log}")
+        libs[name] = (ctypes.CDLL(str(so)), log)
+    return libs
+
+
+def _ptxas_of(log: str, symbol: str) -> list:
+    """The ptxas lines of the functions whose mangled name holds ``symbol``."""
+    lines, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry" in ln or "Function properties" in ln:
+            keep = symbol in ln
+        if keep and ("registers" in ln or "spill" in ln or "Compiling" in ln):
+            lines.append(ln.strip())
+    return lines
+
+
+def study_pressure(parent: str | None):
+    """JACOBI_PRESSURE's ghosted load at the benchmark's shapes (one 512^3
+    run, 8 slots of 256^3) and a decomposed rank's (128, 256, 256) block
+    (both x faces received strips), on the cavity's faces: this tree's
+    kernel, and with ``parent`` the parent's and its PARENT_VARIANTS, each
+    bitwise against the plain version; the parent's padded load on the
+    same cells padded; the streaming probes (``PROBE_CU``) on the same
+    three fields.  Libraries in turns, forward then backward; device times
+    (CUDA events, the stream given a head start) beside the bound (p and
+    rhs read, p written, at 3.35 TB/s)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.cfd import cavity
+    from repro_torch.core import autotune, halo
+    from repro_torch.kernels import _build, stencil3d, stencil3d_cuda as st
+
+    dev = torch.device("cuda")
+    name, symbol = "JACOBI_PRESSURE", "jacobi_pressure_kernel"
+    built = build_pressure_libs(parent)
+    probe = built.pop("probe")[0]
+    probe.probe_stream.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_void_p])
+    probe.probe_stream.restype = ctypes.c_int
+    this = st._lib()
+    libs = {"this": this}
+    emit({"phase": "pressure_build", "lib": "this",
+          "ptxas": _ptxas_of(_build.build_info["stencil3d"]["log"], symbol)})
+    load = _build.load
+    try:
+        for lib_name, (cdll, log) in built.items():
+            _build.load = lambda _name, cdll=cdll: cdll
+            libs[lib_name] = st._lib.__wrapped__()
+            emit({"phase": "pressure_build", "lib": lib_name,
+                  "ptxas": _ptxas_of(log, symbol)})
+    finally:
+        _build.load = load
+    desc = stencil3d.DESCRIPTORS[name]
+    regs = st.REGISTERS[name]
+    lib = st._lib
+    try:
+        for shape, (S, interior, cut) in PRESSURE_SHAPES.items():
+            st.REGISTERS[name] = PARENT_REGISTERS
+            try:
+                tile = autotune.choose_tile(desc, interior).tile
+            finally:
+                st.REGISTERS[name] = regs
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+            link = (halo.AxisLink(name="shard", size=3, index=1,
+                                  transport=halo.CountTransport())
+                    if cut else None)
+            (p, rhs), ghosts = cs.ghosted_inputs(name, S, interior, gen, dev,
+                                                 link)
+            cfgs = [cavity.config(interior[1], nz=interior[2], re=re)
+                    for re in (cs.FARM_RES * 2)[:S or 1]]
+            table = cs.param_rows(name, cfgs, dev)
+            table = table if S else table[0]
+            bound = st.bind_ghosts(name, ghosts, p)
+            want = st.jacobi_pressure_plain(p, rhs, table, ghosts=bound)
+            g = bound.ghosts[0]
+            lead = p if S else p.unsqueeze(0)
+            padded = halo.pad_with_strips(lead, (1, 1, 1), g.specs, g.strips)
+            padded = padded if S else padded[0]
+            cells = p.numel()
+            bound_ms = 3 * 4 * cells / cs.HBM_BYTES_PER_S * 1e3
+            runs = [(n, "ghosted") for n in libs] + [
+                (n, "padded") for n in libs if n in ("this", "parent")] + [
+                ("probe", "scalar"), ("probe", "vec4")]
+            times = {r: [] for r in runs}
+            same = {}
+            for run in turns(runs):
+                lib_name, load_mode = run
+                if lib_name == "probe":
+                    out = torch.empty_like(p)
+                    vec = int(load_mode == "vec4")
+
+                    def fn(out=out, vec=vec):
+                        err = probe.probe_stream(
+                            p.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+                            cells, vec, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise SystemExit(f"probe failed: CUDA error {err}")
+                        return out
+                else:
+                    st._lib = lambda lib_name=lib_name: libs[lib_name]
+                    if load_mode == "ghosted":
+                        fn = lambda: st.jacobi_pressure(p, rhs, table,
+                                                        tile=tile,
+                                                        ghosts=bound)
+                    else:
+                        fn = lambda: st.jacobi_pressure(padded, rhs, table,
+                                                        tile=tile)
+                got = fn()
+                torch.cuda.synchronize()
+                if lib_name != "probe":
+                    same[run] = bool(torch.equal(got, want))
+                del got
+                times[run].append(cs.cuda_ms(fn, REPS, head_start=True))
+            for run in runs:
+                ms = times[run]
+                emit({"phase": "pressure", "shape": shape, "slots": S or 1,
+                      "interior": list(interior), "lib": run[0],
+                      "load": run[1], "parent_tile": list(tile),
+                      "kernel_ms": ms, "bound_ms": bound_ms,
+                      "share_of_bound": bound_ms / min(ms),
+                      "bitwise_vs_plain": same.get(run)})
+            del p, rhs, ghosts, bound, want, padded, lead
+            torch.cuda.empty_cache()
+    finally:
+        st._lib = lib
+
+
 def main() -> int:
     import torch
 
@@ -661,6 +923,8 @@ def main() -> int:
         trees = {"parent": args.parent, **trees}
     if trees and "routes" in only:
         study_routes({k: os.path.abspath(v) for k, v in trees.items()})
+    if "pressure" in only:
+        study_pressure(os.path.abspath(args.parent) if args.parent else None)
     return 0
 
 

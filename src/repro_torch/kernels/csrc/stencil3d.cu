@@ -21,29 +21,43 @@
 // DIVERGENCE ~16 (12 read, 4 written), JACOBI_PRESSURE 12,
 // PROJECT_VELOCITY 28, against about 150, 6, 13 and 10 float operations.
 //
-// Each kernel is one thread per output cell, threadIdx.x along the
-// contiguous z axis so that every load and store of a warp is coalesced; a
-// block of (tz, ty) threads walks tx consecutive (slot, x) rows, blockIdx.z
-// striding over the groups of rows, relying on L1/L2 for the reuse of
-// neighbour values.
+// DIVERGENCE, PROJECT_VELOCITY, UPDATE_VELOCITY and the padded loads are
+// one thread per output cell, threadIdx.x along the contiguous z axis so
+// that every load and store of a warp is coalesced; a block of (tz, ty)
+// threads walks tx consecutive (slot, x) rows, blockIdx.z striding over
+// the groups of rows, relying on L1/L2 for the reuse of neighbour values.
+// Their launch tile (tx, ty, tz) comes from the caller: the wrapper's
+// block_for default or the autotuner's choice
+// (repro_torch.core.autotune.tile_for).
 //
 // JACOBI_PRESSURE and UPDATE_VELOCITY also have a ghosted load (see "The
 // ghosted load" below): they read their fields unpadded and make each
 // ghost value a face cell needs themselves, from the faces' rules as data
 // and the strips the neighbour ranks sent.  The padded copy of a whole
-// field that their callers made before every launch (three volume copies a
-// pad; 43 pads a step for these two) is gone from their path; the padded
-// load stays as the other mode of the same body, for the thin shells of
-// the interior/shell split and for rules that declare no form.  Bounds:
-// JACOBI_PRESSURE reads p and rhs and writes p, UPDATE_VELOCITY reads and
-// writes three fields, each once, plus the strips and the faces' table of
-// b.  DIVERGENCE and PROJECT_VELOCITY (and the generated template at the
-// end) still read padded fields.
+// field that their callers made before every launch is gone from their
+// path; the padded load stays as the other mode of the same kernel, for
+// the thin shells of the interior/shell split and for rules that declare
+// no form.  Bounds: JACOBI_PRESSURE reads p and rhs and writes p,
+// UPDATE_VELOCITY reads and writes three fields, each once, plus the
+// strips and the faces' table of b.  DIVERGENCE and PROJECT_VELOCITY (and
+// the generated template at the end) still read padded fields.
 //
-// The launch tile (tx, ty, tz) comes from the caller: the wrapper's
-// block_for default or the autotuner's choice
-// (repro_torch.core.autotune.tile_for).  Which thread computes a cell
-// changes nothing in its arithmetic, so every tile gives the same bits.
+// JACOBI_PRESSURE's ghosted load, the step's 40 launches, sets its own
+// launch (plan_march).  Its blocks march: a warp owns 128 cells of a z
+// row, four consecutive cells a lane read and written 16 bytes at once,
+// and a block of 8 warps (8 y rows) walks x over a segment of planes,
+// keeping p's rows x-1, x and x+1 in registers and loading the next
+// plane's p and rhs a step ahead.  The z neighbours come from the
+// neighbouring lanes by shuffle, the y neighbours from the rows the other
+// warps loaded (L1); no face rule or strip reaches that loop.  The cells
+// next to a face that does not wrap (the x and y faces' rows, the z faces'
+// cells) go to blocks of their own at the front of the same launch, one
+// thread a cell.  The segments are sized from the slots, the interior and
+// the card's SMs so that one 512^3 run and eight 256^3 slots both fill the
+// card; a ragged row takes 4-byte reads in the same loop.
+//
+// Which thread computes a cell changes nothing in its arithmetic, so every
+// tile, segment and block gives the same bits.
 //
 // Every float operation is rounded as written, in the order of the plain
 // body (repro_torch/kernels/stencil3d.py, whose order the reference's
@@ -66,6 +80,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -133,9 +149,11 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 //     terms it has, so that each is rounded as the rule's call rounds it),
 //     the periodic wrap, or the strip the neighbour rank sent.  A cell whose
 //     neighbours all lie in the grid (all but the faces' cells) reads them
-//     at fixed offsets; a face cell reads a neighbour past the grid through
-//     ghost_value, out of line: the value exchange_pad's padded array holds
-//     there.  The axes are resolved z, y, x and their rules applied x, then
+//     at fixed offsets; a face cell of UPDATE_VELOCITY reads a neighbour
+//     past the grid through ghost_value, out of line (JACOBI_PRESSURE's
+//     face blocks make theirs in line, jacobi_faces): the value
+//     exchange_pad's padded array holds there.  The axes are resolved z,
+//     y, x and their rules applied x, then
 //     y, then z, as the padding pads x first and each later axis over the
 //     earlier ones (an edge cell composes the rules; a strip of a later axis
 //     carries the ghost ends of the earlier ones).
@@ -336,13 +354,15 @@ struct Place {
 };
 
 // The blocks an SM must hold of each instantiation: the register limit of
-// its __launch_bounds__ (kernel_study.py's tiles section times the others).
-// JACOBI_PRESSURE's ghosted load at 6 (40 registers, a few spilled in the
-// face rows' Ghosted reads) ran 0.147 ms at 256^3 against 0.168 at 4 (64);
-// UPDATE_VELOCITY's at 4 (64 registers) 0.431 against 0.616 at 6, where
-// ~500 bytes spill.  The padded load at 6 holds the 32-40 registers it
-// took with no limit.
-constexpr int kJacobiGhostBlocks = 6;
+// its __launch_bounds__ (kernel_study.py's tiles and pressure sections time
+// the others).  UPDATE_VELOCITY's ghosted load at 4 (64 registers) ran
+// 0.431 ms at 256^3 against 0.616 at 6, where ~500 bytes spill.
+// JACOBI_PRESSURE's ghosted load, the march below, holds three rows of p,
+// the next plane's p and rhs and the y neighbours of four cells a thread:
+// at 3 (72 registers) it ran 0.575 ms at 512^3 against 0.586 at 4 (64, a
+// few bytes spilled) and 0.664 at 2.  The padded load at 6 holds the
+// 32-40 registers it took with no limit.
+constexpr int kJacobiGhostBlocks = 3;
 constexpr int kUpdateGhostBlocks = 4;
 constexpr int kPaddedBlocks = 6;
 
@@ -513,7 +533,226 @@ __global__ void __launch_bounds__(kThreads) divergence_kernel(
 // in: p unpadded (S, nx, ny, nz) with its faces (ghosted), or padded by 1
 // on every side (padded); rhs (S, nx, ny, nz); out: (S, nx, ny, nz); table
 // h^2, omega, 1 - omega; btab (ghosted): the (S, 6) values of b
+//
+// The ghosted load splits the cells in two, by the faces (struct March,
+// plan_march):
+//   * the march: every cell none of whose neighbours lies across a rule or
+//     a strip (a step across a wrapping face folds to the far side).  A
+//     block is kMarchRows warps, one y row each; a lane owns kRun = 4
+//     consecutive z cells, so a warp covers 128 cells of its row, read and
+//     written 16 bytes a lane (float4) where the rows are 16-byte aligned.
+//     The block marches in x over a segment of planes, keeping p's rows
+//     x-1, x and x+1 in registers and loading plane x+2 of p and x+1 of
+//     rhs a step ahead, so each value of p comes from device memory about
+//     once; the y neighbours are the rows the neighbouring warps loaded
+//     (L1), the z neighbours come from the neighbouring lanes by shuffle,
+//     and only a warp's two end lanes read one more cell each.  The index
+//     of a cell is a pointer advanced by planes: no division, no table,
+//     no branch on a face in the loop;
+//   * the face cells (the x and y faces' rows, and the z faces' cells
+//     where z does not wrap): blocks [0, face_blocks) of the same launch,
+//     one thread a cell over a flat numbering of them, each neighbour past
+//     the grid made from its face (jacobi_faces).
+// Which of the two computes a cell changes nothing in its arithmetic.
 // ---------------------------------------------------------------------------
+constexpr int kMarchRows = kThreads / 32;      // warps a block: y rows
+constexpr int kRun = 4;                        // z cells a lane
+constexpr int kMarchZ = 32 * kRun;             // z cells a warp
+// resident blocks' waves the march's grid should give, the segments of a
+// slot's planes being at least kMinSeg long (each segment reads two planes
+// of p beyond its own)
+constexpr int kMarchWaves = 16;
+constexpr int kMinSeg = 8;
+constexpr int kFaceCells = 4;                  // face cells a thread
+
+// The ghosted load's launch: the cells the march writes, i in [ilo, ihi),
+// j in [jlo, jhi), k in [klo, khi) (a face that wraps keeps its cells in
+// the march), the march's grid, and the face cells, numbered x faces' rows
+// (fx of them), then the y faces' rows of the march's planes (fy), then the
+// z faces' cells of the march's rows (fz).
+struct March {
+  int ilo, ihi, jlo, jhi, klo, khi;
+  int seg, segs, ytiles, ztiles;   // planes a segment; segments a slot
+  int nxf, nyf, nzf;               // face planes, rows, cells of a slot
+  int fx, fy, fz;                  // face cells of each kind, all slots
+  int face_blocks;
+  int vec;                         // float4 reads and writes
+};
+
+// the q-th of an axis's face indices (those outside [lo, hi))
+__device__ __forceinline__ int face_index(int q, int lo, int hi) {
+  return q < lo ? q : max(hi, lo) + (q - lo);
+}
+
+// kRun cells of a row from a (nv of them in the row), 16 bytes at once
+// where the row allows
+__device__ __forceinline__ float4 load_run(const float* __restrict__ a,
+                                           int nv, bool vec) {
+  if (vec && nv == kRun) return __ldg(reinterpret_cast<const float4*>(a));
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (nv > 0) v.x = __ldg(a);
+  if (nv > 1) v.y = __ldg(a + 1);
+  if (nv > 2) v.z = __ldg(a + 2);
+  if (nv > 3) v.w = __ldg(a + 3);
+  return v;
+}
+__device__ __forceinline__ float run_at(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// one cell's update, the plain body's expression: the neighbours x+, x-,
+// y+, y-, z+, z- summed in that order
+__device__ __forceinline__ float jacobi_cell(float xp, float xm, float yp,
+                                             float ym, float zp, float zm,
+                                             float c, float r, float h2,
+                                             float omega, float omc) {
+  const float nbr = add(add(add(add(add(xp, xm), yp), ym), zp), zm);
+  const float jac = __fdiv_rn(sub(nbr, mul(h2, r)), 6.0f);
+  return add(mul(omc, c), mul(omega, jac));
+}
+
+// The march: block u (after the face blocks) of the (slot, segment,
+// y tile, z tile) grid, z tiles fastest.
+__device__ __forceinline__ void jacobi_march(
+    const float* __restrict__ p, const float* __restrict__ rhs,
+    float* __restrict__ out, const float* __restrict__ table, const March& m,
+    int nx, int ny, int nz) {
+  unsigned u = blockIdx.x - (unsigned)m.face_blocks;
+  const int zt = u % m.ztiles;
+  u /= m.ztiles;
+  const int yt = u % m.ytiles;
+  u /= m.ytiles;
+  const int sg = u % m.segs, s = u / m.segs;
+  const int lane = threadIdx.x & 31;
+  const int j = m.jlo + yt * kMarchRows + (threadIdx.x >> 5);
+  if (j >= m.jhi) return;                        // a whole warp
+  const int k0 = zt * kMarchZ + lane * kRun;
+  const int nv = min(max(nz - k0, 0), kRun);     // the lane's cells
+  const int i0 = m.ilo + sg * m.seg, i1 = min(i0 + m.seg, m.ihi);
+  const bool vec = m.vec;
+  const float h2 = table[s * 3], omega = table[s * 3 + 1],
+              omc = table[s * 3 + 2];
+  const int64_t plane = (int64_t)ny * nz, jk = (int64_t)j * nz + k0;
+  const int64_t base = (int64_t)s * nx * plane + jk;
+  const float* __restrict__ ps = p + base;
+  const float* __restrict__ rs = rhs + base;
+  float* __restrict__ os = out + base;
+  // the neighbour rows a step down and up y, the wraps folded
+  const int64_t ym = j > 0 ? -(int64_t)nz : (int64_t)(ny - 1) * nz;
+  const int64_t yp = j < ny - 1 ? (int64_t)nz : -(int64_t)(ny - 1) * nz;
+  // the cells past the lane's run that its end lanes read: below the
+  // warp's first cell; above its last, or past the row's end (the wrap)
+  const bool lo_read = lane == 0 && nv > 0;
+  const bool hi_read = nv > 0 && (lane == 31 || k0 + kRun >= nz);
+  const int lo_at = (k0 > 0 ? k0 - 1 : nz - 1) - k0;
+  const int hi_at = (k0 + kRun < nz ? k0 + kRun : 0) - k0;
+  // the lane's cells that the launch writes (a z face that does not wrap
+  // leaves its cells to the face blocks)
+  const int c_lo = max(m.klo - k0, 0), c_hi = min(m.khi - k0, nv);
+  const bool whole = vec && c_lo == 0 && c_hi == kRun;
+  auto row = [&](int i) {                       // plane i, x wrapped
+    i = i < 0 ? i + nx : i >= nx ? i - nx : i;
+    return ps + i * plane;
+  };
+  float4 a = load_run(row(i0 - 1), nv, vec);
+  float4 b = load_run(row(i0), nv, vec);
+  float4 c = load_run(row(i0 + 1), nv, vec);
+  float4 r = load_run(rs + i0 * plane, nv, vec);
+  for (int i = i0; i < i1; ++i) {
+    float4 c2 = c, r2 = r;                      // plane x+2 of p, x+1 of rhs
+    if (i + 1 < i1) {
+      c2 = load_run(row(i + 2), nv, vec);
+      r2 = load_run(rs + (i + 1) * plane, nv, vec);
+    }
+    const float* __restrict__ pc = ps + i * plane;
+    const float4 yl = load_run(pc + ym, nv, vec);
+    const float4 yh = load_run(pc + yp, nv, vec);
+    const float zlo = lo_read ? __ldg(pc + lo_at) : 0.0f;
+    const float zhi = hi_read ? __ldg(pc + hi_at) : 0.0f;
+    const float up = __shfl_down_sync(0xffffffffu, b.x, 1);
+    const float dn = __shfl_up_sync(0xffffffffu, b.w, 1);
+    float o[kRun];
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) {
+      const float zm = q > 0 ? run_at(b, q - 1) : lane == 0 ? zlo : dn;
+      const float zp = hi_read && q == nv - 1 ? zhi
+                       : q < kRun - 1       ? run_at(b, q + 1)
+                                            : up;
+      o[q] = jacobi_cell(run_at(c, q), run_at(a, q), run_at(yh, q),
+                         run_at(yl, q), zp, zm, run_at(b, q), run_at(r, q),
+                         h2, omega, omc);
+    }
+    float* __restrict__ oc = os + i * plane;
+    if (whole) {
+      *reinterpret_cast<float4*>(oc) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kRun; ++q)
+        if (q >= c_lo && q < c_hi) oc[q] = o[q];
+    }
+    a = b;
+    b = c;
+    c = c2;
+    r = r2;
+  }
+}
+
+// The face cells: kFaceCells a thread, strided over the face blocks.  A
+// neighbour past the grid crosses one face (the stencil has no diagonal):
+// across a wrap it is the far side's cell, across a strip the strip's
+// cell, across a rule the rule on the cell itself, the cell its ghost
+// mirrors (ghost_value's value there, with no rule to compose).
+__device__ __forceinline__ void jacobi_faces(
+    const float* __restrict__ p, const float* __restrict__ rhs,
+    float* __restrict__ out, const float* __restrict__ table,
+    const Ghosts& g, const float* __restrict__ btab, const March& m, int nx,
+    int ny, int nz) {
+  const unsigned n = (unsigned)m.fx + m.fy + m.fz;
+  const unsigned nj = m.jhi - m.jlo, ni = m.ihi - m.ilo;
+  const int64_t plane = (int64_t)ny * nz;
+  for (unsigned f = blockIdx.x * kThreads + threadIdx.x; f < n;
+       f += (unsigned)m.face_blocks * kThreads) {
+    int s, i, j, k;
+    unsigned t = f;
+    if (t < (unsigned)m.fx) {                 // an x face's plane
+      k = t % nz, t /= nz;
+      j = t % ny, t /= ny;
+      i = face_index(t % m.nxf, m.ilo, m.ihi), s = t / m.nxf;
+    } else if ((t -= m.fx) < (unsigned)m.fy) {  // a y face's row
+      k = t % nz, t /= nz;
+      j = face_index(t % m.nyf, m.jlo, m.jhi), t /= m.nyf;
+      i = m.ilo + t % ni, s = t / ni;
+    } else {                                  // a z face's cell
+      t -= m.fy;
+      k = face_index(t % m.nzf, m.klo, m.khi), t /= m.nzf;
+      j = m.jlo + t % nj, t /= nj;
+      i = m.ilo + t % ni, s = t / ni;
+    }
+    const int64_t o = ((int64_t)s * nx + i) * plane + (int64_t)j * nz + k;
+    const float* __restrict__ b = btab + s * kFaces;
+    const float c = p[o];
+    // the neighbour across face q: wrap at offset wrap, strip cell at
+    const auto across = [&](int q, int64_t wrap, int64_t at) {
+      const Face& fq = g.f[0][q];
+      if (fq.kind == kWrap) return p[o + wrap];
+      if (fq.kind == kStrip) return fq.strip[at];
+      return rule(fq, b[q], c);
+    };
+    const int64_t xs = s * plane + (int64_t)j * nz + k,      // (S, 1, ny, nz)
+        ys = ((int64_t)s * (nx + 2) + i + 1) * nz + k,        // (S, nx+2, 1, nz)
+        zs = ((int64_t)s * (nx + 2) + i + 1) * (ny + 2) + j + 1;
+    const int64_t wx = (int64_t)(nx - 1) * plane, wy = (int64_t)(ny - 1) * nz;
+    const float xm = i > 0 ? p[o - plane] : across(0, wx, xs);
+    const float xp = i < nx - 1 ? p[o + plane] : across(1, -wx, xs);
+    const float ym = j > 0 ? p[o - nz] : across(2, wy, ys);
+    const float yp = j < ny - 1 ? p[o + nz] : across(3, -wy, ys);
+    const float zm = k > 0 ? p[o - 1] : across(4, nz - 1, zs);
+    const float zp = k < nz - 1 ? p[o + 1] : across(5, 1 - nz, zs);
+    out[o] = jacobi_cell(xp, xm, yp, ym, zp, zm, c, rhs[o], table[s * 3],
+                         table[s * 3 + 1], table[s * 3 + 2]);
+  }
+}
+
 template <bool kGhost, bool kWalk>
 __global__ void __launch_bounds__(kThreads,
                                   kGhost ? kJacobiGhostBlocks : kPaddedBlocks)
@@ -521,18 +760,26 @@ __global__ void __launch_bounds__(kThreads,
     const float* __restrict__ p, const float* __restrict__ rhs,
     float* __restrict__ out, const float* __restrict__ table,
     const __grid_constant__ Ghosts g, const float* __restrict__ btab,
-    int64_t S, int64_t nx, int64_t ny, int64_t nz, int tx) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= ny || k >= nz) return;
-  const int wraps = kGhost ? wrapping<1>(g) : 0;
-  ROWS(r) {
-    int64_t s, i;
-    row_of(r, nx, s, i);
-    const float h2 = table[s * 3], omega = table[s * 3 + 1],
-                omc = table[s * 3 + 2];
-    const int64_t o = (r * ny + j) * nz + k;
-    auto body = [&](const auto& P) {
+    int64_t S, int64_t nx, int64_t ny, int64_t nz, int tx,
+    const __grid_constant__ March m) {
+  if constexpr (kGhost) {
+    if ((int)blockIdx.x < m.face_blocks)
+      jacobi_faces(p, rhs, out, table, g, btab, m, (int)nx, (int)ny, (int)nz);
+    else
+      jacobi_march(p, rhs, out, table, m, (int)nx, (int)ny, (int)nz);
+  } else {
+    // the padded load: one thread a cell, every neighbour at a fixed offset
+    const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int64_t j = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+    if (j >= ny || k >= nz) return;
+    ROWS(r) {
+      int64_t s, i;
+      row_of(r, nx, s, i);
+      const float h2 = table[s * 3], omega = table[s * 3 + 1],
+                  omc = table[s * 3 + 2];
+      const int64_t o = (r * ny + j) * nz + k;
+      const Place<false> at(s, i, j, k, nx, ny, nz, 0);
+      const Cells P{p, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp};
       const float nbr = add(add(add(add(add(P(1, 0, 0), P(-1, 0, 0)),
                                             P(0, 1, 0)),
                                         P(0, -1, 0)),
@@ -540,15 +787,68 @@ __global__ void __launch_bounds__(kThreads,
                                 P(0, 0, -1));
       const float jac = __fdiv_rn(sub(nbr, mul(h2, rhs[o])), 6.0f);
       out[o] = add(mul(omc, P(0, 0, 0)), mul(omega, jac));
-    };
-    const Place<kGhost> at(s, i, j, k, nx, ny, nz, wraps);
-    if (!kGhost || at.folds) {
-      body(Cells{p, at.c, at.xm, at.xp, at.ym, at.yp, at.zm, at.zp});
-    } else if constexpr (kGhost) {
-      body(Ghosted{p, g.f[0], pack_kinds(g.f[0]), btab + s * kFaces, s,
-                   (int)i, (int)j, (int)k, (int)nx, (int)ny, (int)nz});
     }
   }
+}
+
+// The ghosted load's March for p's faces g on (S, nx, ny, nz), the card
+// holding sms SMs of bps blocks each; false where a count leaves 32 bits.
+bool plan_march(const Ghosts& g, int64_t S, int nx, int ny, int nz, int sms,
+                int bps, March& m) {
+  m = March{};
+  // [lo, hi) along an axis of n: the cells whose neighbours across its
+  // faces are plain reads (all n where both faces wrap)
+  auto range = [&](int a, int n, int& lo, int& hi) {
+    lo = g.f[0][2 * a].kind == kWrap ? 0 : 1;
+    hi = g.f[0][2 * a + 1].kind == kWrap ? n : n - 1;
+  };
+  range(0, nx, m.ilo, m.ihi);
+  range(1, ny, m.jlo, m.jhi);
+  range(2, nz, m.klo, m.khi);
+  const int64_t ni = std::max(m.ihi - m.ilo, 0),
+                nj = std::max(m.jhi - m.jlo, 0),
+                nk = std::max(m.khi - m.klo, 0);
+  m.nxf = m.ilo + (nx - std::max(m.ihi, m.ilo));
+  m.nyf = m.jlo + (ny - std::max(m.jhi, m.jlo));
+  m.nzf = m.klo + (nz - std::max(m.khi, m.klo));
+  const int64_t fx = S * m.nxf * ny * nz, fy = S * ni * m.nyf * nz,
+                fz = S * ni * nj * m.nzf, faces = fx + fy + fz;
+  if (faces > INT32_MAX / 2) return false;
+  m.fx = (int)fx, m.fy = (int)fy, m.fz = (int)fz;
+  m.face_blocks = (int)((faces + kThreads * kFaceCells - 1) /
+                        (kThreads * kFaceCells));
+  if (ni == 0 || nj == 0 || nk == 0) return true;   // no march
+  m.ytiles = (int)((nj + kMarchRows - 1) / kMarchRows);
+  m.ztiles = (nz + kMarchZ - 1) / kMarchZ;
+  const int64_t tiles = S * m.ytiles * m.ztiles;
+  const int64_t want = ((int64_t)kMarchWaves * sms * bps + tiles - 1) / tiles;
+  const int64_t most = (ni + kMinSeg - 1) / kMinSeg;
+  const int64_t segs = std::max<int64_t>(1, std::min(want, most));
+  m.seg = (int)((ni + segs - 1) / segs);
+  m.segs = (int)((ni + m.seg - 1) / m.seg);
+  return tiles * m.segs + m.face_blocks <= INT32_MAX;
+}
+
+// The current device's SMs and the march's resident blocks an SM, asked
+// once a device.
+cudaError_t march_occupancy(int& sms, int& bps) {
+  constexpr int kDevices = 64;
+  static int known_sms[kDevices], known_bps[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && known_sms[dev] > 0) {
+    sms = known_sms[dev], bps = known_bps[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &bps, jacobi_pressure_kernel<true, false>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  bps = std::max(bps, 1);
+  if (dev < kDevices) known_sms[dev] = sms, known_bps[dev] = bps;
+  return cudaSuccess;
 }
 // ---------------------------------------------------------------------------
 // PROJECT_VELOCITY  (replaces the 3DBLOCK instance of descriptor
@@ -681,16 +981,30 @@ cudaError_t stencil3d_jacobi_pressure(const float* p, const float* rhs,
   const Ghosts* g = static_cast<const Ghosts*>(ghosts);
   if (bad_launch(S, nx, ny, nz, tx, ty, tz) || (g && bad_ghosted(nx, ny, nz)))
     return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g) {   // the ghosted load sets its own grid; the tile is not used
+    int sms = 0, bps = 0;
+    const cudaError_t err = march_occupancy(sms, bps);
+    if (err != cudaSuccess) return err;
+    March m;
+    if (!plan_march(*g, S, (int)nx, (int)ny, (int)nz, sms, bps, m))
+      return cudaErrorInvalidValue;
+    m.vec = nz % kRun == 0 &&
+            ((uintptr_t)p | (uintptr_t)rhs | (uintptr_t)out) % 16 == 0;
+    const int64_t blocks = m.face_blocks +
+                           S * m.segs * m.ytiles * (int64_t)m.ztiles;
+    jacobi_pressure_kernel<true, false><<<(unsigned)blocks, kThreads, 0, st>>>(
+        p, rhs, out, table, *g, btab, S, nx, ny, nz, tx, m);
+    return cudaGetLastError();
+  }
   const dim3 block(tz, ty, 1);
   const dim3 grid = grid_for(block, tx, S, nx, ny, nz);
-  const cudaStream_t st = (cudaStream_t)stream;
   const Ghosts none = {};
-  auto kernel = g ? (tx == 1 ? jacobi_pressure_kernel<true, false>
-                             : jacobi_pressure_kernel<true, true>)
-                  : (tx == 1 ? jacobi_pressure_kernel<false, false>
-                             : jacobi_pressure_kernel<false, true>);
-  kernel<<<grid, block, 0, st>>>(p, rhs, out, table, g ? *g : none, btab, S,
-                                 nx, ny, nz, tx);
+  const March unused = {};
+  auto kernel = tx == 1 ? jacobi_pressure_kernel<false, false>
+                        : jacobi_pressure_kernel<false, true>;
+  kernel<<<grid, block, 0, st>>>(p, rhs, out, table, none, btab, S, nx, ny,
+                                 nz, tx, unused);
   return cudaGetLastError();
 }
 

@@ -58,11 +58,14 @@ def apply_kernel(name: str, arrays: dict, *, template: str | None = None,
     tiles and ignores it, as the reference's JNP template does.
     ``ghosts`` (CUDA template, ``stencil3d_cuda.GHOSTED`` kernels): the
     cached fields are unpadded and the kernel makes their ghost values from
-    these faces (:func:`ghosted_inputs`, :func:`bound_ghosts`)."""
+    these faces (:func:`ghosted_inputs`, :func:`bound_ghosts`); for a
+    kernel whose ghosted load sets its own launch
+    (``stencil3d_cuda.OWN_TILE``) ``"auto"`` resolves to that launch."""
     first = arrays[stencil3d.DESCRIPTORS[name].inputs[0]]
     tmpl = template or default_template(first.device)
-    if tmpl != "CUDA":
-        tile = None
+    if tmpl != "CUDA" or (tile == "auto" and ghosts is not None
+                          and name in stencil3d_cuda.OWN_TILE):
+        tile = None          # no tiles, or the kernel's own launch
     elif tile == "auto":
         tile = _auto_tile(name, arrays, padded=ghosts is None)
     kern = _kernel(name, tmpl, None if tile is None else tuple(tile))

@@ -34,6 +34,10 @@ itself (the *ghosted* load); without ``ghosts`` it reads the fields padded
 ``GHOSTED_LAUNCHES``; the plain version pads by the same specs, the
 received strips on the decomposed faces
 (:func:`repro_torch.core.halo.pad_with_strips`), and runs the body.
+JACOBI_PRESSURE's ghosted load (``OWN_TILE``) sets its own launch: its
+blocks march along x over segments sized from the slots, the interior and
+the card's SMs, beside blocks of their own for the face cells, so a
+``tile`` (checked as any other) reaches only its padded load.
 
 On a CUDA tensor the wrapper allocates its outputs with ``torch.empty``,
 launches the kernel on the current stream without synchronising, and adds
@@ -97,10 +101,15 @@ MAX_THREADS = 256
 # (build/kernels/libstencil3d-*.log; chip_smoke.py's build phase prints
 # it).  The autotuner's occupancy model reads these constants, never the
 # build, so the CPU and the card tune alike.
-# The GHOSTED kernels' entries are those of their ghosted instantiations,
-# the main path's.
+# UPDATE_VELOCITY's entry is that of its ghosted instantiation, the main
+# path's; JACOBI_PRESSURE's that of its padded load, the only one a tile
+# reaches (OWN_TILE).
 REGISTERS = {"UPDATE_VELOCITY": (64, 64), "DIVERGENCE": (32, 32),
-             "JACOBI_PRESSURE": (40, 40), "PROJECT_VELOCITY": (32, 32)}
+             "JACOBI_PRESSURE": (39, 40), "PROJECT_VELOCITY": (32, 32)}
+# the GHOSTED kernels whose ghosted load sets its own launch (csrc
+# plan_march): the wrapper's tile reaches only their padded load, and
+# ops.apply_kernel's tile="auto" resolves to the kernel's own launch
+OWN_TILE = ("JACOBI_PRESSURE",)
 # the most (slot, x) rows a block of a kernel walks (a tile's tx), where
 # the autotuner must not walk further: UPDATE_VELOCITY's ghosted load, the
 # main path's, ran 0.4314 ms at 256^3 walking 8 rows against 0.3945 at

@@ -463,6 +463,115 @@ def test_bound_ghosts_launch_as_their_faces_do(card, name, case):
                                      ghosts=bound)
 
 
+# JACOBI_PRESSURE's march: ragged z runs (nz no multiple of 4 or of a
+# warp's 128 cells), odd ny, x extents of one and two planes
+MARCH_INTERIORS = {"nz5": (6, 9, 5), "nz33": (7, 11, 33), "nz64": (12, 17, 64),
+                   "nx1": (1, 9, 40), "nx2": (2, 13, 36)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interior", list(MARCH_INTERIORS))
+@pytest.mark.parametrize("slots", [1, 3, 8])
+@pytest.mark.parametrize("case", ["cavity", "pressure", "mixed", "periodic",
+                                  "strips_x", "strips_x_edge", "strips_xy",
+                                  "strips_yz"])
+def test_jacobi_march_equals_the_plain_version_bitwise(card, case, slots,
+                                                       interior):
+    """The march and the face blocks of JACOBI_PRESSURE's ghosted load
+    give the plain version's bits on every kind of face, strips on a cut
+    block included, at any slot count and any interior."""
+    shape = MARCH_INTERIORS[interior]
+    xs, table, ghosts = _ghosted("JACOBI_PRESSURE", case, slots, shape, card,
+                                 seed=11)
+    want = stencil3d_cuda.jacobi_pressure_plain(*xs, table, ghosts=ghosts)
+    got = stencil3d_cuda.jacobi_pressure(*xs, table, ghosts=ghosts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# the benchmark's shapes and a decomposed rank's block (slots, interior,
+# x decomposed)
+BENCH_SHAPES = {"cavity512": (None, (512, 512, 512), False),
+                "sweep256": (8, (256, 256, 256), False),
+                "block": (None, (128, 256, 256), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BENCH_SHAPES))
+def test_jacobi_march_at_the_benchmark_shapes(card, shape):
+    """At the benchmark's shapes, with the cavity's faces (and a middle
+    rank's received strips), the ghosted JACOBI_PRESSURE is one launch of
+    one device function named jacobi_pressure_kernel, bitwise the plain
+    version, with no memory beyond its output."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.core import halo
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    slots, interior, cut = BENCH_SHAPES[shape]
+    gen = torch.Generator(device=card).manual_seed(3)
+    link = (halo.AxisLink(name="shard", size=3, index=1,
+                          transport=halo.CountTransport()) if cut else None)
+    (p, rhs), ghosts = cs.ghosted_inputs("JACOBI_PRESSURE", slots, interior,
+                                         gen, card, link)
+    rows = torch.tensor([[0.01, 0.9, 0.1]] * (slots or 1), device=card)
+    table = rows if slots else rows[0]
+    bound = stencil3d_cuda.bind_ghosts("JACOBI_PRESSURE", ghosts, p)
+    want = stencil3d_cuda.jacobi_pressure_plain(p, rhs, table, ghosts=bound)
+    stencil3d_cuda.jacobi_pressure(p, rhs, table, ghosts=bound)  # built
+    torch.cuda.synchronize()
+    before = dict(stencil3d_cuda.GHOSTED_LAUNCHES)
+    used = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = stencil3d_cuda.jacobi_pressure(p, rhs, table, ghosts=bound)
+        torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(card) == used + got.numel() * 4
+    assert stencil3d_cuda.GHOSTED_LAUNCHES["JACOBI_PRESSURE"] == \
+        before["JACOBI_PRESSURE"] + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("jacobi_pressure_kernel" in n for n in names) == 1, names
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _slot_ghosts(g, s):
+    """FieldGhosts ``g`` of a slot batch cut to slot ``s``: its strips'
+    slot, and a b that varies by slot taken at ``s``."""
+    import dataclasses
+
+    def cut(f):
+        if torch.is_tensor(f):
+            return f[s]
+        if torch.is_tensor(getattr(f, "b", None)) and f.b.numel() > 1:
+            return dataclasses.replace(f, b=f.b.reshape(-1)[s])
+        return f
+
+    return dataclasses.replace(
+        g, strips=tuple(tuple(cut(t) for t in pair) for pair in g.strips),
+        faces=tuple(cut(f) for f in g.faces))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cavity", "pressure", "strips_xy"])
+def test_a_slot_of_the_jacobi_march_equals_its_serial_launch(card, case):
+    """Each slot of a batched ghosted JACOBI_PRESSURE equals that slot
+    launched alone, bit for bit (the farm's slot == serial rule)."""
+    (p, rhs), table, ghosts = _ghosted("JACOBI_PRESSURE", case, 5,
+                                       (20, 19, 72), card, seed=13)
+    got = stencil3d_cuda.jacobi_pressure(p, rhs, table, ghosts=ghosts)
+    for s in range(5):
+        alone = stencil3d_cuda.jacobi_pressure(p[s], rhs[s], table[s],
+                                               ghosts=_slot_ghosts(ghosts, s))
+        torch.cuda.synchronize()
+        assert torch.equal(got[s], alone), s
+
+
 @pytest.mark.cuda
 def test_cuda_backend_ghosts_every_ghosted_kernel_launch(card):
     """On the cuda backend the step pads nothing for the GHOSTED kernels:
@@ -504,7 +613,9 @@ def test_serial_and_farm_share_autotuned_tiles(card):
                      jacobi_iters=4)
     rt.run("cavity", steps=2, re=100.0)
     after_serial = autotune.tile_cache_stats()
-    assert after_serial["misses"] == len(stencil3d.DESCRIPTORS)
+    # JACOBI_PRESSURE's ghosted load sets its own launch (OWN_TILE)
+    assert after_serial["misses"] == (len(stencil3d.DESCRIPTORS)
+                                      - len(stencil3d_cuda.OWN_TILE))
     rt.submit("cavity", steps=3, re=150.0)
     rt.drain()
     after_farm = autotune.tile_cache_stats()

@@ -12,6 +12,7 @@ step on the CUDA template pads nothing for these two kernels.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -490,3 +491,74 @@ def test_the_step_binds_p_faces_once_for_all_its_sweeps(monkeypatch):
         sweeps = seen[step * iters:(step + 1) * iters]
         assert isinstance(sweeps[0], stencil3d_cuda.BoundGhosts)
         assert all(g is sweeps[0] for g in sweeps)
+
+
+# the benchmark's cells: (slots, n), one n^3 run or a slot batch
+BENCH_CELLS = {"cavity512.solve": (None, 512), "sweep256.members": (8, 256)}
+
+
+@pytest.mark.parametrize("cell", list(BENCH_CELLS))
+def test_every_jacobi_launch_of_a_benchmark_cell_is_ghosted(monkeypatch, cell):
+    """At a benchmark cell's shape every JACOBI_PRESSURE launch of a step
+    takes the ghosted load, whose one body (the march beside its face
+    blocks) sets its own launch: the step's meta twin hands each of its 40
+    sweeps p's bound faces and no tile, asking the autotuner for none, and
+    each launch through the wrapper, with the library's entry point
+    recorded in place of the card's, passes the faces and counts in
+    LAUNCHES and GHOSTED_LAUNCHES."""
+    import contextlib
+    import types
+
+    from repro_torch.core import autotune
+
+    slots, n = BENCH_CELLS[cell]
+    seen = []
+    real = stencil3d_cuda._run
+
+    def spy(name, inputs, table, plain=False, tile=None, ghosts=None):
+        if name == "JACOBI_PRESSURE":
+            seen.append((tile, ghosts))
+        return real(name, inputs, table, plain=plain, tile=tile,
+                    ghosts=ghosts)
+
+    monkeypatch.setattr(stencil3d_cuda, "_run", spy)
+    cfg = dataclasses.replace(cavity.config(n, nz=n), overlap=False)
+    solver = NavierStokes3D(cfg, "cpu").cost_twin()
+    lead = () if slots is None else (slots,)
+    state = {f: torch.empty(lead + (n,) * 3, device="meta")
+             for f in (*NavierStokes3D.FIELDS, "mask_vx", "mask_vy",
+                       "mask_vz")}
+    params = {k: torch.empty(lead, device="meta") for k in PARAM_KEYS}
+    autotune.reset_tile_cache()
+    op_cost.count(lambda s: solver._step_local(s, params), state)
+    assert not any(key[0] == "JACOBI_PRESSURE" for key in autotune._TILE_CACHE)
+    sweeps = seen[-cfg.jacobi_iters:]
+    assert len(sweeps) == cfg.jacobi_iters == 40
+
+    entry = []
+
+    class Library:
+        def stencil3d_jacobi_pressure(self, *args):
+            entry.append(args)
+            return 0
+
+    monkeypatch.setattr(stencil3d_cuda, "_lib", Library)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    stencil3d_cuda.reset_launches()
+    for tile, bound in sweeps:
+        assert tile is None and isinstance(bound, stencil3d_cuda.BoundGhosts)
+        assert bound.shape == ((slots or 1),) + (n,) * 3
+        card = dataclasses.replace(
+            bound, struct=stencil3d_cuda._ghost_struct(bound.ghosts))
+        p = torch.empty(bound.shape, device="meta")
+        table = torch.empty((bound.shape[0], 3), device="meta")
+        stencil3d_cuda._launch("JACOBI_PRESSURE", [p, p], (p,), table,
+                               stencil3d_cuda.block_for(n, n), card)
+        assert entry[-1][4] == ctypes.addressof(card.struct)
+        assert entry[-1][6:10] == bound.shape
+    assert stencil3d_cuda.LAUNCHES["JACOBI_PRESSURE"] == 40
+    assert stencil3d_cuda.GHOSTED_LAUNCHES["JACOBI_PRESSURE"] == 40
+    assert not any(stencil3d_cuda.PADDED_ROUTE.values())

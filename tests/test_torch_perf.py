@@ -387,7 +387,9 @@ def test_serial_and_farm_share_autotuned_tiles():
     for _ in range(2):
         state = step(state)
     after_serial = autotune.tile_cache_stats()
-    assert after_serial["misses"] == len(stencil3d.DESCRIPTORS)
+    # JACOBI_PRESSURE's ghosted load sets its own launch (OWN_TILE)
+    assert after_serial["misses"] == (len(stencil3d.DESCRIPTORS)
+                                      - len(stencil3d_cuda.OWN_TILE))
     farm = SimulationFarm(cfg, n_slots=2, device="cpu")
     farm.submit(SimRequest(config=dataclasses.replace(cfg, nu=1.0 / 150.0),
                            steps=2))

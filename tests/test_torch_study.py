@@ -75,4 +75,5 @@ def test_kernel_study_covers_both_kernels_and_every_design_axis():
                     ("stencil3d", "walk_unroll"),
                     ("stencil3d", "ghost_jacobi"),
                     ("stencil3d", "ghost_update"),
-                    ("stencil3d", "ghost_unbounded")}
+                    ("stencil3d", "ghost_unbounded"),
+                    ("stencil3d", "march_waves"), ("stencil3d", "march_stcs")}
